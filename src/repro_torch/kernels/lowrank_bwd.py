@@ -1,0 +1,160 @@
+"""K2-K4: the backward of the low-rank matmul ``y = (x @ U) @ V``.
+
+The CUDA C++ kernels are ``csrc/lowrank_bwd.cu`` (its source note says
+which TPU kernels they replace, what bounds them and how the design
+answers that).  Same contract as :mod:`repro_torch.kernels.lowrank_matmul`:
+CPU tensors take the plain versions (``kernels/ref.py``), CUDA tensors the
+kernel or an error, never a fallback.  Each wrapper keeps ``launches``
+(one per call that launched its kernel) and ``launches_by_shape`` keyed by
+``(M, C, r, S)``.
+
+* :func:`lowrank_matmul_dx` — ``dx = (dy Vᵀ) Uᵀ``;
+* :func:`lowrank_matmul_du` — ``dU = xᵀ (dy Vᵀ)``;
+* :func:`lowrank_matmul_dv` — ``dV = (x U)ᵀ dy``.
+
+The wrappers allocate the output, the bf16 scratch of the rank-r
+intermediate and, for dU and dV, the float32 partials of the sum over M.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from collections import Counter
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.lowrank_matmul import (RANK_MAX, check_cuda_operands,
+                                                raise_on_error)
+
+__all__ = ["lowrank_matmul_dx", "lowrank_matmul_du", "lowrank_matmul_dv"]
+
+_TILE = 64  # output tile of csrc/lowrank_bwd.cu's GEMM (kGM = kGN)
+_MIN_ROWS_PER_SPLIT = 256
+
+
+def _m_splits(m: int, rows: int, cols: int, device: torch.device) -> int:
+    """Ways to split the sum over M of a (rows, cols) dU or dV: enough CTAs
+    for two per SM, each summing at least 256 rows of M."""
+    tiles = -(-rows // _TILE) * -(-cols // _TILE)
+    want = -(-2 * torch.cuda.get_device_properties(device).multi_processor_count // tiles)
+    return max(1, min(want, m // _MIN_ROWS_PER_SPLIT))
+
+
+def _check(op: str, m: int, c: int, r: int, s: int, tensors) -> None:
+    if not 1 <= r <= RANK_MAX:
+        raise ValueError(f"{op}: rank {r} outside [1, {RANK_MAX}]")
+    check_cuda_operands(op, tensors)
+    if max(m * c, m * s, m * (r + 8), c * r, r * s) > 2 ** 31 - 1:
+        raise ValueError(f"{op}: shape (M {m}, C {c}, r {r}, S {s}) exceeds int32 indexing")
+
+
+def _shapes(op: str, **named) -> None:
+    if any(t.dim() != 2 for t in named.values()):
+        raise ValueError(f"{op}: every operand must be 2-D, got "
+                         + ", ".join(f"{k} {tuple(t.shape)}" for k, t in named.items()))
+
+
+def _scratch(m: int, r: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.empty((m, -(-r // 8) * 8), dtype=torch.bfloat16, device=like.device)
+
+
+def _launch(name: str, ptrs, ints, like: torch.Tensor) -> None:
+    """Call ``name`` of the built library with device pointers ``ptrs``,
+    int arguments ``ints`` and the current stream; raise on its error."""
+    lib = build.load("lowrank_bwd")
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    code = fn(*(t.data_ptr() for t in ptrs), *ints,
+              torch.cuda.current_stream(like.device).cuda_stream)
+    raise_on_error("lowrank_bwd", lib, code)
+
+
+def lowrank_matmul_dx(dy: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """dy (M, S), u (C, r), v (r, S) -> dx (M, C) in dy's dtype."""
+    if dy.device.type == "cpu":
+        return ref.lowrank_matmul_dx_ref(dy, u, v)
+    _shapes("lowrank_matmul_dx", dy=dy, u=u, v=v)
+    m, s = dy.shape
+    c, r = u.shape
+    if v.shape != (r, s):
+        raise ValueError(f"lowrank_matmul_dx: shapes dy {tuple(dy.shape)}, u "
+                         f"{tuple(u.shape)}, v {tuple(v.shape)} do not chain")
+    _check("lowrank_matmul_dx", m, c, r, s, (dy, u, v))
+    dx = torch.empty((m, c), dtype=dy.dtype, device=dy.device)
+    if m == 0 or c == 0:
+        return dx
+    _launch("repro_lowrank_dx", (dy, u, v, _scratch(m, r, dy), dx), (m, c, r, s), dy)
+    lowrank_matmul_dx.launches += 1
+    lowrank_matmul_dx.launches_by_shape[(m, c, r, s)] += 1
+    return dx
+
+
+def lowrank_matmul_du(x: torch.Tensor, dy: torch.Tensor, v: torch.Tensor, *,
+                      out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """x (M, C), dy (M, S), v (r, S) -> dU (C, r) in ``out_dtype`` (the
+    primal u's dtype; default v's)."""
+    if x.device.type == "cpu":
+        return ref.lowrank_matmul_du_ref(x, dy, v, out_dtype=out_dtype)
+    _shapes("lowrank_matmul_du", x=x, dy=dy, v=v)
+    m, c = x.shape
+    r, s = v.shape
+    if dy.shape != (m, s):
+        raise ValueError(f"lowrank_matmul_du: shapes x {tuple(x.shape)}, dy "
+                         f"{tuple(dy.shape)}, v {tuple(v.shape)} do not chain")
+    if (out_dtype or v.dtype) != torch.bfloat16:
+        raise TypeError(f"lowrank_matmul_du: the CUDA kernel writes bfloat16, asked "
+                        f"for {out_dtype}")
+    _check("lowrank_matmul_du", m, c, r, s, (x, dy, v))
+    if m == 0:
+        return torch.zeros((c, r), dtype=torch.bfloat16, device=x.device)
+    du = torch.empty((c, r), dtype=torch.bfloat16, device=x.device)
+    if c == 0:
+        return du
+    splits = _m_splits(m, c, r, x.device)
+    part = torch.empty((splits, c, r) if splits > 1 else (0,), dtype=torch.float32,
+                       device=x.device)
+    _launch("repro_lowrank_du", (x, dy, v, _scratch(m, r, x), part, du),
+            (m, c, r, s, splits), x)
+    lowrank_matmul_du.launches += 1
+    lowrank_matmul_du.launches_by_shape[(m, c, r, s)] += 1
+    return du
+
+
+def lowrank_matmul_dv(x: torch.Tensor, u: torch.Tensor, dy: torch.Tensor, *,
+                      out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """x (M, C), u (C, r), dy (M, S) -> dV (r, S) in ``out_dtype`` (the
+    primal v's dtype; default u's)."""
+    if x.device.type == "cpu":
+        return ref.lowrank_matmul_dv_ref(x, u, dy, out_dtype=out_dtype)
+    _shapes("lowrank_matmul_dv", x=x, u=u, dy=dy)
+    m, c = x.shape
+    r = u.shape[1]
+    s = dy.shape[1]
+    if u.shape[0] != c or dy.shape[0] != m:
+        raise ValueError(f"lowrank_matmul_dv: shapes x {tuple(x.shape)}, u "
+                         f"{tuple(u.shape)}, dy {tuple(dy.shape)} do not chain")
+    if (out_dtype or u.dtype) != torch.bfloat16:
+        raise TypeError(f"lowrank_matmul_dv: the CUDA kernel writes bfloat16, asked "
+                        f"for {out_dtype}")
+    _check("lowrank_matmul_dv", m, c, r, s, (x, u, dy))
+    if m == 0:
+        return torch.zeros((r, s), dtype=torch.bfloat16, device=x.device)
+    dv = torch.empty((r, s), dtype=torch.bfloat16, device=x.device)
+    if s == 0:
+        return dv
+    splits = _m_splits(m, r, s, x.device)
+    part = torch.empty((splits, r, s) if splits > 1 else (0,), dtype=torch.float32,
+                       device=x.device)
+    _launch("repro_lowrank_dv", (x, u, dy, _scratch(m, r, x), part, dv),
+            (m, c, r, s, splits), x)
+    lowrank_matmul_dv.launches += 1
+    lowrank_matmul_dv.launches_by_shape[(m, c, r, s)] += 1
+    return dv
+
+
+for _f in (lowrank_matmul_dx, lowrank_matmul_du, lowrank_matmul_dv):
+    _f.launches = 0
+    _f.launches_by_shape = Counter()

@@ -27,18 +27,21 @@ _INT32_MAX = 2 ** 31 - 1
 
 def check_cuda_operands(op: str, tensors: Sequence[torch.Tensor]) -> None:
     """Raise unless every operand is a contiguous bf16 tensor on the current
-    CUDA device that does not require grad."""
+    CUDA device.  An operand that requires grad is refused under grad mode:
+    the kernel's result would carry no gradient (the autograd Functions in
+    ``ops`` call the wrappers with grad mode off)."""
     dev = tensors[0].device
     for t in tensors:
+        if t.requires_grad and torch.is_grad_enabled():
+            raise ValueError(f"{op}: operand of shape {tuple(t.shape)} requires grad; "
+                             f"call it through kernels.ops, whose autograd Function "
+                             f"runs the backward kernels")
         if t.device != dev:
             raise ValueError(f"{op}: operands on {t.device} and {dev}")
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{op}: the CUDA kernel takes bfloat16, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{op}: operand of shape {tuple(t.shape)} is not contiguous")
-        if t.requires_grad:
-            raise RuntimeError(f"{op}: the CUDA kernel has no backward yet (training "
-                               f"slice); call it under torch.inference_mode()")
         if t.numel() > _INT32_MAX:
             raise ValueError(f"{op}: operand with {t.numel()} elements exceeds int32 indexing")
     if dev.index != torch.cuda.current_device():

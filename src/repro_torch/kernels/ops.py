@@ -2,16 +2,26 @@
 
 ``lowrank_apply`` and ``lowrank_ffn_apply`` are the entry points every
 factorised projection of the models goes through (the counterparts of
-``repro/kernels/ops.py``).  They reshape ``(..., C)`` to ``(M, C)`` and:
+``repro/kernels/ops.py``).  They reshape ``(..., C)`` to ``(M, C)`` and run
+one ``torch.autograd.Function`` each, whose forward is K1 or K5 and whose
+backward mirrors the JAX custom VJPs ``_lr_bwd`` / ``_ffn_bwd``: K2 for dx,
+K3 for dU, K4 for dV (the FFN backward recomputes both branches with K1
+first).  Every call, forward or backward, dispatches on its own:
 
-* take the plain version (``kernels/ref.py``) when the tensors lie on the
-  CPU (reason ``platform``) or the policy is off (reason ``disabled``);
-* otherwise launch the CUDA kernel, which raises on anything it does not
-  take.  There is no shape-based fallback: the kernels take any M, C, r, S.
+* the plain version (``kernels/ref.py``) when the tensors lie on the CPU
+  (reason ``platform``) or the policy is off (reason ``disabled``);
+* otherwise the CUDA kernel, which raises on anything it does not take.
+  There is no shape-based fallback: the kernels take any M, C, r, S.
 
-Every plain-version decision is recorded as a :class:`Fallback`;
-:func:`capture_fallbacks` collects them while open, so a caller can show
-which path a run took.
+Sequential freezing (Algorithm 2): ``freeze_group`` names the factor group
+frozen this phase (0 = u, 1 = v).  The frozen factor's gradient is never
+computed — its kernel is not launched and its plain version not run — and
+the same holds for any factor autograd does not ask a gradient of.
+
+Every plain-version decision is recorded as a :class:`Fallback` (``op``
+``lowrank_fwd``, ``lowrank_ffn``, ``lowrank_dx``, ``lowrank_du`` or
+``lowrank_dv``); :func:`capture_fallbacks` collects them while open, so a
+caller can show which path a run took.
 """
 
 from __future__ import annotations
@@ -20,11 +30,13 @@ import contextlib
 import dataclasses
 import logging
 import math
-from typing import List, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.lowrank_bwd import (lowrank_matmul_du, lowrank_matmul_dv,
+                                             lowrank_matmul_dx)
 from repro_torch.kernels.lowrank_ffn import lowrank_gated_ffn
 from repro_torch.kernels.lowrank_matmul import lowrank_matmul
 
@@ -69,11 +81,14 @@ class KernelPolicy:
     """Kernel dispatch choices, threaded through every model function.
 
     ``use_kernel`` turns the CUDA kernels on for CUDA tensors.
-    ``int8_decode`` is carried for the int8-export serving slice (K6/K7),
-    which this slice does not run.
+    ``freeze_group`` is the factor group frozen this phase (0 = u, 1 = v,
+    None = nothing; ``core.freezing.frozen_group_for_phase``): its gradient
+    kernel is not launched.  ``int8_decode`` is carried for the int8-export
+    serving slice (K6/K7), which is not ported.
     """
 
     use_kernel: bool = False
+    freeze_group: Optional[int] = None
     int8_decode: str = "native"
 
     def __bool__(self) -> bool:
@@ -95,36 +110,112 @@ def _plain_reason(x: torch.Tensor, use_kernel: bool):
     return None
 
 
-def lowrank_apply(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
-                  use_kernel: bool = False) -> torch.Tensor:
-    """y = (x @ u) @ v for x (..., C)."""
-    c = u.shape[0]
-    s = v.shape[1]
-    lead = x.shape[:-1]
-    m = math.prod(lead)
-    x2 = x.reshape(m, c)
-    reason = _plain_reason(x, use_kernel)
+def _dispatch(op: str, kernel, plain, use_kernel: bool, shape, *args, **kw):
+    """``kernel(*args)`` for CUDA tensors with the policy on, else
+    ``plain(*args)``, recorded as a fallback of ``op`` at ``shape``."""
+    reason = _plain_reason(args[0], use_kernel)
     if reason is None:
-        y = lowrank_matmul(x2.contiguous(), u, v)
-    else:
-        _note_fallback("lowrank_fwd", reason, (m, c, s))
-        y = ref.lowrank_matmul_ref(x2, u, v)
+        return kernel(*args, **kw)
+    _note_fallback(op, reason, shape)
+    return plain(*args, **kw)
+
+
+def _fwd(x, u, v, use_kernel: bool) -> torch.Tensor:
+    return _dispatch("lowrank_fwd", lowrank_matmul, ref.lowrank_matmul_ref, use_kernel,
+                     (x.shape[0], u.shape[0], v.shape[1]), x, u, v)
+
+
+def _dx(dy, u, v, use_kernel: bool) -> torch.Tensor:
+    return _dispatch("lowrank_dx", lowrank_matmul_dx, ref.lowrank_matmul_dx_ref, use_kernel,
+                     (dy.shape[0], u.shape[0], v.shape[1]), dy, u, v)
+
+
+def _du(x, dy, v, out_dtype, use_kernel: bool) -> torch.Tensor:
+    return _dispatch("lowrank_du", lowrank_matmul_du, ref.lowrank_matmul_du_ref, use_kernel,
+                     (x.shape[0], x.shape[1], v.shape[1]), x, dy, v, out_dtype=out_dtype)
+
+
+def _dv(x, u, dy, out_dtype, use_kernel: bool) -> torch.Tensor:
+    return _dispatch("lowrank_dv", lowrank_matmul_dv, ref.lowrank_matmul_dv_ref, use_kernel,
+                     (x.shape[0], x.shape[1], dy.shape[1]), x, u, dy, out_dtype=out_dtype)
+
+
+class _LowrankMatmul(torch.autograd.Function):
+    """y = (x u) v on (M, C) x; backward = ``_lr_bwd`` (K2, K3, K4)."""
+
+    @staticmethod
+    def forward(ctx, x, u, v, use_kernel: bool, freeze_group: Optional[int]):
+        ctx.use_kernel, ctx.freeze_group = use_kernel, freeze_group
+        ctx.save_for_backward(x, u, v)
+        return _fwd(x.contiguous(), u, v, use_kernel)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, u, v = ctx.saved_tensors
+        use, fg = ctx.use_kernel, ctx.freeze_group
+        x, dy = x.contiguous(), dy.contiguous()
+        dx = _dx(dy, u, v, use) if ctx.needs_input_grad[0] else None
+        du = (_du(x, dy, v, u.dtype, use)
+              if ctx.needs_input_grad[1] and fg != 0 else None)
+        dv = (_dv(x, u, dy, v.dtype, use)
+              if ctx.needs_input_grad[2] and fg != 1 else None)
+        return dx, du, dv, None, None
+
+
+class _LowrankGatedFFN(torch.autograd.Function):
+    """silu((x gu) gv) * ((x uu) uv) on (M, C) x; backward = ``_ffn_bwd``:
+    both branches recomputed (K1), the SiLU-derivative epilogue in float32,
+    then K2 and K3/K4 per branch."""
+
+    @staticmethod
+    def forward(ctx, x, gu, gv, uu, uv, use_kernel: bool, freeze_group: Optional[int]):
+        ctx.use_kernel, ctx.freeze_group = use_kernel, freeze_group
+        ctx.save_for_backward(x, gu, gv, uu, uv)
+        return _dispatch("lowrank_ffn", lowrank_gated_ffn, ref.lowrank_gated_ffn_ref,
+                         use_kernel, (x.shape[0], x.shape[1], gv.shape[1]),
+                         x.contiguous(), gu, gv, uu, uv)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gu, gv, uu, uv = ctx.saved_tensors
+        use, fg = ctx.use_kernel, ctx.freeze_group
+        need = ctx.needs_input_grad
+        x, dy = x.contiguous(), dy.contiguous()
+        # recompute the branch pre-activations: cheaper in HBM bytes than
+        # keeping two (M, F) tensors from the forward
+        gf = _fwd(x, gu, gv, use).float()
+        upf = _fwd(x, uu, uv, use).float()
+        dyf = dy.float()
+        sg = torch.sigmoid(gf)
+        # d silu(g)/dg = sigmoid(g) * (1 + g * (1 - sigmoid(g)))
+        dg = (dyf * upf * (sg * (1.0 + gf * (1.0 - sg)))).to(x.dtype)
+        dup = (dyf * (gf * sg)).to(x.dtype)
+        dx = _dx(dg, gu, gv, use) + _dx(dup, uu, uv, use) if need[0] else None
+        dgu = _du(x, dg, gv, gu.dtype, use) if need[1] and fg != 0 else None
+        dgv = _dv(x, gu, dg, gv.dtype, use) if need[2] and fg != 1 else None
+        duu = _du(x, dup, uv, uu.dtype, use) if need[3] and fg != 0 else None
+        duv = _dv(x, uu, dup, uv.dtype, use) if need[4] and fg != 1 else None
+        return dx, dgu, dgv, duu, duv, None, None
+
+
+def lowrank_apply(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
+                  use_kernel: bool = False,
+                  freeze_group: Optional[int] = None) -> torch.Tensor:
+    """y = (x @ u) @ v for x (..., C)."""
+    c, s = u.shape[0], v.shape[1]
+    lead = x.shape[:-1]
+    y = _LowrankMatmul.apply(x.reshape(math.prod(lead), c), u, v, use_kernel,
+                             freeze_group)
     return y.reshape(*lead, s)
 
 
 def lowrank_ffn_apply(x: torch.Tensor, gu: torch.Tensor, gv: torch.Tensor,
                       uu: torch.Tensor, uv: torch.Tensor, *,
-                      use_kernel: bool = False) -> torch.Tensor:
+                      use_kernel: bool = False,
+                      freeze_group: Optional[int] = None) -> torch.Tensor:
     """silu((x gu) gv) * ((x uu) uv) for x (..., C)."""
-    c = gu.shape[0]
-    f = gv.shape[1]
+    c, f = gu.shape[0], gv.shape[1]
     lead = x.shape[:-1]
-    m = math.prod(lead)
-    x2 = x.reshape(m, c)
-    reason = _plain_reason(x, use_kernel)
-    if reason is None:
-        y = lowrank_gated_ffn(x2.contiguous(), gu, gv, uu, uv)
-    else:
-        _note_fallback("lowrank_ffn", reason, (m, c, f))
-        y = ref.lowrank_gated_ffn_ref(x2, gu, gv, uu, uv)
+    y = _LowrankGatedFFN.apply(x.reshape(math.prod(lead), c), gu, gv, uu, uv,
+                               use_kernel, freeze_group)
     return y.reshape(*lead, f)

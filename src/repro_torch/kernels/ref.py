@@ -1,19 +1,24 @@
 """Plain PyTorch versions of the hand-written kernels.
 
-They keep the JAX oracles' rounding points (``repro/kernels/ref.py``): both
-products accumulate in float32, and the rank-r intermediate ``t`` is
-rounded to x's dtype before the second product.  The operands are widened
-to float32 explicitly, so the result does not depend on the backend's
+They keep the JAX oracles' and TPU kernels' rounding points
+(``repro/kernels/ref.py``, ``repro/kernels/lowrank_bwd.py``): every
+product accumulates in float32, and the rank-r intermediate (``t = x U``
+forward and in dV, ``dt = dy Vᵀ`` in dx and dU) is rounded to the
+activation's dtype before the second product.  The operands are widened to
+float32 explicitly, so the result does not depend on the backend's
 reduced-precision settings.  The CPU path of the dispatcher runs these, and
 ``chip_smoke.py`` holds each kernel against them on the card.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
-__all__ = ["lowrank_matmul_ref", "lowrank_gated_ffn_ref"]
+__all__ = ["lowrank_matmul_ref", "lowrank_gated_ffn_ref", "lowrank_matmul_dx_ref",
+           "lowrank_matmul_du_ref", "lowrank_matmul_dv_ref"]
 
 
 def lowrank_matmul_ref(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -31,3 +36,28 @@ def lowrank_gated_ffn_ref(x: torch.Tensor, gu: torch.Tensor, gv: torch.Tensor,
     g = lowrank_matmul_ref(x, gu, gv)
     up = lowrank_matmul_ref(x, uu, uv)
     return (F.silu(g.float()) * up.float()).to(x.dtype)
+
+
+def lowrank_matmul_dx_ref(dy: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """dx = (dy @ Vᵀ) @ Uᵀ: dy (M, S), u (C, r), v (r, S) -> (M, C) in dy's
+    dtype, with dt rounded to dy's dtype (lowrank_bwd.py:75)."""
+    dt = torch.matmul(dy.float(), v.float().T).to(dy.dtype)
+    return torch.matmul(dt.float(), u.float().T).to(dy.dtype)
+
+
+def lowrank_matmul_du_ref(x: torch.Tensor, dy: torch.Tensor, v: torch.Tensor, *,
+                          out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """dU = xᵀ @ (dy @ Vᵀ): x (M, C), dy (M, S), v (r, S) -> (C, r), with dt
+    rounded to x's dtype (lowrank_bwd.py:203); ``out_dtype`` is the primal
+    u's dtype (default v's)."""
+    dt = torch.matmul(dy.float(), v.float().T).to(x.dtype)
+    return torch.matmul(x.float().T, dt.float()).to(out_dtype or v.dtype)
+
+
+def lowrank_matmul_dv_ref(x: torch.Tensor, u: torch.Tensor, dy: torch.Tensor, *,
+                          out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """dV = (x @ U)ᵀ @ dy: x (M, C), u (C, r), dy (M, S) -> (r, S), with t
+    rounded to x's dtype (lowrank_bwd.py:286); ``out_dtype`` is the primal
+    v's dtype (default u's)."""
+    t = torch.matmul(x.float(), u.float()).to(x.dtype)
+    return torch.matmul(t.float().T, dy.float()).to(out_dtype or u.dtype)

@@ -1,5 +1,6 @@
 """Shared layer primitives: linear (dense or LRD-factorised), norms,
-embeddings, RoPE, FFN — the counterparts of ``repro/models/common.py``.
+embeddings, RoPE, FFN and the loss — the counterparts of
+``repro/models/common.py``.
 
 ``linear`` is the dispatch point of the paper's technique: a param group
 with a ``kernel`` runs dense, one with ``u``/``v`` runs the factorised path
@@ -33,7 +34,8 @@ def linear(p: Params, x: torch.Tensor, *,
     if "kernel" in p:
         y = dot32(x, p["kernel"]).to(x.dtype)
     elif "u" in p:
-        y = kops.lowrank_apply(x, p["u"], p["v"], use_kernel=pol.use_kernel)
+        y = kops.lowrank_apply(x, p["u"], p["v"], use_kernel=pol.use_kernel,
+                               freeze_group=pol.freeze_group)
     else:
         raise NotImplementedError(
             f"param group {sorted(p)}: int8-exported layers come with the "
@@ -132,7 +134,8 @@ def ffn(p: Params, x: torch.Tensor, *,
         if "u" in gate and "u" in up and "bias" not in gate and "bias" not in up:
             # Both branches factorised: the fused SwiGLU first half (K5).
             h = kops.lowrank_ffn_apply(x, gate["u"], gate["v"], up["u"], up["v"],
-                                       use_kernel=pol.use_kernel)
+                                       use_kernel=pol.use_kernel,
+                                       freeze_group=pol.freeze_group)
         else:
             g = linear(gate, x, policy=pol)
             u = linear(up, x, policy=pol)
@@ -140,3 +143,20 @@ def ffn(p: Params, x: torch.Tensor, *,
     else:
         h = F.gelu(linear(p["wi"], x, policy=pol).float(), approximate="tanh").to(x.dtype)
     return linear(p["down"], h, policy=pol)
+
+
+# --------------------------------------------------------------------------
+# Loss
+# --------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token NLL with a float32 log-softmax; with ``mask``, the mean
+    over the positions it weights (at least one)."""
+    lf = logits.float()
+    nll = torch.logsumexp(lf, dim=-1) - torch.gather(
+        lf, -1, labels.long()[..., None])[..., 0]
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

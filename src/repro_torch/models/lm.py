@@ -6,9 +6,11 @@ by ``Decomposer(..., stack=(L,))``) and applied by a Python loop over that
 axis, where the JAX code scans.  A layer's params are views of the stacked
 leaves (``p["u"][l]``), so nothing is copied per layer.
 
-``mode``: ``"full"`` (prefill: returns the per-layer k/v stacked on ``L``)
-or ``"decode"`` (one token or chunk per slot against a paged cache, which
-is updated in place and returned).
+``mode``: ``"full"`` (prefill: returns the per-layer k/v stacked on ``L``),
+``"train"`` (``"full"`` with no cache kept, run with grad enabled) or
+``"decode"`` (one token or chunk per slot against a paged cache, which is
+updated in place and returned).  Activation checkpointing is not ported:
+``remat`` other than ``"none"`` raises.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from repro_torch.models.common import (Params, dot32, embed, embedding_init,
                                        ffn, ffn_init, linear, mask_vocab, rmsnorm,
                                        rmsnorm_init, rope_table)
 
+_REMAT_TODO = ("activation checkpointing (remat) is not ported yet "
+               "(ROADMAP queue 1 item 11, activation checkpointing)")
 _FAMILIES_TODO = ("other model families (MoE, MLA, SSM, hybrid, VLM, enc-dec) "
                   "are not ported yet (ROADMAP queue 1, other model families)")
 
@@ -85,11 +89,16 @@ def lm_init(cfg: ModelConfig, dec: Decomposer) -> Params:
 
 def lm_apply(p: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
              mode: str = "full", cache: Optional[Params] = None, pos=None,
-             policy: "bool | KernelPolicy" = False):
-    """Returns (logits float32 (B, S, V), new_cache, aux)."""
+             policy: "bool | KernelPolicy" = False, remat: str = "none"):
+    """Returns (logits float32 (B, S, V), new_cache, aux); ``new_cache`` is
+    None in ``mode="train"``."""
     _check_family(cfg)
-    if mode not in ("full", "decode"):
-        raise ValueError(f"mode must be 'full' or 'decode', got {mode!r}")
+    if mode not in ("full", "train", "decode"):
+        raise ValueError(f"mode must be 'full', 'train' or 'decode', got {mode!r}")
+    if remat != "none":
+        raise ValueError(f"remat={remat!r}: {_REMAT_TODO}")
+    train = mode == "train"
+    mode = "full" if train else mode
     s = tokens.shape[1]
     h = embed(p["embed"], tokens).to(cfg.cdtype)
     rope = _make_rope(cfg, s, mode, pos, h.device)
@@ -101,11 +110,12 @@ def lm_apply(p: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
         lc = _layer(layer_cache, l) if layer_cache is not None else None
         h, nc = decoder_layer_apply(_layer(stacked, l), h, cfg, rope=rope, mode=mode,
                                     cache=lc, pos=pos, policy=policy)
-        if mode == "full":
+        if mode == "full" and not train:
             ks.append(nc["k"])
             vs.append(nc["v"])
-    new_cache: Dict[str, Any] = (
-        {"stack": {"k": torch.stack(ks), "v": torch.stack(vs)}} if mode == "full"
+    new_cache: Optional[Dict[str, Any]] = (
+        None if train
+        else {"stack": {"k": torch.stack(ks), "v": torch.stack(vs)}} if mode == "full"
         else cache)
     h = rmsnorm(p["final_norm"], h, cfg.norm_eps)
     if cfg.tie_embeddings:

@@ -60,6 +60,25 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
     assert [len(o) for o in outs] == [3, 3]
 
 
+def test_training_entry_points_need_cuda_unless_cpu_is_asked_for(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA GPU is present: the entry points would run")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.launch import steps, train
+
+    run = RunConfig(model=get_smoke_config("smollm-360m"), shape=ShapeConfig("t", 8, 2, "train"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        steps.build_train_step(run)
+    argv = ["--smoke", "--steps", "1", "--global-batch", "2", "--seq-len", "8",
+            "--ckpt-dir", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(argv)
+    assert steps.build_train_step(run, device="cpu")
+    _, losses = train.main(["--device", "cpu", *argv])
+    assert len(losses) == 1
+
+
 def test_serve_cli_rejects_unported_flags():
     from repro_torch.launch import serve
 

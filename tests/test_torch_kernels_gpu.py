@@ -101,3 +101,125 @@ def test_gpu_kernels_take_unaligned_operands(m):
     for a, b, rtol in ((got, want, K1_RTOL), (hg, hw, K5_RTOL)):
         err = (a.float() - b.float()).abs().max().item()
         assert err <= rtol * b.float().abs().max().item()
+
+
+# --------------------------------------------------------------------------
+# K2-K4: the backward kernels against their plain versions
+# --------------------------------------------------------------------------
+
+# max |kernel - plain| / max |plain|; the same rounding points as the plain
+# versions, so chip_smoke.KERNEL_RTOL's reasoning for K1 holds
+BWD_RTOL = 1e-2
+# the training slice's (C, r, S): wq/wo, wk/wv, gate/up, down; then ragged
+GPU_BWD = [(960, 240, 960), (960, 120, 320), (960, 349, 2560), (2560, 349, 960),
+           (70, 5, 33), (33, 17, 70)]
+
+
+def _bwd_case(name, m, c, r, s, mats=_mats):
+    from repro_torch.kernels import lowrank_bwd as kb
+
+    x, dy, u, v = mats(m + c + r, (m, c), (m, s), (c, r), (r, s))
+    if name == "dx":
+        return kb.lowrank_matmul_dx(dy, u, v), ref.lowrank_matmul_dx_ref(dy, u, v)
+    if name == "du":
+        return kb.lowrank_matmul_du(x, dy, v), ref.lowrank_matmul_du_ref(x, dy, v)
+    return kb.lowrank_matmul_dv(x, u, dy), ref.lowrank_matmul_dv_ref(x, u, dy)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["dx", "du", "dv"])
+@pytest.mark.parametrize("m", [1, 8, 2048])
+@pytest.mark.parametrize("c,r,s", GPU_BWD)
+def test_gpu_lowrank_bwd_matches_plain(name, m, c, r, s):
+    _need_gpu()
+    got, want = _bwd_case(name, m, c, r, s)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= BWD_RTOL * want.float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["dx", "du", "dv"])
+def test_gpu_lowrank_bwd_takes_unaligned_operands(name):
+    """Operands off a 16-byte boundary (a layer view of a stacked factor)
+    take the element-load path and agree all the same."""
+    _need_gpu()
+
+    def shifted(seed, *shapes):
+        out = []
+        for t in _mats(seed, *shapes):
+            buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+            view = buf[1:].view(t.shape)
+            view.copy_(t)
+            out.append(view)
+        return out
+
+    got, want = _bwd_case(name, 300, 96, 24, 80, mats=shifted)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= BWD_RTOL * want.float().abs().max().item()
+
+
+@pytest.mark.gpu
+def test_gpu_lowrank_bwd_counts_launches_and_raises_instead_of_falling_back():
+    _need_gpu()
+    from repro_torch.kernels import lowrank_bwd as kb
+
+    x, dy, u, v = _mats(3, (16, 40), (16, 24), (40, 8), (8, 24))
+    before = (kb.lowrank_matmul_dx.launches, kb.lowrank_matmul_du.launches,
+              kb.lowrank_matmul_dv.launches)
+    kb.lowrank_matmul_dx(dy, u, v)
+    kb.lowrank_matmul_du(x, dy, v)
+    kb.lowrank_matmul_dv(x, u, dy)
+    assert (kb.lowrank_matmul_dx.launches, kb.lowrank_matmul_du.launches,
+            kb.lowrank_matmul_dv.launches) == tuple(n + 1 for n in before)
+    assert kb.lowrank_matmul_du.launches_by_shape[(16, 40, 8, 24)] >= 1
+    with pytest.raises(TypeError, match="bfloat16"):
+        kb.lowrank_matmul_dx(dy.float(), u, v)
+    with pytest.raises(ValueError, match="not contiguous"):
+        kb.lowrank_matmul_du(x, dy.t().contiguous().t(), v)
+    with pytest.raises(TypeError, match="bfloat16"):
+        kb.lowrank_matmul_dv(x, u, dy, out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="chain"):
+        kb.lowrank_matmul_dv(x, u, dy[:8])
+    # a leaf that requires grad, under grad mode: the result would drop it
+    with pytest.raises(ValueError, match="requires grad"):
+        kb.lowrank_matmul_dx(dy, u.detach().clone().requires_grad_(True), v)
+    with pytest.raises(ValueError, match="requires grad"):
+        lowrank_matmul(x, u, v.detach().clone().requires_grad_(True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g", [None, 0, 1])
+def test_gpu_autograd_launches_no_frozen_kernel_and_matches_plain(g):
+    """lowrank_apply / lowrank_ffn_apply backward through K2-K4 with the
+    policy on: the frozen factor's kernel is not launched, its gradient is
+    None, and the others agree with the plain path's."""
+    _need_gpu()
+    from repro_torch.kernels import lowrank_bwd as kb
+    from repro_torch.kernels import ops
+
+    x, dy, u, v = _mats(g or 5, (256, 96), (256, 80), (96, 24), (24, 80))
+    _, dyf, gu, gv = _mats(9, (1,), (256, 80), (96, 24), (24, 80))
+    counts = {f: f.launches for f in (kb.lowrank_matmul_dx, kb.lowrank_matmul_du,
+                                      kb.lowrank_matmul_dv)}
+    grads = {}
+    for use in (True, False):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (x, u, v, gu, gv)]
+        lx, lu, lv, lgu, lgv = leaves
+        y = ops.lowrank_apply(lx, lu, lv, use_kernel=use, freeze_group=g)
+        h = ops.lowrank_ffn_apply(lx, lgu, lgv, lu, lv, use_kernel=use, freeze_group=g)
+        torch.autograd.backward([y, h], [dy, dyf])
+        grads[use] = [t.grad for t in leaves]
+    torch.cuda.synchronize()
+    launched = {f.__name__: f.launches - n for f, n in counts.items()}
+    assert launched == {"lowrank_matmul_dx": 3, "lowrank_matmul_du": 0 if g == 0 else 3,
+                        "lowrank_matmul_dv": 0 if g == 1 else 3}
+    # x, u and v each sum the gradients of two calls, each within BWD_RTOL
+    for k, p in zip(grads[True], grads[False]):
+        assert (k is None) == (p is None)
+        if k is not None:
+            err = (k.float() - p.float()).abs().max().item()
+            assert err <= 2 * BWD_RTOL * p.float().abs().max().item()
+    assert (grads[True][1] is None) == (g == 0) and (grads[True][2] is None) == (g == 1)
