@@ -28,9 +28,26 @@ Phases, in order; any failure exits nonzero:
               0 and 1 through the kernels against the same step through the
               plain versions;
 9. train profile — wall time, device time and idle share of one train
-              step per phase, with tokens/s.
+              step per phase, with tokens/s;
+10. export serve — the serve CLI with ``--export analytic --export-int8``
+              and then ``--export measured --export-int8`` (the rank-quantized
+              int8 artifact): the export report (ranks per geometry, merged
+              groups; the measured backend's t(r) sweep on this card), and
+              exactly 7 x 32 = 224 int8 launches a forward, K7 for every kept
+              factor pair and K6 for every group the guard merged;
+11. int8 parity — the int8 trees' last-position prefill logits and greedy
+              tokens through K6/K7 against the same run through their plain
+              versions, and the gap of native int8 decode to the bf16 round
+              trip of the same tree;
+12. int8 profile — a decode step of each int8 export, as in phase 6;
+13. Algorithm-1 train — the training CLI without ``--no-rank-opt`` (ranks
+              239/80/256/256), launches counted per step, and a train step
+              profiled at phases -1 and 1 as in phase 9;
+14. int8 kernels — K6 and K7 at every shape phases 10 launched them at
+              (bitwise / 1e-6 against their plain versions), timed as in
+              phase 3 beside one library call.
 
-The last line of standard output is ``{"ok": true, "device": {...}}``; the
+Phase 3 also holds K1-K5 at the Algorithm-1 training shapes.  The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is ``nvidia-smi``'s name and power limit, and the
 ``{"kernels": [...]}`` line comes before that.
 """
@@ -38,6 +55,7 @@ line before it is ``nvidia-smi``'s name and power limit, and the
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -52,6 +70,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
 # Relative tolerances (max |kernel - plain| / max |plain|) of the bf16
 # kernels.  K1 rounds t and y at the same points as its plain version, so
 # they differ only where float32 sums taken in another order flip a bf16
@@ -63,8 +82,13 @@ BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 # K2-K4 round dt (or t) and their output at the same points as their plain
 # versions, and split sums over M only add float32 partials in a fixed
 # order, so K1's reasoning and bound hold for them.
+# K6 sums int8 products exactly in int32, so it must equal its plain version
+# bit for bit (0).  Every step of K7 is an exact integer sum or one IEEE
+# float32 operation in the plain version's order, so it should too; 1e-6
+# of max |plain| leaves room for nothing more than a last-bit difference.
 KERNEL_RTOL = {"lowrank_matmul": 1e-2, "lowrank_gated_ffn": 2e-2, "lowrank_matmul_dx": 1e-2,
-               "lowrank_matmul_du": 1e-2, "lowrank_matmul_dv": 1e-2}
+               "lowrank_matmul_du": 1e-2, "lowrank_matmul_dv": 1e-2, "int8_matmul": 0.0,
+               "int8_lowrank_matmul": 1e-6}
 # Bound on the full-width prefill's last-position logits, kernels vs plain,
 # relative to max |logit|: the per-call differences above, carried through
 # 32 residual layers.
@@ -93,6 +117,19 @@ TRAIN_LAUNCHES = {"lowrank_matmul": 224, "lowrank_gated_ffn": 32, "lowrank_matmu
 # the per-token differences: LOSS_RTOL.
 GRAD_RTOL = 2 * PATH_RTOL
 LOSS_RTOL = 1e-2
+# The int8 export: the serve CLI's flags, the int8 launches a forward and
+# layer (7 projections), and the bound on the int8 trees' prefill logits,
+# kernels vs plain versions, relative to max |logit| (K6 and K7 match their
+# plain versions bit for bit, so the logits should too)
+EXPORTS = ("analytic", "measured")
+INT8_PER_LAYER = 7
+INT8_PATH_RTOL = 1e-3
+# The training CLI at Algorithm-1 ranks (no --no-rank-opt): two steps, one
+# at phase 0 and one at phase 1, and the ranks JAX's RankResolver builds
+ALG1_ARGV = ["--arch", "smollm-360m", "--lrd", "--use-pallas", "--freeze", "sequential",
+             "--steps", "2", "--steps-per-epoch", "1", "--global-batch", "8",
+             "--seq-len", "256", "--save-every", "1000", "--log-every", "1"]
+ALG1_RANKS = {"wq": 239, "wo": 239, "wk": 80, "wv": 80, "gate": 256, "up": 256, "down": 256}
 
 
 def log(msg: str) -> None:
@@ -161,23 +198,28 @@ def phase_build():
 # backward's recompute
 PROJ = {"wq/wo": (960, 240, 960), "wk/wv": (960, 120, 320), "gate/up": (960, 349, 2560),
         "down": (2560, 349, 960)}
+# the same at the Algorithm-1 ranks of the training CLI
+PROJ_ALG1 = {"wq/wo": (960, 239, 960), "wk/wv": (960, 80, 320), "gate/up": (960, 256, 2560),
+             "down": (2560, 256, 960)}
 BWD = ("lowrank_matmul_dx", "lowrank_matmul_du", "lowrank_matmul_dv")
 
 
 def kernel_shapes():
-    """(name, dims) of every kernel call on the serve and train paths."""
+    """(name, dims) of every K1-K5 call on the serve and train paths."""
     out = []
     for m in (DECODE_M, PREFILL_M):
         for proj in ("wq/wo", "wk/wv", "down"):
             c, r, s = PROJ[proj]
             out.append(("lowrank_matmul", dict(M=m, C=c, r=r, S=s)))
         out.append(("lowrank_gated_ffn", dict(M=m, C=960, r=349, F=2560)))
-    for c, r, s in PROJ.values():
-        out.append(("lowrank_matmul", dict(M=TRAIN_M, C=c, r=r, S=s)))
-    out.append(("lowrank_gated_ffn", dict(M=TRAIN_M, C=960, r=349, F=2560)))
-    for name in BWD:
-        for c, r, s in PROJ.values():
-            out.append((name, dict(M=TRAIN_M, C=c, r=r, S=s)))
+    for proj in (PROJ, PROJ_ALG1):
+        for c, r, s in proj.values():
+            out.append(("lowrank_matmul", dict(M=TRAIN_M, C=c, r=r, S=s)))
+        c, r, f = proj["gate/up"]
+        out.append(("lowrank_gated_ffn", dict(M=TRAIN_M, C=c, r=r, F=f)))
+        for name in BWD:
+            for c, r, s in proj.values():
+                out.append((name, dict(M=TRAIN_M, C=c, r=r, S=s)))
     return out
 
 
@@ -232,34 +274,116 @@ def kernel_case(name, d, gen):
                 bytes=bytes_, flops=flops)
 
 
+def _pad(a, rows: int, cols: int):
+    """``a`` zero-padded to at least ``rows`` rows and ``cols`` columns."""
+    return F.pad(a, (0, max(0, cols - a.shape[1]), 0, max(0, rows - a.shape[0])))
+
+
+def int8_kernel_case(name, d, gen):
+    """Inputs, kernel, plain version, library call, bytes and int8 operations
+    of K6 (``int8_matmul``) or K7 (``int8_lowrank_matmul``) at ``d``.
+
+    The library yardstick is ``torch._int_mm``, whose CUDA path wants more
+    than 16 rows and a depth and width that are multiples of 8: its operands
+    are zero-padded to that once, outside the timing (zero rows and ranks
+    add nothing), and the result is sliced back."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.int8_matmul import int8_lowrank_matmul, int8_matmul
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int32).to(torch.int8)
+
+    def scales(n):
+        return (torch.rand((1, n), generator=gen, device="cuda") + 0.5) * 1e-2
+
+    def up8(n):
+        return -(-n // 8) * 8
+
+    m, c, s = d["M"], d["C"], d["S"]
+    x = i8(m, c)
+    xp = _pad(x, 32, up8(c))
+    if name == "int8_matmul":
+        w = i8(c, s)
+        wp = _pad(w, up8(c), up8(s))
+        return dict(kernel=lambda: int8_matmul(x, w),
+                    plain=lambda: ref.int8_matmul_ref(x, w),
+                    library=lambda: torch._int_mm(xp, wp)[:m, :s],
+                    bytes=m * c + c * s + 4 * m * s, ops=2 * m * c * s)
+    r = d["r"]
+    u, us, v, vs = i8(c, r), scales(r), i8(r, s), scales(s)
+    up_, usp, vp = _pad(u, up8(c), up8(r)), _pad(us, 1, up8(r)), _pad(v, up8(r), up8(s))
+    vsp = _pad(vs, 1, up8(s))
+
+    def library():  # the same algebra around two library products
+        t = torch._int_mm(xp, up_).float() * usp
+        ts = torch.clamp(torch.amax(torch.abs(t), dim=1, keepdim=True), min=1e-8) / 127.0
+        tq = torch.clamp(torch.round(t / ts), -127, 127).to(torch.int8)
+        return (torch._int_mm(tq, vp).float() * ts * vsp)[:m, :s]
+
+    return dict(kernel=lambda: int8_lowrank_matmul(x, u, us, v, vs),
+                plain=lambda: ref.int8_lowrank_matmul_ref(x, u, us, v, vs), library=library,
+                bytes=m * c + c * r + 4 * r + r * s + 4 * s + 4 * m * s,
+                ops=2 * m * c * r + 2 * m * r * s)
+
+
+def check_and_time(name, d, case, iters, flush, peak):
+    """Hold a kernel against its plain version, then time kernel, plain
+    version and library call; returns the kernel's row."""
+    got = case["kernel"]()
+    want = case["plain"]()
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, want)
+    rtol = KERNEL_RTOL[name]
+    if not math.isfinite(err) or rel > rtol or (rtol == 0 and not torch.equal(got, want)):
+        raise AssertionError(f"{name} {d}: max_abs_err {err:.3e} = {rel:.3e} of "
+                             f"max |plain| > {rtol}")
+    ms = cuda_time_ms(case["kernel"], iters, flush)
+    plain_ms = cuda_time_ms(case["plain"], iters, flush)
+    try:
+        lib_ms = cuda_time_ms(case["library"], iters, flush)
+    except RuntimeError as e:  # a shape the library call does not take
+        log(f"[kernels] {name} {d}: library call not timed ({str(e).splitlines()[0]})")
+        lib_ms = None
+    t_bytes = case["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = case["ops"] / peak * 1e3
+    row = dict(name=name, shape=d, max_abs_err=err, rel_err=rel, rtol=rtol, ms=ms,
+               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    log(f"[kernels] {name} {d}: err {err:.3e} (rel {rel:.2e}), kernel "
+        f"{ms * 1e3:.1f}us, plain {plain_ms * 1e3:.1f}us, library "
+        + (f"{lib_ms * 1e3:.1f}us" if lib_ms is not None else "n/a")
+        + f", bound {row['bound_ms'] * 1e3:.2f}us ({row['bound_by']})")
+    return row
+
+
+def _flush_buffer():
+    return torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")  # 256 MB > L2
+
+
 def phase_kernels(iters: int = 50):
     gen = torch.Generator(device="cuda").manual_seed(0)
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")  # 256 MB > L2
+    flush = _flush_buffer()
     rows = []
     for name, d in kernel_shapes():
         case = kernel_case(name, d, gen)
-        got = case["kernel"]()
-        want = case["plain"]()
-        torch.cuda.synchronize()
-        err, rel = rel_err(got, want)
-        if not math.isfinite(err) or rel > KERNEL_RTOL[name]:
-            raise AssertionError(f"{name} {d}: max_abs_err {err:.3e} = {rel:.3e} of "
-                                 f"max |plain| > {KERNEL_RTOL[name]}")
-        ms = cuda_time_ms(case["kernel"], iters, flush)
-        plain_ms = cuda_time_ms(case["plain"], iters, flush)
-        lib_ms = cuda_time_ms(case["library"], iters, flush)
-        t_bytes = case["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_flops = case["flops"] / BF16_FLOPS_PER_S * 1e3
-        rows.append(dict(name=name, shape=d, max_abs_err=err, rel_err=rel,
-                         rtol=KERNEL_RTOL[name], ms=ms,
-                         plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=max(t_bytes, t_flops),
-                         bound_by="bytes" if t_bytes >= t_flops else "operations"))
-        log(f"[kernels] {name} {d}: err {err:.3e} (rel {rel:.2e}), kernel "
-            f"{ms * 1e3:.1f}us, plain {plain_ms * 1e3:.1f}us, library "
-            f"{lib_ms * 1e3:.1f}us, bound {rows[-1]['bound_ms'] * 1e3:.2f}us "
-            f"({rows[-1]['bound_by']})")
+        case["ops"] = case.pop("flops")
+        rows.append(check_and_time(name, d, case, iters, flush, BF16_FLOPS_PER_S))
     zero_counts()  # launches made to compare and time are not the main path's
+    return rows
+
+
+def phase_int8_kernels(shapes, iters: int = 50):
+    """K6 and K7 at every (M, C[, r], S) the export serve runs launched."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    flush = _flush_buffer()
+    rows = []
+    for name, key in shapes:
+        d = (dict(M=key[0], C=key[1], S=key[2]) if name == "int8_matmul"
+             else dict(M=key[0], C=key[1], r=key[2], S=key[3]))
+        rows.append(check_and_time(name, d, int8_kernel_case(name, d, gen), iters, flush,
+                                   INT8_OPS_PER_S))
+    zero_counts()
     return rows
 
 
@@ -267,13 +391,15 @@ def wrappers():
     """name -> kernel wrapper (each carries ``launches`` and
     ``launches_by_shape``)."""
     from repro_torch.kernels import lowrank_bwd as kb
+    from repro_torch.kernels.int8_matmul import int8_lowrank_matmul, int8_matmul
     from repro_torch.kernels.lowrank_ffn import lowrank_gated_ffn
     from repro_torch.kernels.lowrank_matmul import lowrank_matmul
 
     return {"lowrank_matmul": lowrank_matmul, "lowrank_gated_ffn": lowrank_gated_ffn,
             "lowrank_matmul_dx": kb.lowrank_matmul_dx,
             "lowrank_matmul_du": kb.lowrank_matmul_du,
-            "lowrank_matmul_dv": kb.lowrank_matmul_dv}
+            "lowrank_matmul_dv": kb.lowrank_matmul_dv,
+            "int8_matmul": int8_matmul, "int8_lowrank_matmul": int8_lowrank_matmul}
 
 
 def zero_counts():
@@ -290,6 +416,8 @@ def shape_key(name, d):
     """The wrapper's ``launches_by_shape`` key of a kernel row's shape."""
     if name == "lowrank_gated_ffn":
         return d["M"], d["C"], d["r"], d["r"], d["F"]
+    if name == "int8_matmul":
+        return d["M"], d["C"], d["S"]
     return d["M"], d["C"], d["r"], d["S"]
 
 
@@ -327,7 +455,7 @@ def phase_serve():
                                   n_layers=n_layers)
 
 
-def phase_profile(engine, steps: int = 5):
+def phase_profile(engine, steps: int = 5, label: str = "decode step"):
     """Where a full-width decode step's time goes: wall time per step (host
     clock around synchronised steps), device time per step by kernel
     (``torch.profiler``), and the device's idle share of the step."""
@@ -365,7 +493,7 @@ def phase_profile(engine, steps: int = 5):
                idle_share=(1 - device_ms / wall_ms) if device_ms else None,
                top=[dict(name=k[:80], ms=v) for k, v in top])
     shown = ", ".join(f"{k[:40]} {v * 1e3:.0f}us" for k, v in top[:5])
-    log(f"[profile] decode step (8 slots, 32 layers): wall {wall_ms:.2f} ms, device "
+    log(f"[profile] {label} (8 slots, 32 layers): wall {wall_ms:.2f} ms, device "
         + (f"{device_ms:.2f} ms, idle {out['idle_share']:.1%}; top: {shown}"
            if device_ms else "time not measured (profiler saw no device events)"))
     return out
@@ -446,6 +574,7 @@ def phase_train():
     for r in per_step:
         want = {k: (v[r["phase"]] if isinstance(v, dict) else v)
                 for k, v in TRAIN_LAUNCHES.items()}
+        r["launches"] = {k: n for k, n in r["launches"].items() if n or k in want}
         if r["launches"] != want:
             raise AssertionError(f"train: step {r['step']} (phase {r['phase']}) launched "
                                  f"{r['launches']}, want {want}")
@@ -503,7 +632,8 @@ def phase_grads(params):
     return out
 
 
-def phase_train_profile(params, steps_n: int = 2):
+def phase_train_profile(params, steps_n: int = 2, run=None, phases=(-1, 0, 1),
+                        label: str = "train profile"):
     """Wall time (host clock around synchronised steps), device time
     (``torch.profiler``, device-side events only) and idle share of a
     full-width train step at each freezing phase, with tokens/s."""
@@ -512,10 +642,10 @@ def phase_train_profile(params, steps_n: int = 2):
 
     from repro_torch.launch import steps
 
-    run = _train_run()
+    run = run or _train_run()
     batch = _train_batch(run, seed=98)
     out = {}
-    for phase in (-1, 0, 1):
+    for phase in phases:
         state, _ = steps.make_train_state(run.optim, params, phase)
         step = steps.build_train_step(run, "cuda")
         state, _ = step(state, batch, phase=phase)
@@ -541,12 +671,207 @@ def phase_train_profile(params, steps_n: int = 2):
                           idle_share=(1 - device_ms / wall_ms) if device_ms else None,
                           top=[dict(name=k[:80], ms=v) for k, v in top])
         shown = ", ".join(f"{k[:40]} {v:.2f}ms" for k, v in top[:6])
-        log(f"[train profile] phase {phase} step ({TRAIN_M} tokens, 32 layers): wall "
+        log(f"[{label}] phase {phase} step ({TRAIN_M} tokens, 32 layers): wall "
             f"{wall_ms:.1f} ms ({TRAIN_M / wall_ms * 1e3:.0f} tok/s), device "
             + (f"{device_ms:.1f} ms, idle {out[phase]['idle_share']:.1%}; top: {shown}"
                if device_ms else "time not measured (profiler saw no device events)"))
         del state
     return out
+
+
+# --------------------------------------------------------------------------
+# The Algorithm-1 int8 export (K6, K7) and Algorithm-1 training
+# --------------------------------------------------------------------------
+
+# K6/K7 shapes checked by ``--only kernels`` (no serve run to read them
+# from): the analytic export's K7 shapes and every geometry as K6
+INT8_DEFAULT_SHAPES = (
+    [("int8_lowrank_matmul", (m, c, r, s)) for m in (DECODE_M, PREFILL_M)
+     for c, r, s in ((960, 128, 960), (960, 119, 320), (960, 256, 2560), (2560, 256, 960))]
+    + [("int8_matmul", (m, c, s)) for m in (DECODE_M, PREFILL_M)
+       for c, s in ((960, 960), (960, 320), (960, 2560), (2560, 960))])
+
+
+def _geometries(report):
+    """(C, S) -> [(path, LayerExport)] of an export report, in path order."""
+    out = {}
+    for path, lay in sorted(report.layers.items()):
+        out.setdefault(tuple(lay.shape), []).append((path, lay))
+    return out
+
+
+def phase_export_serve(kind: str):
+    """The serve CLI on the int8 artifact of the ``kind`` export, launches
+    counted: every forward makes 224 int8 launches, K7 for each kept factor
+    pair and K6 for each merged group, and no K1/K5."""
+    from repro_torch.launch import serve
+
+    zero_counts()
+    t0 = time.perf_counter()
+    engine, outs = serve.main(SERVE_ARGV + ["--export", kind, "--export-int8"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in wrappers().items()}
+    by_shape = counts_by_shape()
+    report = engine.export_report
+    sched = engine.scheduler
+    fwd = sched.forward_stats
+    n_fwd = fwd["prefill"] + fwd["decode"]
+    n_layers = engine.run.model.num_layers
+    if len(outs) != 16 or any(len(o) != 32 for o in outs):
+        raise AssertionError(f"export serve ({kind}): want 16 requests x 32 tokens, got "
+                             f"{[len(o) for o in outs]}")
+    if fwd["nonfinite"]:
+        raise AssertionError(f"export serve ({kind}): {fwd['nonfinite']} forwards with "
+                             f"non-finite logits")
+    merged = sorted(p for p, lay in report.layers.items() if lay.merged)
+    kept = len(report.layers) - len(merged)
+    per_layer_merged = sum(1 for p in merged if p.startswith("stack/"))
+    k6, k7 = counts["int8_matmul"], counts["int8_lowrank_matmul"]
+    others = {k: n for k, n in counts.items() if n and not k.startswith("int8")}
+    want_k6 = n_layers * per_layer_merged * n_fwd
+    per_forward = INT8_PER_LAYER * n_layers
+    if (n_fwd == 0 or others or k6 + k7 != per_forward * n_fwd or k6 != want_k6
+            or len(report.layers) != INT8_PER_LAYER):
+        raise AssertionError(f"export serve ({kind}): {n_fwd} forwards, {len(report.layers)} "
+                             f"groups ({len(merged)} merged) but {k6} K6 + {k7} K7 launches "
+                             f"(want {want_k6} K6 and {per_forward} a forward in all) and "
+                             f"other kernels {others}")
+    if kind == "analytic" and k6:
+        raise AssertionError(f"export serve (analytic): {k6} K6 launches, want 0")
+    log(f"[export {kind}] {report.summary()}")
+    for (c, s_), groups in _geometries(report).items():
+        lay = groups[0][1]
+        log(f"[export {kind}]   (C {c}, S {s_}): {', '.join(p.split('/')[-1] for p, _ in groups)}"
+            f" r_train {lay.rank_train} -> r_serve {lay.rank_serve}, "
+            f"{'merged dense (K6)' if lay.merged else 'factorised (K7)'}; t_dense "
+            f"{lay.original_time * 1e6:.2f}us, t_decomposed {lay.decomposed_time * 1e6:.2f}us"
+            f" ({'v5e roofline model, not this card' if kind == 'analytic' else 'this card'})")
+    if kind == "measured":
+        for (c, s_, r), dec in sorted(report.decisions.items()):
+            sweep = " ".join(f"{r_}:{t * 1e6:.1f}" for r_, t in zip(dec.searched, dec.times))
+            log(f"[export measured] t(r) us at m {DECODE_M}, (C {c}, S {s_}), dense "
+                f"{dec.original_time * 1e6:.1f}: {sweep}")
+        log(f"[export measured] the guard merged {len(merged)} of {INT8_PER_LAYER} groups"
+            + (f": {', '.join(p.split('/')[-1] for p in merged)}" if merged else
+               " — K6 is reached only by the kernel phase in this run"))
+    stats = sched.latency_stats()
+    log(f"[export {kind}] {len(outs)} requests, {int(stats['generated_tokens'])} tokens, "
+        f"{stats['tok_per_s']:.1f} tok/s; {fwd['prefill']} prefill + {fwd['decode']} decode "
+        f"forwards; {k6} K6 + {k7} K7 launches = {k6 // n_fwd} + {k7 // n_fwd} per forward; "
+        f"{dt:.1f}s incl. init and export")
+    decisions = {f"{c}x{s_}@{r}": dict(rank=d.rank, use_decomposed=d.use_decomposed,
+                                       searched=list(d.searched), times=list(d.times),
+                                       original_time=d.original_time)
+                 for (c, s_, r), d in report.decisions.items()}
+    return engine, by_shape, dict(fwd=dict(fwd), k6=k6, k7=k7, stats=stats, wall_s=dt,
+                                  merged=merged, kept=kept, decisions=decisions,
+                                  layers={p: dict(shape=list(l.shape), rank_train=l.rank_train,
+                                                  rank_serve=l.rank_serve, merged=l.merged)
+                                          for p, l in report.layers.items()})
+
+
+@contextlib.contextmanager
+def plain_int8():
+    """Route the int8 dispatchers to K6's and K7's plain versions (on the
+    card's tensors), for a reference run to hold the kernels against."""
+    from repro_torch.kernels import ops, ref
+
+    saved = ops.int8_matmul, ops.int8_lowrank_matmul
+    ops.int8_matmul, ops.int8_lowrank_matmul = ref.int8_matmul_ref, ref.int8_lowrank_matmul_ref
+    try:
+        yield
+    finally:
+        ops.int8_matmul, ops.int8_lowrank_matmul = saved
+
+
+def phase_int8_parity(engine, kind: str):
+    """The int8 tree's last-position prefill logits and an 8-token greedy
+    decode through K6/K7 against the same through their plain versions, and
+    the gap of native int8 decode to the bf16 round trip of the tree."""
+    import dataclasses
+
+    from repro_torch.launch import steps
+    from repro_torch.serving import ServeConfig, ServeEngine
+
+    run = engine.run
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, run.model.vocab_size, (1, PREFILL_M), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    last = torch.tensor([PREFILL_M - 1], device="cuda")
+    batch = {"tokens": tokens}
+    got, _ = steps.build_slot_prefill_step(run)(engine.params, batch, last)
+    with plain_int8():
+        want, _ = steps.build_slot_prefill_step(run)(engine.params, batch, last)
+    bf16_run = dataclasses.replace(run, lrd=dataclasses.replace(run.lrd, int8_decode="bf16"))
+    bf16, _ = steps.build_slot_prefill_step(bf16_run)(engine.params, batch, last)
+    err, rel = rel_err(got, want)
+    gap, gap_rel = rel_err(got, bf16)
+    if not torch.isfinite(got).all() or rel > INT8_PATH_RTOL:
+        raise AssertionError(f"int8 parity ({kind}): last-position logits differ by "
+                             f"{err:.3e} ({rel:.3e} of max |logit|) > {INT8_PATH_RTOL}")
+    prompt = tokens[0, :64].cpu().numpy()
+    toks = []
+    for plain in (False, True):
+        eng = ServeEngine(run, engine.params, device="cuda",
+                          config=ServeConfig(num_slots=1, max_len=80, prefill_len=64))
+        with plain_int8() if plain else contextlib.nullcontext():
+            toks.append(eng.generate(prompt[None], max_new=8)[0].tolist())
+    if toks[0] != toks[1]:
+        raise AssertionError(f"int8 parity ({kind}): greedy tokens differ: kernels "
+                             f"{toks[0]} vs plain {toks[1]}")
+    log(f"[int8 parity {kind}] prefill last-position logits, kernels vs plain: max_abs_diff "
+        f"{err:.3e} ({rel:.3e} of max |logit| {want.abs().max().item():.3f}; bound "
+        f"{INT8_PATH_RTOL}); greedy 8/8 identical {toks[0]}; native int8 vs bf16 round trip "
+        f"of the same tree: max_abs_diff {gap:.3e} ({gap_rel:.3e} of max |logit|)")
+    return dict(max_abs_diff=err, rel=rel, greedy=toks[0], bf16_gap=gap, bf16_gap_rel=gap_rel)
+
+
+def phase_alg1_train():
+    """The training CLI at Algorithm-1 ranks: the plan, then two steps
+    (phases 0 and 1) with the launches counted per step."""
+    import tempfile
+
+    from repro_torch.launch import steps, train
+
+    run = train.build_run(train._parser().parse_args(ALG1_ARGV))
+    _, plan = steps.init_params(run, "cuda")
+    ranks = {p.split("/")[-1]: (lp.rank, lp.eq5_rank, lp.use_decomposed)
+             for p, lp in plan.layers.items()}
+    log(f"[alg1 train] {plan.summary()}; rank (Eq.-5 rank) per projection: "
+        + ", ".join(f"{k} {r} ({e}){'' if d else ' dense'}" for k, (r, e, d) in ranks.items()))
+    if {k: r for k, (r, _, d) in ranks.items() if d} != ALG1_RANKS:
+        raise AssertionError(f"alg1 train: plan {ranks}, want {ALG1_RANKS}")
+    per_step, prev = [], {}
+
+    def on_step(step, phase, metrics):
+        now = {name: fn.launches for name, fn in wrappers().items()}
+        per_step.append(dict(step=step, phase=phase, **metrics,
+                             launches={k: n - prev.get(k, 0) for k, n in now.items()}))
+        prev.update(now)
+
+    zero_counts()
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        t0 = time.perf_counter()
+        state, losses = train.main(ALG1_ARGV + ["--ckpt-dir", ckpt_dir], on_step=on_step)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    by_shape = counts_by_shape()
+    if [r["phase"] for r in per_step] != [0, 1]:
+        raise AssertionError(f"alg1 train: phases {[r['phase'] for r in per_step]}, want [0, 1]")
+    for r in per_step:
+        want = {k: (v[r["phase"]] if isinstance(v, dict) else v)
+                for k, v in TRAIN_LAUNCHES.items()}
+        got = {k: n for k, n in r["launches"].items() if n or k in want}
+        if got != want or not math.isfinite(r["loss"]):
+            raise AssertionError(f"alg1 train: step {r['step']} (phase {r['phase']}) launched "
+                                 f"{r['launches']}, want {want}; loss {r['loss']}")
+        log(f"[alg1 train] step {r['step']} phase {r['phase']}: loss {r['loss']:.4f}, grad norm "
+            f"{r['grad_norm']:.3f}, {r['step_time_s'] * 1e3:.1f} ms; launches "
+            + ", ".join(f"{k.replace('lowrank_', '')} {n}" for k, n in got.items()))
+    log(f"[alg1 train] 2 steps of {TRAIN_M} tokens: {dt:.1f}s incl. init")
+    return state.params, run, by_shape, dict(steps=per_step, wall_s=dt,
+                                             ranks={k: list(v) for k, v in ranks.items()})
 
 
 def check_launched_shapes(path: str, rows, by_shape) -> None:
@@ -572,34 +897,58 @@ def main(argv=None) -> int:
     rows = phase_kernels()
     result = dict(smi=smi, build_s=build_s, kernels=rows)
     if args.only is None:
-        engine, serve_shapes, served = phase_serve()
-        result["serve"] = served
+        paths = {}  # main path -> launches by kernel and shape
+        engine, paths["serve"], result["serve"] = phase_serve()
         result["parity"] = phase_parity(engine)
         result["profile"] = phase_profile(engine)
         del engine
-        params, train_shapes, result["train"] = phase_train()
+        for kind in EXPORTS:
+            engine, paths[f"export {kind}"], result[f"export_{kind}"] = phase_export_serve(kind)
+            result[f"int8_parity_{kind}"] = phase_int8_parity(engine, kind)
+            result[f"int8_profile_{kind}"] = phase_profile(
+                engine, label=f"int8 {kind} export decode step")
+            del engine
+        params, paths["train"], result["train"] = phase_train()
         result["grads"] = phase_grads(params)
         result["train_profile"] = phase_train_profile(params)
-        check_launched_shapes("serve", rows, serve_shapes)
-        check_launched_shapes("train", rows, train_shapes)
+        del params
+        params, alg1_run, paths["alg1 train"], result["alg1_train"] = phase_alg1_train()
+        result["alg1_train_profile"] = phase_train_profile(
+            params, run=alg1_run, phases=(-1, 1), label="alg1 train profile")
+        del params
+        int8_shapes = sorted({(name, key) for by in paths.values()
+                              for name in ("int8_matmul", "int8_lowrank_matmul")
+                              for key in by[name]})
+        if not any(name == "int8_matmul" for name, _ in int8_shapes):
+            # the measured export kept every group factorised on this card
+            int8_shapes += [sk for sk in INT8_DEFAULT_SHAPES if sk[0] == "int8_matmul"]
+        rows += phase_int8_kernels(int8_shapes)
+        for path, by in paths.items():
+            check_launched_shapes(path, rows, by)
         for row in rows:
             key = shape_key(row["name"], row["shape"])
-            row["launches"] = (serve_shapes[row["name"]].get(key, 0)
-                               + train_shapes[row["name"]].get(key, 0))
-            if not row["launches"]:
+            row["launches"] = sum(by[row["name"]].get(key, 0) for by in paths.values())
+            if not row["launches"] and row["name"] != "int8_matmul":
                 raise AssertionError(f"{row['name']} {row['shape']} never launched on "
-                                     f"the serve or train path")
+                                     f"a main path")
+        if not any(r["launches"] for r in rows if r["name"] == "int8_matmul"):
+            log("[kernels] int8_matmul (K6) was launched on no main path in this run: the "
+                "measured export merged no group on this card")
     else:
+        rows += phase_int8_kernels(INT8_DEFAULT_SHAPES)
         for row in rows:
             row["launches"] = 0
     bwd_cu = "src/repro_torch/kernels/csrc/lowrank_bwd.cu"
+    int8_cu = "src/repro_torch/kernels/csrc/int8_matmul.cu"
     src = {"lowrank_matmul": ("src/repro_torch/kernels/csrc/lowrank_matmul.cu",
                               "src/repro/kernels/lowrank_matmul.py:107"),
            "lowrank_gated_ffn": ("src/repro_torch/kernels/csrc/lowrank_ffn.cu",
                                  "src/repro/kernels/lowrank_ffn.py:52"),
            "lowrank_matmul_dx": (bwd_cu, "src/repro/kernels/lowrank_bwd.py:116"),
            "lowrank_matmul_du": (bwd_cu, "src/repro/kernels/lowrank_bwd.py:215"),
-           "lowrank_matmul_dv": (bwd_cu, "src/repro/kernels/lowrank_bwd.py:298")}
+           "lowrank_matmul_dv": (bwd_cu, "src/repro/kernels/lowrank_bwd.py:298"),
+           "int8_matmul": (int8_cu, "src/repro/kernels/int8_matmul.py:86"),
+           "int8_lowrank_matmul": (int8_cu, "src/repro/kernels/int8_matmul.py:142")}
     line = {"kernels": [dict(name=r["name"], shape=r["shape"], route="cuda",
                              source=src[r["name"]][0], replaces=src[r["name"]][1],
                              launches=r["launches"], max_abs_err=r["max_abs_err"],

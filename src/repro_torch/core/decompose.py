@@ -4,10 +4,12 @@ The counterpart of ``repro/core/decompose.py`` for the serving slice: model
 ``init`` functions call :meth:`Decomposer.linear`, which creates either a
 dense ``{"kernel"}`` or a factorised ``{"u", "v"}`` group according to the
 policy and records the decision in the plan.  Ranks come from Eq. 5
-(``rank_quantize=False``).  Algorithm 1 (``rank_quantize=True``) needs an
-H100 timing backend for ``core/rank_opt.py`` and raises until it is ported.
-Layouts follow the JAX tree: ``kernel (C, S)``, ``u (C, r)``, ``v (r, S)``,
-with any stack dims (``L``) in front.
+(``rank_quantize=False``) or from Algorithm 1 (``rank_quantize=True``,
+:class:`RankResolver` over ``core/rank_opt.py``), whose guard keeps a layer
+dense when its decomposition is no faster.  Layouts follow the JAX tree:
+``kernel (C, S)``, ``u (C, r)``, ``v (r, S)``, with any stack dims (``L``)
+in front.  :func:`map_factor_groups` and :func:`merge_factor_group` rewrite
+a trained tree (the serve-time export).
 """
 
 from __future__ import annotations
@@ -19,11 +21,13 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import svd
+from repro_torch.core import rank_opt, svd
 from repro_torch.core.policy import DecompositionPolicy, Rule
+from repro_torch.core.rank_opt import RankDecision
 
 __all__ = ["LayerPlan", "DecompositionPlan", "RankDecision", "RankResolver",
-           "Decomposer", "iter_factor_groups"]
+           "Decomposer", "iter_factor_groups", "map_factor_groups",
+           "merge_factor_group"]
 
 
 @dataclasses.dataclass
@@ -58,31 +62,38 @@ class DecompositionPlan:
         return f"plan[{self.policy_name}]: {n} layers, {kept} kept dense, {saved/1e6:.1f}M params saved"
 
 
-@dataclasses.dataclass(frozen=True)
-class RankDecision:
-    """Outcome of the rank choice for one layer geometry."""
-
-    rank: int
-    use_decomposed: bool
-
-
 class RankResolver:
-    """Caches rank decisions per (shape, rule)."""
+    """Caches Algorithm-1 decisions per (shape, rule): one sweep per distinct
+    layer geometry.  ``backend``, ``probe_tokens`` and ``hw`` are those of
+    ``rank_opt.optimize_rank``; the defaults are the JAX package's."""
 
-    def __init__(self):
+    def __init__(self, backend: str = "analytic-tpu", probe_tokens: int = 4096,
+                 hw: rank_opt.HardwareModel = rank_opt.TPU_V5E):
+        self.backend = backend
+        self.probe_tokens = probe_tokens
+        self.hw = hw
         self._cache: Dict[Tuple, RankDecision] = {}
 
     def svd_rank(self, c: int, s: int, rule: Rule) -> RankDecision:
         key = ("svd", c, s, rule.alpha, rule.rank_quantize)
         if key not in self._cache:
             if rule.rank_quantize:
-                raise NotImplementedError(
-                    "Algorithm-1 rank quantization (core/rank_opt.py) has no "
-                    "H100 backend in the PyTorch port yet (ROADMAP queue 1, "
-                    "item 3); use LRDConfig(rank_quantize=False)")
-            r = svd.svd_rank_for_compression(c, s, rule.alpha)
-            self._cache[key] = RankDecision(
-                rank=max(1, min(r, svd.max_rank(c, s))), use_decomposed=True)
+                # a sweep stride > 1 only shortens the sweep; cliffs are
+                # every hw.mxu_tile, so the stride stays below one tile
+                stride = max(1, min(self.hw.mxu_tile // 4, 32))
+                dec = rank_opt.optimize_rank(
+                    c, s, alpha=rule.alpha, m=self.probe_tokens,
+                    backend=self.backend, hw=self.hw, stride=stride)
+            else:
+                r = svd.svd_rank_for_compression(c, s, rule.alpha)
+                t_orig = rank_opt.analytic_layer_time(self.probe_tokens, c, s, None,
+                                                      hw=self.hw)
+                t_dec = rank_opt.analytic_layer_time(self.probe_tokens, c, s, r,
+                                                     hw=self.hw)
+                dec = RankDecision(rank=r, use_decomposed=True, original_time=t_orig,
+                                   decomposed_time=t_dec)
+            self._cache[key] = dataclasses.replace(
+                dec, rank=max(1, min(dec.rank, svd.max_rank(c, s))))
         return self._cache[key]
 
 
@@ -136,11 +147,14 @@ class Decomposer:
                 eq5_rank=svd.svd_rank_for_compression(c, s, rule.alpha),
                 use_decomposed=dec.use_decomposed,
             )
-            r = dec.rank
-            # He-style fan-in init split across the two factors so the
-            # composed map has the same variance as a dense init.
-            out["u"] = self.dense(stack + (c, r), dtype)
-            out["v"] = self.dense(stack + (r, s), dtype)
+            if not dec.use_decomposed:  # Algorithm-1 guard: keep the layer
+                out["kernel"] = self.dense(stack + (c, s), dtype)
+            else:
+                r = dec.rank
+                # He-style fan-in init split across the two factors so the
+                # composed map has the same variance as a dense init.
+                out["u"] = self.dense(stack + (c, r), dtype)
+                out["v"] = self.dense(stack + (r, s), dtype)
         if bias:
             out["bias"] = torch.zeros(stack + (s,), dtype=dtype, device=self.device)
         return out
@@ -162,3 +176,29 @@ def iter_factor_groups(params: Any, path: str = ""):
         return
     for k, v in params.items():
         yield from iter_factor_groups(v, f"{path}/{k}" if path else k)
+
+
+def map_factor_groups(params: Any, fn) -> Any:
+    """Rebuild the tree with ``fn(path, group) -> new_group`` applied to
+    every factor group (return the group unchanged to keep it).  Leaves and
+    non-factor subtrees pass through untouched."""
+
+    def walk(tree, path):
+        if not isinstance(tree, dict):
+            return tree
+        if _is_factor_group(tree):
+            return fn(path, tree)
+        return {k: walk(v, f"{path}/{k}" if path else k) for k, v in tree.items()}
+
+    return walk(params, "")
+
+
+def merge_factor_group(group: Dict[str, Any]) -> Dict[str, Any]:
+    """Collapse ``{"u", "v"[, "bias"]}`` into ``{"kernel"[, "bias"]}`` (the
+    product in float32, stored in u's dtype): ``models.common.linear``
+    dispatches on the key set, so the layer then runs one dense matmul."""
+    u, v = group["u"], group["v"]
+    out = {"kernel": torch.matmul(u.float(), v.float()).to(u.dtype)}
+    if "bias" in group:
+        out["bias"] = group["bias"]
+    return out

@@ -18,10 +18,24 @@ frozen this phase (0 = u, 1 = v).  The frozen factor's gradient is never
 computed — its kernel is not launched and its plain version not run — and
 the same holds for any factor autograd does not ask a gradient of.
 
+int8-exported groups (``serving/export.py``) go through
+:func:`int8_apply` (K6) and :func:`int8_lowrank_apply` (K7), which quantize
+x per row with torch ops, as the JAX dispatchers do outside the kernel:
+
+* kernel requested, CUDA tensors: the kernel.  There is no shape fallback
+  and no mesh branch;
+* kernel requested, CPU tensors (reason ``platform``): the kernel's plain
+  version, i.e. the activation-quantized algebra, which is what JAX
+  computes in interpret mode.  This is the one place where the port's CPU
+  path differs from JAX's un-interpreted CPU path (the weight-only formula
+  below);
+* policy off (reason ``disabled``, any device): JAX's own policy-off
+  formula, the weight-only ``x @ (w_q.float() * w_scale)``.
+
 Every plain-version decision is recorded as a :class:`Fallback` (``op``
-``lowrank_fwd``, ``lowrank_ffn``, ``lowrank_dx``, ``lowrank_du`` or
-``lowrank_dv``); :func:`capture_fallbacks` collects them while open, so a
-caller can show which path a run took.
+``lowrank_fwd``, ``lowrank_ffn``, ``lowrank_dx``, ``lowrank_du``,
+``lowrank_dv``, ``int8_dense`` or ``int8_lowrank``); :func:`capture_fallbacks`
+collects them while open, so a caller can show which path a run took.
 """
 
 from __future__ import annotations
@@ -35,13 +49,14 @@ from typing import List, Optional, Tuple, Union
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.int8_matmul import int8_lowrank_matmul, int8_matmul, quantize_rowwise
 from repro_torch.kernels.lowrank_bwd import (lowrank_matmul_du, lowrank_matmul_dv,
                                              lowrank_matmul_dx)
 from repro_torch.kernels.lowrank_ffn import lowrank_gated_ffn
 from repro_torch.kernels.lowrank_matmul import lowrank_matmul
 
 __all__ = ["KernelPolicy", "as_policy", "lowrank_apply", "lowrank_ffn_apply",
-           "Fallback", "capture_fallbacks"]
+           "int8_apply", "int8_lowrank_apply", "Fallback", "capture_fallbacks"]
 
 _log = logging.getLogger(__name__)
 
@@ -83,8 +98,10 @@ class KernelPolicy:
     ``use_kernel`` turns the CUDA kernels on for CUDA tensors.
     ``freeze_group`` is the factor group frozen this phase (0 = u, 1 = v,
     None = nothing; ``core.freezing.frozen_group_for_phase``): its gradient
-    kernel is not launched.  ``int8_decode`` is carried for the int8-export
-    serving slice (K6/K7), which is not ported.
+    kernel is not launched.  ``int8_decode`` is how int8-exported groups
+    are consumed: ``"native"`` (K6/K7 through :func:`int8_apply` /
+    :func:`int8_lowrank_apply`) or ``"bf16"`` (dequantize every weight and
+    run bf16 products, the serving baseline; ``models.common``).
     """
 
     use_kernel: bool = False
@@ -219,3 +236,54 @@ def lowrank_ffn_apply(x: torch.Tensor, gu: torch.Tensor, gv: torch.Tensor,
     y = _LowrankGatedFFN.apply(x.reshape(math.prod(lead), c), gu, gv, uu, uv,
                                use_kernel, freeze_group)
     return y.reshape(*lead, f)
+
+
+# --------------------------------------------------------------------------
+# int8 decode dispatchers (the serving export's int8 artifact)
+# --------------------------------------------------------------------------
+
+def int8_apply(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, *,
+               use_kernel: bool = False) -> torch.Tensor:
+    """y = x @ dequant(w_q) for per-output-column int8 dense weights, in
+    x's dtype: x (..., C), w_q (C, S) int8, w_scale (1, S) float32."""
+    c, s = w_q.shape
+    lead = x.shape[:-1]
+    m = math.prod(lead)
+    ws = w_scale.reshape(1, s).float()
+    reason = _plain_reason(x, use_kernel)
+    if reason == "disabled":
+        _note_fallback("int8_dense", reason, (m, c, s))
+        y = torch.matmul(x.reshape(m, c).float(), w_q.float() * ws)
+        return y.to(x.dtype).reshape(*lead, s)
+    if reason is not None:
+        _note_fallback("int8_dense", reason, (m, c, s))
+    x_q, x_scale = quantize_rowwise(x.reshape(m, c))
+    acc = int8_matmul(x_q, w_q)  # the plain version for CPU tensors
+    y = acc.float() * x_scale * ws
+    return y.to(x.dtype).reshape(*lead, s)
+
+
+def int8_lowrank_apply(x: torch.Tensor, u_q: torch.Tensor, u_scale: torch.Tensor,
+                       v_q: torch.Tensor, v_scale: torch.Tensor, *,
+                       use_kernel: bool = False) -> torch.Tensor:
+    """y = (x @ dequant(u_q)) @ dequant(v_q) for int8 factor pairs, in x's
+    dtype.  The kernel path requantizes the rank-r intermediate per row on
+    chip; the per-row x scales factor out of that requantization and are
+    folded into the output here."""
+    c, r = u_q.shape
+    s = v_q.shape[1]
+    lead = x.shape[:-1]
+    m = math.prod(lead)
+    us = u_scale.reshape(1, r).float()
+    vs = v_scale.reshape(1, s).float()
+    reason = _plain_reason(x, use_kernel)
+    if reason == "disabled":
+        _note_fallback("int8_lowrank", reason, (m, c, s))
+        t = torch.matmul(x.reshape(m, c).float(), u_q.float() * us)
+        y = torch.matmul(t, v_q.float() * vs)
+        return y.to(x.dtype).reshape(*lead, s)
+    if reason is not None:
+        _note_fallback("int8_lowrank", reason, (m, c, s))
+    x_q, x_scale = quantize_rowwise(x.reshape(m, c))
+    y = int8_lowrank_matmul(x_q, u_q, us.contiguous(), v_q, vs.contiguous())
+    return (y * x_scale).to(x.dtype).reshape(*lead, s)

@@ -8,6 +8,11 @@ activation's dtype before the second product.  The operands are widened to
 float32 explicitly, so the result does not depend on the backend's
 reduced-precision settings.  The CPU path of the dispatcher runs these, and
 ``chip_smoke.py`` holds each kernel against them on the card.
+
+The int8 versions (K6, K7) compute their int8 x int8 products exactly:
+the operands go through float64, where every product and every partial sum
+of up to 2**53 is exact (|sum| <= 2560 * 127**2 < 2**31 here), because
+``torch.matmul`` has no int32 product on CUDA.
 """
 
 from __future__ import annotations
@@ -18,7 +23,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["lowrank_matmul_ref", "lowrank_gated_ffn_ref", "lowrank_matmul_dx_ref",
-           "lowrank_matmul_du_ref", "lowrank_matmul_dv_ref"]
+           "lowrank_matmul_du_ref", "lowrank_matmul_dv_ref", "int8_matmul_ref",
+           "int8_lowrank_matmul_ref", "over_127"]
 
 
 def lowrank_matmul_ref(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -61,3 +67,32 @@ def lowrank_matmul_dv_ref(x: torch.Tensor, u: torch.Tensor, dy: torch.Tensor, *,
     v's dtype (default u's)."""
     t = torch.matmul(x.float(), u.float()).to(x.dtype)
     return torch.matmul(t.float().T, dy.float()).to(out_dtype or u.dtype)
+
+
+def over_127(a: torch.Tensor) -> torch.Tensor:
+    """a / 127 as one IEEE division on every device: on CUDA, PyTorch turns
+    a division by a Python scalar into a multiplication by its reciprocal,
+    which can differ by one ulp from the TPU kernel's and the CUDA kernel's
+    division."""
+    return a / a.new_full((), 127.0)
+
+
+def int8_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """Exact x_q (M, C) @ w_q (C, S) for int8 operands -> int32 (M, S)."""
+    return torch.matmul(x_q.double(), w_q.double()).to(torch.int32)
+
+
+def int8_lowrank_matmul_ref(x_q: torch.Tensor, u_q: torch.Tensor, u_scale: torch.Tensor,
+                            v_q: torch.Tensor, v_scale: torch.Tensor) -> torch.Tensor:
+    """The fused int8 low-rank product, step by step as the TPU kernel
+    (int8_matmul.py ``_lowrank_kernel``) takes it: t = int32(x_q u_q) *
+    u_scale; each row of t requantized to int8 by its max |t| (floored at
+    1e-8) / 127, rounding half to even; y = int32(tq v_q); out = (y * ts) *
+    v_scale.  x_q (M, C), u_q (C, r), u_scale (1, r), v_q (r, S), v_scale
+    (1, S) -> float32 (M, S) in x_q's units."""
+    t = int8_matmul_ref(x_q, u_q).float() * u_scale.float()
+    tmax = torch.clamp(torch.amax(torch.abs(t), dim=1, keepdim=True), min=1e-8)
+    ts = over_127(tmax)
+    tq = torch.clamp(torch.round(t / ts), -127, 127).to(torch.int8)
+    y = int8_matmul_ref(tq, v_q).float()
+    return y * ts * v_scale.float()

@@ -4,12 +4,16 @@ The PyTorch counterpart of ``repro.launch.serve`` with the same flags plus
 ``--device {cuda,cpu}`` (default ``cuda``; raises without a GPU).  It
 replays ``--requests`` requests with exponential inter-arrival times at
 ``--rate`` req/s (random prompt lengths) through ``ServeEngine`` and prints
-throughput and latency percentiles.  With ``--lrd`` on CUDA every
-factorised projection runs through the hand-written kernels.  Flags of
-features this port does not have yet are rejected, not ignored.
+throughput and latency percentiles.  ``--export {analytic,measured}`` serves
+the rank-quantized Algorithm-1 artifact (``serving/export.py``) and
+``--export-int8`` stores its groups as int8.  With ``--lrd`` on CUDA every
+factorised projection runs through the hand-written kernels (K1/K5, or K7
+and K6 for the int8 artifact).  Flags of features this port does not have
+yet are rejected, not ignored.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m --lrd \\
-      --slots 8 --requests 16 --rate 1000 --prompt-len 128 --max-new 32
+      --slots 8 --requests 16 --rate 1000 --prompt-len 128 --max-new 32 \\
+      [--export measured --export-int8]
 """
 
 from __future__ import annotations
@@ -41,8 +45,6 @@ def poisson_trace(n: int, rate: float, prompt_len: int, vocab: int, seed: int = 
 
 # flag -> (its value when off, what brings it)
 _UNPORTED_FLAGS = {
-    "export": ("none", "ROADMAP queue 1, serving features"),
-    "export_int8": (False, "ROADMAP queue 1, serving features"),
     "mesh_data": (1, "ROADMAP queue 1, distributed"),
     "mesh_model": (1, "ROADMAP queue 1, distributed"),
     "prefix_cache": (False, "ROADMAP queue 1, serving features"),
@@ -73,9 +75,11 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--lrd", action="store_true")
     ap.add_argument("--eos-id", type=int, default=-1)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--export", choices=("none", "analytic", "measured"), default="none",
+                    help="serve the rank-quantized Algorithm-1 artifact")
+    ap.add_argument("--export-int8", action="store_true",
+                    help="int8-quantize the export artifact (requires --export)")
     # the JAX CLI's flags for features not ported yet: rejected when set
-    ap.add_argument("--export", choices=("none", "analytic", "measured"), default="none")
-    ap.add_argument("--export-int8", action="store_true")
     ap.add_argument("--mesh-data", type=int, default=1)
     ap.add_argument("--mesh-model", type=int, default=1)
     ap.add_argument("--prefix-cache", action="store_true")
@@ -102,6 +106,10 @@ def main(argv=None):
                  f"(ROADMAP queue 1, other model families)")
     device = steps_mod.resolve_device(args.device)
     max_len = args.max_len or (args.prompt_len + args.max_new)
+    try:
+        config = ServeConfig.from_args(args, max_len=max_len)
+    except ValueError as e:
+        ap.error(str(e))
     run = RunConfig(model=cfg, shape=ShapeConfig("serve", max_len, args.slots, "decode"),
                     lrd=LRDConfig(enabled=args.lrd, min_dim=16, rank_quantize=False,
                                   use_pallas_kernel=args.lrd and device.type == "cuda"),
@@ -110,8 +118,9 @@ def main(argv=None):
     if plan.layers:
         print(plan.summary())
 
-    config = ServeConfig.from_args(args, max_len=max_len)
     engine = ServeEngine(run, params, config=config, device=device)
+    if engine.export_report is not None:
+        print(engine.export_report.summary())
     trace = poisson_trace(args.requests, args.rate, args.prompt_len,
                           cfg.vocab_size, args.seed)
     for r in trace:

@@ -56,6 +56,10 @@ def resolve_device(device="cuda") -> torch.device:
 
 def make_decomposer(run: RunConfig, device="cuda",
                     generator: Optional[torch.Generator] = None) -> Decomposer:
+    """The init-time decomposer of ``run``: its LRD policy, with Algorithm-1
+    ranks from the default ``RankResolver`` (the analytic backend at 4096
+    probe tokens, as the JAX ``init_params`` builds it) when
+    ``lrd.rank_quantize`` is on."""
     policy = (LM_DEFAULT.with_alpha(run.lrd.alpha)
               .with_quantize(run.lrd.rank_quantize)
               .with_min_dim(run.lrd.min_dim)) if run.lrd.enabled else NO_LRD

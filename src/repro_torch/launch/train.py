@@ -4,7 +4,11 @@ The PyTorch counterpart of ``repro.launch.train`` with the same flags plus
 ``--device {cuda,cpu}`` (default ``cuda``; raises without a GPU).
 ``--use-pallas`` turns the hand-written CUDA kernels on (the flag keeps the
 JAX name): every factorised projection then runs K1/K5 forward and K2-K4
-backward, with the frozen factor's gradient kernel never launched.
+backward, with the frozen factor's gradient kernel never launched.  With
+``--lrd`` the ranks come from Algorithm 1 (``core.rank_opt``, the
+analytic backend, as in the JAX CLI) unless ``--no-rank-opt`` asks for the
+Eq.-5 ranks; Algorithm 1's guard keeps a layer dense when its
+decomposition would be no faster.
 
 The loop trains on the synthetic LM stream (``data.synthetic``), swaps the
 freezing phase every ``--epochs-per-phase`` epochs of ``--steps-per-epoch``
@@ -158,10 +162,6 @@ def main(argv=None, *, on_step=None):
     if args.mesh_data > 1 or args.mesh_model > 1:
         ap.error("--mesh-data/--mesh-model > 1: the PyTorch package trains on one "
                  "device (ROADMAP queue 1 item 8, distributed)")
-    if args.lrd and not args.no_rank_opt:
-        ap.error("--lrd without --no-rank-opt asks for Algorithm-1 ranks, which need "
-                 "an H100 timing backend (ROADMAP queue 1 item 3); pass --no-rank-opt "
-                 "for Eq.-5 ranks")
     run = build_run(args)
     if run.model.family != "dense" or run.model.use_mla or run.model.use_mtp:
         ap.error(f"--arch {args.arch} ({run.model.family}) is not ported yet "

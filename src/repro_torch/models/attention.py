@@ -143,8 +143,8 @@ def _gqa_paged_update(cache: Params, k_new, v_new, rows) -> Tuple[torch.Tensor, 
     (B, Lmax, KV, hd) views.  The in-place update stands in for the JAX
     step's donated cache buffer."""
     if "k_scale" in cache:
-        raise NotImplementedError("int8 KV pools come with the int8-export "
-                                  "serving slice (ROADMAP queue 2, K6/K7)")
+        raise NotImplementedError("int8 KV pools are not ported (ROADMAP queue 1 "
+                                  "item 5, serving features)")
     pt = cache["page_table"].long()
     bs = cache["k"].shape[1]
     s = k_new.shape[1]

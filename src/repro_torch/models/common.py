@@ -4,7 +4,9 @@ embeddings, RoPE, FFN and the loss — the counterparts of
 
 ``linear`` is the dispatch point of the paper's technique: a param group
 with a ``kernel`` runs dense, one with ``u``/``v`` runs the factorised path
-through :func:`repro_torch.kernels.ops.lowrank_apply`.  Products that the
+through :func:`repro_torch.kernels.ops.lowrank_apply`, and the int8 groups
+of the serving export (``kernel_q`` or ``u_q``/``v_q`` with float32 scales)
+run through ``ops.int8_apply`` (K6) or ``ops.int8_lowrank_apply`` (K7).  Products that the
 JAX code accumulates in float32 widen their operands to float32 here, so
 the rounding points do not depend on the backend's reduced-precision
 settings.
@@ -33,16 +35,43 @@ def linear(p: Params, x: torch.Tensor, *,
     pol = kops.as_policy(policy)
     if "kernel" in p:
         y = dot32(x, p["kernel"]).to(x.dtype)
-    elif "u" in p:
+    elif "kernel_q" in p:
+        y = _int8_dense(p, x, pol)
+    elif "u_q" in p:
+        y = _int8_lowrank(p, x, pol)
+    else:
         y = kops.lowrank_apply(x, p["u"], p["v"], use_kernel=pol.use_kernel,
                                freeze_group=pol.freeze_group)
-    else:
-        raise NotImplementedError(
-            f"param group {sorted(p)}: int8-exported layers come with the "
-            f"int8-export serving slice (ROADMAP queue 2, K6/K7)")
     if "bias" in p:
         y = y + p["bias"].to(y.dtype)
     return y
+
+
+def _dequant_bf16(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return (q.float() * scale.float()).to(torch.bfloat16)
+
+
+def _int8_dense(p: Params, x: torch.Tensor, pol: "kops.KernelPolicy") -> torch.Tensor:
+    """An int8-exported dense kernel.  ``int8_decode="native"`` consumes the
+    int8 values directly (K6 through ``ops.int8_apply``); ``"bf16"`` is the
+    round trip that dequantizes the whole weight and runs a bf16 product,
+    kept as the serving baseline."""
+    if pol.int8_decode == "bf16":
+        w = _dequant_bf16(p["kernel_q"], p["kernel_scale"])
+        return dot32(x.to(torch.bfloat16), w).to(x.dtype)
+    return kops.int8_apply(x, p["kernel_q"], p["kernel_scale"], use_kernel=pol.use_kernel)
+
+
+def _int8_lowrank(p: Params, x: torch.Tensor, pol: "kops.KernelPolicy") -> torch.Tensor:
+    """An int8-exported factor pair, with :func:`_int8_dense`'s decode
+    modes; the native path is K7 through ``ops.int8_lowrank_apply``."""
+    if pol.int8_decode == "bf16":
+        u = _dequant_bf16(p["u_q"], p["u_scale"])
+        v = _dequant_bf16(p["v_q"], p["v_scale"])
+        t = dot32(x.to(torch.bfloat16), u).to(torch.bfloat16)
+        return dot32(t, v).to(x.dtype)
+    return kops.int8_lowrank_apply(x, p["u_q"], p["u_scale"], p["v_q"], p["v_scale"],
+                                   use_kernel=pol.use_kernel)
 
 
 # --------------------------------------------------------------------------
@@ -133,6 +162,7 @@ def ffn(p: Params, x: torch.Tensor, *,
         gate, up = p["gate"], p["up"]
         if "u" in gate and "u" in up and "bias" not in gate and "bias" not in up:
             # Both branches factorised: the fused SwiGLU first half (K5).
+            # int8-exported branches (u_q) go through linear one by one.
             h = kops.lowrank_ffn_apply(x, gate["u"], gate["v"], up["u"], up["v"],
                                        use_kernel=pol.use_kernel,
                                        freeze_group=pol.freeze_group)

@@ -11,7 +11,7 @@ quacks like a token array (``len`` / ``[...]`` / ``np.asarray``).
 
 This is a copy of ``repro/serving/config.py`` for the PyTorch port.  The
 port's engine rejects the fields whose features it does not have yet
-(speculative decoding, export, int8, the mesh, the prefix cache, the
+(speculative decoding, int8 KV pools, the mesh, the prefix cache, the
 fixed-batch path) with a ``ValueError`` naming the ROADMAP item.
 """
 

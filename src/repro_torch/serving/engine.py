@@ -7,8 +7,13 @@ dicts and returns :class:`RequestResult` records, ``generate`` keeps the
 batch signature on top of it.
 
 The engine runs on CUDA unless ``device="cpu"`` is passed, and raises
-without a GPU.  Features of the JAX engine that are not ported yet raise a
-``ValueError`` naming the ROADMAP item that brings them.
+without a GPU.  ``config.export != "none"`` runs the Algorithm-1 serving
+export (``serving/export.py``) on ``params`` at construction, with the
+measured backend's probes timed on the engine's device (``params`` must
+already lie there);
+``engine.export_report`` holds its report.  Features of the JAX engine that
+are not ported yet raise a ``ValueError`` naming the ROADMAP item that
+brings them.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from repro_torch.serving.config import RequestResult, ServeConfig
 
 __all__ = ["ServeEngine"]
 
-_SERVING_ITEM = "ROADMAP queue 1, serving features"
+_SERVING_ITEM = "ROADMAP queue 1 item 5, serving features"
 
 
 def _unported(config: ServeConfig, obs: Any, draft_params: Any, mesh: Any) -> Optional[str]:
@@ -36,10 +41,8 @@ def _unported(config: ServeConfig, obs: Any, draft_params: Any, mesh: Any) -> Op
         return f"speculative decoding is not ported ({_SERVING_ITEM})"
     if config.prefix_cache:
         return f"the radix prefix cache is not ported ({_SERVING_ITEM})"
-    if config.export != "none" or config.export_int8:
-        return f"the Algorithm-1 serving export is not ported ({_SERVING_ITEM})"
     if config.kv_int8:
-        return "int8 KV pools come with the int8-export serving slice (ROADMAP queue 2, K6/K7)"
+        return f"int8 KV pools are not ported ({_SERVING_ITEM})"
     if config.mesh_data != 1 or config.mesh_model != 1 or mesh is not None:
         return "the serving mesh is not ported (ROADMAP queue 1, distributed)"
     if obs is not None:
@@ -60,6 +63,21 @@ class ServeEngine:
         self.device = steps_mod.resolve_device(device)
         self.run = run
         self.params = params
+        self.export_report = None
+        if self.config.export != "none":
+            from repro_torch.core.freezing import tree_leaves
+            from repro_torch.serving.export import export_for_serving
+            off = {str(t.device) for t in tree_leaves(params)
+                   if t.device.type != self.device.type}
+            if off:
+                # the measured export times its probes where the params lie
+                raise ValueError(f"ServeEngine: params on {sorted(off)}, engine on "
+                                 f"{self.device}; move them before the export")
+            backend = "measured" if self.config.export == "measured" else "analytic-tpu"
+            with torch.no_grad():
+                self.params, self.export_report = export_for_serving(
+                    params, backend=backend, probe_tokens=max(self.config.num_slots, 1),
+                    quantize_factors="int8" if self.config.export_int8 else None)
         self._scheduler = None
 
     @property

@@ -225,8 +225,8 @@ def init_paged_cache(cfg: ModelConfig, num_slots: int, num_blocks: int,
             f"{cfg.family}{'/mla' if cfg.use_mla else ''} (ROADMAP queue 1, "
             f"other model families)")
     if cfg.kv_cache_dtype == "int8":
-        raise ValueError("int8 KV pools come with the int8-export serving "
-                         "slice (ROADMAP queue 2, K6/K7)")
+        raise ValueError("int8 KV pools are not ported (ROADMAP queue 1 item 5, "
+                         "serving features)")
     n = cfg.num_layers
     shape = (n, num_blocks, block_size, cfg.num_kv_heads, cfg.resolved_head_dim)
     return {"stack": {

@@ -82,7 +82,7 @@ def test_training_entry_points_need_cuda_unless_cpu_is_asked_for(tmp_path):
 def test_serve_cli_rejects_unported_flags():
     from repro_torch.launch import serve
 
-    for argv in (["--spec-k", "2"], ["--prefix-cache"], ["--export", "analytic"],
+    for argv in (["--spec-k", "2"], ["--prefix-cache"], ["--export-int8"],
                  ["--mesh-model", "2"], ["--obs"], ["--arch", "olmoe-1b-7b"]):
         with pytest.raises(SystemExit) as exc:
             serve.main(["--smoke", "--device", "cpu", *argv])

@@ -223,3 +223,148 @@ def test_gpu_autograd_launches_no_frozen_kernel_and_matches_plain(g):
             err = (k.float() - p.float()).abs().max().item()
             assert err <= 2 * BWD_RTOL * p.float().abs().max().item()
     assert (grads[True][1] is None) == (g == 0) and (grads[True][2] is None) == (g == 1)
+
+
+# --------------------------------------------------------------------------
+# K6-K7: the int8 decode kernels against their plain versions
+# --------------------------------------------------------------------------
+
+# the int8 export's (C, S) at full width (wq/wo, wk/wv, gate/up, down), then
+# ragged edges (C and S not multiples of 16, S not of 64)
+GPU_INT8_CS = [(960, 960), (960, 320), (960, 2560), (2560, 960), (70, 33), (100, 1000)]
+# K7's ranks: the analytic export's 119/128/256 and the Eq.-5 349
+GPU_K7_R = [119, 128, 256, 349]
+# max |K7 - plain| / max |plain|: every step is an exact integer sum or one
+# IEEE float32 operation in the same order, so the two should agree bit for bit
+K7_RTOL = 1e-6
+
+
+def _int8_mats(seed, *shapes):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.integers(-127, 128, s, dtype=np.int8)).cuda() for s in shapes]
+
+
+def _scales(seed, n):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.uniform(0.5, 1.5, (1, n)) * 1e-2).astype(np.float32)).cuda()
+
+
+def _k7_args(m, c, r, s, seed=0):
+    x_q, u_q, v_q = _int8_mats(seed + m + c + r + s, (m, c), (c, r), (r, s))
+    return x_q, u_q, _scales(seed + 1, r), v_q, _scales(seed + 2, s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 8, 128, 2048])
+@pytest.mark.parametrize("c,s", GPU_INT8_CS)
+def test_gpu_int8_matmul_is_exact(m, c, s):
+    _need_gpu()
+    from repro_torch.kernels.int8_matmul import int8_matmul
+
+    x_q, w_q = _int8_mats(m + c + s, (m, c), (c, s))
+    got = int8_matmul(x_q, w_q)
+    want = ref.int8_matmul_ref(x_q, w_q)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 8, 128, 2048])
+@pytest.mark.parametrize("r", GPU_K7_R)
+@pytest.mark.parametrize("c,s", GPU_INT8_CS[:5])
+def test_gpu_int8_lowrank_matches_plain(m, r, c, s):
+    _need_gpu()
+    from repro_torch.kernels.int8_matmul import int8_lowrank_matmul
+
+    args = _k7_args(m, c, r, s)
+    got = int8_lowrank_matmul(*args)
+    want = ref.int8_lowrank_matmul_ref(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (m, s)
+    err = (got - want).abs().max().item()
+    assert err <= K7_RTOL * want.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_gpu_int8_kernels_take_unaligned_operands():
+    """Operands off a 16-byte boundary (a layer view of a stacked int8
+    tensor can be) take the element-load path and agree all the same."""
+    _need_gpu()
+    from repro_torch.kernels.int8_matmul import int8_lowrank_matmul, int8_matmul
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    x_q, u_q, us, v_q, vs = _k7_args(40, 96, 24, 80, seed=3)
+    xs, uq2, vq2 = shifted(x_q), shifted(u_q), shifted(v_q)
+    assert torch.equal(int8_matmul(xs, uq2), ref.int8_matmul_ref(x_q, u_q))
+    got = int8_lowrank_matmul(xs, uq2, us, vq2, vs)
+    want = ref.int8_lowrank_matmul_ref(x_q, u_q, us, v_q, vs)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= K7_RTOL * want.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_gpu_int8_wrappers_count_launches_and_raise_instead_of_falling_back():
+    _need_gpu()
+    from repro_torch.kernels.int8_matmul import int8_lowrank_matmul, int8_matmul
+
+    x_q, u_q, us, v_q, vs = _k7_args(8, 64, 16, 40, seed=4)
+    before = (int8_matmul.launches, int8_lowrank_matmul.launches)
+    int8_matmul(x_q, u_q)
+    int8_lowrank_matmul(x_q, u_q, us, v_q, vs)
+    assert (int8_matmul.launches, int8_lowrank_matmul.launches) == (before[0] + 1,
+                                                                     before[1] + 1)
+    assert int8_matmul.launches_by_shape[(8, 64, 16)] >= 1
+    assert int8_lowrank_matmul.launches_by_shape[(8, 64, 16, 40)] >= 1
+    with pytest.raises(TypeError, match="int8"):
+        int8_matmul(x_q.float(), u_q)
+    with pytest.raises(TypeError, match="float32"):
+        int8_lowrank_matmul(x_q, u_q, us.double(), v_q, vs)
+    with pytest.raises(ValueError, match="operands on"):  # a CPU operand
+        int8_matmul(x_q, u_q.cpu())
+    with pytest.raises(ValueError, match="operands on"):
+        int8_lowrank_matmul(x_q, u_q, us, v_q.cpu(), vs)
+    with pytest.raises(ValueError, match="not contiguous"):
+        int8_matmul(x_q, u_q.t().contiguous().t())
+    with pytest.raises(ValueError, match="want"):
+        int8_matmul(x_q, v_q)
+    big = _k7_args(8, 64, 513, 40)
+    with pytest.raises(ValueError, match="rank 513"):
+        int8_lowrank_matmul(*big)
+
+
+@pytest.mark.gpu
+def test_gpu_int8_dispatch_launches_the_kernels():
+    """ops.int8_apply / int8_lowrank_apply with the kernel requested launch
+    K6 / K7 on CUDA tensors (no plain-version decision recorded) and give
+    the algebra the CPU path computes with the plain versions."""
+    _need_gpu()
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.int8_matmul import (int8_lowrank_matmul, int8_matmul,
+                                                 quantize_colwise)
+
+    x = _mats(6, (2, 4, 96))[0]
+    w_q, w_s = quantize_colwise(_mats(7, (1,), (96, 40))[1])
+    u_q, u_s = quantize_colwise(_mats(8, (1,), (96, 24))[1])
+    v_q, v_s = quantize_colwise(_mats(9, (1,), (24, 40))[1])
+    before = (int8_matmul.launches, int8_lowrank_matmul.launches)
+    with ops.capture_fallbacks() as fbs:
+        yd = ops.int8_apply(x, w_q, w_s, use_kernel=True)
+        yl = ops.int8_lowrank_apply(x, u_q, u_s, v_q, v_s, use_kernel=True)
+    torch.cuda.synchronize()
+    assert not fbs
+    assert (int8_matmul.launches, int8_lowrank_matmul.launches) == (before[0] + 1,
+                                                                     before[1] + 1)
+    cpu = [t.cpu() for t in (x, w_q, w_s, u_q, u_s, v_q, v_s)]
+    wd = ops.int8_apply(*cpu[:3], use_kernel=True)
+    wl = ops.int8_lowrank_apply(cpu[0], *cpu[3:], use_kernel=True)
+    for got, want in ((yd, wd), (yl, wl)):
+        assert got.dtype == torch.bfloat16 and got.shape == (2, 4, 40)
+        err = (got.cpu().float() - want.float()).abs().max().item()
+        # the same int32 sums and float32 steps; the bf16 output rounding
+        # of two equal float32 values is equal
+        assert err <= K7_RTOL * want.float().abs().max().item()

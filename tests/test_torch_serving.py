@@ -72,7 +72,6 @@ def test_engine_rejects_unported_features():
     for cfg, match in [(ServeConfig(num_slots=0), "fixed-batch"),
                        (ServeConfig(num_slots=2, speculative_k=2), "speculative"),
                        (ServeConfig(num_slots=2, prefix_cache=True), "prefix cache"),
-                       (ServeConfig(num_slots=2, export="analytic"), "export"),
                        (ServeConfig(num_slots=2, kv_int8=True), "int8"),
                        (ServeConfig(num_slots=2, mesh_model=2), "mesh")]:
         with pytest.raises(ValueError, match=match):
