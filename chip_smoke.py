@@ -7,10 +7,10 @@ Phases, in order; any failure exits nonzero:
 1. device   — require CUDA, print the card's name and power limit, set the
               float32/TF32/bf16-reduction flags of every comparison below;
 2. build    — compile the hand-written kernels from ``src/repro_torch``;
-3. kernels  — each kernel at every shape the serve and train paths launch
-              it at, against its plain version (``kernels/ref.py``) on the
-              same inputs, timed with CUDA events beside its plain version
-              and one library call;
+3. kernels  — each kernel at every shape the serve, flash serve and
+              train paths launch it at, against its plain version
+              (``kernels/ref.py``) on the same inputs, timed with CUDA
+              events beside its plain version and one library call;
 4. serve    — ``repro_torch.launch.serve.main`` on full-width smollm-360m
               with LRD (16 requests through 8 slots), with the kernels'
               launch counters zeroed before and read after;
@@ -45,7 +45,25 @@ Phases, in order; any failure exits nonzero:
               profiled at phases -1 and 1 as in phase 9;
 14. int8 kernels — K6 and K7 at every shape phases 10 launched them at
               (bitwise / 1e-6 against their plain versions), timed as in
-              phase 3 beside one library call.
+              phase 3 beside one library call;
+15. flash serve — ``ServeEngine.serve`` on full-width smollm-360m with LRD
+              and ``attention_impl="flash"``: 16 Poisson requests of up to
+              2016 tokens, every prefill padded to 2016, 32 new tokens each
+              in a 2048-token window, through 8 slots; exactly 32 K8
+              launches a prefill forward and none a decode forward, K1 and
+              K5 as in phase 4;
+16. flash parity — one 2016-token prefill's last-position logits, flash
+              against the model's default (``"blockwise"``, which falls to
+              dense attention at 2016 tokens), and for three prompts 8
+              greedy tokens through K8, through K8's plain version on the
+              card and blockwise, each pair's logits held together while
+              its histories agree;
+17. flash prefill profile — wall time, device time by kernel (K8's share)
+              and idle share of one 2016-token prefill, flash and blockwise;
+18. flash kernels — K8 at every shape phase 15 launched it at, and at
+              ragged, non-causal, batched and head-dim-128 shapes, against
+              its plain version, timed as in phase 3 beside
+              ``F.scaled_dot_product_attention``.
 
 Phase 3 also holds K1-K5 at the Algorithm-1 training shapes.  The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is ``nvidia-smi``'s name and power limit, and the
@@ -82,13 +100,24 @@ INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
 # K2-K4 round dt (or t) and their output at the same points as their plain
 # versions, and split sums over M only add float32 partials in a fixed
 # order, so K1's reasoning and bound hold for them.
+# K8 is held row by row (``row_rel_err``): the largest over query rows of
+# max |kernel - plain| / max |plain| in that row, since in causal attention
+# max |plain| over the whole output is row 0's (= v_0) and later rows,
+# averaging over many keys, are several times smaller.  K8 rounds p to
+# bf16 relative to the running max of each 64-key tile, where its plain
+# version takes one max over all keys: each p's rounding moves by up to
+# 2**-9 relative, with random signs over the keys, so the float32 outputs
+# before their one bf16 rounding differ by well under a bf16 ulp, and the
+# rounded ones by at most one ulp of an element: up to 2**-7 = 7.8e-3 of
+# the row's max, where that max is a power of two.  1e-2 holds that and
+# fails a row a few percent off.
 # K6 sums int8 products exactly in int32, so it must equal its plain version
 # bit for bit (0).  Every step of K7 is an exact integer sum or one IEEE
 # float32 operation in the plain version's order, so it should too; 1e-6
 # of max |plain| leaves room for nothing more than a last-bit difference.
 KERNEL_RTOL = {"lowrank_matmul": 1e-2, "lowrank_gated_ffn": 2e-2, "lowrank_matmul_dx": 1e-2,
                "lowrank_matmul_du": 1e-2, "lowrank_matmul_dv": 1e-2, "int8_matmul": 0.0,
-               "int8_lowrank_matmul": 1e-6}
+               "int8_lowrank_matmul": 1e-6, "flash_attention": 1e-2}
 # Bound on the full-width prefill's last-position logits, kernels vs plain,
 # relative to max |logit|: the per-call differences above, carried through
 # 32 residual layers.
@@ -130,6 +159,19 @@ ALG1_ARGV = ["--arch", "smollm-360m", "--lrd", "--use-pallas", "--freeze", "sequ
              "--steps", "2", "--steps-per-epoch", "1", "--global-batch", "8",
              "--seq-len", "256", "--save-every", "1000", "--log-every", "1"]
 ALG1_RANKS = {"wq": 239, "wo": 239, "wk": 80, "wv": 80, "gate": 256, "up": 256, "down": 256}
+# The long-prompt flash serve: prompts of up to 2016 tokens, each padded to
+# 2016, and 32 new tokens fill SmolLM's 2048-token context
+# (max_position_embeddings); 8 slots, 16 requests at 1000 req/s, 16-position
+# blocks, the pool fully provisioned
+FLASH_PROMPT, FLASH_MAX_LEN, FLASH_NEW = 2016, 2048, 32
+# prompt seeds of the flash parity phase's greedy runs
+FLASH_PARITY_SEEDS = (1, 4, 5)
+FLASH_SERVE_SHAPE = dict(B=1, Sq=FLASH_PROMPT, Sk=FLASH_PROMPT, H=15, KV=5, D=64, causal=True)
+# K8 beyond the serve's shape: ragged Sq = Sk, Sq < Sk without the causal
+# mask, two batch rows, and D 128 with g = 8 (qwen2-72b's 64 / 8 heads)
+FLASH_EXTRA = [dict(FLASH_SERVE_SHAPE, Sq=1, Sk=1), dict(FLASH_SERVE_SHAPE, Sq=17, Sk=17),
+               dict(FLASH_SERVE_SHAPE, Sq=500, causal=False), dict(FLASH_SERVE_SHAPE, B=2),
+               dict(B=1, Sq=512, Sk=512, H=64, KV=8, D=128, causal=True)]
 
 
 def log(msg: str) -> None:
@@ -161,6 +203,14 @@ def rel_err(got: torch.Tensor, want: torch.Tensor):
     diff = (got.float() - want.float()).abs().max().item()
     scale = want.float().abs().max().item()
     return diff, diff / max(scale, 1e-30)
+
+
+def row_rel_err(got: torch.Tensor, want: torch.Tensor):
+    """(max |got - want|, the largest over rows of the last axis of max
+    |got - want| / max |want| in that row)."""
+    diff = (got.float() - want.float()).abs()
+    scale = want.float().abs().amax(dim=-1).clamp_min(1e-30)
+    return diff.max().item(), (diff.amax(dim=-1) / scale).max().item()
 
 
 def phase_device():
@@ -205,9 +255,10 @@ BWD = ("lowrank_matmul_dx", "lowrank_matmul_du", "lowrank_matmul_dv")
 
 
 def kernel_shapes():
-    """(name, dims) of every K1-K5 call on the serve and train paths."""
+    """(name, dims) of every K1-K5 call on the serve, flash serve and train
+    paths."""
     out = []
-    for m in (DECODE_M, PREFILL_M):
+    for m in (DECODE_M, PREFILL_M, FLASH_PROMPT):
         for proj in ("wq/wo", "wk/wv", "down"):
             c, r, s = PROJ[proj]
             out.append(("lowrank_matmul", dict(M=m, C=c, r=r, S=s)))
@@ -333,11 +384,12 @@ def check_and_time(name, d, case, iters, flush, peak):
     got = case["kernel"]()
     want = case["plain"]()
     torch.cuda.synchronize()
-    err, rel = rel_err(got, want)
+    err, rel = case.get("err", rel_err)(got, want)
+    _, rel_all = rel_err(got, want)
     rtol = KERNEL_RTOL[name]
     if not math.isfinite(err) or rel > rtol or (rtol == 0 and not torch.equal(got, want)):
-        raise AssertionError(f"{name} {d}: max_abs_err {err:.3e} = {rel:.3e} of "
-                             f"max |plain| > {rtol}")
+        raise AssertionError(f"{name} {d}: max_abs_err {err:.3e}, relative error {rel:.3e} "
+                             f"> {rtol}")
     ms = cuda_time_ms(case["kernel"], iters, flush)
     plain_ms = cuda_time_ms(case["plain"], iters, flush)
     try:
@@ -347,10 +399,12 @@ def check_and_time(name, d, case, iters, flush, peak):
         lib_ms = None
     t_bytes = case["bytes"] / HBM_BYTES_PER_S * 1e3
     t_ops = case["ops"] / peak * 1e3
-    row = dict(name=name, shape=d, max_abs_err=err, rel_err=rel, rtol=rtol, ms=ms,
+    row = dict(name=name, shape=d, max_abs_err=err, rel_err=rel, rel_err_of_max=rel_all,
+               rtol=rtol, ms=ms,
                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations")
-    log(f"[kernels] {name} {d}: err {err:.3e} (rel {rel:.2e}), kernel "
+    log(f"[kernels] {name} {d}: err {err:.3e} (rel {rel:.2e}"
+        + (f" by row, {rel_all:.2e} of max |plain|" if "err" in case else "") + "), kernel "
         f"{ms * 1e3:.1f}us, plain {plain_ms * 1e3:.1f}us, library "
         + (f"{lib_ms * 1e3:.1f}us" if lib_ms is not None else "n/a")
         + f", bound {row['bound_ms'] * 1e3:.2f}us ({row['bound_by']})")
@@ -391,6 +445,7 @@ def wrappers():
     """name -> kernel wrapper (each carries ``launches`` and
     ``launches_by_shape``)."""
     from repro_torch.kernels import lowrank_bwd as kb
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.int8_matmul import int8_lowrank_matmul, int8_matmul
     from repro_torch.kernels.lowrank_ffn import lowrank_gated_ffn
     from repro_torch.kernels.lowrank_matmul import lowrank_matmul
@@ -399,7 +454,8 @@ def wrappers():
             "lowrank_matmul_dx": kb.lowrank_matmul_dx,
             "lowrank_matmul_du": kb.lowrank_matmul_du,
             "lowrank_matmul_dv": kb.lowrank_matmul_dv,
-            "int8_matmul": int8_matmul, "int8_lowrank_matmul": int8_lowrank_matmul}
+            "int8_matmul": int8_matmul, "int8_lowrank_matmul": int8_lowrank_matmul,
+            "flash_attention": flash_attention}
 
 
 def zero_counts():
@@ -418,6 +474,8 @@ def shape_key(name, d):
         return d["M"], d["C"], d["r"], d["r"], d["F"]
     if name == "int8_matmul":
         return d["M"], d["C"], d["S"]
+    if name == "flash_attention":
+        return d["B"], d["Sq"], d["Sk"], d["H"], d["KV"], d["D"], d["causal"]
     return d["M"], d["C"], d["r"], d["S"]
 
 
@@ -455,11 +513,24 @@ def phase_serve():
                                   n_layers=n_layers)
 
 
+def device_ms_by_kernel(prof, steps: int):
+    """Device time per call by kernel name, from the profiler's device-side
+    events only (kernels, memcpy, memset; one stream, so they do not
+    overlap): the CPU ops that launched them carry the same time."""
+    from torch.autograd import DeviceType
+
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            ms = ev.time_range.elapsed_us() / steps / 1e3
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + ms
+    return by_name
+
+
 def phase_profile(engine, steps: int = 5, label: str = "decode step"):
     """Where a full-width decode step's time goes: wall time per step (host
     clock around synchronised steps), device time per step by kernel
     (``torch.profiler``), and the device's idle share of the step."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import steps as steps_mod
@@ -480,13 +551,7 @@ def phase_profile(engine, steps: int = 5, label: str = "decode step"):
         for _ in range(steps):
             step(engine.params, sched.cache, tokens, pos)
         torch.cuda.synchronize()
-    # device-side events only (kernels, memcpy, memset; one stream, so they
-    # do not overlap): the CPU ops that launched them carry the same time
-    by_name = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            ms = ev.time_range.elapsed_us() / steps / 1e3
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + ms
+    by_name = device_ms_by_kernel(prof, steps)
     device_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     out = dict(wall_ms=wall_ms, device_ms=device_ms if device_ms else None,
@@ -637,7 +702,6 @@ def phase_train_profile(params, steps_n: int = 2, run=None, phases=(-1, 0, 1),
     """Wall time (host clock around synchronised steps), device time
     (``torch.profiler``, device-side events only) and idle share of a
     full-width train step at each freezing phase, with tokens/s."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import steps
@@ -659,11 +723,7 @@ def phase_train_profile(params, steps_n: int = 2, run=None, phases=(-1, 0, 1),
             for _ in range(steps_n):
                 state, _ = step(state, batch, phase=phase)
             torch.cuda.synchronize()
-        by_name = {}
-        for ev in prof.events():
-            if ev.device_type == DeviceType.CUDA:
-                ms = ev.time_range.elapsed_us() / steps_n / 1e3
-                by_name[ev.name] = by_name.get(ev.name, 0.0) + ms
+        by_name = device_ms_by_kernel(prof, steps_n)
         device_ms = sum(by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         out[phase] = dict(wall_ms=wall_ms, tok_per_s=TRAIN_M / wall_ms * 1e3,
@@ -772,17 +832,27 @@ def phase_export_serve(kind: str):
 
 
 @contextlib.contextmanager
-def plain_int8():
-    """Route the int8 dispatchers to K6's and K7's plain versions (on the
-    card's tensors), for a reference run to hold the kernels against."""
-    from repro_torch.kernels import ops, ref
+def plain_versions(**swaps):
+    """Route the dispatchers' calls of the named kernel wrappers (names in
+    ``kernels.ops``) to the given plain versions, on the card's tensors, for
+    a reference run to hold the kernels against."""
+    from repro_torch.kernels import ops
 
-    saved = ops.int8_matmul, ops.int8_lowrank_matmul
-    ops.int8_matmul, ops.int8_lowrank_matmul = ref.int8_matmul_ref, ref.int8_lowrank_matmul_ref
+    saved = {name: getattr(ops, name) for name in swaps}
+    for name, fn in swaps.items():
+        setattr(ops, name, fn)
     try:
         yield
     finally:
-        ops.int8_matmul, ops.int8_lowrank_matmul = saved
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def plain_int8():
+    from repro_torch.kernels import ref
+
+    return plain_versions(int8_matmul=ref.int8_matmul_ref,
+                          int8_lowrank_matmul=ref.int8_lowrank_matmul_ref)
 
 
 def phase_int8_parity(engine, kind: str):
@@ -874,6 +944,270 @@ def phase_alg1_train():
                                              ranks={k: list(v) for k, v in ranks.items()})
 
 
+# --------------------------------------------------------------------------
+# Flash attention (K8): the long-prompt flash serve
+# --------------------------------------------------------------------------
+
+def flash_kernel_case(d, gen):
+    """Inputs, K8, its plain version, the library call, bytes and flops at
+    ``d``, with q pre-scaled by D**-0.5 and multiplied back by sqrt(D) as
+    on the model path.  Bytes: q and o over H heads, k and v over KV heads;
+    flops: both products over the keys each query sees."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    b, sq, sk, h, kv, dh, causal = (d[k] for k in ("B", "Sq", "Sk", "H", "KV", "D", "causal"))
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    q, k, v = rnd(b, sq, h, dh, scale=dh ** -0.5), rnd(b, sk, kv, dh), rnd(b, sk, kv, dh)
+    q_scale = dh ** 0.5
+    # the library call takes (B, heads, S, D); the same function with K8's
+    # q multiplier folded into its scale
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib_scale = float(torch.tensor(q_scale, dtype=torch.bfloat16)) * dh ** -0.5
+    visible = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+    return dict(kernel=lambda: flash_attention(q, k, v, causal=causal, q_scale=q_scale),
+                plain=lambda: ref.flash_attention_fwd_ref(q, k, v, causal=causal,
+                                                          q_scale=q_scale),
+                library=lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, scale=lib_scale, enable_gqa=True),
+                bytes=2 * (2 * b * sq * h * dh + 2 * b * sk * kv * dh),
+                ops=4 * b * h * dh * visible, err=row_rel_err)
+
+
+def phase_flash_kernels(shapes, iters: int = 50):
+    """K8 at each shape against its plain version, timed beside it and
+    ``F.scaled_dot_product_attention`` (a yardstick the port never calls)."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    flush = _flush_buffer()
+    rows = [check_and_time("flash_attention", d, flash_kernel_case(d, gen), iters, flush,
+                           BF16_FLOPS_PER_S) for d in shapes]
+    zero_counts()
+    return rows
+
+
+def phase_flash_serve():
+    """``ServeEngine.serve`` of a Poisson trace of long prompts with
+    ``attention_impl="flash"``; K8 launches counted per prefill and decode
+    forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import serve, steps
+    from repro_torch.serving import ServeConfig, ServeEngine
+
+    run = _with_impl(serve.serve_run(get_config("smollm-360m"), max_len=FLASH_MAX_LEN, slots=8,
+                                     lrd=True, device=torch.device("cuda"), seed=0), "flash")
+    params, _ = steps.init_params(run, "cuda")
+    engine = ServeEngine(run, params, device="cuda",
+                         config=ServeConfig(num_slots=8, max_len=FLASH_MAX_LEN,
+                                            prefill_len=FLASH_PROMPT, block_size=16))
+    sched = engine.scheduler
+    k8_per = {"prefill": [], "decode": []}
+
+    def counted(kind, step):
+        def call(*args, **kw):
+            before = flash_attention.launches
+            out = step(*args, **kw)
+            k8_per[kind].append(flash_attention.launches - before)
+            return out
+        return call
+
+    sched._prefill = counted("prefill", sched._prefill)
+    sched._decode = counted("decode", sched._decode)
+    trace = serve.poisson_trace(16, 1000.0, FLASH_PROMPT, run.model.vocab_size, seed=0)
+    for r in trace:
+        r["max_new"] = FLASH_NEW
+    zero_counts()
+    t0 = time.perf_counter()
+    outs = engine.serve(trace)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in wrappers().items()}
+    by_shape = counts_by_shape()
+    fwd = sched.forward_stats
+    n_fwd = fwd["prefill"] + fwd["decode"]
+    n_layers = run.model.num_layers
+    if len(outs) != 16 or any(len(o) != FLASH_NEW for o in outs):
+        raise AssertionError(f"flash serve: want 16 requests x {FLASH_NEW} tokens, got "
+                             f"{[len(o) for o in outs]}")
+    if fwd["nonfinite"]:
+        raise AssertionError(f"flash serve: {fwd['nonfinite']} forwards with non-finite logits")
+    want = {"lowrank_matmul": 5 * n_layers * n_fwd, "lowrank_gated_ffn": n_layers * n_fwd,
+            "flash_attention": n_layers * fwd["prefill"]}
+    got = {k: n for k, n in counts.items() if n or k in want}
+    if (n_fwd == 0 or got != want or len(k8_per["prefill"]) != fwd["prefill"]
+            or set(k8_per["prefill"]) != {n_layers} or set(k8_per["decode"]) != {0}):
+        raise AssertionError(f"flash serve: {fwd['prefill']} prefill + {fwd['decode']} decode "
+                             f"forwards launched {got}, want {want}; K8 per prefill "
+                             f"{sorted(set(k8_per['prefill']))}, per decode "
+                             f"{sorted(set(k8_per['decode']))} (want {n_layers} and 0)")
+    if set(by_shape["flash_attention"]) != {shape_key("flash_attention", FLASH_SERVE_SHAPE)}:
+        raise AssertionError(f"flash serve: K8 shapes {sorted(by_shape['flash_attention'])}")
+    stats = sched.latency_stats()
+    log(f"[flash serve] {len(outs)} requests (prompts {min(len(r['prompt']) for r in trace)}-"
+        f"{max(len(r['prompt']) for r in trace)} tokens, padded to {FLASH_PROMPT}), "
+        f"{int(stats['generated_tokens'])} tokens, {stats['tok_per_s']:.1f} tok/s on "
+        f"{torch.cuda.get_device_name(0)}; {fwd['prefill']} prefill + {fwd['decode']} decode "
+        f"forwards; K8 {n_layers} per prefill, 0 per decode forward; {counts['lowrank_matmul']} "
+        f"K1 + {counts['lowrank_gated_ffn']} K5 = {5 * n_layers} + {n_layers} per forward; "
+        f"latency p50 {stats['p50_latency_s'] * 1e3:.0f} ms, p95 "
+        f"{stats['p95_latency_s'] * 1e3:.0f} ms, first-token p50 "
+        f"{stats['p50_first_token_s'] * 1e3:.0f} ms; {dt:.1f}s")
+    return engine, by_shape, dict(fwd=dict(fwd), counts=counts, stats=stats, wall_s=dt)
+
+
+def _long_prompt(run, seed: int):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, run.model.vocab_size, (1, FLASH_PROMPT), generator=gen,
+                         device="cuda", dtype=torch.int32)
+
+
+def _with_impl(run, impl: str):
+    import dataclasses
+
+    return dataclasses.replace(run, model=dataclasses.replace(run.model, attention_impl=impl))
+
+
+def _greedy_with_logits(run, params, prompt, n: int):
+    """n greedy tokens of ``prompt`` (1, L) through a fresh one-slot engine,
+    with the logits each token was picked from (the prefill's last position,
+    then each decode step's)."""
+    from repro_torch.serving import ServeConfig, ServeEngine
+
+    eng = ServeEngine(run, params, device="cuda",
+                      config=ServeConfig(num_slots=1, max_len=FLASH_MAX_LEN,
+                                         prefill_len=FLASH_PROMPT))
+    sched, seen = eng.scheduler, []
+
+    def keep(step, pick):
+        def call(*args, **kw):
+            out = step(*args, **kw)
+            seen.append(pick(out).float().reshape(-1).clone())
+            return out
+        return call
+
+    sched._prefill = keep(sched._prefill, lambda out: out[0])
+    sched._decode = keep(sched._decode, lambda out: out[0][:, -1])
+    return eng.generate(prompt, max_new=n)[0].tolist(), seen
+
+
+def _held_while_agreeing(a_toks, a_logits, b_toks, b_logits, what: str):
+    """Hold two greedy runs' logits within PATH_RTOL while their token
+    histories agree; returns the steps agreed, the worst step's relative
+    difference and the first parting step (None if all agree) with b's
+    top-2 gap there: a perturbation within the bound can flip the argmax
+    only where that gap is below twice the perturbation."""
+    agree, worst, flip = 0, 0.0, None
+    for i, (a, b) in enumerate(zip(a_toks, b_toks)):
+        e_i, r_i = rel_err(a_logits[i], b_logits[i])
+        worst = max(worst, r_i)
+        if not torch.isfinite(a_logits[i]).all() or r_i > PATH_RTOL:
+            raise AssertionError(f"flash parity: {what} greedy step {i} logits on the same "
+                                 f"history differ by {e_i:.3e} ({r_i:.3e} of max |logit|) "
+                                 f"> {PATH_RTOL}")
+        if a != b:
+            top2 = torch.topk(b_logits[i], 2).values
+            flip = dict(step=i, gap=(top2[0] - top2[1]).item(), max_abs_diff=e_i)
+            break
+        agree += 1
+    return dict(agree=agree, worst_step_rel=worst, flip=flip)
+
+
+def phase_flash_parity(engine):
+    """One 2016-token prefill through K8 against the model's default
+    attention (the port's torch code, not K8's plain version), and 8 greedy
+    tokens through a one-slot engine for each of FLASH_PARITY_SEEDS' prompts
+    three ways: through K8, through the same flash path with K8 swapped for
+    its plain version on the card (a second witness: the TPU kernel's
+    arithmetic without the kernel), and blockwise.  Each pair's logits must
+    agree within PATH_RTOL while their token histories agree; where the
+    tokens part, the step and the reference's top-2 gap are reported (random
+    weights make near-ties common)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import steps
+
+    run = engine.run
+    base = _with_impl(run, "blockwise")
+    tokens = _long_prompt(run, seed=FLASH_PARITY_SEEDS[0])
+    last = torch.tensor([FLASH_PROMPT - 1], device="cuda")
+    got, _ = steps.build_slot_prefill_step(run)(engine.params, {"tokens": tokens}, last)
+    want, _ = steps.build_slot_prefill_step(base)(engine.params, {"tokens": tokens}, last)
+    err, rel = rel_err(got, want)
+    if not torch.isfinite(got).all() or rel > PATH_RTOL:
+        raise AssertionError(f"flash parity: last-position logits differ by {err:.3e} "
+                             f"({rel:.3e} of max |logit|) > {PATH_RTOL}")
+    log(f"[flash parity] {FLASH_PROMPT}-token prefill, last-position logits flash vs "
+        f"blockwise: max_abs_diff {err:.3e} ({rel:.3e} of max |logit| "
+        f"{want.abs().max().item():.3f}; bound {PATH_RTOL})")
+    out = dict(max_abs_diff=err, rel=rel, seeds={})
+    for seed in FLASH_PARITY_SEEDS:
+        prompt = _long_prompt(run, seed=seed).cpu().numpy()
+        ft, fl = _greedy_with_logits(run, engine.params, prompt, 8)
+        before = flash_attention.launches
+        with plain_versions(flash_attention=ref.flash_attention_fwd_ref):
+            pt, pl = _greedy_with_logits(run, engine.params, prompt, 8)
+        if flash_attention.launches != before:
+            raise AssertionError("flash parity: the plain-version run launched K8")
+        bt, bl = _greedy_with_logits(base, engine.params, prompt, 8)
+        if {len(fl), len(pl), len(bl)} != {8}:
+            raise AssertionError(f"flash parity: {len(fl)} / {len(pl)} / {len(bl)} forwards "
+                                 f"for 8 tokens")
+        pairs = {"K8 vs blockwise": (ft, fl, bt, bl), "plain vs blockwise": (pt, pl, bt, bl),
+                 "K8 vs plain": (ft, fl, pt, pl)}
+        res = {what: _held_while_agreeing(*args, what) for what, args in pairs.items()}
+        out["seeds"][seed] = dict(res, greedy=ft, greedy_plain=pt, greedy_blockwise=bt)
+        log(f"[flash parity] prompt seed {seed}: " + "; ".join(
+            f"{what} {r['agree']}/8 agree, logits within {r['worst_step_rel']:.3e} of max "
+            f"|logit| on the same history"
+            + (f", part at step {r['flip']['step']} (top-2 gap {r['flip']['gap']:.3e}, "
+               f"max_abs_diff {r['flip']['max_abs_diff']:.3e})" if r["flip"] else "")
+            for what, r in res.items()) + f" (K8 {ft}, plain {pt}, blockwise {bt})")
+    return out
+
+
+def phase_prefill_profile(engine, steps_n: int = 3):
+    """Wall time, device time by kernel and idle share of one full-width
+    2016-token prefill, flash (K8) and blockwise."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import steps
+
+    tokens = _long_prompt(engine.run, seed=2)
+    batch, last = {"tokens": tokens}, torch.tensor([FLASH_PROMPT - 1], device="cuda")
+    out = {}
+    for impl in ("flash", "blockwise"):
+        step = steps.build_slot_prefill_step(_with_impl(engine.run, impl))
+        step(engine.params, batch, last)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps_n):
+            step(engine.params, batch, last)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / steps_n * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps_n):
+                step(engine.params, batch, last)
+            torch.cuda.synchronize()
+        by_name = device_ms_by_kernel(prof, steps_n)
+        device_ms = sum(by_name.values())
+        k8_ms = sum(ms for name, ms in by_name.items() if "flash_kernel" in name)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        out[impl] = dict(wall_ms=wall_ms, device_ms=device_ms if device_ms else None,
+                         idle_share=(1 - device_ms / wall_ms) if device_ms else None,
+                         k8_ms=k8_ms, k8_share=k8_ms / device_ms if device_ms else None,
+                         top=[dict(name=k[:80], ms=v) for k, v in top])
+        shown = ", ".join(f"{k[:40]} {v:.2f}ms" for k, v in top[:6])
+        log(f"[prefill profile] {impl}, {FLASH_PROMPT} tokens, {engine.run.model.num_layers} "
+            f"layers: wall {wall_ms:.2f} ms, "
+            + (f"device {device_ms:.2f} ms, idle {out[impl]['idle_share']:.1%}, K8 "
+               f"{k8_ms:.2f} ms ({out[impl]['k8_share']:.1%} of device); top: {shown}"
+               if device_ms else "device time not measured (profiler saw no device events)"))
+    return out
+
+
 def check_launched_shapes(path: str, rows, by_shape) -> None:
     """Fail if ``path`` launched a kernel at a shape the kernel phase did
     not check."""
@@ -923,6 +1257,16 @@ def main(argv=None) -> int:
             # the measured export kept every group factorised on this card
             int8_shapes += [sk for sk in INT8_DEFAULT_SHAPES if sk[0] == "int8_matmul"]
         rows += phase_int8_kernels(int8_shapes)
+        engine, paths["flash serve"], result["flash_serve"] = phase_flash_serve()
+        result["flash_parity"] = phase_flash_parity(engine)
+        result["prefill_profile"] = phase_prefill_profile(engine)
+        del engine
+        launched = [dict(zip(("B", "Sq", "Sk", "H", "KV", "D", "causal"), key))
+                    for key in sorted(paths["flash serve"]["flash_attention"])]
+        rows += phase_flash_kernels(launched)
+        # checked, not in the kernels line: no main path launches them
+        result["flash_extra"] = phase_flash_kernels([d for d in FLASH_EXTRA
+                                                     if d not in launched])
         for path, by in paths.items():
             check_launched_shapes(path, rows, by)
         for row in rows:
@@ -936,6 +1280,7 @@ def main(argv=None) -> int:
                 "measured export merged no group on this card")
     else:
         rows += phase_int8_kernels(INT8_DEFAULT_SHAPES)
+        rows += phase_flash_kernels([FLASH_SERVE_SHAPE] + FLASH_EXTRA)
         for row in rows:
             row["launches"] = 0
     bwd_cu = "src/repro_torch/kernels/csrc/lowrank_bwd.cu"
@@ -948,7 +1293,9 @@ def main(argv=None) -> int:
            "lowrank_matmul_du": (bwd_cu, "src/repro/kernels/lowrank_bwd.py:215"),
            "lowrank_matmul_dv": (bwd_cu, "src/repro/kernels/lowrank_bwd.py:298"),
            "int8_matmul": (int8_cu, "src/repro/kernels/int8_matmul.py:86"),
-           "int8_lowrank_matmul": (int8_cu, "src/repro/kernels/int8_matmul.py:142")}
+           "int8_lowrank_matmul": (int8_cu, "src/repro/kernels/int8_matmul.py:142"),
+           "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                               "src/repro/kernels/flash_attention.py:81")}
     line = {"kernels": [dict(name=r["name"], shape=r["shape"], route="cuda",
                              source=src[r["name"]][0], replaces=src[r["name"]][1],
                              launches=r["launches"], max_abs_err=r["max_abs_err"],

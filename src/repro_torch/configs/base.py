@@ -28,7 +28,7 @@ class ModelConfig:
     qkv_bias: bool = False  # qwen2
     qk_norm: bool = False  # qwen3
     rope_theta: float = 1e6
-    attention_impl: str = "blockwise"  # "dense" | "blockwise"
+    attention_impl: str = "blockwise"  # "dense" | "blockwise" | "flash"
     attention_block_q: int = 512
     attention_block_kv: int = 1024
     # --- MLA (deepseek-v3) ---------------------------------------------------

@@ -21,7 +21,7 @@ from typing import Dict
 __all__ = ["SOURCES", "build_dir", "build_all", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("lowrank_matmul", "lowrank_ffn", "lowrank_bwd", "int8_matmul")
+SOURCES = ("lowrank_matmul", "lowrank_ffn", "lowrank_bwd", "int8_matmul", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _TIMEOUT_S = 900

@@ -18,6 +18,12 @@ frozen this phase (0 = u, 1 = v).  The frozen factor's gradient is never
 computed — its kernel is not launched and its plain version not run — and
 the same holds for any factor autograd does not ask a gradient of.
 
+:func:`flash_attention_apply` is the prefill attention core of
+``attention_impl="flash"`` (the counterpart of ``_flash_path`` in
+``repro/models/attention.py``): K8 on CUDA tensors, its plain version on
+CPU tensors (reason ``platform``).  Like ``_flash_path`` it does not read
+the policy: the model config alone selects it.  It is forward only.
+
 int8-exported groups (``serving/export.py``) go through
 :func:`int8_apply` (K6) and :func:`int8_lowrank_apply` (K7), which quantize
 x per row with torch ops, as the JAX dispatchers do outside the kernel:
@@ -34,8 +40,9 @@ x per row with torch ops, as the JAX dispatchers do outside the kernel:
 
 Every plain-version decision is recorded as a :class:`Fallback` (``op``
 ``lowrank_fwd``, ``lowrank_ffn``, ``lowrank_dx``, ``lowrank_du``,
-``lowrank_dv``, ``int8_dense`` or ``int8_lowrank``); :func:`capture_fallbacks`
-collects them while open, so a caller can show which path a run took.
+``lowrank_dv``, ``int8_dense``, ``int8_lowrank`` or ``flash_attention``);
+:func:`capture_fallbacks` collects them while open, so a caller can show
+which path a run took.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from typing import List, Optional, Tuple, Union
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.int8_matmul import int8_lowrank_matmul, int8_matmul, quantize_rowwise
 from repro_torch.kernels.lowrank_bwd import (lowrank_matmul_du, lowrank_matmul_dv,
                                              lowrank_matmul_dx)
@@ -56,7 +64,8 @@ from repro_torch.kernels.lowrank_ffn import lowrank_gated_ffn
 from repro_torch.kernels.lowrank_matmul import lowrank_matmul
 
 __all__ = ["KernelPolicy", "as_policy", "lowrank_apply", "lowrank_ffn_apply",
-           "int8_apply", "int8_lowrank_apply", "Fallback", "capture_fallbacks"]
+           "int8_apply", "int8_lowrank_apply", "flash_attention_apply", "Fallback",
+           "capture_fallbacks"]
 
 _log = logging.getLogger(__name__)
 
@@ -287,3 +296,19 @@ def int8_lowrank_apply(x: torch.Tensor, u_q: torch.Tensor, u_scale: torch.Tensor
     x_q, x_scale = quantize_rowwise(x.reshape(m, c))
     y = int8_lowrank_matmul(x_q, u_q, us.contiguous(), v_q, vs.contiguous())
     return (y * x_scale).to(x.dtype).reshape(*lead, s)
+
+
+# --------------------------------------------------------------------------
+# Flash attention (prefill, attention_impl="flash")
+# --------------------------------------------------------------------------
+
+def flash_attention_apply(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          causal: bool, q_scale: float = 1.0) -> torch.Tensor:
+    """Flash attention of q (B, Sq, H, D) against k/v (B, Sk, KV, D): K8 for
+    CUDA tensors (or an error), its plain version for CPU tensors.  Forward
+    only: raises under grad mode if an input requires grad."""
+    out = flash_attention(q, k, v, causal=causal, q_scale=q_scale)
+    if q.device.type == "cpu":
+        _note_fallback("flash_attention", "platform", (q.shape[0], q.shape[1], k.shape[1],
+                                                       q.shape[2], k.shape[2], q.shape[3]))
+    return out

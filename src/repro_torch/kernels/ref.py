@@ -9,6 +9,9 @@ float32 explicitly, so the result does not depend on the backend's
 reduced-precision settings.  The CPU path of the dispatcher runs these, and
 ``chip_smoke.py`` holds each kernel against them on the card.
 
+:func:`flash_attention_fwd_ref` is the plain version of K8 with K8's
+signature and arithmetic (``repro/kernels/flash_attention.py``).
+
 The int8 versions (K6, K7) compute their int8 x int8 products exactly:
 the operands go through float64, where every product and every partial sum
 of up to 2**53 is exact (|sum| <= 2560 * 127**2 < 2**31 here), because
@@ -24,7 +27,7 @@ import torch.nn.functional as F
 
 __all__ = ["lowrank_matmul_ref", "lowrank_gated_ffn_ref", "lowrank_matmul_dx_ref",
            "lowrank_matmul_du_ref", "lowrank_matmul_dv_ref", "int8_matmul_ref",
-           "int8_lowrank_matmul_ref", "over_127"]
+           "int8_lowrank_matmul_ref", "over_127", "flash_attention_fwd_ref"]
 
 
 def lowrank_matmul_ref(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -96,3 +99,38 @@ def int8_lowrank_matmul_ref(x_q: torch.Tensor, u_q: torch.Tensor, u_scale: torch
     tq = torch.clamp(torch.round(t / ts), -127, 127).to(torch.int8)
     y = int8_matmul_ref(tq, v_q).float()
     return y * ts * v_scale.float()
+
+
+def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                            causal: bool = True, q_scale: float = 1.0) -> torch.Tensor:
+    """K8's plain version: q (B, Sq, H, D), k (B, Sk, KV, D), v (B, Sk, KV,
+    Dv) -> (B, Sq, H, Dv) in q's dtype; q head h reads kv head h // (H / KV).
+
+    The TPU kernel's arithmetic in its order (flash_attention.py:37-76),
+    with every kv block at once: q times ``q_scale`` rounded to q's dtype
+    (``_flash_path``'s undo of the projection's pre-scale, attention.py:193;
+    skipped at 1.0), logits (q k^T) in float32 times D**-0.5, -1e30 where
+    key > query (positions counted from 0 for both) under ``causal``,
+    m = row max, p = exp(s - m) in float32, l = sum p, acc = p cast to v's
+    dtype times v summed in float32, out = acc / max(l, 1e-30)."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    if h % kvh:
+        raise ValueError(f"flash_attention: {h} q heads are not a multiple of {kvh} kv heads")
+    g = h // kvh
+    if q_scale != 1.0:
+        q = q * torch.tensor(q_scale, dtype=q.dtype, device=q.device)
+    qg = q.reshape(b, sq, kvh, g, d)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qg.float(), k.float())
+    s = s * torch.tensor(d ** -0.5, dtype=torch.float32, device=q.device)
+    if causal:
+        qpos = torch.arange(sq, device=q.device)
+        kpos = torch.arange(sk, device=q.device)
+        s = s.masked_fill(qpos[:, None] < kpos[None, :], -1e30)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgqt,btkd->bqkgd", p.to(v.dtype).float(), v.float())
+    l = l.permute(0, 3, 1, 2)[..., None]  # (b, q, kv, g, 1)
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)

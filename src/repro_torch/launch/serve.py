@@ -29,7 +29,7 @@ from repro_torch.configs.base import DistConfig, LRDConfig, RunConfig, ShapeConf
 from repro_torch.launch import steps as steps_mod
 from repro_torch.serving import ServeConfig, ServeEngine
 
-__all__ = ["poisson_trace", "main"]
+__all__ = ["poisson_trace", "serve_run", "main"]
 
 
 def poisson_trace(n: int, rate: float, prompt_len: int, vocab: int, seed: int = 0):
@@ -92,6 +92,17 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
+def serve_run(cfg, *, max_len: int, slots: int, lrd: bool, device: torch.device,
+              seed: int) -> RunConfig:
+    """The run the CLI serves ``cfg`` with: ``slots`` rows of ``max_len``
+    positions, LRD at Eq.-5 ranks under ``lrd`` (its kernels on where the
+    device is CUDA), the given parameter seed."""
+    return RunConfig(model=cfg, shape=ShapeConfig("serve", max_len, slots, "decode"),
+                     lrd=LRDConfig(enabled=lrd, min_dim=16, rank_quantize=False,
+                                   use_pallas_kernel=lrd and device.type == "cuda"),
+                     dist=DistConfig(fsdp=False, remat="none"), seed=seed)
+
+
 def main(argv=None):
     """Run the CLI; returns ``(engine, results)``."""
     ap = _parser()
@@ -110,10 +121,8 @@ def main(argv=None):
         config = ServeConfig.from_args(args, max_len=max_len)
     except ValueError as e:
         ap.error(str(e))
-    run = RunConfig(model=cfg, shape=ShapeConfig("serve", max_len, args.slots, "decode"),
-                    lrd=LRDConfig(enabled=args.lrd, min_dim=16, rank_quantize=False,
-                                  use_pallas_kernel=args.lrd and device.type == "cuda"),
-                    dist=DistConfig(fsdp=False, remat="none"), seed=args.seed)
+    run = serve_run(cfg, max_len=max_len, slots=args.slots, lrd=args.lrd, device=device,
+                    seed=args.seed)
     params, plan = steps_mod.init_params(run, device)
     if plan.layers:
         print(plan.summary())

@@ -4,7 +4,10 @@
 All projections route through ``common.linear`` and are therefore
 LRD-aware.  q is pre-scaled by ``hd**-0.5`` in the projection, masks use
 -1e30, the softmax runs in float32 and the probabilities are cast to v's
-dtype before the PV product, as in the JAX code.
+dtype before the PV product, as in the JAX code.  ``attention_impl="flash"``
+runs prefill attention through the flash-attention kernel (K8,
+``ops.flash_attention_apply``); decode always reads the paged cache
+through :func:`dense_attention`.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models.common import Params, apply_rope, linear, rmsnorm, rmsnorm_init
 
 # --------------------------------------------------------------------------
@@ -99,14 +103,23 @@ def blockwise_attention(q, k, v, *, causal: bool, block_q: int,
 
 def attention_core(q, k, v, cfg: ModelConfig, *, causal: bool) -> torch.Tensor:
     if cfg.attention_impl == "flash":
-        raise NotImplementedError(
-            "attention_impl='flash' needs the flash-attention kernel (K8), "
-            "not ported yet (ROADMAP queue 2, K8)")
+        return _flash_path(q, k, v, causal=causal)
     if cfg.attention_impl == "dense" or q.shape[1] <= cfg.attention_block_q:
         return dense_attention(q, k, v, causal=causal)
     return blockwise_attention(q, k, v, causal=causal,
                                block_q=cfg.attention_block_q,
                                block_kv=cfg.attention_block_kv)
+
+
+def _flash_path(q, k, v, *, causal: bool) -> torch.Tensor:
+    """Flash attention (opt-in, ``attention_impl="flash"``): K8 on CUDA
+    tensors, its plain version on CPU ones.  GQA and the (B, S, H, D)
+    layout are handled in the kernel.  q comes pre-scaled by D**-0.5 from
+    the projection and the kernel applies its own scale, so q is first
+    multiplied by sqrt(D) in its own dtype, where the JAX wrapper does
+    (repro/models/attention.py:193).  No shape fallback: K8 takes every
+    length."""
+    return ops.flash_attention_apply(q, k, v, causal=causal, q_scale=q.shape[-1] ** 0.5)
 
 
 # --------------------------------------------------------------------------
