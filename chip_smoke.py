@@ -10,7 +10,9 @@ Phases, in order; any failure exits nonzero:
 3. kernels  — each kernel at every shape the serve, flash serve and
               train paths launch it at, against its plain version
               (``kernels/ref.py``) on the same inputs, timed with CUDA
-              events beside its plain version and one library call;
+              events beside its plain version and one library call; K1/K5
+              rows also print their TFLOP/s and share of the bound (K1 and
+              K5 run their large-M design from ``LARGE_M`` rows);
 4. serve    — ``repro_torch.launch.serve.main`` on full-width smollm-360m
               with LRD (16 requests through 8 slots), with the kernels'
               launch counters zeroed before and read after;
@@ -28,7 +30,7 @@ Phases, in order; any failure exits nonzero:
               0 and 1 through the kernels against the same step through the
               plain versions;
 9. train profile — wall time, device time and idle share of one train
-              step per phase, with tokens/s;
+              step per phase, with tokens/s and K1/K5 device ms;
 10. export serve — the serve CLI with ``--export analytic --export-int8``
               and then ``--export measured --export-int8`` (the rank-quantized
               int8 artifact): the export report (ranks per geometry, merged
@@ -42,7 +44,7 @@ Phases, in order; any failure exits nonzero:
 12. int8 profile — a decode step of each int8 export, as in phase 6;
 13. Algorithm-1 train — the training CLI without ``--no-rank-opt`` (ranks
               239/80/256/256), launches counted per step, and a train step
-              profiled at phases -1 and 1 as in phase 9;
+              profiled at phases -1 and 1 as in phase 9 (with K1/K5 ms);
 14. int8 kernels — K6 and K7 at every shape phases 10 launched them at
               (bitwise / 1e-6 against their plain versions), timed as in
               phase 3 beside one library call;
@@ -58,14 +60,22 @@ Phases, in order; any failure exits nonzero:
               greedy tokens through K8, through K8's plain version on the
               card and blockwise, each pair's logits held together while
               its histories agree;
-17. flash prefill profile — wall time, device time by kernel (K8's share)
-              and idle share of one 2016-token prefill, flash and blockwise;
+17. flash prefill profile — wall time, device time by kernel (K8's share,
+              K1 and K5 ms) and idle share of one 2016-token prefill, flash
+              and blockwise;
 18. flash kernels — K8 at every shape phase 15 launched it at, and at
               ragged, non-causal, batched and head-dim-128 shapes, against
               its plain version, timed as in phase 3 beside
-              ``F.scaled_dot_product_attention``.
+              ``F.scaled_dot_product_attention``;
+19. designs — both K1/K5 designs (decode and large-M) at M in
+              DESIGN_SWEEP_M and on both sides of each wrapper's LARGE_M,
+              for every train-path geometry, against the plain version and
+              timed: where the threshold comes from.  Reported beside the
+              flash extras, not in the kernels line (no main path launches
+              these shapes).
 
-Phase 3 also holds K1-K5 at the Algorithm-1 training shapes.  The last line of standard output is ``{"ok": true, "device": {...}}``; the
+Phase 3 also holds K1-K5 at the Algorithm-1 training shapes; ``--only
+kernels`` runs phases 1-3, the K6-K8 checks and phase 19.  The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is ``nvidia-smi``'s name and power limit, and the
 ``{"kernels": [...]}`` line comes before that.
 """
@@ -252,6 +262,10 @@ PROJ = {"wq/wo": (960, 240, 960), "wk/wv": (960, 120, 320), "gate/up": (960, 349
 PROJ_ALG1 = {"wq/wo": (960, 239, 960), "wk/wv": (960, 80, 320), "gate/up": (960, 256, 2560),
              "down": (2560, 256, 960)}
 BWD = ("lowrank_matmul_dx", "lowrank_matmul_du", "lowrank_matmul_dv")
+LOWRANK_FWD = ("lowrank_matmul", "lowrank_gated_ffn")
+# the M at which both K1/K5 designs are timed, to place LARGE_M; the
+# threshold's two sides are added from the wrappers' constants
+DESIGN_SWEEP_M = (128, 256, 512, 2016)
 
 
 def kernel_shapes():
@@ -402,12 +416,16 @@ def check_and_time(name, d, case, iters, flush, peak):
     row = dict(name=name, shape=d, max_abs_err=err, rel_err=rel, rel_err_of_max=rel_all,
                rtol=rtol, ms=ms,
                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations")
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               tflops=case["ops"] / ms * 1e-9)
+    row["bound_share"] = row["bound_ms"] / ms
     log(f"[kernels] {name} {d}: err {err:.3e} (rel {rel:.2e}"
         + (f" by row, {rel_all:.2e} of max |plain|" if "err" in case else "") + "), kernel "
         f"{ms * 1e3:.1f}us, plain {plain_ms * 1e3:.1f}us, library "
         + (f"{lib_ms * 1e3:.1f}us" if lib_ms is not None else "n/a")
-        + f", bound {row['bound_ms'] * 1e3:.2f}us ({row['bound_by']})")
+        + f", bound {row['bound_ms'] * 1e3:.2f}us ({row['bound_by']})"
+        + (f"; {row['tflops']:.1f} TFLOP/s, {row['bound_share']:.1%} of the bound"
+           if name in LOWRANK_FWD else ""))
     return row
 
 
@@ -425,6 +443,69 @@ def phase_kernels(iters: int = 50):
         rows.append(check_and_time(name, d, case, iters, flush, BF16_FLOPS_PER_S))
     zero_counts()  # launches made to compare and time are not the main path's
     return rows
+
+
+def phase_designs(iters: int = 30):
+    """Both K1/K5 designs (decode and large-M, through the wrappers'
+    ``_launch``) against the plain version and timed, at DESIGN_SWEEP_M and
+    on both sides of each wrapper's LARGE_M, for every K1 geometry of the
+    train paths and K5 at both rank sets.  Reported beside ``flash_extra``,
+    not in the kernels line: no main path launches these shapes."""
+    from repro_torch.kernels import lowrank_ffn as k5m
+    from repro_torch.kernels import lowrank_matmul as k1m
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    flush = _flush_buffer()
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    geoms = sorted(set(PROJ.values()) | set(PROJ_ALG1.values()))
+    out = []
+    for name, lm, cases in (("lowrank_matmul", k1m.LARGE_M, geoms),
+                            ("lowrank_gated_ffn", k5m.LARGE_M,
+                             sorted({PROJ["gate/up"], PROJ_ALG1["gate/up"]}))):
+        for m in sorted(set(DESIGN_SWEEP_M) | {lm - 1, lm}):
+            for c, r, s_ in cases:
+                x = rnd(m, c)
+                if name == "lowrank_matmul":
+                    u, v = rnd(c, r, scale=c ** -0.5), rnd(r, s_, scale=r ** -0.5)
+                    args, mod, plain = (x, u, v), k1m, ref.lowrank_matmul_ref
+                else:
+                    args = (x, rnd(c, r, scale=c ** -0.5), rnd(r, s_, scale=r ** -0.5),
+                            rnd(c, r, scale=c ** -0.5), rnd(r, s_, scale=r ** -0.5))
+                    mod, plain = k5m, ref.lowrank_gated_ffn_ref
+                want = plain(*args)
+                row = dict(name=name, M=m, C=c, r=r, S=s_, large_m=lm)
+                for design in ("decode", "large"):
+                    fn = (lambda large=design == "large": mod._launch(*args, large=large))
+                    got = fn()
+                    torch.cuda.synchronize()
+                    err, rel = rel_err(got, want)
+                    if not math.isfinite(err) or rel > KERNEL_RTOL[name]:
+                        raise AssertionError(f"designs: {name} {design} at M {m}, ({c}, {r}, "
+                                             f"{s_}): relative error {rel:.3e} > "
+                                             f"{KERNEL_RTOL[name]}")
+                    row[design] = dict(max_abs_err=err, rel_err=rel,
+                                       ms=cuda_time_ms(fn, iters, flush))
+                log(f"[designs] {name} M {m} ({c}, {r}, {s_}): decode "
+                    f"{row['decode']['ms'] * 1e3:.1f}us (rel {row['decode']['rel_err']:.1e}), "
+                    f"large {row['large']['ms'] * 1e3:.1f}us (rel "
+                    f"{row['large']['rel_err']:.1e}); the wrapper takes "
+                    f"{'large' if m >= lm else 'decode'} (LARGE_M {lm})")
+                out.append(row)
+    zero_counts()
+    return out
+
+
+def lowrank_device_ms(by_name):
+    """(K1 ms, K5 ms) of a profile's device time by kernel name, both designs."""
+    k1 = sum(ms for n, ms in by_name.items()
+             if "lowrank_matmul_kernel" in n or "lowrank_matmul_large_kernel" in n)
+    k5 = sum(ms for n, ms in by_name.items()
+             if "lowrank_ffn_kernel" in n or "lowrank_ffn_large_kernel" in n)
+    return k1, k5
 
 
 def phase_int8_kernels(shapes, iters: int = 50):
@@ -726,14 +807,17 @@ def phase_train_profile(params, steps_n: int = 2, run=None, phases=(-1, 0, 1),
         by_name = device_ms_by_kernel(prof, steps_n)
         device_ms = sum(by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        k1_ms, k5_ms = lowrank_device_ms(by_name)
         out[phase] = dict(wall_ms=wall_ms, tok_per_s=TRAIN_M / wall_ms * 1e3,
                           device_ms=device_ms if device_ms else None,
                           idle_share=(1 - device_ms / wall_ms) if device_ms else None,
+                          k1_ms=k1_ms, k5_ms=k5_ms,
                           top=[dict(name=k[:80], ms=v) for k, v in top])
         shown = ", ".join(f"{k[:40]} {v:.2f}ms" for k, v in top[:6])
         log(f"[{label}] phase {phase} step ({TRAIN_M} tokens, 32 layers): wall "
             f"{wall_ms:.1f} ms ({TRAIN_M / wall_ms * 1e3:.0f} tok/s), device "
-            + (f"{device_ms:.1f} ms, idle {out[phase]['idle_share']:.1%}; top: {shown}"
+            + (f"{device_ms:.1f} ms, idle {out[phase]['idle_share']:.1%}; K1 {k1_ms:.2f} ms, "
+               f"K5 {k5_ms:.2f} ms; top: {shown}"
                if device_ms else "time not measured (profiler saw no device events)"))
         del state
     return out
@@ -1194,16 +1278,19 @@ def phase_prefill_profile(engine, steps_n: int = 3):
         by_name = device_ms_by_kernel(prof, steps_n)
         device_ms = sum(by_name.values())
         k8_ms = sum(ms for name, ms in by_name.items() if "flash_kernel" in name)
+        k1_ms, k5_ms = lowrank_device_ms(by_name)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         out[impl] = dict(wall_ms=wall_ms, device_ms=device_ms if device_ms else None,
                          idle_share=(1 - device_ms / wall_ms) if device_ms else None,
                          k8_ms=k8_ms, k8_share=k8_ms / device_ms if device_ms else None,
+                         k1_ms=k1_ms, k5_ms=k5_ms,
                          top=[dict(name=k[:80], ms=v) for k, v in top])
         shown = ", ".join(f"{k[:40]} {v:.2f}ms" for k, v in top[:6])
         log(f"[prefill profile] {impl}, {FLASH_PROMPT} tokens, {engine.run.model.num_layers} "
             f"layers: wall {wall_ms:.2f} ms, "
             + (f"device {device_ms:.2f} ms, idle {out[impl]['idle_share']:.1%}, K8 "
-               f"{k8_ms:.2f} ms ({out[impl]['k8_share']:.1%} of device); top: {shown}"
+               f"{k8_ms:.2f} ms ({out[impl]['k8_share']:.1%} of device), K1 {k1_ms:.2f} ms, "
+               f"K5 {k5_ms:.2f} ms; top: {shown}"
                if device_ms else "device time not measured (profiler saw no device events)"))
     return out
 
@@ -1267,6 +1354,7 @@ def main(argv=None) -> int:
         # checked, not in the kernels line: no main path launches them
         result["flash_extra"] = phase_flash_kernels([d for d in FLASH_EXTRA
                                                      if d not in launched])
+        result["designs"] = phase_designs()
         for path, by in paths.items():
             check_launched_shapes(path, rows, by)
         for row in rows:
@@ -1281,6 +1369,7 @@ def main(argv=None) -> int:
     else:
         rows += phase_int8_kernels(INT8_DEFAULT_SHAPES)
         rows += phase_flash_kernels([FLASH_SERVE_SHAPE] + FLASH_EXTRA)
+        result["designs"] = phase_designs()
         for row in rows:
             row["launches"] = 0
     bwd_cu = "src/repro_torch/kernels/csrc/lowrank_bwd.cu"

@@ -24,6 +24,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("lowrank_matmul", "lowrank_ffn", "lowrank_bwd", "int8_matmul", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# after the source: dlopen, through which the large-M K1/K5 reach the
+# cuTensorMapEncodeTiled in libcuda (which no library links)
+LIBS = ("-ldl",)
 _TIMEOUT_S = 900
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -47,7 +50,7 @@ def _nvcc() -> str:
 
 def build_dir() -> Path:
     """The directory this checkout's sources and flags build into."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LIBS).encode())
     for p in sorted(CSRC.iterdir()):
         if p.suffix in (".cu", ".cuh"):
             h.update(p.name.encode())
@@ -72,7 +75,7 @@ def build_all() -> Dict[str, Path]:
     for name in todo:
         tmp = out / f"lib{name}.so.tmp{os.getpid()}"
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+               str(CSRC / f"{name}.cu"), *LIBS]
         procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT, text=True))
     failed = []

@@ -5,19 +5,25 @@
 // Replaces the TPU kernel repro/kernels/lowrank_ffn.py::lowrank_gated_ffn
 // (Pallas `_kernel`): grid (M/bm, F/bn, C/bk) with two (bm, r) float32 rank
 // accumulators in VMEM, two second products and the gated product per
-// output tile, so HBM sees x once and the gated activation once.
+// output tile, so HBM sees x once and the gated activation once.  Two
+// designs, chosen by the wrapper by M alone (kernels/lowrank_ffn.py,
+// LARGE_M):
 //
-// What bounds it on the H100: the bytes of the four factors.  At decode
-// (M = 8) that is 2 (960*349 + 349*2560) * 2 B = 4.9 MB, about 1.5 us at
-// 3.35 TB/s; a 128-token prefill is still below the bf16 ridge.  As in K1,
-// what bounds the design is the latency of each CTA's walk over C.  The
-// design is K1's (common.cuh): one CTA per (16-row, 64-column) tile of the
-// output, 40 CTAs at F = 2560 in clusters of 8 that share both rank
-// products (gate, then up, through the same U ring), each CTA keeping both
-// intermediates in shared memory as bf16.  Per output tile it runs the two
-// second products into two float32 accumulators and applies silu(g) * u in
-// float32 before the store, so neither (M, F) branch reaches HBM.  bf16
-// only, as K1.
+// The decode design (M < LARGE_M).  What bounds it on the H100: the bytes
+// of the four factors.  At decode (M = 8) that is 2 (960*349 + 349*2560) *
+// 2 B = 4.9 MB, about 1.5 us at 3.35 TB/s.  As in K1, what bounds the
+// design is the latency of each CTA's walk over C.  The design is K1's
+// (common.cuh): one CTA per (16-row, 64-column) tile of the output, 40 CTAs
+// at F = 2560 in clusters of 8 that share both rank products (gate, then
+// up, through the same U ring), each CTA keeping both intermediates in
+// shared memory as bf16.  Per output tile it runs the two second products
+// into two float32 accumulators and applies silu(g) * u in float32 before
+// the store, so neither (M, F) branch reaches HBM.
+//
+// The large-M design (M >= LARGE_M), bound by operations (2 x K1's):
+// K1's large design with both branches (second half of common.cuh).
+//
+// bf16 only, as K1.
 
 #include "common.cuh"
 
@@ -109,6 +115,23 @@ lowrank_ffn_kernel(const bf16* __restrict__ x,
   }
 }
 
+// The large-M design (common.cuh, second half), K1's with both branches:
+// groups of 4 CTAs own 64 rows, so both t (2 x 64 x 512 bf16 at most) fit
+// beside the ring; CTA q computes columns [q N, (q+1) N) of the gate's t,
+// then of the up branch's, then 128-column output tiles q, q + 4, ... with
+// a float32 accumulator per branch and silu(g) * u in the epilogue.
+__global__ void __launch_bounds__(kLThreads, 1)
+lowrank_ffn_large_kernel(const LargeArgs a, const __grid_constant__ CUtensorMap xmap,
+                         const __grid_constant__ CUtensorMap vmap0,
+                         const __grid_constant__ CUtensorMap vmap1,
+                         const __grid_constant__ CUtensorMap tmap0,
+                         const __grid_constant__ CUtensorMap tmap1,
+                         const __grid_constant__ CUtensorMap umap0,
+                         const __grid_constant__ CUtensorMap umap1,
+                         const __grid_constant__ CUtensorMap ymap) {
+  large_body<2, true>(a, &xmap, &vmap0, &vmap1, &tmap0, &tmap1, &umap0, &umap1, &ymap);
+}
+
 }  // namespace repro
 
 extern "C" {
@@ -134,6 +157,32 @@ int repro_lowrank_ffn(const void* x, const void* gu, const void* gv,
       (const bf16*)x, (const bf16*)gu, (const bf16*)gv, (const bf16*)uu,
       (const bf16*)uv, (bf16*)y, M, C, rg, ru, F);
   return (int)cudaGetLastError();
+}
+
+// Bytes of global scratch repro_lowrank_ffn_large needs at (M, C, rg, ru).
+long long repro_lowrank_ffn_large_scratch(int M, int C, int rg, int ru) {
+  const int rr[2] = {rg, ru};
+  return (long long)repro::large_scratch(M, C, rr, 2).total;
+}
+
+// The same function through the large-M design; `scratch` holds
+// repro_lowrank_ffn_large_scratch(M, C, rg, ru) bytes, 16-byte aligned.
+int repro_lowrank_ffn_large(const void* x, const void* gu, const void* gv,
+                            const void* uu, const void* uv, void* y, void* scratch,
+                            int M, int C, int rg, int ru, int F, void* stream) {
+  using namespace repro;
+  if (M <= 0 || F <= 0) return 0;
+  if (C <= 0 || rg <= 0 || ru <= 0 || rg > kRMax || ru > kRMax)
+    return (int)cudaErrorInvalidValue;
+  LargeArgs a{};
+  a.x = (const bf16*)x;
+  a.u[0] = (const bf16*)gu, a.u[1] = (const bf16*)uu;
+  a.v[0] = (const bf16*)gv, a.v[1] = (const bf16*)uv;
+  a.y = (bf16*)y;
+  a.M = M, a.C = C, a.S = F, a.r[0] = rg, a.r[1] = ru;
+  static size_t reserved = 0;
+  return (int)launch_large<2>(lowrank_ffn_large_kernel, a, scratch, (cudaStream_t)stream,
+                              &reserved);
 }
 
 const char* repro_lowrank_ffn_error(int code) {

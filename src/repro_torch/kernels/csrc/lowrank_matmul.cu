@@ -3,25 +3,29 @@
 // Replaces the TPU kernel repro/kernels/lowrank_matmul.py::lowrank_matmul
 // (Pallas `_kernel` / `_kernel_db`): grid (M/bm, S/bn, C/bk) with a (bm, r)
 // float32 accumulator in VMEM that is rounded to x's dtype and multiplied
-// by V on the last C step.
+// by V on the last C step.  Two designs, chosen by the wrapper by M alone
+// (kernels/lowrank_matmul.py, LARGE_M):
 //
-// What bounds it on the H100: at the serving shapes (M = 8 decode slots or
-// a 128-token prefill, C and S <= 2560, r <= 349) the work is far below the
-// card's ~295 FLOP/byte ridge, so the floor is the bytes of U and V read
-// from HBM (0.1-1 us).  What bounds this design is latency: a CTA walks its
-// share of C chunk by chunk, and each chunk costs about one round trip to
-// L2.  Design (a) of the port notes, refined: one CTA per (16-row,
-// 64-column) output tile like the Pallas grid, but the 8 CTAs of a
-// thread-block cluster share one rank product — each walks 1/8 of C and
+// The decode design (M < LARGE_M).  What bounds it on the H100: at the
+// serving shapes (M = 8 decode slots or a 128-token prefill, C and S <=
+// 2560, r <= 349) the work is far below the card's ~295 FLOP/byte ridge,
+// so the floor is the bytes of U and V read from HBM (0.1-1 us).  What
+// bounds this design is latency: a CTA walks its share of C chunk by
+// chunk, and each chunk costs about one round trip to L2.  One CTA per
+// (16-row, 64-column) output tile like the Pallas grid, but the 8 CTAs of
+// a thread-block cluster share one rank product — each walks 1/8 of C and
 // the float32 partials are reduced through distributed shared memory — so
 // U is read once per cluster, spread over 8 SMs, and each CTA's walk is 8
 // times shorter.  At decode that is 16 CTAs for S = 960 (15 column blocks
-// padded to two clusters).  Design (b) (one CTA per row block looping over
-// S) would run one CTA on one SM at decode.  Next steps: TMA + wgmma
-// pipelines, and a deeper ring.  bf16 only: the tensor-core products have
-// no float32 path, and float32 would need a second one.
+// padded to two clusters).
 //
-// See common.cuh for the tiling and the edge handling.
+// The large-M design (M >= LARGE_M: train steps, long prefills), bound by
+// operations: groups of 4 CTAs compute each 64-row block's t once with
+// wgmma fed by TMA and share it through L2, one wave of CTAs; see the
+// second half of common.cuh.
+//
+// bf16 only: the tensor-core products have no float32 path, and float32
+// would need a second one.
 
 #include "common.cuh"
 
@@ -92,6 +96,21 @@ lowrank_matmul_kernel(const bf16* __restrict__ x, const bf16* __restrict__ u,
   }
 }
 
+// The large-M design (common.cuh, second half): groups of 4 CTAs own 64
+// rows; CTA q computes t's columns [q N, (q+1) N) once (N = round_up(r,
+// 128) / 4 <= 128), then 128-column output tiles q, q + 4, ...
+__global__ void __launch_bounds__(kLThreads, 1)
+lowrank_matmul_large_kernel(const LargeArgs a, const __grid_constant__ CUtensorMap xmap,
+                            const __grid_constant__ CUtensorMap vmap0,
+                            const __grid_constant__ CUtensorMap vmap1,
+                            const __grid_constant__ CUtensorMap tmap0,
+                            const __grid_constant__ CUtensorMap tmap1,
+                            const __grid_constant__ CUtensorMap umap0,
+                            const __grid_constant__ CUtensorMap umap1,
+                            const __grid_constant__ CUtensorMap ymap) {
+  large_body<1, false>(a, &xmap, &vmap0, &vmap1, &tmap0, &tmap1, &umap0, &umap1, &ymap);
+}
+
 }  // namespace repro
 
 extern "C" {
@@ -113,6 +132,30 @@ int repro_lowrank_matmul(const void* x, const void* u, const void* v, void* y,
   lowrank_matmul_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const bf16*)x, (const bf16*)u, (const bf16*)v, (bf16*)y, M, C, r, S);
   return (int)cudaGetLastError();
+}
+
+// Bytes of global scratch repro_lowrank_matmul_large needs at (M, C, r).
+long long repro_lowrank_matmul_large_scratch(int M, int C, int r) {
+  const int rr[2] = {r, 0};
+  return (long long)repro::large_scratch(M, C, rr, 1).total;
+}
+
+// The same function through the large-M design; `scratch` holds
+// repro_lowrank_matmul_large_scratch(M, C, r) bytes, 16-byte aligned.
+int repro_lowrank_matmul_large(const void* x, const void* u, const void* v, void* y,
+                               void* scratch, int M, int C, int r, int S, void* stream) {
+  using namespace repro;
+  if (M <= 0 || S <= 0) return 0;
+  if (C <= 0 || r <= 0 || r > kRMax) return (int)cudaErrorInvalidValue;
+  LargeArgs a{};
+  a.x = (const bf16*)x;
+  a.u[0] = (const bf16*)u;
+  a.v[0] = (const bf16*)v;
+  a.y = (bf16*)y;
+  a.M = M, a.C = C, a.S = S, a.r[0] = r;
+  static size_t reserved = 0;
+  return (int)launch_large<1>(lowrank_matmul_large_kernel, a, scratch, (cudaStream_t)stream,
+                              &reserved);
 }
 
 const char* repro_lowrank_matmul_error(int code) {

@@ -1,6 +1,7 @@
 """K5: fused low-rank SwiGLU first half ``silu((x Ug) Vg) * ((x Uu) Vu)``.
 
-The CUDA C++ kernel is ``csrc/lowrank_ffn.cu``.  Same contract as
+The CUDA C++ kernel is ``csrc/lowrank_ffn.cu``, in two designs chosen by M
+alone as K1's are (:data:`LARGE_M`).  Same contract as
 :mod:`repro_torch.kernels.lowrank_matmul`: CPU tensors take the plain
 version, CUDA tensors the kernel or an error; ``lowrank_gated_ffn.launches``
 counts kernel launches and ``lowrank_gated_ffn.launches_by_shape`` counts them
@@ -18,9 +19,15 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.lowrank_matmul import (RANK_MAX, check_cuda_operands,
-                                                raise_on_error)
+                                                large_scratch, raise_on_error)
 
-__all__ = ["lowrank_gated_ffn"]
+__all__ = ["lowrank_gated_ffn", "LARGE_M"]
+
+# M from which K5 takes the large-M design, from the H100's timings of both
+# designs at M in {128, 256, 512, 2016} (chip_smoke.py's designs phase,
+# PERF.md section 5): the large-M design is ahead from 128 (66 against 90 us
+# at Eq.-5 ranks)
+LARGE_M = 128
 
 
 def lowrank_gated_ffn(x: torch.Tensor, gu: torch.Tensor, gv: torch.Tensor,
@@ -41,18 +48,35 @@ def lowrank_gated_ffn(x: torch.Tensor, gu: torch.Tensor, gv: torch.Tensor,
     if not (1 <= rg <= RANK_MAX and 1 <= ru <= RANK_MAX):
         raise ValueError(f"lowrank_gated_ffn: ranks ({rg}, {ru}) outside [1, {RANK_MAX}]")
     check_cuda_operands("lowrank_gated_ffn", (x, gu, gv, uu, uv))
+    return _launch(x, gu, gv, uu, uv, large=m >= LARGE_M)
+
+
+def _launch(x: torch.Tensor, gu: torch.Tensor, gv: torch.Tensor, uu: torch.Tensor,
+            uv: torch.Tensor, *, large: bool) -> torch.Tensor:
+    """Launch one design on checked CUDA operands (``chip_smoke.py`` times
+    both designs through it on either side of LARGE_M)."""
+    m, c = x.shape
+    rg, f = gv.shape
+    ru = uv.shape[0]
     y = torch.empty((m, f), dtype=x.dtype, device=x.device)
     if y.numel() > 2 ** 31 - 1:
         raise ValueError(f"lowrank_gated_ffn: output ({m}, {f}) exceeds int32 indexing")
     if m == 0 or f == 0:
         return y
     lib = build.load("lowrank_ffn")
-    fn = lib.repro_lowrank_ffn
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    code = fn(x.data_ptr(), gu.data_ptr(), gv.data_ptr(), uu.data_ptr(),
-              uv.data_ptr(), y.data_ptr(), m, c, rg, ru, f,
-              torch.cuda.current_stream(x.device).cuda_stream)
+    ptrs = [t.data_ptr() for t in (x, gu, gv, uu, uv, y)]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if large:
+        scratch = large_scratch(lib.repro_lowrank_ffn_large_scratch, x.device, m, c, rg, ru)
+        fn = lib.repro_lowrank_ffn_large
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        code = fn(*ptrs, scratch.data_ptr(), m, c, rg, ru, f, stream)
+    else:
+        fn = lib.repro_lowrank_ffn
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        code = fn(*ptrs, m, c, rg, ru, f, stream)
     raise_on_error("lowrank_ffn", lib, code)
     lowrank_gated_ffn.launches += 1
     lowrank_gated_ffn.launches_by_shape[(m, c, rg, ru, f)] += 1

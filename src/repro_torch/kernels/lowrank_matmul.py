@@ -2,7 +2,10 @@
 
 The CUDA C++ kernel is ``csrc/lowrank_matmul.cu`` (its source note says
 which TPU kernel it replaces, what bounds it and how the design answers
-that).  :func:`lowrank_matmul` takes CPU tensors through the plain version
+that).  It has two designs, chosen by M alone: below :data:`LARGE_M` the
+decode design (16-row tiles, an 8-CTA cluster splitting x·U over C), from
+it the large-M design (``wgmma`` fed by TMA, one rank product per 128-row
+block, one wave of clusters).  :func:`lowrank_matmul` takes CPU tensors through the plain version
 (``ref.lowrank_matmul_ref``) and CUDA tensors through the kernel, and
 raises on anything the kernel does not take; it never falls back.
 ``lowrank_matmul.launches`` counts kernel launches, and
@@ -19,9 +22,15 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-__all__ = ["lowrank_matmul", "RANK_MAX", "check_cuda_operands"]
+__all__ = ["lowrank_matmul", "RANK_MAX", "LARGE_M", "check_cuda_operands"]
 
 RANK_MAX = 512  # kRMax in csrc/common.cuh
+# M from which K1 takes the large-M design, from the H100's timings of both
+# designs at M in {128, 256, 512, 2016} (chip_smoke.py's designs phase,
+# PERF.md section 5): summed over a prefill layer's K1 calls the decode
+# design is ahead at 128 (117 against 122 us) and behind from 256 (166
+# against 124 us)
+LARGE_M = 256
 _INT32_MAX = 2 ** 31 - 1
 
 
@@ -55,6 +64,14 @@ def raise_on_error(op: str, lib: ctypes.CDLL, code: int) -> None:
         raise RuntimeError(f"{op}: kernel launch failed with CUDA error {code} ({msg})")
 
 
+def large_scratch(size_fn, device: torch.device, *dims: int) -> torch.Tensor:
+    """The large-M design's global scratch (the row blocks' t and their
+    ready flags), sized by the library's ``*_large_scratch`` function."""
+    size_fn.argtypes = [ctypes.c_int] * len(dims)
+    size_fn.restype = ctypes.c_longlong
+    return torch.empty(size_fn(*dims), dtype=torch.uint8, device=device)
+
+
 def lowrank_matmul(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """x (M, C) @ u (C, r) @ v (r, S) -> (M, S) in x's dtype."""
     if x.device.type == "cpu":
@@ -70,17 +87,33 @@ def lowrank_matmul(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.T
     if not 1 <= r <= RANK_MAX:
         raise ValueError(f"lowrank_matmul: rank {r} outside [1, {RANK_MAX}]")
     check_cuda_operands("lowrank_matmul", (x, u, v))
+    return _launch(x, u, v, large=m >= LARGE_M)
+
+
+def _launch(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *, large: bool) -> torch.Tensor:
+    """Launch one design on checked CUDA operands (``chip_smoke.py`` times
+    both designs through it on either side of LARGE_M)."""
+    m, c = x.shape
+    r, s = v.shape
     y = torch.empty((m, s), dtype=x.dtype, device=x.device)
     if y.numel() > _INT32_MAX:
         raise ValueError(f"lowrank_matmul: output ({m}, {s}) exceeds int32 indexing")
     if m == 0 or s == 0:
         return y
     lib = build.load("lowrank_matmul")
-    fn = lib.repro_lowrank_matmul
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    code = fn(x.data_ptr(), u.data_ptr(), v.data_ptr(), y.data_ptr(), m, c, r, s,
-              torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if large:
+        scratch = large_scratch(lib.repro_lowrank_matmul_large_scratch, x.device, m, c, r)
+        fn = lib.repro_lowrank_matmul_large
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        code = fn(x.data_ptr(), u.data_ptr(), v.data_ptr(), y.data_ptr(), scratch.data_ptr(),
+                  m, c, r, s, stream)
+    else:
+        fn = lib.repro_lowrank_matmul
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        code = fn(x.data_ptr(), u.data_ptr(), v.data_ptr(), y.data_ptr(), m, c, r, s, stream)
     raise_on_error("lowrank_matmul", lib, code)
     lowrank_matmul.launches += 1
     lowrank_matmul.launches_by_shape[(m, c, r, s)] += 1

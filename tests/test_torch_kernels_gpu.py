@@ -10,7 +10,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.lowrank_ffn import LARGE_M as K5_LARGE_M
 from repro_torch.kernels.lowrank_ffn import lowrank_gated_ffn
+from repro_torch.kernels.lowrank_matmul import LARGE_M as K1_LARGE_M
 from repro_torch.kernels.lowrank_matmul import lowrank_matmul
 
 torch.set_num_threads(1)
@@ -31,9 +33,19 @@ def _mats(seed, *shapes):
 # On the card: the CUDA kernels against their plain versions
 # --------------------------------------------------------------------------
 
-# the serving slice's (C, r, S) of K1 and (C, r, F) of K5, plus ragged edges
-GPU_K1 = [(960, 240, 960), (960, 120, 320), (2560, 349, 960), (70, 5, 33)]
-GPU_K5 = [(960, 349, 2560), (70, 17, 33)]
+# the serving slice's (C, r, S) of K1 and (C, r, F) of K5, plus ragged edges;
+# then the training paths' other geometries (the FFN recompute's gate/up,
+# Algorithm-1 ranks 239/80/256), the largest rank the wrappers take, and a
+# second ragged geometry
+GPU_K1 = [(960, 240, 960), (960, 120, 320), (2560, 349, 960), (70, 5, 33),
+          (960, 349, 2560), (960, 239, 960), (960, 80, 320), (960, 256, 2560),
+          (2560, 256, 960), (960, 512, 960), (70, 17, 33)]
+GPU_K5 = [(960, 349, 2560), (70, 17, 33), (960, 256, 2560), (960, 512, 2560)]
+# decode design up to LARGE_M - 1, large-M design from LARGE_M: both sides of
+# the threshold, the flash prefill's 2016, the train step's 2048 and a
+# ragged 1000
+GPU_K1_M = sorted({1, 8, 128, K1_LARGE_M - 1, K1_LARGE_M, 1000, 2016, 2048})
+GPU_K5_M = sorted({1, 8, 128, K5_LARGE_M - 1, K5_LARGE_M, 1000, 2016, 2048})
 
 
 def _need_gpu():
@@ -42,7 +54,7 @@ def _need_gpu():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", [1, 8, 128])
+@pytest.mark.parametrize("m", GPU_K1_M)
 @pytest.mark.parametrize("c,r,s", GPU_K1)
 def test_gpu_lowrank_matmul_matches_plain(m, c, r, s):
     _need_gpu()
@@ -55,7 +67,7 @@ def test_gpu_lowrank_matmul_matches_plain(m, c, r, s):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", [1, 8, 128])
+@pytest.mark.parametrize("m", GPU_K5_M)
 @pytest.mark.parametrize("c,r,f", GPU_K5)
 def test_gpu_lowrank_gated_ffn_matches_plain(m, c, r, f):
     _need_gpu()
@@ -79,10 +91,11 @@ def test_gpu_wrappers_raise_instead_of_falling_back():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", [8, 40])
+@pytest.mark.parametrize("m", [8, 40, max(K1_LARGE_M, K5_LARGE_M), 2048])
 def test_gpu_kernels_take_unaligned_operands(m):
     """Operands that do not start on a 16-byte boundary (a layer view of a
-    stacked tensor can) take the element-load path and agree all the same."""
+    stacked tensor can) take the element-load path and agree all the same,
+    in the decode design and (from LARGE_M rows) the large-M design."""
     _need_gpu()
     c, r, s = 96, 24, 80
 
