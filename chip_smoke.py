@@ -10,9 +10,11 @@ Phases, in order; any failure exits nonzero:
 3. kernels  — each kernel at every shape the serve, flash serve and
               train paths launch it at, against its plain version
               (``kernels/ref.py``) on the same inputs, timed with CUDA
-              events beside its plain version and one library call; K1/K5
+              events beside its plain version and one library call; K1-K5
               rows also print their TFLOP/s and share of the bound (K1 and
-              K5 run their large-M design from ``LARGE_M`` rows);
+              K5 run their large-M design from ``LARGE_M`` rows), and K3/K4
+              must give the same bits on a second call (their split sum
+              over M is added in a fixed order);
 4. serve    — ``repro_torch.launch.serve.main`` on full-width smollm-360m
               with LRD (16 requests through 8 slots), with the kernels'
               launch counters zeroed before and read after;
@@ -30,7 +32,8 @@ Phases, in order; any failure exits nonzero:
               0 and 1 through the kernels against the same step through the
               plain versions;
 9. train profile — wall time, device time and idle share of one train
-              step per phase, with tokens/s and K1/K5 device ms;
+              step per phase, with tokens/s and K1, K5, K2, K3 and K4
+              device ms apart;
 10. export serve — the serve CLI with ``--export analytic --export-int8``
               and then ``--export measured --export-int8`` (the rank-quantized
               int8 artifact): the export report (ranks per geometry, merged
@@ -44,7 +47,7 @@ Phases, in order; any failure exits nonzero:
 12. int8 profile — a decode step of each int8 export, as in phase 6;
 13. Algorithm-1 train — the training CLI without ``--no-rank-opt`` (ranks
               239/80/256/256), launches counted per step, and a train step
-              profiled at phases -1 and 1 as in phase 9 (with K1/K5 ms);
+              profiled at phases -1 and 1 as in phase 9;
 14. int8 kernels — K6 and K7 at every shape phases 10 launched them at
               (bitwise / 1e-6 against their plain versions), timed as in
               phase 3 beside one library call;
@@ -188,16 +191,23 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# device clock cycles the timing loop holds the card after each flush
+# (about 0.5 ms at the H100's 1.98 GHz boost clock)
+HOLD_CYCLES = 1_000_000
+
+
 def cuda_time_ms(fn, iters: int, flush: torch.Tensor) -> float:
     """Median device time of ``fn()`` over ``iters`` launches, each after
-    an L2 flush (the serving path reads every layer's factors cold).  The
-    flush also gives the host time to enqueue ``fn`` before the start
-    event, so host overhead stays out of the reading."""
+    an L2 flush (the serving path reads every layer's factors cold).  A
+    sleep kernel after the flush gives the host time to enqueue all of
+    ``fn`` before the start event is reached, however slow the host, so
+    host overhead stays out of the reading."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(HOLD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -263,6 +273,8 @@ PROJ_ALG1 = {"wq/wo": (960, 239, 960), "wk/wv": (960, 80, 320), "gate/up": (960,
              "down": (2560, 256, 960)}
 BWD = ("lowrank_matmul_dx", "lowrank_matmul_du", "lowrank_matmul_dv")
 LOWRANK_FWD = ("lowrank_matmul", "lowrank_gated_ffn")
+# kernels whose split sums must give the same bits on every call
+REPEATABLE = ("lowrank_matmul_du", "lowrank_matmul_dv")
 # the M at which both K1/K5 designs are timed, to place LARGE_M; the
 # threshold's two sides are added from the wrappers' constants
 DESIGN_SWEEP_M = (128, 256, 512, 2016)
@@ -404,6 +416,8 @@ def check_and_time(name, d, case, iters, flush, peak):
     if not math.isfinite(err) or rel > rtol or (rtol == 0 and not torch.equal(got, want)):
         raise AssertionError(f"{name} {d}: max_abs_err {err:.3e}, relative error {rel:.3e} "
                              f"> {rtol}")
+    if name in REPEATABLE and not torch.equal(case["kernel"](), got):
+        raise AssertionError(f"{name} {d}: a second call on the same inputs gave other bits")
     ms = cuda_time_ms(case["kernel"], iters, flush)
     plain_ms = cuda_time_ms(case["plain"], iters, flush)
     try:
@@ -425,7 +439,8 @@ def check_and_time(name, d, case, iters, flush, peak):
         + (f"{lib_ms * 1e3:.1f}us" if lib_ms is not None else "n/a")
         + f", bound {row['bound_ms'] * 1e3:.2f}us ({row['bound_by']})"
         + (f"; {row['tflops']:.1f} TFLOP/s, {row['bound_share']:.1%} of the bound"
-           if name in LOWRANK_FWD else ""))
+           if name in LOWRANK_FWD + BWD else "")
+        + ("; bitwise repeatable" if name in REPEATABLE else ""))
     return row
 
 
@@ -506,6 +521,14 @@ def lowrank_device_ms(by_name):
     k5 = sum(ms for n, ms in by_name.items()
              if "lowrank_ffn_kernel" in n or "lowrank_ffn_large_kernel" in n)
     return k1, k5
+
+
+def bwd_device_ms(by_name):
+    """(K2 ms, K3 ms, K4 ms) of a profile's device time by kernel name:
+    K2 runs ``bwd::gemm_kernel``, K3's launches are named ``bwd::k3_*``
+    and K4's ``bwd::k4_*`` (csrc/lowrank_bwd.cu)."""
+    return tuple(sum(ms for n, ms in by_name.items() if key in n)
+                 for key in ("bwd::gemm_kernel", "bwd::k3_", "bwd::k4_"))
 
 
 def phase_int8_kernels(shapes, iters: int = 50):
@@ -596,15 +619,21 @@ def phase_serve():
 
 def device_ms_by_kernel(prof, steps: int):
     """Device time per call by kernel name, from the profiler's device-side
-    events only (kernels, memcpy, memset; one stream, so they do not
-    overlap): the CPU ops that launched them carry the same time."""
+    events only (kernels, memcpy, memset; the CPU ops that launched them
+    carry the same time).  Each event counts only the time after the
+    events that started before it ended: a kernel launched as a
+    programmatic dependent (K3/K4's later launches) starts while the one
+    before it runs and waits, and that overlap is counted once, so the sum
+    is the time the device was busy."""
     from torch.autograd import DeviceType
 
-    by_name = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            ms = ev.time_range.elapsed_us() / steps / 1e3
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + ms
+    evs = sorted(((ev.time_range.start, ev.time_range.end, ev.name) for ev in prof.events()
+                  if ev.device_type == DeviceType.CUDA))
+    by_name, busy_until = {}, float("-inf")
+    for start, end, name in evs:
+        ms = max(0.0, end - max(start, busy_until)) / steps / 1e3
+        busy_until = max(busy_until, end)
+        by_name[name] = by_name.get(name, 0.0) + ms
     return by_name
 
 
@@ -808,16 +837,18 @@ def phase_train_profile(params, steps_n: int = 2, run=None, phases=(-1, 0, 1),
         device_ms = sum(by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         k1_ms, k5_ms = lowrank_device_ms(by_name)
+        k2_ms, k3_ms, k4_ms = bwd_device_ms(by_name)
         out[phase] = dict(wall_ms=wall_ms, tok_per_s=TRAIN_M / wall_ms * 1e3,
                           device_ms=device_ms if device_ms else None,
                           idle_share=(1 - device_ms / wall_ms) if device_ms else None,
-                          k1_ms=k1_ms, k5_ms=k5_ms,
+                          k1_ms=k1_ms, k5_ms=k5_ms, k2_ms=k2_ms, k3_ms=k3_ms, k4_ms=k4_ms,
                           top=[dict(name=k[:80], ms=v) for k, v in top])
         shown = ", ".join(f"{k[:40]} {v:.2f}ms" for k, v in top[:6])
         log(f"[{label}] phase {phase} step ({TRAIN_M} tokens, 32 layers): wall "
             f"{wall_ms:.1f} ms ({TRAIN_M / wall_ms * 1e3:.0f} tok/s), device "
             + (f"{device_ms:.1f} ms, idle {out[phase]['idle_share']:.1%}; K1 {k1_ms:.2f} ms, "
-               f"K5 {k5_ms:.2f} ms; top: {shown}"
+               f"K5 {k5_ms:.2f} ms, K2 {k2_ms:.2f} ms, K3 {k3_ms:.2f} ms, K4 {k4_ms:.2f} ms; "
+               f"top: {shown}"
                if device_ms else "time not measured (profiler saw no device events)"))
         del state
     return out

@@ -1,7 +1,9 @@
-// Shared pieces of the low-rank kernels (lowrank_matmul.cu, lowrank_ffn.cu).
-// Two designs, chosen by the wrappers by M alone (kernels/lowrank_matmul.py
-// and lowrank_ffn.py, LARGE_M): the decode design below, and the large-M
-// design in the second half of this file.
+// Shared pieces of the low-rank kernels (lowrank_matmul.cu, lowrank_ffn.cu,
+// lowrank_bwd.cu).  K1/K5 have two designs, chosen by the wrappers by M
+// alone (kernels/lowrank_matmul.py and lowrank_ffn.py, LARGE_M): the decode
+// design below, and the large-M design in the second half of this file,
+// whose Hopper primitives (mbarriers, TMA, swizzled wgmma descriptors,
+// wgmma with either operand transposed, tensor maps) K3/K4 also use.
 //
 // ==== The decode design (M below LARGE_M) ====
 //
@@ -486,6 +488,19 @@ __device__ inline unsigned long long ld_acquire_u64(const unsigned long long* p)
 __device__ inline void st_release_u64(unsigned long long* p, unsigned long long v) {
   asm volatile("st.release.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(v) : "memory");
 }
+// Programmatic dependent launch (launch_after): a grid launched as a
+// dependent may start while the grid before it runs; it waits here before
+// touching anything that grid writes, or that an earlier one may still use
+// (a no-op in a grid not launched so).  The grid before lets its
+// dependents launch once each of its CTAs has called
+// grid_dependents_may_launch (or exited).
+__device__ inline void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ inline void grid_dependents_may_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
 // barrier of the two consumer warpgroups only (256 threads, barrier 1)
 __device__ inline void consumers_sync() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }
 // barrier of one consumer warpgroup (128 threads, barrier 3 + wg)
@@ -519,69 +534,74 @@ __device__ inline void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (64 x 16, float32) += A (64 x 16, K-major) * B (16 x 16, MN-major)
+// d (64 x W, float32) += A (64 x 16) * B (16 x W), bf16 from shared memory.
+// TA / TB are wgmma's transpose flags: TA = 0 reads A K-major, 1 MN-major
+// (A stored K rows of 64 M values); TB = 0 reads B K-major (B stored N
+// rows of 16 K values), 1 MN-major (K rows of N values).  The defaults
+// (K-major A, MN-major B) are what K1/K5 use.
+template <int TA = 0, int TB = 1>
 __device__ inline void wgmma_n16(float (&d)[8], uint64_t a, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 1;\n}\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
 }
 
-// d (64 x 64, float32) += A (64 x 16, K-major) * B (16 x 64, MN-major)
+template <int TA = 0, int TB = 1>
 __device__ inline void wgmma_n64(float (&d)[32], uint64_t a, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
         "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
         "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
 }
 
-// d (64 x 32, float32) += A (64 x 16, K-major) * B (16 x 32, MN-major)
+template <int TA = 0, int TB = 1>
 __device__ inline void wgmma_n32(float (&d)[16], uint64_t a, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 1;\n}\n"
+      "%16, %17, p, 1, 1, %19, %20;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
         "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
 }
 
-// d (64 x 48, float32) += A (64 x 16, K-major) * B (16 x 48, MN-major)
+template <int TA = 0, int TB = 1>
 __device__ inline void wgmma_n48(float (&d)[24], uint64_t a, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23}, "
-      "%24, %25, p, 1, 1, 0, 1;\n}\n"
+      "%24, %25, p, 1, 1, %27, %28;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
         "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
         "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
 }
 
 // d (64 x W) += A * B for W in {16, 32, 48, 64}
-template <int W>
+template <int W, int TA = 0, int TB = 1>
 __device__ inline void wgmma_w(float (&d)[W / 2], uint64_t a, uint64_t b) {
-  if constexpr (W == 16) wgmma_n16(d, a, b);
-  else if constexpr (W == 32) wgmma_n32(d, a, b);
-  else if constexpr (W == 48) wgmma_n48(d, a, b);
-  else wgmma_n64(d, a, b);
+  if constexpr (W == 16) wgmma_n16<TA, TB>(d, a, b);
+  else if constexpr (W == 32) wgmma_n32<TA, TB>(d, a, b);
+  else if constexpr (W == 48) wgmma_n48<TA, TB>(d, a, b);
+  else wgmma_n64<TA, TB>(d, a, b);
 }
 
 // byte offset of element (row, col) in a 128-byte swizzled tile whose rows
@@ -1160,6 +1180,33 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// The current device, bound to this thread: libcuda's map encoder needs a
+// current context, which a thread that has made no runtime call yet
+// (autograd's backward thread) lacks.
+inline cudaError_t bind_device(int* dev) {
+  cudaError_t e = cudaGetDevice(dev);
+  return e == cudaSuccess ? cudaSetDevice(*dev) : e;
+}
+
+// Launch `kernel` on `stream`, as a programmatic dependent of the grid
+// launched before it when `dependent` (its CTAs may start early and must
+// call grid_dependency_wait before touching memory).
+template <typename... Params, typename... Args>
+inline cudaError_t launch_after(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem,
+                                bool dependent, cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = dependent ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
 inline bool tma_ok(const void* p, int row_elems) {
   return (reinterpret_cast<size_t>(p) & 15) == 0 && row_elems % 8 == 0;
 }
@@ -1207,12 +1254,9 @@ template <int NB, typename Kernel>
 inline cudaError_t launch_large(Kernel kernel, LargeArgs a, void* scratch, cudaStream_t stream,
                                 size_t* reserved) {
   static unsigned long long next_id = 0x5eed000000000001ull;
-  // libcuda's map encoder needs a current context, which a thread that
-  // has made no runtime call yet (autograd's backward thread) lacks
   int dev = 0;
   cudaError_t e;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess || (e = cudaSetDevice(dev)) != cudaSuccess)
-    return e;
+  if ((e = bind_device(&dev)) != cudaSuccess) return e;
   CUtensorMap xmap, vmap[2], tmap[2], umap[2], ymap;
   memset(&ymap, 0, sizeof ymap);
   memset(&xmap, 0, sizeof xmap);

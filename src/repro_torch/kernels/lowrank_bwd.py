@@ -8,12 +8,19 @@ kernel or an error, never a fallback.  Each wrapper keeps ``launches``
 (one per call that launched its kernel) and ``launches_by_shape`` keyed by
 ``(M, C, r, S)``.
 
-* :func:`lowrank_matmul_dx` — ``dx = (dy Vᵀ) Uᵀ``;
-* :func:`lowrank_matmul_du` — ``dU = xᵀ (dy Vᵀ)``;
-* :func:`lowrank_matmul_dv` — ``dV = (x U)ᵀ dy``.
+* :func:`lowrank_matmul_dx` — ``dx = (dy Vᵀ) Uᵀ`` (K2: two launches of a
+  64 x 64 ``mma.sync`` GEMM);
+* :func:`lowrank_matmul_du` — ``dU = xᵀ (dy Vᵀ)`` (K3) and
+  :func:`lowrank_matmul_dv` — ``dV = (x U)ᵀ dy`` (K4): ``wgmma`` fed by TMA,
+  the rank-r intermediate once, then the sum over M on 64 x 128 output
+  tiles, split over M by :func:`split_plan` and summed in split order by
+  a last launch (the same bits every call).
 
-The wrappers allocate the output, the bf16 scratch of the rank-r
-intermediate and, for dU and dV, the float32 partials of the sum over M.
+K2's wrapper allocates the output and the bf16 scratch of the rank-r
+intermediate; K3's and K4's allocate the output and one scratch, sized by
+the library for the operands at hand (the intermediate, the float32
+partials of the split sum, and padded copies of operands TMA cannot
+read).
 """
 
 from __future__ import annotations
@@ -30,16 +37,25 @@ from repro_torch.kernels.lowrank_matmul import (RANK_MAX, check_cuda_operands,
 
 __all__ = ["lowrank_matmul_dx", "lowrank_matmul_du", "lowrank_matmul_dv"]
 
-_TILE = 64  # output tile of csrc/lowrank_bwd.cu's GEMM (kGM = kGN)
-_MIN_ROWS_PER_SPLIT = 256
+# csrc/lowrank_bwd.cu's K3/K4 tiling: output rows (kTBM) and columns
+# (kTBN) per CTA, and rows of M per stage (kTBK: one TMA box deep)
+TILE_ROWS, TILE_COLS, BOX_M = 64, 128, 128
 
 
-def _m_splits(m: int, rows: int, cols: int, device: torch.device) -> int:
-    """Ways to split the sum over M of a (rows, cols) dU or dV: enough CTAs
-    for two per SM, each summing at least 256 rows of M."""
-    tiles = -(-rows // _TILE) * -(-cols // _TILE)
-    want = -(-2 * torch.cuda.get_device_properties(device).multi_processor_count // tiles)
-    return max(1, min(want, m // _MIN_ROWS_PER_SPLIT))
+def split_plan(m: int, rows: int, cols: int, sms: int) -> int:
+    """Ways to split the sum over M of a (rows, cols) dU or dV: as many as
+    fill one wave of ``sms`` CTAs beside the output's 64 x 128 tiles, each
+    at least one ``BOX_M``-row box deep; 1 when the tiles alone fill it."""
+    tiles = -(-rows // TILE_ROWS) * -(-cols // TILE_COLS)
+    return max(1, min(sms // tiles, -(-m // BOX_M)))
+
+
+def split_rows(m: int, splits: int) -> list:
+    """The [start, stop) rows of M each split sums, in split order, as the
+    kernel cuts them: whole boxes, ``z * boxes // splits`` onwards."""
+    boxes = -(-m // BOX_M)
+    return [(BOX_M * (z * boxes // splits), min(m, BOX_M * ((z + 1) * boxes // splits)))
+            for z in range(splits)]
 
 
 def _check(op: str, m: int, c: int, r: int, s: int, tensors) -> None:
@@ -70,6 +86,32 @@ def _launch(name: str, ptrs, ints, like: torch.Tensor) -> None:
     code = fn(*(t.data_ptr() for t in ptrs), *ints,
               torch.cuda.current_stream(like.device).cuda_stream)
     raise_on_error("lowrank_bwd", lib, code)
+
+
+def _sms(like: torch.Tensor) -> int:
+    return torch.cuda.get_device_properties(like.device).multi_processor_count
+
+
+def dudv_scratch(op: str, operands, dims, splits: int) -> torch.Tensor:
+    """The scratch of one K3 (``op`` "du") or K4 ("dv") call on these
+    operands split ``splits`` ways (the rank-r intermediate, the float32
+    partials, padded copies of operands TMA cannot read), sized by the
+    library."""
+    fn = getattr(build.load("lowrank_bwd"), f"repro_lowrank_{op}_scratch")
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong
+    size = fn(*(t.data_ptr() for t in operands), *dims, splits)
+    return torch.empty(size, dtype=torch.uint8, device=operands[0].device)
+
+
+def _launch_dudv(op: str, operands, out: torch.Tensor, dims, splits: int,
+                 scratch: Optional[torch.Tensor] = None) -> None:
+    """Launch K3 or K4 on checked operands (du: x, dy, v; dv: x, u, dy)
+    into ``out``; ``scratch`` defaults to a fresh one of
+    :func:`dudv_scratch` (a caller may hand the same one to every call)."""
+    if scratch is None:
+        scratch = dudv_scratch(op, operands, dims, splits)
+    _launch(f"repro_lowrank_{op}", (*operands, scratch, out), (*dims, splits), operands[0])
 
 
 def lowrank_matmul_dx(dy: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -113,11 +155,7 @@ def lowrank_matmul_du(x: torch.Tensor, dy: torch.Tensor, v: torch.Tensor, *,
     du = torch.empty((c, r), dtype=torch.bfloat16, device=x.device)
     if c == 0:
         return du
-    splits = _m_splits(m, c, r, x.device)
-    part = torch.empty((splits, c, r) if splits > 1 else (0,), dtype=torch.float32,
-                       device=x.device)
-    _launch("repro_lowrank_du", (x, dy, v, _scratch(m, r, x), part, du),
-            (m, c, r, s, splits), x)
+    _launch_dudv("du", (x, dy, v), du, (m, c, r, s), split_plan(m, c, r, _sms(x)))
     lowrank_matmul_du.launches += 1
     lowrank_matmul_du.launches_by_shape[(m, c, r, s)] += 1
     return du
@@ -145,11 +183,7 @@ def lowrank_matmul_dv(x: torch.Tensor, u: torch.Tensor, dy: torch.Tensor, *,
     dv = torch.empty((r, s), dtype=torch.bfloat16, device=x.device)
     if s == 0:
         return dv
-    splits = _m_splits(m, r, s, x.device)
-    part = torch.empty((splits, r, s) if splits > 1 else (0,), dtype=torch.float32,
-                       device=x.device)
-    _launch("repro_lowrank_dv", (x, u, dy, _scratch(m, r, x), part, dv),
-            (m, c, r, s, splits), x)
+    _launch_dudv("dv", (x, u, dy), dv, (m, c, r, s), split_plan(m, r, s, _sms(x)))
     lowrank_matmul_dv.launches += 1
     lowrank_matmul_dv.launches_by_shape[(m, c, r, s)] += 1
     return dv

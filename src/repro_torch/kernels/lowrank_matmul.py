@@ -4,8 +4,10 @@ The CUDA C++ kernel is ``csrc/lowrank_matmul.cu`` (its source note says
 which TPU kernel it replaces, what bounds it and how the design answers
 that).  It has two designs, chosen by M alone: below :data:`LARGE_M` the
 decode design (16-row tiles, an 8-CTA cluster splitting x·U over C), from
-it the large-M design (``wgmma`` fed by TMA, one rank product per 128-row
-block, one wave of clusters).  :func:`lowrank_matmul` takes CPU tensors through the plain version
+it the large-M design (``wgmma`` fed by TMA, one rank product per 64-row
+block shared by a group of 4 CTAs through L2, one wave of such groups in a
+cooperative launch, no clusters).  :func:`lowrank_matmul` takes CPU
+tensors through the plain version
 (``ref.lowrank_matmul_ref``) and CUDA tensors through the kernel, and
 raises on anything the kernel does not take; it never falls back.
 ``lowrank_matmul.launches`` counts kernel launches, and

@@ -123,9 +123,11 @@ def test_gpu_kernels_take_unaligned_operands(m):
 # max |kernel - plain| / max |plain|; the same rounding points as the plain
 # versions, so chip_smoke.KERNEL_RTOL's reasoning for K1 holds
 BWD_RTOL = 1e-2
-# the training slice's (C, r, S): wq/wo, wk/wv, gate/up, down; then ragged
+# the training slice's (C, r, S): wq/wo, wk/wv, gate/up, down; then ragged;
+# then the same projections at the Algorithm-1 ranks (239/80/256/256)
 GPU_BWD = [(960, 240, 960), (960, 120, 320), (960, 349, 2560), (2560, 349, 960),
-           (70, 5, 33), (33, 17, 70)]
+           (70, 5, 33), (33, 17, 70), (960, 239, 960), (960, 80, 320), (960, 256, 2560),
+           (2560, 256, 960)]
 
 
 def _bwd_case(name, m, c, r, s, mats=_mats):
@@ -141,7 +143,7 @@ def _bwd_case(name, m, c, r, s, mats=_mats):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["dx", "du", "dv"])
-@pytest.mark.parametrize("m", [1, 8, 2048])
+@pytest.mark.parametrize("m", [1, 8, 1000, 2048])
 @pytest.mark.parametrize("c,r,s", GPU_BWD)
 def test_gpu_lowrank_bwd_matches_plain(name, m, c, r, s):
     _need_gpu()
@@ -172,6 +174,49 @@ def test_gpu_lowrank_bwd_takes_unaligned_operands(name):
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     assert err <= BWD_RTOL * want.float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["du", "dv"])
+@pytest.mark.parametrize("m,c,r,s", [(2048, 960, 120, 320), (2048, 2560, 349, 960),
+                                     (2048, 960, 240, 960), (1000, 33, 17, 70)])
+def test_gpu_lowrank_dudv_is_bitwise_repeatable(name, m, c, r, s):
+    """K3/K4 split the sum over M and add the float32 partials in split
+    order, never by atomics: two calls on the same inputs give the same
+    bits (split_plan splits these sums 1 to 16 ways)."""
+    _need_gpu()
+    a, _ = _bwd_case(name, m, c, r, s)
+    b, _ = _bwd_case(name, m, c, r, s)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["du", "dv"])
+def test_gpu_lowrank_dudv_same_scratch_twice_matches_plain(name):
+    """Two calls in a row on different inputs through one scratch (what a
+    CUDA graph's replay does) both match the plain version: nothing in the
+    scratch carries over from one call to the next."""
+    _need_gpu()
+    from repro_torch.kernels import lowrank_bwd as kb
+
+    m, c, r, s = 2048, 960, 120, 320
+    rows, cols = (c, r) if name == "du" else (r, s)
+    splits = kb.split_plan(m, rows, cols, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert splits > 1  # the partials go through the scratch
+    scratch = None
+    for seed in (11, 12):
+        x, dy, u, v = _mats(seed, (m, c), (m, s), (c, r), (r, s))
+        ops = (x, dy, v) if name == "du" else (x, u, dy)
+        want = (ref.lowrank_matmul_du_ref(x, dy, v) if name == "du"
+                else ref.lowrank_matmul_dv_ref(x, u, dy))
+        if scratch is None:
+            scratch = kb.dudv_scratch(name, ops, (m, c, r, s), splits)
+        got = torch.empty((rows, cols), dtype=torch.bfloat16, device="cuda")
+        kb._launch_dudv(name, ops, got, (m, c, r, s), splits, scratch)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= BWD_RTOL * want.float().abs().max().item()
 
 
 @pytest.mark.gpu
