@@ -12,9 +12,9 @@ Phases, in order; any failure exits nonzero:
               (``kernels/ref.py``) on the same inputs, timed with CUDA
               events beside its plain version and one library call; K1-K5
               rows also print their TFLOP/s and share of the bound (K1 and
-              K5 run their large-M design from ``LARGE_M`` rows), and K3/K4
-              must give the same bits on a second call (their split sum
-              over M is added in a fixed order);
+              K5 run their large-M design from ``LARGE_M`` rows), and K2, K3
+              and K4 must give the same bits on a second call (K2 splits
+              nothing; K3/K4's split sum over M is added in a fixed order);
 4. serve    — ``repro_torch.launch.serve.main`` on full-width smollm-360m
               with LRD (16 requests through 8 slots), with the kernels'
               launch counters zeroed before and read after;
@@ -75,7 +75,7 @@ Phases, in order; any failure exits nonzero:
               for every train-path geometry, against the plain version and
               timed: where the threshold comes from.  Reported beside the
               flash extras, not in the kernels line (no main path launches
-              these shapes).
+              the other design).
 
 Phase 3 also holds K1-K5 at the Algorithm-1 training shapes; ``--only
 kernels`` runs phases 1-3, the K6-K8 checks and phase 19.  The last line of standard output is ``{"ok": true, "device": {...}}``; the
@@ -273,8 +273,9 @@ PROJ_ALG1 = {"wq/wo": (960, 239, 960), "wk/wv": (960, 80, 320), "gate/up": (960,
              "down": (2560, 256, 960)}
 BWD = ("lowrank_matmul_dx", "lowrank_matmul_du", "lowrank_matmul_dv")
 LOWRANK_FWD = ("lowrank_matmul", "lowrank_gated_ffn")
-# kernels whose split sums must give the same bits on every call
-REPEATABLE = ("lowrank_matmul_du", "lowrank_matmul_dv")
+# kernels that must give the same bits on every call (no atomics; K3/K4's
+# split sums are added in a fixed order)
+REPEATABLE = ("lowrank_matmul_dx", "lowrank_matmul_du", "lowrank_matmul_dv")
 # the M at which both K1/K5 designs are timed, to place LARGE_M; the
 # threshold's two sides are added from the wrappers' constants
 DESIGN_SWEEP_M = (128, 256, 512, 2016)
@@ -525,10 +526,10 @@ def lowrank_device_ms(by_name):
 
 def bwd_device_ms(by_name):
     """(K2 ms, K3 ms, K4 ms) of a profile's device time by kernel name:
-    K2 runs ``bwd::gemm_kernel``, K3's launches are named ``bwd::k3_*``
-    and K4's ``bwd::k4_*`` (csrc/lowrank_bwd.cu)."""
+    K2's launches are named ``bwd::k2_*``, K3's ``bwd::k3_*`` and K4's
+    ``bwd::k4_*`` (csrc/lowrank_bwd.cu)."""
     return tuple(sum(ms for n, ms in by_name.items() if key in n)
-                 for key in ("bwd::gemm_kernel", "bwd::k3_", "bwd::k4_"))
+                 for key in ("bwd::k2_", "bwd::k3_", "bwd::k4_"))
 
 
 def phase_int8_kernels(shapes, iters: int = 50):
@@ -1308,7 +1309,7 @@ def phase_prefill_profile(engine, steps_n: int = 3):
             torch.cuda.synchronize()
         by_name = device_ms_by_kernel(prof, steps_n)
         device_ms = sum(by_name.values())
-        k8_ms = sum(ms for name, ms in by_name.items() if "flash_kernel" in name)
+        k8_ms = sum(ms for name, ms in by_name.items() if "flash_wgmma_kernel" in name)
         k1_ms, k5_ms = lowrank_device_ms(by_name)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         out[impl] = dict(wall_ms=wall_ms, device_ms=device_ms if device_ms else None,

@@ -448,6 +448,17 @@ __device__ inline void tma_load_2d(void* dst, const CUtensorMap* map, int c0, in
       : "memory");
 }
 
+// 3-D TMA load of the box at (c0 inner, c1, c2 outer) into dst; completes
+// on bar
+__device__ inline void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                   uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // 2-D TMA store of the box at src to (c0 inner, c1 outer); rows and columns
 // out of the tensor are not written
 __device__ inline void tma_store_2d(const CUtensorMap* map, const void* src, int c0, int c1) {
@@ -595,6 +606,29 @@ __device__ inline void wgmma_n48(float (&d)[24], uint64_t a, uint64_t b) {
       : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
 }
 
+// d (64 x 64, float32) += A (64 x 16) * B (16 x 64), A bf16 from registers:
+// each warp's 16 rows as the m16n8k16 A fragment (a[0]: row lane / 4,
+// columns 2 (lane % 4) + {0, 1}; a[1]: row + 8; a[2], a[3]: columns + 8),
+// which is also how the float32 accumulator of a 16-column slice of an
+// earlier wgmma lies, packed to bf16 pairs.  B from shared memory, read
+// MN-major (TB = 1) or K-major (0) as in wgmma_n64.
+template <int TB = 1>
+__device__ inline void wgmma_rs_n64(float (&d)[32], const unsigned (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
+}
+
 // d (64 x W) += A * B for W in {16, 32, 48, 64}
 template <int W, int TA = 0, int TB = 1>
 __device__ inline void wgmma_w(float (&d)[W / 2], uint64_t a, uint64_t b) {
@@ -617,7 +651,7 @@ __device__ inline uint32_t sw128_off(int row, int col) {
 
 constexpr int kLThreads = 384;      // 2 consumer warpgroups + 1 producer warpgroup
 constexpr int kLSlotsMax = 8;       // ring slots, as many as shared memory holds
-constexpr int kLSmemMax = 232448;   // 227 KB, the most a block may use
+constexpr int kSmemMax = 232448;    // 227 KB, the most shared memory a block may use
 constexpr int kLBM = 64;            // rows of x per row block
 constexpr int kLG = 4;              // CTAs sharing a row block's t
 constexpr int kLTN = 128;           // output columns per phase-2 tile, 64 a warpgroup
@@ -663,7 +697,7 @@ inline LargeSmem large_layout(const int* r, int nb) {
   L.t_bytes = kLBM * large_rp(r, nb) * 2;
   L.out_off = nb * L.t_bytes;
   L.ring_off = L.out_off + 2 * kLOutBytes;
-  const int room = kLSmemMax - 1024 - L.ring_off - (2 * kLSlotsMax + 2) * 8;
+  const int room = kSmemMax - 1024 - L.ring_off - (2 * kLSlotsMax + 2) * 8;
   const int slot = large_slot(nb);
   L.slots = room / slot < kLSlotsMax ? room / slot : kLSlotsMax;
   L.bar_off = L.ring_off + L.slots * slot;

@@ -19,14 +19,6 @@
 // the bf16 tensor-core peak and the HBM rate give bounds of the same
 // order (1.6-5.1 us); neither is far below the other.
 //
-// K2 (simple first, PR 12 design): each product is one launch of a generic
-// tiled tensor-core GEMM (`gemm_kernel`: 64x64 output tile per CTA, 4 warps
-// of 32x32, mma.sync m16n8k16, K walked in 32-deep tiles through two
-// shared-memory buffers with the next tile prefetched into registers).
-// Operands are read in place, transposed or not: each names the strides of
-// its (row, k) element, and the loader copies 16-byte vectors along the
-// contiguous dimension into a k-contiguous shared-memory tile.
-//
 // K3 and K4 (the Hopper design, PR 16): both products of each run on
 // wgmma fed by TMA (`tc_gemm`), with no operand transposed element by
 // element.
@@ -65,208 +57,37 @@
 // Launches a call: pad (only then), phase 1, phase 2, and the reduction
 // (only with splits > 1), each after the first a programmatic dependent of
 // the one before, so its launch and prologue overlap that one's tail.
-// K3's kernels are named k3_*, K4's k4_*, so a profile tells them apart
-// from each other and from K2's gemm_kernel.
+//
+// K2 (the Hopper design): phase 1 is K3's, dt = bf16(dy Vᵀ) into
+// the scratch (tc_gemm, A = dy and B = V both K-major, the same narrow or
+// wide tiles).  Phase 2, dx = bf16(dt Uᵀ), is a GEMM of depth r only (2-4
+// stages of 128) with a wide output (2048 x 960 or x 2560), so a CTA a
+// 64 x 128 tile would pay a whole prologue and epilogue for 2-3 stages.
+// Instead a persistent grid of at most one wave (kernels/lowrank_bwd.py's
+// dx_plan) gives each CTA a row block of dt, loaded into shared memory by
+// TMA once, and a share of that block's 128-column tiles of dx, walked in
+// turn (dx_tiles); U's rows of each tile stream through a TMA ring of
+// 128-rank stages (A = dt and B = U both K-major: U's rows are Uᵀ's
+// columns).  A row block is 128 rows, each consumer warpgroup 64 of them,
+// both sharing every U stage (half the U traffic through L2 of 64-row
+// blocks, which measured no faster at any train shape and slower where a
+// CTA walks several tiles).  Each tile's
+// epilogue rounds once into swizzled boxes in shared memory and leaves by
+// TMA stores that drain while the next tile runs (stores straight from
+// registers, the first version, were the largest cost of phase 2).  No
+// split, so nothing to reduce: the same bits every call.  What bounds it
+// (measured on the H100, in bring-up variants): the fixed cost of two
+// launches from a cold L2, most of a call at the small shapes, then phase
+// 1's walk over S; phase 2's loads and wgmmas are a small part.
+// Each kernel's launches are named by its number (k2_*, k3_*, k4_*), so a
+// profile tells them apart.
 
 #include "common.cuh"
 
 namespace repro {
 namespace bwd {
 
-constexpr int kGM = 64;          // output rows per CTA
-constexpr int kGN = 64;          // output columns per CTA
-constexpr int kGK = 32;          // K depth per shared-memory tile
-constexpr int kGThreads = 128;   // 4 warps, 2 x 2, each 32 x 32
-constexpr int kGLd = kGK + 8;    // smem row stride (elements): conflict-free fragments
-constexpr int kVecs = kGM * kGK / 8 / kGThreads;  // 16-byte vectors per thread per tile
-static_assert(kGM == kGN, "one loader serves both operands");
-static_assert(kVecs == 2, "loader mapping assumes two vectors per thread");
-
-// One operand of a product: element (row, k) at p[row * s_row + k * s_k],
-// rows in [0, rows).  One of the two strides is 1.
-struct Operand {
-  const bf16* p;
-  int s_row, s_k, rows;
-};
-
-__host__ __device__ inline Operand operand(const void* p, int s_row, int s_k, int rows) {
-  Operand o;
-  o.p = static_cast<const bf16*>(p);
-  o.s_row = s_row;
-  o.s_k = s_k;
-  o.rows = rows;
-  return o;
-}
-
-// Vector q (0 .. 255) of a 64 x 32 tile: its first element's (row, k)
-// offsets and whether its 8 elements run along k (else along rows).
-// Along k: 4 vectors a row.  Along rows: 8 vectors a k column, so 8
-// neighbouring threads read 128 contiguous bytes either way.
-__device__ inline void vec_pos(int q, bool k_contig, int& row, int& k) {
-  if (k_contig) {
-    row = q / (kGK / 8);
-    k = (q % (kGK / 8)) * 8;
-  } else {
-    k = q / (kGM / 8);
-    row = (q % (kGM / 8)) * 8;
-  }
-}
-
-// Registers <- the 64 x 32 tile at (row0, k0) of `op`, zero past its rows
-// and past k_end.  `vec`: the operand's base is 16-byte aligned and the
-// stride across vectors is a multiple of 8, so whole in-bounds vectors are
-// single 16-byte loads.
-__device__ inline void load_tile(const Operand& op, int row0, int k0, int k_end,
-                                 bool k_contig, bool vec, uint4 (&regs)[kVecs]) {
-#pragma unroll
-  for (int i = 0; i < kVecs; ++i) {
-    int row, k;
-    vec_pos(threadIdx.x + i * kGThreads, k_contig, row, k);
-    row += row0;
-    k += k0;
-    const bool whole = k_contig ? (row < op.rows && k + 8 <= k_end)
-                                : (row + 8 <= op.rows && k < k_end);
-    if (vec && whole) {
-      regs[i] = *reinterpret_cast<const uint4*>(op.p + (size_t)row * op.s_row +
-                                                (size_t)k * op.s_k);
-      continue;
-    }
-    unsigned short e[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int rj = k_contig ? row : row + j, kj = k_contig ? k + j : k;
-      e[j] = (rj < op.rows && kj < k_end)
-                 ? __bfloat16_as_ushort(op.p[(size_t)rj * op.s_row + (size_t)kj * op.s_k])
-                 : (unsigned short)0;
-    }
-    regs[i] = make_uint4(e[0] | (unsigned)e[1] << 16, e[2] | (unsigned)e[3] << 16,
-                         e[4] | (unsigned)e[5] << 16, e[6] | (unsigned)e[7] << 16);
-  }
-}
-
-// smem tile [64][kGLd], k contiguous <- registers of load_tile.
-__device__ inline void store_tile(bf16* s, bool k_contig, const uint4 (&regs)[kVecs]) {
-#pragma unroll
-  for (int i = 0; i < kVecs; ++i) {
-    int row, k;
-    vec_pos(threadIdx.x + i * kGThreads, k_contig, row, k);
-    if (k_contig) {
-      *reinterpret_cast<uint4*>(s + row * kGLd + k) = regs[i];
-    } else {
-      const unsigned short* e = reinterpret_cast<const unsigned short*>(&regs[i]);
-      unsigned short* d = reinterpret_cast<unsigned short*>(s);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) d[(row + j) * kGLd + k] = e[j];
-    }
-  }
-}
-
-// acc[i][j] (the warp's 2 x 4 grid of 16 x 8 tiles) += As rows x Bs rows,
-// both [64][kGLd] with k contiguous (B is the mma's col-major operand).
-__device__ inline void tile_mma(const bf16* As, const bf16* Bs, float (&acc)[2][4][4],
-                                int wm, int wn, int g, int t) {
-  const unsigned* a32 = reinterpret_cast<const unsigned*>(As);
-  const unsigned* b32 = reinterpret_cast<const unsigned*>(Bs);
-#pragma unroll
-  for (int kk = 0; kk < kGK; kk += 16) {
-    unsigned a[2][4], b[4][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = wm * 32 + i * 16 + g;
-      a[i][0] = a32[(r * kGLd + kk + 2 * t) / 2];
-      a[i][1] = a32[((r + 8) * kGLd + kk + 2 * t) / 2];
-      a[i][2] = a32[(r * kGLd + kk + 2 * t + 8) / 2];
-      a[i][3] = a32[((r + 8) * kGLd + kk + 2 * t + 8) / 2];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = wn * 32 + j * 8 + g;
-      b[j][0] = b32[(n * kGLd + kk + 2 * t) / 2];
-      b[j][1] = b32[(n * kGLd + kk + 2 * t + 8) / 2];
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        mma16816(acc[i][j], a[i][0], a[i][1], a[i][2], a[i][3], b[j][0], b[j][1]);
-  }
-}
-
-// out (M, N) = A (M x K) . B (K x N), A element (m, k) and B element (n, k)
-// as their Operands say.  CTA (x, y, z) computes output tile (y, x) over K
-// range [z * k_split, (z + 1) * k_split).  With `out` set, stores bf16 at
-// out[m * o_ld + n]; otherwise stores the float32 partial into slab z of
-// `part` (z * M * N + m * N + n).
-__global__ void __launch_bounds__(kGThreads)
-gemm_kernel(Operand A, Operand B, int M, int N, int K, int k_split,
-            bf16* __restrict__ out, int o_ld, float* __restrict__ part) {
-  __shared__ __align__(16) bf16 As[2][kGM * kGLd];
-  __shared__ __align__(16) bf16 Bs[2][kGN * kGLd];
-  const int m0 = blockIdx.y * kGM, n0 = blockIdx.x * kGN;
-  const int kb = blockIdx.z * k_split, ke = min(K, kb + k_split);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 2, wn = warp % 2, g = lane / 4, t = lane % 4;
-  const bool a_kc = A.s_k == 1, b_kc = B.s_k == 1;
-  const bool a_vec = aligned16(A.p) && (a_kc ? A.s_row : A.s_k) % 8 == 0;
-  const bool b_vec = aligned16(B.p) && (b_kc ? B.s_row : B.s_k) % 8 == 0;
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
-
-  const int nk = ke > kb ? (ke - kb + kGK - 1) / kGK : 0;
-  uint4 ra[kVecs], rb[kVecs];
-  if (nk > 0) {
-    load_tile(A, m0, kb, ke, a_kc, a_vec, ra);
-    load_tile(B, n0, kb, ke, b_kc, b_vec, rb);
-    store_tile(As[0], a_kc, ra);
-    store_tile(Bs[0], b_kc, rb);
-  }
-  __syncthreads();
-  for (int kt = 0; kt < nk; ++kt) {
-    const bool more = kt + 1 < nk;
-    if (more) {  // the next tile's loads are in flight during this tile's MMAs
-      load_tile(A, m0, kb + (kt + 1) * kGK, ke, a_kc, a_vec, ra);
-      load_tile(B, n0, kb + (kt + 1) * kGK, ke, b_kc, b_vec, rb);
-    }
-    tile_mma(As[kt & 1], Bs[kt & 1], acc, wm, wn, g, t);
-    if (more) {  // the other buffer was last read before the previous barrier
-      store_tile(As[(kt + 1) & 1], a_kc, ra);
-      store_tile(Bs[(kt + 1) & 1], b_kc, rb);
-    }
-    __syncthreads();
-  }
-
-  // acc[i][j][e]: row g (+8 for e >= 2), columns 2t, 2t+1 of 16 x 8 tile (i, j)
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + wm * 32 + i * 16 + g + (e >= 2 ? 8 : 0);
-        const int n = n0 + wn * 32 + j * 8 + 2 * t + (e & 1);
-        if (m < M && n < N) {
-          if (out != nullptr)
-            out[(size_t)m * o_ld + n] = __float2bfloat16(acc[i][j][e]);
-          else
-            part[(size_t)blockIdx.z * M * N + (size_t)m * N + n] = acc[i][j][e];
-        }
-      }
-}
-
-inline int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-// One K2 product into out (row stride o_ld), one split.
-inline cudaError_t gemm(const Operand& A, const Operand& B, int M, int N, int K, bf16* out,
-                        int o_ld, cudaStream_t stream) {
-  const dim3 grid(cdiv(N, kGN), cdiv(M, kGM), 1);
-  gemm_kernel<<<grid, kGThreads, 0, stream>>>(A, B, M, N, K, round_up(K, kGK), out, o_ld,
-                                              nullptr);
-  return cudaGetLastError();
-}
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // dt or t scratch: (M, r) with a row stride of ld = round_up(r, 8).
 inline int scratch_ld(int r) { return round_up(r, 8); }
@@ -450,7 +271,8 @@ __device__ inline void pad_rows(const bf16* __restrict__ src, int rows, int cols
     dst[(i / cols) * ld + i % cols] = src[i];
 }
 
-// K3's and K4's kernels under names of their own, for profiles
+// Each kernel's tc_gemm and pad launches under names of its own, for
+// profiles (K2's phase 1 is K3's, as k2_gemm_kernel)
 #define REPRO_TC_KERNELS(op)                                                                  \
   template <bool kAMN, bool kBMN, int kBN>                                                    \
   __global__ void __launch_bounds__(kTThreads, 1)                                             \
@@ -458,17 +280,209 @@ __device__ inline void pad_rows(const bf16* __restrict__ src, int rows, int cols
                        const __grid_constant__ CUtensorMap bmap) {                            \
     tc_gemm<kAMN, kBMN, kBN>(a, &amap, &bmap);                                                \
   }                                                                                           \
-  __global__ void op##_reduce_kernel(const float* __restrict__ part, int splits, size_t mn,   \
-                                     bf16* __restrict__ out) {                                \
-    reduce_splits(part, splits, mn, out);                                                     \
-  }                                                                                           \
   __global__ void op##_pad_kernel(const bf16* __restrict__ src, int rows, int cols,           \
                                   bf16* __restrict__ dst, int ld) {                           \
     pad_rows(src, rows, cols, dst, ld);                                                       \
   }
+REPRO_TC_KERNELS(k2)
 REPRO_TC_KERNELS(k3)
 REPRO_TC_KERNELS(k4)
 #undef REPRO_TC_KERNELS
+__global__ void k3_reduce_kernel(const float* __restrict__ part, int splits, size_t mn,
+                                 bf16* __restrict__ out) {
+  reduce_splits(part, splits, mn, out);
+}
+__global__ void k4_reduce_kernel(const float* __restrict__ part, int splits, size_t mn,
+                                 bf16* __restrict__ out) {
+  reduce_splits(part, splits, mn, out);
+}
+
+// --------------------------------------------------------------------------
+// K2's phase 2: dx = dt Uᵀ, persistent over each row block's column tiles
+// --------------------------------------------------------------------------
+
+constexpr int kXBN = 128;                // output columns a tile, 64 a half
+constexpr int kXStage = 2 * 128 * 128;   // a stage: 128 rows of U x 128 ranks deep (two boxes)
+constexpr int kXSlotsMax = 4;
+
+// A row block is kXBM rows of dt: each consumer warpgroup takes 64 of them
+// and both column halves of a tile (the two share every U stage).  Shared
+// memory: [dt block: 2 boxes of kXBM rows a 128-deep stage of r][each
+// warpgroup's two 64 x 64 output boxes][ring][full | empty | dt full | dt
+// free], behind up to 1 KB of alignment slack.
+constexpr int kXBM = 128;           // rows a block
+constexpr int kXDtBox = kXBM * 128; // a kXBM x 64 bf16 box of dt
+constexpr int kXOutBox = 64 * 128;  // a 64 x 64 bf16 box of dx
+struct DxSmem {
+  int dt_bytes, out_bytes, slots;
+  size_t total;
+};
+__host__ __device__ inline DxSmem dx_smem(int r) {
+  DxSmem L;
+  L.dt_bytes = 2 * cdiv(r, 128) * kXDtBox;
+  L.out_bytes = 2 * 2 * kXOutBox;
+  const int bars = (2 * kXSlotsMax + 2) * 8;
+  const int room = (kSmemMax - 1024 - L.dt_bytes - L.out_bytes - bars) / kXStage;
+  L.slots = room < kXSlotsMax ? room : kXSlotsMax;
+  L.total = 1024 + (size_t)L.dt_bytes + L.out_bytes + (size_t)L.slots * kXStage + bars;
+  return L;
+}
+
+// CTA i of the grid walks column tiles j, j + g, ... (j = i % g) of row
+// blocks i / g, i / g + gridDim / g, ...: kernels/lowrank_bwd.py's
+// dx_tiles, which chooses g and the grid (dx_plan)
+struct DxArgs {
+  bf16* out;  // (M, C), row-major
+  int M, C, r, g;
+  int out_tma;  // dx by TMA stores (16-byte aligned rows), else straight from registers
+};
+
+__global__ void __launch_bounds__(kTThreads, 1)
+k2_dx_kernel(const DxArgs a, const __grid_constant__ CUtensorMap tmap,
+             const __grid_constant__ CUtensorMap umap, const __grid_constant__ CUtensorMap ymap) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const DxSmem L = dx_smem(a.r);
+  const int ns = L.slots;
+  unsigned char* ring = base + L.dt_bytes + L.out_bytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + ns * kXStage);
+  uint64_t* empty = full + kXSlotsMax;
+  uint64_t* dt_full = empty + kXSlotsMax;
+  uint64_t* dt_free = dt_full + 1;
+  const int nst = cdiv(a.r, 128);  // stages a tile
+  const int nrb = cdiv(a.M, kXBM), ntc = cdiv(a.C, kXBN);
+  const int j0 = blockIdx.x % a.g, rb0 = blockIdx.x / a.g, rstep = gridDim.x / a.g;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ns; ++s) {
+      mbar_init(full + s, 1);   // the producer thread arrives, with the TMA bytes
+      mbar_init(empty + s, 2);  // one thread per consumer warpgroup
+    }
+    mbar_init(dt_full, 1);
+    mbar_init(dt_free, 2);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  grid_dependents_may_launch();
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 2) {
+    // ---------------- producer: one thread issues every TMA load ----------------
+    if (threadIdx.x != 256) return;
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tmap)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&umap)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&ymap)) : "memory");
+    grid_dependency_wait();  // dt is phase 1's output
+    int i = 0, round = 0;
+    for (int rb = rb0; rb < nrb; rb += rstep, ++round) {
+      // the row block's dt, every box (zeros past M and r), once the
+      // consumers are done with the last one
+      if (round) mbar_wait(dt_free, (round - 1) & 1);
+      mbar_arrive_tx(dt_full, L.dt_bytes);
+      for (int kb = 0; kb < L.dt_bytes / kXDtBox; ++kb)
+        tma_load_2d(base + kb * kXDtBox, &tmap, 64 * kb, rb * kXBM, dt_full);
+      // U's rows of each column tile, 128 ranks a stage (zeros past C and r)
+      for (int tc = j0; tc < ntc; tc += a.g) {
+        for (int st = 0; st < nst; ++st, ++i) {
+          const int slot = i % ns;
+          mbar_wait(empty + slot, ((i / ns) & 1) ^ 1);
+          unsigned char* dst = ring + slot * kXStage;
+          mbar_arrive_tx(full + slot, kXStage);
+          tma_load_2d(dst, &umap, 128 * st, tc * kXBN, full + slot);
+          tma_load_2d(dst + kXStage / 2, &umap, 128 * st + 64, tc * kXBN, full + slot);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---------------- consumers: warpgroup wg ----------------
+  RingReader rd{full, empty, ns, kXStage, -1};
+  const int w4 = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int row0 = 64 * wg;  // this warpgroup's rows of the block
+  int i = 0, round = 0;
+  for (int rb = rb0; rb < nrb; rb += rstep, ++round) {
+    mbar_wait(dt_full, round & 1);
+    const unsigned char* at = base + row0 * 128;
+    for (int tc = j0; tc < ntc; tc += a.g) {
+      float acc[2][32];  // column half h of the tile
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) acc[h][e] = 0.0f;
+      for (int st = 0; st < nst; ++st, ++i) {
+        const unsigned char* us = rd.wait(ring, i);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) fence_regs(acc[h]);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 8; ++ks) {
+          // 16 ranks are 32 bytes along a 128-byte row of box ks / 4
+          const uint64_t ad =
+              sw128_desc(at + (2 * st + ks / 4) * kXDtBox + (ks % 4) * 32, 16, 1024);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            wgmma_n64<0, 0>(acc[h], ad,
+                            sw128_desc(us + (ks / 4) * (kXStage / 2) + h * (64 * 128) +
+                                           (ks % 4) * 32,
+                                       16, 1024));
+        }
+        wgmma_commit();
+        rd.release_now(i);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) fence_regs(acc[h]);
+      }
+      // epilogue, one rounding an element, while the producer loads the
+      // next tile's U: acc[h][4j + 2hh + e] is row 16 w4 + lane / 4 + 8 hh,
+      // column 8 j + 2 (lane % 4) + e of its 64 x 64 quarter.  With an
+      // aligned dx each quarter goes through a 128-byte swizzled box in
+      // shared memory and one TMA store (clipped at M and C), which drains
+      // during the next tile; else straight to dx, masked.
+      const int m0 = rb * kXBM + row0;
+      unsigned char* ot = base + L.dt_bytes + wg * 2 * kXOutBox;
+      if (a.out_tma) {
+        if (threadIdx.x % 128 == 0) tma_store_wait_read();  // the last tile's stores read ot
+        warpgroup_sync(wg);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 8 * j + 2 * (lane % 4);
+          const int n = tc * kXBN + 64 * h + col;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int row = 16 * w4 + lane / 4 + 8 * hh;
+            const float v0 = acc[h][4 * j + 2 * hh], v1 = acc[h][4 * j + 2 * hh + 1];
+            const unsigned pair = pack2(__float2bfloat16(v0), __float2bfloat16(v1));
+            if (a.out_tma) {
+              *reinterpret_cast<unsigned*>(ot + h * kXOutBox + sw128_off(row, col)) = pair;
+              continue;
+            }
+            const int m = m0 + row;
+            if (m >= a.M || n >= a.C) continue;
+            bf16* dst = a.out + (size_t)m * a.C + n;
+            if (n + 1 < a.C && (a.C & 1) == 0) {
+              *reinterpret_cast<unsigned*>(dst) = pair;
+            } else {
+              dst[0] = __float2bfloat16(v0);
+              if (n + 1 < a.C) dst[1] = __float2bfloat16(v1);
+            }
+          }
+        }
+      if (a.out_tma) {
+        fence_async_shared();
+        warpgroup_sync(wg);
+        if (threadIdx.x % 128 == 0)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            tma_store_2d(&ymap, ot + h * kXOutBox, tc * kXBN + 64 * h, m0);
+      }
+    }
+    if (threadIdx.x % 128 == 0) mbar_arrive(dt_free);  // the next row block's dt may land
+  }
+  // the output boxes' stores are done before shared memory goes
+  if (a.out_tma && threadIdx.x % 128 == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
 
 // A row-major bf16 operand (rows, cols) as the kernels read it: in place
 // when TMA can, else from its padded copy in the scratch.
@@ -477,7 +491,7 @@ struct Src {
   int rows, cols;
 };
 
-// Byte offsets in the scratch of one K3/K4 call: [intermediate (M x ld)
+// Byte offsets in the scratch of one K2/K3/K4 call: [intermediate (M x ld)
 // bf16 | float32 partials (splits > 1) | padded copies of the operands TMA
 // cannot read], each part 256-byte aligned.
 struct TcScratch {
@@ -509,6 +523,44 @@ inline cudaError_t tc_launch(const TcArgs& a, const CUtensorMap& amap, const CUt
   return launch_after(Kernel, grid, kTThreads, kTSmem, dependent, stream, a, amap, bmap);
 }
 
+// Tensor maps of a call's three operands (src), each read in place or
+// first copied by `Pad` into the scratch (base + sc.pad[i]) with rows
+// padded to 8 elements; box_rows[i] rows a box.  Counts the launches.
+template <auto Pad>
+inline cudaError_t operand_maps(const Src (&src)[3], const int (&box_rows)[3], unsigned char* base,
+                                const TcScratch& sc, CUtensorMap (&map)[3], int& launches,
+                                cudaStream_t stream) {
+  for (int i = 0; i < 3; ++i) {
+    const void* p = src[i].p;
+    int pitch = src[i].cols;
+    if (!tma_ok(p, pitch)) {
+      bf16* dst = reinterpret_cast<bf16*>(base + sc.pad[i]);
+      pitch = round_up(pitch, 8);
+      const size_t n = (size_t)src[i].rows * src[i].cols;
+      const int blocks = (int)((n + 255) / 256 < 2048 ? (n + 255) / 256 : 2048);
+      cudaError_t e = launch_after(Pad, blocks, 256, 0, launches++ > 0, stream,
+                                   static_cast<const bf16*>(p), src[i].rows, src[i].cols, dst,
+                                   pitch);
+      if (e != cudaSuccess) return e;
+      p = dst;
+    }
+    cudaError_t e = make_map(&map[i], p, src[i].rows, src[i].cols, box_rows[i], pitch);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+// Phase 1 of K2 and K3, dt = dy Vᵀ (M x r) into `mid`; in 64-column tiles
+// (one consumer warpgroup a CTA) where those still fit one wave: each
+// CTA's walk over K is fed at a rate per SM, so more SMs finish sooner
+template <auto Narrow, auto Wide>
+inline cudaError_t dt_phase(const CUtensorMap& dymap, const CUtensorMap& vmap, bf16* mid, int M,
+                            int r, int S, int sms, bool dep, cudaStream_t stream) {
+  TcArgs p1{M, r, S, 1, mid, scratch_ld(r), nullptr};
+  return cdiv(r, 64) * cdiv(M, kTBM) <= sms ? tc_launch<Narrow, 64>(p1, dymap, vmap, dep, stream)
+                                            : tc_launch<Wide, kTBN>(p1, dymap, vmap, dep, stream);
+}
+
 // One K3 (kDU) or K4 call.  src: K4 {x (M, C), U (C, r), dy (M, S)}, K3
 // {dy (M, S), V (r, S), x (M, C)}: phase 1's A and B, then phase 2's
 // operand beside the intermediate.
@@ -518,56 +570,38 @@ inline cudaError_t dudv(const Src (&src)[3], void* scratch, bf16* out, int M, in
   int dev = 0;
   cudaError_t e = bind_device(&dev);
   if (e != cudaSuccess) return e;
-  const int P = kDU ? C : r, Q = kDU ? r : S, K1 = kDU ? S : C, ld = scratch_ld(r);
+  const int P = kDU ? C : r, Q = kDU ? r : S;
   if (splits < 1 || splits > cdiv(M, kTBK)) return cudaErrorInvalidValue;
   const TcScratch sc = tc_scratch(src, M, r, P, Q, splits);
   unsigned char* base = static_cast<unsigned char*>(scratch);
   bf16* mid = reinterpret_cast<bf16*>(base);
   float* part = reinterpret_cast<float*>(base + sc.part);
-  // the maps' view of each operand: in place, or padded first.  Every
+  // the maps' view of each operand: in place, or padded first; MN-major
+  // (kTBK rows a box): U as K4's phase-1 B, and phase 2's operand.  Every
   // launch after the call's first is a programmatic dependent of the one
   // before it (launch_after).
   int launches = 0;
   CUtensorMap map[3], mmap;
-  for (int i = 0; i < 3; ++i) {
-    const void* p = src[i].p;
-    int pitch = src[i].cols;
-    if (!tma_ok(p, pitch)) {
-      bf16* dst = reinterpret_cast<bf16*>(base + sc.pad[i]);
-      pitch = round_up(pitch, 8);
-      const size_t n = (size_t)src[i].rows * src[i].cols;
-      const int blocks = (int)((n + 255) / 256 < 2048 ? (n + 255) / 256 : 2048);
-      e = launch_after(kDU ? k3_pad_kernel : k4_pad_kernel, blocks, 256, 0, launches++ > 0,
-                       stream, static_cast<const bf16*>(p), src[i].rows, src[i].cols, dst, pitch);
-      if (e != cudaSuccess) return e;
-      p = dst;
-    }
-    // MN-major (kTBK rows a box): U as K4's phase-1 B, and phase 2's operand
-    const bool mn = i == 2 || (i == 1 && !kDU);
-    if ((e = make_map(&map[i], p, src[i].rows, src[i].cols, mn ? kTBK : 64, pitch)) !=
-        cudaSuccess)
-      return e;
-  }
-  if ((e = make_map(&mmap, mid, M, r, kTBK, ld)) != cudaSuccess) return e;
+  const int box_rows[3] = {64, kDU ? 64 : kTBK, kTBK};
+  if ((e = operand_maps<kDU ? k3_pad_kernel : k4_pad_kernel>(src, box_rows, base, sc, map,
+                                                               launches, stream)) != cudaSuccess)
+    return e;
+  if ((e = make_map(&mmap, mid, M, r, kTBK, scratch_ld(r))) != cudaSuccess) return e;
 
-  // phase 1: the intermediate (M x r), once, into the scratch; in 64-column
-  // tiles (one consumer warpgroup a CTA) where those still fit one wave:
-  // each CTA's walk over K is fed at a rate per SM, so more SMs finish
-  // sooner
+  // phase 1: the intermediate (M x r), once, into the scratch
   int sms = 0;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return e;
-  const bool narrow = cdiv(r, 64) * cdiv(M, kTBM) <= sms;
   const bool dep = launches++ > 0;
-  TcArgs p1{M, r, K1, 1, mid, ld, nullptr};
-  if (kDU)
-    e = narrow ? tc_launch<k3_gemm_kernel<false, false, 64>, 64>(p1, map[0], map[1], dep, stream)
-               : tc_launch<k3_gemm_kernel<false, false, kTBN>, kTBN>(p1, map[0], map[1], dep,
-                                                                    stream);
-  else
-    e = narrow ? tc_launch<k4_gemm_kernel<false, true, 64>, 64>(p1, map[0], map[1], dep, stream)
-               : tc_launch<k4_gemm_kernel<false, true, kTBN>, kTBN>(p1, map[0], map[1], dep,
-                                                                   stream);
+  if (kDU) {
+    e = dt_phase<k3_gemm_kernel<false, false, 64>, k3_gemm_kernel<false, false, kTBN>>(
+        map[0], map[1], mid, M, r, S, sms, dep, stream);
+  } else {
+    TcArgs p1{M, r, C, 1, mid, scratch_ld(r), nullptr};
+    e = cdiv(r, 64) * cdiv(M, kTBM) <= sms
+            ? tc_launch<k4_gemm_kernel<false, true, 64>, 64>(p1, map[0], map[1], dep, stream)
+            : tc_launch<k4_gemm_kernel<false, true, kTBN>, kTBN>(p1, map[0], map[1], dep, stream);
+  }
   if (e != cudaSuccess) return e;
   // phase 2: the sum over M, A and B both stored with M as their row
   TcArgs p2{P, Q, M, splits, out, Q, part};
@@ -581,6 +615,52 @@ inline cudaError_t dudv(const Src (&src)[3], void* scratch, bf16* out, int M, in
                       static_cast<const float*>(part), splits, mn, out);
 }
 
+// One K2 call, src {dy (M, S), V (r, S), U (C, r)}: phase 1 dt = dy Vᵀ as
+// K3's, then phase 2 dx = dt Uᵀ (A = dt and B = U, both K-major: U's rows
+// are Uᵀ's columns) in row blocks of kXBM rows on a grid of g x groups
+// CTAs (dx_plan).
+inline cudaError_t dx(const Src (&src)[3], void* scratch, bf16* out, int M, int C, int r, int S,
+                      int g, int groups, cudaStream_t stream) {
+  int dev = 0;
+  cudaError_t e = bind_device(&dev);
+  if (e != cudaSuccess) return e;
+  if (g < 1 || groups < 1 || groups > cdiv(M, kXBM) || g > cdiv(C, kXBN))
+    return cudaErrorInvalidValue;
+  const DxSmem L = dx_smem(r);
+  if (L.slots < 2) return cudaErrorInvalidValue;
+  const TcScratch sc = tc_scratch(src, M, r, M, C, 1);
+  unsigned char* base = static_cast<unsigned char*>(scratch);
+  bf16* dt = reinterpret_cast<bf16*>(base);
+  int launches = 0;
+  CUtensorMap map[3], tmap;
+  const int box_rows[3] = {64, 64, 128};
+  if ((e = operand_maps<k2_pad_kernel>(src, box_rows, base, sc, map, launches, stream)) !=
+      cudaSuccess)
+    return e;
+  if ((e = make_map(&tmap, dt, M, r, kXBM, scratch_ld(r))) != cudaSuccess) return e;
+  int sms = 0;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return e;
+  const bool dep = launches++ > 0;
+  e = dt_phase<k2_gemm_kernel<false, false, 64>, k2_gemm_kernel<false, false, kTBN>>(
+      map[0], map[1], dt, M, r, S, sms, dep, stream);
+  if (e != cudaSuccess) return e;
+  const DxArgs a{out, M, C, r, g, tma_ok(out, C)};
+  CUtensorMap ymap;
+  memset(&ymap, 0, sizeof ymap);
+  if (a.out_tma && (e = make_map(&ymap, out, M, C, 64)) != cudaSuccess) return e;
+  static size_t reserved = 0;
+  if ((e = reserve_smem(k2_dx_kernel, L.total, &reserved)) != cudaSuccess) return e;
+  return launch_after(k2_dx_kernel, g * groups, kTThreads, L.total, true, stream, a, tmap,
+                      map[2], ymap);
+}
+
+inline void dx_srcs(Src (&s)[3], const void* dy, const void* u, const void* v, int M, int C,
+                    int r, int S) {
+  s[0] = Src{dy, M, S};
+  s[1] = Src{v, r, S};
+  s[2] = Src{u, C, r};
+}
 inline void du_srcs(Src (&s)[3], const void* x, const void* dy, const void* v, int M, int C,
                     int r, int S) {
   s[0] = Src{dy, M, S};
@@ -602,22 +682,29 @@ extern "C" {
 // All operands bf16, row-major and contiguous.  Each launches on `stream`
 // and returns the cudaError_t of its launches.
 
-// K2: dx (M, C) = bf16( bf16(dy (M, S) . v (r, S)ᵀ) . u (C, r)ᵀ ); `scratch`
-// holds M x round_up(r, 8) bf16.
+// Bytes of scratch repro_lowrank_dx needs for these operands (their
+// alignment decides which are copied).
+long long repro_lowrank_dx_scratch(const void* dy, const void* u, const void* v, int M, int C,
+                                   int r, int S) {
+  using namespace repro::bwd;
+  Src s[3];
+  dx_srcs(s, dy, u, v, M, C, r, S);
+  return (long long)tc_scratch(s, M, r, M, C, 1).total;
+}
+
+// K2: dx (M, C) = bf16( bf16(dy (M, S) . v (r, S)ᵀ) . u (C, r)ᵀ ), phase 2
+// in 128-row blocks on g x groups CTAs (kernels/lowrank_bwd.py's
+// dx_plan); `scratch` holds
+// repro_lowrank_dx_scratch bytes, 256-byte aligned.
 int repro_lowrank_dx(const void* dy, const void* u, const void* v, void* scratch, void* dx,
-                     int M, int C, int r, int S, void* stream) {
+                     int M, int C, int r, int S, int g, int groups, void* stream) {
   using namespace repro::bwd;
   if (M <= 0 || C <= 0) return 0;
   if (r <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int ld = scratch_ld(r);
-  repro::bf16* dt = static_cast<repro::bf16*>(scratch);
-  // dt (M, r): A = dy (m, k=s), B(n=j, k=s) = v[j, s]
-  cudaError_t e = gemm(operand(dy, S, 1, M), operand(v, S, 1, r), M, r, S, dt, ld, st);
-  if (e != cudaSuccess) return (int)e;
-  // dx (M, C): A = dt (m, k=j), B(n=c, k=j) = u[c, j]
-  return (int)gemm(operand(dt, ld, 1, M), operand(u, r, 1, C), M, C, r,
-                   static_cast<repro::bf16*>(dx), C, st);
+  Src s[3];
+  dx_srcs(s, dy, u, v, M, C, r, S);
+  return (int)repro::bwd::dx(s, scratch, static_cast<repro::bf16*>(dx), M, C, r, S, g, groups,
+                             (cudaStream_t)stream);
 }
 
 // Bytes of scratch repro_lowrank_du needs for these operands (their

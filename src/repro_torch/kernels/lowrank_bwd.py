@@ -6,21 +6,22 @@ answers that).  Same contract as :mod:`repro_torch.kernels.lowrank_matmul`:
 CPU tensors take the plain versions (``kernels/ref.py``), CUDA tensors the
 kernel or an error, never a fallback.  Each wrapper keeps ``launches``
 (one per call that launched its kernel) and ``launches_by_shape`` keyed by
-``(M, C, r, S)``.
+``(M, C, r, S)``.  All three run on ``wgmma`` fed by TMA and form the
+rank-r intermediate once per call (phase 1):
 
-* :func:`lowrank_matmul_dx` — ``dx = (dy Vᵀ) Uᵀ`` (K2: two launches of a
-  64 x 64 ``mma.sync`` GEMM);
+* :func:`lowrank_matmul_dx` — ``dx = (dy Vᵀ) Uᵀ`` (K2): phase 2 on a
+  persistent grid of at most one wave, each CTA holding a 128-row block of
+  ``dy Vᵀ`` in shared memory and walking its share of that block's output
+  column tiles (:func:`dx_plan`, :func:`dx_tiles`); no split, so nothing to
+  reduce and the same bits every call;
 * :func:`lowrank_matmul_du` — ``dU = xᵀ (dy Vᵀ)`` (K3) and
-  :func:`lowrank_matmul_dv` — ``dV = (x U)ᵀ dy`` (K4): ``wgmma`` fed by TMA,
-  the rank-r intermediate once, then the sum over M on 64 x 128 output
-  tiles, split over M by :func:`split_plan` and summed in split order by
-  a last launch (the same bits every call).
+  :func:`lowrank_matmul_dv` — ``dV = (x U)ᵀ dy`` (K4): the sum over M on
+  64 x 128 output tiles, split over M by :func:`split_plan` and summed in
+  split order by a last launch (the same bits every call).
 
-K2's wrapper allocates the output and the bf16 scratch of the rank-r
-intermediate; K3's and K4's allocate the output and one scratch, sized by
-the library for the operands at hand (the intermediate, the float32
-partials of the split sum, and padded copies of operands TMA cannot
-read).
+Each wrapper allocates the output and one scratch, sized by the library
+for the operands at hand (the intermediate, K3/K4's float32 partials of
+the split sum, and padded copies of operands TMA cannot read).
 """
 
 from __future__ import annotations
@@ -40,6 +41,28 @@ __all__ = ["lowrank_matmul_dx", "lowrank_matmul_du", "lowrank_matmul_dv"]
 # csrc/lowrank_bwd.cu's K3/K4 tiling: output rows (kTBM) and columns
 # (kTBN) per CTA, and rows of M per stage (kTBK: one TMA box deep)
 TILE_ROWS, TILE_COLS, BOX_M = 64, 128, 128
+# K2's phase 2 (csrc/lowrank_bwd.cu's k2_dx_kernel): rows of dx a row
+# block (kXBM) and columns a tile (kXBN)
+DX_ROWS, DX_COLS = 128, 128
+
+
+def dx_plan(m: int, c: int, sms: int) -> tuple:
+    """(g, groups) of K2's phase 2 on ``sms`` SMs: g CTAs share each
+    ``DX_ROWS``-row block of dx, as many as it has 128-column tiles or as
+    fill one wave beside the other blocks, and ``groups`` of them walk the
+    row blocks; the grid, g x groups, is at most one wave."""
+    blocks, tiles = -(-m // DX_ROWS), -(-c // DX_COLS)
+    g = max(1, min(tiles, sms // blocks))
+    return g, min(blocks, max(1, sms // g))
+
+
+def dx_tiles(m: int, c: int, g: int, groups: int) -> list:
+    """The (row block, column tile) pairs each CTA of K2's phase 2 computes,
+    in its order, as the kernel walks them: CTA i takes column tiles
+    i % g, i % g + g, ... of row blocks i // g, i // g + groups, ..."""
+    blocks, tiles = -(-m // DX_ROWS), -(-c // DX_COLS)
+    return [[(rb, tc) for rb in range(i // g, blocks, groups) for tc in range(i % g, tiles, g)]
+            for i in range(g * groups)]
 
 
 def split_plan(m: int, rows: int, cols: int, sms: int) -> int:
@@ -72,10 +95,6 @@ def _shapes(op: str, **named) -> None:
                          + ", ".join(f"{k} {tuple(t.shape)}" for k, t in named.items()))
 
 
-def _scratch(m: int, r: int, like: torch.Tensor) -> torch.Tensor:
-    return torch.empty((m, -(-r // 8) * 8), dtype=torch.bfloat16, device=like.device)
-
-
 def _launch(name: str, ptrs, ints, like: torch.Tensor) -> None:
     """Call ``name`` of the built library with device pointers ``ptrs``,
     int arguments ``ints`` and the current stream; raise on its error."""
@@ -92,26 +111,29 @@ def _sms(like: torch.Tensor) -> int:
     return torch.cuda.get_device_properties(like.device).multi_processor_count
 
 
-def dudv_scratch(op: str, operands, dims, splits: int) -> torch.Tensor:
-    """The scratch of one K3 (``op`` "du") or K4 ("dv") call on these
-    operands split ``splits`` ways (the rank-r intermediate, the float32
-    partials, padded copies of operands TMA cannot read), sized by the
-    library."""
+def bwd_scratch(op: str, operands, dims, plan) -> torch.Tensor:
+    """The scratch of one K2 (``op`` "dx"), K3 ("du") or K4 ("dv") call on
+    these operands (the rank-r intermediate, K3/K4's float32 partials of a
+    sum split ``plan`` ways, padded copies of operands TMA cannot read),
+    sized by the library."""
     fn = getattr(build.load("lowrank_bwd"), f"repro_lowrank_{op}_scratch")
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+    extra = () if op == "dx" else (plan,)
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * (4 + len(extra))
     fn.restype = ctypes.c_longlong
-    size = fn(*(t.data_ptr() for t in operands), *dims, splits)
+    size = fn(*(t.data_ptr() for t in operands), *dims, *extra)
     return torch.empty(size, dtype=torch.uint8, device=operands[0].device)
 
 
-def _launch_dudv(op: str, operands, out: torch.Tensor, dims, splits: int,
-                 scratch: Optional[torch.Tensor] = None) -> None:
-    """Launch K3 or K4 on checked operands (du: x, dy, v; dv: x, u, dy)
-    into ``out``; ``scratch`` defaults to a fresh one of
-    :func:`dudv_scratch` (a caller may hand the same one to every call)."""
+def _launch_bwd(op: str, operands, out: torch.Tensor, dims, plan,
+                scratch: Optional[torch.Tensor] = None) -> None:
+    """Launch K2, K3 or K4 on checked operands (dx: dy, u, v; du: x, dy, v;
+    dv: x, u, dy) into ``out``; ``plan`` is K2's :func:`dx_plan` or
+    K3/K4's :func:`split_plan`; ``scratch`` defaults to a fresh one of
+    :func:`bwd_scratch` (a caller may hand the same one to every call)."""
     if scratch is None:
-        scratch = dudv_scratch(op, operands, dims, splits)
-    _launch(f"repro_lowrank_{op}", (*operands, scratch, out), (*dims, splits), operands[0])
+        scratch = bwd_scratch(op, operands, dims, plan)
+    extra = tuple(plan) if op == "dx" else (plan,)
+    _launch(f"repro_lowrank_{op}", (*operands, scratch, out), (*dims, *extra), operands[0])
 
 
 def lowrank_matmul_dx(dy: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -128,7 +150,7 @@ def lowrank_matmul_dx(dy: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> tor
     dx = torch.empty((m, c), dtype=dy.dtype, device=dy.device)
     if m == 0 or c == 0:
         return dx
-    _launch("repro_lowrank_dx", (dy, u, v, _scratch(m, r, dy), dx), (m, c, r, s), dy)
+    _launch_bwd("dx", (dy, u, v), dx, (m, c, r, s), dx_plan(m, c, _sms(dy)))
     lowrank_matmul_dx.launches += 1
     lowrank_matmul_dx.launches_by_shape[(m, c, r, s)] += 1
     return dx
@@ -155,7 +177,7 @@ def lowrank_matmul_du(x: torch.Tensor, dy: torch.Tensor, v: torch.Tensor, *,
     du = torch.empty((c, r), dtype=torch.bfloat16, device=x.device)
     if c == 0:
         return du
-    _launch_dudv("du", (x, dy, v), du, (m, c, r, s), split_plan(m, c, r, _sms(x)))
+    _launch_bwd("du", (x, dy, v), du, (m, c, r, s), split_plan(m, c, r, _sms(x)))
     lowrank_matmul_du.launches += 1
     lowrank_matmul_du.launches_by_shape[(m, c, r, s)] += 1
     return du
@@ -183,7 +205,7 @@ def lowrank_matmul_dv(x: torch.Tensor, u: torch.Tensor, dy: torch.Tensor, *,
     dv = torch.empty((r, s), dtype=torch.bfloat16, device=x.device)
     if s == 0:
         return dv
-    _launch_dudv("dv", (x, u, dy), dv, (m, c, r, s), split_plan(m, r, s, _sms(x)))
+    _launch_bwd("dv", (x, u, dy), dv, (m, c, r, s), split_plan(m, r, s, _sms(x)))
     lowrank_matmul_dv.launches += 1
     lowrank_matmul_dv.launches_by_shape[(m, c, r, s)] += 1
     return dv

@@ -1,14 +1,16 @@
 """The K3/K4 split plan (``repro_torch.kernels.lowrank_bwd.split_plan`` and
-``split_rows``): how the sum over M of dU and dV is cut among CTAs.  Plain
-Python, so it runs without a card: the kernel cuts M exactly as
-``split_rows`` says, and ``split_plan`` picks the number of cuts from the
-output's shape and the card's SM count."""
+``split_rows``): how the sum over M of dU and dV is cut among CTAs; and
+K2's phase-2 plan (``dx_plan`` and ``dx_tiles``): which output tiles of dx
+each CTA of its persistent grid computes.  Plain Python, so it runs
+without a card: the kernels cut M and walk dx exactly as ``split_rows``
+and ``dx_tiles`` say, and the plans pick their numbers from the output's
+shape and the card's SM count."""
 
 import pytest
 import torch
 
-from repro_torch.kernels.lowrank_bwd import (BOX_M, TILE_COLS, TILE_ROWS, split_plan,
-                                             split_rows)
+from repro_torch.kernels.lowrank_bwd import (BOX_M, DX_COLS, DX_ROWS, TILE_COLS, TILE_ROWS,
+                                             dx_plan, dx_tiles, split_plan, split_rows)
 
 torch.set_num_threads(1)
 
@@ -82,3 +84,42 @@ def test_plan_at_the_train_shapes():
                    (256, 960): 4, (256, 2560): 1, (349, 960): 2, (349, 2560): 1,
                    (960, 80): 8, (960, 120): 8, (960, 239): 4, (960, 240): 4,
                    (960, 256): 4, (960, 349): 2, (2560, 256): 1, (2560, 349): 1}
+
+
+# (M, C) of dx at the train shapes (C is 960 or 2560 for every projection),
+# then ragged, one row, many row blocks, and another card's SM count
+DX_CASES = ([(M_TRAIN, c, H100_SMS) for c in (960, 2560)]
+            + [(1, 960, H100_SMS), (8, 320, H100_SMS), (1000, 33, H100_SMS),
+               (2500, 960, H100_SMS), (100_000, 2560, H100_SMS), (2048, 960, 78)])
+
+
+@pytest.mark.parametrize("m,c,sms", DX_CASES)
+def test_dx_tiles_cover_every_output_tile_once(m, c, sms):
+    g, groups = dx_plan(m, c, sms)
+    walked = [t for cta in dx_tiles(m, c, g, groups) for t in cta]
+    assert len(walked) == len(set(walked))
+    assert set(walked) == {(rb, tc) for rb in range(-(-m // DX_ROWS))
+                           for tc in range(-(-c // DX_COLS))}
+
+
+@pytest.mark.parametrize("m,c,sms", DX_CASES)
+def test_dx_grid_is_at_most_one_wave_and_busy(m, c, sms):
+    """At most one CTA an SM, every CTA with work, and no CTA with more
+    than one tile above its fair share of the row block it walks."""
+    g, groups = dx_plan(m, c, sms)
+    tiles = dx_tiles(m, c, g, groups)
+    assert 1 <= g * groups <= sms
+    assert all(tiles)
+    per_block = -(-c // DX_COLS)
+    assert max(len(t) for t in tiles) <= -(-(-(-m // DX_ROWS)) // groups) * -(-per_block // g)
+
+
+def test_dx_plan_at_the_train_shapes():
+    """The plan's choice at each train dx on the H100, as PERF.md's tables
+    assume: 128 CTAs, 16 row blocks of 128 shared by 8 CTAs each (one
+    column tile each at C 960, two or three at C 2560)."""
+    assert DX_ROWS == 128
+    assert dx_plan(M_TRAIN, 960, H100_SMS) == (8, 16)
+    assert dx_plan(M_TRAIN, 2560, H100_SMS) == (8, 16)
+    assert sorted({len(t) for t in dx_tiles(M_TRAIN, 960, 8, 16)}) == [1]
+    assert sorted({len(t) for t in dx_tiles(M_TRAIN, 2560, 8, 16)}) == [2, 3]

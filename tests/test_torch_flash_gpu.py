@@ -45,11 +45,14 @@ def _close(got, want):
     assert math.isfinite(rel) and rel <= RTOL, rel
 
 
-# (B, Sq, Sk, H, KV, D): ragged lengths, Sq < Sk, B > 1, GQA g 1 / 3 / 8
+# (B, Sq, Sk, H, KV, D): ragged lengths, Sq < Sk, B > 1, GQA g 1 / 3 / 8;
+# then Sq off every q tile (64 a warpgroup, 128 a unit), Sq under one tile with
+# more keys, and g 3 with B 2, so the work walk crosses heads and batch rows
 SHAPES = [
     (1, 1, 1, 15, 5, 64), (1, 17, 17, 15, 5, 64), (1, 64, 64, 4, 4, 64),
     (1, 130, 130, 6, 2, 64), (1, 2016, 2016, 15, 5, 64), (2, 100, 100, 6, 2, 128),
     (2, 77, 200, 8, 1, 64), (1, 512, 512, 64, 8, 128), (3, 33, 95, 3, 3, 128),
+    (2, 200, 200, 15, 5, 64), (1, 50, 300, 6, 2, 64), (2, 1000, 1000, 9, 3, 64),
 ]
 
 
@@ -63,6 +66,22 @@ def test_gpu_flash_attention_matches_plain(b, sq, sk, h, kv, d, causal):
         got = flash_attention(q, k, v, causal=causal)
         want = ref.flash_attention_fwd_ref(q, k, v, causal=causal)
     _close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,kv,d", [(2, 200, 200, 15, 5, 64), (1, 2016, 2016, 15, 5, 64),
+                                            (2, 300, 300, 16, 2, 128), (3, 70, 90, 4, 1, 64)])
+def test_gpu_flash_attention_prescaled_multi_round_shapes_match_plain(b, sq, sk, h, kv, d):
+    """Pre-scaled q undone by q_scale (as the model calls K8) at shapes whose
+    units cross heads and batch rows, and at the serve shape, whose 240
+    units take the persistent grid two rounds, causal and not."""
+    _need_gpu()
+    q, k, v = _qkv(b + sq + h, b, sq, sk, h, kv, d, q_scale=d ** -0.5)
+    for causal in (True, False):
+        with torch.inference_mode():
+            got = flash_attention(q, k, v, causal=causal, q_scale=d ** 0.5)
+            want = ref.flash_attention_fwd_ref(q, k, v, causal=causal, q_scale=d ** 0.5)
+        _close(got, want)
 
 
 @pytest.mark.gpu

@@ -177,13 +177,14 @@ def test_gpu_lowrank_bwd_takes_unaligned_operands(name):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["du", "dv"])
+@pytest.mark.parametrize("name", ["du", "dv", "dx"])
 @pytest.mark.parametrize("m,c,r,s", [(2048, 960, 120, 320), (2048, 2560, 349, 960),
                                      (2048, 960, 240, 960), (1000, 33, 17, 70)])
 def test_gpu_lowrank_dudv_is_bitwise_repeatable(name, m, c, r, s):
     """K3/K4 split the sum over M and add the float32 partials in split
-    order, never by atomics: two calls on the same inputs give the same
-    bits (split_plan splits these sums 1 to 16 ways)."""
+    order, never by atomics, and K2 splits no sum at all: two calls on the
+    same inputs give the same bits (split_plan splits K3/K4's sums 1 to 16
+    ways)."""
     _need_gpu()
     a, _ = _bwd_case(name, m, c, r, s)
     b, _ = _bwd_case(name, m, c, r, s)
@@ -192,31 +193,57 @@ def test_gpu_lowrank_dudv_is_bitwise_repeatable(name, m, c, r, s):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["du", "dv"])
+@pytest.mark.parametrize("name", ["du", "dv", "dx"])
 def test_gpu_lowrank_dudv_same_scratch_twice_matches_plain(name):
     """Two calls in a row on different inputs through one scratch (what a
     CUDA graph's replay does) both match the plain version: nothing in the
-    scratch carries over from one call to the next."""
+    scratch carries over from one call to the next (K2: dt and the padded
+    U at rank 349; K3/K4: also the split partials)."""
     _need_gpu()
     from repro_torch.kernels import lowrank_bwd as kb
 
-    m, c, r, s = 2048, 960, 120, 320
-    rows, cols = (c, r) if name == "du" else (r, s)
-    splits = kb.split_plan(m, rows, cols, torch.cuda.get_device_properties(0).multi_processor_count)
-    assert splits > 1  # the partials go through the scratch
+    m, c, r, s = (2048, 960, 349, 320) if name == "dx" else (2048, 960, 120, 320)
+    rows, cols = {"du": (c, r), "dv": (r, s), "dx": (m, c)}[name]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if name == "dx":
+        plan = kb.dx_plan(m, c, sms)
+    else:
+        plan = kb.split_plan(m, rows, cols, sms)
+        assert plan > 1  # the partials go through the scratch
     scratch = None
     for seed in (11, 12):
         x, dy, u, v = _mats(seed, (m, c), (m, s), (c, r), (r, s))
-        ops = (x, dy, v) if name == "du" else (x, u, dy)
-        want = (ref.lowrank_matmul_du_ref(x, dy, v) if name == "du"
-                else ref.lowrank_matmul_dv_ref(x, u, dy))
+        ops = {"du": (x, dy, v), "dv": (x, u, dy), "dx": (dy, u, v)}[name]
+        want = {"du": ref.lowrank_matmul_du_ref, "dv": ref.lowrank_matmul_dv_ref,
+                "dx": ref.lowrank_matmul_dx_ref}[name](*ops)
         if scratch is None:
-            scratch = kb.dudv_scratch(name, ops, (m, c, r, s), splits)
+            scratch = kb.bwd_scratch(name, ops, (m, c, r, s), plan)
         got = torch.empty((rows, cols), dtype=torch.bfloat16, device="cuda")
-        kb._launch_dudv(name, ops, got, (m, c, r, s), splits, scratch)
+        kb._launch_bwd(name, ops, got, (m, c, r, s), plan, scratch)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         assert err <= BWD_RTOL * want.float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,c,r,s", [(2048, 960, 240, 960), (2048, 2560, 349, 960),
+                                     (300, 70, 17, 33), (2500, 960, 80, 320)])
+def test_gpu_lowrank_dx_plan_and_one_cta_match_plain(m, c, r, s):
+    """K2's phase 2 on its plan's grid and on one CTA that walks every
+    tile: grids that walk several column tiles and, at M = 2500 and on one
+    CTA, several row blocks a CTA."""
+    _need_gpu()
+    from repro_torch.kernels import lowrank_bwd as kb
+
+    _, dy, u, v = _mats(m + 128, (1, 1), (m, s), (c, r), (r, s))
+    want = ref.lowrank_matmul_dx_ref(dy, u, v)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for plan in (kb.dx_plan(m, c, sms), (1, 1)):  # the plan, and one CTA for all
+        got = torch.empty((m, c), dtype=torch.bfloat16, device="cuda")
+        kb._launch_bwd("dx", (dy, u, v), got, (m, c, r, s), plan)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= BWD_RTOL * want.float().abs().max().item(), plan
 
 
 @pytest.mark.gpu
