@@ -39,18 +39,27 @@ Phases, in order; any failure exits nonzero:
               int8 artifact): the export report (ranks per geometry, merged
               groups; the measured backend's t(r) sweep on this card), and
               exactly 7 x 32 = 224 int8 launches a forward, K7 for every kept
-              factor pair and K6 for every group the guard merged;
+              factor pair and K6 for every group the guard merged, all
+              through the serving entries that quantize x in the kernel
+              (``int8_linear`` / ``int8_lowrank_linear``), none through the
+              int8-operand entries;
 11. int8 parity — the int8 trees' last-position prefill logits and greedy
               tokens through K6/K7 against the same run through their plain
               versions, and the gap of native int8 decode to the bf16 round
               trip of the same tree;
-12. int8 profile — a decode step of each int8 export, as in phase 6;
+12. int8 profile — a decode step of each int8 export, as in phase 6, with
+              its device launches, K6 / K7 ms and torch quantizer ops (none)
+              a step; then the device launches of one ``ops.int8_apply`` and
+              one ``ops.int8_lowrank_apply`` call (at most 3 each);
 13. Algorithm-1 train — the training CLI without ``--no-rank-opt`` (ranks
               239/80/256/256), launches counted per step, and a train step
               profiled at phases -1 and 1 as in phase 9;
 14. int8 kernels — K6 and K7 at every shape phases 10 launched them at
               (bitwise / 1e-6 against their plain versions), timed as in
-              phase 3 beside one library call;
+              phase 3 beside one library call: the serving entries (beside
+              the torch quantizer, ``torch._int_mm`` and the scaling) and
+              the int8-operand entries at the same shapes (beside
+              ``torch._int_mm``), which no main path launches;
 15. flash serve — ``ServeEngine.serve`` on full-width smollm-360m with LRD
               and ``attention_impl="flash"``: 16 Poisson requests of up to
               2016 tokens, every prefill padded to 2016, 32 new tokens each
@@ -128,9 +137,12 @@ INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
 # bit for bit (0).  Every step of K7 is an exact integer sum or one IEEE
 # float32 operation in the plain version's order, so it should too; 1e-6
 # of max |plain| leaves room for nothing more than a last-bit difference.
+# Their serving entries add the quantizer and the scales, each step one IEEE
+# float32 operation in the plain version's order: the same bounds.
 KERNEL_RTOL = {"lowrank_matmul": 1e-2, "lowrank_gated_ffn": 2e-2, "lowrank_matmul_dx": 1e-2,
                "lowrank_matmul_du": 1e-2, "lowrank_matmul_dv": 1e-2, "int8_matmul": 0.0,
-               "int8_lowrank_matmul": 1e-6, "flash_attention": 1e-2}
+               "int8_lowrank_matmul": 1e-6, "int8_linear": 0.0, "int8_lowrank_linear": 1e-6,
+               "flash_attention": 1e-2}
 # Bound on the full-width prefill's last-position logits, kernels vs plain,
 # relative to max |logit|: the per-call differences above, carried through
 # 32 residual layers.
@@ -357,16 +369,24 @@ def _pad(a, rows: int, cols: int):
     return F.pad(a, (0, max(0, cols - a.shape[1]), 0, max(0, rows - a.shape[0])))
 
 
+# the int8 kernels' serving entries and their int8-operand twins
+INT8_FUSED = {"int8_linear": "int8_matmul", "int8_lowrank_linear": "int8_lowrank_matmul"}
+
+
 def int8_kernel_case(name, d, gen):
     """Inputs, kernel, plain version, library call, bytes and int8 operations
-    of K6 (``int8_matmul``) or K7 (``int8_lowrank_matmul``) at ``d``.
+    of K6 (``int8_matmul``, serving entry ``int8_linear``) or K7
+    (``int8_lowrank_matmul``, ``int8_lowrank_linear``) at ``d``.
 
     The library yardstick is ``torch._int_mm``, whose CUDA path wants more
     than 16 rows and a depth and width that are multiples of 8: its operands
     are zero-padded to that once, outside the timing (zero rows and ranks
-    add nothing), and the result is sliced back."""
+    add nothing), and the result is sliced back.  For a serving entry the
+    yardstick also quantizes x with the torch quantizer (into the padded
+    buffer) and applies the scales, as the port did before its kernels
+    took them in."""
+    from repro_torch.kernels import int8_matmul as k8
     from repro_torch.kernels import ref
-    from repro_torch.kernels.int8_matmul import int8_lowrank_matmul, int8_matmul
 
     def i8(*shape):
         return torch.randint(-127, 128, shape, generator=gen, device="cuda",
@@ -379,29 +399,58 @@ def int8_kernel_case(name, d, gen):
         return -(-n // 8) * 8
 
     m, c, s = d["M"], d["C"], d["S"]
-    x = i8(m, c)
-    xp = _pad(x, 32, up8(c))
-    if name == "int8_matmul":
+    fused = name in INT8_FUSED
+    if fused:  # x as the serve path hands it over: bf16 activations
+        x = torch.randn((m, c), generator=gen, device="cuda").to(torch.bfloat16)
+        xp = torch.zeros((max(32, m), up8(c)), dtype=torch.int8, device="cuda")
+    else:
+        x = i8(m, c)
+        xp = _pad(x, 32, up8(c))
+    xbytes, ybytes = (2 * m * c, 2 * m * s) if fused else (m * c, 4 * m * s)
+
+    def x_q():  # the yardstick's quantizer: torch ops into the padded buffer
+        q, xs = ref.quantize_rowwise(x)
+        xp[:m, :c].copy_(q)
+        return xs
+
+    if name in ("int8_matmul", "int8_linear"):
         w = i8(c, s)
         wp = _pad(w, up8(c), up8(s))
-        return dict(kernel=lambda: int8_matmul(x, w),
-                    plain=lambda: ref.int8_matmul_ref(x, w),
-                    library=lambda: torch._int_mm(xp, wp)[:m, :s],
-                    bytes=m * c + c * s + 4 * m * s, ops=2 * m * c * s)
+        if not fused:
+            return dict(kernel=lambda: k8.int8_matmul(x, w),
+                        plain=lambda: ref.int8_matmul_ref(x, w),
+                        library=lambda: torch._int_mm(xp, wp)[:m, :s],
+                        bytes=xbytes + c * s + ybytes, ops=2 * m * c * s)
+        ws = scales(s)
+
+        def library():
+            xs = x_q()
+            return (torch._int_mm(xp, wp)[:m, :s].float() * xs * ws).to(x.dtype)
+
+        return dict(kernel=lambda: k8.int8_linear(x, w, ws),
+                    plain=lambda: ref.int8_linear_ref(x, w, ws), library=library,
+                    bytes=xbytes + c * s + 4 * s + ybytes, ops=2 * m * c * s)
     r = d["r"]
     u, us, v, vs = i8(c, r), scales(r), i8(r, s), scales(s)
     up_, usp, vp = _pad(u, up8(c), up8(r)), _pad(us, 1, up8(r)), _pad(v, up8(r), up8(s))
     vsp = _pad(vs, 1, up8(s))
 
-    def library():  # the same algebra around two library products
+    def lowrank():  # the same algebra around two library products
         t = torch._int_mm(xp, up_).float() * usp
         ts = torch.clamp(torch.amax(torch.abs(t), dim=1, keepdim=True), min=1e-8) / 127.0
         tq = torch.clamp(torch.round(t / ts), -127, 127).to(torch.int8)
         return (torch._int_mm(tq, vp).float() * ts * vsp)[:m, :s]
 
-    return dict(kernel=lambda: int8_lowrank_matmul(x, u, us, v, vs),
-                plain=lambda: ref.int8_lowrank_matmul_ref(x, u, us, v, vs), library=library,
-                bytes=m * c + c * r + 4 * r + r * s + 4 * s + 4 * m * s,
+    def library():
+        xs = x_q()
+        return (lowrank() * xs).to(x.dtype)
+
+    args = (x, u, us, v, vs)
+    kernel = k8.int8_lowrank_linear if fused else k8.int8_lowrank_matmul
+    plain = ref.int8_lowrank_linear_ref if fused else ref.int8_lowrank_matmul_ref
+    return dict(kernel=lambda: kernel(*args), plain=lambda: plain(*args),
+                library=library if fused else lowrank,
+                bytes=xbytes + c * r + 4 * r + r * s + 4 * s + ybytes,
                 ops=2 * m * c * r + 2 * m * r * s)
 
 
@@ -533,17 +582,71 @@ def bwd_device_ms(by_name):
 
 
 def phase_int8_kernels(shapes, iters: int = 50):
-    """K6 and K7 at every (M, C[, r], S) the export serve runs launched."""
+    """K6 and K7 at every (M, C[, r], S) the export serve runs launched:
+    the serving entry there, then its int8-operand twin at the same shape."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     flush = _flush_buffer()
     rows = []
-    for name, key in shapes:
-        d = (dict(M=key[0], C=key[1], S=key[2]) if name == "int8_matmul"
-             else dict(M=key[0], C=key[1], r=key[2], S=key[3]))
-        rows.append(check_and_time(name, d, int8_kernel_case(name, d, gen), iters, flush,
-                                   INT8_OPS_PER_S))
+    for fused, key in shapes:
+        for name in (fused, INT8_FUSED[fused]):
+            d = (dict(M=key[0], C=key[1], S=key[2]) if name in ("int8_matmul", "int8_linear")
+                 else dict(M=key[0], C=key[1], r=key[2], S=key[3]))
+            rows.append(check_and_time(name, d, int8_kernel_case(name, d, gen), iters, flush,
+                                       INT8_OPS_PER_S))
     zero_counts()
     return rows
+
+
+def int8_device_ms(by_name):
+    """(K6 ms, K7 ms) of a profile's device time by kernel name: K6 is
+    ``i8::k6_kernel``, K7 ``i8::k7_rank_kernel`` and ``i8::k7_out_kernel``
+    (csrc/int8_matmul.cu)."""
+    return tuple(sum(ms for n, ms in by_name.items() if any(k in n for k in keys))
+                 for keys in (("i8::k6_kernel",), ("i8::k7_rank_kernel", "i8::k7_out_kernel")))
+
+
+def phase_int8_launches():
+    """The device launches of one ``ops.int8_apply`` and one
+    ``ops.int8_lowrank_apply`` call at decode (M = 8, bf16 x) on random int8
+    leaves of the wq / wo geometry (C 960, S 960, r 128): the distinct
+    device operations (kernels, memsets, copies) the profiler sees over 20
+    calls, at most 3 each."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((DECODE_M, 960), generator=gen, device="cuda").to(torch.bfloat16)
+    w_q = torch.randint(-127, 128, (960, 960), generator=gen, device="cuda",
+                        dtype=torch.int32).to(torch.int8)
+    ws = (torch.rand((1, 960), generator=gen, device="cuda") + 0.5) * 1e-2
+    u_q, us, v_q, vs = w_q[:, :128].contiguous(), ws[:, :128].contiguous(), w_q[:128], ws
+    calls = {"int8_apply": lambda: ops.int8_apply(x, w_q, ws, use_kernel=True),
+             "int8_lowrank_apply": lambda: ops.int8_lowrank_apply(x, u_q, us, v_q, vs,
+                                                                  use_kernel=True)}
+    out, reps = {}, 20
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        # the distinct device operations a call runs (the profiler can drop
+        # some of a run's events, so they are not counted one by one); any
+        # other kernel, memset or copy would show here
+        names = sorted({ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA})
+        out[name] = dict(launches=len(names), kernels=names)
+        if not names or len(names) > 3:
+            raise AssertionError(f"int8 launches: ops.{name} runs {len(names)} distinct device "
+                                 f"operations a call, want 1 to 3: {names}")
+    zero_counts()
+    log(f"[int8 launches] one decode call (M {DECODE_M}, bf16 x): ops.int8_apply "
+        f"{out['int8_apply']['launches']} device launches a call (parent: ~16), "
+        f"ops.int8_lowrank_apply {out['int8_lowrank_apply']['launches']} (parent: ~13): "
+        + "; ".join(f"{k}: {', '.join(n[:48] for n in v['kernels'])}" for k, v in out.items()))
+    return out
 
 
 def wrappers():
@@ -551,7 +654,7 @@ def wrappers():
     ``launches_by_shape``)."""
     from repro_torch.kernels import lowrank_bwd as kb
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.int8_matmul import int8_lowrank_matmul, int8_matmul
+    from repro_torch.kernels import int8_matmul as k8
     from repro_torch.kernels.lowrank_ffn import lowrank_gated_ffn
     from repro_torch.kernels.lowrank_matmul import lowrank_matmul
 
@@ -559,7 +662,8 @@ def wrappers():
             "lowrank_matmul_dx": kb.lowrank_matmul_dx,
             "lowrank_matmul_du": kb.lowrank_matmul_du,
             "lowrank_matmul_dv": kb.lowrank_matmul_dv,
-            "int8_matmul": int8_matmul, "int8_lowrank_matmul": int8_lowrank_matmul,
+            "int8_matmul": k8.int8_matmul, "int8_lowrank_matmul": k8.int8_lowrank_matmul,
+            "int8_linear": k8.int8_linear, "int8_lowrank_linear": k8.int8_lowrank_linear,
             "flash_attention": flash_attention}
 
 
@@ -577,7 +681,7 @@ def shape_key(name, d):
     """The wrapper's ``launches_by_shape`` key of a kernel row's shape."""
     if name == "lowrank_gated_ffn":
         return d["M"], d["C"], d["r"], d["r"], d["F"]
-    if name == "int8_matmul":
+    if name in ("int8_matmul", "int8_linear"):
         return d["M"], d["C"], d["S"]
     if name == "flash_attention":
         return d["B"], d["Sq"], d["Sk"], d["H"], d["KV"], d["D"], d["causal"]
@@ -638,10 +742,12 @@ def device_ms_by_kernel(prof, steps: int):
     return by_name
 
 
-def phase_profile(engine, steps: int = 5, label: str = "decode step"):
+def phase_profile(engine, steps: int = 5, label: str = "decode step", int8: bool = False):
     """Where a full-width decode step's time goes: wall time per step (host
     clock around synchronised steps), device time per step by kernel
-    (``torch.profiler``), and the device's idle share of the step."""
+    (``torch.profiler``), and the device's idle share of the step; for an
+    int8 tree also its device launches, K6 / K7 ms and torch quantizer ops
+    a step (none may run)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import steps as steps_mod
@@ -669,9 +775,25 @@ def phase_profile(engine, steps: int = 5, label: str = "decode step"):
                idle_share=(1 - device_ms / wall_ms) if device_ms else None,
                top=[dict(name=k[:80], ms=v) for k, v in top])
     shown = ", ".join(f"{k[:40]} {v * 1e3:.0f}us" for k, v in top[:5])
+    extra = ""
+    if int8:
+        from torch.autograd import DeviceType
+
+        out["device_launches"] = sum(1 for ev in prof.events()
+                                     if ev.device_type == DeviceType.CUDA) / steps
+        # the torch quantizer's mark: no other op of a decode step rounds
+        out["quantizer_ops"] = sum(1 for ev in prof.events()
+                                   if ev.device_type == DeviceType.CPU
+                                   and ev.name == "aten::round") / steps
+        out["k6_ms"], out["k7_ms"] = int8_device_ms(by_name)
+        extra = (f"; {out['device_launches']:.0f} device launches a step, K6 "
+                 f"{out['k6_ms']:.2f} ms, K7 {out['k7_ms']:.2f} ms, torch quantizer ops "
+                 f"(aten::round) {out['quantizer_ops']:.0f}")
+        if out["quantizer_ops"]:
+            raise AssertionError(f"{label}: {out['quantizer_ops']} torch quantizer ops a step")
     log(f"[profile] {label} (8 slots, 32 layers): wall {wall_ms:.2f} ms, device "
         + (f"{device_ms:.2f} ms, idle {out['idle_share']:.1%}; top: {shown}"
-           if device_ms else "time not measured (profiler saw no device events)"))
+           if device_ms else "time not measured (profiler saw no device events)") + extra)
     return out
 
 
@@ -860,11 +982,12 @@ def phase_train_profile(params, steps_n: int = 2, run=None, phases=(-1, 0, 1),
 # --------------------------------------------------------------------------
 
 # K6/K7 shapes checked by ``--only kernels`` (no serve run to read them
-# from): the analytic export's K7 shapes and every geometry as K6
+# from): the analytic export's K7 shapes and every geometry as K6 (serving
+# entries; phase 14 adds the int8-operand twins)
 INT8_DEFAULT_SHAPES = (
-    [("int8_lowrank_matmul", (m, c, r, s)) for m in (DECODE_M, PREFILL_M)
+    [("int8_lowrank_linear", (m, c, r, s)) for m in (DECODE_M, PREFILL_M)
      for c, r, s in ((960, 128, 960), (960, 119, 320), (960, 256, 2560), (2560, 256, 960))]
-    + [("int8_matmul", (m, c, s)) for m in (DECODE_M, PREFILL_M)
+    + [("int8_linear", (m, c, s)) for m in (DECODE_M, PREFILL_M)
        for c, s in ((960, 960), (960, 320), (960, 2560), (2560, 960))])
 
 
@@ -903,8 +1026,9 @@ def phase_export_serve(kind: str):
     merged = sorted(p for p, lay in report.layers.items() if lay.merged)
     kept = len(report.layers) - len(merged)
     per_layer_merged = sum(1 for p in merged if p.startswith("stack/"))
-    k6, k7 = counts["int8_matmul"], counts["int8_lowrank_matmul"]
-    others = {k: n for k, n in counts.items() if n and not k.startswith("int8")}
+    k6, k7 = counts["int8_linear"], counts["int8_lowrank_linear"]
+    # nothing else: no K1/K5 and no int8-operand entry (x is quantized in the kernels)
+    others = {k: n for k, n in counts.items() if n and k not in INT8_FUSED}
     want_k6 = n_layers * per_layer_merged * n_fwd
     per_forward = INT8_PER_LAYER * n_layers
     if (n_fwd == 0 or others or k6 + k7 != per_forward * n_fwd or k6 != want_k6
@@ -967,8 +1091,8 @@ def plain_versions(**swaps):
 def plain_int8():
     from repro_torch.kernels import ref
 
-    return plain_versions(int8_matmul=ref.int8_matmul_ref,
-                          int8_lowrank_matmul=ref.int8_lowrank_matmul_ref)
+    return plain_versions(int8_linear=ref.int8_linear_ref,
+                          int8_lowrank_linear=ref.int8_lowrank_linear_ref)
 
 
 def phase_int8_parity(engine, kind: str):
@@ -1359,8 +1483,9 @@ def main(argv=None) -> int:
             engine, paths[f"export {kind}"], result[f"export_{kind}"] = phase_export_serve(kind)
             result[f"int8_parity_{kind}"] = phase_int8_parity(engine, kind)
             result[f"int8_profile_{kind}"] = phase_profile(
-                engine, label=f"int8 {kind} export decode step")
+                engine, label=f"int8 {kind} export decode step", int8=True)
             del engine
+        result["int8_launches"] = phase_int8_launches()
         params, paths["train"], result["train"] = phase_train()
         result["grads"] = phase_grads(params)
         result["train_profile"] = phase_train_profile(params)
@@ -1369,12 +1494,11 @@ def main(argv=None) -> int:
         result["alg1_train_profile"] = phase_train_profile(
             params, run=alg1_run, phases=(-1, 1), label="alg1 train profile")
         del params
-        int8_shapes = sorted({(name, key) for by in paths.values()
-                              for name in ("int8_matmul", "int8_lowrank_matmul")
+        int8_shapes = sorted({(name, key) for by in paths.values() for name in INT8_FUSED
                               for key in by[name]})
-        if not any(name == "int8_matmul" for name, _ in int8_shapes):
+        if not any(name == "int8_linear" for name, _ in int8_shapes):
             # the measured export kept every group factorised on this card
-            int8_shapes += [sk for sk in INT8_DEFAULT_SHAPES if sk[0] == "int8_matmul"]
+            int8_shapes += [sk for sk in INT8_DEFAULT_SHAPES if sk[0] == "int8_linear"]
         rows += phase_int8_kernels(int8_shapes)
         engine, paths["flash serve"], result["flash_serve"] = phase_flash_serve()
         result["flash_parity"] = phase_flash_parity(engine)
@@ -1392,11 +1516,14 @@ def main(argv=None) -> int:
         for row in rows:
             key = shape_key(row["name"], row["shape"])
             row["launches"] = sum(by[row["name"]].get(key, 0) for by in paths.values())
-            if not row["launches"] and row["name"] != "int8_matmul":
+            # the int8-operand entries are the TPU kernels' contract, which
+            # no main path calls since the serving entries quantize x inside
+            if (not row["launches"] and row["name"] not in INT8_FUSED.values()
+                    and row["name"] != "int8_linear"):
                 raise AssertionError(f"{row['name']} {row['shape']} never launched on "
                                      f"a main path")
-        if not any(r["launches"] for r in rows if r["name"] == "int8_matmul"):
-            log("[kernels] int8_matmul (K6) was launched on no main path in this run: the "
+        if not any(r["launches"] for r in rows if r["name"] == "int8_linear"):
+            log("[kernels] int8_linear (K6) was launched on no main path in this run: the "
                 "measured export merged no group on this card")
     else:
         rows += phase_int8_kernels(INT8_DEFAULT_SHAPES)
@@ -1415,6 +1542,8 @@ def main(argv=None) -> int:
            "lowrank_matmul_dv": (bwd_cu, "src/repro/kernels/lowrank_bwd.py:298"),
            "int8_matmul": (int8_cu, "src/repro/kernels/int8_matmul.py:86"),
            "int8_lowrank_matmul": (int8_cu, "src/repro/kernels/int8_matmul.py:142"),
+           "int8_linear": (int8_cu, "src/repro/kernels/int8_matmul.py:86"),
+           "int8_lowrank_linear": (int8_cu, "src/repro/kernels/int8_matmul.py:142"),
            "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention.py:81")}
     line = {"kernels": [dict(name=r["name"], shape=r["shape"], route="cuda",

@@ -25,15 +25,19 @@ CPU tensors (reason ``platform``).  Like ``_flash_path`` it does not read
 the policy: the model config alone selects it.  It is forward only.
 
 int8-exported groups (``serving/export.py``) go through
-:func:`int8_apply` (K6) and :func:`int8_lowrank_apply` (K7), which quantize
-x per row with torch ops, as the JAX dispatchers do outside the kernel:
+:func:`int8_apply` (K6) and :func:`int8_lowrank_apply` (K7), whose
+kernels take x itself and quantize it per row inside (the serving entries
+``int8_linear`` / ``int8_lowrank_linear``; the JAX dispatchers quantize
+with jnp ops outside their kernels, to the same bits):
 
-* kernel requested, CUDA tensors: the kernel.  There is no shape fallback
-  and no mesh branch;
+* kernel requested, CUDA tensors: the kernel, one launch for K6 and two
+  for K7, no torch op around them.  There is no shape fallback and no
+  mesh branch;
 * kernel requested, CPU tensors (reason ``platform``): the kernel's plain
-  version, i.e. the activation-quantized algebra, which is what JAX
-  computes in interpret mode.  This is the one place where the port's CPU
-  path differs from JAX's un-interpreted CPU path (the weight-only formula
+  version (``quantize_rowwise``, the exact int8 product and the scales),
+  i.e. the activation-quantized algebra, which is what JAX computes in
+  interpret mode.  This is the one place where the port's CPU path
+  differs from JAX's un-interpreted CPU path (the weight-only formula
   below);
 * policy off (reason ``disabled``, any device): JAX's own policy-off
   formula, the weight-only ``x @ (w_q.float() * w_scale)``.
@@ -57,7 +61,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.int8_matmul import int8_lowrank_matmul, int8_matmul, quantize_rowwise
+from repro_torch.kernels.int8_matmul import int8_linear, int8_lowrank_linear
 from repro_torch.kernels.lowrank_bwd import (lowrank_matmul_du, lowrank_matmul_dv,
                                              lowrank_matmul_dx)
 from repro_torch.kernels.lowrank_ffn import lowrank_gated_ffn
@@ -266,19 +270,17 @@ def int8_apply(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, *,
         return y.to(x.dtype).reshape(*lead, s)
     if reason is not None:
         _note_fallback("int8_dense", reason, (m, c, s))
-    x_q, x_scale = quantize_rowwise(x.reshape(m, c))
-    acc = int8_matmul(x_q, w_q)  # the plain version for CPU tensors
-    y = acc.float() * x_scale * ws
-    return y.to(x.dtype).reshape(*lead, s)
+    y = int8_linear(x.reshape(m, c).contiguous(), w_q, ws)  # the plain version on the CPU
+    return y.reshape(*lead, s)
 
 
 def int8_lowrank_apply(x: torch.Tensor, u_q: torch.Tensor, u_scale: torch.Tensor,
                        v_q: torch.Tensor, v_scale: torch.Tensor, *,
                        use_kernel: bool = False) -> torch.Tensor:
     """y = (x @ dequant(u_q)) @ dequant(v_q) for int8 factor pairs, in x's
-    dtype.  The kernel path requantizes the rank-r intermediate per row on
-    chip; the per-row x scales factor out of that requantization and are
-    folded into the output here."""
+    dtype.  The kernel path quantizes x per row and requantizes the rank-r
+    intermediate per row on chip; the per-row x scales factor out of that
+    requantization and are applied in the kernel's epilogue."""
     c, r = u_q.shape
     s = v_q.shape[1]
     lead = x.shape[:-1]
@@ -293,9 +295,9 @@ def int8_lowrank_apply(x: torch.Tensor, u_q: torch.Tensor, u_scale: torch.Tensor
         return y.to(x.dtype).reshape(*lead, s)
     if reason is not None:
         _note_fallback("int8_lowrank", reason, (m, c, s))
-    x_q, x_scale = quantize_rowwise(x.reshape(m, c))
-    y = int8_lowrank_matmul(x_q, u_q, us.contiguous(), v_q, vs.contiguous())
-    return (y * x_scale).to(x.dtype).reshape(*lead, s)
+    y = int8_lowrank_linear(x.reshape(m, c).contiguous(), u_q, us.contiguous(), v_q,
+                            vs.contiguous())  # the plain version on the CPU
+    return y.reshape(*lead, s)
 
 
 # --------------------------------------------------------------------------

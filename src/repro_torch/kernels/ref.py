@@ -15,7 +15,10 @@ signature and arithmetic (``repro/kernels/flash_attention.py``).
 The int8 versions (K6, K7) compute their int8 x int8 products exactly:
 the operands go through float64, where every product and every partial sum
 of up to 2**53 is exact (|sum| <= 2560 * 127**2 < 2**31 here), because
-``torch.matmul`` has no int32 product on CUDA.
+``torch.matmul`` has no int32 product on CUDA.  Their serving entries'
+versions (:func:`int8_linear_ref`, :func:`int8_lowrank_linear_ref`) are
+the JAX dispatchers' algebra: :func:`quantize_rowwise` on x, the int8
+product, then the scales, each one float32 operation in that order.
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ import torch.nn.functional as F
 
 __all__ = ["lowrank_matmul_ref", "lowrank_gated_ffn_ref", "lowrank_matmul_dx_ref",
            "lowrank_matmul_du_ref", "lowrank_matmul_dv_ref", "int8_matmul_ref",
-           "int8_lowrank_matmul_ref", "over_127", "flash_attention_fwd_ref"]
+           "int8_lowrank_matmul_ref", "int8_linear_ref", "int8_lowrank_linear_ref",
+           "quantize_rowwise", "quantize_colwise", "over_127", "flash_attention_fwd_ref"]
 
 
 def lowrank_matmul_ref(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -80,6 +84,25 @@ def over_127(a: torch.Tensor) -> torch.Tensor:
     return a / a.new_full((), 127.0)
 
 
+def quantize_rowwise(x: torch.Tensor):
+    """Dynamic per-row symmetric int8: (values int8, scales float32 (..., 1))."""
+    xf = x.float()
+    amax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
+    scale = torch.clamp(over_127(amax), min=1e-8)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def quantize_colwise(w: torch.Tensor):
+    """Static per-output-column symmetric int8 for weights and factors:
+    (values int8, scales float32 (..., 1, S))."""
+    wf = w.float()
+    amax = torch.amax(torch.abs(wf), dim=-2, keepdim=True)
+    scale = torch.clamp(over_127(amax), min=1e-8)
+    q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
 def int8_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     """Exact x_q (M, C) @ w_q (C, S) for int8 operands -> int32 (M, S)."""
     return torch.matmul(x_q.double(), w_q.double()).to(torch.int32)
@@ -99,6 +122,25 @@ def int8_lowrank_matmul_ref(x_q: torch.Tensor, u_q: torch.Tensor, u_scale: torch
     tq = torch.clamp(torch.round(t / ts), -127, 127).to(torch.int8)
     y = int8_matmul_ref(tq, v_q).float()
     return y * ts * v_scale.float()
+
+
+def int8_linear_ref(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
+    """K6's serving entry: x (M, C) quantized per row, the exact int32
+    product with w_q (C, S), then ``(acc * x_scale) * w_scale`` (1, S),
+    rounded once to x's dtype."""
+    x_q, x_scale = quantize_rowwise(x)
+    acc = int8_matmul_ref(x_q, w_q)
+    return (acc.float() * x_scale * w_scale.float()).to(x.dtype)
+
+
+def int8_lowrank_linear_ref(x: torch.Tensor, u_q: torch.Tensor, u_scale: torch.Tensor,
+                            v_q: torch.Tensor, v_scale: torch.Tensor) -> torch.Tensor:
+    """K7's serving entry: x (M, C) quantized per row, then
+    :func:`int8_lowrank_matmul_ref` times the x scales, rounded once to x's
+    dtype (the per-row x scales factor out of the rank-r requantization)."""
+    x_q, x_scale = quantize_rowwise(x)
+    y = int8_lowrank_matmul_ref(x_q, u_q, u_scale, v_q, v_scale)
+    return (y * x_scale).to(x.dtype)
 
 
 def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -2,10 +2,13 @@
 inputs: the quantizers (bitwise), the plain versions of K6 (exact against
 ``int8_matmul(..., interpret=True)``) and K7 (within 1e-5 of
 ``int8_lowrank_matmul(..., interpret=True)`` and of a numpy emulation of
-its algebra), the dispatchers ``int8_apply`` / ``int8_lowrank_apply`` with
-the kernel requested (the CPU runs the kernel's plain version) and with the
-policy off (the weight-only formula), and ``models.common.linear`` on int8
-groups in both decode modes."""
+its algebra), the serving entries' plain versions (``int8_linear``,
+``int8_lowrank_linear``: the quantizer inside the kernel) against JAX's
+dispatchers at the export's full widths, the dispatchers ``int8_apply`` /
+``int8_lowrank_apply`` with the kernel requested (the CPU runs the
+kernel's plain version) and with the policy off (the weight-only
+formula), and ``models.common.linear`` on int8 groups in both decode
+modes."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +23,8 @@ from repro.kernels.int8_matmul import quantize_rowwise as j_qrow
 from repro.models import common as jcommon
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref
+from repro_torch.kernels.int8_matmul import int8_linear as t_k6_linear
+from repro_torch.kernels.int8_matmul import int8_lowrank_linear as t_k7_linear
 from repro_torch.kernels.int8_matmul import int8_lowrank_matmul as t_k7
 from repro_torch.kernels.int8_matmul import int8_matmul as t_k6
 from repro_torch.kernels.int8_matmul import quantize_colwise as t_qcol
@@ -110,6 +115,67 @@ def test_int8_lowrank_plain_matches_jax_and_emulation(m, c, r, s, blocks):
     n = t_k7.launches
     np.testing.assert_array_equal(t_k7(*args).numpy(), got)
     assert t_k7.launches == n
+
+
+# the int8 export's (C, S) at full width (wq/wo, wk/wv, gate/up, down) and
+# the analytic export's ranks
+FULL_CS = [(960, 960), (960, 320), (960, 2560), (2560, 960)]
+FULL_R = [119, 128, 256]
+
+
+def _full_case(seed, c, s, dtype, r=None):
+    """x (2, 4, C) from a numpy seed in ``dtype`` (JAX and torch), and the
+    int8 export of a (C, S) weight or a (C, r), (r, S) factor pair."""
+    x = _normal(seed, (2, 4, c))
+    jx = jnp.asarray(x, dtype=dtype)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    if r is None:
+        leaves = j_qcol(jnp.asarray(_normal(seed + 1, (c, s), c ** -0.5)))
+    else:
+        leaves = (j_qcol(jnp.asarray(_normal(seed + 1, (c, r), c ** -0.5)))
+                  + j_qcol(jnp.asarray(_normal(seed + 2, (r, s), r ** -0.5))))
+    return jx, tx, leaves
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c,s", FULL_CS)
+def test_int8_linear_plain_matches_jax_bitwise(dtype, c, s):
+    """K6's serving entry (quantizer and scales inside the kernel) as its
+    plain version computes it, against JAX's dispatcher on its kernel path
+    (interpret mode, one block): the same quantizer, an exact int32 sum and
+    the same two float32 products, so the same bits."""
+    jx, tx, (w_q, w_s) = _full_case(c + s, c, s, dtype)
+    want = jops.int8_apply(jx, w_q, w_s, use_kernel=True, interpret=True, block_m=8,
+                           block_k=c, block_n=s)
+    got = ref.int8_linear_ref(tx.reshape(8, c), _t(w_q), _t(w_s))
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)).reshape(8, s))
+    n = t_k6_linear.launches  # CPU tensors: the wrapper runs the plain version
+    assert torch.equal(t_k6_linear(tx.reshape(8, c), _t(w_q), _t(w_s)), got)
+    assert t_k6_linear.launches == n
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("r", FULL_R)
+@pytest.mark.parametrize("c,s", FULL_CS)
+def test_int8_lowrank_linear_plain_matches_jax(dtype, r, c, s):
+    """K7's serving entry's plain version against JAX's dispatcher on its
+    kernel path, within K7_TOL of max |y| in float32 (one bf16 ulp, 2**-8,
+    in bf16, where a last-bit float32 difference can flip the rounding)."""
+    jx, tx, (u_q, u_s, v_q, v_s) = _full_case(c + r + s, c, s, dtype, r)
+    want = np.asarray(jops.int8_lowrank_apply(
+        jx, u_q, u_s, v_q, v_s, use_kernel=True, interpret=True, block_m=8, block_k=c,
+        block_n=s).astype(jnp.float32)).reshape(8, s)
+    args = [_t(a) for a in (u_q, u_s, v_q, v_s)]
+    got = ref.int8_lowrank_linear_ref(tx.reshape(8, c), *args)
+    assert got.dtype == getattr(torch, dtype)
+    tol = K7_TOL if dtype == "float32" else 2 ** -8
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol * np.abs(want).max(),
+                               rtol=tol)
+    n = t_k7_linear.launches
+    assert torch.equal(t_k7_linear(tx.reshape(8, c), *args), got)
+    assert t_k7_linear.launches == n
 
 
 @pytest.mark.parametrize("use_kernel", [True, False])

@@ -370,26 +370,152 @@ def test_gpu_int8_lowrank_matches_plain(m, r, c, s):
     assert err <= K7_RTOL * want.abs().max().item()
 
 
+def _shifted(t):
+    """A copy of t one element past a 16-byte boundary (a layer view of a
+    stacked tensor can lie so)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+# the serving entries: x (bf16 on the serve path, float32 too) quantized in
+# the kernel, the scales applied there, output in x's dtype
+GPU_X_DTYPES = [torch.bfloat16, torch.float32]
+
+
+def _x(m, c, dtype, seed=0):
+    rng = np.random.default_rng(seed + m + c)
+    x = rng.standard_normal((m, c)).astype(np.float32)
+    x[0, : c // 3] = 0.0  # a partly zero row
+    if m > 2:
+        x[-1] = 0.0  # an all-zero row: the scale floor
+    return torch.from_numpy(x).cuda().to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", GPU_X_DTYPES)
+@pytest.mark.parametrize("m", [1, 8, 128, 2048])
+@pytest.mark.parametrize("c,s", GPU_INT8_CS)
+def test_gpu_int8_linear_matches_plain_bitwise(m, c, s, dtype):
+    _need_gpu()
+    from repro_torch.kernels.int8_matmul import int8_linear
+
+    x = _x(m, c, dtype)
+    (w_q,) = _int8_mats(c + s, (c, s))
+    ws = _scales(s, s)
+    got = int8_linear(x, w_q, ws)
+    want = ref.int8_linear_ref(x, w_q, ws)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (m, s) and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", GPU_X_DTYPES)
+@pytest.mark.parametrize("m", [1, 8, 128, 2048])
+@pytest.mark.parametrize("r", GPU_K7_R)
+@pytest.mark.parametrize("c,s", GPU_INT8_CS)
+def test_gpu_int8_lowrank_linear_matches_plain(m, r, c, s, dtype):
+    _need_gpu()
+    from repro_torch.kernels.int8_matmul import int8_lowrank_linear
+
+    x = _x(m, c, dtype)
+    _, u_q, us, v_q, vs = _k7_args(1, c, r, s, seed=m)
+    got = int8_lowrank_linear(x, u_q, us, v_q, vs)
+    want = ref.int8_lowrank_linear_ref(x, u_q, us, v_q, vs)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (m, s)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= K7_RTOL * want.float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [False, True])
+def test_gpu_int8_lowrank_same_scratch_twice_matches_plain(fused):
+    """K7 twice through one scratch, filled with garbage first, on
+    different x: both match the plain version (each launch writes all of
+    t and the x scales before phase 2 reads them; nothing carries over)."""
+    _need_gpu()
+    from repro_torch.kernels import int8_matmul as k
+
+    m, c, r, s = 8, 960, 119, 320
+    _, u_q, us, v_q, vs = _k7_args(1, c, r, s, seed=21)
+    scratch = k.k7_scratch(m, r, "cuda")
+    scratch.copy_(torch.randint(-2 ** 31, 2 ** 31 - 1, scratch.shape, dtype=torch.int32))
+    for seed in (22, 23):
+        if fused:
+            x = _x(m, c, torch.bfloat16, seed=seed)
+            want = ref.int8_lowrank_linear_ref(x, u_q, us, v_q, vs)
+            xtype, dtype = 2, torch.bfloat16
+        else:
+            (x,) = _int8_mats(seed, (m, c))
+            want = ref.int8_lowrank_matmul_ref(x, u_q, us, v_q, vs)
+            xtype, dtype = 0, torch.float32
+        got = torch.empty((m, s), dtype=dtype, device="cuda")
+        k._k7("int8_lowrank_linear", xtype, x, u_q, us, v_q, vs, got, scratch)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= K7_RTOL * want.float().abs().max().item()
+
+
+@pytest.mark.gpu
+def test_gpu_int8_dispatch_runs_no_torch_quantizer(monkeypatch):
+    """On CUDA tensors ops.int8_apply / int8_lowrank_apply quantize inside
+    the kernels: with every quantize_rowwise the port has made to raise,
+    they still run, launch one fused kernel entry each, and match the plain
+    versions computed before."""
+    _need_gpu()
+    from repro_torch.kernels import int8_matmul as k
+    from repro_torch.kernels import ops
+
+    x = _mats(6, (2, 4, 960))[0]
+    (w_q,) = _int8_mats(31, (960, 320))
+    ws = _scales(32, 320)
+    _, u_q, us, v_q, vs = _k7_args(1, 960, 119, 320, seed=33)
+    want_d = ref.int8_linear_ref(x.reshape(8, 960), w_q, ws).reshape(2, 4, 320)
+    want_l = ref.int8_lowrank_linear_ref(x.reshape(8, 960), u_q, us, v_q, vs).reshape(2, 4, 320)
+
+    def boom(*a, **kw):
+        raise AssertionError("a torch quantizer ran on the kernel path")
+
+    for mod in (ops, ref, k):
+        if hasattr(mod, "quantize_rowwise"):
+            monkeypatch.setattr(mod, "quantize_rowwise", boom)
+    before = (k.int8_linear.launches, k.int8_lowrank_linear.launches)
+    yd = ops.int8_apply(x, w_q, ws, use_kernel=True)
+    yl = ops.int8_lowrank_apply(x, u_q, us, v_q, vs, use_kernel=True)
+    torch.cuda.synchronize()
+    assert (k.int8_linear.launches, k.int8_lowrank_linear.launches) == (before[0] + 1,
+                                                                         before[1] + 1)
+    assert torch.equal(yd, want_d)
+    err = (yl.float() - want_l.float()).abs().max().item()
+    assert err <= K7_RTOL * want_l.float().abs().max().item()
+
+
 @pytest.mark.gpu
 def test_gpu_int8_kernels_take_unaligned_operands():
-    """Operands off a 16-byte boundary (a layer view of a stacked int8
-    tensor can be) take the element-load path and agree all the same."""
+    """Operands off a 16-byte boundary take the element-load path and agree
+    all the same, through both entries of each kernel."""
     _need_gpu()
-    from repro_torch.kernels.int8_matmul import int8_lowrank_matmul, int8_matmul
-
-    def shifted(t):
-        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-        view = buf[1:].view(t.shape)
-        view.copy_(t)
-        return view
+    from repro_torch.kernels.int8_matmul import (int8_linear, int8_lowrank_linear,
+                                                 int8_lowrank_matmul, int8_matmul)
 
     x_q, u_q, us, v_q, vs = _k7_args(40, 96, 24, 80, seed=3)
-    xs, uq2, vq2 = shifted(x_q), shifted(u_q), shifted(v_q)
+    xs, uq2, vq2 = _shifted(x_q), _shifted(u_q), _shifted(v_q)
     assert torch.equal(int8_matmul(xs, uq2), ref.int8_matmul_ref(x_q, u_q))
     got = int8_lowrank_matmul(xs, uq2, us, vq2, vs)
     want = ref.int8_lowrank_matmul_ref(x_q, u_q, us, v_q, vs)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= K7_RTOL * want.abs().max().item()
+    for dtype in (torch.bfloat16, torch.float32):
+        x = _mats(5, (40, 96))[0].to(dtype)
+        x2, us2 = _shifted(x), _shifted(us)
+        assert torch.equal(int8_linear(x2, uq2, us2), ref.int8_linear_ref(x, u_q, us))
+        got = int8_lowrank_linear(x2, uq2, us2, vq2, vs)
+        want = ref.int8_lowrank_linear_ref(x, u_q, us, v_q, vs)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= K7_RTOL * want.float().abs().max().item()
 
 
 @pytest.mark.gpu
@@ -420,30 +546,52 @@ def test_gpu_int8_wrappers_count_launches_and_raise_instead_of_falling_back():
     big = _k7_args(8, 64, 513, 40)
     with pytest.raises(ValueError, match="rank 513"):
         int8_lowrank_matmul(*big)
+    # the serving entries: x float32 or bf16, counted by shape
+    from repro_torch.kernels.int8_matmul import int8_linear, int8_lowrank_linear
+
+    x = _mats(4, (8, 64))[0]
+    before = (int8_linear.launches, int8_lowrank_linear.launches)
+    int8_linear(x, u_q, us)
+    int8_lowrank_linear(x, u_q, us, v_q, vs)
+    assert (int8_linear.launches, int8_lowrank_linear.launches) == (before[0] + 1,
+                                                                     before[1] + 1)
+    assert int8_linear.launches_by_shape[(8, 64, 16)] >= 1
+    assert int8_lowrank_linear.launches_by_shape[(8, 64, 16, 40)] >= 1
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        int8_linear(x.half(), u_q, us)
+    with pytest.raises(TypeError, match="int8"):
+        int8_lowrank_linear(x, u_q.float(), us, v_q, vs)
+    with pytest.raises(ValueError, match="w_scale"):
+        int8_linear(x, u_q, vs)
+    with pytest.raises(ValueError, match="rank 513"):
+        int8_lowrank_linear(x, *big[1:])
 
 
 @pytest.mark.gpu
 def test_gpu_int8_dispatch_launches_the_kernels():
     """ops.int8_apply / int8_lowrank_apply with the kernel requested launch
-    K6 / K7 on CUDA tensors (no plain-version decision recorded) and give
-    the algebra the CPU path computes with the plain versions."""
+    K6 / K7's serving entries on CUDA tensors (no plain-version decision
+    recorded, no int8-operand entry) and give the algebra the CPU path
+    computes with the plain versions."""
     _need_gpu()
     from repro_torch.kernels import ops
-    from repro_torch.kernels.int8_matmul import (int8_lowrank_matmul, int8_matmul,
+    from repro_torch.kernels.int8_matmul import (int8_linear, int8_lowrank_linear,
+                                                 int8_lowrank_matmul, int8_matmul,
                                                  quantize_colwise)
 
     x = _mats(6, (2, 4, 96))[0]
     w_q, w_s = quantize_colwise(_mats(7, (1,), (96, 40))[1])
     u_q, u_s = quantize_colwise(_mats(8, (1,), (96, 24))[1])
     v_q, v_s = quantize_colwise(_mats(9, (1,), (24, 40))[1])
-    before = (int8_matmul.launches, int8_lowrank_matmul.launches)
+    wrappers = (int8_linear, int8_lowrank_linear, int8_matmul, int8_lowrank_matmul)
+    before = [w.launches for w in wrappers]
     with ops.capture_fallbacks() as fbs:
         yd = ops.int8_apply(x, w_q, w_s, use_kernel=True)
         yl = ops.int8_lowrank_apply(x, u_q, u_s, v_q, v_s, use_kernel=True)
     torch.cuda.synchronize()
     assert not fbs
-    assert (int8_matmul.launches, int8_lowrank_matmul.launches) == (before[0] + 1,
-                                                                     before[1] + 1)
+    assert [w.launches for w in wrappers] == [before[0] + 1, before[1] + 1, before[2],
+                                              before[3]]
     cpu = [t.cpu() for t in (x, w_q, w_s, u_q, u_s, v_q, v_s)]
     wd = ops.int8_apply(*cpu[:3], use_kernel=True)
     wl = ops.int8_lowrank_apply(cpu[0], *cpu[3:], use_kernel=True)
