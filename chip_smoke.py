@@ -22,6 +22,15 @@ Phases, in order; any failure exits nonzero:
               prefill through the plain versions;
 6. profile  — where a full-width decode step's time goes (wall time,
               device time by kernel, the device's idle share);
+6b. decompose — dense full-width smollm-360m (seeded, no LRD) through
+              ``core.decompose.apply_lrd`` at Eq.-5 and at Algorithm-1
+              ranks, each timed (the paper's decomposition time, Table 2):
+              the plan equal to the init-time ``Decomposer`` plan, layer 0
+              of each projection's ``u @ v`` against a float64 truncated
+              SVD on the CPU, ``randomized_svd`` against ``svd_decompose``
+              on one (960, 2560) slice; then the Eq.-5 tree served (8
+              requests, 8 slots, K1/K5 launches exact) and held against
+              the plain path as in phase 5;
 7. train    — ``repro_torch.launch.train.main`` on full-width smollm-360m
               with LRD and sequential freezing, 6 steps of 8 x 256 tokens
               (phases 0,0,1,1,0,0), with the launch counters zeroed before
@@ -34,6 +43,13 @@ Phases, in order; any failure exits nonzero:
 9. train profile — wall time, device time and idle share of one train
               step per phase, with tokens/s and K1, K5, K2, K3 and K4
               device ms apart;
+9b. rank-adapt train — phase 7 with ``--rank-schedule decay``: the ranks
+              shrink at each phase swap (240/120/349 -> 128/90/256 ->
+              96/67/128), launches counted per step by name and by shape,
+              the partition bytes and ``torch.cuda.memory_allocated()``
+              falling at each boundary to what the rank map implies; a
+              train step profiled as in phase 9 at each shrunk rank map;
+              then one ``--rank-schedule energy`` boundary and its rank map;
 10. export serve — the serve CLI with ``--export analytic --export-int8``
               and then ``--export measured --export-int8`` (the rank-quantized
               int8 artifact): the export report (ranks per geometry, merged
@@ -86,8 +102,11 @@ Phases, in order; any failure exits nonzero:
               flash extras, not in the kernels line (no main path launches
               the other design).
 
-Phase 3 also holds K1-K5 at the Algorithm-1 training shapes; ``--only
-kernels`` runs phases 1-3, the K6-K8 checks and phase 19.  The last line of standard output is ``{"ok": true, "device": {...}}``; the
+Phase 3 also holds K1-K5 at the Algorithm-1 training shapes and at the
+decay schedule's ranks; the energy boundary's ranks are decided on the
+card, and the shapes it launched that phase 3 did not check are checked
+and timed after it.  ``--only kernels`` runs phases 1-3, the K6-K8 checks
+and phase 19.  The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is ``nvidia-smi``'s name and power limit, and the
 ``{"kernels": [...]}`` line comes before that.
 """
@@ -96,6 +115,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -156,6 +176,16 @@ TRAIN_ARGV = ["--arch", "smollm-360m", "--lrd", "--no-rank-opt", "--use-pallas",
               "--global-batch", "8", "--seq-len", "256", "--save-every", "1000",
               "--log-every", "1"]
 TRAIN_M = 8 * 256  # --global-batch x --seq-len
+# in-training rank adaptation on the same run: decay 0.75 at each phase
+# swap (steps 2 and 4), and one energy boundary (step 2 of 3)
+DECAY_ARGV = TRAIN_ARGV + ["--rank-schedule", "decay"]
+ENERGY_ARGV = TRAIN_ARGV + ["--rank-schedule", "energy", "--steps", "3"]
+# bound on u @ v of apply_lrd's bf16 factors against a float64 truncated
+# SVD of the same bf16 weight, relative to max |W_r|: rounding u and v to
+# bf16 (2**-9 relative each) moves an entry of the product by about 2**-9
+# of its size, with random signs over r terms, so the largest error over
+# the matrix is about 2.5e-3 of its max (a CPU run at these shapes)
+DECOMP_RTOL = 1e-2
 # launches a train step makes at full width (32 layers): K1 on the 5 plain
 # factorised projections forward and the 2 FFN branches recomputed
 # backward; K5 once a layer; K2 on all 7 factor pairs; K3 (dU) and K4 (dV)
@@ -283,6 +313,16 @@ PROJ = {"wq/wo": (960, 240, 960), "wk/wv": (960, 120, 320), "gate/up": (960, 349
 # the same at the Algorithm-1 ranks of the training CLI
 PROJ_ALG1 = {"wq/wo": (960, 239, 960), "wk/wv": (960, 80, 320), "gate/up": (960, 256, 2560),
              "down": (2560, 256, 960)}
+# the Eq.-5 train run's ranks after each boundary of --rank-schedule decay
+# (JAX's _decay_target: floor(0.75 r), floored to the 128 tile, ranks under
+# one tile kept)
+PROJ_DECAY = ({"wq/wo": (960, 128, 960), "wk/wv": (960, 90, 320), "gate/up": (960, 256, 2560),
+               "down": (2560, 256, 960)},
+              {"wq/wo": (960, 96, 960), "wk/wv": (960, 67, 320), "gate/up": (960, 128, 2560),
+               "down": (2560, 128, 960)})
+# (C, S) of each factorised projection of smollm-360m, by its path's leaf
+GEOM = {"wq": (960, 960), "wo": (960, 960), "wk": (960, 320), "wv": (960, 320),
+        "gate": (960, 2560), "up": (960, 2560), "down": (2560, 960)}
 BWD = ("lowrank_matmul_dx", "lowrank_matmul_du", "lowrank_matmul_dv")
 LOWRANK_FWD = ("lowrank_matmul", "lowrank_gated_ffn")
 # kernels that must give the same bits on every call (no atomics; K3/K4's
@@ -302,15 +342,23 @@ def kernel_shapes():
             c, r, s = PROJ[proj]
             out.append(("lowrank_matmul", dict(M=m, C=c, r=r, S=s)))
         out.append(("lowrank_gated_ffn", dict(M=m, C=960, r=349, F=2560)))
-    for proj in (PROJ, PROJ_ALG1):
+    # the decay run trains at its first shrunk map in phase 1 (no K4) and
+    # at its second in phase 0 (no K3)
+    for proj, bwd in ((PROJ, BWD), (PROJ_ALG1, BWD),
+                      (PROJ_DECAY[0], ("lowrank_matmul_dx", "lowrank_matmul_du")),
+                      (PROJ_DECAY[1], ("lowrank_matmul_dx", "lowrank_matmul_dv"))):
         for c, r, s in proj.values():
             out.append(("lowrank_matmul", dict(M=TRAIN_M, C=c, r=r, S=s)))
         c, r, f = proj["gate/up"]
         out.append(("lowrank_gated_ffn", dict(M=TRAIN_M, C=c, r=r, F=f)))
-        for name in BWD:
+        for name in bwd:
             for c, r, s in proj.values():
                 out.append((name, dict(M=TRAIN_M, C=c, r=r, S=s)))
-    return out
+    unique = []  # a shape two rank sets share is checked once
+    for name, d in out:
+        if (name, d) not in unique:
+            unique.append((name, d))
+    return unique
 
 
 def kernel_case(name, d, gen):
@@ -498,11 +546,13 @@ def _flush_buffer():
     return torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")  # 256 MB > L2
 
 
-def phase_kernels(iters: int = 50):
+def phase_kernels(shapes=None, iters: int = 50):
+    """K1-K5 at ``shapes`` ((name, dims) pairs; every main-path shape known
+    before the run by default)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = _flush_buffer()
     rows = []
-    for name, d in kernel_shapes():
+    for name, d in kernel_shapes() if shapes is None else shapes:
         case = kernel_case(name, d, gen)
         case["ops"] = case.pop("flops")
         rows.append(check_and_time(name, d, case, iters, flush, BF16_FLOPS_PER_S))
@@ -831,6 +881,139 @@ def phase_parity(engine):
     return dict(max_abs_diff=err, rel=rel, agree=agree)
 
 
+def _at(tree, path: str):
+    """The subtree of ``tree`` at a '/'-joined path."""
+    for key in path.split("/"):
+        tree = tree[key]
+    return tree
+
+
+def _shape_tree(tree):
+    from repro_torch.core.freezing import tree_map
+
+    return tree_map(lambda t: (tuple(t.shape), t.dtype), tree)
+
+
+def phase_decompose():
+    """Dense full-width smollm-360m from a seeded generator through
+    ``apply_lrd`` at Eq.-5 and Algorithm-1 ranks (timed, checked against the
+    init-time plan and a float64 SVD), ``randomized_svd`` against
+    ``svd_decompose`` on one slice, then the Eq.-5 tree served through the
+    kernels with K1/K5 launches counted."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import svd
+    from repro_torch.core.decompose import apply_lrd, iter_factor_groups
+    from repro_torch.core.freezing import tree_leaves
+    from repro_torch.kernels.lowrank_ffn import lowrank_gated_ffn
+    from repro_torch.kernels.lowrank_matmul import lowrank_matmul
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import lm
+    from repro_torch.serving import ServeConfig, ServeEngine
+
+    run = serve.serve_run(get_config("smollm-360m"), max_len=PREFILL_M + 32, slots=DECODE_M,
+                          lrd=True, device=torch.device("cuda"), seed=0)
+    dense_run = dataclasses.replace(run, lrd=dataclasses.replace(run.lrd, enabled=False))
+    dense, dense_plan = steps.init_params(dense_run, "cuda")
+    n_dense = sum(t.numel() for t in tree_leaves(dense))
+    if dense_plan.layers or any(t.dtype != torch.bfloat16 for t in tree_leaves(dense)):
+        raise AssertionError("decompose: the dense init is not a bf16 tree without LRD")
+    torch.linalg.svd(torch.ones((64, 64), device="cuda"))  # cuSOLVER's set-up, untimed
+    torch.cuda.synchronize()
+    exact = {}  # path -> float64 SVD of layer 0 (CPU)
+    out, trees = dict(dense_params=n_dense), {}
+    for name, quantize in (("eq5", False), ("alg1", True)):
+        r_run = dataclasses.replace(run, lrd=dataclasses.replace(run.lrd, rank_quantize=quantize))
+        dec = steps.make_decomposer(r_run, device="meta")
+        layout = lm.lm_init(r_run.model, dec)  # the init-time plan and shapes, no data
+        t0 = time.perf_counter()
+        tree, plan = apply_lrd(dense, dec.policy)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        # the init names the stacked layers "layers", the tree keeps them under "stack"
+        want = {p.replace("layers/", "stack/", 1):
+                dataclasses.replace(lp, path=p.replace("layers/", "stack/", 1))
+                for p, lp in dec.plan.layers.items()}
+        if plan.layers != want or _shape_tree(tree) != _shape_tree(layout):
+            raise AssertionError(f"decompose ({name}): plan or layout differs from the "
+                                 f"init-time Decomposer's: {plan.to_json()}")
+        errs = {}
+        for path, g in iter_factor_groups(tree):
+            if path not in exact:
+                w64 = _at(dense, path)["kernel"][0].double().cpu()
+                exact[path] = (w64, torch.linalg.svd(w64, full_matrices=False))
+            w64, (u64, s64, vh64) = exact[path]
+            r = g["u"].shape[-1]
+            w_r = (u64[:, :r] * s64[:r]) @ vh64[:r]
+            got = (g["u"][0].double() @ g["v"][0].double()).cpu()
+            _, rel = rel_err(got, w_r)
+            errs[path.rsplit("/", 1)[-1]] = dict(
+                rank=r, rel_err=rel,
+                eq3=((torch.sum((w64 - w_r) ** 2) / torch.sum(w64 ** 2)) ** 0.5).item())
+            if not math.isfinite(rel) or rel > DECOMP_RTOL:
+                raise AssertionError(f"decompose ({name}): {path} layer 0 u @ v is {rel:.3e} "
+                                     f"of max |W_r| off the float64 truncated SVD "
+                                     f"(bound {DECOMP_RTOL})")
+        out[name] = dict(seconds=secs, summary=plan.summary(), layers=errs)
+        log(f"[decompose] apply_lrd ({name}, {plan.summary()}) on dense smollm-360m "
+            f"({n_dense / 1e6:.1f} M params, bf16, 32 layers): {secs:.2f} s on "
+            f"{torch.cuda.get_device_name(0)}; layer 0 u @ v against a float64 truncated SVD "
+            f"(max |diff| / max |W_r|, bound {DECOMP_RTOL}; Eq. 3 ||W - W_r|| / ||W||): "
+            + ", ".join(f"{k} r {e['rank']} {e['rel_err']:.2e} ({e['eq3']:.3f})"
+                        for k, e in errs.items()))
+        trees[name] = tree
+    # randomized against exact SVD on one (960, 2560) slice at its Eq.-5 rank
+    w = _at(dense, "stack/ffn/gate")["kernel"][0]
+    r = trees["eq5"]["stack"]["ffn"]["gate"]["u"].shape[-1]
+    cmp = {}
+    for fn in (svd.svd_decompose, svd.randomized_svd):
+        fn(w, r)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u, v = fn(w, r)
+        torch.cuda.synchronize()
+        cmp[fn.__name__] = dict(ms=(time.perf_counter() - t0) * 1e3,
+                                err=(svd.reconstruction_error(w, u, v)
+                                     / torch.sum(w.float() ** 2)).item())
+    if not cmp["svd_decompose"]["err"] <= cmp["randomized_svd"]["err"]:
+        raise AssertionError(f"decompose: the exact truncated SVD's error exceeds the "
+                             f"randomized one's (Eckart-Young): {cmp}")
+    out["svd_vs_randomized"] = dict(shape=[960, 2560], rank=r, **cmp)
+    log(f"[decompose] (960, 2560) slice at r {r}: svd_decompose "
+        f"{cmp['svd_decompose']['ms']:.1f} ms, ||W - UV||^2 / ||W||^2 "
+        f"{cmp['svd_decompose']['err']:.4f}; randomized_svd {cmp['randomized_svd']['ms']:.1f} ms, "
+        f"{cmp['randomized_svd']['err']:.4f}")
+    del trees["alg1"], exact
+    # serve the Eq.-5 tree
+    engine = ServeEngine(run, trees.pop("eq5"), device="cuda",
+                         config=ServeConfig(num_slots=DECODE_M, max_len=PREFILL_M + 32,
+                                            prefill_len=PREFILL_M, block_size=16))
+    trace = serve.poisson_trace(8, 1000.0, PREFILL_M, run.model.vocab_size, seed=3)
+    for req in trace:
+        req["max_new"] = 16
+    zero_counts()
+    t0 = time.perf_counter()
+    outs = engine.serve(trace)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in wrappers().items()}
+    by_shape = counts_by_shape()
+    fwd = engine.scheduler.forward_stats
+    n_fwd, n_layers = fwd["prefill"] + fwd["decode"], run.model.num_layers
+    want = {"lowrank_matmul": 5 * n_layers * n_fwd, "lowrank_gated_ffn": n_layers * n_fwd}
+    got = {k: n for k, n in counts.items() if n or k in want}
+    if len(outs) != 8 or any(len(o) != 16 for o in outs) or fwd["nonfinite"] or got != want:
+        raise AssertionError(f"decompose serve: {[len(o) for o in outs]} tokens, "
+                             f"{fwd['nonfinite']} non-finite forwards, launches {got}, want {want}")
+    log(f"[decompose] served the Eq.-5 tree: 8 requests x 16 tokens, {fwd['prefill']} prefill "
+        f"+ {fwd['decode']} decode forwards, {lowrank_matmul.launches} K1 + "
+        f"{lowrank_gated_ffn.launches} K5 launches = {5 * n_layers} + {n_layers} per forward; "
+        f"{dt:.1f}s")
+    out["serve"] = dict(fwd=dict(fwd), counts=got, wall_s=dt)
+    return engine, by_shape, out
+
+
 def _train_run():
     from repro_torch.launch import train
 
@@ -847,44 +1030,19 @@ def _train_batch(run, seed: int):
 
 def phase_train():
     """The training CLI at full width, launches counted per step."""
-    import tempfile
-
-    from repro_torch.launch import train
-
-    per_step, prev = [], {}
-
-    def on_step(step, phase, metrics):
-        now = {name: fn.launches for name, fn in wrappers().items()}
-        per_step.append(dict(step=step, phase=phase, **metrics,
-                             launches={k: n - prev.get(k, 0) for k, n in now.items()}))
-        prev.update(now)
-
-    zero_counts()
-    with tempfile.TemporaryDirectory() as ckpt_dir:
-        t0 = time.perf_counter()
-        state, losses = train.main(TRAIN_ARGV + ["--ckpt-dir", ckpt_dir], on_step=on_step)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-    by_shape = counts_by_shape()
+    state, per_step, by_shape, dt = _counted_train(TRAIN_ARGV)
     phases = [r["phase"] for r in per_step]
     if phases != [0, 0, 1, 1, 0, 0]:
         raise AssertionError(f"train: phases {phases}, want [0, 0, 1, 1, 0, 0]")
     for r in per_step:
-        want = {k: (v[r["phase"]] if isinstance(v, dict) else v)
-                for k, v in TRAIN_LAUNCHES.items()}
-        r["launches"] = {k: n for k, n in r["launches"].items() if n or k in want}
-        if r["launches"] != want:
-            raise AssertionError(f"train: step {r['step']} (phase {r['phase']}) launched "
-                                 f"{r['launches']}, want {want}")
-        if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])):
-            raise AssertionError(f"train: step {r['step']} loss {r['loss']} grad norm "
-                                 f"{r['grad_norm']}")
+        _check_step("train", r, _leaf_ranks(PROJ))
         log(f"[train] step {r['step']} phase {r['phase']}: loss {r['loss']:.4f}, grad norm "
             f"{r['grad_norm']:.3f}, {r['step_time_s'] * 1e3:.1f} ms; launches "
-            + ", ".join(f"{k.replace('lowrank_', '')} {n}" for k, n in r["launches"].items()))
+            + ", ".join(f"{k.replace('lowrank_', '')} {n}" for k, n in r["launches"].items()
+                        if n))
     log(f"[train] 6 steps of {TRAIN_M} tokens on {torch.cuda.get_device_name(0)}: loss "
-        f"{losses[0]:.4f} -> {losses[-1]:.4f}; {dt:.1f}s incl. init")
-    return state.params, by_shape, dict(steps=per_step, wall_s=dt)
+        f"{per_step[0]['loss']:.4f} -> {per_step[-1]['loss']:.4f}; {dt:.1f}s incl. init")
+    return state.params, by_shape, dict(steps=_without_shapes(per_step), wall_s=dt)
 
 
 def _grad_paths(tree, path=""):
@@ -975,6 +1133,187 @@ def phase_train_profile(params, steps_n: int = 2, run=None, phases=(-1, 0, 1),
                if device_ms else "time not measured (profiler saw no device events)"))
         del state
     return out
+
+
+# --------------------------------------------------------------------------
+# In-training rank adaptation
+# --------------------------------------------------------------------------
+
+# memory_allocated after two steps at the same ranks and phase differs by
+# up to 3.0 MiB on the H100 (the allocator's 512-byte rounding of each
+# tensor, library workspaces); an untruncated tree of factors or moments
+# left alive is at least 54 MiB (the frozen u at 96/67/128)
+MEM_SLACK = 8 << 20
+
+
+def _leaf_ranks(proj):
+    """{projection leaf: rank} of a PROJ-style table."""
+    pairs = {"wq": "wq/wo", "wo": "wq/wo", "wk": "wk/wv", "wv": "wk/wv", "gate": "gate/up",
+             "up": "gate/up", "down": "down"}
+    return {leaf: proj[key][1] for leaf, key in pairs.items()}
+
+
+def _by_leaf(rank_map):
+    return {path.rsplit("/", 1)[-1]: r for path, r in rank_map.items()}
+
+
+def _expected_keys(ranks):
+    """Each K1-K5 wrapper's ``launches_by_shape`` keys in a train step at
+    ``ranks`` ({leaf: rank}): K1, K2, K3 and K4 on every factor pair, K5 on
+    the gate/up pair."""
+    pairs = {(TRAIN_M, c, ranks[leaf], s_) for leaf, (c, s_) in GEOM.items()}
+    return {"lowrank_matmul": pairs, "lowrank_matmul_dx": pairs, "lowrank_matmul_du": pairs,
+            "lowrank_matmul_dv": pairs,
+            "lowrank_gated_ffn": {(TRAIN_M, 960, ranks["gate"], ranks["up"], 2560)}}
+
+
+def _factor_bytes(rank_map, phase, n_layers):
+    """(param bytes, optimizer bytes) of the factor pairs at ``rank_map``:
+    bf16 (L, C, r) and (L, r, S) factors, and sgdm's one float32 moment for
+    the trainable factor (v at phase 0, u at phase 1)."""
+    params = opt = 0
+    for path, r in rank_map.items():
+        c, s_ = GEOM[path.rsplit("/", 1)[-1]]
+        params += 2 * n_layers * r * (c + s_)
+        opt += 4 * n_layers * r * (s_ if phase == 0 else c)
+    return params, opt
+
+
+def _counted_train(argv):
+    """``train.main(argv)`` with each step's metrics, its launches by kernel
+    and the shapes each kernel launched at, and
+    ``torch.cuda.memory_allocated()`` after it."""
+    import tempfile
+
+    from repro_torch.launch import train
+
+    per_step, prev, prev_shape = [], {}, {}
+
+    def on_step(step, phase, metrics):
+        now = {name: fn.launches for name, fn in wrappers().items()}
+        shapes = counts_by_shape()
+        gc.collect()  # tensors in reference cycles count until collected
+        per_step.append(dict(
+            step=step, phase=phase, **metrics, mem=torch.cuda.memory_allocated(),
+            launches={k: n - prev.get(k, 0) for k, n in now.items()},
+            shapes={k: {key for key, n in by.items() if n > prev_shape.get(k, {}).get(key, 0)}
+                    for k, by in shapes.items()}))
+        prev.update(now)
+        prev_shape.update(shapes)
+
+    zero_counts()
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        t0 = time.perf_counter()
+        state, _ = train.main(argv + ["--ckpt-dir", ckpt_dir], on_step=on_step)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    return state, per_step, counts_by_shape(), dt
+
+
+def _without_shapes(per_step):
+    return [{k: v for k, v in r.items() if k != "shapes"} for r in per_step]
+
+
+def _check_step(path: str, r, ranks):
+    """A counted train step at ``ranks``: TRAIN_LAUNCHES by name, the
+    expected shapes, finite loss and grad norm."""
+    want = {k: (v[r["phase"]] if isinstance(v, dict) else v) for k, v in TRAIN_LAUNCHES.items()}
+    got = {k: n for k, n in r["launches"].items() if n or k in want}
+    shapes = {k: keys for k, keys in _expected_keys(ranks).items() if want[k]}
+    seen = {k: keys for k, keys in r["shapes"].items() if keys}
+    if got != want or seen != shapes:
+        raise AssertionError(f"{path}: step {r['step']} (phase {r['phase']}) launched {got} at "
+                             f"{seen}, want {want} at {shapes}")
+    if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])):
+        raise AssertionError(f"{path}: step {r['step']} loss {r['loss']} grad norm "
+                             f"{r['grad_norm']}")
+
+
+def phase_rank_adapt_train():
+    """The training CLI with ``--rank-schedule decay`` (6 steps, swaps at
+    steps 2 and 4), then one ``--rank-schedule energy`` boundary (3 steps)."""
+    state, per_step, by_shape, dt = _counted_train(DECAY_ARGV)
+    n_layers = 32
+    if [r["phase"] for r in per_step] != [0, 0, 1, 1, 0, 0]:
+        raise AssertionError(f"rank adapt: phases {[r['phase'] for r in per_step]}")
+    want_ranks = [_leaf_ranks(p) for p in (PROJ, PROJ, PROJ_DECAY[0], PROJ_DECAY[0],
+                                           PROJ_DECAY[1], PROJ_DECAY[1])]
+    step0 = per_step[0]
+    fp, fo = _factor_bytes(step0["rank_map"], step0["phase"], n_layers)
+    base = (step0["trainable_bytes"] + step0["frozen_bytes"] - fp, step0["opt_bytes"] - fo)
+    for r, want in zip(per_step, want_ranks):
+        ranks = _by_leaf(r["rank_map"])
+        if ranks != want:
+            raise AssertionError(f"rank adapt: step {r['step']} ranks {ranks}, want {want}")
+        _check_step("rank adapt", r, ranks)
+        fp, fo = _factor_bytes(r["rank_map"], r["phase"], n_layers)
+        r["implied_bytes"] = (base[0] + fp, base[1] + fo)
+        if (r["trainable_bytes"] + r["frozen_bytes"], r["opt_bytes"]) != r["implied_bytes"]:
+            raise AssertionError(f"rank adapt: step {r['step']} params + opt bytes "
+                                 f"{r['trainable_bytes'] + r['frozen_bytes']} + {r['opt_bytes']}, "
+                                 f"the rank map implies {r['implied_bytes']}")
+        log(f"[rank adapt] step {r['step']} phase {r['phase']} ranks wq/wo {ranks['wq']}, wk/wv "
+            f"{ranks['wk']}, gate/up {ranks['gate']}, down {ranks['down']}: loss {r['loss']:.4f}, "
+            f"grad norm {r['grad_norm']:.3f}, {r['step_time_s'] * 1e3:.1f} ms; trainable "
+            f"{r['trainable_bytes'] / 2 ** 20:.1f} MiB, frozen {r['frozen_bytes'] / 2 ** 20:.1f} MiB, "
+            f"opt {r['opt_bytes'] / 2 ** 20:.1f} MiB, memory_allocated {r['mem'] / 2 ** 20:.1f} MiB; "
+            f"launches " + ", ".join(f"{k.replace('lowrank_', '')} {n}"
+                                     for k, n in r["launches"].items() if n))
+    drops = []
+    for b in (2, 4):
+        before, after = per_step[b - 1], per_step[b]
+        total = lambda r: r["trainable_bytes"] + r["frozen_bytes"] + r["opt_bytes"]  # noqa: E731
+        d_bytes, d_mem = total(after) - total(before), after["mem"] - before["mem"]
+        drops.append(dict(step=b, bytes=d_bytes, memory_allocated=d_mem))
+        if not (d_bytes < 0 and d_mem < 0 and abs(d_mem - d_bytes) <= MEM_SLACK):
+            raise AssertionError(f"rank adapt: boundary at step {b}: partition bytes moved by "
+                                 f"{d_bytes}, memory_allocated by {d_mem} (slack {MEM_SLACK})")
+        log(f"[rank adapt] boundary at step {b}: params + opt bytes {d_bytes / 2 ** 20:+.2f} MiB, "
+            f"torch.cuda.memory_allocated {d_mem / 2 ** 20:+.2f} MiB")
+    log(f"[rank adapt] 6 steps of {TRAIN_M} tokens with --rank-schedule decay: {dt:.1f}s "
+        f"incl. init")
+    e_state, e_steps, e_by_shape, e_dt = _counted_train(ENERGY_ARGV)
+    if [r["phase"] for r in e_steps] != [0, 0, 1]:
+        raise AssertionError(f"rank energy: phases {[r['phase'] for r in e_steps]}")
+    start = _leaf_ranks(PROJ)
+    for r in e_steps:
+        ranks = _by_leaf(r["rank_map"])
+        if any(ranks[k] > start[k] for k in start) or (r["step"] < 2 and ranks != start):
+            raise AssertionError(f"rank energy: step {r['step']} ranks {ranks}")
+        _check_step("rank energy", r, ranks)
+    energy = _by_leaf(e_steps[-1]["rank_map"])
+    log(f"[rank energy] --rank-schedule energy (0.98 of the squared singular mass, spectra "
+        f"read on the card) after 2 steps: " + ", ".join(f"{k} {start[k]}->{energy[k]}"
+                                                         for k in start)
+        + f"; step 2 loss {e_steps[-1]['loss']:.4f}; {e_dt:.1f}s incl. init")
+    return state.params, by_shape, e_by_shape, dict(
+        steps=_without_shapes(per_step), drops=drops, wall_s=dt,
+        energy_steps=_without_shapes(e_steps), energy_ranks=energy)
+
+
+def phase_rank_map_profiles(params, final):
+    """Train steps profiled as in phase 9 at the decay schedule's two shrunk
+    rank maps: ``params`` (Eq.-5 ranks) truncated to the first, and the
+    decay run's final params (the second)."""
+    from repro_torch.core import rank_adapt
+
+    first = {p: _leaf_ranks(PROJ_DECAY[0])[p.rsplit("/", 1)[-1]]
+             for p in rank_adapt.live_rank_map(params)}
+    out = {}
+    for label, p in (("map 1", rank_adapt.truncate_params(params, first)), ("map 2", final)):
+        ranks = _by_leaf(rank_adapt.live_rank_map(p))
+        out[label] = dict(ranks=ranks, profile=phase_train_profile(
+            p, label=f"rank {label} train profile ({ranks['wq']}/{ranks['wk']}/{ranks['gate']})"))
+    return out
+
+
+def shape_dims(name, key):
+    """Inverse of :func:`shape_key` for K1-K5."""
+    if name == "lowrank_gated_ffn":
+        m, c, r, _, f = key
+        return dict(M=m, C=c, r=r, F=f)
+    m, c, r, s_ = key
+    return dict(M=m, C=c, r=r, S=s_)
 
 
 # --------------------------------------------------------------------------
@@ -1140,8 +1479,6 @@ def phase_int8_parity(engine, kind: str):
 def phase_alg1_train():
     """The training CLI at Algorithm-1 ranks: the plan, then two steps
     (phases 0 and 1) with the launches counted per step."""
-    import tempfile
-
     from repro_torch.launch import steps, train
 
     run = train.build_run(train._parser().parse_args(ALG1_ARGV))
@@ -1152,35 +1489,17 @@ def phase_alg1_train():
         + ", ".join(f"{k} {r} ({e}){'' if d else ' dense'}" for k, (r, e, d) in ranks.items()))
     if {k: r for k, (r, _, d) in ranks.items() if d} != ALG1_RANKS:
         raise AssertionError(f"alg1 train: plan {ranks}, want {ALG1_RANKS}")
-    per_step, prev = [], {}
-
-    def on_step(step, phase, metrics):
-        now = {name: fn.launches for name, fn in wrappers().items()}
-        per_step.append(dict(step=step, phase=phase, **metrics,
-                             launches={k: n - prev.get(k, 0) for k, n in now.items()}))
-        prev.update(now)
-
-    zero_counts()
-    with tempfile.TemporaryDirectory() as ckpt_dir:
-        t0 = time.perf_counter()
-        state, losses = train.main(ALG1_ARGV + ["--ckpt-dir", ckpt_dir], on_step=on_step)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-    by_shape = counts_by_shape()
+    state, per_step, by_shape, dt = _counted_train(ALG1_ARGV)
     if [r["phase"] for r in per_step] != [0, 1]:
         raise AssertionError(f"alg1 train: phases {[r['phase'] for r in per_step]}, want [0, 1]")
     for r in per_step:
-        want = {k: (v[r["phase"]] if isinstance(v, dict) else v)
-                for k, v in TRAIN_LAUNCHES.items()}
-        got = {k: n for k, n in r["launches"].items() if n or k in want}
-        if got != want or not math.isfinite(r["loss"]):
-            raise AssertionError(f"alg1 train: step {r['step']} (phase {r['phase']}) launched "
-                                 f"{r['launches']}, want {want}; loss {r['loss']}")
+        _check_step("alg1 train", r, _leaf_ranks(PROJ_ALG1))
         log(f"[alg1 train] step {r['step']} phase {r['phase']}: loss {r['loss']:.4f}, grad norm "
             f"{r['grad_norm']:.3f}, {r['step_time_s'] * 1e3:.1f} ms; launches "
-            + ", ".join(f"{k.replace('lowrank_', '')} {n}" for k, n in got.items()))
+            + ", ".join(f"{k.replace('lowrank_', '')} {n}" for k, n in r["launches"].items()
+                        if n))
     log(f"[alg1 train] 2 steps of {TRAIN_M} tokens: {dt:.1f}s incl. init")
-    return state.params, run, by_shape, dict(steps=per_step, wall_s=dt,
+    return state.params, run, by_shape, dict(steps=_without_shapes(per_step), wall_s=dt,
                                              ranks={k: list(v) for k, v in ranks.items()})
 
 
@@ -1479,6 +1798,9 @@ def main(argv=None) -> int:
         result["parity"] = phase_parity(engine)
         result["profile"] = phase_profile(engine)
         del engine
+        engine, paths["decompose serve"], result["decompose"] = phase_decompose()
+        result["decompose"]["parity"] = phase_parity(engine)
+        del engine
         for kind in EXPORTS:
             engine, paths[f"export {kind}"], result[f"export_{kind}"] = phase_export_serve(kind)
             result[f"int8_parity_{kind}"] = phase_int8_parity(engine, kind)
@@ -1489,7 +1811,15 @@ def main(argv=None) -> int:
         params, paths["train"], result["train"] = phase_train()
         result["grads"] = phase_grads(params)
         result["train_profile"] = phase_train_profile(params)
-        del params
+        final, paths["rank decay"], paths["rank energy"], result["rank_adapt"] = \
+            phase_rank_adapt_train()
+        result["rank_adapt_profile"] = phase_rank_map_profiles(params, final)
+        del params, final
+        # the energy boundary's ranks are the card's: check what it launched
+        checked = {(r["name"], shape_key(r["name"], r["shape"])) for r in rows}
+        rows += phase_kernels([(name, shape_dims(name, key))
+                               for name, keys in sorted(paths["rank energy"].items())
+                               for key in sorted(keys) if (name, key) not in checked])
         params, alg1_run, paths["alg1 train"], result["alg1_train"] = phase_alg1_train()
         result["alg1_train_profile"] = phase_train_profile(
             params, run=alg1_run, phases=(-1, 1), label="alg1 train profile")

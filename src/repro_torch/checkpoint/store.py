@@ -32,8 +32,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import freezing
-from repro_torch.core.decompose import iter_factor_groups
+from repro_torch.core import freezing, rank_adapt
 
 __all__ = ["pack_phased_state", "unpack_phased_state", "live_rank_map", "save_checkpoint",
            "load_checkpoint", "latest_checkpoint", "CheckpointManager"]
@@ -50,10 +49,11 @@ def pack_phased_state(state, parked) -> Dict[str, Any]:
 
 
 def live_rank_map(state) -> Dict[str, int]:
-    """``{factor-group path: rank}`` of a (packed) state's params — the
-    manifest's ``extra["rank_map"]``."""
+    """``{factor-group path: rank}`` of a packed state's (or a param tree's)
+    factor groups — the manifest's ``extra["rank_map"]``, as
+    ``rank_adapt.live_rank_map`` reads it."""
     params = state["params"] if isinstance(state, dict) and "params" in state else state
-    return {path: int(g["u"].shape[-1]) for path, g in iter_factor_groups(params)}
+    return rank_adapt.live_rank_map(params)
 
 
 def unpack_phased_state(saved: Dict[str, Any], phase: int,

@@ -1,9 +1,14 @@
-"""Init-time LRD for the PyTorch port: plans and factorised param layouts.
+"""Applying LRD to models: plans, init-time factorised layouts, and
+decomposition of dense weights — the counterpart of
+``repro/core/decompose.py``.
 
-The counterpart of ``repro/core/decompose.py`` for the serving slice: model
-``init`` functions call :meth:`Decomposer.linear`, which creates either a
-dense ``{"kernel"}`` or a factorised ``{"u", "v"}`` group according to the
-policy and records the decision in the plan.  Ranks come from Eq. 5
+Two entry points share one source of ranks (:class:`RankResolver`).  At
+init, model ``init`` functions call :meth:`Decomposer.linear`, which
+creates either a dense ``{"kernel"}`` or a factorised ``{"u", "v"}`` group
+according to the policy and records the decision in the plan.
+:func:`apply_lrd` is the paper's own flow: it walks a dense param tree,
+factorises every policy-matched ``kernel`` with a truncated SVD
+(``core/svd.py``) and records the same plan.  Ranks come from Eq. 5
 (``rank_quantize=False``) or from Algorithm 1 (``rank_quantize=True``,
 :class:`RankResolver` over ``core/rank_opt.py``), whose guard keeps a layer
 dense when its decomposition is no faster.  Layouts follow the JAX tree:
@@ -26,8 +31,11 @@ from repro_torch.core.policy import DecompositionPolicy, Rule
 from repro_torch.core.rank_opt import RankDecision
 
 __all__ = ["LayerPlan", "DecompositionPlan", "RankDecision", "RankResolver",
-           "Decomposer", "iter_factor_groups", "map_factor_groups",
+           "Decomposer", "apply_lrd", "iter_factor_groups", "map_factor_groups",
            "merge_factor_group"]
+
+_TUCKER_TODO = ("Tucker-2 decomposition of k x k convolutions is not ported yet "
+                "(ROADMAP queue 1 item 6, the paper's own tables)")
 
 
 @dataclasses.dataclass
@@ -202,3 +210,82 @@ def merge_factor_group(group: Dict[str, Any]) -> Dict[str, Any]:
     if "bias" in group:
         out["bias"] = group["bias"]
     return out
+
+
+# --------------------------------------------------------------------------
+# Decomposition of dense weights (the paper's flow)
+# --------------------------------------------------------------------------
+
+def apply_lrd(params: Any, policy: DecompositionPolicy, *,
+              resolver: Optional[RankResolver] = None,
+              use_randomized_svd_above: int = 2048 * 2048,
+              balance: str = "balanced") -> Tuple[Any, DecompositionPlan]:
+    """Factorise every policy-matched ``kernel`` leaf of a dense param tree.
+
+    2-D and stacked 3-D kernels become SVD groups ``{"u", "v"}`` at the
+    resolver's rank (a 2-D kernel of more than ``use_randomized_svd_above``
+    elements through :func:`svd.randomized_svd`), as do 1x1 HWIO conv
+    kernels; a k x k conv kernel under a Tucker rule raises.  A layer the
+    Algorithm-1 guard keeps dense stays as it is.  Everything else passes
+    through untouched.  Returns ``(new_params, plan)``; the plan is the one
+    :class:`Decomposer` records at init for the same policy, keyed by the
+    tree's group paths.
+    """
+    resolver = resolver or RankResolver()
+    plan = DecompositionPlan(policy_name=policy.name)
+
+    def walk(tree, path):
+        if not isinstance(tree, dict):
+            return tree
+        if "kernel" in tree and not isinstance(tree["kernel"], dict):
+            rewritten = _maybe_factorize(tree["kernel"], path, policy, resolver, plan,
+                                         use_randomized_svd_above, balance)
+            if rewritten is None:
+                return tree
+            out = {k: v for k, v in tree.items() if k != "kernel"}
+            out.update(rewritten)
+            return out
+        return {k: walk(v, f"{path}/{k}" if path else k) for k, v in tree.items()}
+
+    return walk(params, ""), plan
+
+
+def _svd_group(path, rule, resolver, plan, c, s, decompose):
+    """Record the SVD decision for a (C, S) weight; the factors from
+    ``decompose(rank)``, or None where the guard keeps the layer dense."""
+    dec = resolver.svd_rank(c, s, rule)
+    plan.layers[path] = LayerPlan(
+        path=path, method="svd", shape=(c, s), rank=dec.rank,
+        eq5_rank=svd.svd_rank_for_compression(c, s, rule.alpha),
+        use_decomposed=dec.use_decomposed,
+    )
+    if not dec.use_decomposed:
+        return None
+    u, v = decompose(dec.rank)
+    return {"u": u, "v": v}
+
+
+def _maybe_factorize(w, path, policy, resolver, plan, rsvd_threshold, balance):
+    rule = policy.match(path + "/kernel")
+    if rule is None:
+        return None
+    if w.dim() in (2, 3):
+        c, s = int(w.shape[-2]), int(w.shape[-1])
+        if min(c, s) < rule.min_dim:
+            return None
+        if w.dim() == 2 and c * s > rsvd_threshold:
+            return _svd_group(path, rule, resolver, plan, c, s,
+                              lambda r: svd.randomized_svd(w, r, balance=balance))
+        return _svd_group(path, rule, resolver, plan, c, s,
+                          lambda r: svd.svd_decompose(w, r, balance=balance))
+    if w.dim() == 4:  # HWIO conv kernel
+        kh, kw, c, s = (int(d) for d in w.shape)
+        if min(c, s) < rule.min_dim:
+            return None
+        if kh == 1 and kw == 1:  # a 1x1 conv is a matrix (paper Fig. 1)
+            return _svd_group(path, rule, resolver, plan, c, s,
+                              lambda r: svd.svd_decompose(w[0, 0], r, balance=balance))
+        if rule.method != "tucker":
+            return None
+        raise ValueError(f"apply_lrd: {path} is a {kh}x{kw} conv kernel: {_TUCKER_TODO}")
+    return None

@@ -15,7 +15,9 @@ Non-decomposed params are always trainable.
 with ``None`` at the complementary positions; ``merge`` fills each hole
 from the other tree.  No leaf is copied.  The train step gives only the
 trainable partition ``requires_grad``, and the optimizer state exists only
-for it (``launch.steps``).
+for it (``launch.steps``).  :func:`apply_freeze` is the older full-tree
+form (frozen leaves detached), and :func:`factor_rank_axis` names the axis
+that in-training rank adaptation (``core.rank_adapt``) slices.
 """
 
 from __future__ import annotations
@@ -23,14 +25,16 @@ from __future__ import annotations
 import enum
 from typing import Any, Callable, Tuple
 
-__all__ = ["FreezeMode", "factor_group", "freeze_mask", "partition", "merge",
-           "check_partition", "partition_moments", "merge_moments", "phase_for_epoch",
-           "frozen_group_for_phase", "groups_to_replace", "phase_of_partition",
-           "tree_map", "tree_leaves"]
+__all__ = ["FreezeMode", "factor_group", "factor_rank_axis", "freeze_mask", "apply_freeze",
+           "partition", "merge", "check_partition", "partition_moments", "merge_moments",
+           "phase_for_epoch", "frozen_group_for_phase", "groups_to_replace",
+           "phase_of_partition", "trainable_fraction", "tree_map", "tree_leaves"]
 
 # Leaf names of decomposed factors -> group id (see module docstring).
 _SVD_GROUPS = {"u": 0, "v": 1}
 _TUCKER_GROUPS = {"first": 0, "last": 0, "core": 1}
+# The rank axis of an SVD factor leaf: u is (..., C, r), v is (..., r, S).
+_SVD_RANK_AXES = {"u": -1, "v": -2}
 
 
 class FreezeMode(str, enum.Enum):
@@ -66,6 +70,12 @@ def factor_group(leaf_name: str) -> int | None:
     if leaf_name in _SVD_GROUPS:
         return _SVD_GROUPS[leaf_name]
     return _TUCKER_GROUPS.get(leaf_name)
+
+
+def factor_rank_axis(leaf_name: str) -> int | None:
+    """Rank axis of an SVD factor leaf (``u`` -> -1, ``v`` -> -2), or None
+    for every other param (bias, Tucker factors, ordinary kernels)."""
+    return _SVD_RANK_AXES.get(leaf_name)
 
 
 def phase_for_epoch(epoch: int, mode: FreezeMode | str, epochs_per_phase: int = 1) -> int:
@@ -129,6 +139,13 @@ def freeze_mask(params: Any, phase: int) -> Any:
         return True
 
     return walk(params)
+
+
+def apply_freeze(params: Any, mask: Any) -> Any:
+    """Frozen leaves (``mask`` False) detached from autograd, the others as
+    they are: the full-tree form of freezing.  The train step uses
+    :func:`partition` instead, so frozen leaves never enter the backward."""
+    return tree_map(lambda p, m: p if m else p.detach(), params, mask)
 
 
 def partition(params: Any, phase: int) -> Tuple[Any, Any]:
@@ -195,3 +212,10 @@ def check_partition(trainable: Any, frozen: Any, phase: int) -> None:
                              f"phase {phase} but sits in the frozen partition")
 
     walk(trainable, frozen)
+
+
+def trainable_fraction(mask: Any, params: Any) -> float:
+    """Fraction of parameters trainable under ``mask`` (diagnostics, tests)."""
+    sizes = [p.numel() for p in tree_leaves(params)]
+    live = sum(n for n, m in zip(sizes, tree_leaves(mask)) if m)
+    return live / max(sum(sizes), 1)

@@ -12,7 +12,8 @@ reaches every factorised projection as the ``freeze_group`` of the
 gradient kernel (K3 at phase 0, K4 at phase 1) is never launched.
 :func:`repartition_state` is the Algorithm-2 phase swap: it rotates the
 optimizer moments, parking the frozen group's on the CPU, so unfreezing
-never resets them.
+never resets them; with a rank schedule (``core.rank_adapt``) the same swap
+shrinks the ranks.
 
 Entry points run on CUDA unless the caller asks for the CPU:
 :func:`resolve_device` raises when CUDA is asked for and absent.
@@ -25,7 +26,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import RunConfig
-from repro_torch.core import freezing
+from repro_torch.core import freezing, rank_adapt
 from repro_torch.core.decompose import Decomposer
 from repro_torch.core.freezing import tree_leaves, tree_map
 from repro_torch.core.policy import LM_DEFAULT, NO_LRD
@@ -39,10 +40,6 @@ __all__ = ["resolve_device", "make_decomposer", "init_params", "kernel_policy",
            "run_phase", "TrainState", "make_train_state", "partition_bytes",
            "repartition_state", "build_train_step", "build_slot_prefill_step",
            "build_serve_step"]
-
-_RANK_ADAPT_TODO = ("in-training rank adaptation is not ported yet "
-                    "(ROADMAP queue 1 item 4, rank adaptation)")
-
 
 def resolve_device(device="cuda") -> torch.device:
     """``torch.device(device)``, refusing CUDA when no GPU is present."""
@@ -138,18 +135,29 @@ def partition_bytes(state: TrainState) -> Dict[str, int]:
 
 
 def repartition_state(optim_cfg, state: TrainState, parked, new_phase: int, *,
-                      schedule=None):
+                      schedule: Optional[rank_adapt.RankSchedule] = None,
+                      boundary: Optional[int] = None):
     """The Algorithm-2 phase swap, between steps: re-partition the merged
     params for ``new_phase`` and rotate the moment slices — those of leaves
     that stay trainable carry over, those of newly frozen leaves are parked
     on the CPU, and the parked moments of newly unfrozen leaves return to
-    the device.  Returns ``(state, parked)``.  ``schedule`` (in-training rank
-    adaptation) is not ported and raises."""
+    the device.  Returns ``(state, parked)``.
+
+    With an active ``schedule`` the swap also adapts the ranks: the groups
+    ``rank_adapt.plan_rank_map`` shrinks at ``boundary`` (the swap's index,
+    gating ``schedule.start_boundary``) are Eckart–Young-truncated on the
+    merged params, both factors computed fresh on their device, and the
+    live and parked moment slices are cut to the new rank (parked ones stay
+    on the CPU) before the partition is rebuilt, so the step, its grads and
+    the optimizer state carry the new shapes only."""
     del optim_cfg  # the moments' dtype is already set
-    if schedule is not None:
-        raise ValueError(f"repartition_state(schedule=...): {_RANK_ADAPT_TODO}")
     params = freezing.merge(state.trainable, state.frozen)
     moments = freezing.merge_moments((state.opt.mu, state.opt.nu), parked)
+    if schedule is not None and schedule.active:
+        trunc = rank_adapt.plan_rank_map(params, schedule, boundary)
+        if trunc:
+            params = rank_adapt.truncate_params(params, trunc)
+            moments = rank_adapt.slice_moments(moments, trunc)
     trainable, frozen = freezing.partition(params, new_phase)
     active, new_parked = freezing.partition_moments(moments, new_phase)
     dev = state.opt.step.device

@@ -16,12 +16,15 @@ steps (``steps.repartition_state`` rotates the optimizer moments, parking
 the frozen group's on the CPU), saves in the JAX package's checkpoint
 format every ``--save-every`` steps and on SIGTERM, and resumes from the
 newest complete checkpoint in ``--ckpt-dir/<model name>``, whichever
-package wrote it.  Flags of features this port does not have yet are
-rejected, not ignored.
+package wrote it.  ``--rank-schedule decay|energy`` shrinks the ranks at
+every phase swap (``core.rank_adapt``; a ``[rank-adapt]`` line names the
+groups, ``old->new``); the checkpoint keeps the rank map, and a resume
+continues at the saved ranks.  Flags of features this port does not have
+yet are rejected, not ignored.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       --lrd --no-rank-opt --use-pallas --freeze sequential --steps 6 \\
-      --steps-per-epoch 2 --global-batch 8 --seq-len 256
+      --steps-per-epoch 2 --global-batch 8 --seq-len 256 [--rank-schedule decay]
 """
 
 from __future__ import annotations
@@ -33,10 +36,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from repro_torch.checkpoint import (CheckpointManager, live_rank_map, pack_phased_state,
-                                    unpack_phased_state)
+from repro_torch.checkpoint import CheckpointManager, pack_phased_state, unpack_phased_state
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import DistConfig, LRDConfig, OptimConfig, RunConfig, ShapeConfig
+from repro_torch.core import rank_adapt
 from repro_torch.core.freezing import tree_map
 from repro_torch.data import LMBatchIterator
 from repro_torch.launch import steps as steps_mod
@@ -55,10 +58,6 @@ _UNPORTED_FLAGS = {
     "log_format": ("text", "ROADMAP queue 1 item 9, telemetry"),
     "obs_step_every": (1, "ROADMAP queue 1 item 9, telemetry"),
     "profile_steps": ("", "ROADMAP queue 1 item 9, telemetry"),
-    "rank_schedule": ("none", "ROADMAP queue 1 item 4, rank adaptation"),
-    "rank_decay": (0.75, "ROADMAP queue 1 item 4, rank adaptation"),
-    "rank_energy": (0.98, "ROADMAP queue 1 item 4, rank adaptation"),
-    "rank_min": (2, "ROADMAP queue 1 item 4, rank adaptation"),
     "pallas_interpret": (False, "the CUDA kernels have no interpret mode; "
                                 "--device cpu runs their plain versions (ROADMAP, "
                                 "port conventions)"),
@@ -102,6 +101,15 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--freeze", default="none", choices=["none", "regular", "sequential"])
     ap.add_argument("--epochs-per-phase", type=int, default=1,
                     help="Algorithm-2 alternation cadence (sequential)")
+    ap.add_argument("--rank-schedule", default="none", choices=["none", "decay", "energy"],
+                    help="in-training rank adaptation at phase boundaries "
+                         "(needs --freeze sequential)")
+    ap.add_argument("--rank-decay", type=float, default=0.75,
+                    help="per-boundary rank multiplier (decay policy)")
+    ap.add_argument("--rank-energy", type=float, default=0.98,
+                    help="kept singular-value mass (energy policy)")
+    ap.add_argument("--rank-min", type=int, default=2,
+                    help="scheduled ranks never drop below this")
     ap.add_argument("--use-pallas", action="store_true",
                     help="hand-written CUDA kernels, forward and backward")
     ap.add_argument("--optimizer", default="sgdm", choices=["sgdm", "adamw"])
@@ -113,10 +121,6 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     # the JAX CLI's flags for features not ported yet: rejected when set
-    ap.add_argument("--rank-schedule", default="none", choices=["none", "decay", "energy"])
-    ap.add_argument("--rank-decay", type=float, default=0.75)
-    ap.add_argument("--rank-energy", type=float, default=0.98)
-    ap.add_argument("--rank-min", type=int, default=2)
     ap.add_argument("--pallas-interpret", action="store_true")
     ap.add_argument("--fsdp", action="store_true")
     ap.add_argument("--remat", default="none", choices=["none", "full", "dots", "sqrt"])
@@ -140,7 +144,9 @@ def build_run(args) -> RunConfig:
         lrd=LRDConfig(enabled=args.lrd, alpha=args.alpha, rank_quantize=not args.no_rank_opt,
                       freeze_mode=args.freeze, min_dim=args.lrd_min_dim,
                       epochs_per_phase=args.epochs_per_phase,
-                      use_pallas_kernel=args.use_pallas),
+                      use_pallas_kernel=args.use_pallas, rank_schedule=args.rank_schedule,
+                      rank_decay=args.rank_decay, rank_energy_threshold=args.rank_energy,
+                      rank_min=args.rank_min),
         dist=DistConfig(fsdp=False, remat="none", microbatches=args.microbatches),
         optim=OptimConfig(name=args.optimizer, lr=args.lr, warmup_steps=args.warmup,
                           total_steps=args.steps),
@@ -152,7 +158,9 @@ def main(argv=None, *, on_step=None):
     """Run the CLI; returns ``(state, losses)``.
 
     ``on_step(step, phase, metrics)``, if given, is called after every step
-    with the step's float ``loss``, ``grad_norm`` and ``step_time_s``."""
+    with the step's float ``loss``, ``grad_norm`` and ``step_time_s``, the
+    state's ``trainable_bytes`` / ``frozen_bytes`` / ``opt_bytes``
+    (``steps.partition_bytes``) and its ``rank_map``."""
     ap = _parser()
     args = ap.parse_args(argv)
     for flag, (off, item) in _UNPORTED_FLAGS.items():
@@ -173,12 +181,19 @@ def main(argv=None, *, on_step=None):
     params, plan = steps_mod.init_params(run, device)
     if run.lrd.enabled:
         print(plan.summary())
+    schedule = rank_adapt.schedule_from_config(run.lrd)
+    if schedule.active and run.lrd.freeze_mode != "sequential":
+        print("[rank-adapt] --rank-schedule set but freezing is not sequential: no phase "
+              "boundaries, schedule never fires")
 
     def phase_at(step: int) -> int:
         return steps_mod.run_phase(run, step // args.steps_per_epoch)
 
     cur_phase = phase_at(0)
     state, parked = steps_mod.make_train_state(run.optim, params, cur_phase)
+    # the state holds the leaves; keeping the init tree too would keep every
+    # leaf an update or a rank truncation replaces in memory
+    del params
     data = LMBatchIterator(run.model.vocab_size, run.shape.seq_len, run.shape.global_batch,
                            seed=args.seed + 17)
     mesh_info = {"axes": ["data", "model"], "shape": [1, 1]}
@@ -205,15 +220,28 @@ def main(argv=None, *, on_step=None):
     it = iter(data)
     losses = []
     tokens_per_step = run.shape.global_batch * run.shape.seq_len
+    # both change only at a phase swap
+    cur_ranks = rank_adapt.live_rank_map(state.params)
+    part_bytes = steps_mod.partition_bytes(state)
     for step in range(start_step, args.steps):
         epoch = step // args.steps_per_epoch
         phase = phase_at(step)
         if phase != cur_phase:
-            # Algorithm-2 phase swap: repartition and rotate the moments
-            state, parked = steps_mod.repartition_state(run.optim, state, parked, phase)
+            # Algorithm-2 phase swap: repartition and rotate the moments; an
+            # active rank schedule truncates the groups it plans at this swap
+            boundary = epoch // max(args.epochs_per_phase, 1)
+            state, parked = steps_mod.repartition_state(
+                run.optim, state, parked, phase,
+                schedule=schedule if schedule.active else None, boundary=boundary)
             cur_phase = phase
             print(f"[phase] epoch {epoch}: now training group {1 - phase}, group "
                   f"{phase} frozen out of the step")
+            ranks_before, cur_ranks = cur_ranks, rank_adapt.live_rank_map(state.params)
+            part_bytes = steps_mod.partition_bytes(state)
+            shrunk = {p: f"{ranks_before[p]}->{r}" for p, r in cur_ranks.items()
+                      if r != ranks_before[p]}
+            if shrunk:
+                print(f"[rank-adapt] boundary truncated {len(shrunk)} group(s): {shrunk}")
         batch = next(it)
         t0 = time.perf_counter()
         state, metrics = train_step(state, batch, phase=phase)
@@ -222,7 +250,8 @@ def main(argv=None, *, on_step=None):
         gnorm = float(metrics["grad_norm"])
         losses.append(loss)
         if on_step is not None:
-            on_step(step, phase, {"loss": loss, "grad_norm": gnorm, "step_time_s": dt})
+            on_step(step, phase, {"loss": loss, "grad_norm": gnorm, "step_time_s": dt,
+                                  **part_bytes, "rank_map": dict(cur_ranks)})
         if monitor.observe(dt):
             print(f"[straggler] step {step}: {dt * 1e3:.0f}ms "
                   f"(median {float(np.median(monitor.times)) * 1e3:.0f}ms)")
@@ -232,7 +261,7 @@ def main(argv=None, *, on_step=None):
         if ckpt.due(step + 1) and ckpt.maybe_save(
                 step + 1, pack_phased_state(state, parked),
                 extra={"data": data.state_dict(), "phase": phase, "mesh": mesh_info,
-                       "rank_map": live_rank_map(state.params)}):
+                       "rank_map": rank_adapt.live_rank_map(state.params)}):
             if ckpt.preempted:
                 print(f"[preempt] checkpointed at step {step + 1}, exiting")
                 ckpt.close()

@@ -311,6 +311,85 @@ def test_gpu_autograd_launches_no_frozen_kernel_and_matches_plain(g):
 
 
 # --------------------------------------------------------------------------
+# K1-K5 at the ranks in-training rank adaptation gives the train step
+# --------------------------------------------------------------------------
+
+# decay 0.75 from the Eq.-5 ranks 240/120/349 gives 128/90/256 and then
+# 96/67/128; from the Algorithm-1 ranks 239/80/256, 128/60/128 and then
+# 96/45/96.  Each rank at every full-width (C, S) of the train step: ranks
+# not a multiple of 8 give U a row pitch TMA cannot read (K1/K5's in-launch
+# padding, K2-K4's padded copies)
+ADAPTED_RANKS = [45, 60, 67, 90, 96, 128, 256]
+ADAPTED_CS = [(960, 960), (960, 320), (960, 2560), (2560, 960)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", sorted({K1_LARGE_M - 1, K1_LARGE_M, 2048}))
+@pytest.mark.parametrize("r", ADAPTED_RANKS)
+@pytest.mark.parametrize("c,s", ADAPTED_CS)
+def test_gpu_lowrank_matmul_at_adapted_ranks(m, c, r, s):
+    test_gpu_lowrank_matmul_matches_plain(m, c, r, s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", sorted({K5_LARGE_M - 1, K5_LARGE_M, 2048}))
+@pytest.mark.parametrize("r", ADAPTED_RANKS)
+def test_gpu_lowrank_gated_ffn_at_adapted_ranks(m, r):
+    test_gpu_lowrank_gated_ffn_matches_plain(m, 960, r, 2560)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["dx", "du", "dv"])
+@pytest.mark.parametrize("r", ADAPTED_RANKS)
+@pytest.mark.parametrize("c,s", ADAPTED_CS)
+def test_gpu_lowrank_bwd_at_adapted_ranks(name, c, r, s):
+    test_gpu_lowrank_bwd_matches_plain(name, 2048, c, r, s)
+
+
+@pytest.mark.gpu
+def test_gpu_truncated_step_launches_no_frozen_factor_kernel():
+    """Rank adaptation rewrites both factors of every group, the frozen one
+    too; the steps after each boundary still launch no gradient kernel of
+    the frozen factor (K3 at phase 0, K4 at phase 1), on the smoke model in
+    bf16 with the kernels on."""
+    _need_gpu()
+    import dataclasses
+
+    from repro_torch.core import rank_adapt
+    from repro_torch.data import LMBatchIterator
+    from repro_torch.kernels import lowrank_bwd as kb
+    from repro_torch.launch import steps, train
+
+    run = train.build_run(train._parser().parse_args(
+        ["--smoke", "--lrd", "--lrd-min-dim", "16", "--no-rank-opt", "--use-pallas",
+         "--freeze", "sequential", "--rank-schedule", "decay", "--global-batch", "2",
+         "--seq-len", "64"]))
+    run = dataclasses.replace(run, model=dataclasses.replace(
+        run.model, param_dtype="bfloat16", compute_dtype="bfloat16"))
+    params, _ = steps.init_params(run, "cuda")
+    state, parked = steps.make_train_state(run.optim, params, 0)
+    step = steps.build_train_step(run, "cuda")
+    batches = iter(LMBatchIterator(run.model.vocab_size, 64, 2, seed=0))
+    state, _ = step(state, next(batches), phase=0)
+    schedule = rank_adapt.schedule_from_config(run.lrd)
+    kernels = {"dx": kb.lowrank_matmul_dx, "du": kb.lowrank_matmul_du,
+               "dv": kb.lowrank_matmul_dv}
+    n = 7 * run.model.num_layers  # factor groups a step
+    for boundary, phase in ((1, 1), (2, 0)):
+        before = rank_adapt.live_rank_map(state.params)
+        state, parked = steps.repartition_state(run.optim, state, parked, phase,
+                                                schedule=schedule, boundary=boundary)
+        after = rank_adapt.live_rank_map(state.params)
+        assert all(after[p] < before[p] for p in before), (before, after)
+        counts = {k: f.launches for k, f in kernels.items()}
+        state, metrics = step(state, next(batches), phase=phase)
+        torch.cuda.synchronize()
+        assert np.isfinite(metrics["loss"].item())
+        launched = {k: f.launches - counts[k] for k, f in kernels.items()}
+        assert launched == {"dx": n, "du": 0 if phase == 0 else n, "dv": 0 if phase == 1 else n}
+
+
+# --------------------------------------------------------------------------
 # K6-K7: the int8 decode kernels against their plain versions
 # --------------------------------------------------------------------------
 

@@ -206,5 +206,11 @@ def test_step_refuses_a_state_partitioned_for_another_phase():
                                                                     _params(), 0))
     with pytest.raises(ValueError, match="partition/phase mismatch"):
         steps.build_train_step(trun, device="cpu")(state, _batches(1)[0], phase=1)
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 4"):
-        steps.repartition_state(trun.optim, state, (None, ()), 1, schedule=object())
+    # a rank schedule before its start boundary swaps the phase and cuts nothing
+    from repro_torch.core.rank_adapt import RankSchedule, live_rank_map
+    ranks = live_rank_map(state.params)
+    swapped, parked = steps.repartition_state(
+        trun.optim, state, (None, ()), 1, schedule=RankSchedule(policy="decay"), boundary=0)
+    assert live_rank_map(swapped.params) == ranks
+    with pytest.raises(ValueError, match="partition/phase mismatch"):
+        steps.build_train_step(trun, device="cpu")(swapped, _batches(1)[0], phase=0)
