@@ -100,13 +100,38 @@ Phases, in order; any failure exits nonzero:
               for every train-path geometry, against the plain version and
               timed: where the threshold comes from.  Reported beside the
               flash extras, not in the kernels line (no main path launches
-              the other design).
+              the other design);
+20. conv decompose — the paper's Table 2: ``apply_lrd`` of dense
+              ResNet-50/101/152 (1000 classes, float32, seeded) at the
+              ladder's LRD (Eq. 5) and RankOpt (Algorithm 1) policies, timed;
+              the plan equal to the init-time ``Decomposer``'s, Tucker / SVD /
+              kept-dense counts, each stage's 3x3 r1 (Eq. 5: 38, 77, 154,
+              309), and one 3x3 conv a stage's Tucker-2 error against a
+              float64 HOSVD on the CPU;
+21. resnet parity — ResNet-50 at 224 x 224, batch 4, card against the
+              port's CPU run: dense and Eq.-5 logits, and a train step's loss
+              and gradients at phases -1 and 0 (no gradient on u, first,
+              last at phase 0);
+22. table1 — ResNet-50, 224 x 224, batch 64, float32, over org / lrd /
+              rankopt / freeze / combined (and phase 1 of freeze and
+              combined): train and inference images/s from the median of 10
+              steps, wall and device time, idle share;
+23. sequential — 6 steps of ResNet-50 combined at batch 64, phases
+              0,0,1,1,0,0, on ``SyntheticClassification(img=224)``: finite
+              losses, no gradient on each step's frozen group;
+24. table4 — ViT-B/16 (224 x 224, batch 64, 10 classes, float32) with the
+              ViT policy over the same ladder.
+
+Phases 20-24 run with TF32 off and the port's seeded init, through plain
+PyTorch (cuDNN convs, ``torch.matmul``): the JAX package computes them
+outside any Pallas kernel, so no hand-written kernel is on their path.
 
 Phase 3 also holds K1-K5 at the Algorithm-1 training shapes and at the
 decay schedule's ranks; the energy boundary's ranks are decided on the
 card, and the shapes it launched that phase 3 did not check are checked
 and timed after it.  ``--only kernels`` runs phases 1-3, the K6-K8 checks
-and phase 19.  The last line of standard output is ``{"ok": true, "device": {...}}``; the
+and phase 19; ``--only conv`` runs phases 1 and 20-24.  The last line of
+standard output is ``{"ok": true, "device": {...}}``; the
 line before it is ``nvidia-smi``'s name and power limit, and the
 ``{"kernels": [...]}`` line comes before that.
 """
@@ -1770,6 +1795,543 @@ def phase_prefill_profile(engine, steps_n: int = 3):
     return out
 
 
+# --------------------------------------------------------------------------
+# The paper's conv and ViT path (Tables 1, 2 and 4)
+# --------------------------------------------------------------------------
+
+RESNETS = ("resnet50", "resnet101", "resnet152")
+RESNET_CLASSES, IMG = 1000, 224
+STAGE_C = (64, 128, 256, 512)
+# Eq.-5 r1 of each stage's 3x3 conv (C = S = 64, 128, 256, 512) at alpha 2
+STAGE_R1 = (38, 77, 154, 309)
+# |the card's float32 Tucker-2 error - a float64 HOSVD's| / ||W||^2 of one
+# 3x3 conv a stage: float32 Gram matrices, eigh and sums differ from float64
+# by ~4e-8 of ||W||^2 on the CPU at these shapes, while keeping a wrong
+# direction at the cut moves the error by ~1e-3
+TUCKER_ERR_TOL = 1e-5
+# ResNet-50 at 224 x 224, batch 4, the card against the port's own CPU run,
+# both float32 (TF32 off): cuDNN's algorithms (implicit GEMM, Winograd, FFT)
+# round otherwise than oneDNN's, by ~1e-5 of a conv's output at most, and
+# 53 convs carry it; logits relative to max |logit|, the mean loss relative.
+# Gradients: each trainable leaf by ||diff|| / ||grad||.  At random init a
+# leaf's gradient sums B x H x W products that nearly cancel, which
+# amplifies the per-op float32 differences (each conv's output and
+# gradients within ~2e-5 of float64 on the H100; test_torch_conv_gpu.py
+# holds them to 1e-4 of the CPU's, TF32 on around the call) to a few 1e-3
+# of a leaf's largest entry (the stem kernel's, H100); 1e-2 of its norm
+# fails a wrong or missing gradient
+RESNET_LOGITS_RTOL = 1e-3
+RESNET_LOSS_RTOL = 1e-4
+RESNET_GRAD_RTOL = 1e-2
+PARITY_B = 4
+# the Table-1 and Table-4 ladders: batch, timed steps (median), warm-up
+# steps (cuDNN's autotuning included), profiled steps
+LADDER_B, LADDER_STEPS, LADDER_WARM, PROFILE_STEPS = 64, 10, 3, 3
+# SGD step sizes of benchmarks/table1_resnet_throughput.py and table4_vit.py
+RESNET_LR, VIT_LR = 1e-3, 3e-3
+# ViT-B/16: vit_init's defaults (10 classes)
+VIT_B16 = dict(num_layers=12, d=768, heads=12, d_ff=3072, patch=16, img=224,
+               num_classes=10)
+SEQ_PHASES = (0, 0, 1, 1, 0, 0)
+# the ladder's methods also trained at phase 1 (their other frozen group)
+PHASE1_METHODS = ("freeze", "combined")
+
+
+# the benchmarks' method ladder (benchmarks/common.py:18-27): method ->
+# (tree: dense, or decomposed by the lrd or rankopt policy of
+# ``_ladder_policies``; freezing phase)
+LADDER = {"org": ("org", -1), "lrd": ("lrd", -1), "rankopt": ("rankopt", -1),
+          "freeze": ("lrd", 0), "combined": ("rankopt", 0)}
+
+
+def _ladder_policies(base):
+    """The ladder's policies at alpha 2: Eq.-5 ranks (lrd) and Algorithm 1
+    (rankopt)."""
+    return {"lrd": base.with_alpha(2.0).with_quantize(False).with_min_dim(32),
+            "rankopt": base.with_alpha(2.0).with_quantize(True).with_min_dim(32)}
+
+
+def _vit_policy():
+    """The ViT policy of benchmarks/table4_vit.py:19-26: the FFN FC layers
+    and the patch embedding, SVD."""
+    from repro_torch.core.policy import DecompositionPolicy, Rule
+
+    return DecompositionPolicy(name="vit-ffn", rules=(
+        Rule(r"(norm|bias|pos_emb|cls|head)", "none"),
+        Rule(r"(wi|down|patch_embed)", "svd", min_dim=32),
+        Rule(r".*", "none")))
+
+
+def _live(params):
+    """Copies of ``params`` that autograd differentiates."""
+    from repro_torch.core.freezing import tree_map
+
+    return tree_map(lambda t: t.detach().clone().requires_grad_(), params)
+
+
+def _cls_step(live, apply, phase: int, lr: float):
+    """The benchmarks' classification train step
+    (benchmarks/table1_resnet_throughput.py:25-36, table4_vit.py:30-39) on
+    the ``_live`` tree: cross-entropy of ``apply(params, x)``; at phase >= 0
+    ``apply_freeze`` detaches the frozen factor group, so autograd computes
+    no gradient for it (cuDNN is never asked for a frozen conv's weight
+    gradient); SGD ``p - lr g`` in place on the rest.  ``step(x, y)``
+    returns (loss, {path: grad or None})."""
+    from repro_torch.core import freezing
+    from repro_torch.models.common import cross_entropy
+    from repro_torch.models.resnet import fp32_convs
+
+    view = freezing.apply_freeze(live, freezing.freeze_mask(live, phase)) if phase >= 0 else live
+    leaves = dict(_grad_paths(live))
+
+    def step(x, y):
+        with fp32_convs():  # a conv's backward reads the flag when it runs
+            loss = cross_entropy(apply(view, x), y)
+            loss.backward()
+        grads = {path: t.grad for path, t in leaves.items()}
+        got = [t for t in leaves.values() if t.grad is not None]
+        with torch.no_grad():
+            torch._foreach_add_(got, [t.grad for t in got], alpha=-lr)
+        for t in got:
+            t.grad = None
+        return loss.detach(), grads
+
+    return step
+
+
+def _frozen_paths(tree, phase: int):
+    from repro_torch.core.freezing import freeze_mask
+
+    return {path for path, keep in _grad_paths(freeze_mask(tree, phase)) if not keep}
+
+
+def _check_frozen(label: str, tree, phase: int, grads) -> int:
+    """Every leaf of the frozen group without a gradient and every other
+    leaf with one; returns the number of frozen leaves."""
+    frozen = _frozen_paths(tree, phase)
+    for path, g in grads.items():
+        if (g is None) != (path in frozen):
+            raise AssertionError(f"{label}: phase {phase} {path} "
+                                 + ("frozen but has a gradient" if g is not None
+                                    else "trainable but has no gradient"))
+    return len(frozen)
+
+
+def _hosvd64_error(w, r1: int, r2: int) -> float:
+    """||W - HOSVD(W)||^2 in float64 (numpy) of a (C, S, k, k) weight."""
+    import numpy as np
+
+    c, s = w.shape[:2]
+    m0, m1 = w.reshape(c, -1), np.moveaxis(w, 1, 0).reshape(s, -1)
+    u = np.linalg.eigh(m0 @ m0.T)[1][:, ::-1][:, :r1]
+    v = np.linalg.eigh(m1 @ m1.T)[1][:, ::-1][:, :r2]
+    core = np.einsum("cskl,cp,sq->pqkl", w, u, v, optimize=True)
+    rec = np.einsum("cp,pqkl,sq->cskl", u, core, v, optimize=True)
+    return float(np.sum((w - rec) ** 2))
+
+
+def _init_path(path: str) -> str:
+    """The init-time plan's name of a ResNet tree path (``s1b0/conv3x3`` ->
+    ``stage1/block0/conv3x3``)."""
+    head, _, rest = path.partition("/")
+    if head[0] == "s" and "b" in head and rest:
+        si, bi = head[1:].split("b")
+        return f"stage{si}/block{bi}/{rest}"
+    return path
+
+
+def _seeded(seed: int, device="cuda"):
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def phase_conv_decompose():
+    """Paper Table 2: ``apply_lrd`` of dense ResNet-50/101/152 (1000
+    classes, float32, seeded) under ``RESNET_DEFAULT`` at the ladder's LRD
+    (Eq. 5) and RankOpt (Algorithm 1) policies, timed on the card; the plan
+    equal to the init-time ``Decomposer``'s, layer counts, each stage's 3x3
+    r1, and ResNet-50's Tucker-2 error on one 3x3 conv a stage against a
+    float64 HOSVD on the CPU.  Returns (results, ResNet-50's dense tree,
+    its decomposed trees by method)."""
+    import dataclasses
+
+    from repro_torch.core import tucker
+    from repro_torch.core.decompose import Decomposer, apply_lrd
+    from repro_torch.core.freezing import tree_leaves
+    from repro_torch.core.policy import NO_LRD, RESNET_DEFAULT
+    from repro_torch.models import resnet
+
+    policies = _ladder_policies(RESNET_DEFAULT)
+    eq5_r1 = tuple(tucker.tucker_rank_for_compression(c, c, 3, 2.0)[0] for c in STAGE_C)
+    if eq5_r1 != STAGE_R1:
+        raise AssertionError(f"conv decompose: Eq.-5 r1 {eq5_r1}, expected {STAGE_R1}")
+    torch.linalg.svd(torch.ones((64, 64), device="cuda"))  # cuSOLVER's set-up, untimed
+    torch.linalg.eigh(torch.eye(64, device="cuda"))
+    torch.cuda.synchronize()
+    out, dense50, trees50 = {}, None, {}
+    for variant in RESNETS:
+        dense = resnet.resnet_init(variant, RESNET_CLASSES,
+                                   Decomposer(NO_LRD, dtype=torch.float32, device="cuda",
+                                              generator=_seeded(0)))
+        n_params = sum(t.numel() for t in tree_leaves(dense))
+        out[variant] = dict(params=n_params)
+        for name, policy in policies.items():
+            layout = Decomposer(policy, dtype=torch.float32, device="meta")
+            resnet.resnet_init(variant, RESNET_CLASSES, layout)  # the init-time plan, no data
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tree, plan = apply_lrd(dense, policy)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            renamed = {_init_path(p): dataclasses.replace(lp, path=_init_path(p))
+                       for p, lp in plan.layers.items()}
+            if renamed != layout.plan.layers:
+                raise AssertionError(f"conv decompose: {variant} {name} plan differs from the "
+                                     f"init-time Decomposer's")
+            kept = [lp for lp in plan.layers.values() if lp.use_decomposed]
+            counts = {m: sum(lp.method == m for lp in kept) for m in ("tucker", "svd")}
+            stage = [plan.layers[f"s{si}b0/conv3x3"] for si in range(4)]
+            if tuple(lp.eq5_rank for lp in stage) != STAGE_R1:
+                raise AssertionError(f"conv decompose: {variant} {name} stage r1 "
+                                     f"{[lp.eq5_rank for lp in stage]}, expected {STAGE_R1}")
+            n_tree = sum(t.numel() for t in tree_leaves(tree))
+            out[variant][name] = dict(seconds=secs, **counts,
+                                      dense_kept=len(plan.layers) - len(kept),
+                                      stage_r1=[lp.rank for lp in stage], params=n_tree)
+            log(f"[conv decompose] {variant} ({n_params / 1e6:.1f} M params, float32) "
+                f"apply_lrd at {name} ({'Algorithm 1' if name == 'rankopt' else 'Eq. 5'}): "
+                f"{secs:.3f} s; {counts['tucker']} Tucker, {counts['svd']} SVD, "
+                f"{len(plan.layers) - len(kept)} kept dense by the guard; stage 3x3 r1 "
+                f"{[lp.rank for lp in stage]} (Eq. 5: {list(STAGE_R1)}); "
+                f"{n_tree / 1e6:.1f} M params after")
+            if variant == "resnet50":
+                trees50[name] = tree
+            del tree
+        if variant == "resnet50":
+            dense50 = dense
+        del dense
+    errs = []
+    for si, c in enumerate(STAGE_C):
+        g = trees50["lrd"][f"s{si}b0"]["conv3x3"]
+        w = dense50[f"s{si}b0"]["conv3x3"]["kernel"].permute(2, 3, 0, 1)  # (C, S, k, k)
+        r1, r2 = g["first"].shape[1], g["last"].shape[0]
+        card = tucker.tucker_reconstruction_error(w, g["first"], g["core"].permute(2, 3, 0, 1),
+                                                  g["last"]).item()
+        ref = _hosvd64_error(w.double().cpu().numpy(), r1, r2)
+        norm = torch.sum(w.double() ** 2).item()
+        diff = abs(card - ref) / norm
+        errs.append(dict(c=c, r1=r1, err=card / norm, err64=ref / norm, diff=diff))
+        if not diff <= TUCKER_ERR_TOL:
+            raise AssertionError(f"conv decompose: stage {si} 3x3 Tucker-2 error {card / norm:.6f} "
+                                 f"of ||W||^2 against float64 {ref / norm:.6f} (bound "
+                                 f"{TUCKER_ERR_TOL})")
+    out["tucker_error"] = errs
+    log("[conv decompose] resnet50 one 3x3 a stage, ||W - first.core.last||^2 / ||W||^2 on the "
+        f"card against a float64 HOSVD on the CPU (bound {TUCKER_ERR_TOL} on the difference): "
+        + ", ".join(f"C {e['c']} r1 {e['r1']}: {e['err']:.6f} vs {e['err64']:.6f} "
+                    f"({e['diff']:.1e})" for e in errs))
+    return out, dense50, trees50
+
+
+def phase_resnet_parity(dense, eq5):
+    """ResNet-50 at 224 x 224, batch 4, on the card against the port's own
+    CPU run: logits of the dense and Eq.-5 trees; one train step of the
+    Eq.-5 tree at phases -1 and 0 (loss, every trainable leaf's gradient,
+    no gradient on group 0: u, first, last)."""
+    import functools
+
+    from repro_torch.core.freezing import tree_map
+    from repro_torch.models import resnet
+
+    apply = functools.partial(resnet.resnet_apply, variant="resnet50")
+    x = torch.randn((PARITY_B, IMG, IMG, 3), generator=_seeded(11, "cpu"))
+    y = torch.randint(0, RESNET_CLASSES, (PARITY_B,), generator=_seeded(12, "cpu"))
+    out = {}
+    for name, tree in (("dense", dense), ("eq5", eq5)):
+        host = tree_map(lambda t: t.cpu(), tree)
+        with torch.no_grad():
+            got = apply(tree, x.cuda()).cpu()
+            want = apply(host, x)
+        diff, rel = rel_err(got, want)
+        out[name] = dict(max_abs=diff, rel=rel, max_logit=want.abs().max().item())
+        log(f"[resnet parity] resnet50 {name} logits ({IMG} x {IMG}, batch {PARITY_B}): card vs "
+            f"CPU max |diff| {diff:.3e}, {rel:.2e} of max |logit| (bound {RESNET_LOGITS_RTOL})")
+        if not rel <= RESNET_LOGITS_RTOL:
+            raise AssertionError(f"resnet parity: {name} logits {rel:.3e} of max |logit| apart")
+    host = tree_map(lambda t: t.cpu(), eq5)
+    for phase in (-1, 0):
+        loss_c, grads_c = _cls_step(_live(eq5), apply, phase, RESNET_LR)(x.cuda(), y.cuda())
+        loss_h, grads_h = _cls_step(_live(host), apply, phase, RESNET_LR)(x, y)
+        n_frozen = _check_frozen("resnet parity (card)", eq5, phase, grads_c)
+        _check_frozen("resnet parity (CPU)", eq5, phase, grads_h)
+        loss_rel = abs(loss_c.item() - loss_h.item()) / abs(loss_h.item())
+        worst, worst_path, worst_max = 0.0, "", 0.0  # by norm; the largest entry's too
+        for path, g in grads_c.items():
+            if g is None:
+                continue
+            want = grads_h[path].double()
+            diff = g.cpu().double() - want
+            rel = (diff.norm() / want.norm().clamp_min(1e-30)).item()
+            worst_max = max(worst_max, (diff.abs().max() / want.abs().max()).item())
+            if not rel <= worst:
+                worst, worst_path = rel, path
+        out[f"phase{phase}"] = dict(loss_card=loss_c.item(), loss_cpu=loss_h.item(),
+                                    loss_rel=loss_rel, worst_grad_rel=worst,
+                                    worst_leaf=worst_path, worst_grad_max_rel=worst_max,
+                                    frozen_leaves=n_frozen)
+        log(f"[resnet parity] eq5 train step phase {phase}: loss card {loss_c.item():.6f} vs "
+            f"CPU {loss_h.item():.6f} ({loss_rel:.1e}, bound {RESNET_LOSS_RTOL}); worst leaf "
+            f"grad ||diff|| / ||grad|| {worst:.2e} ({worst_path}, bound {RESNET_GRAD_RTOL}; "
+            f"largest entry's max |diff| / max |grad| {worst_max:.2e}); {n_frozen} frozen "
+            f"leaves without a gradient")
+        if not (loss_rel <= RESNET_LOSS_RTOL and worst <= RESNET_GRAD_RTOL):
+            raise AssertionError(f"resnet parity: phase {phase} loss {loss_rel:.3e} or "
+                                 f"{worst_path} grad {worst:.3e} apart")
+    return out
+
+
+# device kernels of cuDNN's convs and cuBLAS / CUTLASS GEMMs, by name; the
+# rest of a conv or ViT step is torch's elementwise and reduction kernels
+# (folded BN, ReLU, residual adds, softmax, norms, the SGD update)
+LIBRARY_KERNELS = ("cudnn", "xmma", "gemm", "cutlass", "wgrad", "dgrad", "fprop", "winograd",
+                   "convolve")
+
+
+def _measure(fn):
+    """``fn()`` as one step: the median host time over LADDER_STEPS
+    synchronised steps after LADDER_WARM, the device time per step
+    (``torch.profiler``, device-side events) over PROFILE_STEPS, its part in
+    convs and GEMMs (``LIBRARY_KERNELS``), and the device's idle share of
+    the median step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(LADDER_WARM):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(LADDER_STEPS):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    wall_ms = sorted(times)[len(times) // 2] * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_STEPS):
+            fn()
+        torch.cuda.synchronize()
+    by_name = device_ms_by_kernel(prof, PROFILE_STEPS)
+    device_ms = sum(by_name.values())
+    if not device_ms:
+        raise AssertionError("the profiler saw no device events")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    library_ms = sum(ms for name, ms in by_name.items()
+                     if any(key in name.lower() for key in LIBRARY_KERNELS))
+    return dict(wall_ms=wall_ms, device_ms=device_ms, idle_share=1 - device_ms / wall_ms,
+                conv_gemm_ms=library_ms, top=[dict(name=k[:80], ms=v) for k, v in top])
+
+
+def phase_ladder(label: str, trees, apply, x, y, lr: float):
+    """One table's method ladder (``LADDER``): each method's tree (``trees``
+    by org / lrd / rankopt) trained at its phase (``_cls_step``) and run
+    forward (no grad), each ``_measure``d; images/s from the median step.
+    PHASE1_METHODS are also trained at phase 1.  cuDNN picks its
+    algorithms by timing them (``cudnn.benchmark``), as a user training a
+    conv net would set it."""
+    from repro_torch.models.resnet import fp32_convs
+
+    b = x.shape[0]
+    methods = [(m, tree_name, phase) for m, (tree_name, phase) in LADDER.items()]
+    methods += [(f"{m} (phase 1)", LADDER[m][0], 1) for m in PHASE1_METHODS]
+    rows, base = [], None
+    prev = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        for method, tree_name, phase in methods:
+            params = trees[tree_name]
+            step = _cls_step(_live(params), apply, phase, lr)
+            train = _measure(lambda: step(x, y))
+            row = dict(method=method, tree=tree_name, phase=phase, train=train,
+                       train_img_s=b / train["wall_ms"] * 1e3)
+            if phase != 1:
+                def infer():
+                    with torch.no_grad(), fp32_convs():
+                        apply(params, x)
+                row["infer"] = _measure(infer)
+                row["infer_img_s"] = b / row["infer"]["wall_ms"] * 1e3
+            if base is None:
+                base = row
+            row["train_vs_org"] = row["train_img_s"] / base["train_img_s"] - 1
+            if "infer" in row:
+                row["infer_vs_org"] = row["infer_img_s"] / base["infer_img_s"] - 1
+            rows.append(row)
+            t, i = row["train"], row.get("infer")
+            log(f"[{label}] {method:<19} tree {tree_name:<7} phase {phase:>2}: train "
+                f"{row['train_img_s']:7.1f} img/s ({row['train_vs_org']:+.1%}; wall "
+                f"{t['wall_ms']:.2f} ms, device {t['device_ms']:.2f} ms of which convs and "
+                f"GEMMs {t['conv_gemm_ms']:.2f}, idle {t['idle_share']:.1%})"
+                + (f"; inference {row['infer_img_s']:7.1f} img/s ({row['infer_vs_org']:+.1%}; "
+                   f"wall {i['wall_ms']:.2f} ms, device {i['device_ms']:.2f} ms of which convs "
+                   f"and GEMMs {i['conv_gemm_ms']:.2f}, idle {i['idle_share']:.1%})"
+                   if i else "")
+                + "; train top: " + ", ".join(f"{k['name'][:40]} {k['ms']:.2f}ms"
+                                            for k in t["top"][:3]))
+            del step
+    finally:
+        torch.backends.cudnn.benchmark = prev
+    return rows
+
+
+def _resnet_macs(tree, variant: str, img: int):
+    """(multiply-adds, activation elements written) an image by the convs
+    of a ResNet tree as ``conv_apply`` computes them (a Tucker triple's
+    first factor at the input's resolution, an SVD pair after the
+    subsampling); the fc is left out."""
+    from repro_torch.models.resnet import STAGES
+
+    macs = act = 0
+
+    def conv(p, h, stride):
+        nonlocal macs, act
+        out = -(-h // stride)
+        if "kernel" in p:
+            kh, kw, c, s = p["kernel"].shape
+            macs, act = macs + out * out * kh * kw * c * s, act + out * out * s
+        elif "first" in p:
+            (c, r1), (kh, kw, _, r2), s = p["first"].shape, p["core"].shape, p["last"].shape[1]
+            macs += h * h * c * r1 + out * out * (kh * kw * r1 * r2 + r2 * s)
+            act += h * h * r1 + out * out * (r2 + s)
+        else:
+            (c, r), s = p["u"].shape, p["v"].shape[1]
+            macs, act = macs + out * out * r * (c + s), act + out * out * (r + s)
+        return out
+
+    h = -(-conv(tree["conv_stem"], img, 2) // 2)  # the stem, then the 3x3/2 max-pool
+    for si, blocks in enumerate(STAGES[variant]):
+        for bi in range(blocks):
+            p, stride = tree[f"s{si}b{bi}"], (2 if bi == 0 and si > 0 else 1)
+            conv(p["conv1x1_a"], h, 1)
+            out = conv(p["conv3x3"], h, stride)
+            conv(p["conv1x1_b"], out, 1)
+            if "shortcut" in p:
+                conv(p["shortcut"], h, stride)
+            h = out
+    return macs, act
+
+
+def _vit_macs(tree, img: int, patch: int):
+    """(multiply-adds an image, the FFNs' share) of a ViT tree: every
+    projection (dense or SVD pair), the attention products, the head."""
+    n = (img // patch) ** 2 + 1
+
+    def proj(p):
+        if "kernel" in p:
+            return p["kernel"].shape[-2] * p["kernel"].shape[-1]
+        return p["u"].shape[-1] * (p["u"].shape[-2] + p["v"].shape[-1])
+
+    blocks = tree["blocks"]
+    n_layers, d = blocks["norm1"]["scale"].shape
+    ffn = n * (proj(blocks["wi"]) + proj(blocks["down"]))
+    attn = n * (sum(proj(blocks[k]) for k in ("wq", "wk", "wv", "wo")) + 2 * n * d)
+    macs = (n - 1) * proj(tree["patch_embed"]) + n_layers * (ffn + attn) + proj(tree["head"])
+    return macs, n_layers * ffn / macs
+
+
+def phase_table1(dense, trees):
+    """Paper Table 1: ResNet-50 (224 x 224, batch 64, 1000 classes,
+    float32) over org / lrd / rankopt / freeze / combined, on the trees of
+    ``phase_conv_decompose``."""
+    import functools
+
+    from repro_torch.models import resnet
+
+    counts = {k: _resnet_macs(t, "resnet50", IMG) for k, t in dict(org=dense, **trees).items()}
+    (m0, a0) = counts["org"]
+    log(f"[table1 resnet50] convs a {IMG} x {IMG} image: " + ", ".join(
+        f"{k} {m / 1e9:.3f} GMAC ({m / m0:.3f}x), activations {a / a0:.2f}x"
+        for k, (m, a) in counts.items()))
+    x = torch.randn((LADDER_B, IMG, IMG, 3), generator=_seeded(21), device="cuda")
+    y = torch.randint(0, RESNET_CLASSES, (LADDER_B,), generator=_seeded(22), device="cuda")
+    return phase_ladder("table1 resnet50", dict(org=dense, **trees),
+                        functools.partial(resnet.resnet_apply, variant="resnet50"), x, y,
+                        RESNET_LR)
+
+
+def phase_table4():
+    """Paper Table 4: ViT-B/16 (12 layers, d 768, 12 heads, d_ff 3072, patch
+    16, 224 x 224, 10 classes, float32) at batch 64, the ViT policy, over the
+    same ladder."""
+    import functools
+
+    from repro_torch.core.decompose import Decomposer, apply_lrd
+    from repro_torch.core.freezing import tree_leaves
+    from repro_torch.core.policy import NO_LRD
+    from repro_torch.models import vit
+
+    cfg = dict(VIT_B16)
+    dense = vit.vit_init(Decomposer(NO_LRD, dtype=torch.float32, device="cuda",
+                                    generator=_seeded(1)), **cfg)
+    trees = dict(org=dense)
+    for name, policy in _ladder_policies(_vit_policy()).items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trees[name], plan = apply_lrd(dense, policy)
+        torch.cuda.synchronize()
+        log(f"[table4 vit-b/16] apply_lrd at {name}: {time.perf_counter() - t0:.3f} s, "
+            f"{plan.summary()}, ranks "
+            + ", ".join(f"{p} {lp.rank}" for p, lp in plan.layers.items()))
+    log("[table4 vit-b/16] params: " + ", ".join(
+        f"{k} {sum(t.numel() for t in tree_leaves(v)) / 1e6:.1f} M" for k, v in trees.items()))
+    counts = {k: _vit_macs(t, cfg["img"], cfg["patch"]) for k, t in trees.items()}
+    log(f"[table4 vit-b/16] an image: " + ", ".join(
+        f"{k} {m / 1e9:.3f} GMAC ({m / counts['org'][0]:.3f}x, FFNs {share:.0%})"
+        for k, (m, share) in counts.items()))
+    x = torch.randn((LADDER_B, cfg["img"], cfg["img"], 3), generator=_seeded(31), device="cuda")
+    y = torch.randint(0, cfg["num_classes"], (LADDER_B,), generator=_seeded(32), device="cuda")
+    return phase_ladder("table4 vit-b/16", trees,
+                        functools.partial(vit.vit_apply, heads=cfg["heads"],
+                                          patch=cfg["patch"]), x, y, VIT_LR)
+
+
+def phase_sequential(tree):
+    """Algorithm 2 on ResNet-50 combined: 6 steps at batch 64, phases
+    0,0,1,1,0,0, on ``SyntheticClassification(img=224)``: finite losses, and
+    at each step no gradient on the frozen group."""
+    import functools
+
+    from repro_torch.data import SyntheticClassification
+    from repro_torch.models import resnet
+
+    apply = functools.partial(resnet.resnet_apply, variant="resnet50")
+    data = SyntheticClassification(img=IMG, batch=LADDER_B)
+    live = _live(tree)
+    losses, frozen = [], []
+    t0 = time.perf_counter()
+    for i, phase in enumerate(SEQ_PHASES):
+        xb, yb = data.next_batch()
+        loss, grads = _cls_step(live, apply, phase, RESNET_LR)(
+            torch.from_numpy(xb).cuda(), torch.from_numpy(yb).cuda())
+        frozen.append(_check_frozen(f"sequential step {i}", live, phase, grads))
+        losses.append(loss.item())
+        if not math.isfinite(losses[-1]):
+            raise AssertionError(f"sequential: step {i} loss {losses[-1]}")
+    torch.cuda.synchronize()
+    log(f"[sequential] resnet50 combined, batch {LADDER_B}, phases {list(SEQ_PHASES)}: losses "
+        + ", ".join(f"{l:.4f}" for l in losses) + f"; frozen leaves without a gradient per "
+        f"step {frozen}; {time.perf_counter() - t0:.1f} s incl. data")
+    return dict(phases=list(SEQ_PHASES), losses=losses, frozen_leaves=frozen)
+
+
+def phase_conv():
+    """The conv and ViT phases, in order; returns their results."""
+    out = {}
+    out["conv_decompose"], dense50, trees50 = phase_conv_decompose()
+    out["resnet_parity"] = phase_resnet_parity(dense50, trees50["lrd"])
+    out["table1"] = phase_table1(dense50, trees50)
+    out["sequential"] = phase_sequential(trees50["rankopt"])
+    del dense50, trees50
+    out["table4"] = phase_table4()
+    return out
+
+
 def check_launched_shapes(path: str, rows, by_shape) -> None:
     """Fail if ``path`` launched a kernel at a shape the kernel phase did
     not check."""
@@ -1784,11 +2346,21 @@ def check_launched_shapes(path: str, rows, by_shape) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="", help="also write every result as JSON here")
-    ap.add_argument("--only", choices=("kernels",), default=None,
-                    help="stop after the kernel phase (a first check of a build)")
+    ap.add_argument("--only", choices=("kernels", "conv"), default=None,
+                    help="kernels: stop after the kernel phase (a first check of a build); "
+                         "conv: run only the conv and ViT phases")
     args = ap.parse_args(argv)
 
+    t_start = time.perf_counter()
     smi = phase_device()
+    if args.only == "conv":
+        result = dict(smi=smi, **phase_conv())
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(result, indent=1, default=str))
+        log(f"[run] {time.perf_counter() - t_start:.1f} s")
+        print(smi, flush=True)
+        return 0
     build_s = phase_build()
     rows = phase_kernels()
     result = dict(smi=smi, build_s=build_s, kernels=rows)
@@ -1841,6 +2413,8 @@ def main(argv=None) -> int:
         result["flash_extra"] = phase_flash_kernels([d for d in FLASH_EXTRA
                                                      if d not in launched])
         result["designs"] = phase_designs()
+        # the paper's conv and ViT path: no hand-written kernel runs on it
+        result.update(phase_conv())
         for path, by in paths.items():
             check_launched_shapes(path, rows, by)
         for row in rows:
@@ -1885,6 +2459,7 @@ def main(argv=None) -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(result, indent=1, default=str))
+    log(f"[run] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(line), flush=True)
     print(smi, flush=True)
     if args.only:

@@ -3,18 +3,21 @@ decomposition of dense weights — the counterpart of
 ``repro/core/decompose.py``.
 
 Two entry points share one source of ranks (:class:`RankResolver`).  At
-init, model ``init`` functions call :meth:`Decomposer.linear`, which
-creates either a dense ``{"kernel"}`` or a factorised ``{"u", "v"}`` group
-according to the policy and records the decision in the plan.
-:func:`apply_lrd` is the paper's own flow: it walks a dense param tree,
-factorises every policy-matched ``kernel`` with a truncated SVD
-(``core/svd.py``) and records the same plan.  Ranks come from Eq. 5
-(``rank_quantize=False``) or from Algorithm 1 (``rank_quantize=True``,
-:class:`RankResolver` over ``core/rank_opt.py``), whose guard keeps a layer
-dense when its decomposition is no faster.  Layouts follow the JAX tree:
-``kernel (C, S)``, ``u (C, r)``, ``v (r, S)``, with any stack dims (``L``)
-in front.  :func:`map_factor_groups` and :func:`merge_factor_group` rewrite
-a trained tree (the serve-time export).
+init, model ``init`` functions call :meth:`Decomposer.linear` and
+:meth:`Decomposer.conv`, which create either a dense ``{"kernel"}`` or a
+factorised ``{"u", "v"}`` / ``{"first", "core", "last"}`` group according
+to the policy and record the decision in the plan.  :func:`apply_lrd` is
+the paper's own flow: it walks a dense param tree, factorises every
+policy-matched ``kernel`` with a truncated SVD (``core/svd.py``) or, for a
+k x k conv, a Tucker-2 HOSVD (``core/tucker.py``), and records the same
+plan.  Ranks come from Eq. 5 (``rank_quantize=False``) or from Algorithm 1
+(``rank_quantize=True``, :class:`RankResolver` over ``core/rank_opt.py``),
+whose guard keeps a layer dense when its decomposition is no faster.
+Layouts follow the JAX tree: ``kernel (C, S)``, ``u (C, r)``, ``v (r, S)``,
+HWIO conv kernels ``(k, k, C, S)``, ``first (C, r1)``, ``core (k, k, r1,
+r2)``, ``last (r2, S)``, with any stack dims (``L``) in front.
+:func:`map_factor_groups` and :func:`merge_factor_group` rewrite a trained
+tree (the serve-time export).
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import rank_opt, svd
+from repro_torch.core import rank_opt, svd, tucker
 from repro_torch.core.policy import DecompositionPolicy, Rule
 from repro_torch.core.rank_opt import RankDecision
 
@@ -34,23 +37,23 @@ __all__ = ["LayerPlan", "DecompositionPlan", "RankDecision", "RankResolver",
            "Decomposer", "apply_lrd", "iter_factor_groups", "map_factor_groups",
            "merge_factor_group"]
 
-_TUCKER_TODO = ("Tucker-2 decomposition of k x k convolutions is not ported yet "
-                "(ROADMAP queue 1 item 6, the paper's own tables)")
-
-
 @dataclasses.dataclass
 class LayerPlan:
     path: str
-    method: str  # "svd"
+    method: str  # "svd" | "tucker"
     shape: Tuple[int, ...]  # original kernel shape (without stack dim)
-    rank: int
-    rank2: int = 0
+    rank: int  # r (SVD) or r1 (Tucker)
+    rank2: int = 0  # r2 (Tucker only)
     eq5_rank: int = 0  # pre-optimization Eq.-5 rank, for reporting
     use_decomposed: bool = True  # Algorithm-1 guard outcome
 
     def params_saved(self) -> int:
-        c, s = self.shape[-2], self.shape[-1]
-        return c * s - self.rank * (c + s)
+        if self.method == "svd":
+            c, s = self.shape[-2], self.shape[-1]
+            return c * s - self.rank * (c + s)
+        c, s, k, _ = self.shape
+        return c * s * k * k - (c * self.rank + self.rank * self.rank2 * k * k
+                                + self.rank2 * s)
 
 
 @dataclasses.dataclass
@@ -104,6 +107,22 @@ class RankResolver:
                 dec, rank=max(1, min(dec.rank, svd.max_rank(c, s))))
         return self._cache[key]
 
+    def tucker_ranks(self, c: int, s: int, k: int, rule: Rule) -> RankDecision:
+        """r1 of a (C, S, k, k) conv: Algorithm 1, or Eq. 5 with the guard's
+        times fixed at 1.0 / 0.5 (always decomposed), as in JAX."""
+        key = ("tucker", c, s, k, rule.alpha, rule.rank_quantize)
+        if key not in self._cache:
+            if rule.rank_quantize:
+                dec = rank_opt.optimize_rank_tucker(
+                    c, s, k, alpha=rule.alpha, m=self.probe_tokens, hw=self.hw,
+                    stride=max(1, min(self.hw.mxu_tile // 4, 32)))
+            else:
+                r1, _ = tucker.tucker_rank_for_compression(c, s, k, rule.alpha)
+                dec = RankDecision(rank=r1, use_decomposed=True, original_time=1.0,
+                                   decomposed_time=0.5)
+            self._cache[key] = dec
+        return self._cache[key]
+
 
 class Decomposer:
     """Init-time LRD: hands factorised param layouts to model ``init`` fns.
@@ -130,8 +149,12 @@ class Decomposer:
                            dtype=torch.float32, device=self.device)
 
     def dense(self, shape: Tuple[int, ...], dtype=None) -> torch.Tensor:
-        """Fan-in scaled normal init (``repro.core.decompose._init_dense``)."""
+        """Fan-in scaled normal init (``repro.core.decompose._init_dense``):
+        fan-in C of a ``(..., C, S)`` matrix, kh * kw * C of a 4-D HWIO
+        kernel (and the product of the three axes before S of a stacked one)."""
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+        if len(shape) >= 4:
+            fan_in = int(np.prod(shape[-4:-1]))
         scale = 1.0 / np.sqrt(max(fan_in, 1))
         return (self.normal(shape) * scale).to(dtype or self.dtype)
 
@@ -165,6 +188,50 @@ class Decomposer:
                 out["v"] = self.dense(stack + (r, s), dtype)
         if bias:
             out["bias"] = torch.zeros(stack + (s,), dtype=dtype, device=self.device)
+        return out
+
+    def conv(self, path: str, c: int, s: int, k: int, *, dtype=None,
+             stack: Tuple[int, ...] = ()) -> Dict[str, Any]:
+        """Dense or factorised k x k conv params (HWIO kernels): a 1x1 conv
+        under a Tucker rule takes the SVD (it is a matrix), a k x k one the
+        Tucker-2 triple at r2 = min(r1, S)."""
+        dtype = dtype or self.dtype
+        rule = self.policy.match(path) if self.policy else None
+        if rule is not None and min(c, s) < rule.min_dim:
+            rule = None
+        if k == 1 and rule is not None and rule.method == "tucker":
+            # 1x1 convs are matrices: the paper treats them as FC (SVD)
+            rule = dataclasses.replace(rule, method="svd")
+        out: Dict[str, Any] = {}
+        if rule is None or rule.method == "none":
+            out["kernel"] = self.dense(stack + (k, k, c, s), dtype)
+        elif rule.method == "svd":
+            dec = self.resolver.svd_rank(c, s, rule)
+            self.plan.layers[path] = LayerPlan(
+                path=path, method="svd", shape=(c, s), rank=dec.rank,
+                eq5_rank=svd.svd_rank_for_compression(c, s, rule.alpha),
+                use_decomposed=dec.use_decomposed,
+            )
+            if not dec.use_decomposed:
+                out["kernel"] = self.dense(stack + (k, k, c, s), dtype)
+            else:
+                out["u"] = self.dense(stack + (c, dec.rank), dtype)
+                out["v"] = self.dense(stack + (dec.rank, s), dtype)
+        else:  # tucker
+            dec = self.resolver.tucker_ranks(c, s, k, rule)
+            r1 = dec.rank
+            r2 = max(1, min(int(r1), s))
+            self.plan.layers[path] = LayerPlan(
+                path=path, method="tucker", shape=(c, s, k, k), rank=r1, rank2=r2,
+                eq5_rank=tucker.tucker_rank_for_compression(c, s, k, rule.alpha)[0],
+                use_decomposed=dec.use_decomposed,
+            )
+            if not dec.use_decomposed:
+                out["kernel"] = self.dense(stack + (k, k, c, s), dtype)
+            else:
+                out["first"] = self.dense(stack + (c, r1), dtype)
+                out["core"] = self.dense(stack + (k, k, r1, r2), dtype)
+                out["last"] = self.dense(stack + (r2, s), dtype)
         return out
 
 
@@ -225,7 +292,9 @@ def apply_lrd(params: Any, policy: DecompositionPolicy, *,
     2-D and stacked 3-D kernels become SVD groups ``{"u", "v"}`` at the
     resolver's rank (a 2-D kernel of more than ``use_randomized_svd_above``
     elements through :func:`svd.randomized_svd`), as do 1x1 HWIO conv
-    kernels; a k x k conv kernel under a Tucker rule raises.  A layer the
+    kernels; a k x k HWIO conv kernel under a Tucker rule becomes the
+    Tucker-2 triple ``{"first", "core", "last"}`` at r2 = r1 (JAX's rule
+    here, where :meth:`Decomposer.conv` caps r2 at S).  A layer the
     Algorithm-1 guard keeps dense stays as it is.  Everything else passes
     through untouched.  Returns ``(new_params, plan)``; the plan is the one
     :class:`Decomposer` records at init for the same policy, keyed by the
@@ -287,5 +356,17 @@ def _maybe_factorize(w, path, policy, resolver, plan, rsvd_threshold, balance):
                               lambda r: svd.svd_decompose(w[0, 0], r, balance=balance))
         if rule.method != "tucker":
             return None
-        raise ValueError(f"apply_lrd: {path} is a {kh}x{kw} conv kernel: {_TUCKER_TODO}")
+        dec = resolver.tucker_ranks(c, s, kh, rule)
+        r1, r2 = dec.rank, max(1, int(dec.rank))
+        plan.layers[path] = LayerPlan(
+            path=path, method="tucker", shape=(c, s, kh, kw), rank=r1, rank2=r2,
+            eq5_rank=tucker.tucker_rank_for_compression(c, s, kh, rule.alpha)[0],
+            use_decomposed=dec.use_decomposed,
+        )
+        if not dec.use_decomposed:
+            return None
+        # HWIO -> (C, S, kh, kw) for the HOSVD; the core back to HWIO
+        first, core, last = tucker.tucker2_decompose(w.permute(2, 3, 0, 1), r1, r2)
+        return {"first": first, "core": core.permute(2, 3, 0, 1).contiguous(),
+                "last": last}
     return None

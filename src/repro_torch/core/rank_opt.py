@@ -21,7 +21,8 @@ Two ``t(r)`` backends, as in the JAX package:
                       decide the same ranks.  Its "times" are the model's,
                       not a measurement of any card.
 
-The Tucker sweep (``optimize_rank_tucker``) comes with the conv path.
+:func:`optimize_rank_tucker` is Algorithm 1 for a (C, S, k, k) conv under
+the analytic model, sweeping r1 of the Tucker-2 triple.
 """
 
 from __future__ import annotations
@@ -33,10 +34,11 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import svd
+from repro_torch.core import svd, tucker
 
 __all__ = ["TPU_V5E", "HardwareModel", "RankDecision", "analytic_layer_time",
-           "optimize_rank", "quantize_rank", "measured_linear_time_fn"]
+           "optimize_rank", "optimize_rank_tucker", "quantize_rank",
+           "measured_linear_time_fn"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,7 +134,13 @@ def optimize_rank(c: int, s: int, *, alpha: float = 2.0, m: int = 4096,
         probe = time_fn
     else:
         raise ValueError(f"unknown backend {backend!r}")
+    return _sweep(probe, r_lo, r_hi, stride)
 
+
+def _sweep(probe: Callable[[Optional[int]], float], r_lo: int, r_hi: int,
+           stride: int) -> RankDecision:
+    """Algorithm 1's sweep of ``probe`` (rank, or None for the original
+    layer, -> seconds) over ``[r_lo, r_hi]``."""
     ranks = list(range(r_lo, r_hi + 1, stride))
     if ranks[-1] != r_hi:
         ranks.append(r_hi)
@@ -163,6 +171,28 @@ def optimize_rank(c: int, s: int, *, alpha: float = 2.0, m: int = 4096,
         searched=tuple(ranks),
         times=tuple(float(t) for t in times),
     )
+
+
+def optimize_rank_tucker(c: int, s: int, k: int, *, alpha: float = 2.0,
+                         beta: float = 1.0, m: int = 4096, hw: HardwareModel = TPU_V5E,
+                         time_fn: Optional[Callable[[Optional[int]], float]] = None,
+                         stride: int = 1) -> RankDecision:
+    """Algorithm 1 for a Tucker-decomposable (C, S, k, k) conv layer.
+
+    The sweep variable is r1 (r2 = beta*r1, paper §2.1).  The analytic model
+    treats the kxk core conv as a matmul with contraction c*k*k (im2col view).
+    """
+    (r_hi, _) = tucker.tucker_rank_for_compression(c, s, k, alpha, beta=beta)
+    (r_lo, _) = tucker.tucker_min_rank(c, s, k, alpha, beta=beta)
+
+    def analytic(r: Optional[int]) -> float:
+        if r is None:
+            return hw.matmul_time(m, c * k * k, s)
+        r2 = max(1, int(beta * r))
+        return (hw.matmul_time(m, c, r) + hw.matmul_time(m, r * k * k, r2)
+                + hw.matmul_time(m, r2, s))
+
+    return _sweep(time_fn if time_fn is not None else analytic, r_lo, r_hi, stride)
 
 
 def measured_linear_time_fn(c: int, s: int, *, device, m: int = 1024, dtype=None,

@@ -1,3 +1,4 @@
 """Synthetic data pipelines (numpy only)."""
 
-from repro_torch.data.synthetic import LMBatchIterator, SyntheticLM  # noqa: F401
+from repro_torch.data.synthetic import (LMBatchIterator, SyntheticClassification,  # noqa: F401
+                                        SyntheticLM)

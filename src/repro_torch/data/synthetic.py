@@ -1,21 +1,24 @@
-"""Deterministic synthetic LM data with checkpointable state — a copy of
-``SyntheticLM`` and ``LMBatchIterator`` from ``repro/data/synthetic.py``
-(numpy only), so the same seed gives the same batches as the JAX package.
+"""Deterministic synthetic data with checkpointable state — a copy of
+``SyntheticLM``, ``SyntheticClassification`` and ``LMBatchIterator`` from
+``repro/data/synthetic.py`` (numpy only), so the same seed gives the same
+batches as the JAX package.
 
 The stream is hash-counter based: the iterator state is a single int (plus
 the host shard id), which makes the pipeline exactly resumable from a
 checkpoint.  ``SyntheticLM`` is a Markov-ish token stream (a mixture of
 per-topic bigram tables), so LM training loss measurably decreases.
+``SyntheticClassification`` draws NHWC images around one fixed center per
+class, for the ResNet and ViT experiments.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 
-__all__ = ["SyntheticLM", "LMBatchIterator"]
+__all__ = ["SyntheticLM", "SyntheticClassification", "LMBatchIterator"]
 
 
 def _rng_for(step: int, shard: int, seed: int) -> np.random.Generator:
@@ -62,6 +65,34 @@ class SyntheticLM:
     def load_state_dict(self, st: Dict[str, int]) -> None:
         self.step = int(st["step"])
         self.seed = int(st["seed"])
+
+
+@dataclasses.dataclass
+class SyntheticClassification:
+    num_classes: int = 10
+    img: int = 32
+    batch: int = 32
+    seed: int = 23
+    step: int = 0
+    noise: float = 0.35
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        self._centers = rng.normal(0, 1, size=(self.num_classes, self.img, self.img, 3))
+
+    def next_batch(self) -> Tuple[np.ndarray, np.ndarray]:
+        rng = _rng_for(self.step, 0, self.seed)
+        labels = rng.integers(0, self.num_classes, size=(self.batch,))
+        x = self._centers[labels] + rng.normal(0, self.noise,
+                                               size=(self.batch, self.img, self.img, 3))
+        self.step += 1
+        return x.astype(np.float32), labels.astype(np.int32)
+
+    def eval_batch(self, n: int = 256) -> Tuple[np.ndarray, np.ndarray]:
+        rng = np.random.default_rng(self.seed + 999)
+        labels = rng.integers(0, self.num_classes, size=(n,))
+        x = self._centers[labels] + rng.normal(0, self.noise, size=(n, self.img, self.img, 3))
+        return x.astype(np.float32), labels.astype(np.int32)
 
 
 class LMBatchIterator:

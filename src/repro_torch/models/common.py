@@ -89,6 +89,20 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (y * p["scale"].float()).to(x.dtype)
 
 
+def layernorm_init(d: int, dtype, device, stack: Tuple[int, ...] = ()) -> Params:
+    return {"scale": torch.ones(stack + (d,), dtype=dtype, device=device),
+            "ln_bias": torch.zeros(stack + (d,), dtype=dtype, device=device)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """float32 statistics; the population variance, as ``jnp.var``."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["ln_bias"].float()).to(x.dtype)
+
+
 # --------------------------------------------------------------------------
 # Embeddings
 # --------------------------------------------------------------------------

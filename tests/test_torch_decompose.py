@@ -4,7 +4,7 @@ balances), ``svd.randomized_svd`` with JAX's sketch matrix put in the
 port's place, ``svd.reconstruction_error``, ``decompose.apply_lrd`` on the
 smoke LM's dense tree from JAX's init (Eq.-5 and Algorithm-1 ranks, and a
 wider model where Algorithm 1 keeps layers factorised), its 1x1-conv
-and randomized branches and the k x k conv that raises, and
+and randomized branches and the k x k conv's Tucker branch, and
 ``freezing.apply_freeze`` / ``trainable_fraction`` / ``factor_rank_axis``.
 
 Singular vectors are unique up to sign, and the two packages' LAPACK calls
@@ -239,7 +239,8 @@ def test_apply_lrd_takes_randomized_svd_above_its_threshold(monkeypatch):
 
 def test_apply_lrd_conv_kernels():
     """A 1x1 HWIO conv kernel is a matrix and takes the SVD, as in JAX; a
-    k x k kernel under a Tucker rule raises, naming the queue item."""
+    k x k kernel under a Tucker rule takes the Tucker-2 triple, as in JAX
+    (``test_torch_tucker.py`` holds its reconstruction)."""
     tree = {"conv_a_1x1": {"kernel": _weights((64, 96), seed=6)[None, None]},
             "fc": {"kernel": _weights((64, 80), seed=7)}}
     jtree, jplan = jdecompose.apply_lrd(jax.tree_util.tree_map(jnp.asarray, tree),
@@ -251,9 +252,15 @@ def test_apply_lrd_conv_kernels():
     assert set(g) == {"u", "v"} and tuple(g["u"].shape) == jg["u"].shape
     assert _rel((g["u"] @ g["v"]).numpy(), np.asarray(jg["u"]) @ np.asarray(jg["v"])) \
         <= PRODUCT_RTOL
-    conv = {"conv3": {"kernel": torch.zeros(3, 3, 64, 64)}}
-    with pytest.raises(ValueError, match="queue 1 item 6"):
-        decompose.apply_lrd(conv, RESNET_DEFAULT)
+    conv = {"conv3": {"kernel": torch.from_numpy(
+        np.random.default_rng(8).standard_normal((3, 3, 64, 64)).astype(np.float32))}}
+    jout, jplan = jdecompose.apply_lrd({"conv3": {"kernel": jnp.asarray(
+        conv["conv3"]["kernel"].numpy())}}, J_RESNET_DEFAULT)
+    out, plan = decompose.apply_lrd(conv, RESNET_DEFAULT)
+    assert json.loads(plan.to_json()) == json.loads(jplan.to_json())
+    assert plan.layers["conv3"].method == "tucker"
+    assert {k: tuple(v.shape) for k, v in out["conv3"].items()} == \
+        {k: v.shape for k, v in jout["conv3"].items()}
     # under a rule that is not Tucker a k x k kernel stays dense, as in JAX
     out, plan = decompose.apply_lrd(conv, LM_DEFAULT.with_quantize(False))
     assert out["conv3"]["kernel"] is conv["conv3"]["kernel"] and not plan.layers
