@@ -1,6 +1,6 @@
 """Drive the PyTorch port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py [--out results.json] [--only kernels]
+    python3 chip_smoke.py [--out results.json] [--only kernels|conv|serve]
 
 Phases, in order; any failure exits nonzero:
 
@@ -111,7 +111,8 @@ Phases, in order; any failure exits nonzero:
 21. resnet parity — ResNet-50 at 224 x 224, batch 4, card against the
               port's CPU run: dense and Eq.-5 logits, and a train step's loss
               and gradients at phases -1 and 0 (no gradient on u, first,
-              last at phase 0);
+              last at phase 0); at phase -1 the card's and the CPU's float32
+              gradients against the same step in float64 on the CPU;
 22. table1 — ResNet-50, 224 x 224, batch 64, float32, over org / lrd /
               rankopt / freeze / combined (and phase 1 of freeze and
               combined): train and inference images/s from the median of 10
@@ -122,6 +123,34 @@ Phases, in order; any failure exits nonzero:
 24. table4 — ViT-B/16 (224 x 224, batch 64, 10 classes, float32) with the
               ViT policy over the same ladder.
 
+25. spec serve — phase 4's 16-request trace with 47 new tokens (prime:
+              every k retires mid-chunk), plain and self-speculative at k =
+              1, 2, 4 with the draft = the params (acceptance 1.0) and at
+              k = 2, 4 with the draft ``draft_rank_map`` derives (fraction
+              0.5; its ranks printed): K1/K5 launches exact by M (k draft
+              forwards at M = 8 and one verify at M = 8 (k + 1) a step, no
+              plain decode), tokens held to the plain run's (a parting must
+              be a rounding tie: the top-2 gap below the two runs' largest
+              |logit difference| there), tok/s and wall / device ms of a
+              speculative step beside a decode step; first, whether K1/K5's
+              decode design gives a row the same bits at M = 8 and inside
+              M = 16/24/40;
+26. prefix serve — ``shared_prefix_trace`` (16 requests, a 1024-token
+              prefix, 1-64-token suffixes, 16-position blocks, prompts padded
+              to 1088, 32 new tokens) uncached and with the radix prefix
+              cache: fewer prefilled tokens, hits in whole blocks, the extend
+              step's K1/K5 at M = 1088, tokens held as in phase 25, TTFT p50;
+27. int8 KV — ``kv_cache_dtype="int8"`` pools in both ``int8_decode``
+              modes: pool bytes exactly (hd + 2) / (2 hd) of bf16's, 8
+              teacher-forced decode steps' logits within 5% of the bf16
+              pools', phase 4's trace served, a decode step profiled as in
+              phase 6;
+28. fixed batch — ``ServeEngine(num_slots=0).generate`` on 8 x 128 prompts,
+              32 new tokens (prefill K1/K5 at M = 1024, decode at M = 8),
+              bf16 and int8 configs, held against the same path through the
+              plain versions as in phase 5; 8 teacher-forced steps through an
+              int8 ``lm.init_cache`` cache against a bf16 one.
+
 Phases 20-24 run with TF32 off and the port's seeded init, through plain
 PyTorch (cuDNN convs, ``torch.matmul``): the JAX package computes them
 outside any Pallas kernel, so no hand-written kernel is on their path.
@@ -130,7 +159,9 @@ Phase 3 also holds K1-K5 at the Algorithm-1 training shapes and at the
 decay schedule's ranks; the energy boundary's ranks are decided on the
 card, and the shapes it launched that phase 3 did not check are checked
 and timed after it.  ``--only kernels`` runs phases 1-3, the K6-K8 checks
-and phase 19; ``--only conv`` runs phases 1 and 20-24.  The last line of
+and phase 19; ``--only conv`` runs phases 1 and 20-24; ``--only serve`` runs
+phases 1-3 (at the serve and serving-feature shapes) and 25-28.  The last
+line of
 standard output is ``{"ok": true, "device": {...}}``; the
 line before it is ``nvidia-smi``'s name and power limit, and the
 ``{"kernels": [...]}`` line comes before that.
@@ -249,6 +280,18 @@ FLASH_PARITY_SEEDS = (1, 4, 5)
 FLASH_SERVE_SHAPE = dict(B=1, Sq=FLASH_PROMPT, Sk=FLASH_PROMPT, H=15, KV=5, D=64, causal=True)
 # K8 beyond the serve's shape: ragged Sq = Sk, Sq < Sk without the causal
 # mask, two batch rows, and D 128 with g = 8 (qwen2-72b's 64 / 8 heads)
+# Serving features at full width (phases 25-28).  Speculative: phase 4's
+# trace with 47 new tokens (prime, so every k retires mid-chunk), k = 1, 2, 4
+# with the draft = params and k = 2, 4 with the derived draft (half the
+# Algorithm-1 sweep's rank).  Prefix: 16 requests sharing a 1024-token
+# prefix, suffixes of 1-64 tokens, every prompt padded to 1088, 32 new
+# tokens.  Fixed batch: 8 x 128 prompts, 32 new tokens.  int8 KV: 8
+# teacher-forced decode steps, logits within 5% of max |logit| of the bf16
+# cache's (the reference's bound, tests/test_kvcache.py).
+SPEC_NEW, SPEC_KS, SPEC_DRAFT_KS, SPEC_FRACTION = 47, (1, 2, 4), (2, 4), 0.5
+PREFIX_LEN, PREFIX_SUFFIX, PREFIX_PREFILL, PREFIX_NEW = 1024, 64, 1088, 32
+FIXED_B, FIXED_T, FIXED_NEW = 8, 128, 32
+KV_STEPS, KV_RTOL = 8, 0.05
 FLASH_EXTRA = [dict(FLASH_SERVE_SHAPE, Sq=1, Sk=1), dict(FLASH_SERVE_SHAPE, Sq=17, Sk=17),
                dict(FLASH_SERVE_SHAPE, Sq=500, causal=False), dict(FLASH_SERVE_SHAPE, B=2),
                dict(B=1, Sq=512, Sk=512, H=64, KV=8, D=128, causal=True)]
@@ -358,15 +401,19 @@ REPEATABLE = ("lowrank_matmul_dx", "lowrank_matmul_du", "lowrank_matmul_dv")
 DESIGN_SWEEP_M = (128, 256, 512, 2016)
 
 
-def kernel_shapes():
-    """(name, dims) of every K1-K5 call on the serve, flash serve and train
-    paths."""
+def kernel_shapes(serve_only: bool = False):
+    """(name, dims) of every K1-K5 call on the serve, flash serve, serving
+    features' and train paths (``serve_only``: the serve and serving
+    features' only)."""
     out = []
-    for m in (DECODE_M, PREFILL_M, FLASH_PROMPT):
+    for m in (DECODE_M, PREFILL_M) + (() if serve_only else (FLASH_PROMPT,)):
         for proj in ("wq/wo", "wk/wv", "down"):
             c, r, s = PROJ[proj]
             out.append(("lowrank_matmul", dict(M=m, C=c, r=r, S=s)))
         out.append(("lowrank_gated_ffn", dict(M=m, C=960, r=349, F=2560)))
+    out += serving_shapes()
+    if serve_only:
+        return out
     # the decay run trains at its first shrunk map in phase 1 (no K4) and
     # at its second in phase 0 (no K3)
     for proj, bwd in ((PROJ, BWD), (PROJ_ALG1, BWD),
@@ -2058,11 +2105,15 @@ def phase_resnet_parity(dense, eq5):
         if not rel <= RESNET_LOGITS_RTOL:
             raise AssertionError(f"resnet parity: {name} logits {rel:.3e} of max |logit| apart")
     host = tree_map(lambda t: t.cpu(), eq5)
+    host64 = tree_map(lambda t: t.double(), host)
     for phase in (-1, 0):
         loss_c, grads_c = _cls_step(_live(eq5), apply, phase, RESNET_LR)(x.cuda(), y.cuda())
         loss_h, grads_h = _cls_step(_live(host), apply, phase, RESNET_LR)(x, y)
         n_frozen = _check_frozen("resnet parity (card)", eq5, phase, grads_c)
         _check_frozen("resnet parity (CPU)", eq5, phase, grads_h)
+        if phase == -1:  # every leaf has a gradient; the float64 step is slow on the CPU
+            _, grads_64 = _cls_step(_live(host64), apply, phase, RESNET_LR)(x.double(), y)
+            out["float64"] = _float64_distances(phase, grads_c, grads_h, grads_64)
         loss_rel = abs(loss_c.item() - loss_h.item()) / abs(loss_h.item())
         worst, worst_path, worst_max = 0.0, "", 0.0  # by norm; the largest entry's too
         for path, g in grads_c.items():
@@ -2087,6 +2138,28 @@ def phase_resnet_parity(dense, eq5):
             raise AssertionError(f"resnet parity: phase {phase} loss {loss_rel:.3e} or "
                                  f"{worst_path} grad {worst:.3e} apart")
     return out
+
+
+def _float64_distances(phase: int, grads_c, grads_h, grads_64):
+    """The card's and the CPU's float32 gradients, each against the same
+    step in float64 on the CPU: ||g - g64|| / ||g64|| and max |g - g64| /
+    max |g64|, for the stem kernel and for the leaf farthest from float64
+    on the card.  Which side the card-vs-CPU difference comes from."""
+    def dist(g, want):
+        d = g.cpu().double() - want
+        return ((d.norm() / want.norm().clamp_min(1e-300)).item(),
+                (d.abs().max() / want.abs().max().clamp_min(1e-300)).item())
+
+    rows = {path: dict(card=dist(g, grads_64[path]), cpu=dist(grads_h[path], grads_64[path]))
+            for path, g in grads_c.items() if g is not None}
+    stem = next(p for p in rows if "conv_stem" in p)
+    worst = max(rows, key=lambda p: rows[p]["card"][0])
+    for label, path in (("stem", stem), ("worst on the card", worst)):
+        r = rows[path]
+        log(f"[resnet parity] phase {phase} {label} gradient ({path}) against float64 on the "
+            f"CPU: card ||diff||/||g64|| {r['card'][0]:.3e} (max entry {r['card'][1]:.3e}), "
+            f"CPU float32 {r['cpu'][0]:.3e} (max entry {r['cpu'][1]:.3e})")
+    return dict(stem=stem, stem_dist=rows[stem], worst_leaf=worst, worst_dist=rows[worst])
 
 
 # device kernels of cuDNN's convs and cuBLAS / CUTLASS GEMMs, by name; the
@@ -2332,6 +2405,626 @@ def phase_conv():
     return out
 
 
+# --------------------------------------------------------------------------
+# Serving features (phases 25-28): speculative decoding, the radix prefix
+# cache, int8 KV pools and the fixed-batch path
+# --------------------------------------------------------------------------
+
+
+def draft_projections():
+    """(C, r, S) by projection of the draft ``draft_rank_map`` derives from
+    the Eq.-5 tree at SPEC_FRACTION (it reads shapes only: a meta tree)."""
+    from repro_torch.serving import speculative
+
+    tree = {"stack": {leaf: {"u": torch.empty((1, c, r), device="meta"),
+                             "v": torch.empty((1, r, s_), device="meta")}
+                      for proj, (c, r, s_) in PROJ.items() for leaf in proj.split("/")}}
+    ranks = speculative.draft_rank_map(tree, fraction=SPEC_FRACTION)
+    return {proj: (c, ranks[f"stack/{proj.split('/')[0]}"], s_)
+            for proj, (c, r, s_) in PROJ.items()}
+
+
+def serving_shapes():
+    """(name, dims) of the K1/K5 calls phases 25-28 add: the verify chunk at
+    M = 8 (k + 1), the derived draft's ranks at M = 8, the extend step and
+    the prefix trace's prefill at M = PREFIX_PREFILL, and the fixed-batch
+    prefill at M = FIXED_B x FIXED_T."""
+    out = []
+    full_ms = [DECODE_M * (k + 1) for k in SPEC_KS] + [PREFIX_PREFILL, FIXED_B * FIXED_T]
+    for proj, ms in ((PROJ, full_ms), (draft_projections(), [DECODE_M])):
+        for m in ms:
+            for name in ("wq/wo", "wk/wv", "down"):
+                c, r, s_ = proj[name]
+                out.append(("lowrank_matmul", dict(M=m, C=c, r=r, S=s_)))
+            c, r, f = proj["gate/up"]
+            out.append(("lowrank_gated_ffn", dict(M=m, C=c, r=r, F=f)))
+    return out
+
+
+def phase_row_bits():
+    """Whether K1 and K5's decode design give a row the same bits at M = 8
+    and inside the verify chunk's M = 8 (k + 1): the 8 rows first, then the
+    same 8 rows last among random others.  Reported, not required: it says
+    whether a verify can part from plain decode through K1/K5 at all."""
+    from repro_torch.kernels.lowrank_ffn import lowrank_gated_ffn
+    from repro_torch.kernels.lowrank_matmul import lowrank_matmul
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    out = {}
+    for proj, (c, r, s_) in PROJ.items():
+        x8 = rnd(DECODE_M, c)
+        if proj == "gate/up":
+            w = (rnd(c, r, scale=c ** -0.5), rnd(r, s_, scale=r ** -0.5),
+                 rnd(c, r, scale=c ** -0.5), rnd(r, s_, scale=r ** -0.5))
+            fn = lambda x, w=w: lowrank_gated_ffn(x, *w)  # noqa: E731
+        else:
+            w = (rnd(c, r, scale=c ** -0.5), rnd(r, s_, scale=r ** -0.5))
+            fn = lambda x, w=w: lowrank_matmul(x, *w)  # noqa: E731
+        want = fn(x8)
+        for k in SPEC_KS:
+            other = rnd(DECODE_M * k, c)
+            first = fn(torch.cat([x8, other]))[:DECODE_M]
+            last = fn(torch.cat([other, x8]))[-DECODE_M:]
+            out[f"{proj} M {DECODE_M * (k + 1)}"] = (torch.equal(first, want)
+                                                     and torch.equal(last, want))
+    zero_counts()
+    same = sorted(k for k, v in out.items() if v)
+    log(f"[row bits] K1/K5 decode design, a row at M {DECODE_M} against the same row inside "
+        f"M {', '.join(str(DECODE_M * (k + 1)) for k in SPEC_KS)} (first and last rows): "
+        f"bitwise equal at {len(same)}/{len(out)}"
+        + (f"; differ at {sorted(set(out) - set(same))}" if len(same) < len(out) else ""))
+    # the verify's other row-wise ops at its shapes: decode attention over
+    # a 176-position cache (query 0 of a k+1 chunk against the one-query
+    # step) and the tied float32 unembedding (M = 8 rows inside 8 (k + 1))
+    from repro_torch.models.attention import dense_attention
+    from repro_torch.models.common import dot32
+
+    t, emb = PREFILL_M + SPEC_NEW + 1, rnd(_vocab(), 960)
+    q1 = rnd(DECODE_M, max(SPEC_KS) + 1, 15, 64)
+    kv = (rnd(DECODE_M, t, 5, 64), rnd(DECODE_M, t, 5, 64))
+    lens = torch.randint(1, t - max(SPEC_KS), (DECODE_M,), generator=gen, device="cuda")
+    h8 = rnd(DECODE_M, 960)
+    ops = {}
+    for k in SPEC_KS:
+        chunk = lens[:, None] + torch.arange(k + 1, device="cuda")[None, :]
+        one = dense_attention(q1[:, :1], *kv, causal=False, kv_len=lens[:, None])
+        ops[f"attention Sq {k + 1}"] = torch.equal(
+            dense_attention(q1[:, :k + 1], *kv, causal=False, kv_len=chunk)[:, :1], one)
+        ops[f"unembedding M {DECODE_M * (k + 1)}"] = torch.equal(
+            dot32(torch.cat([h8, rnd(DECODE_M * k, 960)]), emb.T)[:DECODE_M], dot32(h8, emb.T))
+    log("[row bits] a row's bits against the plain decode step's: "
+        + ", ".join(f"{name} {'equal' if ok else 'differ'}" for name, ok in ops.items()))
+    out.update(ops)
+    return out
+
+
+def _full_run(max_len: int, kv_dtype: str = "bfloat16", int8_decode: str = "native"):
+    """The serve CLI's run (full-width smollm-360m, LRD at Eq.-5 ranks,
+    kernels on, 8 slots) with a ``max_len`` window and a KV dtype."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    run = serve.serve_run(get_config("smollm-360m"), max_len=max_len, slots=DECODE_M,
+                          lrd=True, device=torch.device("cuda"), seed=0)
+    return dataclasses.replace(
+        run, model=dataclasses.replace(run.model, kv_cache_dtype=kv_dtype),
+        lrd=dataclasses.replace(run.lrd, int8_decode=int8_decode))
+
+
+def _vocab() -> int:
+    from repro_torch.configs import get_config
+
+    return get_config("smollm-360m").vocab_size
+
+
+def _plain(run):
+    import dataclasses
+
+    return dataclasses.replace(run, lrd=dataclasses.replace(run.lrd, use_pallas_kernel=False))
+
+
+def _record_logits(sched):
+    """Keep, for every token the scheduler emits, the logits it was picked
+    from (float32, on the card): rid -> list of (V,) tensors.  Also keeps,
+    for every draft token a verify rejects in an active slot, the verify's
+    logit margin of its own token over the draft's there (``rec[None]``)."""
+    from repro_torch.serving import speculative
+
+    rec, cur = {None: []}, {}
+
+    def wrap(step, kind):
+        def call(*args, **kw):
+            out = step(*args, **kw)
+            cur.update(kind=kind, out=out, n={})
+            if kind == "verify":
+                chunk, nxt, logits = args[2], out[1], out[2]
+                ns = speculative.accept_lengths(chunk.cpu().numpy(), nxt.cpu().numpy())
+                for i, n in enumerate(ns.tolist()):
+                    if sched.slots[i].active and n < chunk.shape[1] - 1:
+                        row = logits[i, n].float()
+                        rec[None].append((row[nxt[i, n]] - row[chunk[i, n + 1]]).item())
+            return out
+        return call
+
+    for name in ("_prefill", "_decode", "_verify", "_extend"):
+        if getattr(sched, name) is not None:
+            setattr(sched, name, wrap(getattr(sched, name), name[1:]))
+    emit = sched._emit
+
+    def recording_emit(slot, tok):
+        idx = next(i for i, s in enumerate(sched.slots) if s is slot)
+        n = cur["n"].get(idx, 0)
+        cur["n"][idx] = n + 1
+        out, req = cur["out"], slot.req
+        pick = {"prefill": lambda: out[0][0], "decode": lambda: out[0][idx, -1],
+                "verify": lambda: out[2][idx, n],
+                "extend": lambda: out[2][0, req.prompt.size - req.prefix_hit_len - 1]}
+        rec.setdefault(req.rid, []).append(pick[cur["kind"]]().float().clone())
+        emit(slot, tok)
+
+    sched._emit = recording_emit
+    return rec
+
+
+def _compare_greedy(ref_toks, ref_logits, toks, logits, what: str, tie_rule: bool = True):
+    """Hold a run's greedy tokens to a reference run's, request by request:
+    while their histories agree the logits must lie within PATH_RTOL of the
+    reference's, and where tokens part, the reference's top-2 gap there must
+    be below the largest |logit difference| of the two runs at that position
+    (a rounding tie), unless ``tie_rule`` is off (then the parting is only
+    reported).  Returns a summary."""
+    parted, worst, worst_abs = [], 0.0, 0.0
+    for rid, (a, b) in enumerate(zip(ref_toks, toks)):
+        if len(a) != len(b):
+            raise AssertionError(f"{what}: request {rid} has {len(b)} tokens, want {len(a)}")
+        for j, (ta, tb) in enumerate(zip(a, b)):
+            diff, rel = rel_err(logits[rid][j], ref_logits[rid][j])
+            if not torch.isfinite(logits[rid][j]).all() or rel > PATH_RTOL:
+                raise AssertionError(f"{what}: request {rid} token {j} logits on the same "
+                                     f"history differ by {diff:.3e} ({rel:.3e} of max |logit|)")
+            if ta != tb:
+                top2 = torch.topk(ref_logits[rid][j], 2).values
+                gap = (top2[0] - top2[1]).item()
+                parted.append(dict(request=rid, token=j, gap=gap, max_abs_diff=diff))
+                if tie_rule and not gap < diff:
+                    raise AssertionError(f"{what}: request {rid} parts at token {j} with a "
+                                         f"top-2 gap {gap:.3e} >= the runs' max |logit "
+                                         f"difference| {diff:.3e} there: not a rounding tie")
+                break
+            worst, worst_abs = max(worst, rel), max(worst_abs, diff)
+    return dict(identical=len(ref_toks) - len(parted), requests=len(ref_toks), parted=parted,
+                worst_logit_rel=worst, worst_logit_abs=worst_abs)
+
+
+def _parted_text(cmp):
+    return (f"tokens identical in {cmp['identical']}/{cmp['requests']} requests"
+            + "".join(f"; request {p['request']} parts at token {p['token']} (top-2 gap "
+                      f"{p['gap']:.3e}, max |logit diff| {p['max_abs_diff']:.3e})"
+                      for p in cmp["parted"])
+            + f"; logits within {cmp['worst_logit_abs']:.3e} ({cmp['worst_logit_rel']:.2e} of "
+              f"max |logit|) on agreeing histories")
+
+
+def _by_m(by_shape, name):
+    """Launches of one kernel by M."""
+    out = {}
+    for key, n in by_shape[name].items():
+        out[key[0]] = out.get(key[0], 0) + n
+    return out
+
+
+def _wall_device(fn, steps: int = 5):
+    """Wall ms per call (host clock around synchronised calls), device ms
+    per call (``torch.profiler`` device events) and idle share of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    device_ms = sum(device_ms_by_kernel(prof, steps).values()) or None
+    zero_counts()
+    return dict(wall_ms=wall_ms, device_ms=device_ms,
+                idle_share=(1 - device_ms / wall_ms) if device_ms else None)
+
+
+def _ms_text(prof):
+    return (f"wall {prof['wall_ms']:.2f} ms, device "
+            + (f"{prof['device_ms']:.2f} ms (idle {prof['idle_share']:.1%})"
+               if prof["device_ms"] else "not measured"))
+
+
+def _serve_trace(engine, trace):
+    """Serve ``trace`` with the launch counters zeroed before; returns
+    (tokens per request, logits per request, launches by shape, stats,
+    forward counts, seconds, the verify's margins over rejected draft
+    tokens)."""
+    sched = engine.scheduler
+    rec = _record_logits(sched)
+    zero_counts()
+    t0 = time.perf_counter()
+    outs = engine.serve(trace)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    by_shape = counts_by_shape()
+    fwd = dict(sched.forward_stats)
+    if fwd["nonfinite"]:
+        raise AssertionError(f"serve: {fwd['nonfinite']} forwards with non-finite logits")
+    toks = [o.tokens.tolist() for o in outs]
+    if any(len(t) != r["max_new"] for t, r in zip(toks, trace)):
+        raise AssertionError(f"serve: token counts {[len(t) for t in toks]}")
+    return (toks, [rec[o.rid] for o in outs], by_shape, sched.latency_stats(), fwd, dt,
+            rec[None])
+
+
+def _check_forward_launches(what, by_shape, n_layers, per_m):
+    """Exactly 5 K1 and 1 K5 launches a layer for each forward, by M:
+    ``per_m`` maps M -> forwards at that M; no launch at any other M."""
+    want1 = {m: 5 * n_layers * n for m, n in per_m.items() if n}
+    want5 = {m: n_layers * n for m, n in per_m.items() if n}
+    got1, got5 = _by_m(by_shape, "lowrank_matmul"), _by_m(by_shape, "lowrank_gated_ffn")
+    if got1 != want1 or got5 != want5:
+        raise AssertionError(f"{what}: K1 launches by M {got1}, want {want1}; K5 {got5}, "
+                             f"want {want5}")
+
+
+def phase_spec_serve(params):
+    """Phase 25: phase 4's 16-request trace with SPEC_NEW new tokens, plain
+    and self-speculative at k in SPEC_KS with the draft = the params
+    (acceptance 1.0) and at SPEC_DRAFT_KS with the draft ``draft_rank_map``
+    derives; tokens held to the plain run's, K1/K5 launches exact by M,
+    and wall and device ms of a speculative step beside a plain one."""
+    from repro_torch.launch import serve
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.serving import ServeConfig, ServeEngine
+
+    run = _full_run(PREFILL_M + SPEC_NEW)
+    n_layers = run.model.num_layers
+    trace = serve.poisson_trace(16, 1000.0, PREFILL_M, run.model.vocab_size, seed=0)
+    for r in trace:
+        r["max_new"] = SPEC_NEW
+    base = dict(num_slots=DECODE_M, max_len=PREFILL_M + SPEC_NEW, prefill_len=PREFILL_M,
+                block_size=16)
+    zeros_t = torch.zeros((DECODE_M, 1), dtype=torch.int32, device="cuda")
+    zeros_p = torch.zeros((DECODE_M,), dtype=torch.int32, device="cuda")
+    out = dict(row_bits=phase_row_bits())
+    engine = ServeEngine(run, params, device="cuda", config=ServeConfig(**base))
+    ref_toks, ref_logits, by_shape, stats, fwd, dt, _ = _serve_trace(engine, trace)
+    _check_forward_launches("spec serve (plain)", by_shape, n_layers,
+                            {PREFILL_M: fwd["prefill"], DECODE_M: fwd["decode"]})
+    decode = steps_mod.build_serve_step(run)
+    prof = _wall_device(lambda: decode(params, engine.scheduler.cache, zeros_t, zeros_p))
+    out["plain"] = dict(tok_per_s=stats["tok_per_s"], wall_s=dt, fwd=fwd, step=prof)
+    log(f"[spec serve] plain: 16 requests x {SPEC_NEW} tokens, {stats['tok_per_s']:.1f} tok/s "
+        f"on {torch.cuda.get_device_name(0)}; {fwd['decode']} decode steps; a decode step "
+        f"{_ms_text(prof)}; {dt:.1f}s")
+    del engine
+    paths = {"spec serve plain": by_shape}
+    for k, draft in [(k, "params") for k in SPEC_KS] + [(k, "derived") for k in SPEC_DRAFT_KS]:
+        label = f"k={k}, draft={draft}"
+        engine = ServeEngine(run, params, device="cuda",
+                             config=ServeConfig(**base, speculative_k=k,
+                                                spec_fraction=SPEC_FRACTION),
+                             draft_params=params if draft == "params" else None)
+        sched = engine.scheduler
+        if draft == "derived":
+            rep, by_geom = engine.draft_report, {}
+            for path, ranks in sorted(rep.layers.items()):
+                by_geom.setdefault(path.split("/")[-1], ranks)
+            out[f"draft ranks k={k}"] = by_geom
+            log(f"[spec serve] derived draft (fraction {SPEC_FRACTION}): "
+                + ", ".join(f"{g} {r0}->{r1}" for g, (r0, r1) in by_geom.items())
+                + f"; {rep.truncated} groups truncated, {rep.shared} shared")
+        toks, logits, by_shape, stats, fwd, dt, margins = _serve_trace(engine, trace)
+        if fwd["decode"] or fwd["draft"] != k * fwd["verify"]:
+            raise AssertionError(f"spec serve {label}: forwards {fwd}")
+        _check_forward_launches(f"spec serve {label}", by_shape, n_layers,
+                                {PREFILL_M: fwd["prefill"], DECODE_M: fwd["draft"],
+                                 DECODE_M * (k + 1): fwd["verify"]})
+        acc = sched.acceptance_rate()
+        cmp = _compare_greedy(ref_toks, ref_logits, toks, logits, f"spec serve {label}")
+        # the draft = the params: a draft step is a decode step, so a
+        # rejection can only be a rounding tie between the draft's M = 8
+        # forward and the verify's M = 8 (k + 1) one: the verify's margin of
+        # its token over the draft's below the runs' largest |logit diff|
+        if draft == "params" and any(not m < cmp["worst_logit_abs"] for m in margins):
+            raise AssertionError(f"spec serve {label}: acceptance {acc}; rejected draft "
+                                 f"tokens with verify margins {sorted(margins)[-3:]} >= "
+                                 f"{cmp['worst_logit_abs']:.3e}: not rounding ties")
+        draft_chain = steps_mod.build_draft_chain(run, k)
+        verify = steps_mod.build_verify_step(run)
+
+        def spec_step():
+            cache, chunk = draft_chain(sched.draft_params, sched.cache, zeros_t, zeros_p)
+            return verify(params, cache, chunk, zeros_p)
+
+        prof = _wall_device(spec_step, steps=3)
+        st = dict(sched.spec_stats)
+        out[label] = dict(tok_per_s=stats["tok_per_s"], wall_s=dt, fwd=fwd, acceptance=acc,
+                          spec_stats=st, step=prof, compare=cmp, reject_margins=margins,
+                          tokens_per_slot_step=st["emitted"] * k / max(st["drafted"], 1))
+        paths[f"spec serve {label}"] = by_shape
+        log(f"[spec serve] {label}: {stats['tok_per_s']:.1f} tok/s (plain "
+            f"{out['plain']['tok_per_s']:.1f}); acceptance {acc:.4f} ({len(margins)} "
+            f"slot-steps rejected a draft"
+            + (f", verify margins {min(margins):.3e}-{max(margins):.3e}" if margins else "")
+            + f"), {st['spec_steps']} "
+            f"speculative steps, {out[label]['tokens_per_slot_step']:.2f} tokens a slot a "
+            f"step; a speculative step (k drafts + verify) {_ms_text(prof)}; K1 launches by M "
+            f"{_by_m(by_shape, 'lowrank_matmul')}; {_parted_text(cmp)}; {dt:.1f}s")
+        del engine, sched
+    return paths, out
+
+
+def phase_prefix_serve(params):
+    """Phase 26: ``shared_prefix_trace`` (16 requests, a PREFIX_LEN-token
+    prefix, 1..PREFIX_SUFFIX-token suffixes, 16-position blocks) with
+    PREFIX_NEW new tokens, uncached and cached: fewer prefilled tokens with
+    the cache, hits in whole blocks, the extend step's K1/K5 at M =
+    PREFIX_PREFILL, tokens held to the uncached run's; TTFT p50 of both."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import ServeConfig, ServeEngine
+
+    run = _full_run(PREFIX_PREFILL + PREFIX_NEW)
+    n_layers = run.model.num_layers
+    trace = serve.shared_prefix_trace(16, 1000.0, PREFIX_LEN, PREFIX_SUFFIX,
+                                      run.model.vocab_size, seed=0)
+    for r in trace:
+        r["max_new"] = PREFIX_NEW
+    out, paths, runs = {}, {}, {}
+    for cached in (False, True):
+        name = "cached" if cached else "uncached"
+        engine = ServeEngine(run, params, device="cuda", config=ServeConfig(
+            num_slots=DECODE_M, max_len=PREFIX_PREFILL + PREFIX_NEW,
+            prefill_len=PREFIX_PREFILL, block_size=16, prefix_cache=cached))
+        toks, logits, by_shape, stats, fwd, dt, _ = _serve_trace(engine, trace)
+        _check_forward_launches(f"prefix serve ({name})", by_shape, n_layers,
+                                {PREFIX_PREFILL: fwd["prefill"] + fwd["extend"],
+                                 DECODE_M: fwd["decode"]})
+        if fwd["extend"] > stats["prefix_hits"] or (fwd["extend"] == 0) == cached:
+            raise AssertionError(f"prefix serve ({name}): {fwd['extend']} extend forwards, "
+                                 f"{stats['prefix_hits']} hits")
+        runs[name] = (toks, logits)
+        paths[f"prefix serve {name}"] = by_shape
+        out[name] = dict(stats=stats, fwd=fwd, wall_s=dt)
+        log(f"[prefix serve] {name}: {int(stats['prefix_hits'])}/"
+            f"{int(stats['prefix_lookups'])} hits, {int(stats['prefix_hit_tokens'])} prompt "
+            f"tokens reused, {int(stats['prefill_tokens'])} prefilled; {fwd['prefill']} prefill "
+            f"+ {fwd['extend']} extend forwards at M {PREFIX_PREFILL}; TTFT p50 "
+            f"{stats['p50_first_token_s'] * 1e3:.1f} ms, p95 "
+            f"{stats['p95_first_token_s'] * 1e3:.1f} ms; {stats['tok_per_s']:.1f} tok/s on "
+            f"{torch.cuda.get_device_name(0)}; {dt:.1f}s")
+        del engine
+    on, off = out["cached"]["stats"], out["uncached"]["stats"]
+    if not (on["prefill_tokens"] < off["prefill_tokens"] and on["prefix_hits"] > 0
+            and on["prefix_hit_tokens"] % 16 == 0):
+        raise AssertionError(f"prefix serve: cached {on['prefill_tokens']} prefilled tokens "
+                             f"against {off['prefill_tokens']}, {on['prefix_hits']} hits, "
+                             f"{on['prefix_hit_tokens']} hit tokens")
+    out["compare"] = _compare_greedy(*runs["uncached"], *runs["cached"], "prefix serve")
+    log(f"[prefix serve] cached against uncached: {_parted_text(out['compare'])}")
+    return paths, out
+
+
+def _pool_bytes(cache):
+    return sum(t.numel() * t.element_size() for n, t in cache["stack"].items()
+               if n != "page_table")
+
+
+def _teacher_forced(run, params, prompts, teacher, contiguous: bool = False):
+    """Last-position logits of KV_STEPS decode steps fed ``teacher``'s
+    tokens after a prefill of ``prompts`` (B, T): through B paged slots (a
+    pool of ``run.model.kv_cache_dtype``), or through one contiguous
+    ``lm.init_cache`` cache with the prefill's KV written in (quantized for
+    int8) and one position for every row.  Returns (logits, cache)."""
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import kvcache as kvq
+    from repro_torch.models import lm
+    from repro_torch.serving import paged_cache as pc
+
+    cfg = run.model
+    b, t = prompts.shape
+    decode = steps_mod.build_serve_step(run)
+    if contiguous:
+        _, pre = steps_mod.build_prefill_step(run)(params, {"tokens": prompts})
+        cache = lm.init_cache(cfg, b, t + KV_STEPS, device="cuda")
+        for layer in range(cfg.num_layers):
+            view = {n: leaf[layer] for n, leaf in cache["stack"].items()}
+            k_pre, v_pre = pre["stack"]["k"][layer], pre["stack"]["v"][layer]
+            if "k_scale" in view:
+                kvq.update_quantized_kv(view, k_pre, v_pre, torch.zeros((), dtype=torch.long))
+            else:
+                view["k"][:, :t] = k_pre
+                view["v"][:, :t] = v_pre
+        positions = [torch.tensor(t + i, device="cuda") for i in range(KV_STEPS)]
+    else:
+        mb = pc.blocks_for(t + KV_STEPS, 16)
+        cache = pc.init_paged_cache(cfg, b, 1 + b * mb, 16, mb, "cuda")
+        table = (1 + torch.arange(b * mb, dtype=torch.int32)).reshape(b, mb).numpy()
+        pc.with_page_table(cache, table)
+        prefill = steps_mod.build_slot_prefill_step(run)
+        for i in range(b):
+            _, pre = prefill(params, {"tokens": prompts[i:i + 1]},
+                             torch.tensor([t - 1], device="cuda"))
+            pc.insert_prefill_paged(cache, pre, torch.from_numpy(table[i]).to("cuda"))
+        positions = [torch.full((b,), t + i, dtype=torch.int32, device="cuda")
+                     for i in range(KV_STEPS)]
+    out = []
+    for i in range(KV_STEPS):
+        logits, cache, _ = decode(params, cache, teacher[:, i:i + 1], positions[i])
+        out.append(logits[:, -1].float())
+    zero_counts()
+    return out, cache
+
+
+def phase_int8_kv(params):
+    """Phase 27: int8 KV pools (``kv_cache_dtype="int8"``) in both
+    ``int8_decode`` modes: pool bytes exactly (hd + 2) / (2 hd) of bf16's,
+    KV_STEPS teacher-forced decode steps' logits within KV_RTOL of the bf16
+    pools', phase 4's trace served (K1/K5 exact), and a decode step
+    profiled as in phase 6."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import ServeConfig, ServeEngine
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    vocab = _vocab()
+    prompts = torch.randint(0, vocab, (DECODE_M, PREFILL_M), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    teacher = torch.randint(0, vocab, (DECODE_M, KV_STEPS), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    bf16_run = _full_run(PREFILL_M + 32)
+    want, bf16_cache = _teacher_forced(bf16_run, params, prompts, teacher)
+    bf16_bytes = _pool_bytes(bf16_cache)
+    del bf16_cache
+    hd = bf16_run.model.resolved_head_dim
+    trace = serve.poisson_trace(16, 1000.0, PREFILL_M, vocab, seed=0)
+    for r in trace:
+        r["max_new"] = 32
+    out, paths = {}, {}
+    for mode in ("native", "bf16"):
+        run = _full_run(PREFILL_M + 32, kv_dtype="int8", int8_decode=mode)
+        got, cache = _teacher_forced(run, params, prompts, teacher)
+        n_bytes = _pool_bytes(cache)
+        if n_bytes * 2 * hd != bf16_bytes * (hd + 2):
+            raise AssertionError(f"int8 kv: pool bytes {n_bytes} against bf16 {bf16_bytes}, "
+                                 f"want exactly {hd + 2}/{2 * hd}")
+        del cache
+        rels = [rel_err(g, w)[1] for g, w in zip(got, want)]
+        if not all(math.isfinite(r) and r < KV_RTOL for r in rels):
+            raise AssertionError(f"int8 kv ({mode}): teacher-forced logits {rels} of max "
+                                 f"|logit| from the bf16 pools' (bound {KV_RTOL})")
+        engine = ServeEngine(run, params, device="cuda", config=ServeConfig(
+            num_slots=DECODE_M, max_len=PREFILL_M + 32, prefill_len=PREFILL_M, block_size=16))
+        toks, _, by_shape, stats, fwd, dt, _ = _serve_trace(engine, trace)
+        _check_forward_launches(f"int8 kv ({mode})", by_shape, run.model.num_layers,
+                                {PREFILL_M: fwd["prefill"], DECODE_M: fwd["decode"]})
+        if engine.scheduler.cache["stack"]["k"].dtype != torch.int8:
+            raise AssertionError("int8 kv: the served pools are not int8")
+        prof = phase_profile(engine, label=f"int8 KV ({mode}) decode step")
+        paths[f"int8 kv {mode}"] = by_shape
+        out[mode] = dict(pool_bytes=n_bytes, bf16_pool_bytes=bf16_bytes,
+                         pool_ratio=n_bytes / bf16_bytes, teacher_rel=rels,
+                         tok_per_s=stats["tok_per_s"], wall_s=dt, profile=prof, tokens=toks)
+        log(f"[int8 kv] {mode}: pools {n_bytes / 2 ** 20:.2f} MiB = {n_bytes / bf16_bytes:.6f} "
+            f"of bf16's {bf16_bytes / 2 ** 20:.2f} MiB ({hd + 2}/{2 * hd}); {KV_STEPS} "
+            f"teacher-forced steps' logits within {max(rels):.3e} of max |logit| of the bf16 "
+            f"pools' (last step {rels[-1]:.3e}, bound {KV_RTOL}); serve "
+            f"{stats['tok_per_s']:.1f} tok/s on {torch.cuda.get_device_name(0)}, {dt:.1f}s")
+        del engine
+    agree = sum(a == b for a, b in zip(out["native"]["tokens"], out["bf16"]["tokens"]))
+    log(f"[int8 kv] native and bf16 modes: {agree}/16 requests with identical tokens")
+    return paths, out
+
+
+def _generate_with_logits(run, params, prompts, n: int):
+    """``ServeEngine(num_slots=0).generate`` of ``prompts`` with the logits
+    each row's tokens were picked from: (tokens, per row a list of (V,))."""
+    from repro_torch.serving import ServeConfig, ServeEngine
+
+    engine = ServeEngine(run, params, device="cuda",
+                         config=ServeConfig(num_slots=0, max_len=prompts.shape[1] + n))
+    seen = []
+    prefill, step = engine._prefill, engine._step
+
+    def keep_prefill(*args):
+        out = prefill(*args)
+        seen.append(out[0].float().clone())
+        return out
+
+    def keep_step(*args):
+        out = step(*args)
+        seen.append(out[0][:, -1].float().clone())
+        return out
+
+    engine._prefill, engine._step = keep_prefill, keep_step
+    toks = engine.generate(prompts.cpu().numpy(), max_new=n)
+    return toks.tolist(), [[s[i] for s in seen] for i in range(prompts.shape[0])]
+
+
+def phase_fixed_batch(params):
+    """Phase 28: ``ServeEngine(num_slots=0).generate`` on FIXED_B x FIXED_T
+    prompts, FIXED_NEW new tokens, with bf16 and with int8 KV configs (the
+    fixed path keeps the prefill's own cache, as the reference does): the
+    prefill's K1 at M = FIXED_B x FIXED_T, decode at M = FIXED_B, held
+    against the same path through the plain versions on the card as in
+    phase 5; then KV_STEPS teacher-forced steps through an int8
+    ``lm.init_cache`` cache (both modes) within KV_RTOL of a bf16 one."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    prompts = torch.randint(0, _vocab(), (FIXED_B, FIXED_T), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    out, paths = {}, {}
+    for kv in ("bfloat16", "int8"):
+        run = _full_run(FIXED_T + FIXED_NEW, kv_dtype=kv)
+        zero_counts()
+        t0 = time.perf_counter()
+        toks, logits = _generate_with_logits(run, params, prompts, FIXED_NEW)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        by_shape = counts_by_shape()
+        _check_forward_launches(f"fixed batch ({kv})", by_shape, run.model.num_layers,
+                                {FIXED_B * FIXED_T: 1, FIXED_B: FIXED_NEW - 1})
+        ptoks, plogits = _generate_with_logits(_plain(run), params, prompts, FIXED_NEW)
+        zero_counts()
+        diff, rel = rel_err(torch.stack([r[0] for r in logits]),
+                            torch.stack([r[0] for r in plogits]))
+        if rel > PATH_RTOL:
+            raise AssertionError(f"fixed batch ({kv}): prefill logits {rel:.3e} of max |logit| "
+                                 f"from the plain versions'")
+        cmp = _compare_greedy(ptoks, plogits, toks, logits, f"fixed batch ({kv})",
+                              tie_rule=False)
+        paths[f"fixed batch {kv}"] = by_shape
+        out[kv] = dict(prefill_max_abs=diff, prefill_rel=rel, compare=cmp, wall_s=dt,
+                       tok_per_s=FIXED_B * FIXED_NEW / dt)
+        log(f"[fixed batch] {kv}: {FIXED_B} x {FIXED_T} prompts, {FIXED_NEW} tokens in "
+            f"{dt:.2f}s ({out[kv]['tok_per_s']:.1f} tok/s on {torch.cuda.get_device_name(0)}); "
+            f"K1 launches by M {_by_m(by_shape, 'lowrank_matmul')}; kernels against plain "
+            f"versions: prefill logits {rel:.2e} of max |logit|, {_parted_text(cmp)}")
+    teacher = prompts[:, :KV_STEPS]
+    want, _ = _teacher_forced(_full_run(FIXED_T + KV_STEPS), params, prompts, teacher,
+                              contiguous=True)
+    for mode in ("native", "bf16"):
+        got, cache = _teacher_forced(_full_run(FIXED_T + KV_STEPS, kv_dtype="int8",
+                                               int8_decode=mode),
+                                     params, prompts, teacher, contiguous=True)
+        if cache["stack"]["k"].dtype != torch.int8:
+            raise AssertionError("fixed batch: the contiguous cache is not int8")
+        rels = [rel_err(g, w)[1] for g, w in zip(got, want)]
+        if not all(math.isfinite(r) and r < KV_RTOL for r in rels):
+            raise AssertionError(f"fixed batch: int8 contiguous cache ({mode}) logits {rels}")
+        out[f"int8 contiguous {mode}"] = dict(teacher_rel=rels)
+        log(f"[fixed batch] int8 contiguous cache ({mode}), {KV_STEPS} teacher-forced steps: "
+            f"logits within {max(rels):.3e} of max |logit| of the bf16 cache's (bound "
+            f"{KV_RTOL})")
+    return paths, out
+
+
+def phase_serving_features():
+    """Phases 25-28 on one seeded full-width Eq.-5 tree; returns (launches
+    by kernel and shape per main path, results)."""
+    from repro_torch.launch import steps as steps_mod
+
+    params, _ = steps_mod.init_params(_full_run(PREFILL_M + 32), "cuda")
+    paths, result = {}, {}
+    for key, phase in (("spec_serve", phase_spec_serve), ("prefix_serve", phase_prefix_serve),
+                       ("int8_kv", phase_int8_kv), ("fixed_batch", phase_fixed_batch)):
+        p, result[key] = phase(params)
+        paths.update(p)
+    return paths, result
+
+
 def check_launched_shapes(path: str, rows, by_shape) -> None:
     """Fail if ``path`` launched a kernel at a shape the kernel phase did
     not check."""
@@ -2343,12 +3036,29 @@ def check_launched_shapes(path: str, rows, by_shape) -> None:
                                  f"did not check: {sorted(unchecked)}")
 
 
+def count_launches(rows, paths) -> None:
+    """Each row's launches on the main paths; fail on a shape a path
+    launched that no row checked, or a row no path launched."""
+    for path, by in paths.items():
+        check_launched_shapes(path, rows, by)
+    for row in rows:
+        key = shape_key(row["name"], row["shape"])
+        row["launches"] = sum(by.get(row["name"], {}).get(key, 0) for by in paths.values())
+        # the int8-operand entries are the TPU kernels' contract, which
+        # no main path calls since the serving entries quantize x inside
+        if (not row["launches"] and row["name"] not in INT8_FUSED.values()
+                and row["name"] != "int8_linear"):
+            raise AssertionError(f"{row['name']} {row['shape']} never launched on "
+                                 f"a main path")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="", help="also write every result as JSON here")
-    ap.add_argument("--only", choices=("kernels", "conv"), default=None,
+    ap.add_argument("--only", choices=("kernels", "conv", "serve"), default=None,
                     help="kernels: stop after the kernel phase (a first check of a build); "
-                         "conv: run only the conv and ViT phases")
+                         "conv: run only the conv and ViT phases; serve: phases 1-3 at the "
+                         "serving shapes and the serving features' phases 25-28")
     args = ap.parse_args(argv)
 
     t_start = time.perf_counter()
@@ -2362,10 +3072,13 @@ def main(argv=None) -> int:
         print(smi, flush=True)
         return 0
     build_s = phase_build()
-    rows = phase_kernels()
+    rows = phase_kernels(kernel_shapes(serve_only=args.only == "serve"))
     result = dict(smi=smi, build_s=build_s, kernels=rows)
-    if args.only is None:
-        paths = {}  # main path -> launches by kernel and shape
+    paths = {}  # main path -> launches by kernel and shape
+    if args.only == "serve":
+        paths, result["serving"] = phase_serving_features()
+        count_launches(rows, paths)
+    elif args.only is None:
         engine, paths["serve"], result["serve"] = phase_serve()
         result["parity"] = phase_parity(engine)
         result["profile"] = phase_profile(engine)
@@ -2415,17 +3128,10 @@ def main(argv=None) -> int:
         result["designs"] = phase_designs()
         # the paper's conv and ViT path: no hand-written kernel runs on it
         result.update(phase_conv())
-        for path, by in paths.items():
-            check_launched_shapes(path, rows, by)
-        for row in rows:
-            key = shape_key(row["name"], row["shape"])
-            row["launches"] = sum(by[row["name"]].get(key, 0) for by in paths.values())
-            # the int8-operand entries are the TPU kernels' contract, which
-            # no main path calls since the serving entries quantize x inside
-            if (not row["launches"] and row["name"] not in INT8_FUSED.values()
-                    and row["name"] != "int8_linear"):
-                raise AssertionError(f"{row['name']} {row['shape']} never launched on "
-                                     f"a main path")
+        # speculative decoding, the prefix cache, int8 KV and the fixed batch
+        more, result["serving"] = phase_serving_features()
+        paths.update(more)
+        count_launches(rows, paths)
         if not any(r["launches"] for r in rows if r["name"] == "int8_linear"):
             log("[kernels] int8_linear (K6) was launched on no main path in this run: the "
                 "measured export merged no group on this card")

@@ -29,7 +29,7 @@ from repro_torch.configs.base import DistConfig, LRDConfig, RunConfig, ShapeConf
 from repro_torch.launch import steps as steps_mod
 from repro_torch.serving import ServeConfig, ServeEngine
 
-__all__ = ["poisson_trace", "serve_run", "main"]
+__all__ = ["poisson_trace", "shared_prefix_trace", "serve_run", "main"]
 
 
 def poisson_trace(n: int, rate: float, prompt_len: int, vocab: int, seed: int = 0):
@@ -43,16 +43,25 @@ def poisson_trace(n: int, rate: float, prompt_len: int, vocab: int, seed: int = 
              "arrival": float(t)} for t, l in zip(arrivals, lens)]
 
 
+def shared_prefix_trace(n: int, rate: float, prefix_len: int, suffix_len: int,
+                        vocab: int, seed: int = 0):
+    """n requests sharing one ``prefix_len``-token system prompt, each with
+    a random 1..``suffix_len`` tail: the radix prefix cache's workload (the
+    JAX CLI's, same seed -> same trace)."""
+    rng = np.random.default_rng(seed)
+    arrivals = np.cumsum(rng.exponential(1.0 / max(rate, 1e-9), n))
+    prefix = rng.integers(0, vocab, prefix_len, dtype=np.int32)
+    return [{"prompt": np.concatenate([prefix, rng.integers(0, vocab, int(s), dtype=np.int32)]),
+             "arrival": float(t)}
+            for t, s in zip(arrivals, rng.integers(1, suffix_len + 1, n))]
+
+
 # flag -> (its value when off, what brings it)
 _UNPORTED_FLAGS = {
-    "mesh_data": (1, "ROADMAP queue 1, distributed"),
-    "mesh_model": (1, "ROADMAP queue 1, distributed"),
-    "prefix_cache": (False, "ROADMAP queue 1, serving features"),
-    "spec_k": (0, "ROADMAP queue 1, serving features"),
-    "spec_rank": (0, "ROADMAP queue 1, serving features"),
-    "spec_fraction": (0.5, "ROADMAP queue 1, serving features"),
-    "obs": (False, "ROADMAP queue 1, telemetry"),
-    "log_format": ("text", "ROADMAP queue 1, telemetry"),
+    "mesh_data": (1, "ROADMAP queue 1 item 8, distributed"),
+    "mesh_model": (1, "ROADMAP queue 1 item 8, distributed"),
+    "obs": (False, "ROADMAP queue 1 item 9, telemetry"),
+    "log_format": ("text", "ROADMAP queue 1 item 9, telemetry"),
 }
 
 
@@ -79,13 +88,19 @@ def _parser() -> argparse.ArgumentParser:
                     help="serve the rank-quantized Algorithm-1 artifact")
     ap.add_argument("--export-int8", action="store_true",
                     help="int8-quantize the export artifact (requires --export)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix-tree prompt-prefix cache over the paged block pool")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decoding: draft tokens per step (0 = plain decode)")
+    ap.add_argument("--spec-rank", type=int, default=0,
+                    help="explicit draft rank (clamped per layer); 0 = Algorithm-1 "
+                         "sweep scaled by --spec-fraction")
+    ap.add_argument("--spec-fraction", type=float, default=0.5,
+                    help="draft rank as a fraction of the sweep's rank (with "
+                         "--spec-rank 0)")
     # the JAX CLI's flags for features not ported yet: rejected when set
     ap.add_argument("--mesh-data", type=int, default=1)
     ap.add_argument("--mesh-model", type=int, default=1)
-    ap.add_argument("--prefix-cache", action="store_true")
-    ap.add_argument("--spec-k", type=int, default=0)
-    ap.add_argument("--spec-rank", type=int, default=0)
-    ap.add_argument("--spec-fraction", type=float, default=0.5)
     ap.add_argument("--obs", action="store_true")
     ap.add_argument("--obs-dir", default="runs/serve_obs")
     ap.add_argument("--log-format", default="text", choices=["text", "jsonl"])
@@ -114,7 +129,7 @@ def main(argv=None):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.family != "dense" or cfg.use_mla:
         ap.error(f"--arch {args.arch} ({cfg.family}) is not ported yet "
-                 f"(ROADMAP queue 1, other model families)")
+                 f"(ROADMAP queue 1 item 7, other model families)")
     device = steps_mod.resolve_device(args.device)
     max_len = args.max_len or (args.prompt_len + args.max_new)
     try:
@@ -130,6 +145,8 @@ def main(argv=None):
     engine = ServeEngine(run, params, config=config, device=device)
     if engine.export_report is not None:
         print(engine.export_report.summary())
+    if args.spec_k and engine.scheduler and engine.draft_report:
+        print(engine.draft_report.summary())
     trace = poisson_trace(args.requests, args.rate, args.prompt_len,
                           cfg.vocab_size, args.seed)
     for r in trace:
@@ -152,6 +169,18 @@ def main(argv=None):
           f"first-token p50 {stats['p50_first_token_s'] * 1e3:.0f}ms  "
           f"queue-wait p50 {stats['p50_queue_wait_s'] * 1e3:.0f}ms  "
           f"preemptions {int(stats['preemptions'])}")
+    if args.spec_k:
+        print(f"speculative: k={args.spec_k}, {int(stats['spec_steps'])} steps, "
+              f"{int(stats['drafted_tokens'])} drafted / "
+              f"{int(stats['accepted_tokens'])} accepted "
+              f"(acceptance {stats['acceptance_rate']:.2f}; {fwd['draft']} draft + "
+              f"{fwd['verify']} verify forwards)")
+    if config.prefix_cache:
+        print(f"prefix cache: {int(stats['prefix_hits'])}/"
+              f"{int(stats['prefix_lookups'])} hits, "
+              f"{int(stats['prefix_hit_tokens'])} prompt tokens reused "
+              f"({int(stats['prefill_tokens'])} prefilled; {fwd['extend']} extend + "
+              f"{fwd['prefill']} prefill forwards)")
     print("sample:", outs[0][:16].tolist())
     return engine, outs
 

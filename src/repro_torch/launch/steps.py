@@ -38,8 +38,9 @@ from repro_torch.optim.optimizers import OptState, apply_updates
 
 __all__ = ["resolve_device", "make_decomposer", "init_params", "kernel_policy",
            "run_phase", "TrainState", "make_train_state", "partition_bytes",
-           "repartition_state", "build_train_step", "build_slot_prefill_step",
-           "build_serve_step"]
+           "repartition_state", "build_train_step", "build_prefill_step",
+           "build_slot_prefill_step", "build_serve_step", "build_draft_chain",
+           "build_verify_step", "build_extend_step"]
 
 def resolve_device(device="cuda") -> torch.device:
     """``torch.device(device)``, refusing CUDA when no GPU is present."""
@@ -74,7 +75,7 @@ def init_params(run: RunConfig, device="cuda",
     dec = make_decomposer(run, dev, generator)
     if run.model.family == "encdec":
         raise NotImplementedError("enc-dec models are not ported yet "
-                                  "(ROADMAP queue 1, other model families)")
+                                  "(ROADMAP queue 1 item 7, other model families)")
     return lm.lm_init(run.model, dec), dec.plan
 
 
@@ -230,6 +231,20 @@ def build_train_step(run: RunConfig, device="cuda"):
     return train_step
 
 
+def build_prefill_step(run: RunConfig):
+    """Prefill of the fixed-batch path: the whole (B, T) batch at once,
+    returning the last position's logits and the (L, B, T, KV, hd) cache."""
+    cfg, policy = run.model, kernel_policy(run)
+
+    @torch.inference_mode()
+    def prefill_step(params, batch):
+        logits, cache, _ = lm.lm_apply(params, batch["tokens"], cfg, mode="full",
+                                       policy=policy)
+        return logits[:, -1], cache
+
+    return prefill_step
+
+
 def build_slot_prefill_step(run: RunConfig):
     """Prefill for the continuous-batching scheduler.
 
@@ -252,7 +267,8 @@ def build_slot_prefill_step(run: RunConfig):
 
 def build_serve_step(run: RunConfig):
     """One decode step at per-slot positions ``pos`` (B,) against a paged
-    cache, which is updated in place and returned."""
+    cache, or at one position for every row against a contiguous cache
+    (the fixed-batch path); the cache is updated in place and returned."""
     cfg, policy = run.model, kernel_policy(run)
 
     @torch.inference_mode()
@@ -263,3 +279,65 @@ def build_serve_step(run: RunConfig):
         return logits, new_cache, next_token
 
     return serve_step
+
+
+def build_draft_chain(run: RunConfig, k: int):
+    """k draft decode steps, each one's argmax fed to the next.  Returns
+    ``(cache, chunk)``: chunk (B, k+1) is the pending token followed by the
+    k draft tokens, the verify step's input as it stands.  Run it with the
+    draft params; the draft KV lands in the shared pool at pos..pos+k-1."""
+    cfg, policy = run.model, kernel_policy(run)
+
+    @torch.inference_mode()
+    def draft_chain(params, cache, token, pos):
+        toks = [token]
+        for j in range(k):
+            logits, cache, _ = lm.lm_apply(params, toks[-1], cfg, mode="decode",
+                                           cache=cache, pos=pos + j, policy=policy)
+            toks.append(torch.argmax(logits[:, -1:], dim=-1).to(token.dtype))
+        return cache, torch.cat(toks, dim=1)
+
+    return draft_chain
+
+
+def build_verify_step(run: RunConfig):
+    """The speculative verify: a (B, k+1) chunk fed at per-row start
+    positions ``pos`` in one full-model forward, writing all k+1 positions.
+    Returns ``(cache, next_tokens)``, the greedy next token at every chunk
+    position."""
+    cfg, policy = run.model, kernel_policy(run)
+
+    @torch.inference_mode()
+    def verify_step(params, cache, tokens, pos):
+        logits, cache, _ = lm.lm_apply(params, tokens, cfg, mode="decode", cache=cache,
+                                       pos=pos, policy=policy)
+        return cache, torch.argmax(logits, dim=-1).to(tokens.dtype), logits
+
+    return verify_step
+
+
+def build_extend_step(run: RunConfig):
+    """Suffix prefill onto a radix-cache prefix hit: the (1, P) padded
+    suffix fed at ``start`` (the matched prefix length, block-aligned) as a
+    chunked decode against a one-slot view of the pools, whose page table
+    is the slot's row broadcast over the layers.  Its writes land in the
+    slot's private tail blocks (a shared block lies wholly before
+    ``start``), and its reads see the shared prefix through the row.  The
+    pools are written in place; the full page table is left as it was.
+    Returns ``(cache, next_tokens, logits)`` as the verify step does, at
+    every suffix position."""
+    cfg, policy = run.model, kernel_policy(run)
+
+    @torch.inference_mode()
+    def extend_step(params, cache, tokens, page_row, start):
+        view = {}
+        for name, stack in cache.items():
+            row = page_row.to(device=stack["page_table"].device, dtype=torch.int32)
+            view[name] = dict(stack, page_table=row.reshape(1, 1, -1).expand(
+                stack["page_table"].shape[0], 1, -1))
+        pos = torch.as_tensor(start, device=tokens.device).reshape(1)
+        logits, _, _ = lm.lm_apply(params, tokens, cfg, mode="decode", cache=view,
+                                   pos=pos, policy=policy)
+        return cache, torch.argmax(logits, dim=-1).to(tokens.dtype), logits
+
+    return extend_step

@@ -6,8 +6,12 @@ LRD-aware.  q is pre-scaled by ``hd**-0.5`` in the projection, masks use
 -1e30, the softmax runs in float32 and the probabilities are cast to v's
 dtype before the PV product, as in the JAX code.  ``attention_impl="flash"``
 runs prefill attention through the flash-attention kernel (K8,
-``ops.flash_attention_apply``); decode always reads the paged cache
-through :func:`dense_attention`.
+``ops.flash_attention_apply``).  Decode reads a paged block pool
+(the scheduler's) or a contiguous (B, Smax, ...) cache (the fixed-batch
+path's), either bf16 or int8 with per-position scales
+(``models/kvcache.py``): int8 is consumed by :func:`int8_dense_attention`
+under ``int8_decode="native"`` and dequantized first under ``"bf16"``.
+Decode caches are updated in place, where the JAX steps donate them.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import kvcache as kvq
 from repro_torch.models.common import Params, apply_rope, linear, rmsnorm, rmsnorm_init
 
 # --------------------------------------------------------------------------
@@ -56,6 +61,31 @@ def _mask_kv_len(logits: torch.Tensor, t: int, kv_len: torch.Tensor) -> torch.Te
         return logits.masked_fill(~valid[:, None, None, :, :], -1e30)
     valid = iota[None, :] < kv_len.reshape(-1, 1)
     return logits.masked_fill(~valid[:, None, None, None, :], -1e30)
+
+
+def int8_dense_attention(q, k_q, k_scale, v_q, v_scale, *,
+                         kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Decode attention straight on int8 KV values.
+
+    The per-(batch, position, head) scales are rank-1 in the (q, t) logit
+    matrix, so k's folds in after the QKᵀ product and v's into the
+    probabilities before the PV product: no dequantized copy of either
+    cache is made.  q: (B, Sq, H, D); k_q/v_q: (B, T, KV, D) int8; scales:
+    (B, T, KV, 1).
+    """
+    b, sq, h, d = q.shape
+    t, kvh = k_q.shape[1], k_q.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, sq, kvh, g, d)
+    # (B, T, KV, 1) -> (B, KV, 1, 1, T): broadcast over (g, q)
+    ks = k_scale[..., 0].transpose(1, 2)[:, :, None, None, :].float()
+    vs = v_scale[..., 0].transpose(1, 2)[:, :, None, None, :].float()
+    logits = torch.einsum("bqkgd,btkd->bkgqt", qg.float(), k_q.float()) * ks
+    if kv_len is not None:
+        logits = _mask_kv_len(logits, t, kv_len)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqt,btkd->bqkgd", p * vs, v_q.float())
+    return out.reshape(b, sq, h, d).to(q.dtype)
 
 
 def blockwise_attention(q, k, v, *, causal: bool, block_q: int,
@@ -150,25 +180,56 @@ def _paged_gather(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
     return flat[phys.reshape(b, mb * bs)]
 
 
-def _gqa_paged_update(cache: Params, k_new, v_new, rows) -> Tuple[torch.Tensor, torch.Tensor]:
+def _gqa_paged_update(cache: Params, k_new, v_new, rows, *, native_int8: bool = False):
     """Write this step's k/v (B, S, KV, hd) into the paged pool in place at
     logical positions rows[b] .. rows[b]+S-1, and return the gathered
     (B, Lmax, KV, hd) views.  The in-place update stands in for the JAX
-    step's donated cache buffer."""
-    if "k_scale" in cache:
-        raise NotImplementedError("int8 KV pools are not ported (ROADMAP queue 1 "
-                                  "item 5, serving features)")
+    step's donated cache buffer.  An int8 pool quantizes on the way in;
+    ``native_int8`` then returns ``(values, scales)`` pairs for
+    :func:`int8_dense_attention`, else views dequantized to k's dtype."""
     pt = cache["page_table"].long()
     bs = cache["k"].shape[1]
     s = k_new.shape[1]
     positions = rows[:, None] + torch.arange(s, device=rows.device)[None, :]
-    phys = pt[torch.arange(pt.shape[0], device=pt.device)[:, None], positions // bs] * bs \
-        + positions % bs
+    # an extend chunk's padded tail can reach past the table: those writes
+    # go to the sink block (the reference clamps them to the last entry)
+    blk = positions // bs
+    page = pt[torch.arange(pt.shape[0], device=pt.device)[:, None],
+              blk.clamp(max=pt.shape[1] - 1)] * (blk < pt.shape[1])
+    phys = page * bs + positions % bs
+    if "k_scale" in cache:
+        kq, ks = kvq.quantize_kv(k_new)
+        vq, vs = kvq.quantize_kv(v_new)
+        for name, val in (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs)):
+            _paged_write(cache[name], val, phys)
+        return _int8_views((_paged_gather(cache["k"], pt), _paged_gather(cache["k_scale"], pt)),
+                           (_paged_gather(cache["v"], pt), _paged_gather(cache["v_scale"], pt)),
+                           native_int8, k_new.dtype)
     _paged_write(cache["k"], k_new, phys)
     _paged_write(cache["v"], v_new, phys)
     k_view = _paged_gather(cache["k"], pt).to(k_new.dtype)
     v_view = _paged_gather(cache["v"], pt).to(v_new.dtype)
     return k_view, v_view
+
+
+def _int8_views(k_view, v_view, native_int8: bool, dtype):
+    """int8 ``(values, scales)`` views as they are (``native_int8``), or
+    dequantized to ``dtype``."""
+    if native_int8:
+        return k_view, v_view
+    return kvq.dequantize_kv(*k_view, dtype), kvq.dequantize_kv(*v_view, dtype)
+
+
+def _contiguous_update(cache: Params, k_new, v_new, rows, *, native_int8: bool = False):
+    """The same for a contiguous (B, Smax, KV, hd) cache (the fixed-batch
+    path's, ``lm.init_cache``): rows[b] is row b's write offset."""
+    if "k_scale" in cache:
+        kvq.update_quantized_kv(cache, k_new, v_new, rows)
+        return _int8_views((cache["k"], cache["k_scale"]), (cache["v"], cache["v_scale"]),
+                           native_int8, k_new.dtype)
+    kvq.write_rows(cache["k"], k_new, rows)
+    kvq.write_rows(cache["v"], v_new, rows)
+    return cache["k"], cache["v"]
 
 
 # --------------------------------------------------------------------------
@@ -214,8 +275,9 @@ def gqa_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, rope=None,
               pos: Optional[torch.Tensor] = None, causal: bool = True,
               policy=False) -> Tuple[torch.Tensor, Optional[Params]]:
     """``mode="full"``: attention over x itself, returns its k/v as the cache.
-    ``mode="decode"``: x holds one token (or a chunk) per slot at per-slot
-    positions ``pos`` (B,), against a paged cache updated in place."""
+    ``mode="decode"``: x holds one token (or a chunk of S) per row at
+    positions ``pos`` ((B,) per row, or one for every row), against a paged
+    or contiguous cache updated in place."""
     b, s = x.shape[0], x.shape[1]
     h, hd = cfg.num_heads, cfg.resolved_head_dim
     if mode == "full":
@@ -223,17 +285,20 @@ def gqa_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, rope=None,
         out = attention_core(q, k, v, cfg, causal=causal)
         new_cache = {"k": k, "v": v}
     else:
-        if cache is None or pos is None or "page_table" not in cache:
-            raise NotImplementedError(
-                "decode runs against a paged cache in this port; contiguous "
-                "decode caches come with the legacy fixed-batch path "
-                "(ROADMAP queue 1, serving features)")
+        if cache is None or pos is None:
+            raise ValueError("decode needs a cache and positions")
         q, k_new, v_new = _project_qkv(p, x, cfg, rope, policy=policy)
         rows = pos.reshape(-1).long().to(x.device).expand(b)
-        # query j of row b attends to positions < rows[b] + j + 1
+        # query j of row b attends to positions < rows[b] + j + 1: the live
+        # length and the in-chunk causal mask of a verify or extend chunk
         length = rows[:, None] + 1 + torch.arange(s, device=x.device)[None, :]
-        k_cache, v_cache = _gqa_paged_update(cache, k_new, v_new, rows)
-        out = dense_attention(q, k_cache, v_cache, causal=False, kv_len=length)
+        native_int8 = ops.as_policy(policy).int8_decode == "native"
+        update = _gqa_paged_update if "page_table" in cache else _contiguous_update
+        k_cache, v_cache = update(cache, k_new, v_new, rows, native_int8=native_int8)
+        if isinstance(k_cache, tuple):  # native int8: raw values and scales
+            out = int8_dense_attention(q, *k_cache, *v_cache, kv_len=length)
+        else:
+            out = dense_attention(q, k_cache, v_cache, causal=False, kv_len=length)
         new_cache = cache
     y = linear(p["wo"], out.reshape(b, s, h * hd), policy=policy)
     return y, new_cache

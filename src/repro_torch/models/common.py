@@ -24,9 +24,15 @@ from repro_torch.kernels import ops as kops
 Params = Dict[str, Any]
 
 
+def wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32, or in float64 if it is float64 (a reference run)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def dot32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b with float32 operands and result (JAX ``preferred_element_type``)."""
-    return torch.matmul(a.float(), b.float())
+    """a @ b with float32 operands and result (JAX ``preferred_element_type``;
+    float64 operands stay float64)."""
+    return torch.matmul(wide(a), wide(b))
 
 
 def linear(p: Params, x: torch.Tensor, *,
@@ -195,9 +201,10 @@ def ffn(p: Params, x: torch.Tensor, *,
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean token NLL with a float32 log-softmax; with ``mask``, the mean
-    over the positions it weights (at least one)."""
-    lf = logits.float()
+    """Mean token NLL with a float32 log-softmax (float64 for float64
+    logits); with ``mask``, the mean over the positions it weights (at
+    least one)."""
+    lf = wide(logits)
     nll = torch.logsumexp(lf, dim=-1) - torch.gather(
         lf, -1, labels.long()[..., None])[..., 0]
     if mask is not None:

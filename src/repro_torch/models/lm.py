@@ -8,8 +8,9 @@ leaves (``p["u"][l]``), so nothing is copied per layer.
 
 ``mode``: ``"full"`` (prefill: returns the per-layer k/v stacked on ``L``),
 ``"train"`` (``"full"`` with no cache kept, run with grad enabled) or
-``"decode"`` (one token or chunk per slot against a paged cache, which is
-updated in place and returned).  Activation checkpointing is not ported:
+``"decode"`` (one token or chunk per row against a paged or contiguous
+cache, which is updated in place and returned; :func:`init_cache` makes
+the contiguous one).  Activation checkpointing is not ported:
 ``remat`` other than ``"none"`` raises.
 """
 
@@ -23,6 +24,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.decompose import Decomposer
 from repro_torch.kernels.ops import KernelPolicy
 from repro_torch.models.attention import gqa_apply, gqa_init
+from repro_torch.models.kvcache import init_quantized_kv
 from repro_torch.models.common import (Params, dot32, embed, embedding_init,
                                        ffn, ffn_init, linear, mask_vocab, rmsnorm,
                                        rmsnorm_init, rope_table)
@@ -30,7 +32,7 @@ from repro_torch.models.common import (Params, dot32, embed, embedding_init,
 _REMAT_TODO = ("activation checkpointing (remat) is not ported yet "
                "(ROADMAP queue 1 item 11, activation checkpointing)")
 _FAMILIES_TODO = ("other model families (MoE, MLA, SSM, hybrid, VLM, enc-dec) "
-                  "are not ported yet (ROADMAP queue 1, other model families)")
+                  "are not ported yet (ROADMAP queue 1 item 7, other model families)")
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -138,3 +140,17 @@ def _make_rope(cfg: ModelConfig, s: int, mode: str, pos, device):
     else:
         positions = pos_arr[:1] + offsets
     return rope_table(s, hd, cfg.rope_theta, device=device, positions=positions)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device, dtype=None) -> Params:
+    """The contiguous decode cache of the fixed-batch path: per layer
+    ``(L, batch, max_len, KV, hd)`` k/v in ``dtype`` (default the compute
+    dtype), or int8 values with bf16 per-position scales when
+    ``cfg.kv_cache_dtype == "int8"``."""
+    _check_family(cfg)
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        return {"stack": init_quantized_kv(shape[:1], *shape[1:], device=device)}
+    dtype = dtype or cfg.cdtype
+    return {"stack": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                      "v": torch.zeros(shape, dtype=dtype, device=device)}}

@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.decompose import Decomposer
-from repro_torch.models.common import Params, dot32, linear
+from repro_torch.models.common import Params, dot32, linear, wide
 
 __all__ = ["STAGES", "fp32_convs", "same_pads", "conv_apply", "max_pool_same",
            "bottleneck_init", "bottleneck_apply", "resnet_init", "resnet_apply"]
@@ -78,10 +78,11 @@ def _pad_same(x: torch.Tensor, kh: int, kw: int, stride: int, value: float = 0.0
 
 
 def _conv(x: torch.Tensor, kernel: torch.Tensor, stride: int) -> torch.Tensor:
-    """SAME conv of NHWC ``x`` with an HWIO ``kernel``, in float32; NHWC out."""
+    """SAME conv of NHWC ``x`` with an HWIO ``kernel``, in float32 (float64
+    for float64 operands: a reference run); NHWC out."""
     kh, kw = kernel.shape[0], kernel.shape[1]
-    x, padding = _pad_same(x.float(), kh, kw, stride)
-    w = kernel.float().permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    x, padding = _pad_same(wide(x), kh, kw, stride)
+    w = wide(kernel).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     with fp32_convs():
         y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride, padding=padding)
     return y.permute(0, 2, 3, 1)
@@ -100,7 +101,7 @@ def conv_apply(p: Params, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
             x = x[:, ::stride, ::stride]
         y = dot32(dot32(x, p["u"]), p["v"])
     if "scale" in p:  # folded BN
-        y = y * p["scale"].float() + p["bn_bias"].float()
+        y = y * wide(p["scale"]) + wide(p["bn_bias"])
     return y.to(x.dtype)
 
 

@@ -10,9 +10,11 @@ construction.
 quacks like a token array (``len`` / ``[...]`` / ``np.asarray``).
 
 This is a copy of ``repro/serving/config.py`` for the PyTorch port.  The
-port's engine rejects the fields whose features it does not have yet
-(speculative decoding, int8 KV pools, the mesh, the prefix cache, the
-fixed-batch path) with a ``ValueError`` naming the ROADMAP item.
+port's engine rejects the mesh fields (ROADMAP queue 1 item 8) and
+``kv_int8=True``: the reference's engine never reads ``kv_int8`` and takes
+int8 KV pools from ``ModelConfig.kv_cache_dtype``, as the port does, so
+the field is refused rather than ignored.  ``int8_decode`` is not read
+either, in either package: the consumption mode is ``LRDConfig.int8_decode``.
 """
 
 from __future__ import annotations

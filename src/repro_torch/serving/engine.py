@@ -1,19 +1,32 @@
-"""Serving engine: continuous batching over the scheduler.
+"""Serving engine: continuous batching over the scheduler, and the
+fixed-batch path.
 
 The counterpart of ``repro/serving/engine.py``.  ``ServeEngine(run, params,
-config=ServeConfig(num_slots=..., ...), device="cuda")`` owns one
-:class:`repro_torch.serving.scheduler.Scheduler`; ``serve`` submits request
-dicts and returns :class:`RequestResult` records, ``generate`` keeps the
-batch signature on top of it.
+config=ServeConfig(...), device="cuda")`` routes by ``config.num_slots``:
+with ``num_slots > 0`` it owns one
+:class:`repro_torch.serving.scheduler.Scheduler` (paged KV pools,
+speculative decoding with ``speculative_k``, the radix prefix cache with
+``prefix_cache``); ``serve`` submits request dicts and returns
+:class:`RequestResult` records, and ``generate`` keeps the batch signature
+on top of it.  ``num_slots == 0`` (the default), or a batch whose prompts
+do not fit the scheduler's window, takes the fixed-batch path: one prefill
+of the whole batch, a contiguous cache padded to the window
+(:func:`pad_cache`), and lock-step decode.
+
+With ``speculative_k`` and no ``draft_params`` the draft is derived from
+``params`` when the scheduler is first built
+(``serving/speculative.py``; ``engine.draft_report`` holds its report).
+Int8 KV pools come from ``ModelConfig.kv_cache_dtype == "int8"``, as in the
+reference, whose engine never reads ``ServeConfig.kv_int8``: the port
+rejects that field rather than ignore it.
 
 The engine runs on CUDA unless ``device="cpu"`` is passed, and raises
 without a GPU.  ``config.export != "none"`` runs the Algorithm-1 serving
 export (``serving/export.py``) on ``params`` at construction, with the
 measured backend's probes timed on the engine's device (``params`` must
-already lie there);
-``engine.export_report`` holds its report.  Features of the JAX engine that
-are not ported yet raise a ``ValueError`` naming the ROADMAP item that
-brings them.
+already lie there); ``engine.export_report`` holds its report.  The mesh
+and telemetry raise a ``ValueError`` naming the ROADMAP item that brings
+them.
 """
 
 from __future__ import annotations
@@ -22,47 +35,78 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.launch import steps as steps_mod
 from repro_torch.serving.config import RequestResult, ServeConfig
 
-__all__ = ["ServeEngine"]
+__all__ = ["ServeEngine", "pad_cache", "pad_cache_preserving_cross"]
 
-_SERVING_ITEM = "ROADMAP queue 1 item 5, serving features"
+# leaf name -> axis that indexes kv positions (k_scale/v_scale share k/v's)
+_SEQ_AXIS = {"k": -3, "v": -3, "k_scale": -3, "v_scale": -3}
 
 
-def _unported(config: ServeConfig, obs: Any, draft_params: Any, mesh: Any) -> Optional[str]:
+def _pad_leaf(t: torch.Tensor, name: str, target_len: int) -> torch.Tensor:
+    ax = _SEQ_AXIS.get(name)
+    if ax is None or t.shape[ax] >= target_len:
+        return t
+    pad = [0, 0] * t.dim()  # F.pad lists the last axis first
+    pad[2 * (-ax - 1) + 1] = target_len - t.shape[ax]
+    return F.pad(t, pad)
+
+
+def pad_cache(cache: Any, target_len: int, skip: Optional[set] = None) -> Any:
+    """Zero-pad every kv-position axis of a cache tree to ``target_len``."""
+
+    def walk(tree, name):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        return tree if skip and name in skip else _pad_leaf(tree, name, target_len)
+
+    return walk(cache, "")
+
+
+def pad_cache_preserving_cross(cache: Any, target_len: int) -> Any:
+    """Like :func:`pad_cache`, but cross-attention caches (key ``cross``)
+    keep their own length."""
+
+    def walk(tree, name):
+        if isinstance(tree, dict):
+            return {k: (v if k == "cross" else walk(v, k)) for k, v in tree.items()}
+        return _pad_leaf(tree, name, target_len)
+
+    return walk(cache, "")
+
+
+def _unported(config: ServeConfig, obs: Any, mesh: Any) -> Optional[str]:
     """The first requested feature this port does not have, or None."""
-    if config.num_slots == 0:
-        return ("num_slots=0 selects the legacy fixed-batch path, which is not "
-                f"ported ({_SERVING_ITEM}); set num_slots > 0")
-    if config.speculative_k or draft_params is not None:
-        return f"speculative decoding is not ported ({_SERVING_ITEM})"
-    if config.prefix_cache:
-        return f"the radix prefix cache is not ported ({_SERVING_ITEM})"
     if config.kv_int8:
-        return f"int8 KV pools are not ported ({_SERVING_ITEM})"
+        return ("kv_int8=True: the engine takes int8 KV pools from "
+                "ModelConfig.kv_cache_dtype='int8', as the reference does, whose "
+                "engine never reads kv_int8 (ROADMAP queue 1 item 5, serving features)")
     if config.mesh_data != 1 or config.mesh_model != 1 or mesh is not None:
-        return "the serving mesh is not ported (ROADMAP queue 1, distributed)"
+        return "the serving mesh is not ported (ROADMAP queue 1 item 8, distributed)"
     if obs is not None:
-        return "serving telemetry (obs) is not ported (ROADMAP queue 1, telemetry)"
+        return "serving telemetry (obs) is not ported (ROADMAP queue 1 item 9, telemetry)"
     return None
 
 
 class ServeEngine:
-    """Facade over the continuous-batching scheduler."""
+    """Facade over the continuous-batching scheduler and the fixed-batch
+    path."""
 
-    def __init__(self, run: RunConfig, params: Any, *,
-                 config: Optional[ServeConfig] = None, device="cuda",
-                 obs: Any = None, draft_params: Any = None, mesh: Any = None):
+    def __init__(self, run: RunConfig, params: Any, *, config: Optional[ServeConfig] = None,
+                 device="cuda", obs: Any = None, draft_params: Any = None, mesh: Any = None):
         self.config = config or ServeConfig()
-        why = _unported(self.config, obs, draft_params, mesh)
+        why = _unported(self.config, obs, mesh)
         if why:
             raise ValueError(f"ServeEngine: {why}")
         self.device = steps_mod.resolve_device(device)
         self.run = run
         self.params = params
+        self.draft_params = draft_params
+        self.draft_report = None  # set when a draft is derived lazily
         self.export_report = None
         if self.config.export != "none":
             from repro_torch.core.freezing import tree_leaves
@@ -78,6 +122,8 @@ class ServeEngine:
                 self.params, self.export_report = export_for_serving(
                     params, backend=backend, probe_tokens=max(self.config.num_slots, 1),
                     quantize_factors="int8" if self.config.export_int8 else None)
+        self._prefill = steps_mod.build_prefill_step(run)
+        self._step = steps_mod.build_serve_step(run)
         self._scheduler = None
 
     @property
@@ -86,11 +132,29 @@ class ServeEngine:
         if self._scheduler is None:
             from repro_torch.serving.scheduler import Scheduler
             c = self.config
+            draft = self.draft_params
+            if c.speculative_k and draft is None:
+                from repro_torch.serving import speculative
+                rank_map = speculative.draft_rank_map(self.params, rank=c.spec_rank,
+                                                      fraction=c.spec_fraction)
+                with torch.no_grad():
+                    draft, self.draft_report = speculative.make_draft_params(
+                        self.params, rank_map)
             self._scheduler = Scheduler(
                 self.run, self.params, device=self.device, num_slots=c.num_slots,
                 max_len=c.max_len, prefill_len=c.prefill_len,
-                block_size=c.block_size, num_blocks=c.num_blocks)
+                block_size=c.block_size, num_blocks=c.num_blocks,
+                speculative_k=c.speculative_k, draft_params=draft,
+                prefix_cache=c.prefix_cache)
         return self._scheduler
+
+    def _scheduler_usable(self, prompt_len: int, max_new: int) -> bool:
+        """Prompts must fit the scheduler's fixed prefill and window shapes;
+        other batches take the fixed-batch path."""
+        c = self.config
+        eff_prefill = min(c.prefill_len or c.max_len, c.max_len)
+        return (c.num_slots > 0 and 0 < prompt_len <= eff_prefill
+                and prompt_len + max_new <= c.max_len)
 
     def serve(self, requests: Sequence[Dict[str, Any]],
               on_token=None) -> List[RequestResult]:
@@ -118,10 +182,43 @@ class ServeEngine:
         Returns (B, n) generated tokens, n <= max_new; rows that finished
         early are padded with ``eos_id`` (or 0).
         """
+        tokens = np.asarray(tokens)
+        if not self._scheduler_usable(tokens.shape[1], max_new):
+            return self._generate_fixed(tokens, max_new, eos_id)
         outs = self.serve([{"prompt": row, "max_new": max_new, "eos_id": eos_id}
-                           for row in np.asarray(tokens)])
+                           for row in tokens])
         n = max(len(o) for o in outs)
         arr = np.full((len(outs), n), eos_id if eos_id is not None else 0, np.int32)
         for i, o in enumerate(outs):
             arr[i, :len(o)] = o.tokens
         return arr
+
+    @torch.inference_mode()
+    def _generate_fixed(self, tokens: np.ndarray, max_new: int,
+                        eos_id: Optional[int]) -> np.ndarray:
+        """Lock-step decode of the whole batch.  As in the reference, the
+        cache is the prefill's own (in the compute dtype) padded to the
+        window; rows that finished emit ``eos_id`` from then on."""
+        b, t = tokens.shape
+        last, cache = self._prefill(
+            self.params, {"tokens": torch.as_tensor(tokens, dtype=torch.int32,
+                                                    device=self.device)})
+        cache = pad_cache_preserving_cross(cache, t + max_new)
+        tk = torch.argmax(last, dim=-1).cpu().numpy()[:, None].astype(np.int32)
+        out = [tk]
+        done = np.zeros((b,), bool)
+        if eos_id is not None:
+            done |= tk[:, 0] == eos_id
+        token = torch.from_numpy(tk).to(self.device)
+        for i in range(max_new - 1):
+            if done.all():
+                break
+            pos = torch.tensor(t + i, dtype=torch.int32, device=self.device)
+            _, cache, token = self._step(self.params, cache, token, pos)
+            tk = token.cpu().numpy().astype(np.int32)
+            if eos_id is not None:
+                tk = np.where(done[:, None], eos_id, tk).astype(np.int32)
+            out.append(tk)
+            if eos_id is not None:
+                done |= tk[:, 0] == eos_id
+        return np.concatenate(out, axis=1)

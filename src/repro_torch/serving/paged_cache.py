@@ -12,6 +12,11 @@ Layout per layer stack::
      "v": (L, num_blocks, block_size, KV, hd),
      "page_table": (L, num_slots, max_blocks) int32}
 
+An int8 pool (``ModelConfig.kv_cache_dtype == "int8"``) holds int8 ``k`` /
+``v`` and bf16 ``k_scale`` / ``v_scale`` leaves of shape
+``(L, num_blocks, block_size, KV, 1)``, one scale per position and head
+(``models/kvcache.py``): (hd + 2) / (2 hd) of the bf16 pool's bytes.
+
 ``page_table`` rides inside the cache tree (broadcast over L), so each
 layer sees its pool slice plus the shared table.  **Block 0 is a reserved
 sink**: retired slots' page tables point at it, so the fixed-shape decode
@@ -31,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import kvcache as kvq
 
 __all__ = ["BlockAllocator", "PageTableManager", "blocks_for", "supports_paged",
            "init_paged_cache", "with_page_table", "insert_prefill_paged",
@@ -222,19 +228,20 @@ def init_paged_cache(cfg: ModelConfig, num_slots: int, num_blocks: int,
     if not supports_paged(cfg):
         raise ValueError(
             f"the port's paged KV cache supports the dense GQA family, not "
-            f"{cfg.family}{'/mla' if cfg.use_mla else ''} (ROADMAP queue 1, "
+            f"{cfg.family}{'/mla' if cfg.use_mla else ''} (ROADMAP queue 1 item 7, "
             f"other model families)")
-    if cfg.kv_cache_dtype == "int8":
-        raise ValueError("int8 KV pools are not ported (ROADMAP queue 1 item 5, "
-                         "serving features)")
-    n = cfg.num_layers
-    shape = (n, num_blocks, block_size, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return {"stack": {
-        "k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
-        "v": torch.zeros(shape, dtype=cfg.cdtype, device=device),
-        "page_table": torch.zeros((n, num_slots, max_blocks), dtype=torch.int32,
-                                  device=device),
-    }}
+    n, kv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    quant = cfg.kv_cache_dtype == "int8"
+    shape = (n, num_blocks, block_size, kv, hd)
+    dtype = torch.int8 if quant else cfg.cdtype
+    stack = {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if quant:
+        for name in ("k_scale", "v_scale"):
+            stack[name] = torch.zeros(shape[:-1] + (1,), dtype=torch.bfloat16, device=device)
+    stack["page_table"] = torch.zeros((n, num_slots, max_blocks), dtype=torch.int32,
+                                      device=device)
+    return {"stack": stack}
 
 
 def with_page_table(cache: Dict[str, Any], table: np.ndarray) -> Dict[str, Any]:
@@ -261,7 +268,8 @@ def insert_prefill_paged(cache: Dict[str, Any], prefill_cache: Dict[str, Any],
     forward; ``page_row`` is the slot's (max_blocks,) page-table row.  All P
     padded positions are written: tail positions beyond the prompt map to
     the slot's own partially-filled last block or to the sink block, and are
-    either overwritten by decode or masked by the live length.
+    either overwritten by decode or masked by the live length.  Quantizes
+    on the way in when the pool is int8.
     """
     for name, stack in cache.items():
         pool_k = stack["k"]
@@ -269,8 +277,12 @@ def insert_prefill_paged(cache: Dict[str, Any], prefill_cache: Dict[str, Any],
         p_len = prefill_cache[name]["k"].shape[2]
         j = torch.arange(p_len, device=pool_k.device)
         phys = page_row.to(pool_k.device).long()[j // bs] * bs + j % bs  # (P,)
-        for leaf in ("k", "v"):
+        new = {leaf: prefill_cache[name][leaf][:, 0] for leaf in ("k", "v")}
+        if "k_scale" in stack:
+            new["k"], new["k_scale"] = kvq.quantize_kv(new["k"])
+            new["v"], new["v_scale"] = kvq.quantize_kv(new["v"])
+        for leaf, vals in new.items():
             pool = stack[leaf]
             flat = pool.view((n_layers, nb * bs) + tuple(pool.shape[3:]))
-            flat[:, phys] = prefill_cache[name][leaf][:, 0].to(pool.dtype)
+            flat[:, phys] = vals.to(pool.dtype)
     return cache

@@ -17,6 +17,25 @@ Decode always runs over all ``num_slots`` rows, inactive ones included
 which a CUDA graph of the step will need.  The block pools are updated in
 place, where the JAX steps donate them.  Host bookkeeping (queue, slots,
 allocator) is plain Python/numpy.
+
+Speculative decoding (``speculative_k > 0``, ``serving/speculative.py``):
+each step runs k draft decodes with ``draft_params`` and one chunked
+full-model verify, and emits the longest matching prefix plus the full
+model's next token (1..k+1 tokens a slot, each what plain greedy decode
+would emit).  The verify overwrites the draft KV; the rejected tail stays
+masked by the live length until later writes reclaim it.  The window is
+padded by k so the draft lookahead never leaves a slot's pages.
+
+Prefix cache (``prefix_cache=True``, ``serving/radix_cache.py``): a slot's
+full prompt blocks enter a radix tree at admission; a later prompt that
+matches whole blocks shares them by refcount and only its suffix is run,
+through the extend step, with its writes starting block-aligned past the
+shared blocks.
+
+``forward_stats`` counts the model forwards of each kind (prefill,
+extend, decode, draft, verify): the JAX scheduler's compile-once contract
+(one program per step kind, and no plain decode program while speculating)
+becomes "which forwards ran, and how often".
 """
 
 from __future__ import annotations
@@ -32,6 +51,8 @@ import torch
 from repro_torch.configs.base import RunConfig
 from repro_torch.launch import steps as steps_mod
 from repro_torch.serving import paged_cache as pc
+from repro_torch.serving import speculative
+from repro_torch.serving.radix_cache import RadixCache
 
 __all__ = ["Request", "Scheduler"]
 
@@ -52,9 +73,9 @@ class Request:
     t_first: Optional[float] = None
     t_done: Optional[float] = None
     preemptions: int = 0
-    prefix_hit_len: int = 0  # always 0: no prefix cache in this port yet
-    drafted: int = 0  # always 0: no speculative decoding in this port yet
-    accepted: int = 0
+    prefix_hit_len: int = 0  # prompt tokens served from the radix cache
+    drafted: int = 0  # speculative draft tokens proposed for this request
+    accepted: int = 0  # draft tokens the verify pass kept
 
     @property
     def done(self) -> bool:
@@ -88,19 +109,23 @@ class Scheduler:
     re-prefill budget of a preemption resume); ``block_size`` positions per
     block; ``num_blocks`` pool size including the sink block (default: fully
     provisioned; lower it to oversubscribe); ``on_token(request, token)``
-    fires per generated token.
+    fires per generated token; ``speculative_k`` draft tokens a step (0 =
+    plain decode) with ``draft_params`` (default ``params``: acceptance 1.0);
+    ``prefix_cache`` turns the radix prefix cache on.
     """
 
     def __init__(self, run: RunConfig, params: Any, *, device,
                  num_slots: int = 4, max_len: int = 256,
                  prefill_len: Optional[int] = None, block_size: int = 16,
                  num_blocks: Optional[int] = None,
-                 on_token: Optional[Callable[[Request, int], None]] = None):
+                 on_token: Optional[Callable[[Request, int], None]] = None,
+                 speculative_k: int = 0, draft_params: Any = None,
+                 prefix_cache: bool = False):
         cfg = run.model
         if not pc.supports_paged(cfg):
             raise ValueError(
                 f"the port's scheduler serves the dense decoder family, not "
-                f"{cfg.family!r} (ROADMAP queue 1, other model families)")
+                f"{cfg.family!r} (ROADMAP queue 1 item 7, other model families)")
         self.run_config = run
         self.params = params
         self.device = torch.device(device)
@@ -108,16 +133,24 @@ class Scheduler:
         self.max_len = max_len
         self.prefill_len = min(prefill_len or max_len, max_len)
         self.on_token = on_token
+        self.spec_k = max(int(speculative_k), 0)
+        self.draft_params = ((draft_params if draft_params is not None else params)
+                             if self.spec_k else None)
         self.layout = "paged"
         self.block_size = block_size
-        max_blocks = pc.blocks_for(max_len, block_size)
+        # the draft lookahead writes up to pos + spec_k: the pages cover it
+        max_blocks = pc.blocks_for(max_len + self.spec_k, block_size)
         if num_blocks is None:
             num_blocks = 1 + num_slots * max_blocks
         self.pages = pc.PageTableManager(num_slots, max_blocks, num_blocks, block_size)
         self.cache = pc.init_paged_cache(cfg, num_slots, num_blocks, block_size,
                                          max_blocks, self.device)
+        self.prefix = RadixCache(self.pages.allocator, block_size) if prefix_cache else None
         self._prefill = steps_mod.build_slot_prefill_step(run)
         self._decode = steps_mod.build_serve_step(run)
+        self._extend = steps_mod.build_extend_step(run) if prefix_cache else None
+        self._draft = steps_mod.build_draft_chain(run, self.spec_k) if self.spec_k else None
+        self._verify = steps_mod.build_verify_step(run) if self.spec_k else None
 
         self.queue: Deque[Request] = deque()
         self.slots = [_Slot() for _ in range(num_slots)]
@@ -128,10 +161,26 @@ class Scheduler:
         self._positions = np.zeros((num_slots,), np.int32)
         self._tokens = np.zeros((num_slots, 1), np.int32)
         self._pt_version = -1  # last page-table version copied to the device
-        self._prefill_tokens = 0  # real tokens run through prefill forwards
-        #: model forwards run, and how many of them produced a non-finite
-        #: logit at a sampled position
-        self.forward_stats = {"prefill": 0, "decode": 0, "nonfinite": 0}
+        #: model forwards run by kind (a draft chain is k draft forwards),
+        #: and how many of them produced a non-finite logit at a sampled
+        #: position (draft forwards are proposals, not checked)
+        self.forward_stats = {"prefill": 0, "extend": 0, "decode": 0, "draft": 0,
+                              "verify": 0, "nonfinite": 0}
+        #: speculative counters (drafted/accepted are token counts over the
+        #: active slots; acceptance compares draft tokens with the verify
+        #: chunk's greedy choices, whatever a mid-chunk retirement emitted)
+        self.spec_stats = {"spec_steps": 0, "drafted": 0, "accepted": 0,
+                           "rejected": 0, "emitted": 0}
+        #: prefix-cache counters; ``prefill_tokens`` counts the real
+        #: (unpadded) tokens run through a prefill or extend forward, with
+        #: the cache off too
+        self.prefix_stats = {"lookups": 0, "hits": 0, "hit_tokens": 0,
+                             "prefill_tokens": 0, "evicted_blocks": 0}
+
+    def acceptance_rate(self) -> float:
+        """Draft acceptance since the last ``reset_stats``."""
+        st = self.spec_stats
+        return st["accepted"] / st["drafted"] if st["drafted"] else 0.0
 
     def cache_bytes(self) -> int:
         return pc.paged_pool_bytes(self.cache)
@@ -162,16 +211,19 @@ class Scheduler:
             self._t0 = time.monotonic()
         return time.monotonic() - self._t0
 
-    def _sample(self, logits: torch.Tensor, kind: str) -> np.ndarray:
-        """Greedy tokens of (B, V) logits, counting the forward and whether
-        its sampled logits were finite (one host read for both)."""
+    def _read(self, tokens: torch.Tensor, logits: torch.Tensor, kind: str) -> np.ndarray:
+        """``tokens`` on the host, counting the forward of ``kind`` and
+        whether its ``logits`` were finite (one host read for both)."""
         self.forward_stats[kind] += 1
-        tok = torch.argmax(logits, dim=-1)
-        finite = torch.isfinite(logits).all().to(tok.dtype)
-        out = torch.cat([tok, finite[None]]).cpu().numpy()
+        finite = torch.isfinite(logits).all().to(tokens.dtype)
+        out = torch.cat([tokens.reshape(-1), finite[None]]).cpu().numpy()
         if not out[-1]:
             self.forward_stats["nonfinite"] += 1
-        return out[:-1]
+        return out[:-1].reshape(tokens.shape)
+
+    def _sample(self, logits: torch.Tensor, kind: str) -> np.ndarray:
+        """Greedy tokens of (B, V) logits (see :meth:`_read`)."""
+        return self._read(torch.argmax(logits, dim=-1), logits, kind)
 
     def _emit(self, slot: _Slot, tok: int) -> None:
         req = slot.req
@@ -211,6 +263,27 @@ class Scheduler:
         self.queue.appendleft(slot.req)
         self._release(slot)
 
+    def _match_prefix(self, fed: np.ndarray) -> List[int]:
+        """Radix lookup for an admission, capped so the suffix keeps at
+        least one token: the extend step then has logits to sample from,
+        and its writes start block-aligned in slot-private blocks (shared
+        blocks are never written)."""
+        if self.prefix is None:
+            return []
+        self.prefix_stats["lookups"] += 1
+        blocks = self.prefix.match(fed)
+        usable = min(len(blocks), (fed.size - 1) // self.block_size)
+        shared = blocks[:usable]
+        if shared:
+            self.prefix_stats["hits"] += 1
+            self.prefix_stats["hit_tokens"] += usable * self.block_size
+        return shared
+
+    def _evict(self, need: int, protect=()) -> int:
+        freed = self.prefix.evict(need, protect=protect)
+        self.prefix_stats["evicted_blocks"] += freed
+        return freed
+
     def _admit(self, now: float) -> None:
         for idx, slot in enumerate(self.slots):
             if slot.active or not self.queue:
@@ -220,32 +293,69 @@ class Scheduler:
                 break  # FIFO: later arrivals wait behind the head
             fed = req.fed_tokens()
             # +1 covers the first decode write, so a fresh admission always
-            # makes one token of progress before it can be preempted again
-            need_len = fed.size + 1
-            if not self.pages.admit(idx, need_len):
-                if not any(s.active for s in self.slots):
-                    raise RuntimeError(
-                        f"request {req.rid} needs "
-                        f"{pc.blocks_for(need_len, self.block_size)} blocks but "
-                        f"the pool has {self.pages.allocator.free_blocks} free at "
-                        f"idle — raise num_blocks")
-                break  # no pages — wait for a retirement
+            # makes one token of progress before it can be preempted again;
+            # +spec_k covers that step's draft lookahead
+            need_len = fed.size + 1 + self.spec_k
+            shared = self._match_prefix(fed)
+            if not self.pages.admit(idx, need_len, shared=shared):
+                if self.prefix is not None:
+                    # cached-only blocks go before anyone waits; the matched
+                    # prefix is not refcounted by the slot yet, so protect it
+                    self._evict(pc.blocks_for(need_len, self.block_size) - len(shared)
+                                - self.pages.allocator.free_blocks, protect=shared)
+                if not self.pages.admit(idx, need_len, shared=shared):
+                    if not any(s.active for s in self.slots):
+                        # idle: drop the whole cache, the match too, and
+                        # retry with a full allocation
+                        if self.prefix is not None:
+                            self._evict(self.prefix.cached_blocks)
+                            shared = []
+                            if self.pages.admit(idx, need_len):
+                                self.queue.popleft()
+                                self._start(idx, slot, req, fed, shared)
+                                continue
+                        raise RuntimeError(
+                            f"request {req.rid} needs "
+                            f"{pc.blocks_for(need_len, self.block_size)} blocks but "
+                            f"the pool has {self.pages.allocator.free_blocks} free at "
+                            f"idle — raise num_blocks")
+                    break  # no pages — wait for a retirement
             self.queue.popleft()
-            self._start(idx, slot, req, fed)
+            self._start(idx, slot, req, fed, shared)
 
-    def _start(self, idx: int, slot: _Slot, req: Request, fed: np.ndarray) -> None:
+    def _start(self, idx: int, slot: _Slot, req: Request, fed: np.ndarray,
+               shared: List[int]) -> None:
         now = self._now()
         if req.t_started is None:
             req.t_started = now
-        self._prefill_tokens += int(fed.size)
+        hit = len(shared) * self.block_size
+        if not req.tokens:
+            req.prefix_hit_len = hit
+        self.prefix_stats["prefill_tokens"] += int(fed.size) - hit
+        page_row = torch.from_numpy(self.pages.table[idx]).to(self.device)
         padded = np.zeros((1, self.prefill_len), np.int32)
-        padded[0, :fed.size] = fed
-        tokens = torch.from_numpy(padded).to(self.device)
-        last, pcache = self._prefill(self.params, {"tokens": tokens},
-                                     torch.tensor([fed.size - 1], device=self.device))
-        pc.insert_prefill_paged(self.cache, pcache,
-                                torch.from_numpy(self.pages.table[idx]).to(self.device))
-        first_tok = int(self._sample(last, "prefill")[0])
+        if hit:
+            # the shared blocks hold fed[:hit]'s KV: run only the suffix
+            suffix = fed[hit:]
+            padded[0, :suffix.size] = suffix
+            self.cache, nxt, logits = self._extend(
+                self.params, self.cache, torch.from_numpy(padded).to(self.device),
+                page_row, hit)
+            first_tok = int(self._read(nxt[0, suffix.size - 1:suffix.size],
+                                       logits[0, suffix.size - 1], "extend")[0])
+        else:
+            padded[0, :fed.size] = fed
+            last, pcache = self._prefill(self.params,
+                                         {"tokens": torch.from_numpy(padded).to(self.device)},
+                                         torch.tensor([fed.size - 1], device=self.device))
+            pc.insert_prefill_paged(self.cache, pcache, page_row)
+            first_tok = int(self._sample(last, "prefill")[0])
+        if self.prefix is not None:
+            # index the slot's full prompt blocks; insert() adopts only the
+            # part the tree does not hold yet
+            n_full = fed.size // self.block_size
+            if n_full:
+                self.prefix.insert(fed, self.pages.blocks(idx)[:n_full])
         slot.req = req
         slot.pos = fed.size
         slot.admitted_at = self._admit_seq
@@ -256,11 +366,16 @@ class Scheduler:
             self._emit(slot, first_tok)
 
     def _ensure_pages(self) -> None:
-        """Grow page tables so every active slot can write at its position;
-        preempt youngest-first (possibly the growing slot itself) when the
-        pool runs dry."""
+        """Grow page tables so every active slot can write at its position
+        (and its draft lookahead); evict cached-only blocks, then preempt
+        youngest-first (possibly the growing slot itself) when the pool
+        runs dry."""
         for idx, slot in enumerate(self.slots):
-            while slot.active and not self.pages.ensure(idx, slot.pos):
+            while slot.active and not self.pages.ensure(idx, slot.pos + self.spec_k):
+                if self.prefix is not None and self._evict(
+                        pc.blocks_for(slot.pos + self.spec_k + 1, self.block_size)
+                        - self.pages.allocated(idx)):
+                    continue
                 victims = [s for s in self.slots if s.active and self._preemptable(s)]
                 if not victims:
                     raise RuntimeError(
@@ -271,6 +386,52 @@ class Scheduler:
                 self._preempt(victim)
                 if victim is slot:
                     break
+
+    def _spec_decode(self, active) -> None:
+        """One speculative step: k draft decodes, one chunked verify, then
+        the longest matching prefix and the full model's next token,
+        emitted one at a time through ``_emit`` (so eos / max_new retire
+        mid-chunk as plain decode would)."""
+        k = self.spec_k
+        pos = torch.from_numpy(self._positions).to(self.device)
+        self.cache, chunk_dev = self._draft(self.draft_params, self.cache,
+                                            torch.from_numpy(self._tokens).to(self.device), pos)
+        self.forward_stats["draft"] += k
+        self.cache, verify_dev, logits = self._verify(self.params, self.cache, chunk_dev, pos)
+        both = self._read(torch.cat([chunk_dev, verify_dev], dim=1), logits, "verify")
+        chunk, verify = both[:, :k + 1], both[:, k + 1:]
+        ns = speculative.accept_lengths(chunk, verify)
+        drafted = accepted = emitted = 0
+        for i, s in active:
+            if not s.active:
+                continue
+            acc = int(ns[i])
+            drafted += k
+            accepted += acc
+            s.req.drafted += k
+            s.req.accepted += acc
+            for j in range(acc):
+                s.pos += 1
+                self._emit(s, int(chunk[i, j + 1]))
+                emitted += 1
+                if not s.active:  # retired mid-chunk (eos / max_new)
+                    break
+            if s.active:
+                s.pos += 1
+                self._emit(s, int(verify[i, acc]))
+                emitted += 1
+        st = self.spec_stats
+        st["spec_steps"] += 1
+        st["drafted"] += drafted
+        st["accepted"] += accepted
+        st["rejected"] += drafted - accepted
+        st["emitted"] += emitted
+        # a dry pool with someone waiting: the lookahead blocks past each
+        # slot's committed length are idle, so trim them back
+        if self.queue and self.pages.allocator.free_blocks == 0:
+            for i, s in enumerate(self.slots):
+                if s.active:
+                    self.pages.trim(i, s.pos + 1)
 
     # -- the step ----------------------------------------------------------
 
@@ -288,6 +449,9 @@ class Scheduler:
         if self._pt_version != self.pages.version:
             pc.with_page_table(self.cache, self.pages.table)
             self._pt_version = self.pages.version
+        if self.spec_k:
+            self._spec_decode(active)
+            return
         logits, self.cache, _ = self._decode(
             self.params, self.cache, torch.from_numpy(self._tokens).to(self.device),
             torch.from_numpy(self._positions).to(self.device))
@@ -311,8 +475,7 @@ class Scheduler:
 
     # -- trace stats -------------------------------------------------------
 
-    #: latency_stats() keys (the JAX scheduler's); the speculative and
-    #: prefix-cache keys read 0 until those features are ported
+    #: latency_stats() keys (the JAX scheduler's)
     STAT_KEYS = ("requests", "generated_tokens", "tok_per_s",
                  "p50_latency_s", "p95_latency_s", "p99_latency_s",
                  "p50_first_token_s", "p95_first_token_s",
@@ -329,7 +492,9 @@ class Scheduler:
         if self.has_work():
             raise RuntimeError("reset_stats with work in flight")
         self.finished.clear()
-        self._prefill_tokens = 0
+        for stats in (self.spec_stats, self.prefix_stats):
+            for key in stats:
+                stats[key] = 0
         self._t0 = None
 
     def latency_stats(self) -> Dict[str, float]:
@@ -343,8 +508,7 @@ class Scheduler:
         wait = np.asarray([(r.t_started or r.arrival) - r.arrival for r in reqs])
         total_tok = sum(len(r.tokens) for r in reqs)
         span = max(max(r.t_done for r in reqs), 1e-9)
-        stats = {k: 0.0 for k in self.STAT_KEYS}
-        stats.update({
+        return {
             "requests": float(len(reqs)),
             "generated_tokens": float(total_tok),
             "tok_per_s": total_tok / span,
@@ -357,6 +521,13 @@ class Scheduler:
             "p95_queue_wait_s": float(np.percentile(wait, 95)),
             "preemptions": float(sum(r.preemptions for r in reqs)),
             "preempted_requests": float(sum(1 for r in reqs if r.preemptions)),
-            "prefill_tokens": float(self._prefill_tokens),
-        })
-        return stats
+            "spec_steps": float(self.spec_stats["spec_steps"]),
+            "drafted_tokens": float(self.spec_stats["drafted"]),
+            "accepted_tokens": float(self.spec_stats["accepted"]),
+            "acceptance_rate": self.acceptance_rate(),
+            "prefill_tokens": float(self.prefix_stats["prefill_tokens"]),
+            "prefix_lookups": float(self.prefix_stats["lookups"]),
+            "prefix_hits": float(self.prefix_stats["hits"]),
+            "prefix_hit_tokens": float(self.prefix_stats["hit_tokens"]),
+            "prefix_evicted_blocks": float(self.prefix_stats["evicted_blocks"]),
+        }

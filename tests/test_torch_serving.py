@@ -69,13 +69,14 @@ def test_port_scheduler_tokens_match_jax_engine(case):
 
 def test_engine_rejects_unported_features():
     run = TRun(model=t_get_smoke_config(ARCH), shape=TShape("s", 40, 4, "decode"))
-    for cfg, match in [(ServeConfig(num_slots=0), "fixed-batch"),
-                       (ServeConfig(num_slots=2, speculative_k=2), "speculative"),
-                       (ServeConfig(num_slots=2, prefix_cache=True), "prefix cache"),
-                       (ServeConfig(num_slots=2, kv_int8=True), "int8"),
-                       (ServeConfig(num_slots=2, mesh_model=2), "mesh")]:
+    for cfg, kw, match in [
+            (ServeConfig(num_slots=2, kv_int8=True), {}, "kv_cache_dtype.*item 5"),
+            (ServeConfig(num_slots=2, mesh_model=2), {}, "mesh.*item 8"),
+            (ServeConfig(num_slots=2, mesh_data=2), {}, "mesh.*item 8"),
+            (ServeConfig(num_slots=2), dict(mesh=object()), "mesh.*item 8"),
+            (ServeConfig(num_slots=2), dict(obs=object()), "telemetry.*item 9")]:
         with pytest.raises(ValueError, match=match):
-            ServeEngine(run, {}, config=cfg, device="cpu")
+            ServeEngine(run, {}, config=cfg, device="cpu", **kw)
 
 
 def test_generate_pads_early_finishers_with_eos():
