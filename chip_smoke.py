@@ -1,6 +1,6 @@
 """Drive the PyTorch port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py [--out results.json] [--only kernels|conv|serve]
+    python3 chip_smoke.py [--out results.json] [--only kernels|conv|serve|moe]
 
 Phases, in order; any failure exits nonzero:
 
@@ -151,6 +151,34 @@ Phases, in order; any failure exits nonzero:
               plain versions as in phase 5; 8 teacher-forced steps through an
               int8 ``lm.init_cache`` cache against a bf16 one.
 
+29. moe serve — the serve CLI on full-width OLMoE-1B-7B (16 layers, d 2048,
+              64 experts of d_ff 1024, top-8, qk-norm, ``moe_impl="ep"``) with
+              LRD at Eq.-5 ranks (attention 512, experts 341), phase 4's
+              trace: exactly 64 K1 and no K5 launches a forward, by shape;
+              tok/s and the pool bytes;
+30. moe parity — a 128-token prefill and an 8-slot decode step (cap2 = 1)
+              through the kernels against the plain path with routing
+              pinned (``routing``: the plain run replays the kernel run's
+              expert ids, in this script only), within PATH_RTOL; the plain
+              run unpinned, each routing flip's top-k margin against its
+              router-logit difference (a flip wider than twice that fails);
+31. moe profile — a decode step as in phase 6, with the experts' ``bmm`` ms;
+32. moe train — the training CLI at full width, 6 steps of 8 x 256 tokens,
+              phases 0,0,1,1,0,0: exactly 64 K1 and K2 a step, 64 K3 at
+              phase 1 only, 64 K4 at phase 0 only, no K5; TF32 off;
+33. moe grads — a train step's loss and gradients, kernels against plain,
+              routing pinned, at phases -1, 0 and 1 (GRAD_RTOL), and the
+              unpinned run's flips;
+34. moe train profile — phase 9 on OLMoE, with the experts' ``bmm`` ms and
+              ``max_memory_allocated`` per phase;
+35. remat — one batch at phase -1 under remat none (twice), full, dots and
+              sqrt: loss and gradients bit-identical to none's wherever the
+              two none runs agree, K1 64 / 128 / 128 / 176 (the recomputed
+              forwards; K2-K4 64 each), peak memory below none's; then
+              8 x 1024 tokens' loss and gradients under full (peak memory)
+              and the training CLI for one 8 x 1024-token step under
+              ``--remat full`` (the ep path at t = 8192).
+
 Phases 20-24 run with TF32 off and the port's seeded init, through plain
 PyTorch (cuDNN convs, ``torch.matmul``): the JAX package computes them
 outside any Pallas kernel, so no hand-written kernel is on their path.
@@ -160,7 +188,8 @@ decay schedule's ranks; the energy boundary's ranks are decided on the
 card, and the shapes it launched that phase 3 did not check are checked
 and timed after it.  ``--only kernels`` runs phases 1-3, the K6-K8 checks
 and phase 19; ``--only conv`` runs phases 1 and 20-24; ``--only serve`` runs
-phases 1-3 (at the serve and serving-feature shapes) and 25-28.  The last
+phases 1-3 (at the serve and serving-feature shapes) and 25-28; ``--only
+moe`` runs phases 1-3 at the MoE shapes and 29-35.  The last
 line of
 standard output is ``{"ok": true, "device": {...}}``; the
 line before it is ``nvidia-smi``'s name and power limit, and the
@@ -864,12 +893,13 @@ def device_ms_by_kernel(prof, steps: int):
     return by_name
 
 
-def phase_profile(engine, steps: int = 5, label: str = "decode step", int8: bool = False):
+def phase_profile(engine, steps: int = 5, label: str = "decode step", int8: bool = False,
+                  moe: bool = False):
     """Where a full-width decode step's time goes: wall time per step (host
     clock around synchronised steps), device time per step by kernel
     (``torch.profiler``), and the device's idle share of the step; for an
     int8 tree also its device launches, K6 / K7 ms and torch quantizer ops
-    a step (none may run)."""
+    a step (none may run); for a MoE model the experts' ``bmm`` ms."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import steps as steps_mod
@@ -886,7 +916,8 @@ def phase_profile(engine, steps: int = 5, label: str = "decode step", int8: bool
         step(engine.params, sched.cache, tokens, pos)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=moe) as prof:
         for _ in range(steps):
             step(engine.params, sched.cache, tokens, pos)
         torch.cuda.synchronize()
@@ -913,7 +944,11 @@ def phase_profile(engine, steps: int = 5, label: str = "decode step", int8: bool
                  f"(aten::round) {out['quantizer_ops']:.0f}")
         if out["quantizer_ops"]:
             raise AssertionError(f"{label}: {out['quantizer_ops']} torch quantizer ops a step")
-    log(f"[profile] {label} (8 slots, 32 layers): wall {wall_ms:.2f} ms, device "
+    if moe:
+        out["expert_bmm_ms"] = expert_bmm_ms(prof, steps)
+        extra = f"; experts' bmm {out['expert_bmm_ms']:.2f} ms"
+    log(f"[profile] {label} ({sched.num_slots} slots, {engine.run.model.num_layers} layers): "
+        f"wall {wall_ms:.2f} ms, device "
         + (f"{device_ms:.2f} ms, idle {out['idle_share']:.1%}; top: {shown}"
            if device_ms else "time not measured (profiler saw no device events)") + extra)
     return out
@@ -1161,10 +1196,12 @@ def phase_grads(params):
 
 
 def phase_train_profile(params, steps_n: int = 2, run=None, phases=(-1, 0, 1),
-                        label: str = "train profile"):
+                        label: str = "train profile", moe: bool = False):
     """Wall time (host clock around synchronised steps), device time
     (``torch.profiler``, device-side events only) and idle share of a
-    full-width train step at each freezing phase, with tokens/s."""
+    full-width train step at each freezing phase, with tokens/s and
+    ``torch.cuda.max_memory_allocated`` over the phase's steps; for a MoE
+    model also the experts' ``bmm`` ms."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import steps
@@ -1173,6 +1210,8 @@ def phase_train_profile(params, steps_n: int = 2, run=None, phases=(-1, 0, 1),
     batch = _train_batch(run, seed=98)
     out = {}
     for phase in phases:
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
         state, _ = steps.make_train_state(run.optim, params, phase)
         step = steps.build_train_step(run, "cuda")
         state, _ = step(state, batch, phase=phase)
@@ -1182,7 +1221,9 @@ def phase_train_profile(params, steps_n: int = 2, run=None, phases=(-1, 0, 1),
             state, _ = step(state, batch, phase=phase)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / steps_n * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        peak = torch.cuda.max_memory_allocated()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=moe) as prof:
             for _ in range(steps_n):
                 state, _ = step(state, batch, phase=phase)
             torch.cuda.synchronize()
@@ -1195,9 +1236,15 @@ def phase_train_profile(params, steps_n: int = 2, run=None, phases=(-1, 0, 1),
                           device_ms=device_ms if device_ms else None,
                           idle_share=(1 - device_ms / wall_ms) if device_ms else None,
                           k1_ms=k1_ms, k5_ms=k5_ms, k2_ms=k2_ms, k3_ms=k3_ms, k4_ms=k4_ms,
+                          max_memory_allocated=peak,
                           top=[dict(name=k[:80], ms=v) for k, v in top])
+        if moe:
+            out[phase]["expert_bmm_ms"] = expert_bmm_ms(prof, steps_n)
         shown = ", ".join(f"{k[:40]} {v:.2f}ms" for k, v in top[:6])
-        log(f"[{label}] phase {phase} step ({TRAIN_M} tokens, 32 layers): wall "
+        log(f"[{label}] phase {phase} step ({TRAIN_M} tokens, {run.model.num_layers} layers): "
+            f"max_memory_allocated {peak / 2 ** 30:.2f} GiB"
+            + (f", experts' bmm {out[phase]['expert_bmm_ms']:.2f} ms" if moe else "")
+            + "; wall "
             f"{wall_ms:.1f} ms ({TRAIN_M / wall_ms * 1e3:.0f} tok/s), device "
             + (f"{device_ms:.1f} ms, idle {out[phase]['idle_share']:.1%}; K1 {k1_ms:.2f} ms, "
                f"K5 {k5_ms:.2f} ms, K2 {k2_ms:.2f} ms, K3 {k3_ms:.2f} ms, K4 {k4_ms:.2f} ms; "
@@ -3025,6 +3072,503 @@ def phase_serving_features():
     return paths, result
 
 
+# --------------------------------------------------------------------------
+# The MoE family: full-width OLMoE-1B-7B (phases 29-35)
+# --------------------------------------------------------------------------
+
+# OLMoE-1B-7B at full width and depth (16 layers, d 2048, 16 heads of 128,
+# 64 experts of d_ff 1024, top-8, qk-norm, moe_impl "ep"), LRD at Eq.-5
+# ranks: attention 512, experts 341.  Serve: phase 4's trace (16 requests,
+# 8 slots, prompts padded to 128, 32 new tokens).  Train: phase 7's run,
+# sequential freezing at phases 0,0,1,1,0,0 over 8 x 256 tokens.  The
+# remat step: 8 x 1024 tokens with remat "full" and no freezing.
+MOE_ARCH, MOE_LAYERS, MOE_EXPERTS = "olmoe-1b-7b", 16, 64
+MOE_ATTN = dict(C=2048, r=512, S=2048)
+MOE_SERVE_ARGV = ["--arch", MOE_ARCH] + SERVE_ARGV[2:]
+MOE_TRAIN_ARGV = ["--arch", MOE_ARCH] + TRAIN_ARGV[2:]
+MOE_LONG_SEQ = 1024
+MOE_LONG_ARGV = ["--arch", MOE_ARCH, "--lrd", "--no-rank-opt", "--use-pallas", "--freeze",
+                 "none", "--remat", "full", "--steps", "1", "--global-batch", "8",
+                 "--seq-len", str(MOE_LONG_SEQ), "--save-every", "1000", "--log-every", "1"]
+# K1-K4 a train step: q, k, v and o of 16 layers forward (K1) and backward
+# (K2 always, K3 unless u is frozen, K4 unless v is); no K5 (no dense FFN)
+MOE_TRAIN_LAUNCHES = {"lowrank_matmul": 64, "lowrank_matmul_dx": 64,
+                      "lowrank_matmul_du": {-1: 64, 0: 0, 1: 64},
+                      "lowrank_matmul_dv": {-1: 64, 0: 64, 1: 0}}
+
+
+def moe_kernel_shapes():
+    """(name, dims) of every K1-K4 call on the MoE paths: K1 at the decode,
+    prefill, train and remat-step M; K2-K4 at the train and remat-step M."""
+    out = [("lowrank_matmul", dict(M=m, **MOE_ATTN))
+           for m in (DECODE_M, PREFILL_M, TRAIN_M, 8 * MOE_LONG_SEQ)]
+    out += [(name, dict(M=m, **MOE_ATTN)) for name in BWD for m in (TRAIN_M, 8 * MOE_LONG_SEQ)]
+    return out
+
+
+def _moe_key(m):
+    return m, MOE_ATTN["C"], MOE_ATTN["r"], MOE_ATTN["S"]
+
+
+@contextlib.contextmanager
+def routing(record=None, replay=None):
+    """Patch the port's MoE router (here only, never on the main path):
+    with ``record`` every call appends its (ids, float32 logits); with
+    ``replay`` (a list of such pairs) call i routes to the recorded ids of
+    call i, its weights and aux computed from this run's own logits."""
+    import torch.nn.functional as Fn
+
+    from repro_torch.models import moe
+    from repro_torch.models.common import dot32
+
+    orig = moe._router
+    calls = iter(replay) if replay is not None else None
+
+    def router(p, xf, cfg):
+        if calls is None:
+            topw, topi, aux = orig(p, xf, cfg)
+            if record is not None:
+                with torch.no_grad():
+                    record.append((topi.clone(), dot32(xf, p["router"]["kernel"]).float()))
+            return topw, topi, aux
+        ids = next(calls)[0]
+        probs = torch.softmax(dot32(xf, p["router"]["kernel"]), dim=-1)
+        topw = torch.gather(probs, 1, ids)
+        topw = topw / torch.clamp(torch.sum(topw, dim=-1, keepdim=True), min=1e-9)
+        e = cfg.num_experts
+        ce = torch.mean(torch.sum(Fn.one_hot(ids[:, 0], e).to(probs.dtype), dim=0)
+                        / max(xf.shape[0], 1), dim=0)
+        return topw, ids, e * torch.sum(torch.mean(probs, dim=0) * ce)
+
+    moe._router = router
+    try:
+        yield
+    finally:
+        moe._router = orig
+
+
+def routing_flips(kernel_calls, plain_calls, k: int):
+    """Tokens whose ordered top-k ids differ between two runs' router calls,
+    each with its top-k margin in the kernel run (the smallest gap between
+    consecutive logits down to the (k+1)-th) against the largest router-logit
+    difference of that token between the runs.  A flip whose margin exceeds
+    twice that difference cannot come from rounding: it fails."""
+    flips = []
+    for layer, ((ik, lk), (ip, lp)) in enumerate(zip(kernel_calls, plain_calls)):
+        rows = torch.nonzero((ik != ip).any(dim=1)).reshape(-1).tolist()
+        if not rows:
+            continue
+        top = torch.topk(lk[rows], k + 1, dim=-1).values
+        margin = (top[:, :-1] - top[:, 1:]).min(dim=-1).values
+        diff = (lk[rows] - lp[rows]).abs().max(dim=-1).values
+        for t, m, dl in zip(rows, margin.tolist(), diff.tolist()):
+            flips.append(dict(call=layer, token=t, margin=m, logit_diff=dl))
+    bad = [f for f in flips if f["margin"] > 2 * f["logit_diff"]]
+    if bad:
+        raise AssertionError(f"routing: {len(bad)} top-k flips wider than the logit "
+                             f"difference: {bad[:5]}")
+    return flips
+
+
+def _flip_summary(flips):
+    if not flips:
+        return "no routing flips"
+    calls = sorted({f["call"] for f in flips})
+    worst = max(flips, key=lambda f: f["margin"])
+    return (f"{len(flips)} flipped tokens in router calls {calls[:6]}"
+            f"{'...' if len(calls) > 6 else ''}; first in call {flips[0]['call']} (margin "
+            f"{flips[0]['margin']:.3e} against a logit difference {flips[0]['logit_diff']:.3e}); "
+            f"widest margin {worst['margin']:.3e} against {worst['logit_diff']:.3e}")
+
+
+def phase_moe_serve():
+    """Phase 29: the serve CLI on full-width OLMoE-1B-7B, LRD at Eq.-5
+    ranks: exactly 64 K1 and 0 K5 (or any other kernel) launches a forward,
+    by shape; tok/s and the pool bytes."""
+    from repro_torch.launch import serve
+
+    zero_counts()
+    t0 = time.perf_counter()
+    engine, outs = serve.main(MOE_SERVE_ARGV)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in wrappers().items()}
+    by_shape = counts_by_shape()
+    sched = engine.scheduler
+    fwd = sched.forward_stats
+    cfg = engine.run.model
+    if (cfg.num_layers, cfg.num_experts, cfg.moe_impl) != (MOE_LAYERS, MOE_EXPERTS, "ep"):
+        raise AssertionError(f"moe serve: {cfg.num_layers} layers, {cfg.num_experts} experts, "
+                             f"moe_impl {cfg.moe_impl!r}")
+    if len(outs) != 16 or any(len(o) != 32 for o in outs) or fwd["nonfinite"]:
+        raise AssertionError(f"moe serve: {[len(o) for o in outs]} tokens, "
+                             f"{fwd['nonfinite']} non-finite forwards")
+    want = {"lowrank_matmul": {_moe_key(PREFILL_M): 4 * MOE_LAYERS * fwd["prefill"],
+                               _moe_key(DECODE_M): 4 * MOE_LAYERS * fwd["decode"]}}
+    got = {k: v for k, v in by_shape.items() if v}
+    if got != want or counts["lowrank_gated_ffn"]:
+        raise AssertionError(f"moe serve: launches {got}, want {want} (64 K1 and 0 K5 a "
+                             f"forward)")
+    stats = sched.latency_stats()
+    pool = sched.cache_bytes()
+    log(f"[moe serve] olmoe-1b-7b (16 layers, 64 experts top-8, ep) with LRD: {len(outs)} "
+        f"requests, {int(stats['generated_tokens'])} tokens, {stats['tok_per_s']:.1f} tok/s on "
+        f"{torch.cuda.get_device_name(0)}; {fwd['prefill']} prefill + {fwd['decode']} decode "
+        f"forwards, {counts['lowrank_matmul']} K1 = 64 a forward, 0 K5; pools "
+        f"{pool / 2 ** 20:.1f} MiB; {dt:.1f}s incl. init")
+    return engine, by_shape, dict(fwd=dict(fwd), k1=counts["lowrank_matmul"], stats=stats,
+                                  pool_bytes=pool, wall_s=dt)
+
+
+def phase_moe_parity(engine):
+    """Phase 30: the kernels against the plain path on the card with
+    routing pinned (the plain run replays the kernel run's expert ids):
+    one 128-token prefill's last-position logits and one 8-slot decode
+    step's logits (cap2 = 1) within PATH_RTOL of max |logit|; then the
+    plain run unpinned, its routing flips reported with their margins."""
+    import dataclasses
+
+    from repro_torch.launch import steps
+
+    run = engine.run
+    plain = dataclasses.replace(run, lrd=dataclasses.replace(run.lrd, use_pallas_kernel=False))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, run.model.vocab_size, (1, PREFILL_M), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    last = torch.tensor([PREFILL_M - 1], device="cuda")
+    # the retired slots' tables all point at the sink block: give each slot
+    # a block of its own, or the 8 rows would write one position
+    import numpy as np
+
+    from repro_torch.serving import paged_cache as pc
+
+    sched = engine.scheduler
+    cache = pc.with_page_table(sched.cache, 1 + np.arange(
+        sched.num_slots * sched.pages.max_blocks, dtype=np.int32).reshape(sched.num_slots, -1))
+    dec_tok = torch.randint(0, run.model.vocab_size, (DECODE_M, 1), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    dec_pos = torch.zeros((DECODE_M,), dtype=torch.int32, device="cuda")
+
+    def both(r):
+        pre, _ = steps.build_slot_prefill_step(r)(engine.params, {"tokens": tokens}, last)
+        dec, _, _ = steps.build_serve_step(r)(engine.params, cache, dec_tok, dec_pos)
+        return pre, dec[:, -1]
+
+    kcalls, ucalls = [], []
+    with routing(record=kcalls):
+        kpre, kdec = both(run)
+    with routing(replay=kcalls):
+        ppre, pdec = both(plain)
+    with routing(record=ucalls):
+        upre, udec = both(plain)
+    zero_counts()
+    # the padded vocab tail holds -1e30 in every run: compare the true vocab
+    v = run.model.vocab_size
+    kpre, kdec, ppre, pdec, upre, udec = (t[..., :v] for t in (kpre, kdec, ppre, pdec, upre,
+                                                               udec))
+    out = {}
+    for what, got, want, free in (("prefill", kpre, ppre, upre), ("decode", kdec, pdec, udec)):
+        err, rel = rel_err(got, want)
+        if not torch.isfinite(got).all() or rel > PATH_RTOL:
+            raise AssertionError(f"moe parity ({what}, routing pinned): logits differ by "
+                                 f"{err:.3e} ({rel:.3e} of max |logit|) > {PATH_RTOL}")
+        out[what] = dict(max_abs_diff=err, rel=rel, unpinned_rel=rel_err(got, free)[1])
+    flips = routing_flips(kcalls, ucalls, run.model.num_experts_per_tok)
+    out["flips"] = flips
+    log(f"[moe parity] routing pinned: prefill last-position logits {out['prefill']['rel']:.3e} "
+        f"and decode-step logits {out['decode']['rel']:.3e} of max |logit| (bound {PATH_RTOL}); "
+        f"unpinned: {out['prefill']['unpinned_rel']:.3e} / {out['decode']['unpinned_rel']:.3e}, "
+        f"{_flip_summary(flips)}")
+    return out
+
+
+def expert_bmm_ms(prof, steps_n: int):
+    """Device ms a step of the experts' products: the ``aten::bmm`` ops whose
+    batch dim is the expert count (attention's batch dims are B x heads)."""
+    total = 0.0
+    for ev in prof.key_averages(group_by_input_shape=True):
+        shapes = ev.input_shapes or []
+        if ev.key == "aten::bmm" and shapes and shapes[0] and shapes[0][0] == MOE_EXPERTS:
+            total += getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+    return total / steps_n / 1e3
+
+
+def phase_moe_train():
+    """Phase 32: the training CLI on full-width OLMoE-1B-7B, 6 steps with
+    sequential freezing, launches counted per step by name and shape."""
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("moe train: TF32 is on; the router's float32 matmul must not "
+                             "use it")
+    state, per_step, by_shape, dt = _counted_train(MOE_TRAIN_ARGV)
+    phases = [r["phase"] for r in per_step]
+    if phases != [0, 0, 1, 1, 0, 0]:
+        raise AssertionError(f"moe train: phases {phases}, want [0, 0, 1, 1, 0, 0]")
+    for r in per_step:
+        want = {k: (v[r["phase"]] if isinstance(v, dict) else v)
+                for k, v in MOE_TRAIN_LAUNCHES.items()}
+        got = {k: n for k, n in r["launches"].items() if n or k in want}
+        seen = {k: keys for k, keys in r["shapes"].items() if keys}
+        shapes = {k: {_moe_key(TRAIN_M)} for k, n in want.items() if n}
+        if got != want or seen != shapes:
+            raise AssertionError(f"moe train: step {r['step']} (phase {r['phase']}) launched "
+                                 f"{got} at {seen}, want {want} at {shapes}")
+        if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])):
+            raise AssertionError(f"moe train: step {r['step']} loss {r['loss']}")
+        log(f"[moe train] step {r['step']} phase {r['phase']}: loss {r['loss']:.4f}, grad norm "
+            f"{r['grad_norm']:.3f}, {r['step_time_s'] * 1e3:.1f} ms, memory_allocated "
+            f"{r['mem'] / 2 ** 30:.2f} GiB; launches "
+            + ", ".join(f"{k.replace('lowrank_', '')} {n}" for k, n in r["launches"].items()
+                        if n))
+    log(f"[moe train] 6 steps of {TRAIN_M} tokens on {torch.cuda.get_device_name(0)}: loss "
+        f"{per_step[0]['loss']:.4f} -> {per_step[-1]['loss']:.4f}; {dt:.1f}s incl. init; "
+        f"TF32 off (router float32 matmul at 'highest')")
+    return state.params, by_shape, dict(steps=_without_shapes(per_step), wall_s=dt)
+
+
+def _moe_run(remat: str = "none"):
+    import dataclasses
+
+    from repro_torch.launch import train
+
+    run = train.build_run(train._parser().parse_args(MOE_TRAIN_ARGV))
+    return dataclasses.replace(run, dist=dataclasses.replace(run.dist, remat=remat))
+
+
+def _split_grads(trainable, frozen, batch, run, phase: int, calls):
+    """path -> (gradient of the cross entropy, max |gradient of 0.01 * aux|)
+    for every trainable leaf, routing replayed from ``calls``."""
+    from repro_torch.core import freezing
+    from repro_torch.core.freezing import tree_leaves, tree_map
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.models.common import cross_entropy
+
+    live = [t.detach().requires_grad_(True) for t in tree_leaves(trainable)]
+    it = iter(live)
+    params = freezing.merge(tree_map(lambda _: next(it), trainable), frozen)
+    with torch.enable_grad(), routing(replay=calls):
+        logits, _, aux = lm.lm_apply(params, batch["tokens"], run.model, mode="train",
+                                     policy=steps.kernel_policy(run, phase))
+        g_ce = torch.autograd.grad(cross_entropy(logits, batch["labels"]), live,
+                                   retain_graph=True, allow_unused=True)
+        g_aux = torch.autograd.grad(0.01 * aux, live, allow_unused=True)
+    out = {}
+    for (path, t), ce, ax in zip(_grad_paths(trainable), g_ce, g_aux):
+        out[path] = (torch.zeros_like(t) if ce is None else ce,
+                     0.0 if ax is None else ax.abs().max().item())
+    return out
+
+
+def phase_moe_grads(params):
+    """Phase 33: one full-width train step's loss and gradients through the
+    kernels against the plain path at phases -1, 0 and 1, routing pinned;
+    the unpinned plain run's routing flips reported.
+
+    A leaf's gradient is the sum of a cross-entropy part and an aux part.
+    The aux part is the gradient of a constant (the reference's ``aux`` is
+    1 up to rounding), so what autograd returns for it is the float32
+    rounding of the softmax's sum, which differs between any two runs whose
+    router logits differ; it reaches the router and, through the router's
+    input, the MoE's norm and everything before it.  Where the experts'
+    outputs are tiny (the reference scales a 4-D factor by (L E C)^-1/2 at
+    init), the router's and that norm's cross-entropy parts are of the same
+    size.  So every leaf is held twice: its cross-entropy part within
+    GRAD_RTOL of its max, and its full train-step gradient within GRAD_RTOL
+    of its max plus the two runs' aux parts, whose true value is 0."""
+    import dataclasses
+
+    from repro_torch.core import freezing
+    from repro_torch.launch import steps
+
+    run = _moe_run()
+    plain = dataclasses.replace(run, lrd=dataclasses.replace(run.lrd, use_pallas_kernel=False))
+    batch = _train_batch(run, seed=99)
+    out = {}
+    for phase in (-1, 0, 1):
+        trainable, frozen = freezing.partition(params, phase)
+        kcalls, ucalls = [], []
+        with routing(record=kcalls):
+            lk, gk = steps._value_and_grad(trainable, frozen, batch, run, phase)
+        with routing(replay=kcalls):
+            lp, gp = steps._value_and_grad(trainable, frozen, batch, plain, phase)
+        full = {}  # path -> (max |dgrad|, max |grad|)
+        for (path, a), (_, b) in zip(_grad_paths(gk), _grad_paths(gp)):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"moe grads: phase {phase} {path} not finite")
+            full[path] = ((a.float() - b.float()).abs().max().item(),
+                          b.float().abs().max().item())
+        del gk, gp
+        split_k = _split_grads(trainable, frozen, batch, run, phase, kcalls)
+        split_p = _split_grads(trainable, frozen, batch, plain, phase, kcalls)
+        rows = []  # (full rel, path, ce rel, aux floor, within both bounds)
+        for path, (diff, gmax) in full.items():
+            (ce_k, aux_k), (ce_p, aux_p) = split_k[path], split_p[path]
+            ce_rel = rel_err(ce_k, ce_p)[1]
+            floor = aux_k + aux_p
+            rows.append((diff / max(gmax, 1e-30), path, ce_rel, floor,
+                         ce_rel <= GRAD_RTOL and diff <= GRAD_RTOL * gmax + floor))
+        del split_k, split_p
+        with routing(record=ucalls):
+            lu, _ = steps._value_and_grad(trainable, frozen, batch, plain, phase)
+        flips = routing_flips(kcalls, ucalls, run.model.num_experts_per_tok)
+        zero_counts()
+        loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
+        rows.sort(reverse=True)
+        by_ce = sorted(rows, key=lambda r: -r[2])
+        log(f"[moe grads] phase {phase}, routing pinned: loss kernels {lk.item():.5f} vs plain "
+            f"{lp.item():.5f} (rel {loss_rel:.2e}, bound {LOSS_RTOL}); {len(rows)} trainable "
+            f"leaves; worst max |dgrad| / max |grad|: "
+            + ", ".join(f"{r[0]:.2e} at {r[1]} (aux parts {r[3]:.2e}, max |grad| "
+                        f"{full[r[1]][1]:.2e})" for r in rows[:3])
+            + "; worst cross-entropy part: "
+            + ", ".join(f"{r[2]:.2e} at {r[1]}" for r in by_ce[:3])
+            + f" (bound {GRAD_RTOL} of max |grad|, plus the aux parts for the full gradient); "
+            f"unpinned plain loss {lu.item():.5f}, {_flip_summary(flips)}")
+        bad = [r[1] for r in rows if not r[4]]
+        if loss_rel > LOSS_RTOL or bad:
+            raise AssertionError(f"moe grads: phase {phase} loss rel {loss_rel:.3e}, leaves "
+                                 f"over the bound {bad}")
+        out[phase] = dict(loss_kernels=lk.item(), loss_plain=lp.item(), loss_rel=loss_rel,
+                          leaves=len(rows), worst_rel=rows[0][0], worst_leaf=rows[0][1],
+                          worst_aux_floor=rows[0][3], worst_ce_rel=by_ce[0][2],
+                          worst_ce_leaf=by_ce[0][1], loss_unpinned=lu.item(),
+                          flips=flips)
+    return out
+
+
+def phase_remat(params):
+    """Phase 35: one 8 x 256 batch at phase -1 under each remat policy
+    (``none`` twice first): losses and gradients equal to ``none``'s bit for
+    bit wherever the two ``none`` runs agree; K1 launches 64 plus the
+    recomputed forwards, K2-K4 64 each; peak memory below ``none``'s.  Then
+    8 x 1024 tokens' loss and gradients under ``full`` (their peak memory)
+    and the training CLI for one step of 8 x 1024 tokens under ``--remat
+    full`` (t = 8192 through the ep path)."""
+    import dataclasses
+
+    from repro_torch.core import freezing
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+
+    batch = _train_batch(_moe_run(), seed=97)
+    trainable, frozen = freezing.partition(params, -1)
+    # K1 forwards a step: 64, the recompute of every layer (full, dots: the
+    # kernels are no aten ops, so dots recomputes them too), and under sqrt
+    # also the groups' recompute of all but each group's last layer
+    g = lm._best_divisor(MOE_LAYERS)
+    per = MOE_LAYERS // g
+    want_k1 = {"none": 64, "full": 128, "dots": 128, "sqrt": 128 + 4 * g * (per - 1)}
+    ref, out, nondet = None, {}, []
+    for i, policy in enumerate(("none",) + lm.REMAT_POLICIES):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        zero_counts()
+        t0 = time.perf_counter()
+        loss, grads = steps._value_and_grad(trainable, frozen, batch, _moe_run(policy), -1)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        counts = {name: fn.launches for name, fn in wrappers().items() if fn.launches}
+        leaves = list(_grad_paths(grads))
+        if i == 0:
+            ref = (loss, leaves)
+        elif i == 1:
+            nondet = [p for (p, a), (_, b) in zip(ref[1], leaves) if not torch.equal(a, b)]
+            if not torch.equal(loss, ref[0]):
+                raise AssertionError("remat: two runs of 'none' gave different losses")
+        else:
+            differ = [p for (p, a), (_, b) in zip(ref[1], leaves)
+                      if p not in nondet and not torch.equal(a, b)]
+            if not torch.equal(loss, ref[0]) or differ:
+                raise AssertionError(f"remat {policy}: loss {loss.item()} vs none "
+                                     f"{ref[0].item()}, gradients differ at {differ[:5]}")
+        want = {"lowrank_matmul": want_k1[policy], "lowrank_matmul_dx": 64,
+                "lowrank_matmul_du": 64, "lowrank_matmul_dv": 64}
+        if counts != want:
+            raise AssertionError(f"remat {policy}: launches {counts}, want {want}")
+        key = policy if i else "none (first)"
+        out[key] = dict(loss=loss.item(), peak_bytes=peak, seconds=secs, launches=counts)
+        log(f"[remat] {policy}: loss {loss.item():.6f}, K1 {counts['lowrank_matmul']} + K2/K3/K4 "
+            f"64 each, peak {peak / 2 ** 30:.2f} GiB above the {base / 2 ** 30:.2f} GiB held, "
+            f"{secs * 1e3:.0f} ms"
+            + (f"; bit-identical to none ({len(ref[1]) - len(nondet)} of {len(ref[1])} leaves "
+               f"deterministic)" if i > 1 else ""))
+        del grads, leaves
+    for policy in lm.REMAT_POLICIES[1:]:
+        if not out[policy]["peak_bytes"] < out["none"]["peak_bytes"]:
+            raise AssertionError(f"remat {policy}: peak {out[policy]['peak_bytes']} not below "
+                                 f"none's {out['none']['peak_bytes']}")
+    out["nondeterministic_without_remat"] = nondet
+    log(f"[remat] leaves whose backward differs between two runs of none: {nondet or 'none'}")
+    del ref
+    # the loss and gradients of 8 x 1024 tokens under full, as above
+    long_run = dataclasses.replace(_moe_run("full"), shape=dataclasses.replace(
+        _moe_run().shape, seq_len=MOE_LONG_SEQ))
+    long_batch = _train_batch(long_run, seed=96)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    loss, grads = steps._value_and_grad(trainable, frozen, long_batch, long_run, -1)
+    torch.cuda.synchronize()
+    out["long_full_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    log(f"[remat] full, 8 x {MOE_LONG_SEQ} tokens, loss and gradients: peak "
+        f"{out['long_full_peak_bytes'] / 2 ** 30:.2f} GiB above the {base / 2 ** 30:.2f} GiB "
+        f"held (none at 8 x 256 tokens: {out['none']['peak_bytes'] / 2 ** 30:.2f} GiB)")
+    del trainable, frozen, grads, loss, long_batch
+    zero_counts()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    state, per_step, by_shape, dt = _counted_train(MOE_LONG_ARGV)
+    r = per_step[0]
+    m = 8 * MOE_LONG_SEQ
+    want = {"lowrank_matmul": 128, "lowrank_matmul_dx": 64, "lowrank_matmul_du": 64,
+            "lowrank_matmul_dv": 64}
+    got = {k: n for k, n in r["launches"].items() if n}
+    seen = {k: keys for k, keys in r["shapes"].items() if keys}
+    if got != want or seen != {k: {_moe_key(m)} for k in want} or not math.isfinite(r["loss"]):
+        raise AssertionError(f"remat long step: loss {r['loss']}, launched {got} at {seen}, "
+                             f"want {want} at M = {m}")
+    peak = torch.cuda.max_memory_allocated()
+    out["long_step"] = dict(tokens=m, loss=r["loss"], step_time_s=r["step_time_s"],
+                            max_memory_allocated=peak, launches=got)
+    log(f"[remat] train CLI, --remat full, 8 x {MOE_LONG_SEQ} tokens (ep at t = {m}, cap2 "
+        f"{_cap2(m)}): loss {r['loss']:.4f}, {r['step_time_s'] * 1e3:.0f} ms, "
+        f"max_memory_allocated {peak} B = {peak / 2 ** 30:.2f} GiB (params, grads, momentum "
+        f"and the optimizer update's temporaries included), K1 128 + K2/K3/K4 64 each at "
+        f"M = {m}")
+    del state
+    return by_shape, out
+
+
+def _cap2(t: int) -> int:
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    return moe.ep_capacity(t, get_config(MOE_ARCH))
+
+
+def phase_moe():
+    """Phases 29-35; returns (launches by kernel and shape per main path,
+    results)."""
+    paths, result = {}, {}
+    engine, paths["moe serve"], result["moe_serve"] = phase_moe_serve()
+    result["moe_parity"] = phase_moe_parity(engine)
+    result["moe_profile"] = phase_profile(engine, label="MoE decode step", moe=True)
+    del engine
+    gc.collect()
+    params, paths["moe train"], result["moe_train"] = phase_moe_train()
+    result["moe_grads"] = phase_moe_grads(params)
+    result["moe_train_profile"] = phase_train_profile(
+        params, run=_moe_run(), label="moe train profile", moe=True)
+    paths["moe remat"], result["remat"] = phase_remat(params)
+    del params
+    gc.collect()
+    return paths, result
+
+
 def check_launched_shapes(path: str, rows, by_shape) -> None:
     """Fail if ``path`` launched a kernel at a shape the kernel phase did
     not check."""
@@ -3055,10 +3599,11 @@ def count_launches(rows, paths) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="", help="also write every result as JSON here")
-    ap.add_argument("--only", choices=("kernels", "conv", "serve"), default=None,
+    ap.add_argument("--only", choices=("kernels", "conv", "serve", "moe"), default=None,
                     help="kernels: stop after the kernel phase (a first check of a build); "
                          "conv: run only the conv and ViT phases; serve: phases 1-3 at the "
-                         "serving shapes and the serving features' phases 25-28")
+                         "serving shapes and the serving features' phases 25-28; moe: "
+                         "phases 1-3 at the MoE shapes and the MoE phases 29-35")
     args = ap.parse_args(argv)
 
     t_start = time.perf_counter()
@@ -3072,11 +3617,20 @@ def main(argv=None) -> int:
         print(smi, flush=True)
         return 0
     build_s = phase_build()
-    rows = phase_kernels(kernel_shapes(serve_only=args.only == "serve"))
+    if args.only == "moe":
+        shapes = moe_kernel_shapes()
+    elif args.only == "serve":
+        shapes = kernel_shapes(serve_only=True)
+    else:
+        shapes = kernel_shapes() + moe_kernel_shapes()
+    rows = phase_kernels(shapes)
     result = dict(smi=smi, build_s=build_s, kernels=rows)
     paths = {}  # main path -> launches by kernel and shape
     if args.only == "serve":
         paths, result["serving"] = phase_serving_features()
+        count_launches(rows, paths)
+    elif args.only == "moe":
+        paths, result["moe"] = phase_moe()
         count_launches(rows, paths)
     elif args.only is None:
         engine, paths["serve"], result["serve"] = phase_serve()
@@ -3130,6 +3684,9 @@ def main(argv=None) -> int:
         result.update(phase_conv())
         # speculative decoding, the prefix cache, int8 KV and the fixed batch
         more, result["serving"] = phase_serving_features()
+        paths.update(more)
+        # the MoE family: full-width OLMoE-1B-7B served, trained, rematerialised
+        more, result["moe"] = phase_moe()
         paths.update(more)
         count_launches(rows, paths)
         if not any(r["launches"] for r in rows if r["name"] == "int8_linear"):

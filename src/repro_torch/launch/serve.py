@@ -8,12 +8,16 @@ throughput and latency percentiles.  ``--export {analytic,measured}`` serves
 the rank-quantized Algorithm-1 artifact (``serving/export.py``) and
 ``--export-int8`` stores its groups as int8.  With ``--lrd`` on CUDA every
 factorised projection runs through the hand-written kernels (K1/K5, or K7
-and K6 for the int8 artifact).  Flags of features this port does not have
-yet are rejected, not ignored.
+and K6 for the int8 artifact).  ``--arch`` takes the dense and MoE
+families (``olmoe-1b-7b``, whose experts run ``torch.bmm`` as in the
+reference; an int8 export of its expert groups is refused).  Flags of
+features this port does not have yet are rejected, not ignored.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m --lrd \\
       --slots 8 --requests 16 --rate 1000 --prompt-len 128 --max-new 32 \\
       [--export measured --export-int8]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b --lrd \\
+      --slots 8 --requests 16 --rate 1000 --prompt-len 128 --max-new 32
 """
 
 from __future__ import annotations
@@ -127,9 +131,11 @@ def main(argv=None):
             ap.error(f"--{flag.replace('_', '-')} is not ported to the PyTorch "
                      f"package yet ({item})")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    if cfg.family != "dense" or cfg.use_mla:
-        ap.error(f"--arch {args.arch} ({cfg.family}) is not ported yet "
-                 f"(ROADMAP queue 1 item 7, other model families)")
+    if cfg.family not in ("dense", "moe") or cfg.use_mla or cfg.use_mtp:
+        ap.error(f"--arch {args.arch} ({cfg.family}"
+                 f"{', MLA/MTP' if cfg.use_mla or cfg.use_mtp else ''}) is not ported yet: "
+                 f"the port serves the dense and MoE GQA families (ROADMAP queue 1 "
+                 f"item 7, other model families)")
     device = steps_mod.resolve_device(args.device)
     max_len = args.max_len or (args.prompt_len + args.max_new)
     try:

@@ -168,12 +168,16 @@ def repartition_state(optim_cfg, state: TrainState, parked, new_phase: int, *,
 
 
 def _loss_fn(trainable, frozen, batch, run: RunConfig, phase: int) -> torch.Tensor:
-    """Mean token NLL of the merged params; ``frozen`` leaves carry no grad,
-    so no gradient of a frozen leaf is ever built."""
+    """Mean token NLL of the merged params, plus ``0.01 * aux`` for a MoE
+    model (the reference's load-balance weight); ``frozen`` leaves carry
+    no grad, so no gradient of a frozen leaf is ever built."""
     params = freezing.merge(trainable, frozen)
-    logits, _, _ = lm.lm_apply(params, batch["tokens"], run.model, mode="train",
-                               policy=kernel_policy(run, phase), remat=run.dist.remat)
-    return cross_entropy(logits, batch["labels"])
+    logits, _, aux = lm.lm_apply(params, batch["tokens"], run.model, mode="train",
+                                 policy=kernel_policy(run, phase), remat=run.dist.remat)
+    loss = cross_entropy(logits, batch["labels"])
+    if run.model.num_experts:
+        loss = loss + 0.01 * aux
+    return loss
 
 
 def _value_and_grad(trainable, frozen, batch, run: RunConfig, phase: int):

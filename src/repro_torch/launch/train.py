@@ -19,12 +19,16 @@ newest complete checkpoint in ``--ckpt-dir/<model name>``, whichever
 package wrote it.  ``--rank-schedule decay|energy`` shrinks the ranks at
 every phase swap (``core.rank_adapt``; a ``[rank-adapt]`` line names the
 groups, ``old->new``); the checkpoint keeps the rank map, and a resume
-continues at the saved ranks.  Flags of features this port does not have
+continues at the saved ranks.  ``--remat full|dots|sqrt`` checkpoints the
+layer stacks' activations (``models.lm``).  ``--arch`` takes the dense and
+MoE families (``olmoe-1b-7b``); flags of features this port does not have
 yet are rejected, not ignored.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       --lrd --no-rank-opt --use-pallas --freeze sequential --steps 6 \\
       --steps-per-epoch 2 --global-batch 8 --seq-len 256 [--rank-schedule decay]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b --lrd \\
+      --no-rank-opt --use-pallas --freeze sequential --remat full
 """
 
 from __future__ import annotations
@@ -52,7 +56,6 @@ _UNPORTED_FLAGS = {
     "mesh": ("host", "ROADMAP queue 1 item 8, distributed"),
     "fsdp": (False, "ROADMAP queue 1 item 8, distributed"),
     "grad_compression": ("none", "ROADMAP queue 1 item 8, distributed"),
-    "remat": ("none", "ROADMAP queue 1 item 11, activation checkpointing"),
     "obs": (False, "ROADMAP queue 1 item 9, telemetry"),
     "obs_dir": ("", "ROADMAP queue 1 item 9, telemetry"),
     "log_format": ("text", "ROADMAP queue 1 item 9, telemetry"),
@@ -116,6 +119,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=1e-2)
     ap.add_argument("--warmup", type=int, default=10)
     ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--remat", default="none", choices=["none", "full", "dots", "sqrt"],
+                    help="activation checkpointing of the layer stacks")
     ap.add_argument("--ckpt-dir", default="runs/train_ckpt")
     ap.add_argument("--save-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
@@ -123,7 +128,6 @@ def _parser() -> argparse.ArgumentParser:
     # the JAX CLI's flags for features not ported yet: rejected when set
     ap.add_argument("--pallas-interpret", action="store_true")
     ap.add_argument("--fsdp", action="store_true")
-    ap.add_argument("--remat", default="none", choices=["none", "full", "dots", "sqrt"])
     ap.add_argument("--grad-compression", default="none", choices=["none", "int8"])
     ap.add_argument("--mesh", default="host", choices=["host", "production"])
     ap.add_argument("--mesh-data", type=int, default=0)
@@ -147,7 +151,7 @@ def build_run(args) -> RunConfig:
                       use_pallas_kernel=args.use_pallas, rank_schedule=args.rank_schedule,
                       rank_decay=args.rank_decay, rank_energy_threshold=args.rank_energy,
                       rank_min=args.rank_min),
-        dist=DistConfig(fsdp=False, remat="none", microbatches=args.microbatches),
+        dist=DistConfig(fsdp=False, remat=args.remat, microbatches=args.microbatches),
         optim=OptimConfig(name=args.optimizer, lr=args.lr, warmup_steps=args.warmup,
                           total_steps=args.steps),
         seed=args.seed,
@@ -171,9 +175,11 @@ def main(argv=None, *, on_step=None):
         ap.error("--mesh-data/--mesh-model > 1: the PyTorch package trains on one "
                  "device (ROADMAP queue 1 item 8, distributed)")
     run = build_run(args)
-    if run.model.family != "dense" or run.model.use_mla or run.model.use_mtp:
-        ap.error(f"--arch {args.arch} ({run.model.family}) is not ported yet "
-                 f"(ROADMAP queue 1 item 7, other model families)")
+    if run.model.family not in ("dense", "moe") or run.model.use_mla or run.model.use_mtp:
+        ap.error(f"--arch {args.arch} ({run.model.family}"
+                 f"{', MLA/MTP' if run.model.use_mla or run.model.use_mtp else ''}) is not "
+                 f"ported yet: the port trains the dense and MoE GQA families (ROADMAP "
+                 f"queue 1 item 7, other model families)")
     device = steps_mod.resolve_device(args.device)
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"[device] {where}")

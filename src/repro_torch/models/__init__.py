@@ -1,2 +1,3 @@
-"""Model zoo of the PyTorch port: the dense decoder family (``lm``), and the
-paper's own ResNet-50/101/152 (``resnet``) and ViT (``vit``)."""
+"""Model zoo of the PyTorch port: the dense and MoE decoder families
+(``lm``, whose MoE layers are ``moe``), and the paper's own
+ResNet-50/101/152 (``resnet``) and ViT (``vit``)."""

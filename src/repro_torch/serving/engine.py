@@ -24,7 +24,10 @@ The engine runs on CUDA unless ``device="cpu"`` is passed, and raises
 without a GPU.  ``config.export != "none"`` runs the Algorithm-1 serving
 export (``serving/export.py``) on ``params`` at construction, with the
 measured backend's probes timed on the engine's device (``params`` must
-already lie there); ``engine.export_report`` holds its report.  The mesh
+already lie there); ``engine.export_report`` holds its report.  A MoE model
+serves through the same scheduler and fixed-batch path (every layer stack
+gets its pool or padded cache); its int8 export raises, since the
+reference cannot serve int8 expert groups.  The mesh
 and telemetry raise a ``ValueError`` naming the ROADMAP item that brings
 them.
 """
@@ -102,6 +105,11 @@ class ServeEngine:
         why = _unported(self.config, obs, mesh)
         if why:
             raise ValueError(f"ServeEngine: {why}")
+        if self.config.export_int8 and run.model.num_experts:
+            raise ValueError(
+                "ServeEngine: an int8 export of a MoE model's expert groups cannot be "
+                "served: the reference's _expert_ffn reads only 'kernel' or 'u'/'v' "
+                "(ROADMAP queue 3, departures by design)")
         self.device = steps_mod.resolve_device(device)
         self.run = run
         self.params = params

@@ -6,7 +6,9 @@ per-slot page table maps logical block index -> physical block id.  Blocks
 are allocated on demand and returned the moment a request retires, so the
 pool can be oversubscribed relative to ``num_slots * max_len``.
 
-Layout per layer stack::
+Layout per layer stack (``stack`` of a dense model, ``moe_stack`` of a MoE
+one, ``dense_stack`` and ``moe_stack`` of a MoE model with dense first
+layers; ``models.lm.stack_layers``)::
 
     {"k": (L, num_blocks, block_size, KV, hd),
      "v": (L, num_blocks, block_size, KV, hd),
@@ -37,6 +39,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import kvcache as kvq
+from repro_torch.models.lm import stack_layers
 
 __all__ = ["BlockAllocator", "PageTableManager", "blocks_for", "supports_paged",
            "init_paged_cache", "with_page_table", "insert_prefill_paged",
@@ -219,29 +222,34 @@ class PageTableManager:
 
 def supports_paged(cfg: ModelConfig) -> bool:
     """Families whose decode cache is plain per-layer GQA K/V blocks."""
-    return cfg.family == "dense" and not cfg.use_mla and not cfg.num_experts
+    return cfg.family in ("dense", "moe") and not cfg.use_mla
 
 
 def init_paged_cache(cfg: ModelConfig, num_slots: int, num_blocks: int,
                      block_size: int, max_blocks: int, device) -> Dict[str, Any]:
-    """Allocate the block pools (+ zeroed page tables) on ``device``."""
+    """Allocate the block pools (+ zeroed page tables) on ``device``, one
+    pool per layer stack under the stack's name."""
     if not supports_paged(cfg):
         raise ValueError(
-            f"the port's paged KV cache supports the dense GQA family, not "
+            f"the port's paged KV cache supports the dense and MoE GQA families, not "
             f"{cfg.family}{'/mla' if cfg.use_mla else ''} (ROADMAP queue 1 item 7, "
             f"other model families)")
-    n, kv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     quant = cfg.kv_cache_dtype == "int8"
-    shape = (n, num_blocks, block_size, kv, hd)
     dtype = torch.int8 if quant else cfg.cdtype
-    stack = {"k": torch.zeros(shape, dtype=dtype, device=device),
-             "v": torch.zeros(shape, dtype=dtype, device=device)}
-    if quant:
-        for name in ("k_scale", "v_scale"):
-            stack[name] = torch.zeros(shape[:-1] + (1,), dtype=torch.bfloat16, device=device)
-    stack["page_table"] = torch.zeros((n, num_slots, max_blocks), dtype=torch.int32,
-                                      device=device)
-    return {"stack": stack}
+    out = {}
+    for name, n in stack_layers(cfg).items():
+        shape = (n, num_blocks, block_size, kv, hd)
+        stack = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                 "v": torch.zeros(shape, dtype=dtype, device=device)}
+        if quant:
+            for leaf in ("k_scale", "v_scale"):
+                stack[leaf] = torch.zeros(shape[:-1] + (1,), dtype=torch.bfloat16,
+                                          device=device)
+        stack["page_table"] = torch.zeros((n, num_slots, max_blocks), dtype=torch.int32,
+                                          device=device)
+        out[name] = stack
+    return out
 
 
 def with_page_table(cache: Dict[str, Any], table: np.ndarray) -> Dict[str, Any]:

@@ -124,8 +124,9 @@ class Scheduler:
         cfg = run.model
         if not pc.supports_paged(cfg):
             raise ValueError(
-                f"the port's scheduler serves the dense decoder family, not "
-                f"{cfg.family!r} (ROADMAP queue 1 item 7, other model families)")
+                f"the port's scheduler serves the dense and MoE GQA decoder families, "
+                f"not {cfg.family!r}{' with MLA' if cfg.use_mla else ''} (ROADMAP queue 1 "
+                f"item 7, other model families)")
         self.run_config = run
         self.params = params
         self.device = torch.device(device)

@@ -106,9 +106,9 @@ def test_port_run_resumes_across_a_phase_swap(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--mesh", "production"], ["--mesh-data", "2"], ["--mesh-model", "2"], ["--fsdp"],
-    ["--grad-compression", "int8"], ["--remat", "full"], ["--obs"],
+    ["--grad-compression", "int8"], ["--arch", "xlstm-350m"], ["--obs"],
     ["--profile-steps", "1:2"], ["--log-format", "jsonl"], ["--pallas-interpret"],
-    ["--arch", "olmoe-1b-7b"]])
+    ["--arch", "deepseek-v3-671b"]])
 def test_train_cli_rejects_unported_flags(flags, capsys):
     with pytest.raises(SystemExit) as exc:
         train.main(["--device", "cpu", *SMOKE, "--steps", "1", *flags])
