@@ -12,9 +12,14 @@ Phases, in order; any failure exits nonzero:
               (``kernels/ref.py``) on the same inputs, timed with CUDA
               events beside its plain version and one library call; K1-K5
               rows also print their TFLOP/s and share of the bound (K1 and
-              K5 run their large-M design from ``LARGE_M`` rows), and K2, K3
-              and K4 must give the same bits on a second call (K2 splits
-              nothing; K3/K4's split sum over M is added in a fixed order);
+              K5 run their large-M design from ``LARGE_M`` rows, K1's by its
+              table ``large_m``); K1/K5 rows in the decode design also print
+              both launches' CTA counts and structure and a copy floor (one
+              ``copy_`` of the factors' bytes, timed the same way: the floor
+              of one launch under this method); K2, K3, K4 and the decode
+              design of K1/K5 must give the same bits on a second call (K2
+              splits nothing; K3/K4's split sum over M and the decode
+              design's cluster partials are added in a fixed order);
 4. serve    — ``repro_torch.launch.serve.main`` on full-width smollm-360m
               with LRD (16 requests through 8 slots), with the kernels'
               launch counters zeroed before and read after;
@@ -96,11 +101,15 @@ Phases, in order; any failure exits nonzero:
               its plain version, timed as in phase 3 beside
               ``F.scaled_dot_product_attention``;
 19. designs — both K1/K5 designs (decode and large-M) at M in
-              DESIGN_SWEEP_M and on both sides of each wrapper's LARGE_M,
-              for every train-path geometry, against the plain version and
-              timed: where the threshold comes from.  Reported beside the
-              flash extras, not in the kernels line (no main path launches
-              the other design);
+              DESIGN_SWEEP_M and on both sides of each geometry's LARGE_M,
+              for every train-path geometry and OLMoE's attention (2048,
+              512, 2048), against the plain version and timed in turns:
+              where the thresholds come from (the LARGE_M each wrapper uses
+              is printed, and the worst ratio of the taken design's time to
+              the other's); then the decode design under other plans at
+              PLAN_ROWS: where decode_plan's choices come from.  Reported
+              beside the flash extras, not in the kernels line (no main
+              path launches the other design or plans);
 20. conv decompose — the paper's Table 2: ``apply_lrd`` of dense
               ResNet-50/101/152 (1000 classes, float32, seeded) at the
               ladder's LRD (Eq. 5) and RankOpt (Algorithm 1) policies, timed;
@@ -423,11 +432,50 @@ GEOM = {"wq": (960, 960), "wo": (960, 960), "wk": (960, 320), "wv": (960, 320),
 BWD = ("lowrank_matmul_dx", "lowrank_matmul_du", "lowrank_matmul_dv")
 LOWRANK_FWD = ("lowrank_matmul", "lowrank_gated_ffn")
 # kernels that must give the same bits on every call (no atomics; K3/K4's
-# split sums are added in a fixed order)
+# split sums are added in a fixed order), and K1/K5 rows in their decode
+# design (the cluster's partials meet in rank order): repeatable(name, d)
 REPEATABLE = ("lowrank_matmul_dx", "lowrank_matmul_du", "lowrank_matmul_dv")
 # the M at which both K1/K5 designs are timed, to place LARGE_M; the
 # threshold's two sides are added from the wrappers' constants
 DESIGN_SWEEP_M = (128, 256, 512, 2016)
+# decode rows at which phase 19 times decode_plan's choice against other
+# cluster sizes and tile widths
+PLAN_ROWS = (("lowrank_matmul", 8, (960, 240, 960)), ("lowrank_matmul", 8, (2048, 512, 2048)),
+             ("lowrank_gated_ffn", 8, (960, 349, 2560)))
+
+
+def large_m(name, d):
+    """The M from which K1 (``lowrank_matmul``, by its depth and rank) or K5
+    takes its large-M design at ``d``."""
+    from repro_torch.kernels import lowrank_ffn, lowrank_matmul
+
+    if name == "lowrank_matmul":
+        return lowrank_matmul.large_m(d["C"], d["r"])
+    return lowrank_ffn.LARGE_M
+
+
+def decode_row(name, d) -> bool:
+    """Whether a K1/K5 row runs the decode design (M below its LARGE_M)."""
+    return name in LOWRANK_FWD and d["M"] < large_m(name, d)
+
+
+def repeatable(name, d) -> bool:
+    return name in REPEATABLE or decode_row(name, d)
+
+
+def decode_layout(name, d):
+    """The decode design's launch at ``d`` (one row block: M <= 128 here):
+    (rank-kernel CTAs, out-kernel CTAs, a description of both)."""
+    from repro_torch.kernels.lowrank_matmul import decode_plan
+
+    nb = 1 if name == "lowrank_matmul" else 2
+    s = d["S"] if nb == 1 else d["F"]
+    cs, kc, per, w1, w2 = decode_plan(d["C"], d["r"], s, torch.cuda.get_device_properties(
+        0).multi_processor_count, nb=nb)
+    tiles, cols = nb * -(-d["r"] // w1), -(-s // w2)
+    return cs * tiles, cols, (f"rank kernel {cs * tiles} CTAs ({tiles} tiles of {w1} rank "
+                              f"columns x clusters of {cs} splitting C in {per} x {kc} rows), "
+                              f"out kernel {cols} CTAs ({w2} columns each)")
 
 
 def kernel_shapes(serve_only: bool = False):
@@ -492,7 +540,7 @@ def kernel_case(name, d, gen):
     bytes_ = 2 * (m * c + c * r + r * s + m * s)
     flops = 2 * m * c * r + 2 * m * r * s
     if name == "lowrank_matmul":
-        return dict(kernel=lambda: lowrank_matmul(x, u, v),
+        return dict(args=(x, u, v), kernel=lambda: lowrank_matmul(x, u, v),
                     plain=lambda: ref.lowrank_matmul_ref(x, u, v),
                     library=lambda: torch.matmul(torch.matmul(x, u), v),
                     bytes=bytes_, flops=flops)
@@ -615,7 +663,7 @@ def check_and_time(name, d, case, iters, flush, peak):
     if not math.isfinite(err) or rel > rtol or (rtol == 0 and not torch.equal(got, want)):
         raise AssertionError(f"{name} {d}: max_abs_err {err:.3e}, relative error {rel:.3e} "
                              f"> {rtol}")
-    if name in REPEATABLE and not torch.equal(case["kernel"](), got):
+    if repeatable(name, d) and not torch.equal(case["kernel"](), got):
         raise AssertionError(f"{name} {d}: a second call on the same inputs gave other bits")
     ms = cuda_time_ms(case["kernel"], iters, flush)
     plain_ms = cuda_time_ms(case["plain"], iters, flush)
@@ -632,6 +680,17 @@ def check_and_time(name, d, case, iters, flush, peak):
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                tflops=case["ops"] / ms * 1e-9)
     row["bound_share"] = row["bound_ms"] / ms
+    decode = ""
+    if decode_row(name, d):
+        # one copy_ of the factors' bytes, timed the same way: the floor of
+        # one launch under this method
+        n = sum(a.numel() for a in case["args"][1:])
+        src = torch.empty(n, dtype=torch.bfloat16, device="cuda")
+        dst = torch.empty_like(src)
+        row["copy_ms"] = cuda_time_ms(lambda: dst.copy_(src), iters, flush)
+        row["ctas"], row["out_ctas"], layout = decode_layout(name, d)
+        decode = (f"; decode design: {layout}; copy floor {row['copy_ms'] * 1e3:.1f}us "
+                  f"(one copy_ of its factors' bytes)")
     log(f"[kernels] {name} {d}: err {err:.3e} (rel {rel:.2e}"
         + (f" by row, {rel_all:.2e} of max |plain|" if "err" in case else "") + "), kernel "
         f"{ms * 1e3:.1f}us, plain {plain_ms * 1e3:.1f}us, library "
@@ -639,7 +698,7 @@ def check_and_time(name, d, case, iters, flush, peak):
         + f", bound {row['bound_ms'] * 1e3:.2f}us ({row['bound_by']})"
         + (f"; {row['tflops']:.1f} TFLOP/s, {row['bound_share']:.1%} of the bound"
            if name in LOWRANK_FWD + BWD else "")
-        + ("; bitwise repeatable" if name in REPEATABLE else ""))
+        + ("; bitwise repeatable" if repeatable(name, d) else "") + decode)
     return row
 
 
@@ -665,8 +724,10 @@ def phase_designs(iters: int = 30):
     """Both K1/K5 designs (decode and large-M, through the wrappers'
     ``_launch``) against the plain version and timed, at DESIGN_SWEEP_M and
     on both sides of each wrapper's LARGE_M, for every K1 geometry of the
-    train paths and K5 at both rank sets.  Reported beside ``flash_extra``,
-    not in the kernels line: no main path launches these shapes."""
+    train paths and OLMoE's attention, and K5 at both rank sets; then the
+    decode design under other plans at three decode rows (PLAN_ROWS: where
+    decode_plan's choices come from).  Reported beside ``flash_extra``, not
+    in the kernels line: no main path launches these shapes."""
     from repro_torch.kernels import lowrank_ffn as k5m
     from repro_torch.kernels import lowrank_matmul as k1m
     from repro_torch.kernels import ref
@@ -677,51 +738,91 @@ def phase_designs(iters: int = 30):
     def rnd(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
 
-    geoms = sorted(set(PROJ.values()) | set(PROJ_ALG1.values()))
+    def case(name, m, c, r, s_):
+        x = rnd(m, c)
+        if name == "lowrank_matmul":
+            return (x, rnd(c, r, scale=c ** -0.5), rnd(r, s_, scale=r ** -0.5)), k1m, \
+                ref.lowrank_matmul_ref
+        return (x, rnd(c, r, scale=c ** -0.5), rnd(r, s_, scale=r ** -0.5),
+                rnd(c, r, scale=c ** -0.5), rnd(r, s_, scale=r ** -0.5)), k5m, \
+            ref.lowrank_gated_ffn_ref
+
+    log(f"[designs] LARGE_M: lowrank_matmul (K1) {k1m.LARGE_M_WIDE_C} where C >= 2048, "
+        f"{k1m.LARGE_M_LOW_RANK} where r <= 128, else {k1m.LARGE_M}; lowrank_gated_ffn (K5) "
+        f"{k5m.LARGE_M}")
+    geoms = sorted(set(PROJ.values()) | set(PROJ_ALG1.values())
+                   | {(MOE_ATTN["C"], MOE_ATTN["r"], MOE_ATTN["S"])})
+    points = []  # (name, M, geometry): DESIGN_SWEEP_M and each geometry's LARGE_M - 1, LARGE_M
+    for name, cases in (("lowrank_matmul", geoms),
+                        ("lowrank_gated_ffn", sorted({PROJ["gate/up"], PROJ_ALG1["gate/up"]}))):
+        for c, r, s_ in cases:
+            lm = large_m(name, dict(C=c, r=r))
+            points += [(name, m, (c, r, s_)) for m in sorted(set(DESIGN_SWEEP_M) | {lm - 1, lm})]
     out = []
-    for name, lm, cases in (("lowrank_matmul", k1m.LARGE_M, geoms),
-                            ("lowrank_gated_ffn", k5m.LARGE_M,
-                             sorted({PROJ["gate/up"], PROJ_ALG1["gate/up"]}))):
-        for m in sorted(set(DESIGN_SWEEP_M) | {lm - 1, lm}):
-            for c, r, s_ in cases:
-                x = rnd(m, c)
-                if name == "lowrank_matmul":
-                    u, v = rnd(c, r, scale=c ** -0.5), rnd(r, s_, scale=r ** -0.5)
-                    args, mod, plain = (x, u, v), k1m, ref.lowrank_matmul_ref
-                else:
-                    args = (x, rnd(c, r, scale=c ** -0.5), rnd(r, s_, scale=r ** -0.5),
-                            rnd(c, r, scale=c ** -0.5), rnd(r, s_, scale=r ** -0.5))
-                    mod, plain = k5m, ref.lowrank_gated_ffn_ref
-                want = plain(*args)
-                row = dict(name=name, M=m, C=c, r=r, S=s_, large_m=lm)
-                for design in ("decode", "large"):
-                    fn = (lambda large=design == "large": mod._launch(*args, large=large))
-                    got = fn()
-                    torch.cuda.synchronize()
-                    err, rel = rel_err(got, want)
-                    if not math.isfinite(err) or rel > KERNEL_RTOL[name]:
-                        raise AssertionError(f"designs: {name} {design} at M {m}, ({c}, {r}, "
-                                             f"{s_}): relative error {rel:.3e} > "
-                                             f"{KERNEL_RTOL[name]}")
-                    row[design] = dict(max_abs_err=err, rel_err=rel,
-                                       ms=cuda_time_ms(fn, iters, flush))
-                log(f"[designs] {name} M {m} ({c}, {r}, {s_}): decode "
-                    f"{row['decode']['ms'] * 1e3:.1f}us (rel {row['decode']['rel_err']:.1e}), "
-                    f"large {row['large']['ms'] * 1e3:.1f}us (rel "
-                    f"{row['large']['rel_err']:.1e}); the wrapper takes "
-                    f"{'large' if m >= lm else 'decode'} (LARGE_M {lm})")
-                out.append(row)
+    for name, m, (c, r, s_) in sorted(points, key=lambda p: (p[0] != "lowrank_matmul", p[1], p[2])):
+        lm = large_m(name, dict(C=c, r=r))
+        args, mod, plain = case(name, m, c, r, s_)
+        want = plain(*args)
+        row = dict(name=name, M=m, C=c, r=r, S=s_, large_m=lm)
+        fns = {}
+        for design in ("decode", "large"):
+            fns[design] = fn = lambda large=design == "large": mod._launch(*args, large=large)
+            got = fn()
+            torch.cuda.synchronize()
+            err, rel = rel_err(got, want)
+            if not math.isfinite(err) or rel > KERNEL_RTOL[name]:
+                raise AssertionError(f"designs: {name} {design} at M {m}, ({c}, {r}, "
+                                     f"{s_}): relative error {rel:.3e} > "
+                                     f"{KERNEL_RTOL[name]}")
+            row[design] = dict(max_abs_err=err, rel_err=rel)
+        # in turns (decode, large, large, decode), each design's the mean of its two
+        ts = [cuda_time_ms(fns[dn], iters, flush)
+              for dn in ("decode", "large", "large", "decode")]
+        row["decode"]["ms"], row["large"]["ms"] = (ts[0] + ts[3]) / 2, (ts[1] + ts[2]) / 2
+        taken = "large" if m >= lm else "decode"
+        other = "decode" if taken == "large" else "large"
+        row["taken_over_other"] = row[taken]["ms"] / row[other]["ms"]
+        log(f"[designs] {name} M {m} ({c}, {r}, {s_}): decode "
+            f"{row['decode']['ms'] * 1e3:.1f}us (rel {row['decode']['rel_err']:.1e}), "
+            f"large {row['large']['ms'] * 1e3:.1f}us (rel "
+            f"{row['large']['rel_err']:.1e}); the wrapper takes {taken} (LARGE_M {lm}), "
+            f"{row['taken_over_other']:.2f}x the other's time")
+        out.append(row)
+    worst = max(out, key=lambda row: row["taken_over_other"])
+    log(f"[designs] the wrapper's design takes at most {worst['taken_over_other']:.2f}x the "
+        f"other's time over the sweep ({worst['name']} M {worst['M']}, ({worst['C']}, "
+        f"{worst['r']}, {worst['S']}))")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = []
+    for name, m, (c, r, s_) in PLAN_ROWS:
+        args, mod, _ = case(name, m, c, r, s_)
+        nb = 1 if name == "lowrank_matmul" else 2
+        cs0, kc0, per0, w10, w20 = k1m.decode_plan(c, r, s_, sms, nb=nb)
+        variants = {(cs0, kc0, per0, w1, w2) for w2 in (8, w20)
+                    for w1 in (max(8, w10 // 16 * 8), w10, min(64, 2 * w10))}
+        for cs in (2, 8):  # other cluster sizes at the plan's widths
+            kc = -(-c // cs // 16) * 16
+            if kc <= k1m.KC_MAX:
+                variants.add((-(-c // kc), kc, 1, w10, w20))
+        for plan in sorted(variants):
+            ms = cuda_time_ms(lambda: mod._launch(*args, large=False, plan=plan), iters, flush)
+            ctas = plan[0] * nb * -(-r // plan[3])
+            tag = " (decode_plan)" if plan == (cs0, kc0, per0, w10, w20) else ""
+            log(f"[plans] {name} M {m} ({c}, {r}, {s_}) plan (cs, kc, per, w1, w2) {plan}{tag}: "
+                f"{ms * 1e3:.1f}us, rank kernel {ctas} CTAs, out kernel {-(-s_ // plan[4])}")
+            plans.append(dict(name=name, M=m, C=c, r=r, S=s_, plan=plan, ms=ms))
     zero_counts()
-    return out
+    return dict(sweep=out, plans=plans)
 
 
 def lowrank_device_ms(by_name):
-    """(K1 ms, K5 ms) of a profile's device time by kernel name, both designs."""
-    k1 = sum(ms for n, ms in by_name.items()
-             if "lowrank_matmul_kernel" in n or "lowrank_matmul_large_kernel" in n)
-    k5 = sum(ms for n, ms in by_name.items()
-             if "lowrank_ffn_kernel" in n or "lowrank_ffn_large_kernel" in n)
-    return k1, k5
+    """(K1 ms, K5 ms) of a profile's device time by kernel name, both
+    designs: the decode design's two phases are ``lowrank_*_rank_kernel``
+    and ``lowrank_*_out_kernel``, the large-M design ``lowrank_*_large_kernel``."""
+    def of(op):
+        return sum(ms for n, ms in by_name.items()
+                   if any(f"{op}_{k}_kernel" in n for k in ("rank", "out", "large")))
+    return of("lowrank_matmul"), of("lowrank_ffn")
 
 
 def bwd_device_ms(by_name):
@@ -897,9 +998,10 @@ def phase_profile(engine, steps: int = 5, label: str = "decode step", int8: bool
                   moe: bool = False):
     """Where a full-width decode step's time goes: wall time per step (host
     clock around synchronised steps), device time per step by kernel
-    (``torch.profiler``), and the device's idle share of the step; for an
-    int8 tree also its device launches, K6 / K7 ms and torch quantizer ops
-    a step (none may run); for a MoE model the experts' ``bmm`` ms."""
+    (``torch.profiler``), K1 and K5 ms (both launches of their decode
+    design), and the device's idle share of the step; for an int8 tree also
+    its device launches, K6 / K7 ms and torch quantizer ops a step (none may
+    run); for a MoE model the experts' ``bmm`` ms."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import steps as steps_mod
@@ -924,10 +1026,12 @@ def phase_profile(engine, steps: int = 5, label: str = "decode step", int8: bool
     by_name = device_ms_by_kernel(prof, steps)
     device_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    k1_ms, k5_ms = lowrank_device_ms(by_name)
     out = dict(wall_ms=wall_ms, device_ms=device_ms if device_ms else None,
                idle_share=(1 - device_ms / wall_ms) if device_ms else None,
-               top=[dict(name=k[:80], ms=v) for k, v in top])
-    shown = ", ".join(f"{k[:40]} {v * 1e3:.0f}us" for k, v in top[:5])
+               k1_ms=k1_ms, k5_ms=k5_ms, top=[dict(name=k[:80], ms=v) for k, v in top])
+    shown = (f"K1 {k1_ms:.2f} ms, K5 {k5_ms:.2f} ms; top: "
+             + ", ".join(f"{k[:40]} {v * 1e3:.0f}us" for k, v in top[:5]))
     extra = ""
     if int8:
         from torch.autograd import DeviceType
@@ -949,7 +1053,7 @@ def phase_profile(engine, steps: int = 5, label: str = "decode step", int8: bool
         extra = f"; experts' bmm {out['expert_bmm_ms']:.2f} ms"
     log(f"[profile] {label} ({sched.num_slots} slots, {engine.run.model.num_layers} layers): "
         f"wall {wall_ms:.2f} ms, device "
-        + (f"{device_ms:.2f} ms, idle {out['idle_share']:.1%}; top: {shown}"
+        + (f"{device_ms:.2f} ms, idle {out['idle_share']:.1%}; {shown}"
            if device_ms else "time not measured (profiler saw no device events)") + extra)
     return out
 

@@ -1,40 +1,56 @@
 // Shared pieces of the low-rank kernels (lowrank_matmul.cu, lowrank_ffn.cu,
-// lowrank_bwd.cu).  K1/K5 have two designs, chosen by the wrappers by M
-// alone (kernels/lowrank_matmul.py and lowrank_ffn.py, LARGE_M): the decode
-// design below, and the large-M design in the second half of this file,
-// whose Hopper primitives (mbarriers, TMA, swizzled wgmma descriptors,
-// wgmma with either operand transposed, tensor maps) K3/K4 also use.
+// lowrank_bwd.cu, int8_matmul.cu).  K1/K5 have two designs, chosen by the
+// wrappers by M alone (kernels/lowrank_matmul.py and lowrank_ffn.py,
+// LARGE_M): the decode design below, and the large-M design in the second
+// half of this file, whose Hopper primitives (mbarriers, TMA, swizzled wgmma
+// descriptors, wgmma with either operand transposed, tensor maps) K3/K4 also
+// use.
 //
 // ==== The decode design (M below LARGE_M) ====
 //
-// Tiling, for both kernels: one CTA of 8 warps owns a 16-row block of x and
-// a 64-column block of the output.
+// What bounds it on the H100: at M = 8-40 a call reads 0.15-4.9 MB of
+// factors and does well under a GFLOP, so the floor is the bytes (0.05-1.5
+// us at 3.35 TB/s), and what a call costs is latency: the launch and every
+// dependent trip to memory.  The design spreads both products over the whole
+// card and gives each one trip.
 //
-// Phase 1 forms the whole rank-r intermediate t = x U for the CTA's 16 rows
-// with bf16 tensor-core products (mma.sync m16n8k16, float32 accumulators)
-// and rounds t to bf16 into shared memory — the one rounding point between
-// the two products.  The 8 CTAs of a thread-block cluster (8 neighbouring
-// column blocks of the output, same rows) split C between them: each walks
-// every 8th 32-row chunk of C, leaves its float32 partial of t in shared
-// memory, and after a cluster barrier each CTA sums one eighth of t's
-// columns over the 8 partials (distributed shared memory, fixed order),
-// rounds it, and writes it into all 8 CTAs' copies of t.  So U crosses each
-// cluster once, spread over 8 SMs.  32 rows of U are one contiguous span of
-// global memory, so each chunk is copied as it lies (16-byte cp.async, no
-// re-layout) through a 3-stage ring that keeps two chunks in flight while
-// one is multiplied; the B fragments are read from that flat layout element
-// by element.  Ranks need not be multiples of 8.
+// Phase 1 (the rank kernel): t = x U, once a call for all M rows.  A CTA
+// owns a tile of w1 columns of t (w1 a multiple of 8, at most 64) and a slab
+// of C; the cs CTAs of a thread-block cluster split C between them (kc rows
+// a CTA), so cs x (r / w1) CTAs make about one wave.  Each CTA requests its
+// slab of U and its columns of x at once: 16-byte cp.async where rows are
+// 16-byte aligned, else 16-byte loads of the aligned chunks around every 8
+// elements, shifted into place in registers (U at the odd ranks 349, 239,
+// 119 and 59; operands off a 16-byte boundary).  Its warps multiply them on
+// mma.sync m16n8k16 with ldmatrix fragments (x K-major, U through
+// ldmatrix.trans), each warp whole (16-row, 8-column) tiles over the slab,
+// and push the float32 sums into the shared memory of the cluster rank that
+// owns each element (distributed shared memory).  After one cluster barrier
+// each owner adds the cs partials in rank order, rounds once to bf16 (the one
+// rounding point between the two products) and stores its elements of t to
+// a global scratch the wrapper allocates (L2-resident, (M, rt) a branch).
 //
-// Phase 2 multiplies t by the CTA's 64 columns of V (WMMA, float32
-// accumulators), walking r in 64-row chunks through a second 3-stage ring
-// whose first two chunks are requested before phase 1 starts.
+// Phase 2 (the out kernel), a programmatic dependent of phase 1: a CTA owns
+// w2 columns of the output (a multiple of 8, at most 64) and requests its
+// tile of V, every rank row of it, when it starts, while phase 1 runs; then
+// it waits for phase 1, requests t and multiplies, each warp whole output
+// tiles (16 rows, 8 columns) over the whole rank.  Each output is rounded
+// once (K5: silu(g) * u in float32 from both branches' sums, then rounded).
 //
-// t never leaves the cluster, as it never leaves VMEM in the TPU kernel.
-// Every M, C, r <= kRMax and S is taken: rows, columns and ranks past the
-// edge are zero-filled in shared memory and masked on the store; the grid
-// is padded to whole clusters, and the padding CTAs store nothing.  The fast path needs 16-byte
-// aligned x, U and V with C % 8 == 0 and S % 8 == 0; otherwise the same
-// stages are filled by plain element loads.
+// Sums in a fixed order that M does not change: the split of C (cs, kc, per)
+// and of r (w1) come from the wrapper's plan (decode_plan in
+// kernels/lowrank_matmul.py), a function of (C, r, S, SMs) alone; every
+// tile's product over its depth runs as four chains of k steps, added in
+// one order (tile_product); and no row's sums mix with another's.  So a call
+// is bitwise repeatable and a row has the same bits at every M.  No atomics,
+// and nothing is kept across calls: the scratch is written before it is
+// read within the call, so a CUDA graph can replay it.
+//
+// Above 128 rows (fewer where shared memory asks: block_rows) M is split
+// into row blocks, a grid dimension of both phases (a row's sums do not
+// change); C above cs x 512 is taken in pieces of kc rows a CTA (per > 1).  Rows
+// past M, ranks past r and columns past C and S are zero-filled in shared
+// memory and never stored.
 
 #pragma once
 
@@ -44,55 +60,39 @@
 #include <stdint.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stddef.h>
 #include <string.h>
 
 namespace repro {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 namespace cg = cooperative_groups;
 
-constexpr int kCluster = 8;    // CTAs of a cluster: column blocks sharing t
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kBM = 16;        // rows of x per CTA: one MMA row tile
-constexpr int kBN = 64;        // output columns per CTA
-constexpr int kKC = 32;        // rows of U (and columns of x) per phase-1 stage
-constexpr int kStages = 3;     // phase-1 ring depth
-constexpr int kRC = 64;        // rows of V per phase-2 stage
-constexpr int kVStages = 3;    // phase-2 ring depth
-constexpr int kRMax = 512;     // largest rank the kernels take
-constexpr int kTilesPerWarp = kRMax / 8 / kWarps;  // n8 tiles of t per warp
-constexpr int kLdx = kKC + 8;  // smem row strides (elements), padded
-constexpr int kLdv = kBN + 8;
-constexpr int kLdo = kBN + 4;  // float32 output staging
-constexpr int kXStage = kBM * kLdx;  // elements
-constexpr int kVStage = kRC * kLdv;
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+constexpr int kBM = 16;          // rows of an MMA tile (m16n8k16)
+constexpr int kRMax = 512;       // largest rank the kernels take
+constexpr int kSmemMax = 232448; // 227 KB, the most shared memory a block may use
+constexpr int kDThreads = 256;   // decode design: 8 warps a CTA, both phases
+constexpr int kDWarps = kDThreads / 32;
+constexpr int kDRows = 128;      // most rows of x (phase 1) or t (phase 2) a CTA holds
+constexpr int kDClusterMax = 8;  // CTAs of a cluster splitting C
+constexpr int kDKcMax = 512;     // rows of C in a CTA's piece
+constexpr int kDW1Max = 64;      // columns of t a phase-1 CTA owns
+constexpr int kDW2Max = 64;      // output columns a phase-2 CTA owns
+constexpr int kDBatch = 8;       // 16-byte chunks a thread has in flight on the shifted path
 
 __host__ __device__ inline int round_up(int a, int b) { return (a + b - 1) / b * b; }
+__host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ inline size_t align128(size_t n) { return (n + 127) & ~size_t(127); }
+// shared-memory row pitch (elements) of a tile w wide (w a multiple of 8): an
+// odd number of 16-byte groups, so the 8 rows of an ldmatrix hit 8 bank groups
+__host__ __device__ inline int tile_ld(int w) { return (w / 8) % 2 ? w + 16 : w + 8; }
 
-// Rank padded to the WMMA tile, and the smem row stride of t.
-__host__ __device__ inline int padded_rank(int r) { return round_up(r, 16); }
-__host__ __device__ inline int rank_stride(int rp) { return rp + 8; }
-// Elements of one phase-1 U stage: kKC rows of r, rounded to 16 bytes.
-__host__ __device__ inline int u_stage(int r) { return round_up(kKC * r, 8); }
-// Bytes of the phase-1 region: the U ring, which the float32 partial of t
-// (kBM x rp) reuses once the ring is drained.
-__host__ __device__ inline size_t ring_bytes(int r) {
-  const size_t ring = sizeof(bf16) * kStages * u_stage(r);
-  const size_t part = sizeof(float) * kBM * padded_rank(r);
-  return ring > part ? ring : part;
+__device__ inline uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-__device__ inline bool aligned16(const void* p) {
-  return (reinterpret_cast<size_t>(p) & 15) == 0;
+__device__ inline unsigned pack2(bf16 lo, bf16 hi) {
+  return (unsigned)__bfloat16_as_ushort(lo) | ((unsigned)__bfloat16_as_ushort(hi) << 16);
 }
 
 // --------------------------------------------------------------------------
@@ -111,200 +111,344 @@ __device__ inline void cp_async_wait() {
 }
 
 // --------------------------------------------------------------------------
-// Stage fills
+// Cluster barriers in two halves (every thread of the cluster), and
+// programmatic dependent launch
 // --------------------------------------------------------------------------
 
-// xs[kBM][kLdx] = x[m0:m0+kBM, c0:c0+kKC], zero past M and C.
-__device__ inline void x_fill(const bf16* __restrict__ x, int M, int C, int m0, int c0,
-                              bool vec, bf16* xs) {
+__device__ inline void cluster_arrive() { asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory"); }
+__device__ inline void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ inline void cluster_wait() { asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory"); }
+
+// A grid launched as a programmatic dependent (launch_after) may start while
+// the grid before it runs; it waits here before touching anything that grid
+// writes, or that an earlier one may still use (a no-op in a grid not
+// launched so).  The grid before lets its dependents launch once each of its
+// CTAs has called grid_dependents_may_launch (or exited).
+__device__ inline void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ inline void grid_dependents_may_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// --------------------------------------------------------------------------
+// Tile loads: every chunk of a CTA's tile requested at once
+// --------------------------------------------------------------------------
+
+// The 8 bf16 from element sh (0-7) of the 16 in lo:hi (two chunks in memory
+// order): a shift by 2 and by 1 words as selects, then a funnel shift by
+// the odd half word.
+__device__ inline uint4 shift8(uint4 lo, uint4 hi, int sh) {
+  unsigned a0 = lo.x, a1 = lo.y, a2 = lo.z, a3 = lo.w, a4 = hi.x, a5 = hi.y, a6 = hi.z,
+           a7 = hi.w;
+  if (sh & 4) a0 = a2, a1 = a3, a2 = a4, a3 = a5, a4 = a6, a5 = a7;
+  if (sh & 2) a0 = a1, a1 = a2, a2 = a3, a3 = a4, a4 = a5;
+  const unsigned f = (sh & 1) * 16;
+  return make_uint4(__funnelshift_r(a0, a1, f), __funnelshift_r(a1, a2, f),
+                    __funnelshift_r(a2, a3, f), __funnelshift_r(a3, a4, f));
+}
+
+// v with its elements from n on (0 <= n <= 8) zeroed
+__device__ inline uint4 keep_first(uint4 v, int n) {
+  if (n >= 8) return v;
+  unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) w[i] &= (2 * i < n ? 0xffffu : 0u) | (2 * i + 1 < n ? 0xffff0000u : 0u);
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// dst[i][j] (row pitch ld) = g[r0 + i][c0 + j] for i < rows and j < cols (a
+// multiple of 8) of a row-major bf16 matrix g with row pitch `pitch`, zero
+// where r0 + i >= nr or c0 + j >= nc.  vec (g 16-byte aligned, pitch and c0
+// multiples of 8): 16-byte cp.async, committed by the caller.  Otherwise
+// every 8 elements come from the one or two aligned 16-byte chunks around
+// them (16-byte loads that stay inside the chunks holding valid elements),
+// kDBatch chunks a thread in flight at once, shifted into place.
+__device__ inline void load_tile(const bf16* __restrict__ g, int pitch, int nr, int nc, int r0,
+                                 int c0, int rows, int cols, bf16* dst, int ld, bool vec) {
+  const int cpr = cols >> 3, n = rows * cpr;
   if (vec) {
-    if (threadIdx.x < kBM * kKC / 8) {
-      const int row = threadIdx.x / (kKC / 8), col = (threadIdx.x % (kKC / 8)) * 8;
-      const int m = m0 + row, c = c0 + col;
-      const int bytes = m < M ? 2 * max(0, min(8, C - c)) : 0;
-      cp_async16(xs + row * kLdx + col, bytes ? x + (size_t)m * C + c : x, bytes);
+    for (int i = threadIdx.x; i < n; i += kDThreads) {
+      const int row = i / cpr, col = (i - row * cpr) * 8, gr = r0 + row, gc = c0 + col;
+      const int valid = gr < nr ? max(0, min(8, nc - gc)) : 0;
+      cp_async16(dst + row * ld + col, valid ? g + (size_t)gr * pitch + gc : g, 2 * valid);
     }
     return;
   }
-  for (int i = threadIdx.x; i < kBM * kKC; i += kThreads) {
-    const int row = i / kKC, col = i % kKC;
-    const int m = m0 + row, c = c0 + col;
-    xs[row * kLdx + col] = (m < M && c < C) ? x[(size_t)m * C + c] : __float2bfloat16(0.0f);
-  }
-}
-
-// us[0 .. rows*r) = U rows [c0, c0+rows) as they lie in memory (row-major,
-// one contiguous span).  Vector copies may run up to 7 elements past the
-// span (into the next rows, never past the end of U); those are not read.
-__device__ inline void u_fill(const bf16* __restrict__ u, int C, int r, int c0, bool vec,
-                              bf16* us) {
-  const size_t start = (size_t)c0 * r, total = (size_t)C * r;
-  const int n = min(kKC, C - c0) * r;
-  if (vec) {
-    for (int q = threadIdx.x; q < (n + 7) / 8; q += kThreads) {
-      const size_t e = start + (size_t)q * 8;
-      cp_async16(us + q * 8, u + e, (int)min((size_t)16, 2 * (total - e)));
+  const auto at = [&](int i, int& valid) {  // chunk i's first element, and how many are valid
+    const int row = i / cpr, col = (i - row * cpr) * 8, gr = r0 + row, gc = c0 + col;
+    valid = gr < nr ? max(0, min(8, nc - gc)) : 0;
+    return reinterpret_cast<size_t>(g + (size_t)gr * pitch + gc);
+  };
+  for (int i0 = threadIdx.x; i0 < n; i0 += kDThreads * kDBatch) {
+    uint4 lo[kDBatch], hi[kDBatch];
+#pragma unroll
+    for (int j = 0; j < kDBatch; ++j) {  // every load of the batch in flight first
+      const int i = i0 + j * kDThreads;
+      lo[j] = hi[j] = make_uint4(0, 0, 0, 0);
+      int valid = 0;
+      const size_t a = i < n ? at(i, valid) : 0;
+      if (valid) {
+        const uint4* p = reinterpret_cast<const uint4*>(a & ~(size_t)15);
+        lo[j] = __ldg(p);
+        if ((int)(a & 15) / 2 + valid > 8) hi[j] = __ldg(p + 1);
+      }
     }
-    return;
-  }
-  for (int i = threadIdx.x; i < n; i += kThreads) us[i] = u[start + i];
-}
-
-// vs[kRC][kLdv] = V[r0:r0+kRC, n0:n0+kBN], zero past r and S.
-__device__ inline void v_fill(const bf16* __restrict__ v, int r, int S, int r0, int n0,
-                              bool vec, bf16* vs) {
-  for (int q = threadIdx.x; q < kRC * kBN / 8; q += kThreads) {
-    const int row = q / (kBN / 8), col = (q % (kBN / 8)) * 8;
-    const int rr = r0 + row, n = n0 + col;
-    bf16* dst = vs + row * kLdv + col;
-    if (vec) {
-      const int bytes = rr < r ? 2 * max(0, min(8, S - n)) : 0;
-      cp_async16(dst, bytes ? v + (size_t)rr * S + n : v, bytes);
-    } else {
-      for (int j = 0; j < 8; ++j)
-        dst[j] = (rr < r && n + j < S) ? v[(size_t)rr * S + n + j] : __float2bfloat16(0.0f);
+#pragma unroll
+    for (int j = 0; j < kDBatch; ++j) {
+      const int i = i0 + j * kDThreads;
+      if (i >= n) break;
+      int valid;
+      const size_t a = at(i, valid);
+      const int row = i / cpr, col = (i - row * cpr) * 8;
+      *reinterpret_cast<uint4*>(dst + row * ld + col) =
+          keep_first(shift8(lo[j], hi[j], (int)(a & 15) / 2), valid);
     }
   }
 }
 
 // --------------------------------------------------------------------------
-// Phase 1: ts[kBM][rank_stride(rp)] = bf16( x[m0:m0+kBM, :] @ u )
+// Fragments and the MMA
 // --------------------------------------------------------------------------
 
-__device__ inline unsigned pack2(bf16 lo, bf16 hi) {
-  return (unsigned)__bfloat16_as_ushort(lo) | ((unsigned)__bfloat16_as_ushort(hi) << 16);
+// the m16n8k16 A fragment of the 16 x 16 tile whose rows start at p (pitch
+// ld): lane l gives row l % 16, columns 8 (l / 16) onwards
+__device__ inline void ldsm_a(unsigned (&a)[4], const bf16* p, int ld) {
+  const int lane = threadIdx.x % 32;
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(smem_u32(p + (lane & 15) * ld + (lane >> 4) * 8)));
+}
+// the B fragment of the 16 x 8 tile at p of a K x N row-major matrix (pitch
+// ld), transposed by ldmatrix: lanes 0-15 give rows 0-15
+__device__ inline void ldsm_b(unsigned& b0, unsigned& b1, const bf16* p, int ld) {
+  const int lane = threadIdx.x % 32;
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(b0), "=r"(b1)
+               : "r"(smem_u32(p + (lane & 15) * ld)));
 }
 
 // d += A (16x16, row-major) * B (16x8, col-major), bf16 in, float32 out.
-__device__ inline void mma16816(float (&d)[4], unsigned a0, unsigned a1, unsigned a2,
-                                unsigned a3, unsigned b0, unsigned b1) {
+// d[0..1]: row lane / 4, columns 2 (lane % 4) + {0, 1}; d[2..3]: row + 8.
+__device__ inline void mma16816(float (&d)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// float32 accumulation over C; ranks in [r, rp) come out zero.  xring holds
-// kStages x kXStage elements, uring ring_bytes(r).  cp.async copies issued
-// (not committed) before the call join the first stage's group.  Every CTA
-// of the cluster must call it with the same x rows, u, C and r.  Ends with
-// every copy landed and a cluster-wide barrier, after which ts is complete.
-__device__ inline void rank_product(const bf16* __restrict__ x, const bf16* __restrict__ u,
-                                    int M, int C, int r, int m0, int rp, bool vec,
-                                    bf16* xring, bf16* uring, bf16* ts) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int q = (int)cluster.block_rank();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // MMA group and thread-in-group
-  const int ntiles = rp / 8;
-  const int nchunks = (C + kKC - 1) / kKC;
-  const int nloc = nchunks > q ? (nchunks - q + kCluster - 1) / kCluster : 0;
-  const int us_stride = u_stage(r);
-  const bf16 zero = __float2bfloat16(0.0f);
-  float acc[kTilesPerWarp][4];
+// d = A B over the k steps [0, ks) of a 16-row tile at a (K-major, pitch
+// lda) and a 16 ks x 8 tile at b (rows of K, pitch ldb): four chains of
+// steps k % 4, added as (c0 + c1) + (c2 + c3).  The order depends on ks
+// alone.
+__device__ inline void tile_product(float (&d)[4], const bf16* a, int lda, const bf16* b,
+                                    int ldb, int ks) {
+  float c[4][4];
 #pragma unroll
-  for (int f = 0; f < kTilesPerWarp; ++f)
-    acc[f][0] = acc[f][1] = acc[f][2] = acc[f][3] = 0.0f;
-
-  // local chunk i is chunk q + i * kCluster of C
+  for (int j = 0; j < 4; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.0f;
+  for (int k = 0; k < ks; k += 4) {
+    unsigned af[4][4], b0[4], b1[4];
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nloc) {
-      const int c0 = (q + s * kCluster) * kKC;
-      x_fill(x, M, C, m0, c0, vec, xring + s * kXStage);
-      u_fill(u, C, r, c0, vec, uring + s * us_stride);
+    for (int j = 0; j < 4; ++j) {
+      if (k + j >= ks) break;
+      ldsm_a(af[j], a + (k + j) * 16, lda);
+      ldsm_b(b0[j], b1[j], b + (k + j) * 16 * ldb, ldb);
     }
-    cp_async_commit();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (k + j >= ks) break;
+      mma16816(c[j], af[j], b0[j], b1[j]);
+    }
   }
-  for (int i = 0; i < nloc; ++i) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // chunk i landed for all; stage (i-1) % kStages is free
-    const int ni = i + kStages - 1;
-    if (ni < nloc) {
-      const int c0 = (q + ni * kCluster) * kKC;
-      x_fill(x, M, C, m0, c0, vec, xring + (ni % kStages) * kXStage);
-      u_fill(u, C, r, c0, vec, uring + (ni % kStages) * us_stride);
-    }
-    cp_async_commit();
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] = (c[0][e] + c[1][e]) + (c[2][e] + c[3][e]);
+}
 
-    const bf16* xs = xring + (i % kStages) * kXStage;
-    const bf16* us = uring + (i % kStages) * us_stride;
-    const int rows = min(kKC, C - (q + i * kCluster) * kKC);
+// --------------------------------------------------------------------------
+// Phase 1: t = bf16(x U), a cluster's tile of w1 columns
+// --------------------------------------------------------------------------
+
+struct DecodeRank {
+  const bf16* x;     // (M, C)
+  const bf16* u[2];  // (C, r_b) of each branch
+  bf16* t;           // scratch (nb, M, rt), rt = the larger rank rounded up to 8
+  int M, C, r[2], rt;
+  int kc, per, w1;   // the C split (the plan's), tile width
+  int tiles0;        // branch 0's tiles of r; branch 1's follow in blockIdx.y
+  int rows;          // rows of x a CTA holds (a row block)
+  int xvec, uvec[2];
+};
+
+// Shared memory of phase 1 at `rows` rows a CTA: x [rows][tile_ld(kc)] | U
+// [kc][tile_ld(w1)] | this CTA's sums [rows][w1] float32 | the sums pushed
+// to it [cs][own] float32, own = ceil(rows w1 / cs)
+struct RankSmem {
+  size_t u, part, recv, total;
+  int own;
+};
+__host__ __device__ inline RankSmem rank_smem(int rows, int kc, int w1, int cs) {
+  RankSmem s;
+  s.u = align128(sizeof(bf16) * rows * tile_ld(kc));
+  s.part = s.u + align128(sizeof(bf16) * kc * tile_ld(w1));
+  s.recv = s.part + align128(sizeof(float) * rows * w1);
+  s.own = ceil_div(rows * w1, cs);
+  s.total = s.recv + sizeof(float) * cs * s.own;
+  return s;
+}
+
+// Rows of a row block: M rounded up to the MMA tile, at most kDRows, fewer
+// (by 16) until shared memory holds the block.  smem(rows) is the layout's
+// size.
+template <typename Fn>
+inline int block_rows(int M, Fn smem) {
+  int rows = M < kDRows ? round_up(M, kBM) : kDRows;
+  while (rows > kBM && smem(rows) > (size_t)kSmemMax) rows -= kBM;
+  return rows;
+}
+
+// CTA (cluster rank q, tile, row block) = (blockIdx.x, blockIdx.y,
+// blockIdx.z): columns [n0, n0 + w1) of branch b's t over rows [q per kc,
+// (q + 1) per kc) of C, for rows [m0, m0 + rows) of x.
+__device__ inline void decode_rank_body(const DecodeRank& a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks(), q = (int)cluster.block_rank();
+  const int b = (int)blockIdx.y < a.tiles0 ? 0 : 1;
+  const int n0 = ((int)blockIdx.y - (b ? a.tiles0 : 0)) * a.w1;
+  const int m0 = blockIdx.z * a.rows, rows = min(a.rows, a.M - m0), mt = ceil_div(rows, kBM);
+  const RankSmem L = rank_smem(a.rows, a.kc, a.w1, cs);
+  bf16* xs = reinterpret_cast<bf16*>(smem);
+  bf16* us = reinterpret_cast<bf16*>(smem + L.u);
+  float* part = reinterpret_cast<float*>(smem + L.part);
+  float* recv = reinterpret_cast<float*>(smem + L.recv);
+  const int ldx = tile_ld(a.kc), ldu = tile_ld(a.w1);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const int nt = a.w1 / 8, ks = a.kc / 16;
+
+  grid_dependents_may_launch();  // phase 2 may start and fetch V
+  cluster_arrive_relaxed();      // this CTA runs: waited on before the first remote write
+  for (int pc = 0; pc < a.per; ++pc) {
+    const int c0 = (q * a.per + pc) * a.kc;
+    // U's slab and x's rows: every chunk in flight at once
+    load_tile(a.u[b], a.r[b], a.C, a.r[b], c0, n0, a.kc, a.w1, us, ldu, a.uvec[b]);
+    load_tile(a.x, a.C, a.M, a.C, m0, c0, mt * kBM, a.kc, xs, ldx, a.xvec);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    // warp w: tiles (16 rows, 8 columns) w, w + 8, ..., each over the piece,
+    // added to the sums in piece order
+    for (int p = warp; p < mt * nt; p += kDWarps) {
+      const int mi = p / nt, ni = p - mi * nt;
+      float d[4];
+      tile_product(d, xs + mi * kBM * ldx, ldx, us + ni * 8, ldu, ks);
 #pragma unroll
-    for (int k0 = 0; k0 < kKC; k0 += 16) {
-      const unsigned* xw = reinterpret_cast<const unsigned*>(xs);
-      const unsigned a0 = xw[(g * kLdx + k0 + 2 * t) / 2];
-      const unsigned a1 = xw[((g + 8) * kLdx + k0 + 2 * t) / 2];
-      const unsigned a2 = xw[(g * kLdx + k0 + 2 * t + 8) / 2];
-      const unsigned a3 = xw[((g + 8) * kLdx + k0 + 2 * t + 8) / 2];
-      const int ka = k0 + 2 * t;  // this thread's B rows: ka, ka+1, ka+8, ka+9
-#pragma unroll
-      for (int f = 0; f < kTilesPerWarp; ++f) {
-        const int j = warp + f * kWarps;
-        if (j < ntiles) {
-          const int n = j * 8 + g;
-          bf16 e0 = zero, e1 = zero, e2 = zero, e3 = zero;
-          if (n < r) {
-            if (ka < rows) e0 = us[ka * r + n];
-            if (ka + 1 < rows) e1 = us[(ka + 1) * r + n];
-            if (ka + 8 < rows) e2 = us[(ka + 8) * r + n];
-            if (ka + 9 < rows) e3 = us[(ka + 9) * r + n];
-          }
-          mma16816(acc[f], a0, a1, a2, a3, pack2(e0, e1), pack2(e2, e3));
-        }
+      for (int j = 0; j < 4; ++j) {
+        float* s = part + (mi * kBM + g + 8 * (j >> 1)) * a.w1 + ni * 8 + 2 * tq + (j & 1);
+        *s = pc ? *s + d[j] : d[j];
       }
     }
+    __syncthreads();  // xs, us free for the next piece; part complete
   }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is drained: its bytes now hold this CTA's partial
-
-  float* part = reinterpret_cast<float*>(uring);  // [kBM][rp] float32
-#pragma unroll
-  for (int f = 0; f < kTilesPerWarp; ++f) {
-    const int j = warp + f * kWarps;
-    if (j < ntiles) {
-      const int col = j * 8 + 2 * t;
-      *reinterpret_cast<float2*>(part + g * rp + col) = make_float2(acc[f][0], acc[f][1]);
-      *reinterpret_cast<float2*>(part + (g + 8) * rp + col) =
-          make_float2(acc[f][2], acc[f][3]);
-    }
+  // the sums to their owners: rank p owns elements [p own, (p + 1) own) of
+  // the rows x w1, and takes this CTA's in slot q
+  const int n = rows * a.w1, own = ceil_div(n, cs);
+  cluster_wait();  // every CTA of the cluster runs
+  for (int e = threadIdx.x; e < n; e += kDThreads)
+    cluster.map_shared_rank(recv, e / own)[q * own + e % own] = part[e];
+  cluster_arrive();
+  cluster_wait();  // every push has landed; no remote access follows
+  bf16* tb = a.t + ((size_t)b * a.M + m0) * a.rt + n0;
+  for (int i = threadIdx.x; i < own && q * own + i < n; i += kDThreads) {
+    const int e = q * own + i, row = e / a.w1, col = e - row * a.w1;
+    if (n0 + col >= a.r[b]) continue;  // t holds the rank's columns only
+    float s = 0.0f;
+    for (int p = 0; p < cs; ++p) s += recv[p * own + i];
+    tb[(size_t)row * a.rt + col] = __float2bfloat16(s);
   }
-  cluster.sync();  // every partial is written
-
-  // CTA q sums columns [q w, (q+1) w) of t over the cluster's partials in
-  // rank order, rounds them (the one rounding point between the two
-  // products) and writes them into every CTA's ts.
-  const int w = rp / kCluster, ldt = rank_stride(rp);
-  for (int e = threadIdx.x; e < kBM * w; e += kThreads) {
-    const int row = e / w, col = q * w + e % w;
-    float sum = 0.0f;
-#pragma unroll
-    for (int p = 0; p < kCluster; ++p) sum += cluster.map_shared_rank(part, p)[row * rp + col];
-    const bf16 b = __float2bfloat16(sum);
-#pragma unroll
-    for (int p = 0; p < kCluster; ++p) cluster.map_shared_rank(ts, p)[row * ldt + col] = b;
-  }
-  cluster.sync();  // ts complete everywhere; no partial is read any more
 }
 
 // --------------------------------------------------------------------------
-// Phase 2 pieces
+// Phase 2: y = bf16(t V), or bf16(silu(t_g V_g) * (t_u V_u)), w2 columns
 // --------------------------------------------------------------------------
 
-// acc += ts[:, r0+k .. r0+k+16) @ vs[k .. k+16, cf*16 .. cf*16+16) for the
-// two 16-deep steps k this warp owns in the current rank chunk.
-__device__ inline void output_steps(FragC& acc, const bf16* ts, int ldt, int rp,
-                                    const bf16* vs, int r0, int kh, int cf) {
+struct DecodeOut {
+  const bf16* v[2];  // (r_b, S) of each branch
+  const bf16* t;     // (nb, M, rt), phase 1's
+  bf16* y;           // (M, S)
+  int M, S, r[2], rt;
+  int kext;          // rank rows multiplied: the larger rank rounded up to 16
+  int w2, rows;      // columns and rows (a row block) a CTA owns
+  int vvec[2];
+};
+
+// Shared memory of phase 2 at `rows` rows a CTA: V [nb][kext][tile_ld(w2)]
+// | t [nb][rows][tile_ld(kext)]
+struct OutSmem {
+  size_t t, total;
+};
+__host__ __device__ inline OutSmem out_smem(int rows, int kext, int w2, int nb) {
+  OutSmem s;
+  s.t = align128(sizeof(bf16) * nb * kext * tile_ld(w2));
+  s.total = s.t + sizeof(bf16) * nb * rows * tile_ld(kext);
+  return s;
+}
+
+// CTA (column tile, row block) = (blockIdx.x, blockIdx.y): output columns
+// [s0, s0 + w2) of rows [m0, m0 + rows).  Warp w takes the output tiles (16
+// rows, 8 columns) w, w + 8, ..., each over the whole rank.
+template <int NB, bool kGated>
+__device__ inline void decode_out_body(const DecodeOut& a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const OutSmem L = out_smem(a.rows, a.kext, a.w2, NB);
+  bf16* vs = reinterpret_cast<bf16*>(smem);
+  bf16* ts = reinterpret_cast<bf16*>(smem + L.t);
+  const int ldv = tile_ld(a.w2), ldt = tile_ld(a.kext), s0 = blockIdx.x * a.w2;
+  const int m0 = blockIdx.y * a.rows, mt = ceil_div(min(a.rows, a.M - m0), kBM);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const int nt = a.w2 / 8, ks = a.kext / 16;
+
+  // V's tile does not depend on t: requested before the wait
 #pragma unroll
-  for (int s2 = 0; s2 < 2; ++s2) {
-    const int k = (kh * 2 + s2) * 16;
-    if (r0 + k < rp) {
-      FragA a;
-      FragB b;
-      wmma::load_matrix_sync(a, ts + r0 + k, ldt);
-      wmma::load_matrix_sync(b, vs + k * kLdv + cf * 16, kLdv);
-      wmma::mma_sync(acc, a, b, acc);
+  for (int b = 0; b < NB; ++b)
+    load_tile(a.v[b], a.S, a.r[b], a.S, 0, s0, a.kext, a.w2, vs + b * a.kext * ldv, ldv,
+              a.vvec[b]);
+  cp_async_commit();
+  grid_dependency_wait();  // phase 1's t is written
+#pragma unroll
+  for (int b = 0; b < NB; ++b)  // ranks past r_b read as zeros
+    load_tile(a.t + (size_t)b * a.M * a.rt, a.rt, a.M, a.r[b], m0, 0, mt * kBM, a.kext,
+              ts + b * a.rows * ldt, ldt, true);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int p = warp; p < mt * nt; p += kDWarps) {
+    const int mi = p / nt, ni = p - mi * nt;
+    float o[NB][4];
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+      tile_product(o[b], ts + (b * a.rows + mi * kBM) * ldt, ldt, vs + b * a.kext * ldv + ni * 8,
+                   ldv, ks);
+    const int n = s0 + ni * 8 + 2 * tq;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + mi * kBM + g + 8 * h;
+      if (m >= a.M || n >= a.S) continue;
+      float v[2];
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+        const float x0 = o[0][2 * h + e2];
+        v[e2] = kGated ? x0 / (1.0f + expf(-x0)) * o[NB - 1][2 * h + e2] : x0;
+      }
+      bf16* dst = a.y + (size_t)m * a.S + n;
+      if (n + 1 < a.S && a.S % 2 == 0) {  // y is the wrapper's: 4-byte aligned
+        *reinterpret_cast<unsigned*>(dst) = pack2(__float2bfloat16(v[0]), __float2bfloat16(v[1]));
+      } else {
+        dst[0] = __float2bfloat16(v[0]);
+        if (n + 1 < a.S) dst[1] = __float2bfloat16(v[1]);
+      }
     }
   }
 }
@@ -319,6 +463,94 @@ inline cudaError_t reserve_smem(Kernel kernel, size_t bytes, size_t* reserved) {
   return e;
 }
 
+// Launch `kernel` on `stream`, as a programmatic dependent of the grid
+// launched before it when `dependent` (its CTAs may start early and must
+// call grid_dependency_wait before touching memory).
+template <typename... Params, typename... Args>
+inline cudaError_t launch_after(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem,
+                                bool dependent, cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = dependent ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// Check the wrapper's plan and launch both phases of the decode design on
+// NB branches: x (M, C); u[b] (C, r[b]); v[b] (r[b], S); y (M, S); t the
+// scratch of nb x M x rt bf16, rt = max_b r[b] rounded up to 8.  The plan:
+// clusters of cs CTAs, each `per` pieces of kc rows of C, tiles of w1
+// columns of r (phase 1) and of w2 columns of S (phase 2).  Where M takes
+// more than one row block the tiles widen with it; the widths only share
+// the columns out, and no sum changes order.
+template <int NB>
+inline cudaError_t launch_decode(void (*rank_kernel)(DecodeRank), void (*out_kernel)(DecodeOut),
+                                 const bf16* x, const bf16* const* u, const bf16* const* v,
+                                 bf16* y, bf16* t, int M, int C, const int* r, int S, int cs,
+                                 int kc, int per, int w1, int w2, cudaStream_t stream) {
+  static size_t reserved1 = 0, reserved2 = 0;  // one per instantiation: K1's or K5's kernels
+  if (cs < 1 || cs > kDClusterMax || kc < kBM || kc > kDKcMax || kc % kBM || per < 1 ||
+      ceil_div(C, kc * per) != cs || w1 < 8 || w1 > kDW1Max || w1 % 8 || w2 < 8 ||
+      w2 > kDW2Max || w2 % 8)
+    return cudaErrorInvalidValue;
+  const auto aligned = [](const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; };
+  DecodeRank a1 = {};
+  DecodeOut a2 = {};
+  a1.x = x, a1.t = t, a1.M = M, a1.C = C, a1.kc = kc, a1.per = per;
+  a1.xvec = aligned(x) && C % 8 == 0;
+  a2.t = t, a2.y = y, a2.M = M, a2.S = S;
+  int rmax = 0;
+  for (int b = 0; b < NB; ++b) {
+    a1.u[b] = u[b], a1.r[b] = a2.r[b] = r[b];
+    a1.uvec[b] = aligned(u[b]) && r[b] % 8 == 0;
+    a2.v[b] = v[b];
+    a2.vvec[b] = aligned(v[b]) && S % 8 == 0;
+    rmax = r[b] > rmax ? r[b] : rmax;
+  }
+  a1.rt = a2.rt = round_up(rmax, 8);
+  a2.kext = round_up(rmax, kBM);
+  const auto smem1 = [&](int rows) { return rank_smem(rows, kc, a1.w1, cs).total; };
+  const auto smem2 = [&](int rows) { return out_smem(rows, a2.kext, a2.w2, NB).total; };
+  // M in B row blocks: each CTA takes B times the plan's columns (to
+  // kDW1Max, kDW2Max), so each grid keeps the size the plan chose
+  a1.w1 = w1, a2.w2 = w2;
+  const int blocks = ceil_div(M, block_rows(M, smem1));
+  a1.w1 = w1 * blocks < kDW1Max ? w1 * blocks : kDW1Max;
+  a2.w2 = w2 * blocks < kDW2Max ? w2 * blocks : kDW2Max;
+  a1.rows = block_rows(M, smem1);
+  a2.rows = block_rows(M, smem2);
+  a1.tiles0 = ceil_div(r[0], a1.w1);
+  const int tiles = a1.tiles0 + (NB == 2 ? ceil_div(r[NB - 1], a1.w1) : 0);
+  const int blocks1 = ceil_div(M, a1.rows), blocks2 = ceil_div(M, a2.rows);
+  if (smem1(a1.rows) > (size_t)kSmemMax || smem2(a2.rows) > (size_t)kSmemMax || tiles > 65535 ||
+      blocks1 > 65535 || blocks2 > 65535)
+    return cudaErrorInvalidValue;
+  cudaError_t e;
+  if ((e = reserve_smem(rank_kernel, smem1(a1.rows), &reserved1)) != cudaSuccess) return e;
+  if ((e = reserve_smem(out_kernel, smem2(a2.rows), &reserved2)) != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs, tiles, blocks1);
+  cfg.blockDim = dim3(kDThreads);
+  cfg.dynamicSmemBytes = smem1(a1.rows);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if ((e = cudaLaunchKernelEx(&cfg, rank_kernel, a1)) != cudaSuccess) return e;
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  return launch_after(out_kernel, dim3(ceil_div(S, a2.w2), blocks2), dim3(kDThreads),
+                      smem2(a2.rows), true, stream, a2);
+}
 
 // ==========================================================================
 // The large-M design (M >= LARGE_M: training steps, long prefills)
@@ -333,8 +565,8 @@ inline cudaError_t reserve_smem(Kernel kernel, size_t bytes, size_t* reserved) {
 // What bounds it on the H100 at M ~ 2048: operations.  2 M C r + 2 M r S
 // flops (3.7-7.5 GFLOP per call at the model's shapes) against a few MB of
 // operands, far above the ~295 flop/byte ridge: 4-10 us at 989 TFLOP/s.
-// The decode design spends that M in 16-40 waves of one CTA per SM, each
-// wave one CTA's walk over C, with x U recomputed by every column cluster.
+// The decode design runs on mma.sync and reads x (phase 1) and t (phase 2)
+// again for every tile of r and of S: at M = 2048, 16 row blocks of both.
 //
 // Design: one wave, each rank product once per 64-row block.
 //   Groups of kLG = 4 CTAs own a 64-row block of x; a persistent grid of as
@@ -390,10 +622,6 @@ inline cudaError_t reserve_smem(Kernel kernel, size_t bytes, size_t* reserved) {
 // --------------------------------------------------------------------------
 // Hopper primitives (inline PTX)
 // --------------------------------------------------------------------------
-
-__device__ inline uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
 
 __device__ inline void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
@@ -499,19 +727,6 @@ __device__ inline unsigned long long ld_acquire_u64(const unsigned long long* p)
 __device__ inline void st_release_u64(unsigned long long* p, unsigned long long v) {
   asm volatile("st.release.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(v) : "memory");
 }
-// Programmatic dependent launch (launch_after): a grid launched as a
-// dependent may start while the grid before it runs; it waits here before
-// touching anything that grid writes, or that an earlier one may still use
-// (a no-op in a grid not launched so).  The grid before lets its
-// dependents launch once each of its CTAs has called
-// grid_dependents_may_launch (or exited).
-__device__ inline void grid_dependency_wait() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-__device__ inline void grid_dependents_may_launch() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-
 // barrier of the two consumer warpgroups only (256 threads, barrier 1)
 __device__ inline void consumers_sync() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }
 // barrier of one consumer warpgroup (128 threads, barrier 3 + wg)
@@ -651,7 +866,6 @@ __device__ inline uint32_t sw128_off(int row, int col) {
 
 constexpr int kLThreads = 384;      // 2 consumer warpgroups + 1 producer warpgroup
 constexpr int kLSlotsMax = 8;       // ring slots, as many as shared memory holds
-constexpr int kSmemMax = 232448;    // 227 KB, the most shared memory a block may use
 constexpr int kLBM = 64;            // rows of x per row block
 constexpr int kLG = 4;              // CTAs sharing a row block's t
 constexpr int kLTN = 128;           // output columns per phase-2 tile, 64 a warpgroup
@@ -1220,25 +1434,6 @@ inline EncodeTiledFn encode_tiled() {
 inline cudaError_t bind_device(int* dev) {
   cudaError_t e = cudaGetDevice(dev);
   return e == cudaSuccess ? cudaSetDevice(*dev) : e;
-}
-
-// Launch `kernel` on `stream`, as a programmatic dependent of the grid
-// launched before it when `dependent` (its CTAs may start early and must
-// call grid_dependency_wait before touching memory).
-template <typename... Params, typename... Args>
-inline cudaError_t launch_after(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem,
-                                bool dependent, cudaStream_t stream, Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = block;
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = dependent ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 inline bool tma_ok(const void* p, int row_elems) {

@@ -292,10 +292,6 @@ __device__ inline void quant(const float (&v)[N], float s, float rs, int (&q)[N]
   for (int i = 0; i < N; ++i) q[i] = min(max(q[i], -127), 127);
 }
 
-// A cluster barrier in two halves (all threads; release / acquire)
-__device__ inline void cluster_arrive() { asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory"); }
-__device__ inline void cluster_wait() { asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory"); }
-
 // dst[rows][kW] = B[k0:k0+rows, n0:n0+w] of a row-major (K, N) int8 matrix,
 // zero past K, N and w, by element loads (the path TMA cannot take).  A
 // thread owns one column and takes its 32 rows of each 128 in one batch,

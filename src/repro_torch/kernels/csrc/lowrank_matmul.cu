@@ -6,18 +6,16 @@
 // by V on the last C step.  Two designs, chosen by the wrapper by M alone
 // (kernels/lowrank_matmul.py, LARGE_M):
 //
-// The decode design (M < LARGE_M).  What bounds it on the H100: at the
-// serving shapes (M = 8 decode slots or a 128-token prefill, C and S <=
-// 2560, r <= 349) the work is far below the card's ~295 FLOP/byte ridge,
-// so the floor is the bytes of U and V read from HBM (0.1-1 us).  What
-// bounds this design is latency: a CTA walks its share of C chunk by
-// chunk, and each chunk costs about one round trip to L2.  One CTA per
-// (16-row, 64-column) output tile like the Pallas grid, but the 8 CTAs of
-// a thread-block cluster share one rank product — each walks 1/8 of C and
-// the float32 partials are reduced through distributed shared memory — so
-// U is read once per cluster, spread over 8 SMs, and each CTA's walk is 8
-// times shorter.  At decode that is 16 CTAs for S = 960 (15 column blocks
-// padded to two clusters).
+// The decode design (M < LARGE_M: decode slots, speculative verify chunks,
+// short prefills), first half of common.cuh.  What bounds it on the H100:
+// at M = 8-40, C and S <= 2560 and r <= 512 the work is far below the
+// card's ~295 FLOP/byte ridge, so the floor is the bytes of U and V read
+// from HBM (0.05-1.3 us); what a call costs is latency.  Two launches, each
+// one trip to memory over about a wave of CTAs: the rank kernel forms t = x
+// U once for all rows, clusters of CTAs splitting C and reducing through
+// distributed shared memory in rank order into an L2 scratch; the out
+// kernel, a programmatic dependent, fetches its tile of V while the rank
+// kernel runs, then t, and multiplies.
 //
 // The large-M design (M >= LARGE_M: train steps, long prefills), bound by
 // operations: groups of 4 CTAs compute each 64-row block's t once with
@@ -31,69 +29,13 @@
 
 namespace repro {
 
-struct K1Smem {
-  size_t xring, uring, ts, vring, stage, total;
-};
-
-__host__ __device__ inline K1Smem k1_layout(int r) {
-  const int rp = padded_rank(r);
-  K1Smem s;
-  size_t off = 0;
-  s.xring = off; off = align128(off + sizeof(bf16) * kStages * kXStage);
-  s.uring = off; off = align128(off + ring_bytes(r));
-  s.ts = off; off = align128(off + sizeof(bf16) * kBM * rank_stride(rp));
-  s.vring = off; off = align128(off + sizeof(bf16) * kVStages * kVStage);
-  s.stage = off; off = align128(off + sizeof(float) * 2 * kBM * kLdo);
-  s.total = off;
-  return s;
+// The decode design's two phases (common.cuh): t = bf16(x U) into the
+// scratch, then y = bf16(t V), one branch
+__global__ void __launch_bounds__(kDThreads) lowrank_matmul_rank_kernel(const DecodeRank a) {
+  decode_rank_body(a);
 }
-
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
-lowrank_matmul_kernel(const bf16* __restrict__ x, const bf16* __restrict__ u,
-                      const bf16* __restrict__ v, bf16* __restrict__ y,
-                      int M, int C, int r, int S) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int rp = padded_rank(r), ldt = rank_stride(rp);
-  const K1Smem L = k1_layout(r);
-  bf16* xring = reinterpret_cast<bf16*>(smem + L.xring);
-  bf16* uring = reinterpret_cast<bf16*>(smem + L.uring);
-  bf16* ts = reinterpret_cast<bf16*>(smem + L.ts);
-  bf16* vring = reinterpret_cast<bf16*>(smem + L.vring);
-  float* stage = reinterpret_cast<float*>(smem + L.stage);
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int warp = threadIdx.x / 32;
-  const bool xu_vec = aligned16(x) && aligned16(u) && C % 8 == 0;
-  const bool v_vec = aligned16(v) && S % 8 == 0;
-  const int nv = (rp + kRC - 1) / kRC;
-
-  // V's first chunks do not depend on t: request them with U's first stage.
-  for (int i = 0; i < kVStages - 1 && i < nv; ++i)
-    v_fill(v, r, S, i * kRC, n0, v_vec, vring + i * kVStage);
-  rank_product(x, u, M, C, r, m0, rp, xu_vec, xring, uring, ts);
-
-  // Output tile: warp w owns column tile w % 4 and half w / 4 of every rank
-  // chunk; the two halves are summed in float32 on the way out.
-  const int cf = warp % 4, kh = warp / 4;
-  FragC acc;
-  wmma::fill_fragment(acc, 0.0f);
-  for (int i = 0; i < nv; ++i) {
-    cp_async_wait<kVStages - 2>();
-    __syncthreads();  // chunk i landed; stage (i-1) % kVStages is free
-    const int ni = i + kVStages - 1;
-    if (ni < nv) v_fill(v, r, S, ni * kRC, n0, v_vec, vring + (ni % kVStages) * kVStage);
-    cp_async_commit();
-    output_steps(acc, ts, ldt, rp, vring + (i % kVStages) * kVStage, i * kRC, kh, cf);
-  }
-  wmma::store_matrix_sync(stage + kh * kBM * kLdo + cf * 16, acc, kLdo, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = threadIdx.x; i < kBM * kBN; i += kThreads) {
-    const int row = i / kBN, col = i % kBN;
-    const int m = m0 + row, n = n0 + col;
-    if (m < M && n < S) {
-      const float val = stage[row * kLdo + col] + stage[kBM * kLdo + row * kLdo + col];
-      y[(size_t)m * S + n] = __float2bfloat16(val);
-    }
-  }
+__global__ void __launch_bounds__(kDThreads) lowrank_matmul_out_kernel(const DecodeOut a) {
+  decode_out_body<1, false>(a);
 }
 
 // The large-M design (common.cuh, second half): groups of 4 CTAs own 64
@@ -116,22 +58,22 @@ lowrank_matmul_large_kernel(const LargeArgs a, const __grid_constant__ CUtensorM
 extern "C" {
 
 // y (M, S) = (x (M, C) @ u (C, r)) @ v (r, S), all bf16, row-major and
-// contiguous.  Launches on `stream` and returns the cudaError_t of the launch.
-int repro_lowrank_matmul(const void* x, const void* u, const void* v, void* y,
-                         int M, int C, int r, int S, void* stream) {
+// contiguous, through the decode design: t the (M, rt) bf16 scratch (rt = r
+// rounded up to 8), (cs, kc, per, w1, w2) the wrapper's plan (decode_plan).
+// Launches both phases on `stream` and returns the cudaError_t of the launch.
+int repro_lowrank_matmul(const void* x, const void* u, const void* v, void* y, void* t,
+                         int M, int C, int r, int S, int cs, int kc, int per, int w1, int w2,
+                         void* stream) {
   using namespace repro;
   if (M <= 0 || S <= 0) return 0;
   if (C <= 0 || r <= 0 || r > kRMax) return (int)cudaErrorInvalidValue;
-  const size_t smem = k1_layout(r).total;
-  static size_t reserved = 0;
-  cudaError_t e = reserve_smem(lowrank_matmul_kernel, smem, &reserved);
-  if (e != cudaSuccess) return (int)e;
-  // column blocks past S (up to a whole cluster) share the rank product
-  // and store nothing
-  const dim3 grid(round_up((S + kBN - 1) / kBN, kCluster), (M + kBM - 1) / kBM);
-  lowrank_matmul_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)u, (const bf16*)v, (bf16*)y, M, C, r, S);
-  return (int)cudaGetLastError();
+  const bf16* us[1] = {(const bf16*)u};
+  const bf16* vs[1] = {(const bf16*)v};
+  const int rs[1] = {r};
+  cudaError_t e = launch_decode<1>(lowrank_matmul_rank_kernel, lowrank_matmul_out_kernel,
+                                   (const bf16*)x, us, vs, (bf16*)y, (bf16*)t, M, C, rs, S, cs,
+                                   kc, per, w1, w2, (cudaStream_t)stream);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 // Bytes of global scratch repro_lowrank_matmul_large needs at (M, C, r).

@@ -32,13 +32,12 @@ back.  ``<wrapper>.launches`` counts calls that launched the kernel and
 from __future__ import annotations
 
 import ctypes
-import functools
 from collections import Counter
 
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.lowrank_matmul import RANK_MAX, raise_on_error
+from repro_torch.kernels.lowrank_matmul import RANK_MAX, raise_on_error, sm_count
 from repro_torch.kernels.ref import quantize_colwise, quantize_rowwise
 
 __all__ = ["int8_matmul", "int8_lowrank_matmul", "int8_linear", "int8_lowrank_linear",
@@ -98,11 +97,6 @@ def _tile_width(n: int, tiles: int) -> int:
     return w if w == TILE else min(w, 16)
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _check(op: str, named) -> None:
     """Raise unless every ``(tensor, dtypes)`` is a contiguous tensor of one
     of those dtypes on the current CUDA device."""
@@ -156,7 +150,7 @@ def _stream(t: torch.Tensor) -> int:
 def _k6(op: str, xtype: int, x, w_q, w_scale, y) -> None:
     m, c = x.shape
     s = w_q.shape[1]
-    cs, per = k6_plan(m, c, s, _sms(x.device.index))
+    cs, per = k6_plan(m, c, s, sm_count(x.device.index))
     lib = build.load("int8_matmul")
     fn = lib.repro_int8_matmul
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
@@ -177,7 +171,7 @@ def k7_scratch(m: int, r: int, device) -> torch.Tensor:
 def _k7(op: str, xtype: int, x, u_q, u_scale, v_q, v_scale, y, scratch) -> None:
     m, c = x.shape
     r, s = v_q.shape
-    (w1, cs, per), w2 = k7_plan(m, c, r, s, _sms(x.device.index))
+    (w1, cs, per), w2 = k7_plan(m, c, r, s, sm_count(x.device.index))
     lib = build.load("int8_matmul")
     fn = lib.repro_int8_lowrank_matmul
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8

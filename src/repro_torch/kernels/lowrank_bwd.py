@@ -34,7 +34,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.lowrank_matmul import (RANK_MAX, check_cuda_operands,
-                                                raise_on_error)
+                                                raise_on_error, sm_count)
 
 __all__ = ["lowrank_matmul_dx", "lowrank_matmul_du", "lowrank_matmul_dv"]
 
@@ -107,10 +107,6 @@ def _launch(name: str, ptrs, ints, like: torch.Tensor) -> None:
     raise_on_error("lowrank_bwd", lib, code)
 
 
-def _sms(like: torch.Tensor) -> int:
-    return torch.cuda.get_device_properties(like.device).multi_processor_count
-
-
 def bwd_scratch(op: str, operands, dims, plan) -> torch.Tensor:
     """The scratch of one K2 (``op`` "dx"), K3 ("du") or K4 ("dv") call on
     these operands (the rank-r intermediate, K3/K4's float32 partials of a
@@ -150,7 +146,7 @@ def lowrank_matmul_dx(dy: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> tor
     dx = torch.empty((m, c), dtype=dy.dtype, device=dy.device)
     if m == 0 or c == 0:
         return dx
-    _launch_bwd("dx", (dy, u, v), dx, (m, c, r, s), dx_plan(m, c, _sms(dy)))
+    _launch_bwd("dx", (dy, u, v), dx, (m, c, r, s), dx_plan(m, c, sm_count(dy.device.index)))
     lowrank_matmul_dx.launches += 1
     lowrank_matmul_dx.launches_by_shape[(m, c, r, s)] += 1
     return dx
@@ -177,7 +173,7 @@ def lowrank_matmul_du(x: torch.Tensor, dy: torch.Tensor, v: torch.Tensor, *,
     du = torch.empty((c, r), dtype=torch.bfloat16, device=x.device)
     if c == 0:
         return du
-    _launch_bwd("du", (x, dy, v), du, (m, c, r, s), split_plan(m, c, r, _sms(x)))
+    _launch_bwd("du", (x, dy, v), du, (m, c, r, s), split_plan(m, c, r, sm_count(x.device.index)))
     lowrank_matmul_du.launches += 1
     lowrank_matmul_du.launches_by_shape[(m, c, r, s)] += 1
     return du
@@ -205,7 +201,7 @@ def lowrank_matmul_dv(x: torch.Tensor, u: torch.Tensor, dy: torch.Tensor, *,
     dv = torch.empty((r, s), dtype=torch.bfloat16, device=x.device)
     if s == 0:
         return dv
-    _launch_bwd("dv", (x, u, dy), dv, (m, c, r, s), split_plan(m, r, s, _sms(x)))
+    _launch_bwd("dv", (x, u, dy), dv, (m, c, r, s), split_plan(m, r, s, sm_count(x.device.index)))
     lowrank_matmul_dv.launches += 1
     lowrank_matmul_dv.launches_by_shape[(m, c, r, s)] += 1
     return dv

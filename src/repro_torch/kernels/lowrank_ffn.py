@@ -1,7 +1,8 @@
 """K5: fused low-rank SwiGLU first half ``silu((x Ug) Vg) * ((x Uu) Vu)``.
 
 The CUDA C++ kernel is ``csrc/lowrank_ffn.cu``, in two designs chosen by M
-alone as K1's are (:data:`LARGE_M`).  Same contract as
+alone (:data:`LARGE_M`); the decode design is K1's with both
+branches, its plan ``decode_plan(..., nb=2)``.  Same contract as
 :mod:`repro_torch.kernels.lowrank_matmul`: CPU tensors take the plain
 version, CUDA tensors the kernel or an error; ``lowrank_gated_ffn.launches``
 counts kernel launches and ``lowrank_gated_ffn.launches_by_shape`` counts them
@@ -18,16 +19,17 @@ from collections import Counter
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.lowrank_matmul import (RANK_MAX, check_cuda_operands,
-                                                large_scratch, raise_on_error)
+from repro_torch.kernels.lowrank_matmul import (RANK_MAX, check_cuda_operands, decode_plan,
+                                                decode_rt, large_scratch, raise_on_error,
+                                                sm_count)
 
 __all__ = ["lowrank_gated_ffn", "LARGE_M"]
 
 # M from which K5 takes the large-M design, from the H100's timings of both
-# designs at M in {128, 256, 512, 2016} (chip_smoke.py's designs phase,
-# PERF.md section 5): the large-M design is ahead from 128 (66 against 90 us
-# at Eq.-5 ranks)
-LARGE_M = 128
+# designs (chip_smoke.py's designs phase, PERF.md section 6): at Eq.-5 and
+# Algorithm-1 ranks the decode design is ahead, or within a few percent, up
+# to 383 rows, and behind from 384
+LARGE_M = 384
 
 
 def lowrank_gated_ffn(x: torch.Tensor, gu: torch.Tensor, gv: torch.Tensor,
@@ -52,9 +54,10 @@ def lowrank_gated_ffn(x: torch.Tensor, gu: torch.Tensor, gv: torch.Tensor,
 
 
 def _launch(x: torch.Tensor, gu: torch.Tensor, gv: torch.Tensor, uu: torch.Tensor,
-            uv: torch.Tensor, *, large: bool) -> torch.Tensor:
+            uv: torch.Tensor, *, large: bool, plan: tuple | None = None) -> torch.Tensor:
     """Launch one design on checked CUDA operands (``chip_smoke.py`` times
-    both designs through it on either side of LARGE_M)."""
+    both designs through it on either side of LARGE_M, and the decode
+    design under other plans)."""
     m, c = x.shape
     rg, f = gv.shape
     ru = uv.shape[0]
@@ -73,10 +76,12 @@ def _launch(x: torch.Tensor, gu: torch.Tensor, gv: torch.Tensor, uu: torch.Tenso
         fn.restype = ctypes.c_int
         code = fn(*ptrs, scratch.data_ptr(), m, c, rg, ru, f, stream)
     else:
+        t = torch.empty(2 * m * decode_rt(max(rg, ru)), dtype=x.dtype, device=x.device)
         fn = lib.repro_lowrank_ffn
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        code = fn(*ptrs, m, c, rg, ru, f, stream)
+        plan = plan or decode_plan(c, max(rg, ru), f, sm_count(x.device.index), nb=2)
+        code = fn(*ptrs, t.data_ptr(), m, c, rg, ru, f, *plan, stream)
     raise_on_error("lowrank_ffn", lib, code)
     lowrank_gated_ffn.launches += 1
     lowrank_gated_ffn.launches_by_shape[(m, c, rg, ru, f)] += 1

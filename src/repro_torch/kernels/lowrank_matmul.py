@@ -2,12 +2,16 @@
 
 The CUDA C++ kernel is ``csrc/lowrank_matmul.cu`` (its source note says
 which TPU kernel it replaces, what bounds it and how the design answers
-that).  It has two designs, chosen by M alone: below :data:`LARGE_M` the
-decode design (16-row tiles, an 8-CTA cluster splitting x·U over C), from
-it the large-M design (``wgmma`` fed by TMA, one rank product per 64-row
-block shared by a group of 4 CTAs through L2, one wave of such groups in a
-cooperative launch, no clusters).  :func:`lowrank_matmul` takes CPU
-tensors through the plain version
+that).  It has two designs, chosen by M against :func:`large_m` (a small
+table by depth and rank, :data:`LARGE_M` its default): below it the
+decode design (two launches over the whole card: the rank kernel forms
+``t = x U`` once for all rows, clusters of CTAs splitting C, into an L2
+scratch; the out kernel, a programmatic dependent, multiplies it by V's
+column tiles), from it the large-M design (``wgmma`` fed by TMA, one rank
+product per 64-row block shared by a group of 4 CTAs through L2, one wave of
+such groups in a cooperative launch, no clusters).  :func:`decode_plan` is
+the decode design's launch plan, which the kernel checks.
+:func:`lowrank_matmul` takes CPU tensors through the plain version
 (``ref.lowrank_matmul_ref``) and CUDA tensors through the kernel, and
 raises on anything the kernel does not take; it never falls back.
 ``lowrank_matmul.launches`` counts kernel launches, and
@@ -17,6 +21,7 @@ raises on anything the kernel does not take; it never falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
 from collections import Counter
 from typing import Sequence
 
@@ -24,16 +29,74 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-__all__ = ["lowrank_matmul", "RANK_MAX", "LARGE_M", "check_cuda_operands"]
+__all__ = ["lowrank_matmul", "RANK_MAX", "LARGE_M", "large_m", "check_cuda_operands",
+           "decode_plan", "decode_rt", "sm_count"]
 
 RANK_MAX = 512  # kRMax in csrc/common.cuh
-# M from which K1 takes the large-M design, from the H100's timings of both
-# designs at M in {128, 256, 512, 2016} (chip_smoke.py's designs phase,
-# PERF.md section 5): summed over a prefill layer's K1 calls the decode
-# design is ahead at 128 (117 against 122 us) and behind from 256 (166
-# against 124 us)
+# The M from which K1 takes the large-M design, from the H100's timings of
+# both designs (chip_smoke.py's designs phase, PERF.md section 6).  The
+# decode design's time grows with each 128-row block and the large-M
+# design's does not, and where they cross depends on the factors' shape: no
+# one M serves every geometry, nor one M a rank (at r = 256 and 349 the
+# C = 960, S = 2560 factors cross near 256 rows, the C = 2560, S = 960 ones
+# near 320).  So a small table, read in order (large_m): C >= 2048 from
+# LARGE_M_WIDE_C rows, r <= 128 from LARGE_M_LOW_RANK, else from LARGE_M.
 LARGE_M = 256
+LARGE_M_WIDE_C = 320
+LARGE_M_LOW_RANK = 288
 _INT32_MAX = 2 ** 31 - 1
+# the decode design's limits (csrc/common.cuh): the largest cluster
+# (kDClusterMax), rows of C in a CTA's piece (kDKcMax), the widest tile of r
+# in phase 1 (kDW1Max) and of S in phase 2 (kDW2Max)
+CLUSTER_MAX, KC_MAX, W1_MAX, W2_MAX = 8, 512, 64, 64
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def decode_plan(c: int, r: int, s: int, sms: int, nb: int = 1) -> tuple:
+    """``(cs, kc, per, w1, w2)`` of the decode design on ``sms`` SMs, for
+    ``nb`` branches of rank at most ``r`` (K1 one, K5 two).  Phase 1:
+    clusters of ``cs`` CTAs split C (4, or more where a CTA's piece would
+    pass KC_MAX rows), each CTA ``per`` pieces of ``kc`` rows (a multiple of
+    16); the rank is cut into tiles of ``w1`` columns (a multiple of 8), the
+    narrowest for which every tile's cluster of every branch makes at most
+    two thirds of a wave.  Phase 2: tiles of ``w2`` columns of S, 16 or the
+    narrowest multiple of 8 that makes at most two CTAs an SM.  No M: the
+    order in which a row's products are summed is the plan's, so a row has
+    the same bits at every M."""
+    cs = max(1, min(CLUSTER_MAX, _cdiv(c, 16), max(4, _cdiv(c, KC_MAX))))
+    per = _cdiv(_cdiv(c, cs), KC_MAX)
+    kc = _cdiv(_cdiv(c, cs * per), 16) * 16
+    cs = _cdiv(c, kc * per)  # every CTA has rows of C
+    w1 = 8
+    while w1 < W1_MAX and cs * nb * _cdiv(r, w1) > 2 * sms // 3:
+        w1 += 8
+    w2 = 16
+    while w2 < W2_MAX and _cdiv(s, w2) > 2 * sms:
+        w2 += 8
+    return cs, kc, per, w1, w2
+
+
+def large_m(c: int, r: int) -> int:
+    """The M from which K1 at depth ``c`` and rank ``r`` takes the large-M
+    design (the table above)."""
+    if c >= 2048:
+        return LARGE_M_WIDE_C
+    return LARGE_M_LOW_RANK if r <= 128 else LARGE_M
+
+
+def decode_rt(r: int) -> int:
+    """Row pitch of the decode design's t scratch (csrc launch_decode): the
+    rank r (the larger branch's for K5) rounded up to 8."""
+    return _cdiv(r, 8) * 8
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check_cuda_operands(op: str, tensors: Sequence[torch.Tensor]) -> None:
@@ -89,12 +152,14 @@ def lowrank_matmul(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.T
     if not 1 <= r <= RANK_MAX:
         raise ValueError(f"lowrank_matmul: rank {r} outside [1, {RANK_MAX}]")
     check_cuda_operands("lowrank_matmul", (x, u, v))
-    return _launch(x, u, v, large=m >= LARGE_M)
+    return _launch(x, u, v, large=m >= large_m(c, r))
 
 
-def _launch(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *, large: bool) -> torch.Tensor:
+def _launch(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *, large: bool,
+            plan: tuple | None = None) -> torch.Tensor:
     """Launch one design on checked CUDA operands (``chip_smoke.py`` times
-    both designs through it on either side of LARGE_M)."""
+    both designs through it on either side of LARGE_M, and the decode
+    design under other plans)."""
     m, c = x.shape
     r, s = v.shape
     y = torch.empty((m, s), dtype=x.dtype, device=x.device)
@@ -112,10 +177,12 @@ def _launch(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *, large: bool) -
         code = fn(x.data_ptr(), u.data_ptr(), v.data_ptr(), y.data_ptr(), scratch.data_ptr(),
                   m, c, r, s, stream)
     else:
+        t = torch.empty(m * decode_rt(r), dtype=x.dtype, device=x.device)
         fn = lib.repro_lowrank_matmul
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        code = fn(x.data_ptr(), u.data_ptr(), v.data_ptr(), y.data_ptr(), m, c, r, s, stream)
+        code = fn(x.data_ptr(), u.data_ptr(), v.data_ptr(), y.data_ptr(), t.data_ptr(),
+                  m, c, r, s, *(plan or decode_plan(c, r, s, sm_count(x.device.index))), stream)
     raise_on_error("lowrank_matmul", lib, code)
     lowrank_matmul.launches += 1
     lowrank_matmul.launches_by_shape[(m, c, r, s)] += 1

@@ -1,0 +1,298 @@
+"""The decode design's launch plan (``kernels/lowrank_matmul.py``:
+``decode_plan``, which K1's and K5's wrappers pass to the kernels), checked
+on the CPU against a mirror of ``launch_decode`` and the two phases' index
+math (``csrc/common.cuh``): the C split, the tiles of r and of S and the row
+blocks cover every element of U and V exactly once for each row block; the
+split of C, which fixes the order in which a row's products are summed, is
+the same at every M; both phases fit in shared memory up to ``LARGE_M - 1``
+rows; and at the decode M (8 to 40) each phase is at most one wave.  Then a
+float32 emulation of that order (each rank's slab in four chains of 16-deep
+steps, the cluster's partials added in rank order, t formed once, phase 2's
+chains over the padded rank) against JAX's Pallas kernels in interpret
+mode."""
+
+import inspect
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.lowrank_ffn import lowrank_gated_ffn as pallas_gated_ffn
+from repro.kernels.lowrank_matmul import lowrank_matmul as pallas_lowrank_matmul
+from repro_torch.kernels import lowrank_ffn as k5
+from repro_torch.kernels import lowrank_matmul as k1
+
+torch.set_num_threads(1)
+
+SMS = 132  # an H100 SXM's SMs
+SMEM_MAX = 232448  # bytes of shared memory a CTA may use
+ROWS_MAX, BM = 128, 16  # csrc kDRows, kBM
+TOL = 1e-5  # float32: the same products, summed in the plan's order against the TPU kernel's
+
+# (C, r, S) of K1 on the main paths at decode M (serve, verify, the derived
+# draft, OLMoE's attention) and the train paths' other geometries
+K1_SHAPES = [(960, 240, 960), (960, 120, 320), (2560, 349, 960), (960, 119, 960),
+             (960, 59, 320), (2560, 128, 960), (2048, 512, 2048), (960, 349, 2560),
+             (960, 239, 960), (960, 80, 320), (960, 256, 2560), (2560, 256, 960)]
+# (C, (rg, ru), F) of K5: the Eq.-5 and draft ranks, Algorithm 1's, the largest
+K5_SHAPES = [(960, (349, 349), 2560), (960, (128, 128), 2560), (960, (256, 256), 2560),
+             (960, (512, 512), 2560)]
+DECODE_MS = [8, 16, 24, 40]
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _round_up(a, b):
+    return _cdiv(a, b) * b
+
+
+def _random_shapes(n, seed):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        c, s = (int(v) for v in rng.integers(1, 2561, 2))
+        ranks = tuple(int(v) for v in rng.integers(1, 513, int(rng.integers(1, 3))))
+        out.append((c, ranks, s))
+    return out
+
+
+RANDOM = _random_shapes(24, 0)
+ALL = [(c, (r,), s) for c, r, s in K1_SHAPES] + K5_SHAPES + RANDOM
+
+
+def _large_m(c, ranks):
+    return k1.large_m(c, ranks[0]) if len(ranks) == 1 else k5.LARGE_M
+
+
+# --------------------------------------------------------------------------
+# A mirror of csrc launch_decode
+# --------------------------------------------------------------------------
+
+def tile_ld(w):
+    return w + 16 if (w // 8) % 2 else w + 8
+
+
+def _align128(n):
+    return (n + 127) & ~127
+
+
+def rank_smem(rows, kc, w1, cs):
+    """Phase 1: x [rows][tile_ld(kc)] bf16 | U [kc][tile_ld(w1)] bf16 | the
+    CTA's sums [rows][w1] float32 | the sums pushed to it [cs][own] float32."""
+    u = _align128(2 * rows * tile_ld(kc))
+    part = u + _align128(2 * kc * tile_ld(w1))
+    recv = part + _align128(4 * rows * w1)
+    return recv + 4 * cs * _cdiv(rows * w1, cs)
+
+
+def out_smem(rows, kext, w2, nb):
+    """Phase 2: V [nb][kext][tile_ld(w2)] bf16 | t [nb][rows][tile_ld(kext)] bf16."""
+    return _align128(2 * nb * kext * tile_ld(w2)) + 2 * nb * rows * tile_ld(kext)
+
+
+def block_rows(m, smem):
+    rows = _round_up(m, BM) if m < ROWS_MAX else ROWS_MAX
+    while rows > BM and smem(rows) > SMEM_MAX:
+        rows -= BM
+    return rows
+
+
+def launch(m, c, ranks, s, sms=SMS):
+    """What launch_decode launches for M rows: the plan, the tile widths
+    widened by the row blocks' count, rows a CTA, both grids and their
+    shared memory."""
+    nb, rmax = len(ranks), max(ranks)
+    cs, kc, per, w1, w2 = k1.decode_plan(c, rmax, s, sms, nb=nb)
+    kext = _round_up(rmax, BM)
+    blocks = _cdiv(m, block_rows(m, lambda rows: rank_smem(rows, kc, w1, cs)))
+    w1, w2 = min(k1.W1_MAX, w1 * blocks), min(k1.W2_MAX, w2 * blocks)
+
+    def tiles(w):
+        return sum(_cdiv(r, w) for r in ranks)
+
+    rows1 = block_rows(m, lambda rows: rank_smem(rows, kc, w1, cs))
+    rows2 = block_rows(m, lambda rows: out_smem(rows, kext, w2, nb))
+    return dict(cs=cs, kc=kc, per=per, w1=w1, w2=w2, kext=kext, rows1=rows1, rows2=rows2,
+                grid1=(cs, tiles(w1), _cdiv(m, rows1)), grid2=(_cdiv(s, w2), _cdiv(m, rows2)),
+                smem1=rank_smem(rows1, kc, w1, cs), smem2=out_smem(rows2, kext, w2, nb))
+
+
+def _check_plan_limits(p, c):
+    assert 1 <= p["cs"] <= k1.CLUSTER_MAX and p["per"] >= 1
+    assert p["kc"] % 16 == 0 and 16 <= p["kc"] <= k1.KC_MAX
+    assert _cdiv(c, p["kc"] * p["per"]) == p["cs"]  # every CTA of a cluster has rows of C
+    assert p["w1"] % 8 == 0 and 8 <= p["w1"] <= k1.W1_MAX
+    assert p["w2"] % 8 == 0 and 8 <= p["w2"] <= k1.W2_MAX
+
+
+# --------------------------------------------------------------------------
+# The plan
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m", [1, 8, 40, 127, 300])
+@pytest.mark.parametrize("c,ranks,s", ALL)
+def test_decode_plan_covers_u_and_v_once_per_row_block(m, c, ranks, s):
+    """Mirror of the CTA -> work maps (decode_rank_body: CTA (q, tile,
+    block) sums rows [(q per + pc) kc, +kc) of C for pc < per, columns
+    [n0, n0 + w1) of its branch's t, rows [rows1 block, ...) of x;
+    decode_out_body: CTA (tile, block) every rank row of V's columns [w2
+    tile, ...)): each element of every U and V is read once a row block,
+    every row of M is in one block, and each element of t and y is formed
+    once."""
+    p = launch(m, c, ranks, s)
+    _check_plan_limits(p, c)
+    cs, kc, per, w1, w2 = p["cs"], p["kc"], p["per"], p["w1"], p["w2"]
+    assert p["grid1"][0] == cs
+    u_hits = [np.zeros((c, r), np.int64) for r in ranks]
+    tiles0 = _cdiv(ranks[0], w1)
+    for y in range(p["grid1"][1]):
+        b = 0 if y < tiles0 else 1
+        n0 = (y - (tiles0 if b else 0)) * w1
+        for q in range(cs):
+            for pc in range(per):
+                c0 = (q * per + pc) * kc
+                u_hits[b][c0:min(c0 + kc, c), n0:min(n0 + w1, ranks[b])] += 1
+    assert all((h == 1).all() for h in u_hits)
+    v_hits = [np.zeros((r, s), np.int64) for r in ranks]
+    for x in range(p["grid2"][0]):
+        for h in v_hits:
+            h[:, x * w2:min(x * w2 + w2, s)] += 1
+    assert all((h == 1).all() for h in v_hits)
+    for rows, blocks in ((p["rows1"], p["grid1"][2]), (p["rows2"], p["grid2"][1])):
+        cover = np.zeros(m, np.int64)
+        for z in range(blocks):
+            cover[z * rows:min(z * rows + rows, m)] += 1
+        assert (cover == 1).all() and rows % BM == 0
+
+
+def test_decode_plan_takes_no_m():
+    assert list(inspect.signature(k1.decode_plan).parameters) == ["c", "r", "s", "sms", "nb"]
+
+
+@pytest.mark.parametrize("c,ranks,s", ALL)
+def test_decode_sum_order_is_the_same_at_every_m(c, ranks, s):
+    """The split of C (cs, kc, per) and the padded rank of phase 2 (kext) fix
+    the order of a row's sums; widths and row blocks only share the work
+    out.  They are the same at every M, so a row has the same bits at M = 8
+    and inside M = 16, 24, 40 or LARGE_M - 1."""
+    orders = {tuple(launch(m, c, ranks, s)[key] for key in ("cs", "kc", "per", "kext"))
+              for m in [1] + DECODE_MS + [_large_m(c, ranks) - 1, 1000]}
+    assert len(orders) == 1
+
+
+@pytest.mark.parametrize("c,ranks,s", ALL)
+def test_decode_fits_shared_memory_below_large_m(c, ranks, s):
+    for m in sorted({1, 8, 16, 40, 64, 127, 128, 129, _large_m(c, ranks) - 1}):
+        p = launch(m, c, ranks, s)
+        assert p["smem1"] <= SMEM_MAX and p["smem2"] <= SMEM_MAX, (m, p)
+
+
+@pytest.mark.parametrize("m", DECODE_MS)
+@pytest.mark.parametrize("c,ranks,s", ALL)
+def test_decode_is_at_most_one_wave_at_decode_m(m, c, ranks, s):
+    """Phase 1 at most one CTA an SM (the rank kernel holds one a SM by its
+    registers), phase 2 at most two (the out kernel's registers allow two);
+    one row block."""
+    p = launch(m, c, ranks, s)
+    assert p["grid1"][2] == p["grid2"][1] == 1
+    assert np.prod(p["grid1"]) <= SMS
+    if s <= 2 * SMS * k1.W2_MAX:
+        assert np.prod(p["grid2"]) <= 2 * SMS
+
+
+@pytest.mark.parametrize("c,r,s", [(960, 240, 960), (2560, 349, 960), (2048, 512, 2048)])
+def test_decode_spreads_the_rank_product_at_decode(c, r, s):
+    """The serve path's widest factors: U is spread over a few dozen CTAs
+    at least (the design before split it over 8 to 40 CTAs, each walking
+    its share of C chunk by chunk), each with one slab."""
+    p = launch(8, c, (r,), s)
+    assert np.prod(p["grid1"]) >= 48 and p["per"] == 1
+
+
+# --------------------------------------------------------------------------
+# The plan's order of sums, emulated in float32, against the TPU kernels
+# --------------------------------------------------------------------------
+
+def _chains(a, b):
+    """a (M, K) @ b (K, N) as tile_product sums it: 16-deep steps, step k in
+    chain k % 4, each chain summed in step order, added as (c0 + c1) +
+    (c2 + c3); K is zero-padded to whole steps."""
+    k = a.shape[1]
+    kp = _round_up(max(k, 1), 16)
+    a = np.pad(a, ((0, 0), (0, kp - k)))
+    b = np.pad(b, ((0, kp - k), (0, 0)))
+    chains = [np.zeros((a.shape[0], b.shape[1]), np.float32) for _ in range(4)]
+    for step in range(kp // 16):
+        sl = slice(16 * step, 16 * step + 16)
+        chains[step % 4] = chains[step % 4] + (a[:, sl] @ b[sl, :]).astype(np.float32)
+    return (chains[0] + chains[1]) + (chains[2] + chains[3])
+
+
+def _rank_product(x, u, plan):
+    """Phase 1: each cluster rank's slab, piece by piece, then the ranks'
+    partials added in rank order and t formed once (x's dtype: float32)."""
+    cs, kc, per = plan[:3]
+    c = x.shape[1]
+    total = np.zeros((x.shape[0], u.shape[1]), np.float32)
+    for q in range(cs):
+        part = None
+        for pc in range(per):
+            c0 = (q * per + pc) * kc
+            d = _chains(x[:, c0:min(c0 + kc, c)], u[c0:min(c0 + kc, c)])
+            part = d if part is None else part + d
+        total = total + part
+    return total.astype(x.dtype)
+
+
+def emulate_k1(x, u, v, plan):
+    return _chains(_rank_product(x, u, plan), v)
+
+
+def emulate_k5(x, gu, gv, uu, uv, plan):
+    g = _chains(_rank_product(x, gu, plan), gv)
+    up = _chains(_rank_product(x, uu, plan), uv)
+    return (g / (1.0 + np.exp(-g)) * up).astype(np.float32)
+
+
+def _mats(seed, *shapes):
+    rng = np.random.default_rng(seed)
+    out = [rng.standard_normal(shapes[0]).astype(np.float32)]
+    for shape in shapes[1:]:
+        out.append((rng.standard_normal(shape) / np.sqrt(shape[0])).astype(np.float32))
+    return out
+
+
+def _close(got, want):
+    np.testing.assert_allclose(np.asarray(got, np.float32), np.asarray(want, np.float32),
+                               rtol=TOL, atol=TOL)
+
+
+# (m, c, r, s, bm, bk, bn): block-divisible for the Pallas kernels; plans: the
+# wrapper's and one with two pieces of C a CTA
+EMU_K1 = [(64, 128, 32, 64, 32, 64, 32), (32, 256, 48, 128, 32, 128, 64),
+          (40, 256, 24, 96, 8, 128, 32)]
+
+
+@pytest.mark.parametrize("m,c,r,s,bm,bk,bn", EMU_K1)
+def test_decode_order_matches_pallas_lowrank_matmul(m, c, r, s, bm, bk, bn):
+    x, u, v = _mats(m + c + r + s, (m, c), (c, r), (r, s))
+    want = pallas_lowrank_matmul(jnp.asarray(x), jnp.asarray(u), jnp.asarray(v), block_m=bm,
+                                 block_k=bk, block_n=bn, interpret=True)
+    for plan in (k1.decode_plan(c, r, s, SMS), (_cdiv(c, 64), 32, 2, 8, 16)):
+        _close(emulate_k1(x, u, v, plan), want)
+    # a row's result does not depend on the other rows
+    _close(emulate_k1(x[:8], u, v, k1.decode_plan(c, r, s, SMS)),
+           emulate_k1(x, u, v, k1.decode_plan(c, r, s, SMS))[:8])
+
+
+@pytest.mark.parametrize("m,c,r,f,bm,bk,bn", [(32, 128, 16, 64, 32, 64, 32),
+                                              (64, 64, 24, 128, 32, 64, 64)])
+def test_decode_order_matches_pallas_lowrank_gated_ffn(m, c, r, f, bm, bk, bn):
+    x, gu, gv, uu, uv = _mats(m + c + r + f, (m, c), (c, r), (r, f), (c, r), (r, f))
+    want = pallas_gated_ffn(*(jnp.asarray(a) for a in (x, gu, gv, uu, uv)), block_m=bm,
+                            block_k=bk, block_n=bn, interpret=True)
+    for plan in (k1.decode_plan(c, r, f, SMS, nb=2), (_cdiv(c, 32), 32, 1, 16, 16)):
+        _close(emulate_k5(x, gu, gv, uu, uv, plan), want)

@@ -13,7 +13,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.lowrank_ffn import LARGE_M as K5_LARGE_M
 from repro_torch.kernels.lowrank_ffn import lowrank_gated_ffn
 from repro_torch.kernels.lowrank_matmul import LARGE_M as K1_LARGE_M
-from repro_torch.kernels.lowrank_matmul import lowrank_matmul
+from repro_torch.kernels.lowrank_matmul import large_m, lowrank_matmul
 
 torch.set_num_threads(1)
 
@@ -42,8 +42,8 @@ GPU_K1 = [(960, 240, 960), (960, 120, 320), (2560, 349, 960), (70, 5, 33),
           (2560, 256, 960), (960, 512, 960), (70, 17, 33)]
 GPU_K5 = [(960, 349, 2560), (70, 17, 33), (960, 256, 2560), (960, 512, 2560)]
 # decode design up to LARGE_M - 1, large-M design from LARGE_M: both sides of
-# the threshold, the flash prefill's 2016, the train step's 2048 and a
-# ragged 1000
+# the threshold (K1's default; its table, large_m, moves it for C >= 2048 and
+# r <= 128), the flash prefill's 2016, the train step's 2048 and a ragged 1000
 GPU_K1_M = sorted({1, 8, 128, K1_LARGE_M - 1, K1_LARGE_M, 1000, 2016, 2048})
 GPU_K5_M = sorted({1, 8, 128, K5_LARGE_M - 1, K5_LARGE_M, 1000, 2016, 2048})
 
@@ -717,3 +717,129 @@ def test_gpu_lowrank_bwd_at_olmoe_attention(name, m):
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     assert err <= BWD_RTOL * want.float().abs().max().item()
+
+
+# --------------------------------------------------------------------------
+# K1/K5's decode design (M below LARGE_M): fixed-order sums, no state
+# across calls
+# --------------------------------------------------------------------------
+
+DECODE_K1 = [(960, 240, 960), (2560, 349, 960), (960, 59, 320), (2048, 512, 2048)]
+DECODE_K5 = [(960, 349, 2560), (960, 128, 2560)]
+
+
+def _decode_case(name, m, dims, seed):
+    c, r, s = dims
+    if name == "k1":
+        x, u, v = _mats(seed, (m, c), (c, r), (r, s))
+        return x, (u, v), lowrank_matmul, ref.lowrank_matmul_ref, K1_RTOL
+    x, gu, gv, uu, uv = _mats(seed, (m, c), (c, r), (r, s), (c, r), (r, s))
+    return x, (gu, gv, uu, uv), lowrank_gated_ffn, ref.lowrank_gated_ffn_ref, K5_RTOL
+
+
+def _decode_params():
+    return ([("k1", d) for d in DECODE_K1] + [("k5", d) for d in DECODE_K5])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 8, 40])
+@pytest.mark.parametrize("name,dims", _decode_params())
+def test_gpu_decode_design_is_bitwise_repeatable(name, dims, m):
+    """No float atomics: the cluster's partials meet in rank order, so two
+    calls on the same inputs give the same bits (and agree with plain)."""
+    _need_gpu()
+    x, w, fn, plain, rtol = _decode_case(name, m, dims, m + 3)
+    with torch.inference_mode():
+        got, again, want = fn(x, *w), fn(x, *w), plain(x, *w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= rtol * want.float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,dims", _decode_params())
+def test_gpu_decode_rows_do_not_depend_on_m(name, dims):
+    """A row has the same bits at M = 8 as inside M = 16, 24, 40 and
+    LARGE_M - 1, first or last: the split of C is the plan's, never M's
+    (speculative decoding's verify leans on it)."""
+    _need_gpu()
+    x8, w, fn, _, _ = _decode_case(name, 8, dims, 11)
+    lm = large_m(dims[0], dims[1]) if name == "k1" else K5_LARGE_M
+    with torch.inference_mode():
+        want = fn(x8, *w)
+        for m in (16, 24, 40, lm - 1):
+            other = _mats(m, (m - 8, dims[0]))[0]
+            assert torch.equal(fn(torch.cat([x8, other]), *w)[:8], want), m
+            assert torch.equal(fn(torch.cat([other, x8]), *w)[-8:], want), m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", sorted({1, 8, 128, large_m(*OLMOE_ATTN[:2]) - 1}))
+def test_gpu_lowrank_matmul_decode_design_at_olmoe_attention(m):
+    """OLMoE's (2048, 512, 2048): r = RANK_MAX in the decode design."""
+    _need_gpu()
+    c, r, s = OLMOE_ATTN
+    x, u, v = _mats(m + 5, (m, c), (c, r), (r, s))
+    with torch.inference_mode():
+        got, want = lowrank_matmul(x, u, v), ref.lowrank_matmul_ref(x, u, v)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= K1_RTOL * want.float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 8, 40, K1_LARGE_M - 1])
+@pytest.mark.parametrize("c,r,s", [(960, 349, 960), (70, 17, 33), (100, 59, 200)])
+def test_gpu_decode_design_takes_unaligned_operands(m, c, r, s):
+    """Odd ranks (rows of U off 16 bytes) and operands one element off a
+    16-byte boundary take the shifted-load path below LARGE_M."""
+    _need_gpu()
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    x, u, v = (shifted(t) for t in _mats(m + r, (m, c), (c, r), (r, s)))
+    gu, gv = (shifted(t) for t in _mats(m + r + 1, (1,), (c, r), (r, s))[1:])
+    with torch.inference_mode():
+        got, want = lowrank_matmul(x, u, v), ref.lowrank_matmul_ref(x, u, v)
+        hg, hw = lowrank_gated_ffn(x, gu, gv, u, v), ref.lowrank_gated_ffn_ref(x, gu, gv, u, v)
+    torch.cuda.synchronize()
+    for a, b, rtol in ((got, want, K1_RTOL), (hg, hw, K5_RTOL)):
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= rtol * b.float().abs().max().item()
+
+
+@pytest.mark.gpu
+def test_gpu_decode_design_replays_in_a_cuda_graph():
+    """One K1 and one K5 decode-design call captured in a CUDA graph and
+    replayed twice on new x match the plain versions both times: the
+    launches keep nothing across calls (the scratch comes from the graph's
+    pool and is written before it is read)."""
+    _need_gpu()
+    x1, u, v = _mats(21, (8, 2560), (2560, 349), (349, 960))
+    x5, gu, gv, uu, uv = _mats(22, (8, 960), (960, 349), (349, 2560), (960, 349), (349, 2560))
+    with torch.inference_mode():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm up (and build) off the capture
+            lowrank_matmul(x1, u, v)
+            lowrank_gated_ffn(x5, gu, gv, uu, uv)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y1 = lowrank_matmul(x1, u, v)
+            y5 = lowrank_gated_ffn(x5, gu, gv, uu, uv)
+        for seed in (23, 24):
+            x1.copy_(_mats(seed, (8, 2560))[0])
+            x5.copy_(_mats(seed + 10, (8, 960))[0])
+            graph.replay()
+            torch.cuda.synchronize()
+            for got, want, rtol in ((y1, ref.lowrank_matmul_ref(x1, u, v), K1_RTOL),
+                                    (y5, ref.lowrank_gated_ffn_ref(x5, gu, gv, uu, uv),
+                                     K5_RTOL)):
+                err = (got.float() - want.float()).abs().max().item()
+                assert err <= rtol * want.float().abs().max().item()
