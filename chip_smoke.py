@@ -1,6 +1,6 @@
 """Drive the PyTorch port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py [--out results.json] [--only kernels|conv|serve|moe]
+    python3 chip_smoke.py [--out results.json] [--only kernels|conv|serve|moe|ssm]
 
 Phases, in order; any failure exits nonzero:
 
@@ -24,7 +24,9 @@ Phases, in order; any failure exits nonzero:
               with LRD (16 requests through 8 slots), with the kernels'
               launch counters zeroed before and read after;
 5. parity   — one full-width prefill through the kernels against the same
-              prefill through the plain versions;
+              prefill through the plain versions; 8 greedy tokens each way,
+              a parting held to a rounding tie (the plain run's top-2 gap
+              below the two runs' largest |logit difference| there);
 6. profile  — where a full-width decode step's time goes (wall time,
               device time by kernel, the device's idle share);
 6b. decompose — dense full-width smollm-360m (seeded, no LRD) through
@@ -132,7 +134,8 @@ Phases, in order; any failure exits nonzero:
 24. table4 — ViT-B/16 (224 x 224, batch 64, 10 classes, float32) with the
               ViT policy over the same ladder.
 
-25. spec serve — phase 4's 16-request trace with 47 new tokens (prime:
+25. spec serve — (phases 25-28 at 16 of smollm-360m's 32 layers, full
+              width) phase 4's 16-request trace with 47 new tokens (prime:
               every k retires mid-chunk), plain and self-speculative at k =
               1, 2, 4 with the draft = the params (acceptance 1.0) and at
               k = 2, 4 with the draft ``draft_rank_map`` derives (fraction
@@ -188,6 +191,25 @@ Phases, in order; any failure exits nonzero:
               and the training CLI for one 8 x 1024-token step under
               ``--remat full`` (the ep path at t = 8192).
 
+36-39. xLSTM-350M (24 mLSTM layers, d 1024, 4 heads; Eq.-5 rank 256) and
+40-43. Zamba2-1.2B (38 Mamba2 layers in 6 groups of 6 and a tail of 2,
+              the shared attention + GELU-FFN block at 2d = 4096 after each
+              group; Eq.-5 ranks 682-1365, past the old ceiling of 512), each
+              at full width and depth: serve — the serve CLI's fixed-batch
+              path, 8 x 512-token prompts (two 256-token SSD chunks), 32 new
+              tokens, K1 launches exact by shape (Zamba2's xbc_tail at M =
+              24 too), no other kernel; parity — 8 greedy tokens and the
+              prefill logits through the kernels against the plain
+              versions on the card, a parting held to a rounding tie;
+              profile — a fixed-batch decode step and the 8 x 512 prefill
+              (wall, device, idle, K1 ms); train — the training CLI, 6 steps
+              of 8 x 256 at phases 0,0,1,1,0,0 (xLSTM under ``--remat
+              full``), K1-K4 launches exact per step, then a step profiled
+              at phases 0 and 1 with K1-K4 ms and ``max_memory_allocated``;
+              then K1-K4 at r = 513 and 2048, the first rank past the old
+              ceiling and the new one, checked and timed as in phase 3
+              beside the kernels line (no main path runs them).
+
 Phases 20-24 run with TF32 off and the port's seeded init, through plain
 PyTorch (cuDNN convs, ``torch.matmul``): the JAX package computes them
 outside any Pallas kernel, so no hand-written kernel is on their path.
@@ -198,7 +220,8 @@ card, and the shapes it launched that phase 3 did not check are checked
 and timed after it.  ``--only kernels`` runs phases 1-3, the K6-K8 checks
 and phase 19; ``--only conv`` runs phases 1 and 20-24; ``--only serve`` runs
 phases 1-3 (at the serve and serving-feature shapes) and 25-28; ``--only
-moe`` runs phases 1-3 at the MoE shapes and 29-35.  The last
+moe`` runs phases 1-3 at the MoE shapes and 29-35; ``--only ssm`` phases
+1-3 at the SSM and hybrid shapes and 36-43.  The last
 line of
 standard output is ``{"ok": true, "device": {...}}``; the
 line before it is ``nvidia-smi``'s name and power limit, and the
@@ -327,6 +350,10 @@ FLASH_SERVE_SHAPE = dict(B=1, Sq=FLASH_PROMPT, Sk=FLASH_PROMPT, H=15, KV=5, D=64
 # teacher-forced decode steps, logits within 5% of max |logit| of the bf16
 # cache's (the reference's bound, tests/test_kvcache.py).
 SPEC_NEW, SPEC_KS, SPEC_DRAFT_KS, SPEC_FRACTION = 47, (1, 2, 4), (2, 4), 0.5
+# phases 25-28 run smollm-360m at full width and half its depth, so the
+# whole script, with the SSM and hybrid phases (36-43), stays well inside
+# its time limit (each phase's launch checks read the depth from the run)
+SERVING_LAYERS = 16
 PREFIX_LEN, PREFIX_SUFFIX, PREFIX_PREFILL, PREFIX_NEW = 1024, 64, 1088, 32
 FIXED_B, FIXED_T, FIXED_NEW = 8, 128, 32
 KV_STEPS, KV_RTOL = 8, 0.05
@@ -472,10 +499,15 @@ def decode_layout(name, d):
     s = d["S"] if nb == 1 else d["F"]
     cs, kc, per, w1, w2 = decode_plan(d["C"], d["r"], s, torch.cuda.get_device_properties(
         0).multi_processor_count, nb=nb)
+    from repro_torch.kernels.lowrank_matmul import decode_kp
+
     tiles, cols = nb * -(-d["r"] // w1), -(-s // w2)
+    pieces = -(-(-(-d["r"] // 16) * 16) // decode_kp(d["r"]))
     return cs * tiles, cols, (f"rank kernel {cs * tiles} CTAs ({tiles} tiles of {w1} rank "
                               f"columns x clusters of {cs} splitting C in {per} x {kc} rows), "
-                              f"out kernel {cols} CTAs ({w2} columns each)")
+                              f"out kernel {cols} CTAs ({w2} columns each"
+                              + (f", the rank in {pieces} pieces of {decode_kp(d['r'])}"
+                                 if pieces > 1 else "") + ")")
 
 
 def kernel_shapes(serve_only: bool = False):
@@ -984,11 +1016,14 @@ def device_ms_by_kernel(prof, steps: int):
     is the time the device was busy."""
     from torch.autograd import DeviceType
 
-    evs = sorted(((ev.time_range.start, ev.time_range.end, ev.name) for ev in prof.events()
-                  if ev.device_type == DeviceType.CUDA))
+    # the profiler's raw events: building its Python event tree takes
+    # minutes for a step of ~10^5 launches (an xLSTM train step)
+    evs = sorted((ev.start_ns(), ev.end_ns(), ev.name())
+                 for ev in prof.profiler.kineto_results.events()
+                 if ev.device_type() == DeviceType.CUDA)
     by_name, busy_until = {}, float("-inf")
     for start, end, name in evs:
-        ms = max(0.0, end - max(start, busy_until)) / steps / 1e3
+        ms = max(0.0, end - max(start, busy_until)) / steps / 1e6
         busy_until = max(busy_until, end)
         by_name[name] = by_name.get(name, 0.0) + ms
     return by_name
@@ -1076,20 +1111,29 @@ def phase_parity(engine):
         raise AssertionError(f"parity: last-position logits differ by {err:.3e} "
                              f"({rel:.3e} of max |logit|) > {PATH_RTOL}")
     # greedy agreement of a short decode: 8 tokens each way through a fresh
-    # one-slot engine
+    # one-slot engine, with the logits each token was picked from; where the
+    # tokens part, the plain path's top-2 gap there must be below the two
+    # runs' largest |logit difference| (a rounding tie), or the phase fails
     from repro_torch.serving import ServeConfig, ServeEngine
 
     prompt = tokens[0, :64].cpu().numpy()
-    toks = []
+    toks, logits = [], []
     for r in (run, plain_run):
         eng = ServeEngine(r, engine.params, device="cuda",
                           config=ServeConfig(num_slots=1, max_len=80, prefill_len=64))
-        toks.append(eng.generate(prompt[None], max_new=8)[0].tolist())
-    agree = sum(a == b for a, b in zip(*toks))
+        rec = _record_logits(eng.scheduler)
+        out = eng.serve([{"prompt": prompt, "max_new": 8}])[0]
+        toks.append(out.tokens.tolist())
+        logits.append(rec[out.rid])
+    cmp = _compare_greedy([toks[1]], [logits[1]], [toks[0]], [logits[0]], "parity")
+    agree = next((p["token"] for p in cmp["parted"]), 8)
     log(f"[parity] prefill last-position logits: max_abs_diff {err:.3e} "
         f"({rel:.3e} of max |logit| {want.abs().max().item():.3f}; bound {PATH_RTOL}); "
-        f"greedy decode agreement {agree}/8 (kernels {toks[0]} vs plain {toks[1]})")
-    return dict(max_abs_diff=err, rel=rel, agree=agree)
+        f"greedy decode agreement {agree}/8 (kernels {toks[0]} vs plain {toks[1]}); "
+        + ("".join(f"parts at token {p['token']}: plain top-2 gap {p['gap']:.3e} < card-vs-"
+                   f"plain max |logit diff| {p['max_abs_diff']:.3e} there, a rounding tie"
+                   for p in cmp["parted"]) or "no parting"))
+    return dict(max_abs_diff=err, rel=rel, agree=agree, compare=cmp)
 
 
 def _at(tree, path: str):
@@ -1300,7 +1344,7 @@ def phase_grads(params):
 
 
 def phase_train_profile(params, steps_n: int = 2, run=None, phases=(-1, 0, 1),
-                        label: str = "train profile", moe: bool = False):
+                        label: str = "train profile", moe: bool = False, warmup: bool = True):
     """Wall time (host clock around synchronised steps), device time
     (``torch.profiler``, device-side events only) and idle share of a
     full-width train step at each freezing phase, with tokens/s and
@@ -1318,7 +1362,8 @@ def phase_train_profile(params, steps_n: int = 2, run=None, phases=(-1, 0, 1),
         torch.cuda.reset_peak_memory_stats()
         state, _ = steps.make_train_state(run.optim, params, phase)
         step = steps.build_train_step(run, "cuda")
-        state, _ = step(state, batch, phase=phase)
+        if warmup:
+            state, _ = step(state, batch, phase=phase)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps_n):
@@ -2654,8 +2699,9 @@ def phase_row_bits():
 
 
 def _full_run(max_len: int, kv_dtype: str = "bfloat16", int8_decode: str = "native"):
-    """The serve CLI's run (full-width smollm-360m, LRD at Eq.-5 ranks,
-    kernels on, 8 slots) with a ``max_len`` window and a KV dtype."""
+    """The serve CLI's run (full-width smollm-360m at SERVING_LAYERS of its
+    32 layers, LRD at Eq.-5 ranks, kernels on, 8 slots) with a ``max_len``
+    window and a KV dtype."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2664,7 +2710,8 @@ def _full_run(max_len: int, kv_dtype: str = "bfloat16", int8_decode: str = "nati
     run = serve.serve_run(get_config("smollm-360m"), max_len=max_len, slots=DECODE_M,
                           lrd=True, device=torch.device("cuda"), seed=0)
     return dataclasses.replace(
-        run, model=dataclasses.replace(run.model, kv_cache_dtype=kv_dtype),
+        run, model=dataclasses.replace(run.model, kv_cache_dtype=kv_dtype,
+                                       num_layers=SERVING_LAYERS),
         lrd=dataclasses.replace(run.lrd, int8_decode=int8_decode))
 
 
@@ -2723,20 +2770,22 @@ def _record_logits(sched):
     return rec
 
 
-def _compare_greedy(ref_toks, ref_logits, toks, logits, what: str, tie_rule: bool = True):
+def _compare_greedy(ref_toks, ref_logits, toks, logits, what: str, tie_rule: bool = True,
+                    rtol=PATH_RTOL):
     """Hold a run's greedy tokens to a reference run's, request by request:
-    while their histories agree the logits must lie within PATH_RTOL of the
-    reference's, and where tokens part, the reference's top-2 gap there must
-    be below the largest |logit difference| of the two runs at that position
-    (a rounding tie), unless ``tie_rule`` is off (then the parting is only
-    reported).  Returns a summary."""
+    while their histories agree the logits must lie within ``rtol`` of the
+    reference's (None: only reported), and where tokens part, the
+    reference's top-2 gap there must be below the largest |logit
+    difference| of the two runs at that position (a rounding tie), unless
+    ``tie_rule`` is off (then the parting is only reported).  Returns a
+    summary."""
     parted, worst, worst_abs = [], 0.0, 0.0
     for rid, (a, b) in enumerate(zip(ref_toks, toks)):
         if len(a) != len(b):
             raise AssertionError(f"{what}: request {rid} has {len(b)} tokens, want {len(a)}")
         for j, (ta, tb) in enumerate(zip(a, b)):
             diff, rel = rel_err(logits[rid][j], ref_logits[rid][j])
-            if not torch.isfinite(logits[rid][j]).all() or rel > PATH_RTOL:
+            if not torch.isfinite(logits[rid][j]).all() or (rtol is not None and rel > rtol):
                 raise AssertionError(f"{what}: request {rid} token {j} logits on the same "
                                      f"history differ by {diff:.3e} ({rel:.3e} of max |logit|)")
             if ta != tb:
@@ -3673,6 +3722,324 @@ def phase_moe():
     return paths, result
 
 
+# --------------------------------------------------------------------------
+# The SSM and hybrid families: full-width xLSTM-350M and Zamba2-1.2B
+# (phases 36-43)
+# --------------------------------------------------------------------------
+
+# xLSTM-350M (24 mLSTM layers, d 1024, 4 heads) and Zamba2-1.2B (38 Mamba2
+# layers in 6 groups of 6 and a tail of 2, d 2048, the shared attention +
+# GELU-FFN block at 2d = 4096 after each group) at full width and depth, LRD
+# at Eq.-5 ranks.  Serve: the serve CLI's fixed-batch path, 8 rows of
+# 512-token prompts and 32 new tokens (two 256-token SSD chunks a prompt).
+# Train: 6 steps of 8 x 256 tokens, phases 0,0,1,1,0,0; xLSTM under
+# --remat full (its step recurrence keeps an (8, 4, 256, 256) float32
+# memory a position for the backward: ~2 GB a layer a saved tensor).
+SSM_ARCHS = ("xlstm-350m", "zamba2-1.2b")
+SSM_SLOTS, SSM_PROMPT, SSM_NEW, SSM_PARITY_NEW = 8, 512, 32, 8
+SSM_REMAT = {"xlstm-350m": "full", "zamba2-1.2b": "none"}
+# (C, r, S) of each factorised projection at Eq.-5 ranks -> its K1 launches
+# a forward: xLSTM wq, wk, wv, wo_gate and wo of 24 layers; Zamba2 in_proj
+# and out_proj of 38 Mamba2 layers, and the shared block's wq/wk/wv/wo, FFN
+# wi and down and down_proj after each of 6 groups (down_proj has
+# out_proj's geometry)
+SSM_GEOMS = {"xlstm-350m": {(1024, 256, 1024): 5 * 24},
+             "zamba2-1.2b": {(2048, 822, 8384): 38, (4096, 682, 2048): 38 + 6,
+                             (4096, 1024, 4096): 4 * 6, (4096, 1365, 8192): 6,
+                             (8192, 1365, 4096): 6}}
+# a prefill also runs each Mamba2 layer's in_proj on its last 3 positions
+# (xbc_tail, the decode conv state): M = 8 x 3
+SSM_TAIL = {"xlstm-350m": {}, "zamba2-1.2b": {(2048, 822, 8384): 38}}
+SSM_TAIL_M = SSM_SLOTS * 3
+
+
+def _ssm_serve_argv(arch):
+    return ["--arch", arch, "--lrd", "--slots", str(SSM_SLOTS), "--prompt-len",
+            str(SSM_PROMPT), "--max-new", str(SSM_NEW)]
+
+
+def _ssm_train_argv(arch):
+    return (["--arch", arch] + TRAIN_ARGV[2:]
+            + (["--remat", SSM_REMAT[arch]] if SSM_REMAT[arch] != "none" else []))
+
+
+def _ssm_train_run(arch):
+    from repro_torch.launch import train
+
+    return train.build_run(train._parser().parse_args(_ssm_train_argv(arch)))
+
+
+# K1-K4 at the first rank past the old ceiling of 512 and at the new
+# ceiling, checked and timed beside the kernels line (no main path runs
+# them): K1 in both designs, K2-K4 at the train M
+RANK_EDGE_SHAPES = ([("lowrank_matmul", dict(M=m, C=c, r=r, S=s))
+                     for c, r, s in ((960, 513, 960), (4096, 2048, 4096))
+                     for m in (DECODE_M, TRAIN_M)]
+                    + [(name, dict(M=TRAIN_M, C=c, r=r, S=s)) for name in BWD
+                       for c, r, s in ((960, 513, 960), (4096, 2048, 4096))])
+
+
+def ssm_kernel_shapes(archs=SSM_ARCHS):
+    """(name, dims) of every K1-K4 call on the two families' paths: K1 at
+    the decode, prefill, xbc_tail and train M; K2-K4 at the train M."""
+    out = []
+    for arch in archs:
+        for (c, r, s) in SSM_GEOMS[arch]:
+            out += [("lowrank_matmul", dict(M=m, C=c, r=r, S=s))
+                    for m in (SSM_SLOTS, SSM_SLOTS * SSM_PROMPT, TRAIN_M)]
+            out += [(name, dict(M=TRAIN_M, C=c, r=r, S=s)) for name in BWD]
+        out += [("lowrank_matmul", dict(M=SSM_TAIL_M, C=c, r=r, S=s))
+                for (c, r, s) in SSM_TAIL[arch]]
+    return out
+
+
+def _ssm_want(arch, per_m):
+    """K1 launches by (M, C, r, S) of forwards at M -> count (``per_m``)."""
+    want = {}
+    for m, n in per_m.items():
+        for (c, r, s), k in SSM_GEOMS[arch].items():
+            want[(m, c, r, s)] = want.get((m, c, r, s), 0) + k * n
+    return want
+
+
+def phase_ssm_serve(arch):
+    """Phases 36 / 40: the serve CLI on the family's full-width model, the
+    fixed-batch path: K1 launches exact by shape (a prefill at M = 8 x 512
+    with xbc_tail's at M = 8 x 3, then 31 decode forwards at M = 8), no
+    other kernel, finite tokens."""
+    from repro_torch.launch import serve
+
+    zero_counts()
+    t0 = time.perf_counter()
+    engine, out = serve.main(_ssm_serve_argv(arch))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    by_shape = counts_by_shape()
+    want = _ssm_want(arch, {SSM_SLOTS * SSM_PROMPT: 1, SSM_SLOTS: SSM_NEW - 1})
+    for (c, r, s), k in SSM_TAIL[arch].items():
+        want[(SSM_TAIL_M, c, r, s)] = k
+    got = by_shape["lowrank_matmul"]
+    others = {k: v for k, v in by_shape.items() if v and k != "lowrank_matmul"}
+    if got != want or others or out.shape != (SSM_SLOTS, SSM_NEW):
+        raise AssertionError(f"{arch} serve: K1 launches {got}, want {want}; other kernels "
+                             f"{others}; tokens {out.shape}")
+    if engine._scheduler is not None:
+        raise AssertionError(f"{arch} serve: the fixed-batch path built a scheduler")
+    tok_s = out.size / dt
+    log(f"[{arch} serve] fixed batch {SSM_SLOTS} x {SSM_PROMPT} prompts, {SSM_NEW} new tokens "
+        f"on {torch.cuda.get_device_name(0)}: {dt:.2f}s incl. init ({tok_s:.1f} tok/s); "
+        f"{sum(got.values())} K1 launches, exact by shape (ranks "
+        f"{sorted({k[2] for k in got})}); no other kernel")
+    return engine, by_shape, dict(wall_s=dt, tok_per_s=tok_s, k1=sum(got.values()),
+                                  sample=out[0].tolist())
+
+
+@contextlib.contextmanager
+def _recurrent_inputs(family, record):
+    """Patch the family's recurrent block (``ssm.mlstm_apply`` or
+    ``ssm.mamba2_apply``; here only) so each call appends its input."""
+    from repro_torch.models import ssm
+
+    name = "mlstm_apply" if family == "ssm" else "mamba2_apply"
+    orig = getattr(ssm, name)
+
+    def wrapped(p, x, cfg, **kw):
+        record.append(x)
+        return orig(p, x, cfg, **kw)
+
+    setattr(ssm, name, wrapped)
+    try:
+        yield orig
+    finally:
+        setattr(ssm, name, orig)
+
+
+def _layer_parity(run, params, prompts):
+    """Each recurrent layer (24 mLSTM, or 38 Mamba2) on the same input, the
+    plain path's own at that layer, through the kernels and through the
+    plain versions: max |difference| / max |plain| of each layer's output."""
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+
+    cfg, inputs = run.model, []
+    with _recurrent_inputs(cfg.family, inputs) as apply_fn:
+        steps.build_prefill_step(_plain(run))(params, {"tokens": prompts})
+    if cfg.family == "ssm":
+        layers = [lm._layer(params["stack"], l) for l in range(cfg.num_layers)]
+    else:
+        n_grp, per, tail = lm._hybrid_split(cfg)
+        layers = [lm._layer(lm._layer(params["mamba_groups"], g), l)
+                  for g in range(n_grp) for l in range(per)]
+        layers += [lm._layer(params["mamba_tail"], l) for l in range(tail)]
+    rels = []
+    with torch.inference_mode():
+        for lp, x in zip(layers, inputs):
+            got, _ = apply_fn(lp, x, cfg, policy=steps.kernel_policy(run))
+            want, _ = apply_fn(lp, x, cfg, policy=steps.kernel_policy(_plain(run)))
+            rels.append(rel_err(got, want)[1])
+    zero_counts()
+    return rels
+
+
+def phase_ssm_parity(engine, arch):
+    """Phases 37 / 41: one batch of 8 x 512 prompts and 8 new tokens through
+    the kernels against the same fixed-batch path through the plain versions
+    on the card.  Each recurrent layer on the same input (the plain path's
+    at that layer) within PATH_RTOL of max |plain output|.  End to end, the
+    model's own conditioning first: the plain path again from an embedding
+    table with 1% of its entries one bf16 ulp up.  Where that alone moves
+    the prefill logits by more than PATH_RTOL of max |logit| (xLSTM-350M's
+    random weights amplify a 1-ulp change through its 24 layers), end-to-end
+    logits are reported and not bounded; else the prefill's last-position
+    logits within PATH_RTOL, and greedy tokens held to the plain run's on
+    agreeing histories as in phase 25.  Either way a parting must be a
+    rounding tie (the plain run's top-2 gap below the two runs' largest
+    |logit difference| there)."""
+    from repro_torch.launch import steps
+
+    run, params = engine.run, engine.params
+    vocab = run.model.vocab_size
+    gen = torch.Generator(device="cuda").manual_seed(36)
+    prompts = torch.randint(0, vocab, (SSM_SLOTS, SSM_PROMPT), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    layer_rels = _layer_parity(run, params, prompts)
+    if not all(math.isfinite(r) and r <= PATH_RTOL for r in layer_rels):
+        raise AssertionError(f"{arch} parity: a recurrent layer's output, kernels vs plain on "
+                             f"the same input, {max(layer_rels):.3e} of max |plain| > "
+                             f"{PATH_RTOL}: {layer_rels}")
+    toks, logits = _generate_with_logits(run, params, prompts, SSM_PARITY_NEW)
+    ptoks, plogits = _generate_with_logits(_plain(run), params, prompts, SSM_PARITY_NEW)
+    logits = [[t[:vocab] for t in r] for r in logits]
+    plogits = [[t[:vocab] for t in r] for r in plogits]
+    emb = params["embed"]["embedding"]
+    nudged = emb.clone()
+    nudged.view(-1)[::100] = (nudged.view(-1)[::100].float() * (1 + 2 ** -7)).to(emb.dtype)
+    with torch.inference_mode():
+        cond, _ = steps.build_prefill_step(_plain(run))(dict(params, embed={"embedding": nudged}),
+                                                        {"tokens": prompts})
+    zero_counts()
+    want = torch.stack([r[0] for r in plogits])
+    cond_diff, cond_rel = rel_err(cond[:, :vocab], want)
+    diff, rel = rel_err(torch.stack([r[0] for r in logits]), want)
+    bounded = cond_rel <= PATH_RTOL
+    if not all(torch.isfinite(r[0]).all() for r in logits) or (bounded and rel > PATH_RTOL):
+        raise AssertionError(f"{arch} parity: prefill logits {diff:.3e} ({rel:.3e} of max "
+                             f"|logit|) from the plain versions'")
+    cmp = _compare_greedy(ptoks, plogits, toks, logits, f"{arch} parity",
+                          rtol=PATH_RTOL if bounded else None)
+    log(f"[{arch} parity] each of {len(layer_rels)} recurrent layers on the plain path's input, "
+        f"kernels vs plain: worst {max(layer_rels):.3e} of max |output| (bound {PATH_RTOL}); "
+        f"prefill last-position logits, kernels vs plain on the card: max_abs_diff {diff:.3e} "
+        f"({rel:.3e} of max |logit|; "
+        + (f"bound {PATH_RTOL}" if bounded else "reported, not bounded") + f"); the plain "
+        f"path from an embedding 1% one ulp up: {cond_diff:.3e} ({cond_rel:.3e}); "
+        f"{SSM_PARITY_NEW} greedy tokens: {_parted_text(cmp)}")
+    return dict(layer_rel=layer_rels, max_abs_diff=diff, rel=rel, bounded=bounded,
+                conditioning_abs=cond_diff, conditioning_rel=cond_rel, compare=cmp)
+
+
+def phase_fixed_profile(engine, arch, steps_n: int = 5):
+    """Phases 38 / 42: a fixed-batch decode step (8 rows at position 512,
+    the prefill's cache padded to the window) as in phase 6: wall and device
+    ms, idle share, K1 ms; then the prefill itself the same way."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.engine import pad_cache
+
+    run = engine.run
+    gen = torch.Generator(device="cuda").manual_seed(38)
+    prompts = torch.randint(0, run.model.vocab_size, (SSM_SLOTS, SSM_PROMPT), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    last, cache = engine._prefill(engine.params, {"tokens": prompts})
+    cache = pad_cache(cache, SSM_PROMPT + SSM_NEW)
+    token = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+    pos = torch.tensor(SSM_PROMPT, dtype=torch.int32, device="cuda")
+    out = {}
+    for label, fn in (("decode step", lambda: engine._step(engine.params, cache, token, pos)),
+                      ("prefill", lambda: engine._prefill(engine.params, {"tokens": prompts}))):
+        n = steps_n if label == "decode step" else 1
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / n * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        by_name = device_ms_by_kernel(prof, n)
+        device_ms = sum(by_name.values())
+        k1_ms, _ = lowrank_device_ms(by_name)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        out[label] = dict(wall_ms=wall_ms, device_ms=device_ms or None,
+                          idle_share=(1 - device_ms / wall_ms) if device_ms else None,
+                          k1_ms=k1_ms, top=[dict(name=k[:80], ms=v) for k, v in top])
+        log(f"[{arch} profile] {label} ({SSM_SLOTS} rows, {run.model.num_layers} layers): "
+            f"wall {wall_ms:.2f} ms, device "
+            + (f"{device_ms:.2f} ms, idle {out[label]['idle_share']:.1%}; K1 {k1_ms:.2f} ms; "
+               "top: " + ", ".join(f"{k[:40]} {v * 1e3:.0f}us" for k, v in top[:5])
+               if device_ms else "time not measured (profiler saw no device events)"))
+    zero_counts()
+    return out
+
+
+def phase_ssm_train(arch):
+    """Phases 39 / 43: the training CLI on the family's full-width model, 6
+    steps of 8 x 256 tokens at phases 0,0,1,1,0,0: per step exactly one K1
+    and one K2 a factorised projection's forward (two K1 under remat full:
+    the recomputed forward), K3 at phase 1 only, K4 at phase 0 only, all at
+    M = 2048 and the projection's rank, no K5; finite losses."""
+    state, per_step, by_shape, dt = _counted_train(_ssm_train_argv(arch))
+    phases = [r["phase"] for r in per_step]
+    if phases != [0, 0, 1, 1, 0, 0]:
+        raise AssertionError(f"{arch} train: phases {phases}, want [0, 0, 1, 1, 0, 0]")
+    n = sum(SSM_GEOMS[arch].values())
+    keys = {(TRAIN_M, c, r, s) for (c, r, s) in SSM_GEOMS[arch]}
+    for r in per_step:
+        want = {"lowrank_matmul": n * (2 if SSM_REMAT[arch] == "full" else 1),
+                "lowrank_matmul_dx": n, "lowrank_matmul_du": n if r["phase"] == 1 else 0,
+                "lowrank_matmul_dv": n if r["phase"] == 0 else 0}
+        got = {k: v for k, v in r["launches"].items() if v or k in want}
+        seen = {k: v for k, v in r["shapes"].items() if v}
+        if got != want or any(v != keys for v in seen.values()):
+            raise AssertionError(f"{arch} train: step {r['step']} (phase {r['phase']}) "
+                                 f"launched {got} at {seen}, want {want} at {keys}")
+        if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])):
+            raise AssertionError(f"{arch} train: step {r['step']} loss {r['loss']}")
+        log(f"[{arch} train] step {r['step']} phase {r['phase']}: loss {r['loss']:.4f}, grad "
+            f"norm {r['grad_norm']:.3f}, {r['step_time_s'] * 1e3:.1f} ms, memory_allocated "
+            f"{r['mem'] / 2 ** 30:.2f} GiB; launches "
+            + ", ".join(f"{k.replace('lowrank_', '')} {v}" for k, v in r["launches"].items()
+                        if v))
+    log(f"[{arch} train] 6 steps of {TRAIN_M} tokens (remat {SSM_REMAT[arch]}) on "
+        f"{torch.cuda.get_device_name(0)}: loss {per_step[0]['loss']:.4f} -> "
+        f"{per_step[-1]['loss']:.4f}; {dt:.1f}s incl. init")
+    return state.params, by_shape, dict(steps=_without_shapes(per_step), wall_s=dt)
+
+
+def phase_ssm(archs=SSM_ARCHS):
+    """Phases 36-43; returns (launches by kernel and shape per main path,
+    results)."""
+    paths, result = {}, {}
+    for arch in archs:
+        out = result[arch] = {}
+        engine, paths[f"{arch} serve"], out["serve"] = phase_ssm_serve(arch)
+        out["parity"] = phase_ssm_parity(engine, arch)
+        out["profile"] = phase_fixed_profile(engine, arch)
+        del engine
+        gc.collect()
+        params, paths[f"{arch} train"], out["train"] = phase_ssm_train(arch)
+        # the training CLI's steps have warmed the kernels and the allocator
+        out["train_profile"] = phase_train_profile(
+            params, steps_n=1, run=_ssm_train_run(arch), phases=(0, 1),
+            label=f"{arch} train profile", warmup=False)
+        del params
+        gc.collect()
+    return paths, result
+
+
 def check_launched_shapes(path: str, rows, by_shape) -> None:
     """Fail if ``path`` launched a kernel at a shape the kernel phase did
     not check."""
@@ -3703,14 +4070,20 @@ def count_launches(rows, paths) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="", help="also write every result as JSON here")
-    ap.add_argument("--only", choices=("kernels", "conv", "serve", "moe"), default=None,
+    ap.add_argument("--only", choices=("kernels", "conv", "serve", "moe", "ssm"),
+                    default=None,
                     help="kernels: stop after the kernel phase (a first check of a build); "
                          "conv: run only the conv and ViT phases; serve: phases 1-3 at the "
                          "serving shapes and the serving features' phases 25-28; moe: "
-                         "phases 1-3 at the MoE shapes and the MoE phases 29-35")
+                         "phases 1-3 at the MoE shapes and the MoE phases 29-35; ssm: "
+                         "phases 1-3 at the SSM and hybrid shapes and phases 36-43")
     args = ap.parse_args(argv)
 
     t_start = time.perf_counter()
+
+    def mark(what: str) -> None:
+        log(f"[run] {time.perf_counter() - t_start:.1f} s after {what}")
+
     smi = phase_device()
     if args.only == "conv":
         result = dict(smi=smi, **phase_conv())
@@ -3725,9 +4098,12 @@ def main(argv=None) -> int:
         shapes = moe_kernel_shapes()
     elif args.only == "serve":
         shapes = kernel_shapes(serve_only=True)
+    elif args.only == "ssm":
+        shapes = ssm_kernel_shapes()
     else:
-        shapes = kernel_shapes() + moe_kernel_shapes()
+        shapes = kernel_shapes() + moe_kernel_shapes() + ssm_kernel_shapes()
     rows = phase_kernels(shapes)
+    mark("kernels")
     result = dict(smi=smi, build_s=build_s, kernels=rows)
     paths = {}  # main path -> launches by kernel and shape
     if args.only == "serve":
@@ -3736,11 +4112,16 @@ def main(argv=None) -> int:
     elif args.only == "moe":
         paths, result["moe"] = phase_moe()
         count_launches(rows, paths)
+    elif args.only == "ssm":
+        paths, result["ssm"] = phase_ssm()
+        count_launches(rows, paths)
+        result["rank_edges"] = phase_kernels(RANK_EDGE_SHAPES)
     elif args.only is None:
         engine, paths["serve"], result["serve"] = phase_serve()
         result["parity"] = phase_parity(engine)
         result["profile"] = phase_profile(engine)
         del engine
+        mark("serve")
         engine, paths["decompose serve"], result["decompose"] = phase_decompose()
         result["decompose"]["parity"] = phase_parity(engine)
         del engine
@@ -3751,6 +4132,7 @@ def main(argv=None) -> int:
                 engine, label=f"int8 {kind} export decode step", int8=True)
             del engine
         result["int8_launches"] = phase_int8_launches()
+        mark("decompose and export")
         params, paths["train"], result["train"] = phase_train()
         result["grads"] = phase_grads(params)
         result["train_profile"] = phase_train_profile(params)
@@ -3783,15 +4165,26 @@ def main(argv=None) -> int:
         # checked, not in the kernels line: no main path launches them
         result["flash_extra"] = phase_flash_kernels([d for d in FLASH_EXTRA
                                                      if d not in launched])
+        mark("train, int8 and flash")
         result["designs"] = phase_designs()
+        mark("designs")
         # the paper's conv and ViT path: no hand-written kernel runs on it
         result.update(phase_conv())
+        mark("conv")
         # speculative decoding, the prefix cache, int8 KV and the fixed batch
         more, result["serving"] = phase_serving_features()
         paths.update(more)
+        mark("serving features")
         # the MoE family: full-width OLMoE-1B-7B served, trained, rematerialised
         more, result["moe"] = phase_moe()
         paths.update(more)
+        mark("moe")
+        # the SSM and hybrid families: full-width xLSTM-350M and Zamba2-1.2B
+        more, result["ssm"] = phase_ssm()
+        paths.update(more)
+        # checked, not in the kernels line: no main path launches them
+        result["rank_edges"] = phase_kernels(RANK_EDGE_SHAPES)
+        mark("ssm")
         count_launches(rows, paths)
         if not any(r["launches"] for r in rows if r["name"] == "int8_linear"):
             log("[kernels] int8_linear (K6) was launched on no main path in this run: the "
@@ -3799,6 +4192,7 @@ def main(argv=None) -> int:
     else:
         rows += phase_int8_kernels(INT8_DEFAULT_SHAPES)
         rows += phase_flash_kernels([FLASH_SERVE_SHAPE] + FLASH_EXTRA)
+        rows += phase_kernels(RANK_EDGE_SHAPES)
         result["designs"] = phase_designs()
         for row in rows:
             row["launches"] = 0

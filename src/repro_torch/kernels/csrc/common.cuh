@@ -36,6 +36,13 @@
 // it waits for phase 1, requests t and multiplies, each warp whole output
 // tiles (16 rows, 8 columns) over the whole rank.  Each output is rounded
 // once (K5: silu(g) * u in float32 from both branches' sums, then rounded).
+// Past kDKpMax = 512 rank rows (K1 only: Zamba2's ranks are 640-1365) the
+// V tile and t no longer fit shared memory whole, so the CTA walks the rank
+// in the fewest equal pieces of at most 512 rows (decode_kp, a function of
+// r alone): the first piece's V is requested before the wait and the later
+// pieces' asked into L2, each piece's float32 sums are added to the earlier
+// ones' in shared memory, and the output is still rounded once, after the
+// last piece.  Shared memory stays what r = 512 needed.
 //
 // Sums in a fixed order that M does not change: the split of C (cs, kc, per)
 // and of r (w1) come from the wrapper's plan (decode_plan in
@@ -69,7 +76,8 @@ using bf16 = __nv_bfloat16;
 namespace cg = cooperative_groups;
 
 constexpr int kBM = 16;          // rows of an MMA tile (m16n8k16)
-constexpr int kRMax = 512;       // largest rank the kernels take
+constexpr int kRMax = 2048;      // largest rank K1 and K2-K4 take
+constexpr int kRMaxFused = 512;  // largest rank K5 and K7 take (one rank tile in their designs)
 constexpr int kSmemMax = 232448; // 227 KB, the most shared memory a block may use
 constexpr int kDThreads = 256;   // decode design: 8 warps a CTA, both phases
 constexpr int kDWarps = kDThreads / 32;
@@ -79,6 +87,7 @@ constexpr int kDKcMax = 512;     // rows of C in a CTA's piece
 constexpr int kDW1Max = 64;      // columns of t a phase-1 CTA owns
 constexpr int kDW2Max = 64;      // output columns a phase-2 CTA owns
 constexpr int kDBatch = 8;       // 16-byte chunks a thread has in flight on the shifted path
+constexpr int kDKpMax = 512;     // rank rows of V and t a phase-2 CTA holds at once
 
 __host__ __device__ inline int round_up(int a, int b) { return (a + b - 1) / b * b; }
 __host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
@@ -380,74 +389,126 @@ struct DecodeOut {
   bf16* y;           // (M, S)
   int M, S, r[2], rt;
   int kext;          // rank rows multiplied: the larger rank rounded up to 16
+  int kp;            // rank rows a piece (decode_kp): kext, or pieces of at most kDKpMax
   int w2, rows;      // columns and rows (a row block) a CTA owns
   int vvec[2];
 };
 
-// Shared memory of phase 2 at `rows` rows a CTA: V [nb][kext][tile_ld(w2)]
-// | t [nb][rows][tile_ld(kext)]
+// Rank rows of one phase-2 piece: the whole rank up to kDKpMax, else the
+// rank cut into the fewest equal pieces of at most kDKpMax rows (multiples
+// of 16).  A function of the rank alone, so the order of a row's sum does
+// not depend on M.
+__host__ __device__ inline int decode_kp(int kext) {
+  const int n = ceil_div(kext, kDKpMax);
+  return round_up(ceil_div(kext, n), kBM);
+}
+
+// Shared memory of phase 2 at `rows` rows a CTA and pieces of kp rank rows:
+// V [nb][kp][tile_ld(w2)] | t [nb][rows][tile_ld(kp)] | with more than one
+// piece, the float32 sums carried between pieces [nb][rows][w2]
 struct OutSmem {
-  size_t t, total;
+  size_t t, acc, total;
 };
-__host__ __device__ inline OutSmem out_smem(int rows, int kext, int w2, int nb) {
+__host__ __device__ inline OutSmem out_smem(int rows, int kp, int w2, int nb, bool pieces) {
   OutSmem s;
-  s.t = align128(sizeof(bf16) * nb * kext * tile_ld(w2));
-  s.total = s.t + sizeof(bf16) * nb * rows * tile_ld(kext);
+  s.t = align128(sizeof(bf16) * nb * kp * tile_ld(w2));
+  const size_t end = s.t + sizeof(bf16) * nb * rows * tile_ld(kp);
+  s.acc = align128(end);
+  s.total = pieces ? s.acc + sizeof(float) * nb * rows * w2 : end;
   return s;
+}
+
+// Ask L2 for rows [r0, r1) x columns [c0, c0 + cols) of a row-major bf16
+// matrix (pitch elements a row; the first and last byte of each row's
+// segment, at most 128 bytes), rows past nr skipped.
+__device__ inline void prefetch_rows_l2(const bf16* g, int pitch, int nr, int r0, int r1, int c0,
+                                        int cols) {
+  for (int i = r0 + (int)threadIdx.x; i < r1 && i < nr; i += kDThreads) {
+    const bf16* p = g + (size_t)i * pitch + c0;
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p + cols - 1));
+  }
 }
 
 // CTA (column tile, row block) = (blockIdx.x, blockIdx.y): output columns
 // [s0, s0 + w2) of rows [m0, m0 + rows).  Warp w takes the output tiles (16
-// rows, 8 columns) w, w + 8, ..., each over the whole rank.
+// rows, 8 columns) w, w + 8, ..., each over the whole rank: in one piece
+// (rank <= kDKpMax) or piece by piece, each piece's float32 sum added to
+// those before it in shared memory and the output rounded after the last.
+// The V of later pieces is asked into L2 before the wait for phase 1.
 template <int NB, bool kGated>
 __device__ inline void decode_out_body(const DecodeOut& a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const OutSmem L = out_smem(a.rows, a.kext, a.w2, NB);
+  const int np = NB == 1 ? ceil_div(a.kext, a.kp) : 1;  // K5 keeps r <= 512: one piece
+  const OutSmem L = out_smem(a.rows, a.kp, a.w2, NB, np > 1);
   bf16* vs = reinterpret_cast<bf16*>(smem);
   bf16* ts = reinterpret_cast<bf16*>(smem + L.t);
-  const int ldv = tile_ld(a.w2), ldt = tile_ld(a.kext), s0 = blockIdx.x * a.w2;
+  float* sums = reinterpret_cast<float*>(smem + L.acc);
+  const int ldv = tile_ld(a.w2), ldt = tile_ld(a.kp), s0 = blockIdx.x * a.w2;
   const int m0 = blockIdx.y * a.rows, mt = ceil_div(min(a.rows, a.M - m0), kBM);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
-  const int nt = a.w2 / 8, ks = a.kext / 16;
+  const int nt = a.w2 / 8;
 
-  // V's tile does not depend on t: requested before the wait
-#pragma unroll
-  for (int b = 0; b < NB; ++b)
-    load_tile(a.v[b], a.S, a.r[b], a.S, 0, s0, a.kext, a.w2, vs + b * a.kext * ldv, ldv,
-              a.vvec[b]);
-  cp_async_commit();
-  grid_dependency_wait();  // phase 1's t is written
-#pragma unroll
-  for (int b = 0; b < NB; ++b)  // ranks past r_b read as zeros
-    load_tile(a.t + (size_t)b * a.M * a.rt, a.rt, a.M, a.r[b], m0, 0, mt * kBM, a.kext,
-              ts + b * a.rows * ldt, ldt, true);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  for (int p = warp; p < mt * nt; p += kDWarps) {
-    const int mi = p / nt, ni = p - mi * nt;
-    float o[NB][4];
+  for (int pc = 0; pc < np; ++pc) {
+    const int k0 = pc * a.kp, kn = min(a.kp, a.kext - k0), ks = kn / 16;
+    if (pc) __syncthreads();  // the last piece's V and t are read
+    // V's piece does not depend on t: the first is requested before the wait
 #pragma unroll
     for (int b = 0; b < NB; ++b)
-      tile_product(o[b], ts + (b * a.rows + mi * kBM) * ldt, ldt, vs + b * a.kext * ldv + ni * 8,
-                   ldv, ks);
-    const int n = s0 + ni * 8 + 2 * tq;
+      load_tile(a.v[b], a.S, a.r[b], a.S, k0, s0, kn, a.w2, vs + b * a.kp * ldv, ldv,
+                a.vvec[b]);
+    cp_async_commit();
+    if (!pc) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + mi * kBM + g + 8 * h;
-      if (m >= a.M || n >= a.S) continue;
-      float v[2];
+      for (int b = 0; b < NB; ++b)
+        prefetch_rows_l2(a.v[b], a.S, a.r[b], a.kp, a.kext, s0, min(a.w2, a.S - s0));
+      grid_dependency_wait();  // phase 1's t is written
+    }
 #pragma unroll
-      for (int e2 = 0; e2 < 2; ++e2) {
-        const float x0 = o[0][2 * h + e2];
-        v[e2] = kGated ? x0 / (1.0f + expf(-x0)) * o[NB - 1][2 * h + e2] : x0;
+    for (int b = 0; b < NB; ++b)  // ranks past r_b read as zeros
+      load_tile(a.t + (size_t)b * a.M * a.rt, a.rt, a.M, a.r[b], m0, k0, mt * kBM, kn,
+                ts + b * a.rows * ldt, ldt, true);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    const bool last = pc == np - 1;
+    for (int p = warp; p < mt * nt; p += kDWarps) {
+      const int mi = p / nt, ni = p - mi * nt;
+      float o[NB][4];
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+        tile_product(o[b], ts + (b * a.rows + mi * kBM) * ldt, ldt, vs + b * a.kp * ldv + ni * 8,
+                     ldv, ks);
+      if (NB == 1 && np > 1) {  // this thread's elements: the same every piece
+#pragma unroll
+        for (int b = 0; b < NB; ++b)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float* s = sums + (b * a.rows + mi * kBM + g + 8 * (j >> 1)) * a.w2 + ni * 8 +
+                       2 * tq + (j & 1);
+            if (pc) o[b][j] = *s + o[b][j];
+            if (!last) *s = o[b][j];
+          }
+        if (!last) continue;
       }
-      bf16* dst = a.y + (size_t)m * a.S + n;
-      if (n + 1 < a.S && a.S % 2 == 0) {  // y is the wrapper's: 4-byte aligned
-        *reinterpret_cast<unsigned*>(dst) = pack2(__float2bfloat16(v[0]), __float2bfloat16(v[1]));
-      } else {
-        dst[0] = __float2bfloat16(v[0]);
-        if (n + 1 < a.S) dst[1] = __float2bfloat16(v[1]);
+      const int n = s0 + ni * 8 + 2 * tq;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + mi * kBM + g + 8 * h;
+        if (m >= a.M || n >= a.S) continue;
+        float v[2];
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const float x0 = o[0][2 * h + e2];
+          v[e2] = kGated ? x0 / (1.0f + expf(-x0)) * o[NB - 1][2 * h + e2] : x0;
+        }
+        bf16* dst = a.y + (size_t)m * a.S + n;
+        if (n + 1 < a.S && a.S % 2 == 0) {  // y is the wrapper's: 4-byte aligned
+          *reinterpret_cast<unsigned*>(dst) = pack2(__float2bfloat16(v[0]), __float2bfloat16(v[1]));
+        } else {
+          dst[0] = __float2bfloat16(v[0]);
+          if (n + 1 < a.S) dst[1] = __float2bfloat16(v[1]);
+        }
       }
     }
   }
@@ -515,8 +576,10 @@ inline cudaError_t launch_decode(void (*rank_kernel)(DecodeRank), void (*out_ker
   }
   a1.rt = a2.rt = round_up(rmax, 8);
   a2.kext = round_up(rmax, kBM);
+  a2.kp = decode_kp(a2.kext);
+  const bool pieces = a2.kp < a2.kext;
   const auto smem1 = [&](int rows) { return rank_smem(rows, kc, a1.w1, cs).total; };
-  const auto smem2 = [&](int rows) { return out_smem(rows, a2.kext, a2.w2, NB).total; };
+  const auto smem2 = [&](int rows) { return out_smem(rows, a2.kp, a2.w2, NB, pieces).total; };
   // M in B row blocks: each CTA takes B times the plan's columns (to
   // kDW1Max, kDW2Max), so each grid keeps the size the plan chose
   a1.w1 = w1, a2.w2 = w2;
@@ -595,6 +658,16 @@ inline cudaError_t launch_decode(void (*rank_kernel)(DecodeRank), void (*out_ker
 // H100 (a cluster's CTAs must share a GPC), and the exchange of t through
 // distributed shared memory was slower than the store to L2 and TMA load
 // back; groups of a cooperative launch need no GPC of their own.
+//
+// Ranks past 512 (K1 only; Zamba2's 640-1408 padded): a CTA's N = rp / 4
+// columns of t are computed in passes of kLNPass = 128 (each pass walks C
+// again, x re-read from L2), so the U chunk of a stage keeps its size; and
+// the row block's t, 128 bytes a rank, no longer fits beside the ring, so
+// it streams through the ring with V instead (LargeSmem::stream_t): each
+// phase-2 stage carries its 128 ranks of t (16 KB) beside the V tile, read
+// again from L2 for each output tile.  t V still sums every rank in one
+// float32 accumulator and rounds once.  Up to a padded rank of 512 the
+// layout and the stages are as before.
 //
 // Layouts: every wgmma operand is a 128-byte swizzled canonical layout.  A
 // (x tiles, t) is K-major: rows of 64 bf16 (128 B), 8-row atoms of 1 KB,
@@ -870,22 +943,29 @@ constexpr int kLBM = 64;            // rows of x per row block
 constexpr int kLG = 4;              // CTAs sharing a row block's t
 constexpr int kLTN = 128;           // output columns per phase-2 tile, 64 a warpgroup
 constexpr int kLKC = 64;            // rows of U per phase-1 stage
-constexpr int kLNMax = kRMax / kLG;  // t columns per CTA at r = kRMax
+constexpr int kLNPass = 128;        // t columns a CTA computes in one phase-1 pass
+constexpr int kLTRes = 512;         // largest padded rank whose t stays in shared memory
 // rank rows of V per phase-2 stage: 128 for K1, 64 a branch for K5
 __host__ __device__ constexpr int large_kc2(int nb) { return 128 / nb; }
 // one ring slot: phase 1 [x tile | U chunk]; phase 2 [V tile per branch]
 constexpr int kLXBytes = kLBM * 128;                  // x: 64 rows x 64 columns
 constexpr int kLUOff = kLXBytes;
-constexpr int kLUBytes = (kLNMax / 64) * kLKC * 128;  // U: 64 rows x kLNMax
+constexpr int kLUBytes = (kLNPass / 64) * kLKC * 128;  // U: 64 rows x kLNPass
 // one branch's V tile: KC2 rank rows x 128 columns; a phase-2 stage holds
 // every branch's
 __host__ __device__ constexpr int large_vbytes(int nb) {
   return (kLTN / 64) * large_kc2(nb) * 128;
 }
-__host__ __device__ constexpr int large_slot(int nb) {
-  return kLUOff + kLUBytes > nb * large_vbytes(nb) ? kLUOff + kLUBytes : nb * large_vbytes(nb);
+// one branch's t chunk when t streams through the ring: 64 rows x KC2 ranks
+__host__ __device__ constexpr int large_tbytes(int nb) { return (large_kc2(nb) / 64) * kLBM * 128; }
+// a ring slot holds phase 1's stage and phase 2's (with t: `stream`)
+__host__ __device__ constexpr int large_slot(int nb, bool stream = false) {
+  return kLUOff + kLUBytes > nb * (large_vbytes(nb) + (stream ? large_tbytes(nb) : 0))
+             ? kLUOff + kLUBytes
+             : nb * (large_vbytes(nb) + (stream ? large_tbytes(nb) : 0));
 }
-static_assert(large_slot(1) % 1024 == 0 && large_slot(2) % 1024 == 0,
+static_assert(large_slot(1) % 1024 == 0 && large_slot(2) % 1024 == 0 &&
+                  large_slot(1, true) % 1024 == 0 && large_slot(2, true) % 1024 == 0,
               "ring slots keep 1 KB swizzle atoms aligned");
 
 // The padded rank: the larger branch's rank rounded up to whole phase-2
@@ -899,22 +979,26 @@ __host__ __device__ inline int large_rp(const int* r, int nb) {
 
 // Shared memory: [t of each branch][output tile of each consumer
 // warpgroup][ring slots][full | empty][t full, t free], behind up to 1 KB of
-// alignment slack.
+// alignment slack.  Past kLTRes padded ranks (K1 at Zamba2's 640-1408) the
+// row block's t (128 bytes a rank) no longer fits beside the ring, and
+// streams through it instead: each phase-2 slot carries the stage's KC2
+// ranks of t beside its V tile (stream_t; no t region).
 constexpr int kLOutBytes = kLBM * 64 * 2;  // a warpgroup's 64 x 64 bf16 output tile
 struct LargeSmem {
-  int t_bytes, out_off, ring_off, bar_off, slots;
+  int t_bytes, out_off, ring_off, bar_off, slots, slot, stream_t;
   size_t total;
 };
 
 inline LargeSmem large_layout(const int* r, int nb) {
   LargeSmem L;
-  L.t_bytes = kLBM * large_rp(r, nb) * 2;
+  L.stream_t = large_rp(r, nb) > kLTRes;
+  L.t_bytes = L.stream_t ? 0 : kLBM * large_rp(r, nb) * 2;
   L.out_off = nb * L.t_bytes;
   L.ring_off = L.out_off + 2 * kLOutBytes;
   const int room = kSmemMax - 1024 - L.ring_off - (2 * kLSlotsMax + 2) * 8;
-  const int slot = large_slot(nb);
-  L.slots = room / slot < kLSlotsMax ? room / slot : kLSlotsMax;
-  L.bar_off = L.ring_off + L.slots * slot;
+  L.slot = large_slot(nb, L.stream_t);
+  L.slots = room / L.slot < kLSlotsMax ? room / L.slot : kLSlotsMax;
+  L.bar_off = L.ring_off + L.slots * L.slot;
   L.total = 1024 + (size_t)L.bar_off + (2 * kLSlotsMax + 2) * 8;
   return L;
 }
@@ -1055,54 +1139,51 @@ __device__ inline uint4 quad_transpose(unsigned p0, unsigned p1, unsigned p2, un
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-// Consumer phase 1 of one row block for NB branches in turn: warpgroup w
-// computes columns [64 w, 64 w + W) of the CTA's N columns of t (W = 64 and
-// N - 64 for N > 64; N and 0 else), one wgmma of width W per 16-deep step,
-// W known at compile time (a wgmma behind a runtime test is serialised by
-// ptxas).  Each branch's slice of t is rounded to bf16 and stored to the
-// global scratch, 16 bytes a lane.
+// Consumer phase 1 of one pass of one branch: warpgroup w computes columns
+// [col0 + 64 w, col0 + 64 w + W) of t (W = 64 and Np - 64 for a pass of Np
+// > 64 columns; Np and 0 else), one wgmma of width W per 16-deep step, W
+// known at compile time (a wgmma behind a runtime test is serialised by
+// ptxas).  The slice is rounded to bf16 and stored to the global scratch,
+// 16 bytes a lane.
 template <int NB, int W>
 __device__ inline void consume_phase1(const LargeArgs& a, const unsigned char* ring,
-                                      RingReader& rd, int& g, int nc1, int N, int rp, int m0,
-                                      int q, int wg) {
+                                      RingReader& rd, int& g, int nc1, int col0, int rp, int m0,
+                                      int wg, int b) {
   constexpr int R = W ? W / 2 : 1;  // accumulator registers
   const int w4 = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  float acc[R];
 #pragma unroll
-  for (int b = 0; b < NB; ++b) {
-    float acc[R];
+  for (int i = 0; i < R; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < nc1; ++i, ++g) {
+    const unsigned char* st = rd.wait(ring, g);
+    fence_regs(acc);
+    wgmma_fence();
+    if constexpr (W > 0) {
 #pragma unroll
-    for (int i = 0; i < R; ++i) acc[i] = 0.0f;
-    for (int i = 0; i < nc1; ++i, ++g) {
-      const unsigned char* st = rd.wait(ring, g);
-      fence_regs(acc);
-      wgmma_fence();
-      if constexpr (W > 0) {
-#pragma unroll
-        for (int ks = 0; ks < 4; ++ks) {
-          const unsigned char* ub = st + kLUOff + wg * (kLKC * 128) + ks * 2048;
-          wgmma_w<W>(acc, sw128_desc(st + ks * 32, 16, 1024), sw128_desc(ub, kLKC * 128, 1024));
-        }
+      for (int ks = 0; ks < 4; ++ks) {
+        const unsigned char* ub = st + kLUOff + wg * (kLKC * 128) + ks * 2048;
+        wgmma_w<W>(acc, sw128_desc(st + ks * 32, 16, 1024), sw128_desc(ub, kLKC * 128, 1024));
       }
-      wgmma_commit();
-      rd.release_now(g);  // phase-1 groups are short: look-ahead matters more
-      fence_regs(acc);
     }
-    // rows past M hold zeros (x is zero there) and land in the scratch's
-    // padding rows
-    bf16* tb = a.t + (size_t)b * large_t_elems(a.M, a.r, NB);
+    wgmma_commit();
+    rd.release_now(g);  // phase-1 groups are short: look-ahead matters more
+    fence_regs(acc);
+  }
+  // rows past M hold zeros (x is zero there) and land in the scratch's
+  // padding rows
+  bf16* tb = a.t + (size_t)b * large_t_elems(a.M, a.r, NB);
 #pragma unroll
-    for (int sl = 0; sl < W / 16; ++sl) {
-      const uint4 chunk = quad_transpose(
-          pack2(__float2bfloat16(acc[8 * sl + 0]), __float2bfloat16(acc[8 * sl + 1])),
-          pack2(__float2bfloat16(acc[8 * sl + 2]), __float2bfloat16(acc[8 * sl + 3])),
-          pack2(__float2bfloat16(acc[8 * sl + 4]), __float2bfloat16(acc[8 * sl + 5])),
-          pack2(__float2bfloat16(acc[8 * sl + 6]), __float2bfloat16(acc[8 * sl + 7])));
-      // chunk t = (8-column group t / 2, row half t % 2) of 16-column group sl
-      const int t = lane & 3;
-      const int row = m0 + 16 * w4 + lane / 4 + 8 * (t & 1);
-      const int col = q * N + 64 * wg + 16 * sl + 8 * (t >> 1);
-      *reinterpret_cast<uint4*>(tb + (size_t)row * rp + col) = chunk;
-    }
+  for (int sl = 0; sl < W / 16; ++sl) {
+    const uint4 chunk = quad_transpose(
+        pack2(__float2bfloat16(acc[8 * sl + 0]), __float2bfloat16(acc[8 * sl + 1])),
+        pack2(__float2bfloat16(acc[8 * sl + 2]), __float2bfloat16(acc[8 * sl + 3])),
+        pack2(__float2bfloat16(acc[8 * sl + 4]), __float2bfloat16(acc[8 * sl + 5])),
+        pack2(__float2bfloat16(acc[8 * sl + 6]), __float2bfloat16(acc[8 * sl + 7])));
+    // chunk t = (8-column group t / 2, row half t % 2) of 16-column group sl
+    const int t = lane & 3;
+    const int row = m0 + 16 * w4 + lane / 4 + 8 * (t & 1);
+    const int col = col0 + 64 * wg + 16 * sl + 8 * (t >> 1);
+    *reinterpret_cast<uint4*>(tb + (size_t)row * rp + col) = chunk;
   }
 }
 
@@ -1114,8 +1195,9 @@ __device__ inline void large_body(const LargeArgs& a, const CUtensorMap* xmap,
                                   const CUtensorMap* ymap) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  constexpr int KC2 = large_kc2(NB), VB = large_vbytes(NB), SLOT = large_slot(NB);
+  constexpr int KC2 = large_kc2(NB), VB = large_vbytes(NB), TB = large_tbytes(NB);
   const LargeSmem& L = a.L;
+  const int SLOT = L.slot;
   unsigned char* ring = base + L.ring_off;
   uint64_t* full = reinterpret_cast<uint64_t*>(base + L.bar_off);
   uint64_t* empty = full + kLSlotsMax;
@@ -1127,6 +1209,7 @@ __device__ inline void large_body(const LargeArgs& a, const CUtensorMap* xmap,
   const int nrb = (a.M + kLBM - 1) / kLBM;
   const int rp = large_rp(a.r, NB);
   const int N = rp / kLG;           // t columns this CTA computes: [q N, (q+1) N)
+  const int npass = (N + kLNPass - 1) / kLNPass;  // of kLNPass columns each
   const int nc1 = (a.C + 63) / 64;  // phase-1 stages a branch
   const int nc2 = rp / KC2;         // phase-2 stages a tile
   const int ntiles = (a.S + kLTN - 1) / kLTN;
@@ -1207,13 +1290,17 @@ __device__ inline void large_body(const LargeArgs& a, const CUtensorMap* xmap,
     for (int rb = grp; rb < nrb; rb += a.groups, ++round) {
       const int m0 = rb * kLBM;
       // Phase 1: x tiles and this CTA's N columns of the padded U (one
-      // 64-column box per 64 columns), branch by branch, all by TMA when x
+      // 64-column box per 64 columns), branch by branch and pass by pass
+      // (kLNPass columns a pass, x read again each pass), all by TMA when x
       // is aligned
-      const int np1 = NB * nc1, ub = (N + 63) / 64;
-      for (int j = 0; j < np1; ++j, ++g) {
-        const int slot = g % ns, b = j / nc1, c0 = (j % nc1) * 64;
+      for (int b = 0; b < NB; ++b)
+      for (int ps = 0; ps < npass; ++ps)
+      for (int c0 = 0; c0 < a.C; c0 += 64, ++g) {
+        const int slot = g % ns;
+        const int col0 = q * N + ps * kLNPass, np_ = N - ps * kLNPass;
+        const int ub = ((np_ < kLNPass ? np_ : kLNPass) + 63) / 64;
         // U boxes starting past the rank are zeros (t is exactly zero there)
-        const int u_in = q * N < a.r[b] ? (a.r[b] - q * N + 63) / 64 : 0;
+        const int u_in = col0 < a.r[b] ? (a.r[b] - col0 + 63) / 64 : 0;
         const int u_boxes = u_in < ub ? u_in : ub;
         const bool fill = !a.x_tma || u_boxes < ub;  // the whole warpgroup stores
         // every producer thread waits (a parity wait must not run a phase
@@ -1231,7 +1318,7 @@ __device__ inline void large_body(const LargeArgs& a, const CUtensorMap* xmap,
           mbar_arrive_tx(full + slot, (a.x_tma ? kLXBytes : 0) + u_boxes * kLKC * 128);
           if (a.x_tma) tma_load_2d(st, xmap, c0, m0, full + slot);
           for (int k = 0; k < u_boxes; ++k)
-            tma_load_2d(st + kLUOff + k * (kLKC * 128), b ? umap1 : umap0, q * N + 64 * k, c0,
+            tma_load_2d(st + kLUOff + k * (kLKC * 128), b ? umap1 : umap0, col0 + 64 * k, c0,
                         full + slot);
         }
       }
@@ -1248,8 +1335,8 @@ __device__ inline void large_body(const LargeArgs& a, const CUtensorMap* xmap,
         }
       }
       __syncwarp();
-      if (pt == 0) {
-        fence_async_global();
+      if (pt == 0) fence_async_global();
+      if (pt == 0 && !L.stream_t) {
         if (round) mbar_wait(t_free, (round - 1) & 1);
         mbar_arrive_tx(t_full, NB * kLBM * rp * 2);
         for (int b = 0; b < NB; ++b)
@@ -1258,7 +1345,8 @@ __device__ inline void large_body(const LargeArgs& a, const CUtensorMap* xmap,
                         m0, t_full);
       }
       // Phase 2: V tiles, by TMA where V is aligned and the stage starts
-      // inside the branch's rank, else element fills (zeros past the rank)
+      // inside the branch's rank, else element fills (zeros past the rank);
+      // with stream_t also the stage's ranks of t, by TMA
       for (int ti = 0; ti < my_tiles; ++ti) {
         const int n0 = (q + ti * kLG) * kLTN;
         for (int ch = 0; ch < nc2; ++ch, ++g) {
@@ -1277,13 +1365,19 @@ __device__ inline void large_body(const LargeArgs& a, const CUtensorMap* xmap,
             producer_sync();
           }
           if (pt == 0) {
-            uint32_t bytes = 0;
+            uint32_t bytes = L.stream_t ? NB * TB : 0;
 #pragma unroll
             for (int b = 0; b < NB; ++b)
               if (a.v_tma[b] && r0 < a.r[b])
                 for (int bx = 0; bx < kLTN / 64; ++bx)
                   if (n0 + bx * 64 < a.S) bytes += KC2 * 128;
             mbar_arrive_tx(full + slot, bytes);
+            if (L.stream_t)
+#pragma unroll
+              for (int b = 0; b < NB; ++b)
+                for (int kb = 0; kb < KC2 / 64; ++kb)
+                  tma_load_2d(st + NB * VB + b * TB + kb * (kLBM * 128), b ? tmap1 : tmap0,
+                              r0 + kb * 64, m0, full + slot);
 #pragma unroll
             for (int b = 0; b < NB; ++b)
               if (a.v_tma[b] && r0 < a.r[b])
@@ -1304,18 +1398,23 @@ __device__ inline void large_body(const LargeArgs& a, const CUtensorMap* xmap,
   int g = 0, round = 0;
   for (int rb = grp; rb < nrb; rb += a.groups, ++round) {
     const int m0 = rb * kLBM;
-    switch (wg ? (N > 64 ? N - 64 : 0) : (N < 64 ? N : 64)) {  // this warpgroup's columns
-      case 0: consume_phase1<NB, 0>(a, ring, rd, g, nc1, N, rp, m0, q, wg); break;
-      case 16: consume_phase1<NB, 16>(a, ring, rd, g, nc1, N, rp, m0, q, wg); break;
-      case 32: consume_phase1<NB, 32>(a, ring, rd, g, nc1, N, rp, m0, q, wg); break;
-      case 48: consume_phase1<NB, 48>(a, ring, rd, g, nc1, N, rp, m0, q, wg); break;
-      default: consume_phase1<NB, 64>(a, ring, rd, g, nc1, N, rp, m0, q, wg); break;
-    }
+    for (int b = 0; b < NB; ++b)
+      for (int ps = 0; ps < npass; ++ps) {
+        const int col0 = q * N + ps * kLNPass;
+        const int np_ = N - ps * kLNPass < kLNPass ? N - ps * kLNPass : kLNPass;
+        switch (wg ? (np_ > 64 ? np_ - 64 : 0) : (np_ < 64 ? np_ : 64)) {  // this warpgroup's columns
+          case 0: consume_phase1<NB, 0>(a, ring, rd, g, nc1, col0, rp, m0, wg, b); break;
+          case 16: consume_phase1<NB, 16>(a, ring, rd, g, nc1, col0, rp, m0, wg, b); break;
+          case 32: consume_phase1<NB, 32>(a, ring, rd, g, nc1, col0, rp, m0, wg, b); break;
+          case 48: consume_phase1<NB, 48>(a, ring, rd, g, nc1, col0, rp, m0, wg, b); break;
+          default: consume_phase1<NB, 64>(a, ring, rd, g, nc1, col0, rp, m0, wg, b); break;
+        }
+      }
     // publish this CTA's slice: every consumer thread's stores, then the flag
     __threadfence();
     consumers_sync();
     if (threadIdx.x == 0) st_release_u64(a.flag + (size_t)rb * kLG + q, a.id);
-    mbar_wait(t_full, round & 1);  // the whole t of the row block, by TMA
+    if (!L.stream_t) mbar_wait(t_full, round & 1);  // the whole t of the row block, by TMA
 
     // Phase 2: output tiles of 64 rows x 128 columns, this warpgroup's 64
     // columns, one float32 accumulator per branch
@@ -1332,13 +1431,19 @@ __device__ inline void large_body(const LargeArgs& a, const CUtensorMap* xmap,
 #pragma unroll
         for (int b = 0; b < NB; ++b) fence_regs(acc[b]);
         wgmma_fence();
+        // this stage's KC2 ranks of t (KC2 a multiple of 64: whole boxes),
+        // resident or streamed with the stage
+        const unsigned char* tb[NB];
+#pragma unroll
+        for (int b = 0; b < NB; ++b)
+          tb[b] = L.stream_t ? st + NB * VB + b * TB
+                             : base + b * L.t_bytes + (ch * KC2 / 64) * (kLBM * 128);
 #pragma unroll
         for (int ks = 0; ks < KC2 / 16; ++ks) {
-          const int kg = ch * KC2 + ks * 16;  // rank row
+          const int kl = ks * 16;  // rank within the stage
 #pragma unroll
           for (int b = 0; b < NB; ++b) {
-            const unsigned char* ta =
-                base + b * L.t_bytes + (kg >> 6) * (kLBM * 128) + ((kg & 63) >> 4) * 32;
+            const unsigned char* ta = tb[b] + (kl >> 6) * (kLBM * 128) + ((kl & 63) >> 4) * 32;
             const unsigned char* vb = st + b * VB + wg * (KC2 * 128) + ks * 2048;
             wgmma_n64(acc[b], sw128_desc(ta, 16, 1024), sw128_desc(vb, KC2 * 128, 1024));
           }
@@ -1400,7 +1505,7 @@ __device__ inline void large_body(const LargeArgs& a, const CUtensorMap* xmap,
       }
     }
     // this warpgroup no longer reads t: the next row block's t may land
-    if (threadIdx.x % 128 == 0) mbar_arrive(t_free);
+    if (threadIdx.x % 128 == 0 && !L.stream_t) mbar_arrive(t_free);
   }
   // the output tiles' stores are done before shared memory goes
   if (a.y_tma && threadIdx.x % 128 == 0)

@@ -102,7 +102,7 @@ constexpr int kClusterMax = 8;
 constexpr int kPerMax = 80;            // chunks a CTA (its x slab must fit in shared memory)
 constexpr int kHold = 4;               // x items a thread keeps in registers (16 values each)
 static_assert(kBM == 16, "a CTA owns one m16 row tile");
-static_assert(kHold * 8 * 16 >= kRMax, "K7's requantization holds a row's ranks in kHold items");
+static_assert(kHold * 8 * 16 >= kRMaxFused, "K7's requantization holds a row's ranks in kHold items");
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
@@ -811,7 +811,7 @@ int repro_int8_lowrank_matmul(int xtype, const void* x, const void* u, const voi
                               void* x_scale, int M, int C, int r, int S, int w1, int cs1,
                               int per1, int w2, void* stream) {
   if (M <= 0 || S <= 0) return 0;
-  if (C <= 0 || r <= 0 || r > repro::kRMax || xtype < 0 || xtype > 2)
+  if (C <= 0 || r <= 0 || r > repro::kRMaxFused || xtype < 0 || xtype > 2)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = repro::i8::launch_k7(
       xtype, x, (const int8_t*)u, (const float*)u_scale, (const int8_t*)v,

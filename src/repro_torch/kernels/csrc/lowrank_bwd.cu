@@ -44,7 +44,7 @@
 // tile and each consumer's B tile) full by TMA, with full/empty mbarriers.
 // Every box is 64 bf16 wide (128 bytes, the 128-byte swizzle): MN-major
 // tiles are one 64 x 128 box, K-major ones two 64 x 64 boxes.  TMA fills
-// zeros past every edge, so any M, C, r <= 512 and S is taken.  An operand
+// zeros past every edge, so any M, C, r <= 2048 and S is taken.  An operand
 // TMA cannot read (base not 16-byte aligned, or rows not a multiple of 8
 // elements: U at ranks 349 and 239, whose rows are 698 and 478 bytes) is
 // first copied by a pad launch into the scratch, rows padded to 8 elements.
@@ -309,22 +309,28 @@ constexpr int kXSlotsMax = 4;
 // and both column halves of a tile (the two share every U stage).  Shared
 // memory: [dt block: 2 boxes of kXBM rows a 128-deep stage of r][each
 // warpgroup's two 64 x 64 output boxes][ring][full | empty | dt full | dt
-// free], behind up to 1 KB of alignment slack.
+// free], behind up to 1 KB of alignment slack.  Past r = 512 the dt block
+// (256 bytes a rank) leaves no room for two stages, and streams through the
+// ring instead (stream_dt): each stage carries its 128 ranks of dt (32 KB)
+// beside U's, read again from L2 for each column tile.
 constexpr int kXBM = 128;           // rows a block
 constexpr int kXDtBox = kXBM * 128; // a kXBM x 64 bf16 box of dt
 constexpr int kXOutBox = 64 * 128;  // a 64 x 64 bf16 box of dx
 struct DxSmem {
-  int dt_bytes, out_bytes, slots;
+  int dt_bytes, out_bytes, slots, stage, stream_dt;
   size_t total;
 };
 __host__ __device__ inline DxSmem dx_smem(int r) {
   DxSmem L;
-  L.dt_bytes = 2 * cdiv(r, 128) * kXDtBox;
   L.out_bytes = 2 * 2 * kXOutBox;
   const int bars = (2 * kXSlotsMax + 2) * 8;
-  const int room = (kSmemMax - 1024 - L.dt_bytes - L.out_bytes - bars) / kXStage;
+  L.dt_bytes = 2 * cdiv(r, 128) * kXDtBox;
+  L.stage = kXStage;
+  L.stream_dt = (kSmemMax - 1024 - L.dt_bytes - L.out_bytes - bars) / kXStage < 2;
+  if (L.stream_dt) L.dt_bytes = 0, L.stage = kXStage + 2 * kXDtBox;
+  const int room = (kSmemMax - 1024 - L.dt_bytes - L.out_bytes - bars) / L.stage;
   L.slots = room < kXSlotsMax ? room : kXSlotsMax;
-  L.total = 1024 + (size_t)L.dt_bytes + L.out_bytes + (size_t)L.slots * kXStage + bars;
+  L.total = 1024 + (size_t)L.dt_bytes + L.out_bytes + (size_t)L.slots * L.stage + bars;
   return L;
 }
 
@@ -345,7 +351,7 @@ k2_dx_kernel(const DxArgs a, const __grid_constant__ CUtensorMap tmap,
   const DxSmem L = dx_smem(a.r);
   const int ns = L.slots;
   unsigned char* ring = base + L.dt_bytes + L.out_bytes;
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + ns * kXStage);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + ns * L.stage);
   uint64_t* empty = full + kXSlotsMax;
   uint64_t* dt_full = empty + kXSlotsMax;
   uint64_t* dt_free = dt_full + 1;
@@ -376,19 +382,26 @@ k2_dx_kernel(const DxArgs a, const __grid_constant__ CUtensorMap tmap,
     for (int rb = rb0; rb < nrb; rb += rstep, ++round) {
       // the row block's dt, every box (zeros past M and r), once the
       // consumers are done with the last one
-      if (round) mbar_wait(dt_free, (round - 1) & 1);
-      mbar_arrive_tx(dt_full, L.dt_bytes);
-      for (int kb = 0; kb < L.dt_bytes / kXDtBox; ++kb)
-        tma_load_2d(base + kb * kXDtBox, &tmap, 64 * kb, rb * kXBM, dt_full);
-      // U's rows of each column tile, 128 ranks a stage (zeros past C and r)
+      if (!L.stream_dt) {
+        if (round) mbar_wait(dt_free, (round - 1) & 1);
+        mbar_arrive_tx(dt_full, L.dt_bytes);
+        for (int kb = 0; kb < L.dt_bytes / kXDtBox; ++kb)
+          tma_load_2d(base + kb * kXDtBox, &tmap, 64 * kb, rb * kXBM, dt_full);
+      }
+      // U's rows of each column tile, 128 ranks a stage (zeros past C and
+      // r), and with stream_dt the stage's ranks of dt
       for (int tc = j0; tc < ntc; tc += a.g) {
         for (int st = 0; st < nst; ++st, ++i) {
           const int slot = i % ns;
           mbar_wait(empty + slot, ((i / ns) & 1) ^ 1);
-          unsigned char* dst = ring + slot * kXStage;
-          mbar_arrive_tx(full + slot, kXStage);
+          unsigned char* dst = ring + slot * L.stage;
+          mbar_arrive_tx(full + slot, L.stage);
           tma_load_2d(dst, &umap, 128 * st, tc * kXBN, full + slot);
           tma_load_2d(dst + kXStage / 2, &umap, 128 * st + 64, tc * kXBN, full + slot);
+          if (L.stream_dt)
+            for (int kb = 0; kb < 2; ++kb)
+              tma_load_2d(dst + kXStage + kb * kXDtBox, &tmap, 128 * st + 64 * kb, rb * kXBM,
+                          full + slot);
         }
       }
     }
@@ -396,13 +409,12 @@ k2_dx_kernel(const DxArgs a, const __grid_constant__ CUtensorMap tmap,
   }
 
   // ---------------- consumers: warpgroup wg ----------------
-  RingReader rd{full, empty, ns, kXStage, -1};
+  RingReader rd{full, empty, ns, L.stage, -1};
   const int w4 = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int row0 = 64 * wg;  // this warpgroup's rows of the block
   int i = 0, round = 0;
   for (int rb = rb0; rb < nrb; rb += rstep, ++round) {
-    mbar_wait(dt_full, round & 1);
-    const unsigned char* at = base + row0 * 128;
+    if (!L.stream_dt) mbar_wait(dt_full, round & 1);
     for (int tc = j0; tc < ntc; tc += a.g) {
       float acc[2][32];  // column half h of the tile
 #pragma unroll
@@ -411,14 +423,16 @@ k2_dx_kernel(const DxArgs a, const __grid_constant__ CUtensorMap tmap,
         for (int e = 0; e < 32; ++e) acc[h][e] = 0.0f;
       for (int st = 0; st < nst; ++st, ++i) {
         const unsigned char* us = rd.wait(ring, i);
+        // this warpgroup's 64 rows of the stage's dt boxes
+        const unsigned char* at =
+            (L.stream_dt ? us + kXStage : base + 2 * st * kXDtBox) + row0 * 128;
 #pragma unroll
         for (int h = 0; h < 2; ++h) fence_regs(acc[h]);
         wgmma_fence();
 #pragma unroll
         for (int ks = 0; ks < 8; ++ks) {
           // 16 ranks are 32 bytes along a 128-byte row of box ks / 4
-          const uint64_t ad =
-              sw128_desc(at + (2 * st + ks / 4) * kXDtBox + (ks % 4) * 32, 16, 1024);
+          const uint64_t ad = sw128_desc(at + (ks / 4) * kXDtBox + (ks % 4) * 32, 16, 1024);
 #pragma unroll
           for (int h = 0; h < 2; ++h)
             wgmma_n64<0, 0>(acc[h], ad,
@@ -478,7 +492,8 @@ k2_dx_kernel(const DxArgs a, const __grid_constant__ CUtensorMap tmap,
             tma_store_2d(&ymap, ot + h * kXOutBox, tc * kXBN + 64 * h, m0);
       }
     }
-    if (threadIdx.x % 128 == 0) mbar_arrive(dt_free);  // the next row block's dt may land
+    // the next row block's dt may land
+    if (threadIdx.x % 128 == 0 && !L.stream_dt) mbar_arrive(dt_free);
   }
   // the output boxes' stores are done before shared memory goes
   if (a.out_tma && threadIdx.x % 128 == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");

@@ -70,7 +70,7 @@ int repro_lowrank_ffn(const void* x, const void* gu, const void* gv,
                       int w2, void* stream) {
   using namespace repro;
   if (M <= 0 || F <= 0) return 0;
-  if (C <= 0 || rg <= 0 || ru <= 0 || rg > kRMax || ru > kRMax)
+  if (C <= 0 || rg <= 0 || ru <= 0 || rg > kRMaxFused || ru > kRMaxFused)
     return (int)cudaErrorInvalidValue;
   const bf16* us[2] = {(const bf16*)gu, (const bf16*)uu};
   const bf16* vs[2] = {(const bf16*)gv, (const bf16*)uv};
@@ -94,7 +94,7 @@ int repro_lowrank_ffn_large(const void* x, const void* gu, const void* gv,
                             int M, int C, int rg, int ru, int F, void* stream) {
   using namespace repro;
   if (M <= 0 || F <= 0) return 0;
-  if (C <= 0 || rg <= 0 || ru <= 0 || rg > kRMax || ru > kRMax)
+  if (C <= 0 || rg <= 0 || ru <= 0 || rg > kRMaxFused || ru > kRMaxFused)
     return (int)cudaErrorInvalidValue;
   LargeArgs a{};
   a.x = (const bf16*)x;

@@ -8,7 +8,7 @@
 //
 // The decode design (M < LARGE_M: decode slots, speculative verify chunks,
 // short prefills), first half of common.cuh.  What bounds it on the H100:
-// at M = 8-40, C and S <= 2560 and r <= 512 the work is far below the
+// at M = 8-40, C and S <= 8384 and r <= 2048 the work is far below the
 // card's ~295 FLOP/byte ridge, so the floor is the bytes of U and V read
 // from HBM (0.05-1.3 us); what a call costs is latency.  Two launches, each
 // one trip to memory over about a wave of CTAs: the rank kernel forms t = x
@@ -40,7 +40,7 @@ __global__ void __launch_bounds__(kDThreads) lowrank_matmul_out_kernel(const Dec
 
 // The large-M design (common.cuh, second half): groups of 4 CTAs own 64
 // rows; CTA q computes t's columns [q N, (q+1) N) once (N = round_up(r,
-// 128) / 4 <= 128), then 128-column output tiles q, q + 4, ...
+// 128) / 4, in passes of 128), then 128-column output tiles q, q + 4, ...
 __global__ void __launch_bounds__(kLThreads, 1)
 lowrank_matmul_large_kernel(const LargeArgs a, const __grid_constant__ CUtensorMap xmap,
                             const __grid_constant__ CUtensorMap vmap0,

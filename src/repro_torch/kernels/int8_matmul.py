@@ -37,7 +37,7 @@ from collections import Counter
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.lowrank_matmul import RANK_MAX, raise_on_error, sm_count
+from repro_torch.kernels.lowrank_matmul import FUSED_RANK_MAX, raise_on_error, sm_count
 from repro_torch.kernels.ref import quantize_colwise, quantize_rowwise
 
 __all__ = ["int8_matmul", "int8_lowrank_matmul", "int8_linear", "int8_lowrank_linear",
@@ -138,8 +138,8 @@ def _shapes_k7(op: str, x, u_q, u_scale, v_q, v_scale) -> tuple:
     if tuple(u_scale.shape) != (1, r) or tuple(v_scale.shape) != (1, s):
         raise ValueError(f"{op}: want u_scale (1, {r}) and v_scale (1, {s}); "
                          f"got {tuple(u_scale.shape)}, {tuple(v_scale.shape)}")
-    if not 1 <= r <= RANK_MAX:
-        raise ValueError(f"{op}: rank {r} outside [1, {RANK_MAX}]")
+    if not 1 <= r <= FUSED_RANK_MAX:
+        raise ValueError(f"{op}: rank {r} outside [1, {FUSED_RANK_MAX}]")
     return m, c, r, s
 
 

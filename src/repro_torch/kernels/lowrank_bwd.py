@@ -33,10 +33,10 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.lowrank_matmul import (RANK_MAX, check_cuda_operands,
+from repro_torch.kernels.lowrank_matmul import (RANK_MAX, SMEM_MAX, check_cuda_operands,
                                                 raise_on_error, sm_count)
 
-__all__ = ["lowrank_matmul_dx", "lowrank_matmul_du", "lowrank_matmul_dv"]
+__all__ = ["lowrank_matmul_dx", "lowrank_matmul_du", "lowrank_matmul_dv", "dx_smem"]
 
 # csrc/lowrank_bwd.cu's K3/K4 tiling: output rows (kTBM) and columns
 # (kTBN) per CTA, and rows of M per stage (kTBK: one TMA box deep)
@@ -63,6 +63,19 @@ def dx_tiles(m: int, c: int, g: int, groups: int) -> list:
     blocks, tiles = -(-m // DX_ROWS), -(-c // DX_COLS)
     return [[(rb, tc) for rb in range(i // g, blocks, groups) for tc in range(i % g, tiles, g)]
             for i in range(g * groups)]
+
+
+def dx_smem(r: int) -> tuple:
+    """``(bytes, ring slots, dt streamed)`` of K2's phase 2 at rank ``r``
+    (csrc dx_smem): the row block's dt resident while it leaves room for two
+    stages (r <= 512), else streamed through the ring beside U's stages."""
+    out, bars, stage = 2 * 2 * 64 * 128, (2 * 4 + 2) * 8, 2 * 128 * 128
+    dt = 2 * -(-r // 128) * DX_ROWS * 128
+    stream = (SMEM_MAX - 1024 - dt - out - bars) // stage < 2
+    if stream:
+        dt, stage = 0, stage + 2 * DX_ROWS * 128
+    slots = min((SMEM_MAX - 1024 - dt - out - bars) // stage, 4)
+    return 1024 + dt + out + slots * stage + bars, slots, stream
 
 
 def split_plan(m: int, rows: int, cols: int, sms: int) -> int:

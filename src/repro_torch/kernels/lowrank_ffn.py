@@ -19,7 +19,7 @@ from collections import Counter
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.lowrank_matmul import (RANK_MAX, check_cuda_operands, decode_plan,
+from repro_torch.kernels.lowrank_matmul import (FUSED_RANK_MAX, check_cuda_operands, decode_plan,
                                                 decode_rt, large_scratch, raise_on_error,
                                                 sm_count)
 
@@ -47,8 +47,8 @@ def lowrank_gated_ffn(x: torch.Tensor, gu: torch.Tensor, gv: torch.Tensor,
             f"lowrank_gated_ffn: shapes x {tuple(x.shape)}, gu {tuple(gu.shape)}, "
             f"gv {tuple(gv.shape)}, uu {tuple(uu.shape)}, uv {tuple(uv.shape)} "
             f"do not chain")
-    if not (1 <= rg <= RANK_MAX and 1 <= ru <= RANK_MAX):
-        raise ValueError(f"lowrank_gated_ffn: ranks ({rg}, {ru}) outside [1, {RANK_MAX}]")
+    if not (1 <= rg <= FUSED_RANK_MAX and 1 <= ru <= FUSED_RANK_MAX):
+        raise ValueError(f"lowrank_gated_ffn: ranks ({rg}, {ru}) outside [1, {FUSED_RANK_MAX}]")
     check_cuda_operands("lowrank_gated_ffn", (x, gu, gv, uu, uv))
     return _launch(x, gu, gv, uu, uv, large=m >= LARGE_M)
 

@@ -29,10 +29,15 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-__all__ = ["lowrank_matmul", "RANK_MAX", "LARGE_M", "large_m", "check_cuda_operands",
-           "decode_plan", "decode_rt", "sm_count"]
+__all__ = ["lowrank_matmul", "RANK_MAX", "FUSED_RANK_MAX", "LARGE_M", "large_m",
+           "check_cuda_operands", "decode_plan", "decode_rt", "decode_kp", "decode_out_smem",
+           "large_smem", "sm_count"]
 
-RANK_MAX = 512  # kRMax in csrc/common.cuh
+# The largest rank K1 and K2-K4 take (kRMax in csrc/common.cuh), and K5 and
+# K7's (kRMaxFused): K1 walks a rank past 512 in pieces (decode design) or
+# passes with t streamed through its ring (large-M design), K2 streams dt.
+RANK_MAX = 2048
+FUSED_RANK_MAX = 512
 # The M from which K1 takes the large-M design, from the H100's timings of
 # both designs (chip_smoke.py's designs phase, PERF.md section 6).  The
 # decode design's time grows with each 128-row block and the large-M
@@ -47,8 +52,10 @@ LARGE_M_LOW_RANK = 288
 _INT32_MAX = 2 ** 31 - 1
 # the decode design's limits (csrc/common.cuh): the largest cluster
 # (kDClusterMax), rows of C in a CTA's piece (kDKcMax), the widest tile of r
-# in phase 1 (kDW1Max) and of S in phase 2 (kDW2Max)
-CLUSTER_MAX, KC_MAX, W1_MAX, W2_MAX = 8, 512, 64, 64
+# in phase 1 (kDW1Max) and of S in phase 2 (kDW2Max), the most rank rows a
+# phase-2 piece holds (kDKpMax)
+CLUSTER_MAX, KC_MAX, W1_MAX, W2_MAX, KP_MAX = 8, 512, 64, 64, 512
+SMEM_MAX = 232448  # kSmemMax: the most shared memory a block may use
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -91,6 +98,49 @@ def decode_rt(r: int) -> int:
     """Row pitch of the decode design's t scratch (csrc launch_decode): the
     rank r (the larger branch's for K5) rounded up to 8."""
     return _cdiv(r, 8) * 8
+
+
+def decode_kp(r: int) -> int:
+    """Rank rows of one piece of the decode design's phase 2 (csrc
+    decode_kp): the rank rounded up to 16 when that is at most KP_MAX, else
+    the fewest equal pieces of at most KP_MAX rows, rounded up to 16.  A
+    function of r alone, so a row's sum runs in one order at every M."""
+    kext = _cdiv(r, 16) * 16
+    return _cdiv(_cdiv(kext, _cdiv(kext, KP_MAX)), 16) * 16
+
+
+def _tile_ld(w: int) -> int:
+    return w + 16 if (w // 8) % 2 else w + 8
+
+
+def _align128(n: int) -> int:
+    return _cdiv(n, 128) * 128
+
+
+def decode_out_smem(rows: int, r: int, w2: int, nb: int = 1) -> int:
+    """Shared-memory bytes of the decode design's phase 2 at ``rows`` rows a
+    CTA, tiles of ``w2`` columns and rank ``r`` (csrc out_smem): V and t of
+    one piece, and the float32 sums carried between pieces when there are
+    several."""
+    kext, kp = _cdiv(r, 16) * 16, decode_kp(r)
+    end = _align128(2 * nb * kp * _tile_ld(w2)) + 2 * nb * rows * _tile_ld(kp)
+    return _align128(end) + 4 * nb * rows * w2 if kp < kext else end
+
+
+def large_smem(r: int, nb: int = 1) -> tuple:
+    """``(bytes, ring slots, t streamed)`` of the large-M design's shared
+    memory at rank ``r`` (the larger branch's) for ``nb`` branches (csrc
+    large_layout): t of the row block resident up to a padded rank of 512,
+    else streamed through the ring beside each V tile."""
+    kc2 = 128 // nb
+    rp = _cdiv(r, kc2) * kc2
+    stream = rp > 512
+    ring_off = (0 if stream else nb * 64 * rp * 2) + 2 * 64 * 64 * 2
+    bars = (2 * 8 + 2) * 8
+    vbytes, tbytes = 2 * kc2 * 128, (kc2 // 64) * 64 * 128
+    slot = max(64 * 128 + 2 * 64 * 128, nb * (vbytes + (tbytes if stream else 0)))
+    slots = min((SMEM_MAX - 1024 - ring_off - bars) // slot, 8)
+    return 1024 + ring_off + slots * slot + bars, slots, stream
 
 
 @functools.lru_cache(maxsize=None)

@@ -10,14 +10,19 @@ the rank-quantized Algorithm-1 artifact (``serving/export.py``) and
 factorised projection runs through the hand-written kernels (K1/K5, or K7
 and K6 for the int8 artifact).  ``--arch`` takes the dense and MoE
 families (``olmoe-1b-7b``, whose experts run ``torch.bmm`` as in the
-reference; an int8 export of its expert groups is refused).  Flags of
-features this port does not have yet are rejected, not ignored.
+reference; an int8 export of its expert groups is refused), and the SSM
+(``xlstm-350m``) and hybrid (``zamba2-1.2b``) families, which serve on the
+fixed-batch path as the JAX CLI serves them: ``--slots`` rows of random
+``--prompt-len`` prompts from ``--seed``, ``--max-new`` tokens each.  Flags
+of features this port does not have yet are rejected, not ignored.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m --lrd \\
       --slots 8 --requests 16 --rate 1000 --prompt-len 128 --max-new 32 \\
       [--export measured --export-int8]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b --lrd \\
       --slots 8 --requests 16 --rate 1000 --prompt-len 128 --max-new 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --lrd \\
+      --slots 8 --prompt-len 512 --max-new 32
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from repro_torch.configs.base import DistConfig, LRDConfig, RunConfig, ShapeConf
 from repro_torch.launch import steps as steps_mod
 from repro_torch.serving import ServeConfig, ServeEngine
 
-__all__ = ["poisson_trace", "shared_prefix_trace", "serve_run", "main"]
+__all__ = ["poisson_trace", "shared_prefix_trace", "serve_run", "fixed_batch_serve", "main"]
 
 
 def poisson_trace(n: int, rate: float, prompt_len: int, vocab: int, seed: int = 0):
@@ -122,8 +127,33 @@ def serve_run(cfg, *, max_len: int, slots: int, lrd: bool, device: torch.device,
                      dist=DistConfig(fsdp=False, remat="none"), seed=seed)
 
 
+def fixed_batch_serve(args, run: RunConfig, params, config: ServeConfig,
+                      device: torch.device):
+    """The SSM and hybrid families' serve (the JAX CLI's fixed-batch
+    fallback): ``--slots`` random prompts of ``--prompt-len`` tokens from
+    ``--seed`` through ``ServeEngine.generate`` (``config.num_slots`` 0);
+    returns ``(engine, tokens (slots, max_new))``."""
+    rng = np.random.default_rng(args.seed)
+    prompts = rng.integers(0, run.model.vocab_size, size=(args.slots, args.prompt_len),
+                           dtype=np.int32)
+    engine = ServeEngine(run, params, config=config, device=device)
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, max_new=args.max_new,
+                          eos_id=args.eos_id if args.eos_id >= 0 else None)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    print(f"generated {out.shape} tokens in {dt:.2f}s ({out.size / dt:.1f} tok/s on "
+          f"{where}; fixed-batch path)")
+    print("sample:", out[0][:16].tolist())
+    return engine, out
+
+
 def main(argv=None):
-    """Run the CLI; returns ``(engine, results)``."""
+    """Run the CLI; returns ``(engine, results)``: request results from the
+    scheduler, or the token matrix of the fixed-batch path (SSM and hybrid
+    families)."""
     ap = _parser()
     args = ap.parse_args(argv)
     for flag, (off, item) in _UNPORTED_FLAGS.items():
@@ -131,15 +161,20 @@ def main(argv=None):
             ap.error(f"--{flag.replace('_', '-')} is not ported to the PyTorch "
                      f"package yet ({item})")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    if cfg.family not in ("dense", "moe") or cfg.use_mla or cfg.use_mtp:
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.use_mla or cfg.use_mtp:
         ap.error(f"--arch {args.arch} ({cfg.family}"
                  f"{', MLA/MTP' if cfg.use_mla or cfg.use_mtp else ''}) is not ported yet: "
-                 f"the port serves the dense and MoE GQA families (ROADMAP queue 1 "
+                 f"the port serves the dense, MoE, SSM and hybrid families (ROADMAP queue 1 "
                  f"item 7, other model families)")
+    stateful = cfg.family in ("ssm", "hybrid")
+    if stateful and (args.spec_k or args.prefix_cache):
+        ap.error(f"--arch {args.arch} ({cfg.family}) serves on the fixed-batch path, which "
+                 f"has no speculative decoding or prefix cache (as in the reference)")
     device = steps_mod.resolve_device(args.device)
     max_len = args.max_len or (args.prompt_len + args.max_new)
     try:
-        config = ServeConfig.from_args(args, max_len=max_len)
+        config = ServeConfig.from_args(args, max_len=max_len, **(
+            dict(num_slots=0, speculative_k=0, prefix_cache=False) if stateful else {}))
     except ValueError as e:
         ap.error(str(e))
     run = serve_run(cfg, max_len=max_len, slots=args.slots, lrd=args.lrd, device=device,
@@ -147,6 +182,8 @@ def main(argv=None):
     params, plan = steps_mod.init_params(run, device)
     if plan.layers:
         print(plan.summary())
+    if stateful:
+        return fixed_batch_serve(args, run, params, config, device)
 
     engine = ServeEngine(run, params, config=config, device=device)
     if engine.export_report is not None:

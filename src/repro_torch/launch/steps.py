@@ -237,7 +237,9 @@ def build_train_step(run: RunConfig, device="cuda"):
 
 def build_prefill_step(run: RunConfig):
     """Prefill of the fixed-batch path: the whole (B, T) batch at once,
-    returning the last position's logits and the (L, B, T, KV, hd) cache."""
+    returning the last position's logits and the cache (the (L, B, T, KV,
+    hd) k/v of each stack; for the SSM and hybrid families their recurrent
+    states, with the hybrid's shared-block k/v a group)."""
     cfg, policy = run.model, kernel_policy(run)
 
     @torch.inference_mode()

@@ -21,7 +21,8 @@ every phase swap (``core.rank_adapt``; a ``[rank-adapt]`` line names the
 groups, ``old->new``); the checkpoint keeps the rank map, and a resume
 continues at the saved ranks.  ``--remat full|dots|sqrt`` checkpoints the
 layer stacks' activations (``models.lm``).  ``--arch`` takes the dense and
-MoE families (``olmoe-1b-7b``); flags of features this port does not have
+MoE families (``olmoe-1b-7b``), the SSM family (``xlstm-350m``) and the
+hybrid family (``zamba2-1.2b``); flags of features this port does not have
 yet are rejected, not ignored.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
@@ -29,6 +30,8 @@ yet are rejected, not ignored.
       --steps-per-epoch 2 --global-batch 8 --seq-len 256 [--rank-schedule decay]
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b --lrd \\
       --no-rank-opt --use-pallas --freeze sequential --remat full
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b --lrd \\
+      --no-rank-opt --use-pallas --freeze sequential --steps 6 --steps-per-epoch 2
 """
 
 from __future__ import annotations
@@ -175,11 +178,12 @@ def main(argv=None, *, on_step=None):
         ap.error("--mesh-data/--mesh-model > 1: the PyTorch package trains on one "
                  "device (ROADMAP queue 1 item 8, distributed)")
     run = build_run(args)
-    if run.model.family not in ("dense", "moe") or run.model.use_mla or run.model.use_mtp:
+    if (run.model.family not in ("dense", "moe", "ssm", "hybrid") or run.model.use_mla
+            or run.model.use_mtp):
         ap.error(f"--arch {args.arch} ({run.model.family}"
                  f"{', MLA/MTP' if run.model.use_mla or run.model.use_mtp else ''}) is not "
-                 f"ported yet: the port trains the dense and MoE GQA families (ROADMAP "
-                 f"queue 1 item 7, other model families)")
+                 f"ported yet: the port trains the dense, MoE, SSM and hybrid families "
+                 f"(ROADMAP queue 1 item 7, other model families)")
     device = steps_mod.resolve_device(args.device)
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"[device] {where}")

@@ -1,5 +1,5 @@
-"""Decoder-LM assembly for the dense and MoE families — the counterpart of
-``repro/models/lm.py``.
+"""Decoder-LM assembly for the dense, MoE, SSM (xLSTM) and hybrid (Zamba2)
+families — the counterpart of ``repro/models/lm.py``.
 
 Layers are stacked (every leaf carries a leading ``L`` dim, built directly
 by ``Decomposer(..., stack=(L,))``) and applied by a Python loop over that
@@ -8,7 +8,13 @@ leaves (``p["u"][l]``), so nothing is copied per layer.  A dense model has
 one ``stack``; a MoE model a ``moe_stack`` (after a ``dense_stack`` of
 ``first_k_dense`` layers when it has one), whose layers run
 ``models/moe.py`` in place of the FFN and add its load-balance term to
-the returned ``aux``.
+the returned ``aux``.  An SSM model is one ``stack`` of mLSTM blocks
+(``models/ssm.py``); a hybrid model ``mamba_groups`` of Mamba2 layers
+stacked on ``(groups, per group)``, each group followed by the one shared
+attention + GELU-FFN block (``shared_attn``, run at width 2d on ``concat(h,
+x0)``, x0 the embedding), then a ``mamba_tail``.  Their caches hold state
+leaves with no sequence axis (``ssm``, ``conv``; ``c``, ``n``, ``m``) beside
+the shared block's k/v of each group.
 
 ``mode``: ``"full"`` (prefill: returns the per-layer k/v stacked on ``L``),
 ``"train"`` (``"full"`` with no cache kept, run with grad enabled) or
@@ -18,12 +24,15 @@ the contiguous one).  In ``"train"`` mode ``remat`` is the activation
 checkpointing of the reference's ``_scan_stack``: ``"full"`` checkpoints
 each layer, ``"sqrt"`` groups of layers with each layer checkpointed
 again inside its group, ``"dots"`` saves only the outputs of matmuls
-without batch dims (:func:`_run_stack`).  MLA, MTP and the SSM, hybrid,
-VLM and enc-dec families raise.
+without batch dims (:func:`_run_stack`); a hybrid model checkpoints each
+group whole under ``"full"`` and ``"sqrt"`` and its tail as asked
+(:func:`_hybrid_forward`).  MLA, MTP and the VLM and enc-dec families
+raise.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Dict, Optional
 
@@ -33,6 +42,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.decompose import Decomposer
 from repro_torch.kernels.ops import KernelPolicy
+from repro_torch.models import ssm
 from repro_torch.models.attention import gqa_apply, gqa_init
 from repro_torch.models.kvcache import init_quantized_kv
 from repro_torch.models.moe import moe_apply, moe_init
@@ -40,13 +50,14 @@ from repro_torch.models.common import (Params, dot32, embed, embedding_init,
                                        ffn, ffn_init, linear, mask_vocab, rmsnorm,
                                        rmsnorm_init, rope_table)
 
-_FAMILIES_TODO = ("other model families (MLA, MTP, SSM, hybrid, VLM, enc-dec) "
-                  "are not ported yet (ROADMAP queue 1 item 7, other model families)")
+_FAMILIES_TODO = ("other model families (MLA, MTP, VLM, enc-dec) are not ported yet "
+                  "(ROADMAP queue 1 item 7, other model families)")
 REMAT_POLICIES = ("none", "full", "dots", "sqrt")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe") or cfg.use_mla or cfg.use_mtp:
+    if cfg.family not in FAMILIES or cfg.use_mla or cfg.use_mtp:
         raise NotImplementedError(f"{cfg.name} ({cfg.family}): {_FAMILIES_TODO}")
 
 
@@ -163,17 +174,178 @@ def _run_stack(stacked: Params, h: torch.Tensor, body, n_layers: int, remat: str
 # --------------------------------------------------------------------------
 
 def lm_init(cfg: ModelConfig, dec: Decomposer) -> Params:
-    """Params of a dense or MoE decoder LM, drawn from ``dec``'s generator
-    (stacks in the reference's order)."""
+    """Params of a decoder LM of a ported family, drawn from ``dec``'s
+    generator (stacks in the reference's order)."""
     _check_family(cfg)
     p: Params = {"embed": embedding_init(dec, cfg.vocab_padded, cfg.d_model, cfg.pdtype)}
-    for name, n in stack_layers(cfg).items():
-        path, moe_layer = _STACKS[name]
-        p[name] = decoder_layer_init(dec, path, cfg, moe_layer=moe_layer, stack=(n,))
+    if cfg.family == "hybrid":
+        n_grp, per, tail = _hybrid_split(cfg)
+        p["mamba_groups"] = ssm.mamba2_init(dec, "layers/mamba", cfg, stack=(n_grp, per))
+        if tail:
+            p["mamba_tail"] = ssm.mamba2_init(dec, "layers/mamba_tail", cfg, stack=(tail,))
+        p["shared_attn"] = _zamba_shared_init(dec, cfg)
+    elif cfg.family == "ssm":
+        p["stack"] = ssm.mlstm_init(dec, "layers/mlstm", cfg, stack=(cfg.num_layers,))
+    else:
+        for name, n in stack_layers(cfg).items():
+            path, moe_layer = _STACKS[name]
+            p[name] = decoder_layer_init(dec, path, cfg, moe_layer=moe_layer, stack=(n,))
     p["final_norm"] = rmsnorm_init(cfg.d_model, cfg.pdtype, dec.device)
     if not cfg.tie_embeddings:
         p["unembed"] = dec.linear("unembed", cfg.d_model, cfg.vocab_padded)
     return p
+
+
+def _hybrid_split(cfg: ModelConfig):
+    """(groups, Mamba2 layers a group, tail layers) of a hybrid model."""
+    per = cfg.attn_every
+    n_grp = cfg.num_layers // per
+    return n_grp, per, cfg.num_layers - n_grp * per
+
+
+def _zamba_wide_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The shared block's config: width 2d, plain GQA."""
+    return dataclasses.replace(cfg, d_model=2 * cfg.d_model, use_mla=False, qk_norm=False,
+                               qkv_bias=False)
+
+
+def _zamba_shared_init(dec: Decomposer, cfg: ModelConfig) -> Params:
+    """Zamba2's shared transformer block, run at 2d on concat(h, x0): GQA,
+    a GELU FFN and ``down_proj`` back to d."""
+    d2, wide = 2 * cfg.d_model, _zamba_wide_cfg(cfg)
+    return {
+        "norm1": rmsnorm_init(d2, cfg.pdtype, dec.device),
+        "attn": gqa_init(dec, "shared/attn", wide),
+        "norm2": rmsnorm_init(d2, cfg.pdtype, dec.device),
+        "ffn": ffn_init(dec, "shared/ffn", d2, cfg.d_ff, "gelu", cfg.pdtype),
+        "down": dec.linear("shared/down_proj", d2, cfg.d_model),
+    }
+
+
+def _zamba_shared_apply(sp: Params, h, x0, cfg: ModelConfig, rope, mode: str, lc, pos,
+                        policy):
+    """The shared block on concat(h, x0), its output added to h.  ``rope``
+    is the (cos, sin) pair of head dim 2d / heads, applied to q and k alike
+    (the reference's 4-tuple repeats it)."""
+    z = torch.cat([h, x0], dim=-1)
+    a_out, nc = gqa_apply(sp["attn"], rmsnorm(sp["norm1"], z, cfg.norm_eps),
+                          _zamba_wide_cfg(cfg), rope=rope, mode=mode, cache=lc, pos=pos,
+                          policy=policy)
+    z = z + a_out
+    z = z + ffn(sp["ffn"], rmsnorm(sp["norm2"], z, cfg.norm_eps), policy=policy)
+    return h + linear(sp["down"], z, policy=policy), nc
+
+
+def _zero(h: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def _mlstm_body(lp, h, *, cfg, policy):
+    """One mLSTM layer in train mode (no state kept): (h, aux)."""
+    out, _ = ssm.mlstm_apply(lp, h, cfg, policy=policy)
+    return h + out, _zero(h)
+
+
+def _mamba_body(lp, h, *, cfg, policy):
+    """One Mamba2 layer in train mode (no state kept): (h, aux)."""
+    out, _ = ssm.mamba2_apply(lp, h, cfg, mode="full", policy=policy, keep_state=False)
+    return h + out, _zero(h)
+
+
+def _write_state(cache: Params, new: Params) -> None:
+    """Copy a layer's new recurrent state into its cache views (the decode
+    cache is updated in place, where the JAX steps donate it)."""
+    for k, v in new.items():
+        cache[k].copy_(v)
+
+
+def _stack_states(states) -> Params:
+    """Per-layer state dicts -> one dict of leaves stacked on a leading axis."""
+    return {k: torch.stack([st[k] for st in states]) for k in states[0]}
+
+
+def _recurrent_stack(stacked: Params, h, cfg, *, mode: str, cache, policy, apply_fn,
+                     n_layers: int):
+    """A stack of recurrent layers in full (prefill) or decode mode: returns
+    (h, the stacked new states in full mode, None in decode mode, where the
+    cache views are written in place)."""
+    states = []
+    for l in range(n_layers):
+        lc = _layer(cache, l) if cache is not None else None
+        out, ns = apply_fn(_layer(stacked, l), h, cfg, mode=mode, state=lc, policy=policy)
+        h = h + out
+        if mode == "decode":
+            _write_state(lc, ns)
+        else:
+            states.append(ns)
+    return h, (_stack_states(states) if states else None)
+
+
+def _hybrid_forward(p: Params, h, cfg: ModelConfig, rope, *, mode: str, train: bool, cache,
+                    pos, policy, remat: str):
+    """Zamba2: groups of Mamba2 layers, each followed by the shared block on
+    concat(h, x0); then the tail.  Returns (h, new cache or None).  In train
+    mode ``"full"`` and ``"sqrt"`` checkpoint each group whole (the groups
+    are the outer level) with no remat inside, and the tail takes
+    ``remat`` as given, as the reference's ``_hybrid_forward``."""
+    x0 = h
+    shared, groups = p["shared_attn"], p["mamba_groups"]
+    n_grp, per, tail = _hybrid_split(cfg)
+    if train:
+        def group(g, hh):
+            gp = _layer(groups, g)
+            for l in range(per):
+                hh, _ = _mamba_body(_layer(gp, l), hh, cfg=cfg, policy=policy)
+            hh, _ = _zamba_shared_apply(shared, hh, x0, cfg, rope, "full", None, None, policy)
+            return hh
+
+        for g in range(n_grp):
+            if remat in ("full", "sqrt"):
+                h = ckpt.checkpoint(functools.partial(group, g), h, use_reentrant=False)
+            else:
+                h = group(g, h)
+        if tail:
+            body = functools.partial(_mamba_body, cfg=cfg, policy=policy)
+            h, _ = _run_stack(p["mamba_tail"], h, body, tail, remat)
+        return h, None
+
+    grp_states, kvs = [], []
+    for g in range(n_grp):
+        gc = _layer(cache["mamba_groups"], g) if cache is not None else None
+        h, st = _recurrent_stack(_layer(groups, g), h, cfg, mode=mode, cache=gc, policy=policy,
+                                 apply_fn=ssm.mamba2_apply, n_layers=per)
+        ac = _layer(cache["shared_attn"], g) if cache is not None else None
+        h, nc = _zamba_shared_apply(shared, h, x0, cfg, rope, mode, ac, pos, policy)
+        grp_states.append(st)
+        kvs.append(nc)
+    tail_st = None
+    if tail:
+        h, tail_st = _recurrent_stack(p["mamba_tail"], h, cfg, mode=mode,
+                                      cache=cache["mamba_tail"] if cache is not None else None,
+                                      policy=policy, apply_fn=ssm.mamba2_apply, n_layers=tail)
+    if mode == "decode":
+        return h, cache
+    new_cache = {"mamba_groups": _stack_states(grp_states),
+                 "shared_attn": {"k": torch.stack([c["k"] for c in kvs]),
+                                 "v": torch.stack([c["v"] for c in kvs])}}
+    if tail:
+        new_cache["mamba_tail"] = tail_st
+    return h, new_cache
+
+
+def _ssm_forward(p: Params, h, cfg: ModelConfig, *, mode: str, train: bool, cache, pos,
+                 policy, remat: str):
+    del pos  # the recurrence carries its position in its state
+    """xLSTM: one stack of mLSTM blocks.  Returns (h, new cache or None)."""
+    n_layers = cfg.num_layers
+    if train:
+        body = functools.partial(_mlstm_body, cfg=cfg, policy=policy)
+        h, _ = _run_stack(p["stack"], h, body, n_layers, remat)
+        return h, None
+    h, st = _recurrent_stack(p["stack"], h, cfg, mode=mode,
+                             cache=cache["stack"] if cache is not None else None,
+                             policy=policy, apply_fn=ssm.mlstm_apply, n_layers=n_layers)
+    return h, (cache if mode == "decode" else {"stack": st})
 
 
 def lm_apply(p: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -181,7 +353,7 @@ def lm_apply(p: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
              policy: "bool | KernelPolicy" = False, remat: str = "none"):
     """Returns (logits float32 (B, S, V), new_cache, aux); ``new_cache`` is
     None in ``mode="train"``, and ``aux`` sums the MoE layers' load-balance
-    terms (float32; zero for a dense model).  ``remat`` applies in
+    terms (float32; zero for every other model).  ``remat`` applies in
     ``mode="train"`` only, the one mode that keeps activations for a
     backward."""
     _check_family(cfg)
@@ -195,6 +367,12 @@ def lm_apply(p: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     h = embed(p["embed"], tokens).to(cfg.cdtype)
     rope = _make_rope(cfg, s, mode, pos, h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.family in ("hybrid", "ssm"):
+        fwd = _hybrid_forward if cfg.family == "hybrid" else _ssm_forward
+        kw = dict(rope=rope) if cfg.family == "hybrid" else {}
+        h, new_cache = fwd(p, h, cfg, mode=mode, train=train, cache=cache, pos=pos,
+                           policy=policy, remat=remat, **kw)
+        return _head(p, h, cfg, policy), new_cache, aux
     new_cache: Optional[Dict[str, Any]] = None if train else {}
     for name in ("stack", "dense_stack", "moe_stack"):
         if name not in p:
@@ -225,17 +403,25 @@ def lm_apply(p: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             new_cache[name] = {"k": torch.stack(ks), "v": torch.stack(vs)}
     if mode == "decode":
         new_cache = cache  # updated in place
+    return _head(p, h, cfg, policy), new_cache, aux
+
+
+def _head(p: Params, h: torch.Tensor, cfg: ModelConfig, policy) -> torch.Tensor:
+    """Final norm and the float32 logits, padded vocab masked."""
     h = rmsnorm(p["final_norm"], h, cfg.norm_eps)
     if cfg.tie_embeddings:
         logits = dot32(h, p["embed"]["embedding"].T)
     else:
         logits = linear(p["unembed"], h, policy=policy).float()
-    logits = mask_vocab(logits, cfg.vocab_size)
-    return logits, new_cache, aux
+    return mask_vocab(logits, cfg.vocab_size)
 
 
 def _make_rope(cfg: ModelConfig, s: int, mode: str, pos, device):
-    hd = cfg.resolved_head_dim
+    """RoPE tables for this call: none for an SSM model; head dim 2d / heads
+    for the hybrid's shared block (it runs at 2d)."""
+    if cfg.family == "ssm":
+        return None
+    hd = 2 * cfg.d_model // cfg.num_heads if cfg.family == "hybrid" else cfg.resolved_head_dim
     if mode == "full":
         return rope_table(s, hd, cfg.rope_theta, device=device)
     pos_arr = torch.as_tensor(pos, device=device).reshape(-1)
@@ -249,18 +435,37 @@ def _make_rope(cfg: ModelConfig, s: int, mode: str, pos, device):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device, dtype=None) -> Params:
-    """The contiguous decode cache of the fixed-batch path, one entry per
-    stack: ``(L, batch, max_len, KV, hd)`` k/v in ``dtype`` (default the
-    compute dtype), or int8 values with bf16 per-position scales when
-    ``cfg.kv_cache_dtype == "int8"``."""
+    """The contiguous decode cache of the fixed-batch path: for a dense or
+    MoE model one entry per stack, ``(L, batch, max_len, KV, hd)`` k/v in
+    ``dtype`` (default the compute dtype), or int8 values with bf16
+    per-position scales when ``cfg.kv_cache_dtype == "int8"``; for a hybrid
+    model the Mamba2 states of each group and of the tail and the shared
+    block's k/v a group (head dim 2d / heads); for an SSM model the mLSTM
+    states (``m`` in float32)."""
     _check_family(cfg)
     dtype = dtype or cfg.cdtype
-    out: Params = {}
-    for name, n in stack_layers(cfg).items():
-        shape = (n, batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+
+    def kv_cache(stack, heads, hd):
+        shape = stack + (batch, max_len, heads, hd)
         if cfg.kv_cache_dtype == "int8":
-            out[name] = init_quantized_kv(shape[:1], *shape[1:], device=device)
-        else:
-            out[name] = {"k": torch.zeros(shape, dtype=dtype, device=device),
-                         "v": torch.zeros(shape, dtype=dtype, device=device)}
-    return out
+            return init_quantized_kv(stack, *shape[len(stack):], device=device)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    def stacked(state, stack):
+        return {k: v.expand(stack + tuple(v.shape)).clone() for k, v in state.items()}
+
+    if cfg.family == "hybrid":
+        n_grp, per, tail = _hybrid_split(cfg)
+        state = ssm.mamba2_init_state(cfg, batch, dtype, device)
+        out = {"mamba_groups": stacked(state, (n_grp, per)),
+               "shared_attn": kv_cache((n_grp,), cfg.num_kv_heads,
+                                       2 * cfg.d_model // cfg.num_heads)}
+        if tail:
+            out["mamba_tail"] = stacked(state, (tail,))
+        return out
+    if cfg.family == "ssm":
+        return {"stack": stacked(ssm.mlstm_init_state(cfg, batch, dtype, device),
+                                 (cfg.num_layers,))}
+    return {name: kv_cache((n,), cfg.num_kv_heads, cfg.resolved_head_dim)
+            for name, n in stack_layers(cfg).items()}

@@ -27,7 +27,12 @@ measured backend's probes timed on the engine's device (``params`` must
 already lie there); ``engine.export_report`` holds its report.  A MoE model
 serves through the same scheduler and fixed-batch path (every layer stack
 gets its pool or padded cache); its int8 export raises, since the
-reference cannot serve int8 expert groups.  The mesh
+reference cannot serve int8 expert groups.  The SSM (xLSTM) and hybrid
+(Zamba2) families take the fixed-batch path whatever ``num_slots`` says,
+as in the reference (its scheduler serves dense and MoE only): their
+prefill cache carries recurrent state leaves, which :func:`pad_cache`
+leaves as they are, beside the hybrid's shared-block k/v; their int8
+export raises (ROADMAP queue 1 item 7).  The mesh
 and telemetry raise a ``ValueError`` naming the ROADMAP item that brings
 them.
 """
@@ -46,8 +51,11 @@ from repro_torch.serving.config import RequestResult, ServeConfig
 
 __all__ = ["ServeEngine", "pad_cache", "pad_cache_preserving_cross"]
 
-# leaf name -> axis that indexes kv positions (k_scale/v_scale share k/v's)
+# leaf name -> axis that indexes kv positions (k_scale/v_scale share k/v's);
+# every other leaf (the recurrent states ssm, conv, c, n, m) has none
 _SEQ_AXIS = {"k": -3, "v": -3, "k_scale": -3, "v_scale": -3}
+# families the scheduler serves; the rest take the fixed-batch path
+_SCHEDULED = ("dense", "moe")
 
 
 def _pad_leaf(t: torch.Tensor, name: str, target_len: int) -> torch.Tensor:
@@ -110,6 +118,11 @@ class ServeEngine:
                 "ServeEngine: an int8 export of a MoE model's expert groups cannot be "
                 "served: the reference's _expert_ffn reads only 'kernel' or 'u'/'v' "
                 "(ROADMAP queue 3, departures by design)")
+        if self.config.export_int8 and run.model.family not in _SCHEDULED:
+            raise ValueError(
+                f"ServeEngine: the int8 export of the {run.model.family} family is not "
+                f"ported (Zamba2's ranks pass K7's ceiling of 512; ROADMAP queue 1 item 7, "
+                f"int8 export of the SSM and hybrid families)")
         self.device = steps_mod.resolve_device(device)
         self.run = run
         self.params = params
@@ -158,10 +171,12 @@ class ServeEngine:
 
     def _scheduler_usable(self, prompt_len: int, max_new: int) -> bool:
         """Prompts must fit the scheduler's fixed prefill and window shapes;
-        other batches take the fixed-batch path."""
+        other batches, and the families it does not serve, take the
+        fixed-batch path."""
         c = self.config
         eff_prefill = min(c.prefill_len or c.max_len, c.max_len)
-        return (c.num_slots > 0 and 0 < prompt_len <= eff_prefill
+        return (c.num_slots > 0 and self.run.model.family in _SCHEDULED
+                and 0 < prompt_len <= eff_prefill
                 and prompt_len + max_new <= c.max_len)
 
     def serve(self, requests: Sequence[Dict[str, Any]],

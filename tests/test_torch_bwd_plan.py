@@ -123,3 +123,32 @@ def test_dx_plan_at_the_train_shapes():
     assert dx_plan(M_TRAIN, 2560, H100_SMS) == (8, 16)
     assert sorted({len(t) for t in dx_tiles(M_TRAIN, 960, 8, 16)}) == [1]
     assert sorted({len(t) for t in dx_tiles(M_TRAIN, 2560, 8, 16)}) == [2, 3]
+
+
+@pytest.mark.parametrize("r", [1, 120, 349, 512, 513, 640, 682, 822, 1024, 1365, 2048])
+def test_dx_phase_two_fits_past_rank_512(r):
+    """K2's phase 2 keeps a 128-row block of dt in shared memory up to r =
+    512 (as before the ceiling rose), and streams it through the ring with
+    U past that; either way it fits 227 KB with at least two ring slots."""
+    from repro_torch.kernels.lowrank_bwd import dx_smem
+    from repro_torch.kernels.lowrank_matmul import SMEM_MAX
+
+    total, slots, stream = dx_smem(r)
+    assert total <= SMEM_MAX and slots >= 2
+    assert stream == (r > 512)
+
+
+# (rows, cols) of dU and dV at Zamba2-1.2B's Eq.-5 train shapes: K3 and K4
+# gain output tiles along r (up to 11 of 128 columns at r = 1365)
+ZAMBA_OUT = sorted({out for c, r, s in [(2048, 822, 8384), (4096, 682, 2048),
+                                        (4096, 1024, 4096), (4096, 1365, 8192),
+                                        (8192, 1365, 4096)]
+                    for out in ((c, r), (r, s))})
+
+
+@pytest.mark.parametrize("rows,cols", ZAMBA_OUT)
+def test_zamba_outputs_fill_a_wave_without_splits(rows, cols):
+    """Every Zamba2 dU and dV has more 64 x 128 tiles than an H100 has SMs,
+    so the sum over M is not split and nothing is reduced."""
+    assert _tiles(rows, cols) > H100_SMS
+    assert split_plan(M_TRAIN, rows, cols, H100_SMS) == 1

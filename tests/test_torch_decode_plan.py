@@ -5,11 +5,11 @@ math (``csrc/common.cuh``): the C split, the tiles of r and of S and the row
 blocks cover every element of U and V exactly once for each row block; the
 split of C, which fixes the order in which a row's products are summed, is
 the same at every M; both phases fit in shared memory up to ``LARGE_M - 1``
-rows; and at the decode M (8 to 40) each phase is at most one wave.  Then a
-float32 emulation of that order (each rank's slab in four chains of 16-deep
-steps, the cluster's partials added in rank order, t formed once, phase 2's
-chains over the padded rank) against JAX's Pallas kernels in interpret
-mode."""
+rows; and at the decode M (8 to 40) each phase is at most one wave (two
+past rank 512).  Then a float32 emulation of that order (each rank's slab
+in four chains of 16-deep steps, the cluster's partials added in rank
+order, t formed once, phase 2's chains over the padded rank, piece by
+piece past rank 512) against JAX's Pallas kernels in interpret mode."""
 
 import inspect
 
@@ -39,6 +39,13 @@ K1_SHAPES = [(960, 240, 960), (960, 120, 320), (2560, 349, 960), (960, 119, 960)
 K5_SHAPES = [(960, (349, 349), 2560), (960, (128, 128), 2560), (960, (256, 256), 2560),
              (960, (512, 512), 2560)]
 DECODE_MS = [8, 16, 24, 40]
+# K1 past rank 512: Zamba2-1.2B's factorised projections at Eq.-5 and
+# Algorithm-1 ranks (mamba in_proj, out_proj and the shared down_proj;
+# the shared block's attention; its GELU FFN's wi and down), the first rank
+# past the old ceiling, and the new ceiling
+WIDE_K1 = [(2048, 822, 8384), (4096, 682, 2048), (4096, 1024, 4096), (4096, 1365, 8192),
+           (8192, 1365, 4096), (2048, 640, 8384), (4096, 640, 2048), (4096, 896, 4096),
+           (4096, 1280, 8192), (8192, 1280, 4096), (960, 513, 960), (4096, 2048, 4096)]
 
 
 def _cdiv(a, b):
@@ -61,6 +68,7 @@ def _random_shapes(n, seed):
 
 RANDOM = _random_shapes(24, 0)
 ALL = [(c, (r,), s) for c, r, s in K1_SHAPES] + K5_SHAPES + RANDOM
+WIDE = [(c, (r,), s) for c, r, s in WIDE_K1]
 
 
 def _large_m(c, ranks):
@@ -88,11 +96,6 @@ def rank_smem(rows, kc, w1, cs):
     return recv + 4 * cs * _cdiv(rows * w1, cs)
 
 
-def out_smem(rows, kext, w2, nb):
-    """Phase 2: V [nb][kext][tile_ld(w2)] bf16 | t [nb][rows][tile_ld(kext)] bf16."""
-    return _align128(2 * nb * kext * tile_ld(w2)) + 2 * nb * rows * tile_ld(kext)
-
-
 def block_rows(m, smem):
     rows = _round_up(m, BM) if m < ROWS_MAX else ROWS_MAX
     while rows > BM and smem(rows) > SMEM_MAX:
@@ -114,10 +117,12 @@ def launch(m, c, ranks, s, sms=SMS):
         return sum(_cdiv(r, w) for r in ranks)
 
     rows1 = block_rows(m, lambda rows: rank_smem(rows, kc, w1, cs))
-    rows2 = block_rows(m, lambda rows: out_smem(rows, kext, w2, nb))
-    return dict(cs=cs, kc=kc, per=per, w1=w1, w2=w2, kext=kext, rows1=rows1, rows2=rows2,
+    # phase 2's layout, one piece of decode_kp rank rows (the library's mirror)
+    rows2 = block_rows(m, lambda rows: k1.decode_out_smem(rows, rmax, w2, nb))
+    return dict(cs=cs, kc=kc, per=per, w1=w1, w2=w2, kext=kext, kp=k1.decode_kp(rmax),
+                rows1=rows1, rows2=rows2,
                 grid1=(cs, tiles(w1), _cdiv(m, rows1)), grid2=(_cdiv(s, w2), _cdiv(m, rows2)),
-                smem1=rank_smem(rows1, kc, w1, cs), smem2=out_smem(rows2, kext, w2, nb))
+                smem1=rank_smem(rows1, kc, w1, cs), smem2=k1.decode_out_smem(rows2, rmax, w2, nb))
 
 
 def _check_plan_limits(p, c):
@@ -133,7 +138,7 @@ def _check_plan_limits(p, c):
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("m", [1, 8, 40, 127, 300])
-@pytest.mark.parametrize("c,ranks,s", ALL)
+@pytest.mark.parametrize("c,ranks,s", ALL + [(64, (600,), 64), (100, (2048,), 90)])
 def test_decode_plan_covers_u_and_v_once_per_row_block(m, c, ranks, s):
     """Mirror of the CTA -> work maps (decode_rank_body: CTA (q, tile,
     block) sums rows [(q per + pc) kc, +kc) of C for pc < per, columns
@@ -172,22 +177,48 @@ def test_decode_plan_takes_no_m():
     assert list(inspect.signature(k1.decode_plan).parameters) == ["c", "r", "s", "sms", "nb"]
 
 
-@pytest.mark.parametrize("c,ranks,s", ALL)
+@pytest.mark.parametrize("c,ranks,s", ALL + WIDE)
 def test_decode_sum_order_is_the_same_at_every_m(c, ranks, s):
-    """The split of C (cs, kc, per) and the padded rank of phase 2 (kext) fix
-    the order of a row's sums; widths and row blocks only share the work
-    out.  They are the same at every M, so a row has the same bits at M = 8
-    and inside M = 16, 24, 40 or LARGE_M - 1."""
-    orders = {tuple(launch(m, c, ranks, s)[key] for key in ("cs", "kc", "per", "kext"))
+    """The split of C (cs, kc, per), the padded rank of phase 2 (kext) and
+    its pieces (kp) fix the order of a row's sums; widths and row blocks
+    only share the work out.  They are the same at every M, so a row has
+    the same bits at M = 8 and inside M = 16, 24, 40 or LARGE_M - 1."""
+    orders = {tuple(launch(m, c, ranks, s)[key] for key in ("cs", "kc", "per", "kext", "kp"))
               for m in [1] + DECODE_MS + [_large_m(c, ranks) - 1, 1000]}
     assert len(orders) == 1
 
 
-@pytest.mark.parametrize("c,ranks,s", ALL)
+@pytest.mark.parametrize("c,ranks,s", ALL + WIDE)
 def test_decode_fits_shared_memory_below_large_m(c, ranks, s):
     for m in sorted({1, 8, 16, 40, 64, 127, 128, 129, _large_m(c, ranks) - 1}):
         p = launch(m, c, ranks, s)
         assert p["smem1"] <= SMEM_MAX and p["smem2"] <= SMEM_MAX, (m, p)
+
+
+@pytest.mark.parametrize("r", [1, 16, 240, 512, 513, 528, 640, 682, 822, 1024, 1365, 2048])
+def test_decode_rank_pieces(r):
+    """Phase 2 holds the whole padded rank up to 512 rows (one piece, as
+    before the ceiling rose), else the fewest equal pieces of at most 512
+    rows (multiples of 16) that cover it; the t scratch's row pitch is r
+    rounded up to 8."""
+    kext, kp = _round_up(r, BM), k1.decode_kp(r)
+    assert kp % BM == 0 and kp <= k1.KP_MAX
+    pieces = _cdiv(kext, kp)
+    assert (kp == kext) == (kext <= k1.KP_MAX)
+    assert pieces == _cdiv(kext, k1.KP_MAX) and (pieces - 1) * kp < kext <= pieces * kp
+    assert k1.decode_rt(r) == _round_up(r, 8) and k1.decode_rt(r) >= r
+
+
+@pytest.mark.parametrize("m", DECODE_MS)
+@pytest.mark.parametrize("c,ranks,s", WIDE)
+def test_decode_is_at_most_two_waves_past_rank_512(m, c, ranks, s):
+    """Zamba2's ranks take 11 to 32 tiles of 64 columns of t against
+    clusters of up to 8 CTAs: phase 1 is at most two waves, phase 2 at most
+    two CTAs an SM (one row block)."""
+    p = launch(m, c, ranks, s)
+    assert p["grid1"][2] == p["grid2"][1] == 1
+    assert np.prod(p["grid1"]) <= 2 * SMS
+    assert np.prod(p["grid2"]) <= 2 * SMS
 
 
 @pytest.mark.parametrize("m", DECODE_MS)
@@ -248,7 +279,16 @@ def _rank_product(x, u, plan):
 
 
 def emulate_k1(x, u, v, plan):
-    return _chains(_rank_product(x, u, plan), v)
+    """Phase 2 over the padded rank in decode_kp pieces, each piece's chains
+    added to the sum of those before it."""
+    t = _rank_product(x, u, plan)
+    r = u.shape[1]
+    kp = k1.decode_kp(r)
+    out = None
+    for k0 in range(0, r, kp):
+        d = _chains(t[:, k0:k0 + kp], v[k0:k0 + kp])
+        out = d if out is None else out + d
+    return out
 
 
 def emulate_k5(x, gu, gv, uu, uv, plan):
@@ -274,9 +314,11 @@ def _close(got, want):
 # wrapper's and one with two pieces of C a CTA
 EMU_K1 = [(64, 128, 32, 64, 32, 64, 32), (32, 256, 48, 128, 32, 128, 64),
           (40, 256, 24, 96, 8, 128, 32)]
+# past rank 512: phase 2 in two and three pieces
+EMU_WIDE = [(16, 64, 520, 64, 16, 64, 32), (8, 128, 1100, 32, 8, 64, 32)]
 
 
-@pytest.mark.parametrize("m,c,r,s,bm,bk,bn", EMU_K1)
+@pytest.mark.parametrize("m,c,r,s,bm,bk,bn", EMU_K1 + EMU_WIDE)
 def test_decode_order_matches_pallas_lowrank_matmul(m, c, r, s, bm, bk, bn):
     x, u, v = _mats(m + c + r + s, (m, c), (c, r), (r, s))
     want = pallas_lowrank_matmul(jnp.asarray(x), jnp.asarray(u), jnp.asarray(v), block_m=bm,
@@ -296,3 +338,49 @@ def test_decode_order_matches_pallas_lowrank_gated_ffn(m, c, r, f, bm, bk, bn):
                             block_k=bk, block_n=bn, interpret=True)
     for plan in (k1.decode_plan(c, r, f, SMS, nb=2), (_cdiv(c, 32), 32, 1, 16, 16)):
         _close(emulate_k5(x, gu, gv, uu, uv, plan), want)
+
+
+# --------------------------------------------------------------------------
+# The large-M design and the rank ceilings, nothing launched
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("r", [1, 120, 256, 349, 512, 513, 640, 682, 822, 1024, 1365, 2048])
+def test_large_m_layout_fits_past_rank_512(r):
+    """K1's large-M layout keeps the row block's t in shared memory up to a
+    padded rank of 512 and streams it with V past that; either way it fits
+    227 KB with at least two ring slots (K5, two branches, keeps 512)."""
+    total, slots, stream = k1.large_smem(r)
+    assert total <= SMEM_MAX and slots >= 2
+    assert stream == (_round_up(r, 128) > 512)
+    if r <= k1.FUSED_RANK_MAX:
+        total, slots, stream = k1.large_smem(r, nb=2)
+        assert total <= SMEM_MAX and slots >= 2 and not stream
+
+
+def _meta(*shapes):
+    return [torch.empty(s, dtype=torch.bfloat16, device="meta") for s in shapes]
+
+
+def test_wrappers_refuse_ranks_past_their_ceilings():
+    """K1-K4 take r up to RANK_MAX (2048), K5 and K7 up to FUSED_RANK_MAX
+    (512): the wrappers refuse a larger rank before touching a device."""
+    from repro_torch.kernels import int8_matmul as k7
+    from repro_torch.kernels import lowrank_bwd as kb
+
+    assert (k1.RANK_MAX, k1.FUSED_RANK_MAX) == (2048, 512)
+    r = k1.RANK_MAX + 1
+    x, u, v, dy = _meta((8, 64), (64, r), (r, 32), (8, 32))
+    with pytest.raises(ValueError, match=f"rank {r}"):
+        k1.lowrank_matmul(x, u, v)
+    for fn, args in ((kb.lowrank_matmul_dx, (dy, u, v)), (kb.lowrank_matmul_du, (x, dy, v)),
+                     (kb.lowrank_matmul_dv, (x, u, dy))):
+        with pytest.raises(ValueError, match=f"rank {r}"):
+            fn(*args)
+    g, gv = _meta((64, 513), (513, 32))
+    with pytest.raises(ValueError, match="513"):
+        k5.lowrank_gated_ffn(x, g, gv, g, gv)
+    uq = torch.empty((64, 513), dtype=torch.int8, device="meta")
+    vq = torch.empty((513, 32), dtype=torch.int8, device="meta")
+    scales = [torch.empty(s, dtype=torch.float32, device="meta") for s in ((1, 513), (1, 32))]
+    with pytest.raises(ValueError, match="rank 513"):
+        k7.int8_lowrank_linear(x, uq, scales[0], vq, scales[1])

@@ -83,7 +83,7 @@ def test_serve_cli_rejects_unported_flags():
     from repro_torch.launch import serve
 
     for argv in (["--mesh-data", "2"], ["--log-format", "jsonl"], ["--export-int8"],
-                 ["--mesh-model", "2"], ["--obs"], ["--arch", "zamba2-1.2b"]):
+                 ["--mesh-model", "2"], ["--obs"], ["--arch", "seamless-m4t-medium"]):
         with pytest.raises(SystemExit) as exc:
             serve.main(["--smoke", "--device", "cpu", *argv])
         assert exc.value.code == 2

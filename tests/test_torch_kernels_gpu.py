@@ -684,7 +684,7 @@ def test_gpu_int8_dispatch_launches_the_kernels():
 
 # --------------------------------------------------------------------------
 # OLMoE-1B-7B's attention projections at Eq.-5 ranks: (C, r, S) = (2048,
-# 512, 2048), r at RANK_MAX; M = 8 (8-slot decode), 128 (a prefill) and
+# 512, 2048), r at the old ceiling; M = 8 (8-slot decode), 128 (a prefill) and
 # 2048 (8 x 256 train tokens)
 # --------------------------------------------------------------------------
 
@@ -724,7 +724,8 @@ def test_gpu_lowrank_bwd_at_olmoe_attention(name, m):
 # across calls
 # --------------------------------------------------------------------------
 
-DECODE_K1 = [(960, 240, 960), (2560, 349, 960), (960, 59, 320), (2048, 512, 2048)]
+DECODE_K1 = [(960, 240, 960), (2560, 349, 960), (960, 59, 320), (2048, 512, 2048),
+             (4096, 1365, 8192), (4096, 682, 2048)]
 DECODE_K5 = [(960, 349, 2560), (960, 128, 2560)]
 
 
@@ -777,7 +778,8 @@ def test_gpu_decode_rows_do_not_depend_on_m(name, dims):
 @pytest.mark.gpu
 @pytest.mark.parametrize("m", sorted({1, 8, 128, large_m(*OLMOE_ATTN[:2]) - 1}))
 def test_gpu_lowrank_matmul_decode_design_at_olmoe_attention(m):
-    """OLMoE's (2048, 512, 2048): r = RANK_MAX in the decode design."""
+    """OLMoE's (2048, 512, 2048): r = 512, the last rank in one phase-2
+    piece of the decode design."""
     _need_gpu()
     c, r, s = OLMOE_ATTN
     x, u, v = _mats(m + 5, (m, c), (c, r), (r, s))
@@ -843,3 +845,67 @@ def test_gpu_decode_design_replays_in_a_cuda_graph():
                                      K5_RTOL)):
                 err = (got.float() - want.float()).abs().max().item()
                 assert err <= rtol * want.float().abs().max().item()
+
+
+# --------------------------------------------------------------------------
+# K1-K4 past rank 512: Zamba2-1.2B's factorised projections at Eq.-5 ranks
+# (mamba in_proj, out_proj / shared down_proj, the shared attention, the
+# shared FFN's wi and down) and Algorithm-1 ranks, the first rank past the
+# old ceiling and the new one.  M = 8 (8-row decode), 128 (decode design,
+# one row block) and 2048 (8 x 256 train tokens, the large-M design).
+# --------------------------------------------------------------------------
+
+ZAMBA_EQ5 = [(2048, 822, 8384), (4096, 682, 2048), (4096, 1024, 4096), (4096, 1365, 8192),
+             (8192, 1365, 4096)]
+ZAMBA_ALG1 = [(2048, 640, 8384), (4096, 640, 2048), (4096, 896, 4096), (4096, 1280, 8192)]
+RANK_EDGES = [(960, 513, 960), (4096, 2048, 4096)]
+WIDE_M = [8, 128, 2048]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", WIDE_M)
+@pytest.mark.parametrize("c,r,s", ZAMBA_EQ5 + ZAMBA_ALG1 + RANK_EDGES)
+def test_gpu_lowrank_matmul_past_rank_512(m, c, r, s):
+    """Both designs walk the rank (decode: pieces of at most 512 rows;
+    large-M: passes of 128 columns of t, t streamed with V), one float32 sum
+    and one rounding an output; the same bits on a second call."""
+    _need_gpu()
+    x, u, v = _mats(m + r, (m, c), (c, r), (r, s))
+    with torch.inference_mode():
+        got, want = lowrank_matmul(x, u, v), ref.lowrank_matmul_ref(x, u, v)
+        again = lowrank_matmul(x, u, v)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= K1_RTOL * want.float().abs().max().item()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["dx", "du", "dv"])
+@pytest.mark.parametrize("c,r,s", ZAMBA_EQ5 + ZAMBA_ALG1 + RANK_EDGES)
+def test_gpu_lowrank_bwd_past_rank_512(name, c, r, s):
+    """K2 streams dt through its ring past r = 512; K3/K4 gain output tiles
+    along r.  M = 2048 (8 x 256 train tokens); bitwise repeatable."""
+    _need_gpu()
+    got, want = _bwd_case(name, 2048, c, r, s)
+    again, _ = _bwd_case(name, 2048, c, r, s)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= BWD_RTOL * want.float().abs().max().item()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_gpu_rank_ceilings():
+    """K1-K4 take r up to 2048 and refuse 2049; K5 keeps 512."""
+    _need_gpu()
+    from repro_torch.kernels import lowrank_bwd as kb
+
+    x, u, v = _mats(1, (8, 64), (64, 2049), (2049, 32))
+    with pytest.raises(ValueError, match="rank 2049"):
+        lowrank_matmul(x, u, v)
+    with pytest.raises(ValueError, match="rank 2049"):
+        kb.lowrank_matmul_dx(torch.zeros_like(x[:, :32]), u, v)
+    g = _mats(2, (8, 64), (64, 513), (513, 32))
+    with pytest.raises(ValueError, match="513"):
+        lowrank_gated_ffn(g[0], g[1], g[2], g[1], g[2])
