@@ -1,6 +1,6 @@
 """Drive the PyTorch port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py [--out results.json] [--only kernels|conv|serve|moe|ssm]
+    python3 chip_smoke.py [--out results.json] [--only kernels|conv|serve|moe|ssm|encdec]
 
 Phases, in order; any failure exits nonzero:
 
@@ -210,6 +210,34 @@ Phases, in order; any failure exits nonzero:
               ceiling and the new one, checked and timed as in phase 3
               beside the kernels line (no main path runs them).
 
+44-49. seamless-m4t-medium (enc-dec: 12 encoder and 12 decoder layers, d
+              1024, 16 heads, GELU FFN 4096, vocab 256206, 1024 stub frames)
+              at full width and depth; the encoder runs with the kernels off,
+              as the reference's.  44 serve — the serve CLI (Eq.-5 ranks 256
+              / 409) on the fixed-batch path, 8 x 256 prompts with 8 x 1024
+              frames, 32 new tokens: K1 launches exact by shape (10 a decoder
+              layer in the prefill, the cross k/v at M = 8 x 1024; 8 a layer a
+              decode step), no other kernel; 45 parity — every cross gate set
+              to a seeded non-zero value in both runs (at the init's zeros the
+              check would not reach cross-attention), prefill logits and 8
+              greedy tokens through the kernels against the plain versions on
+              the card, a parting held to a rounding tie; 46 flash — the same
+              prefill with attention_impl="flash" through the engine: K8
+              launches exact (the encoder's non-causal 1024 x 1024, the cross
+              blocks' non-causal 256 x 1024, the decoder's causal 256 x 256),
+              logits held to K1's and K8's plain versions; 47 profile — a
+              decode step, the prefill (blockwise, flash) and the encoder
+              alone: wall, device, idle, K1, K8 and cuBLAS ms; 48 train — the
+              training CLI at Algorithm-1 ranks (255 / 384), 6 steps of 8 x
+              256 tokens with 8 x 1024 frames at phases 0,0,1,1,0,0, K1-K4
+              launches exact by shape each step (K2 at M = 8 x 1024 for the
+              cross k/v), then a step profiled at phases 0 and 1 with
+              ``max_memory_allocated`` and the gradients, gates seeded, against
+              the plain versions at phases -1, 0 and 1; 49 — K8 at the flash
+              path's shapes held row by row and timed beside SDPA (in the
+              kernels line), and K1's decode design at the Algorithm-1 ranks
+              beside it (no main path runs them).
+
 Phases 20-24 run with TF32 off and the port's seeded init, through plain
 PyTorch (cuDNN convs, ``torch.matmul``): the JAX package computes them
 outside any Pallas kernel, so no hand-written kernel is on their path.
@@ -221,7 +249,8 @@ and timed after it.  ``--only kernels`` runs phases 1-3, the K6-K8 checks
 and phase 19; ``--only conv`` runs phases 1 and 20-24; ``--only serve`` runs
 phases 1-3 (at the serve and serving-feature shapes) and 25-28; ``--only
 moe`` runs phases 1-3 at the MoE shapes and 29-35; ``--only ssm`` phases
-1-3 at the SSM and hybrid shapes and 36-43.  The last
+1-3 at the SSM and hybrid shapes and 36-43; ``--only encdec`` phases 1-3 at
+the enc-dec shapes and 44-49.  The last
 line of
 standard output is ``{"ok": true, "device": {...}}``; the
 line before it is ``nvidia-smi``'s name and power limit, and the
@@ -1276,10 +1305,15 @@ def _train_run():
 
 
 def _train_batch(run, seed: int):
+    """One batch of the synthetic stream (an enc-dec run's with the train
+    CLI's stub frames of step ``seed``)."""
     from repro_torch.data import LMBatchIterator
+    from repro_torch.launch import train
 
     batch = next(iter(LMBatchIterator(run.model.vocab_size, run.shape.seq_len,
                                       run.shape.global_batch, seed=seed)))
+    if run.model.family == "encdec":
+        batch["frames"] = train.stub_frames(run, seed, 0)
     return {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
 
 
@@ -1308,15 +1342,16 @@ def _grad_paths(tree, path=""):
         yield path, tree
 
 
-def phase_grads(params):
+def phase_grads(params, run=None, label: str = "grads"):
     """One train step's loss and gradients through the kernels against the
-    same step through the plain versions, at phases -1, 0 and 1."""
+    same step through the plain versions, at phases -1, 0 and 1 (of
+    ``run``, by default phase 7's)."""
     import dataclasses
 
     from repro_torch.core import freezing
     from repro_torch.launch import steps
 
-    run = _train_run()
+    run = run or _train_run()
     plain = dataclasses.replace(run, lrd=dataclasses.replace(run.lrd, use_pallas_kernel=False))
     batch = _train_batch(run, seed=99)
     out = {}
@@ -1330,13 +1365,13 @@ def phase_grads(params):
             diff = (a.float() - b.float()).abs().max().item()
             rel = diff / max(b.float().abs().max().item(), 1e-30)
             if not (math.isfinite(diff) and torch.isfinite(a).all()):
-                raise AssertionError(f"grads: phase {phase} {path} not finite")
+                raise AssertionError(f"{label}: phase {phase} {path} not finite")
             worst, n = max(worst, (rel, path)), n + 1
-        log(f"[grads] phase {phase}: loss kernels {lk.item():.5f} vs plain {lp.item():.5f} "
+        log(f"[{label}] phase {phase}: loss kernels {lk.item():.5f} vs plain {lp.item():.5f} "
             f"(rel {loss_rel:.2e}, bound {LOSS_RTOL}); {n} trainable leaves, worst "
             f"max |dgrad| / max |grad| {worst[0]:.2e} at {worst[1]} (bound {GRAD_RTOL})")
         if loss_rel > LOSS_RTOL or worst[0] > GRAD_RTOL:
-            raise AssertionError(f"grads: phase {phase} loss rel {loss_rel:.3e}, worst leaf "
+            raise AssertionError(f"{label}: phase {phase} loss rel {loss_rel:.3e}, worst leaf "
                                  f"{worst[1]} rel {worst[0]:.3e}")
         out[phase] = dict(loss_kernels=lk.item(), loss_plain=lp.item(), loss_rel=loss_rel,
                           leaves=n, worst_rel=worst[0], worst_leaf=worst[1])
@@ -1465,7 +1500,10 @@ def _counted_train(argv):
             step=step, phase=phase, **metrics, mem=torch.cuda.memory_allocated(),
             launches={k: n - prev.get(k, 0) for k, n in now.items()},
             shapes={k: {key for key, n in by.items() if n > prev_shape.get(k, {}).get(key, 0)}
-                    for k, by in shapes.items()}))
+                    for k, by in shapes.items()},
+            shape_counts={k: {key: n - prev_shape.get(k, {}).get(key, 0) for key, n in by.items()
+                              if n > prev_shape.get(k, {}).get(key, 0)}
+                          for k, by in shapes.items()}))
         prev.update(now)
         prev_shape.update(shapes)
 
@@ -1479,7 +1517,8 @@ def _counted_train(argv):
 
 
 def _without_shapes(per_step):
-    return [{k: v for k, v in r.items() if k != "shapes"} for r in per_step]
+    return [{k: v for k, v in r.items() if k not in ("shapes", "shape_counts")}
+            for r in per_step]
 
 
 def _check_step(path: str, r, ranks):
@@ -3129,9 +3168,10 @@ def phase_int8_kv(params):
     return paths, out
 
 
-def _generate_with_logits(run, params, prompts, n: int):
-    """``ServeEngine(num_slots=0).generate`` of ``prompts`` with the logits
-    each row's tokens were picked from: (tokens, per row a list of (V,))."""
+def _generate_with_logits(run, params, prompts, n: int, extras=None):
+    """``ServeEngine(num_slots=0).generate`` of ``prompts`` (with an enc-dec
+    model's ``extras``) with the logits each row's tokens were picked from:
+    (tokens, per row a list of (V,))."""
     from repro_torch.serving import ServeConfig, ServeEngine
 
     engine = ServeEngine(run, params, device="cuda",
@@ -3150,7 +3190,7 @@ def _generate_with_logits(run, params, prompts, n: int):
         return out
 
     engine._prefill, engine._step = keep_prefill, keep_step
-    toks = engine.generate(prompts.cpu().numpy(), max_new=n)
+    toks = engine.generate(prompts.cpu().numpy(), max_new=n, extras=extras)
     return toks.tolist(), [[s[i] for s in seen] for i in range(prompts.shape[0])]
 
 
@@ -3763,10 +3803,11 @@ def _ssm_train_argv(arch):
             + (["--remat", SSM_REMAT[arch]] if SSM_REMAT[arch] != "none" else []))
 
 
-def _ssm_train_run(arch):
+def _cli_run(argv):
+    """The training CLI's RunConfig for ``argv``."""
     from repro_torch.launch import train
 
-    return train.build_run(train._parser().parse_args(_ssm_train_argv(arch)))
+    return train.build_run(train._parser().parse_args(argv))
 
 
 # K1-K4 at the first rank past the old ceiling of 512 and at the new
@@ -3938,12 +3979,49 @@ def phase_ssm_parity(engine, arch):
                 conditioning_abs=cond_diff, conditioning_rel=cond_rel, compare=cmp)
 
 
+def profile_calls(tag: str, where: str, calls, extra=()):
+    """Wall (host clock around ``n`` synchronised calls after a warm one)
+    and device ms (``torch.profiler``, ``n`` more calls) of each ``(label,
+    n, fn)`` of ``calls``, a call's idle share and K1 ms, and each ``(key,
+    name, fn)`` of ``extra`` as ``key: fn(device ms by kernel)``; logged as
+    ``[tag] label (where)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for label, n, fn in calls:
+        with torch.inference_mode():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) / n * 1e3
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+        by_name = device_ms_by_kernel(prof, n)
+        device_ms = sum(by_name.values())
+        k1_ms, _ = lowrank_device_ms(by_name)
+        more = {key: f(by_name) for key, _, f in extra}
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        out[label] = dict(wall_ms=wall_ms, device_ms=device_ms or None,
+                          idle_share=(1 - device_ms / wall_ms) if device_ms else None,
+                          k1_ms=k1_ms, **more, top=[dict(name=k[:80], ms=v) for k, v in top])
+        log(f"[{tag}] {label} ({where}): wall {wall_ms:.2f} ms, device "
+            + (f"{device_ms:.2f} ms, idle {out[label]['idle_share']:.1%}; K1 {k1_ms:.2f} ms"
+               + "".join(f", {name} {more[key]:.2f} ms" for key, name, _ in extra)
+               + "; top: " + ", ".join(f"{k[:40]} {v * 1e3:.0f}us" for k, v in top[:5])
+               if device_ms else "time not measured (profiler saw no device events)"))
+    zero_counts()
+    return out
+
+
 def phase_fixed_profile(engine, arch, steps_n: int = 5):
     """Phases 38 / 42: a fixed-batch decode step (8 rows at position 512,
     the prefill's cache padded to the window) as in phase 6: wall and device
     ms, idle share, K1 ms; then the prefill itself the same way."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.serving.engine import pad_cache
 
     run = engine.run
@@ -3954,35 +4032,10 @@ def phase_fixed_profile(engine, arch, steps_n: int = 5):
     cache = pad_cache(cache, SSM_PROMPT + SSM_NEW)
     token = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
     pos = torch.tensor(SSM_PROMPT, dtype=torch.int32, device="cuda")
-    out = {}
-    for label, fn in (("decode step", lambda: engine._step(engine.params, cache, token, pos)),
-                      ("prefill", lambda: engine._prefill(engine.params, {"tokens": prompts}))):
-        n = steps_n if label == "decode step" else 1
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) / n * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        by_name = device_ms_by_kernel(prof, n)
-        device_ms = sum(by_name.values())
-        k1_ms, _ = lowrank_device_ms(by_name)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        out[label] = dict(wall_ms=wall_ms, device_ms=device_ms or None,
-                          idle_share=(1 - device_ms / wall_ms) if device_ms else None,
-                          k1_ms=k1_ms, top=[dict(name=k[:80], ms=v) for k, v in top])
-        log(f"[{arch} profile] {label} ({SSM_SLOTS} rows, {run.model.num_layers} layers): "
-            f"wall {wall_ms:.2f} ms, device "
-            + (f"{device_ms:.2f} ms, idle {out[label]['idle_share']:.1%}; K1 {k1_ms:.2f} ms; "
-               "top: " + ", ".join(f"{k[:40]} {v * 1e3:.0f}us" for k, v in top[:5])
-               if device_ms else "time not measured (profiler saw no device events)"))
-    zero_counts()
-    return out
+    calls = (("decode step", steps_n, lambda: engine._step(engine.params, cache, token, pos)),
+             ("prefill", 1, lambda: engine._prefill(engine.params, {"tokens": prompts})))
+    return profile_calls(f"{arch} profile", f"{SSM_SLOTS} rows, {run.model.num_layers} layers",
+                         calls)
 
 
 def phase_ssm_train(arch):
@@ -4033,11 +4086,304 @@ def phase_ssm(archs=SSM_ARCHS):
         params, paths[f"{arch} train"], out["train"] = phase_ssm_train(arch)
         # the training CLI's steps have warmed the kernels and the allocator
         out["train_profile"] = phase_train_profile(
-            params, steps_n=1, run=_ssm_train_run(arch), phases=(0, 1),
+            params, steps_n=1, run=_cli_run(_ssm_train_argv(arch)), phases=(0, 1),
             label=f"{arch} train profile", warmup=False)
         del params
         gc.collect()
     return paths, result
+
+
+# --------------------------------------------------------------------------
+# The enc-dec family: full-width seamless-m4t-medium (phases 44-49)
+# --------------------------------------------------------------------------
+
+# seamless-m4t-medium at full width and depth: 12 encoder and 12 decoder
+# layers, d 1024, 16 heads of 64 (KV 16), GELU FFN 4096, a dense 1024 x
+# 256256 unembedding (vocab 256206), a stub frontend of 1024 frames.  The
+# serve CLI (LRD at Eq.-5 ranks 256 / 409) on its fixed-batch path: 8 rows of
+# 256-token prompts and 1024 frames, 32 new tokens.  The train CLI at its
+# default Algorithm-1 ranks (255 / 384: Eq. 5 snapped by rank quantization),
+# 6 steps of 8 x 256 tokens with 8 x 1024 frames, phases 0,0,1,1,0,0.  The
+# encoder runs with the kernels off (the reference's encode is given no
+# kernel policy); K1-K4 run on the decoder's factorised projections, the
+# cross k/v ones on the memory at M = 8 x 1024; K8 runs every prefill
+# attention under attention_impl="flash", the encoder's and the cross
+# blocks' not causal.
+ED_ARCH = "seamless-m4t-medium"
+ED_SLOTS, ED_PROMPT, ED_NEW, ED_PARITY_NEW = 8, 256, 32, 8
+ED_LAYERS, ED_FRAMES = 12, 1024
+ED_SERVE_ARGV = ["--arch", ED_ARCH, "--lrd", "--slots", str(ED_SLOTS), "--prompt-len",
+                 str(ED_PROMPT), "--max-new", str(ED_NEW)]
+ED_TRAIN_ARGV = ["--arch", ED_ARCH, "--lrd", "--use-pallas", "--freeze", "sequential",
+                 "--steps", "6", "--steps-per-epoch", "2", "--global-batch", str(ED_SLOTS),
+                 "--seq-len", str(ED_PROMPT), "--save-every", "1000", "--log-every", "1"]
+ED_TOK_M, ED_MEM_M = ED_SLOTS * ED_PROMPT, ED_SLOTS * ED_FRAMES
+# (C, r, S) of the decoder's projections: attention (self and cross wq, wk,
+# wv, wo), FFN wi and down, at the serve path's Eq.-5 and the train path's
+# Algorithm-1 ranks
+ED_SERVE_GEOMS = {"attn": (1024, 256, 1024), "wi": (1024, 409, 4096), "down": (4096, 409, 1024)}
+ED_TRAIN_GEOMS = {"attn": (1024, 255, 1024), "wi": (1024, 384, 4096), "down": (4096, 384, 1024)}
+# K8 launches of one flash prefill: (B, Sq, Sk, H, KV, D, causal) -> count
+ED_FLASH = {(ED_SLOTS, ED_FRAMES, ED_FRAMES, 16, 16, 64, False): ED_LAYERS,
+            (ED_SLOTS, ED_PROMPT, ED_FRAMES, 16, 16, 64, False): ED_LAYERS,
+            (ED_SLOTS, ED_PROMPT, ED_PROMPT, 16, 16, 64, True): ED_LAYERS}
+# checked and timed beside the kernels line, on no main path: K1 in its
+# decode design at the train path's Algorithm-1 ranks
+ENCDEC_EXTRA_SHAPES = [("lowrank_matmul", dict(M=ED_SLOTS, C=c, r=r, S=s))
+                       for c, r, s in ED_TRAIN_GEOMS.values()]
+
+
+def encdec_kernel_shapes():
+    """(name, dims) of every K1-K4 call on the enc-dec paths: K1 at the
+    decode, prefill and memory M of the serve geometries, at the train M
+    and memory M of the train geometries; K2-K4 at the latter."""
+    out = [("lowrank_matmul", dict(M=m, C=c, r=r, S=s))
+           for m in (ED_SLOTS, ED_TOK_M) for c, r, s in ED_SERVE_GEOMS.values()]
+    c, r, s = ED_SERVE_GEOMS["attn"]
+    out.append(("lowrank_matmul", dict(M=ED_MEM_M, C=c, r=r, S=s)))
+    for name in ("lowrank_matmul",) + BWD:
+        out += [(name, dict(M=ED_TOK_M, C=c, r=r, S=s)) for c, r, s in ED_TRAIN_GEOMS.values()]
+        c, r, s = ED_TRAIN_GEOMS["attn"]
+        out.append((name, dict(M=ED_MEM_M, C=c, r=r, S=s)))
+    return out
+
+
+def _ed_want(geoms, m_tok: int, m_mem: int = 0, n: int = 1, want=None):
+    """Add the K1 launches of ``n`` decoder forwards at ``m_tok`` rows to
+    ``want`` ((M, C, r, S) -> count): a layer runs self wq/wk/wv/wo, cross
+    wq/wo and FFN wi/down on the decoder's rows, and (in a prefill or train
+    step, ``m_mem``) the cross wk/wv on the memory's."""
+    want = {} if want is None else want
+    attn, wi, down = geoms["attn"], geoms["wi"], geoms["down"]
+    for key, k in (((m_tok,) + attn, 6), ((m_tok,) + wi, 1), ((m_tok,) + down, 1),
+                   ((m_mem,) + attn, 2 if m_mem else 0)):
+        if k:
+            want[key] = want.get(key, 0) + k * ED_LAYERS * n
+    return want
+
+
+def _gated(params, seed: int):
+    """``params`` with every cross-attention gate a seeded draw of +-U(0.3,
+    1.2) in the param dtype: the init's zeros make tanh(gate) zero, so a
+    parity check there would not reach cross-attention (nor the encoder's
+    gradients)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cross = params["dec_stack"]["cross_attn"]
+    gate = cross["gate"]
+    mag = torch.rand(gate.shape, generator=gen, device="cuda") * 0.9 + 0.3
+    sign = torch.randint(0, 2, gate.shape, generator=gen, device="cuda") * 2 - 1
+    return dict(params, dec_stack=dict(params["dec_stack"],
+                                       cross_attn=dict(cross, gate=(mag * sign).to(gate.dtype))))
+
+
+def _ed_inputs(run, seed: int):
+    """Seeded 8 x 256 prompts (on the card) and the serve CLI's extras of 8 x
+    1024 frames (``serve.encdec_extras``)."""
+    import numpy as np
+
+    from repro_torch.launch import serve
+
+    rng = np.random.default_rng(seed)
+    prompts = torch.as_tensor(rng.integers(0, run.model.vocab_size, (ED_SLOTS, ED_PROMPT),
+                                           dtype=np.int32), device="cuda")
+    return prompts, serve.encdec_extras(run, rng, ED_SLOTS, torch.device("cuda"))
+
+
+def phase_encdec_serve():
+    """Phase 44: the serve CLI on full-width seamless-m4t-medium, the
+    fixed-batch path: K1 launches exact by shape (a prefill with the cross
+    k/v at M = 8 x 1024, then 31 decode steps at M = 8, whose cross blocks
+    project q alone), no other kernel, no scheduler, finite tokens."""
+    from repro_torch.launch import serve
+
+    zero_counts()
+    t0 = time.perf_counter()
+    engine, out = serve.main(ED_SERVE_ARGV)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    by_shape = counts_by_shape()
+    want = _ed_want(ED_SERVE_GEOMS, ED_TOK_M, ED_MEM_M)
+    _ed_want(ED_SERVE_GEOMS, ED_SLOTS, n=ED_NEW - 1, want=want)
+    got = by_shape["lowrank_matmul"]
+    others = {k: v for k, v in by_shape.items() if v and k != "lowrank_matmul"}
+    cfg = engine.run.model
+    if (got != want or others or out.shape != (ED_SLOTS, ED_NEW)
+            or engine._scheduler is not None or cfg.vocab_size != 256206
+            or cfg.num_layers + cfg.num_encoder_layers != 2 * ED_LAYERS):
+        raise AssertionError(f"encdec serve: K1 launches {got}, want {want}; other kernels "
+                             f"{others}; tokens {out.shape}; scheduler {engine._scheduler}")
+    tok_s = out.size / dt
+    log(f"[encdec serve] fixed batch {ED_SLOTS} x {ED_PROMPT} prompts with {ED_FRAMES} frames, "
+        f"{ED_NEW} new tokens on {torch.cuda.get_device_name(0)}: {dt:.2f}s incl. init "
+        f"({tok_s:.1f} tok/s); {sum(got.values())} K1 launches, exact by shape; no other "
+        f"kernel")
+    return engine, by_shape, dict(wall_s=dt, tok_per_s=tok_s, k1=sum(got.values()),
+                                  sample=out[0].tolist())
+
+
+def phase_encdec_parity(engine):
+    """Phase 45: with every cross gate set to a seeded non-zero value in
+    both runs, the prefill's last-position logits through the kernels
+    against the plain versions on the card (PATH_RTOL of max |logit|), then
+    8 greedy tokens each way, a parting held to a rounding tie."""
+    from repro_torch.launch import steps
+
+    run, params = engine.run, _gated(engine.params, seed=45)
+    vocab = run.model.vocab_size
+    prompts, extras = _ed_inputs(run, seed=45)
+    batch = dict(extras, tokens=prompts)
+    got, _ = steps.build_prefill_step(run)(params, batch)
+    want, _ = steps.build_prefill_step(_plain(run))(params, batch)
+    diff, rel = rel_err(got[:, :vocab], want[:, :vocab])
+    if not torch.isfinite(got[:, :vocab]).all() or rel > PATH_RTOL:
+        raise AssertionError(f"encdec parity: prefill logits {diff:.3e} ({rel:.3e} of max "
+                             f"|logit|) from the plain versions'")
+    toks, logits = _generate_with_logits(run, params, prompts, ED_PARITY_NEW, extras)
+    ptoks, plogits = _generate_with_logits(_plain(run), params, prompts, ED_PARITY_NEW, extras)
+    logits = [[t[:vocab] for t in r] for r in logits]
+    plogits = [[t[:vocab] for t in r] for r in plogits]
+    cmp = _compare_greedy(ptoks, plogits, toks, logits, "encdec parity")
+    zero_counts()
+    log(f"[encdec parity] cross gates seeded non-zero in both runs; prefill last-position "
+        f"logits, kernels vs plain on the card: max_abs_diff {diff:.3e} ({rel:.3e} of max "
+        f"|logit|; bound {PATH_RTOL}); {ED_PARITY_NEW} greedy tokens: {_parted_text(cmp)}")
+    return dict(max_abs_diff=diff, rel=rel, compare=cmp)
+
+
+def phase_encdec_flash(engine):
+    """Phase 46: the same prefill with ``attention_impl="flash"`` through
+    the engine (``generate`` of one token): K8 launches exact (the encoder's
+    non-causal 1024 x 1024, the cross blocks' non-causal 256 x 1024, the
+    decoder's causal 256 x 256, 12 each), K1 as in a prefill; the
+    last-position logits, gates seeded, held to the same prefill through
+    the plain versions on the card (K1's and K8's)."""
+    from repro_torch.kernels import ref
+    from repro_torch.launch import steps
+    from repro_torch.serving import ServeConfig, ServeEngine
+
+    run = _with_impl(engine.run, "flash")
+    params = _gated(engine.params, seed=46)
+    prompts, extras = _ed_inputs(run, seed=46)
+    zero_counts()
+    eng = ServeEngine(run, params, device="cuda", config=ServeConfig(num_slots=0))
+    first = eng.generate(prompts.cpu().numpy(), max_new=1, extras=extras)
+    torch.cuda.synchronize()
+    by_shape = counts_by_shape()
+    want_k1 = _ed_want(ED_SERVE_GEOMS, ED_TOK_M, ED_MEM_M)
+    got_k8, got_k1 = by_shape["flash_attention"], by_shape["lowrank_matmul"]
+    others = {k: v for k, v in by_shape.items()
+              if v and k not in ("lowrank_matmul", "flash_attention")}
+    if got_k8 != ED_FLASH or got_k1 != want_k1 or others or first.shape != (ED_SLOTS, 1):
+        raise AssertionError(f"encdec flash: K8 {got_k8}, want {ED_FLASH}; K1 {got_k1}, want "
+                             f"{want_k1}; others {others}")
+    batch = dict(extras, tokens=prompts)
+    got, _ = steps.build_prefill_step(run)(params, batch)
+    with plain_versions(flash_attention=ref.flash_attention_fwd_ref):
+        want, _ = steps.build_prefill_step(_plain(run))(params, batch)
+    vocab = run.model.vocab_size
+    diff, rel = rel_err(got[:, :vocab], want[:, :vocab])
+    zero_counts()
+    if not torch.isfinite(got[:, :vocab]).all() or rel > PATH_RTOL:
+        raise AssertionError(f"encdec flash: prefill logits {diff:.3e} ({rel:.3e} of max "
+                             f"|logit|) from the plain versions'")
+    log(f"[encdec flash] prefill through the engine: K8 launches exact "
+        + ", ".join(f"{k[1]}x{k[2]} {'causal' if k[6] else 'non-causal'} {n}"
+                    for k, n in got_k8.items())
+        + f", K1 {sum(got_k1.values())}; cross gates seeded non-zero; last-position logits "
+        f"vs K1 and K8 plain on the card: max_abs_diff {diff:.3e} ({rel:.3e} of max |logit|;"
+        f" bound {PATH_RTOL})")
+    return by_shape, dict(max_abs_diff=diff, rel=rel, k8=sum(got_k8.values()))
+
+
+def _gemm_ms(by_name):
+    """Device ms of cuBLAS / CUTLASS GEMMs in a profile (none of the port's
+    kernels has these marks in its name)."""
+    marks = ("gemm", "nvjet", "xmma", "cutlass", "cublas")
+    return sum(ms for n, ms in by_name.items() if any(k in n.lower() for k in marks))
+
+
+def phase_encdec_profile(engine, steps_n: int = 5):
+    """Phase 47: a fixed-batch decode step (8 rows at position 256, the
+    prefill's cache padded to the window), the prefill (blockwise and
+    flash) and the encoder alone (which the prefill runs): wall and device
+    ms, idle share, K1 and K8 ms, and the cuBLAS GEMMs' ms (the encoder's
+    products, which run with the kernels off)."""
+    from repro_torch.launch import steps
+    from repro_torch.models import encdec
+    from repro_torch.serving.engine import pad_cache_preserving_cross
+
+    run, params = engine.run, engine.params
+    prompts, extras = _ed_inputs(run, seed=47)
+    batch = dict(extras, tokens=prompts)
+    last, cache = engine._prefill(params, batch)
+    cache = pad_cache_preserving_cross(cache, ED_PROMPT + ED_NEW)
+    token = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+    pos = torch.tensor(ED_PROMPT, dtype=torch.int32, device="cuda")
+    flash = steps.build_prefill_step(_with_impl(run, "flash"))
+    calls = (("decode step", steps_n, lambda: engine._step(params, cache, token, pos)),
+             ("prefill", 1, lambda: engine._prefill(params, batch)),
+             ("flash prefill", 1, lambda: flash(params, batch)),
+             ("encoder", 1, lambda: encdec.encode(params, extras["frames"], run.model)))
+    k8 = ("k8_ms", "K8", lambda by_name: sum(ms for name, ms in by_name.items()
+                                             if "flash_wgmma_kernel" in name))
+    return profile_calls("encdec profile", f"{ED_SLOTS} rows", calls,
+                         extra=(k8, ("gemm_ms", "cuBLAS GEMMs", _gemm_ms)))
+
+
+def phase_encdec_train():
+    """Phase 48: the training CLI on full-width seamless-m4t-medium at its
+    Algorithm-1 ranks, 6 steps of 8 x 256 tokens with 8 x 1024 stub frames
+    at phases 0,0,1,1,0,0: per step exactly the K1 of one forward by shape
+    (no remat), the same K2, K3 at phase 1 only and K4 at phase 0 only, no
+    K5-K8; finite losses."""
+    state, per_step, by_shape, dt = _counted_train(ED_TRAIN_ARGV)
+    phases = [r["phase"] for r in per_step]
+    if phases != [0, 0, 1, 1, 0, 0]:
+        raise AssertionError(f"encdec train: phases {phases}, want [0, 0, 1, 1, 0, 0]")
+    fwd = _ed_want(ED_TRAIN_GEOMS, ED_TOK_M, ED_MEM_M)
+    for r in per_step:
+        want = {"lowrank_matmul": fwd, "lowrank_matmul_dx": fwd,
+                "lowrank_matmul_du": fwd if r["phase"] == 1 else {},
+                "lowrank_matmul_dv": fwd if r["phase"] == 0 else {}}
+        got = {k: r["shape_counts"].get(k, {}) for k in want}
+        others = {k: v for k, v in r["launches"].items() if v and k not in want}
+        if got != want or others:
+            raise AssertionError(f"encdec train: step {r['step']} (phase {r['phase']}) "
+                                 f"launched {got} and {others}, want {want}")
+        if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])):
+            raise AssertionError(f"encdec train: step {r['step']} loss {r['loss']}")
+        log(f"[encdec train] step {r['step']} phase {r['phase']}: loss {r['loss']:.4f}, grad "
+            f"norm {r['grad_norm']:.3f}, {r['step_time_s'] * 1e3:.1f} ms, memory_allocated "
+            f"{r['mem'] / 2 ** 30:.2f} GiB; launches "
+            + ", ".join(f"{k.replace('lowrank_', '')} {v}" for k, v in r["launches"].items()
+                        if v))
+    log(f"[encdec train] 6 steps of {ED_TOK_M} tokens and {ED_MEM_M} frames at Algorithm-1 "
+        f"ranks on {torch.cuda.get_device_name(0)}: loss {per_step[0]['loss']:.4f} -> "
+        f"{per_step[-1]['loss']:.4f}; launches exact by shape each step; {dt:.1f}s incl. init")
+    return state.params, by_shape, dict(steps=_without_shapes(per_step), wall_s=dt)
+
+
+def phase_encdec():
+    """Phases 44-49; returns (launches by kernel and shape per main path,
+    results, K8's rows at the flash path's shapes)."""
+    paths, result = {}, {}
+    engine, paths["encdec serve"], result["serve"] = phase_encdec_serve()
+    result["parity"] = phase_encdec_parity(engine)
+    paths["encdec flash prefill"], result["flash"] = phase_encdec_flash(engine)
+    result["profile"] = phase_encdec_profile(engine)
+    del engine
+    gc.collect()
+    params, paths["encdec train"], result["train"] = phase_encdec_train()
+    run = _cli_run(ED_TRAIN_ARGV)
+    # the training CLI's steps have warmed the kernels and the allocator
+    result["train_profile"] = phase_train_profile(params, steps_n=1, run=run, phases=(0, 1),
+                                                  label="encdec train profile", warmup=False)
+    result["grads"] = phase_grads(_gated(params, seed=48), run=run, label="encdec grads")
+    del params
+    gc.collect()
+    launched = [dict(zip(("B", "Sq", "Sk", "H", "KV", "D", "causal"), key))
+                for key in sorted(paths["encdec flash prefill"]["flash_attention"])]
+    return paths, result, phase_flash_kernels(launched)
 
 
 def check_launched_shapes(path: str, rows, by_shape) -> None:
@@ -4070,13 +4416,14 @@ def count_launches(rows, paths) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="", help="also write every result as JSON here")
-    ap.add_argument("--only", choices=("kernels", "conv", "serve", "moe", "ssm"),
+    ap.add_argument("--only", choices=("kernels", "conv", "serve", "moe", "ssm", "encdec"),
                     default=None,
                     help="kernels: stop after the kernel phase (a first check of a build); "
                          "conv: run only the conv and ViT phases; serve: phases 1-3 at the "
                          "serving shapes and the serving features' phases 25-28; moe: "
                          "phases 1-3 at the MoE shapes and the MoE phases 29-35; ssm: "
-                         "phases 1-3 at the SSM and hybrid shapes and phases 36-43")
+                         "phases 1-3 at the SSM and hybrid shapes and phases 36-43; encdec: "
+                         "phases 1-3 at the enc-dec shapes and phases 44-49")
     args = ap.parse_args(argv)
 
     t_start = time.perf_counter()
@@ -4100,8 +4447,14 @@ def main(argv=None) -> int:
         shapes = kernel_shapes(serve_only=True)
     elif args.only == "ssm":
         shapes = ssm_kernel_shapes()
+    elif args.only == "encdec":
+        shapes = encdec_kernel_shapes()
     else:
-        shapes = kernel_shapes() + moe_kernel_shapes() + ssm_kernel_shapes()
+        shapes = (kernel_shapes() + moe_kernel_shapes() + ssm_kernel_shapes()
+                  + encdec_kernel_shapes())
+    # a shape two families share is checked once (xLSTM's attention and the
+    # enc-dec serve path's are both (1024, 256, 1024))
+    shapes = [sd for i, sd in enumerate(shapes) if sd not in shapes[:i]]
     rows = phase_kernels(shapes)
     mark("kernels")
     result = dict(smi=smi, build_s=build_s, kernels=rows)
@@ -4116,6 +4469,11 @@ def main(argv=None) -> int:
         paths, result["ssm"] = phase_ssm()
         count_launches(rows, paths)
         result["rank_edges"] = phase_kernels(RANK_EDGE_SHAPES)
+    elif args.only == "encdec":
+        paths, result["encdec"], flash_rows = phase_encdec()
+        rows += flash_rows
+        count_launches(rows, paths)
+        result["encdec_extra"] = phase_kernels(ENCDEC_EXTRA_SHAPES)
     elif args.only is None:
         engine, paths["serve"], result["serve"] = phase_serve()
         result["parity"] = phase_parity(engine)
@@ -4185,13 +4543,22 @@ def main(argv=None) -> int:
         # checked, not in the kernels line: no main path launches them
         result["rank_edges"] = phase_kernels(RANK_EDGE_SHAPES)
         mark("ssm")
+        # the enc-dec family: full-width seamless-m4t-medium, K8's
+        # non-causal path on a main path
+        more, result["encdec"], flash_rows = phase_encdec()
+        paths.update(more)
+        rows += flash_rows
+        result["encdec_extra"] = phase_kernels(ENCDEC_EXTRA_SHAPES)
+        mark("encdec")
         count_launches(rows, paths)
         if not any(r["launches"] for r in rows if r["name"] == "int8_linear"):
             log("[kernels] int8_linear (K6) was launched on no main path in this run: the "
                 "measured export merged no group on this card")
     else:
         rows += phase_int8_kernels(INT8_DEFAULT_SHAPES)
-        rows += phase_flash_kernels([FLASH_SERVE_SHAPE] + FLASH_EXTRA)
+        rows += phase_flash_kernels([FLASH_SERVE_SHAPE] + FLASH_EXTRA
+                                    + [dict(zip(("B", "Sq", "Sk", "H", "KV", "D", "causal"), k))
+                                       for k in ED_FLASH])
         rows += phase_kernels(RANK_EDGE_SHAPES)
         result["designs"] = phase_designs()
         for row in rows:

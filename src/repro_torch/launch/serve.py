@@ -23,6 +23,8 @@ of features this port does not have yet are rejected, not ignored.
       --slots 8 --requests 16 --rate 1000 --prompt-len 128 --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --lrd \\
       --slots 8 --prompt-len 512 --max-new 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless-m4t-medium --lrd \\
+      --slots 8 --prompt-len 256 --max-new 32
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ from repro_torch.configs.base import DistConfig, LRDConfig, RunConfig, ShapeConf
 from repro_torch.launch import steps as steps_mod
 from repro_torch.serving import ServeConfig, ServeEngine
 
-__all__ = ["poisson_trace", "shared_prefix_trace", "serve_run", "fixed_batch_serve", "main"]
+__all__ = ["poisson_trace", "shared_prefix_trace", "serve_run", "encdec_extras",
+           "fixed_batch_serve", "main"]
 
 
 def poisson_trace(n: int, rate: float, prompt_len: int, vocab: int, seed: int = 0):
@@ -127,18 +130,35 @@ def serve_run(cfg, *, max_len: int, slots: int, lrd: bool, device: torch.device,
                      dist=DistConfig(fsdp=False, remat="none"), seed=seed)
 
 
+def encdec_extras(run: RunConfig, rng: np.random.Generator, rows: int,
+                  device: torch.device):
+    """An encoder-decoder model's ``generate`` extras: stub frontend frames
+    ``rng.normal(0, 0.1, (rows, encoder_frames, d_model))`` in the compute
+    dtype, as the JAX CLI draws them.  The JAX CLI hands its engine their
+    encoding alone, which its prefill cannot run without the frames; the
+    port hands it the frames, which its prefill encodes (its decode steps
+    read the cross k/v from the cache and need no memory)."""
+    cfg = run.model
+    frames = torch.from_numpy(rng.normal(0, 0.1, (rows, cfg.encoder_frames, cfg.d_model)))
+    return {"frames": frames.to(device=device, dtype=cfg.cdtype)}
+
+
 def fixed_batch_serve(args, run: RunConfig, params, config: ServeConfig,
                       device: torch.device):
-    """The SSM and hybrid families' serve (the JAX CLI's fixed-batch
-    fallback): ``--slots`` random prompts of ``--prompt-len`` tokens from
-    ``--seed`` through ``ServeEngine.generate`` (``config.num_slots`` 0);
-    returns ``(engine, tokens (slots, max_new))``."""
+    """The SSM, hybrid and enc-dec families' serve (the JAX CLI's
+    fixed-batch fallback): ``--slots`` random prompts of ``--prompt-len``
+    tokens from ``--seed`` (an enc-dec model's frames drawn after them,
+    :func:`encdec_extras`) through ``ServeEngine.generate``
+    (``config.num_slots`` 0); returns ``(engine, tokens (slots,
+    max_new))``."""
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, run.model.vocab_size, size=(args.slots, args.prompt_len),
                            dtype=np.int32)
+    extras = (encdec_extras(run, rng, args.slots, device)
+              if run.model.family == "encdec" else None)
     engine = ServeEngine(run, params, config=config, device=device)
     t0 = time.perf_counter()
-    out = engine.generate(prompts, max_new=args.max_new,
+    out = engine.generate(prompts, max_new=args.max_new, extras=extras,
                           eos_id=args.eos_id if args.eos_id >= 0 else None)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -152,8 +172,8 @@ def fixed_batch_serve(args, run: RunConfig, params, config: ServeConfig,
 
 def main(argv=None):
     """Run the CLI; returns ``(engine, results)``: request results from the
-    scheduler, or the token matrix of the fixed-batch path (SSM and hybrid
-    families)."""
+    scheduler, or the token matrix of the fixed-batch path (SSM, hybrid and
+    enc-dec families)."""
     ap = _parser()
     args = ap.parse_args(argv)
     for flag, (off, item) in _UNPORTED_FLAGS.items():
@@ -161,15 +181,21 @@ def main(argv=None):
             ap.error(f"--{flag.replace('_', '-')} is not ported to the PyTorch "
                      f"package yet ({item})")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.use_mla or cfg.use_mtp:
+    if (cfg.family not in ("dense", "moe", "ssm", "hybrid", "encdec") or cfg.use_mla
+            or cfg.use_mtp):
         ap.error(f"--arch {args.arch} ({cfg.family}"
                  f"{', MLA/MTP' if cfg.use_mla or cfg.use_mtp else ''}) is not ported yet: "
-                 f"the port serves the dense, MoE, SSM and hybrid families (ROADMAP queue 1 "
-                 f"item 7, other model families)")
-    stateful = cfg.family in ("ssm", "hybrid")
+                 f"the port serves the dense, MoE, SSM, hybrid and enc-dec families (ROADMAP "
+                 f"queue 1 item 7, other model families)")
+    stateful = cfg.family in ("ssm", "hybrid", "encdec")  # the fixed-batch families
     if stateful and (args.spec_k or args.prefix_cache):
         ap.error(f"--arch {args.arch} ({cfg.family}) serves on the fixed-batch path, which "
-                 f"has no speculative decoding or prefix cache (as in the reference)")
+                 f"has no speculative decoding or prefix cache (as in the reference; ROADMAP "
+                 f"queue 1 item 7, other model families)")
+    if cfg.family == "encdec" and args.export_int8:
+        ap.error(f"--arch {args.arch} (encdec): the int8 export of the enc-dec family is not "
+                 f"ported (ROADMAP queue 1 item 7, int8 export of the SSM, hybrid and enc-dec "
+                 f"families)")
     device = steps_mod.resolve_device(args.device)
     max_len = args.max_len or (args.prompt_len + args.max_new)
     try:

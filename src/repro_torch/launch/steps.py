@@ -31,7 +31,7 @@ from repro_torch.core.decompose import Decomposer
 from repro_torch.core.freezing import tree_leaves, tree_map
 from repro_torch.core.policy import LM_DEFAULT, NO_LRD
 from repro_torch.kernels.ops import KernelPolicy
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.models.common import cross_entropy
 from repro_torch.optim import init_moments, init_optimizer
 from repro_torch.optim.optimizers import OptState, apply_updates
@@ -74,8 +74,7 @@ def init_params(run: RunConfig, device="cuda",
         generator = torch.Generator(device=dev).manual_seed(run.seed)
     dec = make_decomposer(run, dev, generator)
     if run.model.family == "encdec":
-        raise NotImplementedError("enc-dec models are not ported yet "
-                                  "(ROADMAP queue 1 item 7, other model families)")
+        return encdec.encdec_init(run.model, dec), dec.plan
     return lm.lm_init(run.model, dec), dec.plan
 
 
@@ -167,13 +166,31 @@ def repartition_state(optim_cfg, state: TrainState, parked, new_phase: int, *,
             tuple(tree_map(lambda t: t.cpu(), p) for p in new_parked))
 
 
+def _forward(params, batch, run: RunConfig, *, mode: str, policy, remat: str = "none"):
+    """(logits, cache, aux) of one forward over a batch (the reference's
+    ``_forward_full``).  An encoder-decoder model first encodes
+    ``batch["frames"]`` with the kernels off, as the reference's
+    ``encode`` runs (it is given no kernel policy), then decodes
+    ``batch["tokens"]`` against that memory; its aux is zero."""
+    cfg = run.model
+    if cfg.family != "encdec":
+        return lm.lm_apply(params, batch["tokens"], cfg, mode=mode, policy=policy,
+                           remat=remat)
+    # remat keeps activations for a backward: train mode only, as lm_apply
+    remat = remat if mode == "train" else "none"
+    memory = encdec.encode(params, batch["frames"], cfg, remat=remat)
+    logits, cache = encdec.decode(params, batch["tokens"], memory, cfg, mode=mode,
+                                  policy=policy, remat=remat)
+    return logits, cache, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
 def _loss_fn(trainable, frozen, batch, run: RunConfig, phase: int) -> torch.Tensor:
     """Mean token NLL of the merged params, plus ``0.01 * aux`` for a MoE
     model (the reference's load-balance weight); ``frozen`` leaves carry
     no grad, so no gradient of a frozen leaf is ever built."""
     params = freezing.merge(trainable, frozen)
-    logits, _, aux = lm.lm_apply(params, batch["tokens"], run.model, mode="train",
-                                 policy=kernel_policy(run, phase), remat=run.dist.remat)
+    logits, _, aux = _forward(params, batch, run, mode="train",
+                              policy=kernel_policy(run, phase), remat=run.dist.remat)
     loss = cross_entropy(logits, batch["labels"])
     if run.model.num_experts:
         loss = loss + 0.01 * aux
@@ -198,7 +215,8 @@ def build_train_step(run: RunConfig, device="cuda"):
     """Returns ``train_step(state, batch, *, phase) -> (state, metrics)``.
 
     ``batch`` holds ``tokens`` and ``labels`` (B, S) as numpy arrays or
-    tensors; they are moved to ``device``.  ``run.dist.microbatches`` > 1
+    tensors (and ``frames`` (B, T, d) for an encoder-decoder model); they
+    are moved to ``device``.  ``run.dist.microbatches`` > 1
     splits the batch and accumulates the grads in ``run.dist.accum_dtype``.
     ``metrics`` holds the float32 ``loss`` and ``grad_norm`` tensors."""
     dev = resolve_device(device)
@@ -239,13 +257,14 @@ def build_prefill_step(run: RunConfig):
     """Prefill of the fixed-batch path: the whole (B, T) batch at once,
     returning the last position's logits and the cache (the (L, B, T, KV,
     hd) k/v of each stack; for the SSM and hybrid families their recurrent
-    states, with the hybrid's shared-block k/v a group)."""
-    cfg, policy = run.model, kernel_policy(run)
+    states, with the hybrid's shared-block k/v a group; for an
+    encoder-decoder model, whose batch also holds ``frames``, the
+    decoder's self k/v and the cross k/v of the memory)."""
+    policy = kernel_policy(run)
 
     @torch.inference_mode()
     def prefill_step(params, batch):
-        logits, cache, _ = lm.lm_apply(params, batch["tokens"], cfg, mode="full",
-                                       policy=policy)
+        logits, cache, _ = _forward(params, batch, run, mode="full", policy=policy)
         return logits[:, -1], cache
 
     return prefill_step
@@ -274,13 +293,20 @@ def build_slot_prefill_step(run: RunConfig):
 def build_serve_step(run: RunConfig):
     """One decode step at per-slot positions ``pos`` (B,) against a paged
     cache, or at one position for every row against a contiguous cache
-    (the fixed-batch path); the cache is updated in place and returned."""
+    (the fixed-batch path); the cache is updated in place and returned.
+    An encoder-decoder model's step reads its cross k/v from the cache, so
+    it takes no memory (the reference's step is handed ``extras`` whose
+    memory only marks its cross blocks)."""
     cfg, policy = run.model, kernel_policy(run)
 
     @torch.inference_mode()
     def serve_step(params, cache, token, pos):
-        logits, new_cache, _ = lm.lm_apply(params, token, cfg, mode="decode",
-                                           cache=cache, pos=pos, policy=policy)
+        if cfg.family == "encdec":
+            logits, new_cache = encdec.decode(params, token, None, cfg, mode="decode",
+                                              cache=cache, pos=pos, policy=policy)
+        else:
+            logits, new_cache, _ = lm.lm_apply(params, token, cfg, mode="decode",
+                                               cache=cache, pos=pos, policy=policy)
         next_token = torch.argmax(logits[:, -1:], dim=-1).to(token.dtype)
         return logits, new_cache, next_token
 

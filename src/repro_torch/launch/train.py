@@ -20,10 +20,13 @@ package wrote it.  ``--rank-schedule decay|energy`` shrinks the ranks at
 every phase swap (``core.rank_adapt``; a ``[rank-adapt]`` line names the
 groups, ``old->new``); the checkpoint keeps the rank map, and a resume
 continues at the saved ranks.  ``--remat full|dots|sqrt`` checkpoints the
-layer stacks' activations (``models.lm``).  ``--arch`` takes the dense and
-MoE families (``olmoe-1b-7b``), the SSM family (``xlstm-350m``) and the
-hybrid family (``zamba2-1.2b``); flags of features this port does not have
-yet are rejected, not ignored.
+layer stacks' activations (``models.lm``, ``models.encdec``).  ``--arch``
+takes the dense and MoE families (``olmoe-1b-7b``), the SSM family
+(``xlstm-350m``), the hybrid family (``zamba2-1.2b``) and the enc-dec
+family (``seamless-m4t-medium``), whose batches also carry stub frontend
+frames (:func:`stub_frames`; the JAX CLI's carry none, so its enc-dec step
+fails); flags of features this port does not have yet are rejected, not
+ignored.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       --lrd --no-rank-opt --use-pallas --freeze sequential --steps 6 \\
@@ -32,6 +35,9 @@ yet are rejected, not ignored.
       --no-rank-opt --use-pallas --freeze sequential --remat full
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b --lrd \\
       --no-rank-opt --use-pallas --freeze sequential --steps 6 --steps-per-epoch 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch seamless-m4t-medium --lrd \\
+      --use-pallas --freeze sequential --steps 6 --steps-per-epoch 2 \\
+      --global-batch 8 --seq-len 256
 """
 
 from __future__ import annotations
@@ -52,7 +58,7 @@ from repro_torch.data import LMBatchIterator
 from repro_torch.launch import steps as steps_mod
 from repro_torch.optim.optimizers import OptState
 
-__all__ = ["StragglerMonitor", "build_run", "main"]
+__all__ = ["StragglerMonitor", "stub_frames", "build_run", "main"]
 
 # flag -> (its value when off, the ROADMAP item that brings it)
 _UNPORTED_FLAGS = {
@@ -143,6 +149,18 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
+def stub_frames(run: RunConfig, seed: int, step: int) -> np.ndarray:
+    """The stub audio frontend's frames of one step of an encoder-decoder
+    run: (global_batch, encoder_frames, d_model) float32 draws of
+    ``normal(0, 0.1)`` from a generator seeded with ``(seed, step)``, so a
+    resumed run sees the same frames.  The JAX CLI's batches carry no
+    frames, and its encoder-decoder step fails for want of them."""
+    cfg = run.model
+    rng = np.random.default_rng((seed, step))
+    return rng.normal(0, 0.1, (run.shape.global_batch, cfg.encoder_frames,
+                               cfg.d_model)).astype(np.float32)
+
+
 def build_run(args) -> RunConfig:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     return RunConfig(
@@ -178,12 +196,12 @@ def main(argv=None, *, on_step=None):
         ap.error("--mesh-data/--mesh-model > 1: the PyTorch package trains on one "
                  "device (ROADMAP queue 1 item 8, distributed)")
     run = build_run(args)
-    if (run.model.family not in ("dense", "moe", "ssm", "hybrid") or run.model.use_mla
-            or run.model.use_mtp):
+    if (run.model.family not in ("dense", "moe", "ssm", "hybrid", "encdec")
+            or run.model.use_mla or run.model.use_mtp):
         ap.error(f"--arch {args.arch} ({run.model.family}"
                  f"{', MLA/MTP' if run.model.use_mla or run.model.use_mtp else ''}) is not "
-                 f"ported yet: the port trains the dense, MoE, SSM and hybrid families "
-                 f"(ROADMAP queue 1 item 7, other model families)")
+                 f"ported yet: the port trains the dense, MoE, SSM, hybrid and enc-dec "
+                 f"families (ROADMAP queue 1 item 7, other model families)")
     device = steps_mod.resolve_device(args.device)
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"[device] {where}")
@@ -253,6 +271,8 @@ def main(argv=None, *, on_step=None):
             if shrunk:
                 print(f"[rank-adapt] boundary truncated {len(shrunk)} group(s): {shrunk}")
         batch = next(it)
+        if run.model.family == "encdec":
+            batch["frames"] = stub_frames(run, args.seed, step)
         t0 = time.perf_counter()
         state, metrics = train_step(state, batch, phase=phase)
         loss = float(metrics["loss"])  # synchronises with the device

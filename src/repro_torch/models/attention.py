@@ -1,5 +1,5 @@
-"""GQA attention with paged decode — the dense-family counterpart of
-``repro/models/attention.py``.
+"""GQA attention with paged decode, and tanh-gated cross-attention — the
+counterpart of ``repro/models/attention.py``.
 
 All projections route through ``common.linear`` and are therefore
 LRD-aware.  q is pre-scaled by ``hd**-0.5`` in the projection, masks use
@@ -12,6 +12,10 @@ path's), either bf16 or int8 with per-position scales
 (``models/kvcache.py``): int8 is consumed by :func:`int8_dense_attention`
 under ``int8_decode="native"`` and dequantized first under ``"bf16"``.
 Decode caches are updated in place, where the JAX steps donate them.
+Cross-attention (``gqa_apply(..., kv_src=memory)``, the enc-dec decoder's)
+takes k/v from the memory, is never causal and scales its output by
+``tanh(gate)``; in decode it projects q alone against the cross cache, so
+a decode step needs no memory.
 """
 
 from __future__ import annotations
@@ -237,7 +241,10 @@ def _contiguous_update(cache: Params, k_new, v_new, rows, *, native_int8: bool =
 # --------------------------------------------------------------------------
 
 
-def gqa_init(dec, path: str, cfg: ModelConfig, *, stack: Tuple[int, ...] = ()) -> Params:
+def gqa_init(dec, path: str, cfg: ModelConfig, *, cross: bool = False,
+             stack: Tuple[int, ...] = ()) -> Params:
+    """GQA params; ``cross`` adds the tanh gate of cross-attention, zeros
+    (the reference's init: a new cross block starts as the identity)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kv = cfg.num_heads, cfg.num_kv_heads
     p: Params = {
@@ -249,18 +256,28 @@ def gqa_init(dec, path: str, cfg: ModelConfig, *, stack: Tuple[int, ...] = ()) -
     if cfg.qk_norm:
         p["q_norm"] = rmsnorm_init(hd, cfg.pdtype, dec.device, stack)
         p["k_norm"] = rmsnorm_init(hd, cfg.pdtype, dec.device, stack)
+    if cross:
+        p["gate"] = torch.zeros(stack + (1,), dtype=cfg.pdtype, device=dec.device)
     return p
 
 
-def _project_qkv(p, x, cfg, rope, *, policy=False):
-    hd = cfg.resolved_head_dim
-    h, kvh = cfg.num_heads, cfg.num_kv_heads
+def _project_q(p, x, cfg, *, policy=False):
+    """q alone, qk-normed, unrotated and unscaled: (B, S, H, hd)."""
     b, s = x.shape[0], x.shape[1]
-    q = linear(p["wq"], x, policy=policy).reshape(b, s, h, hd)
-    k = linear(p["wk"], x, policy=policy).reshape(b, s, kvh, hd)
-    v = linear(p["wv"], x, policy=policy).reshape(b, s, kvh, hd)
+    q = linear(p["wq"], x, policy=policy).reshape(b, s, cfg.num_heads, cfg.resolved_head_dim)
+    return rmsnorm(p["q_norm"], q, cfg.norm_eps) if cfg.qk_norm else q
+
+
+def _project_qkv(p, x, kv_src, cfg, rope, *, policy=False):
+    """q from x, k and v from ``kv_src`` (x itself when None)."""
+    hd, kvh = cfg.resolved_head_dim, cfg.num_kv_heads
+    b = x.shape[0]
+    q = _project_q(p, x, cfg, policy=policy)
+    src = x if kv_src is None else kv_src
+    t = src.shape[1]
+    k = linear(p["wk"], src, policy=policy).reshape(b, t, kvh, hd)
+    v = linear(p["wv"], src, policy=policy).reshape(b, t, kvh, hd)
     if cfg.qk_norm:
-        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
     if rope is not None:
         cos, sin = rope
@@ -272,22 +289,36 @@ def _project_qkv(p, x, cfg, rope, *, policy=False):
 
 def gqa_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, rope=None,
               mode: str = "full", cache: Optional[Params] = None,
-              pos: Optional[torch.Tensor] = None, causal: bool = True,
-              policy=False) -> Tuple[torch.Tensor, Optional[Params]]:
-    """``mode="full"``: attention over x itself, returns its k/v as the cache.
+              pos: Optional[torch.Tensor] = None, kv_src: Optional[torch.Tensor] = None,
+              causal: bool = True, policy=False) -> Tuple[torch.Tensor, Optional[Params]]:
+    """``mode="full"``: attention over x itself, or cross-attention over
+    ``kv_src`` (never causal), returning the k/v as the cache.
     ``mode="decode"``: x holds one token (or a chunk of S) per row at
     positions ``pos`` ((B,) per row, or one for every row), against a paged
-    or contiguous cache updated in place."""
+    or contiguous cache updated in place.  A cross block (given ``kv_src``,
+    or gated: ``gqa_init(cross=True)``'s params) decodes by projecting q
+    alone against the cross cache, returned unchanged; ``kv_src`` is read
+    in full mode only.  A cross block's output is scaled by
+    ``tanh(gate)``."""
     b, s = x.shape[0], x.shape[1]
     h, hd = cfg.num_heads, cfg.resolved_head_dim
+    cross = kv_src is not None or "gate" in p
     if mode == "full":
-        q, k, v = _project_qkv(p, x, cfg, rope, policy=policy)
-        out = attention_core(q, k, v, cfg, causal=causal)
+        if cross and kv_src is None:
+            raise ValueError("cross-attention needs kv_src (the encoder memory)")
+        q, k, v = _project_qkv(p, x, kv_src, cfg, rope, policy=policy)
+        out = attention_core(q, k, v, cfg, causal=causal and not cross)
         new_cache = {"k": k, "v": v}
+    elif cross:
+        if cache is None:
+            raise ValueError("cross-attention decode needs the cross cache")
+        q = _project_q(p, x, cfg, policy=policy) * (hd ** -0.5)
+        out = dense_attention(q, cache["k"], cache["v"], causal=False)
+        new_cache = cache
     else:
         if cache is None or pos is None:
             raise ValueError("decode needs a cache and positions")
-        q, k_new, v_new = _project_qkv(p, x, cfg, rope, policy=policy)
+        q, k_new, v_new = _project_qkv(p, x, None, cfg, rope, policy=policy)
         rows = pos.reshape(-1).long().to(x.device).expand(b)
         # query j of row b attends to positions < rows[b] + j + 1: the live
         # length and the in-chunk causal mask of a verify or extend chunk
@@ -301,4 +332,6 @@ def gqa_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, rope=None,
             out = dense_attention(q, k_cache, v_cache, causal=False, kv_len=length)
         new_cache = cache
     y = linear(p["wo"], out.reshape(b, s, h * hd), policy=policy)
+    if cross and "gate" in p:
+        y = y * torch.tanh(p["gate"].float()).to(y.dtype)
     return y, new_cache

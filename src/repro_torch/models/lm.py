@@ -26,8 +26,9 @@ each layer, ``"sqrt"`` groups of layers with each layer checkpointed
 again inside its group, ``"dots"`` saves only the outputs of matmuls
 without batch dims (:func:`_run_stack`); a hybrid model checkpoints each
 group whole under ``"full"`` and ``"sqrt"`` and its tail as asked
-(:func:`_hybrid_forward`).  MLA, MTP and the VLM and enc-dec families
-raise.
+(:func:`_hybrid_forward`).  MLA, MTP and the VLM family raise; the
+enc-dec family has its own assembly (``models/encdec.py``), which reuses
+:func:`_run_stack`.
 """
 
 from __future__ import annotations
@@ -50,13 +51,16 @@ from repro_torch.models.common import (Params, dot32, embed, embedding_init,
                                        ffn, ffn_init, linear, mask_vocab, rmsnorm,
                                        rmsnorm_init, rope_table)
 
-_FAMILIES_TODO = ("other model families (MLA, MTP, VLM, enc-dec) are not ported yet "
+_FAMILIES_TODO = ("other model families (MLA, MTP, VLM) are not ported yet "
                   "(ROADMAP queue 1 item 7, other model families)")
 REMAT_POLICIES = ("none", "full", "dots", "sqrt")
 FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family == "encdec":
+        raise NotImplementedError(f"{cfg.name} (encdec): an encoder-decoder model runs "
+                                  f"through models.encdec, not the decoder-LM assembly")
     if cfg.family not in FAMILIES or cfg.use_mla or cfg.use_mtp:
         raise NotImplementedError(f"{cfg.name} ({cfg.family}): {_FAMILIES_TODO}")
 
@@ -120,6 +124,11 @@ def decoder_layer_apply(lp: Params, h: torch.Tensor, cfg: ModelConfig, *, rope,
         f_out = ffn(lp["ffn"], f_in, policy=policy)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return h + f_out, new_cache, aux
+
+
+def check_remat(remat: str) -> None:
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"remat must be one of {REMAT_POLICIES}, got {remat!r}")
 
 
 def _best_divisor(n: int) -> int:
@@ -359,8 +368,7 @@ def lm_apply(p: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     _check_family(cfg)
     if mode not in ("full", "train", "decode"):
         raise ValueError(f"mode must be 'full', 'train' or 'decode', got {mode!r}")
-    if remat not in REMAT_POLICIES:
-        raise ValueError(f"remat must be one of {REMAT_POLICIES}, got {remat!r}")
+    check_remat(remat)
     train = mode == "train"
     mode = "full" if train else mode
     s = tokens.shape[1]

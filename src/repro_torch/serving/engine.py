@@ -32,7 +32,11 @@ reference cannot serve int8 expert groups.  The SSM (xLSTM) and hybrid
 as in the reference (its scheduler serves dense and MoE only): their
 prefill cache carries recurrent state leaves, which :func:`pad_cache`
 leaves as they are, beside the hybrid's shared-block k/v; their int8
-export raises (ROADMAP queue 1 item 7).  The mesh
+export raises (ROADMAP queue 1 item 7).  So does the encoder-decoder
+family's, which also takes the fixed-batch path: ``generate(...,
+extras={"frames": f})`` puts the frames in the prefill batch (the prefill
+encodes them); the decode steps read the cross k/v from the cache, which
+:func:`pad_cache_preserving_cross` keeps at the memory's length.  The mesh
 and telemetry raise a ``ValueError`` naming the ROADMAP item that brings
 them.
 """
@@ -119,10 +123,12 @@ class ServeEngine:
                 "served: the reference's _expert_ffn reads only 'kernel' or 'u'/'v' "
                 "(ROADMAP queue 3, departures by design)")
         if self.config.export_int8 and run.model.family not in _SCHEDULED:
+            why = ("Zamba2's ranks pass K7's ceiling of 512; " if run.model.family == "hybrid"
+                   else "")
             raise ValueError(
                 f"ServeEngine: the int8 export of the {run.model.family} family is not "
-                f"ported (Zamba2's ranks pass K7's ceiling of 512; ROADMAP queue 1 item 7, "
-                f"int8 export of the SSM and hybrid families)")
+                f"ported ({why}ROADMAP queue 1 item 7, int8 export of the SSM, hybrid and "
+                f"enc-dec families)")
         self.device = steps_mod.resolve_device(device)
         self.run = run
         self.params = params
@@ -169,13 +175,15 @@ class ServeEngine:
                 prefix_cache=c.prefix_cache)
         return self._scheduler
 
-    def _scheduler_usable(self, prompt_len: int, max_new: int) -> bool:
+    def _scheduler_usable(self, extras, prompt_len: int, max_new: int) -> bool:
         """Prompts must fit the scheduler's fixed prefill and window shapes;
-        other batches, and the families it does not serve, take the
+        other batches, batches with extras (an encoder-decoder model's
+        frames and memory) and the families it does not serve take the
         fixed-batch path."""
         c = self.config
         eff_prefill = min(c.prefill_len or c.max_len, c.max_len)
-        return (c.num_slots > 0 and self.run.model.family in _SCHEDULED
+        return (c.num_slots > 0 and extras is None
+                and self.run.model.family in _SCHEDULED
                 and 0 < prompt_len <= eff_prefill
                 and prompt_len + max_new <= c.max_len)
 
@@ -199,15 +207,18 @@ class ServeEngine:
         return [RequestResult.from_request(sched.finished[r]) for r in rids]
 
     def generate(self, tokens: np.ndarray, max_new: int = 32,
+                 extras: Optional[Dict[str, Any]] = None,
                  eos_id: Optional[int] = None) -> np.ndarray:
-        """Greedy batched generation. tokens: (B, prompt_len) int32.
+        """Greedy batched generation. tokens: (B, prompt_len) int32;
+        ``extras`` (an encoder-decoder model's ``frames`` (B, T, d)) join
+        the prefill batch.
 
         Returns (B, n) generated tokens, n <= max_new; rows that finished
         early are padded with ``eos_id`` (or 0).
         """
         tokens = np.asarray(tokens)
-        if not self._scheduler_usable(tokens.shape[1], max_new):
-            return self._generate_fixed(tokens, max_new, eos_id)
+        if not self._scheduler_usable(extras, tokens.shape[1], max_new):
+            return self._generate_fixed(tokens, max_new, extras, eos_id)
         outs = self.serve([{"prompt": row, "max_new": max_new, "eos_id": eos_id}
                            for row in tokens])
         n = max(len(o) for o in outs)
@@ -218,14 +229,16 @@ class ServeEngine:
 
     @torch.inference_mode()
     def _generate_fixed(self, tokens: np.ndarray, max_new: int,
+                        extras: Optional[Dict[str, Any]],
                         eos_id: Optional[int]) -> np.ndarray:
         """Lock-step decode of the whole batch.  As in the reference, the
         cache is the prefill's own (in the compute dtype) padded to the
-        window; rows that finished emit ``eos_id`` from then on."""
+        window, cross-attention entries kept at the memory's length; rows
+        that finished emit ``eos_id`` from then on."""
         b, t = tokens.shape
-        last, cache = self._prefill(
-            self.params, {"tokens": torch.as_tensor(tokens, dtype=torch.int32,
-                                                    device=self.device)})
+        batch = {k: torch.as_tensor(v, device=self.device) for k, v in (extras or {}).items()}
+        batch["tokens"] = torch.as_tensor(tokens, dtype=torch.int32, device=self.device)
+        last, cache = self._prefill(self.params, batch)
         cache = pad_cache_preserving_cross(cache, t + max_new)
         tk = torch.argmax(last, dim=-1).cpu().numpy()[:, None].astype(np.int32)
         out = [tk]

@@ -84,6 +84,29 @@ def test_gpu_flash_attention_prescaled_multi_round_shapes_match_plain(b, sq, sk,
         _close(got, want)
 
 
+# seamless-m4t-medium's prefill, 8 rows, 16 heads of 64 (KV 16): the
+# encoder's self-attention over 1024 frames and the decoder's
+# cross-attention (256 queries, 1024 frames), neither causal; the decoder's
+# causal self-attention over 256 tokens
+ENCDEC_SHAPES = [((8, 1024, 1024, 16, 16, 64), False), ((8, 256, 1024, 16, 16, 64), False),
+                 ((8, 256, 256, 16, 16, 64), True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,causal", ENCDEC_SHAPES)
+def test_gpu_flash_attention_at_encdec_shapes_matches_plain(shape, causal):
+    """Pre-scaled q as the model calls K8; the same bits on a second call."""
+    _need_gpu()
+    b, sq, sk, h, kv, d = shape
+    q, k, v = _qkv(sq + sk + b, b, sq, sk, h, kv, d, q_scale=d ** -0.5)
+    with torch.inference_mode():
+        got = flash_attention(q, k, v, causal=causal, q_scale=d ** 0.5)
+        want = ref.flash_attention_fwd_ref(q, k, v, causal=causal, q_scale=d ** 0.5)
+        again = flash_attention(q, k, v, causal=causal, q_scale=d ** 0.5)
+    _close(got, want)
+    assert torch.equal(got, again)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("d", [64, 128])
 def test_gpu_flash_attention_undoes_the_prescale_as_the_plain_version(d):

@@ -909,3 +909,50 @@ def test_gpu_rank_ceilings():
     g = _mats(2, (8, 64), (64, 513), (513, 32))
     with pytest.raises(ValueError, match="513"):
         lowrank_gated_ffn(g[0], g[1], g[2], g[1], g[2])
+
+
+# --------------------------------------------------------------------------
+# The enc-dec family's geometries (seamless-m4t-medium, d 1024, FFN 4096):
+# Eq.-5 ranks 256 / 409 (the serve path), Algorithm-1 ranks 255 / 384 (the
+# train path); M = 8 (decode, 8 slots), 2048 (8 x 256 decoder tokens) and
+# 8192 (the cross k/v projections of 8 x 1024 encoder frames)
+# --------------------------------------------------------------------------
+
+ENCDEC_ATTN = [(1024, 256, 1024), (1024, 255, 1024)]
+ENCDEC_FFN = [(1024, 409, 4096), (4096, 409, 1024), (1024, 384, 4096), (4096, 384, 1024)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,c,r,s", [(m, c, r, s) for m in (8, 2048, 8192)
+                                     for c, r, s in ENCDEC_ATTN]
+                         + [(m, c, r, s) for m in (8, 2048) for c, r, s in ENCDEC_FFN])
+def test_gpu_lowrank_matmul_at_encdec_geometry(m, c, r, s):
+    """K1 at the enc-dec paths' geometries, the odd rank 255 and 409 among
+    them (U padded inside the launch); the decode design's bits again on a
+    second call."""
+    _need_gpu()
+    x, u, v = _mats(m + r + s, (m, c), (c, r), (r, s))
+    with torch.inference_mode():
+        got, want = lowrank_matmul(x, u, v), ref.lowrank_matmul_ref(x, u, v)
+        again = lowrank_matmul(x, u, v)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= K1_RTOL * want.float().abs().max().item()
+    if m < large_m(c, r):
+        assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["dx", "du", "dv"])
+@pytest.mark.parametrize("m,c,r,s", [(2048, c, r, s) for c, r, s in ENCDEC_ATTN + ENCDEC_FFN]
+                         + [(8192, 1024, 255, 1024), (8192, 1024, 256, 1024)])
+def test_gpu_lowrank_bwd_at_encdec_geometry(name, m, c, r, s):
+    """K2-K4 at the enc-dec train step's geometries (M 8192: the cross k/v
+    projections of the memory); bitwise repeatable."""
+    _need_gpu()
+    got, want = _bwd_case(name, m, c, r, s)
+    again, _ = _bwd_case(name, m, c, r, s)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= BWD_RTOL * want.float().abs().max().item()
+    assert torch.equal(got, again)
