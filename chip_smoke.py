@@ -1,6 +1,6 @@
 """Drive the PyTorch port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py [--out results.json] [--only kernels|conv|serve|moe|ssm|encdec]
+    python3 chip_smoke.py [--out results.json] [--only kernels|conv|serve|moe|ssm|encdec|vlm]
 
 Phases, in order; any failure exits nonzero:
 
@@ -204,10 +204,11 @@ Phases, in order; any failure exits nonzero:
               profile — a fixed-batch decode step and the 8 x 512 prefill
               (wall, device, idle, K1 ms); train — the training CLI, 6 steps
               of 8 x 256 at phases 0,0,1,1,0,0 (xLSTM under ``--remat
-              full``), K1-K4 launches exact per step, then a step profiled
+              full`` at 6 of its 24 layers, a depth cut for the script's
+              time limit), K1-K4 launches exact per step, then a step profiled
               at phases 0 and 1 with K1-K4 ms and ``max_memory_allocated``;
-              then K1-K4 at r = 513 and 2048, the first rank past the old
-              ceiling and the new one, checked and timed as in phase 3
+              then K1-K4 at r = 513, 2048 and 4096 (the first rank past 512,
+              the old ceiling, the ceiling), checked and timed as in phase 3
               beside the kernels line (no main path runs them).
 
 44-49. seamless-m4t-medium (enc-dec: 12 encoder and 12 decoder layers, d
@@ -238,6 +239,35 @@ Phases, in order; any failure exits nonzero:
               kernels line), and K1's decode design at the Algorithm-1 ranks
               beside it (no main path runs them).
 
+50-56. llama-3.2-vision-90b (VLM: d 8192, 64 heads of 128, 8 KV heads,
+              SwiGLU 28672, vocab 128256, a tanh-gated cross block over 4096
+              stub image tokens after every 4 self layers) at full width,
+              depth cut from 100 layers to 2 groups (10) to serve and 1 group
+              (5) to train; LRD at Eq.-5 ranks 2048 / 455 / 3185, past K1's
+              old ceiling of 2048 and K5's of 512.  50 serve — the serve CLI
+              on the fixed-batch path, 8 x 256 prompts with 8 x 4096 image
+              tokens, 32 new tokens: K1 and K5 launches exact by shape (the
+              cross k/v at M = 8 x 4096 in the prefill; a decode step's cross
+              blocks project q and wo alone), no other kernel; 51 parity —
+              gates seeded, prefill logits and 8 greedy tokens through the
+              kernels against the plain versions on the card; 52 flash — the
+              prefill with attention_impl="flash": K8 launches exact (8 self
+              causal 256 x 256, 2 cross non-causal 256 x 4096, D 128), logits
+              held to K1's, K5's and K8's plain versions; 53 profile — a
+              decode step and the prefill (blockwise, flash): wall, device,
+              idle, K1, K5, K8 and cuBLAS ms, ``max_memory_allocated``; 54
+              train — the training CLI, 4 steps of 8 x 256 tokens with 8 x
+              4096 stub embeddings at phases 0,0,1,1, K1-K5 launches exact by
+              shape each step (no K2 on the cross k/v: the embeddings take no
+              gradient; K3 / K4 never at phase 0 / 1); 55 — a step profiled
+              at phases -1, 0 and 1 with ``max_memory_allocated``; 56 — the
+              gradients, gates seeded, against the plain versions at phases
+              -1, 0 and 1; then K8 at the flash path's shapes, and K5 and K1
+              at the large dense configs' FFN geometries (qwen3-32b,
+              deepseek-coder-33b, qwen2-72b, DeepSeek-V3's dense layers at
+              Eq.-5 ranks 2133-3207; on no main path, 0 launches) in the
+              kernels line.
+
 Phases 20-24 run with TF32 off and the port's seeded init, through plain
 PyTorch (cuDNN convs, ``torch.matmul``): the JAX package computes them
 outside any Pallas kernel, so no hand-written kernel is on their path.
@@ -250,7 +280,8 @@ and phase 19; ``--only conv`` runs phases 1 and 20-24; ``--only serve`` runs
 phases 1-3 (at the serve and serving-feature shapes) and 25-28; ``--only
 moe`` runs phases 1-3 at the MoE shapes and 29-35; ``--only ssm`` phases
 1-3 at the SSM and hybrid shapes and 36-43; ``--only encdec`` phases 1-3 at
-the enc-dec shapes and 44-49.  The last
+the enc-dec shapes and 44-49; ``--only vlm`` phases 1-3 at the VLM shapes,
+50-56 and the large dense configs' rows.  The last
 line of
 standard output is ``{"ok": true, "device": {...}}``; the
 line before it is ``nvidia-smi``'s name and power limit, and the
@@ -1306,7 +1337,8 @@ def _train_run():
 
 def _train_batch(run, seed: int):
     """One batch of the synthetic stream (an enc-dec run's with the train
-    CLI's stub frames of step ``seed``)."""
+    CLI's stub frames of step ``seed``, a VLM run's with its stub vision
+    embeddings)."""
     from repro_torch.data import LMBatchIterator
     from repro_torch.launch import train
 
@@ -1314,6 +1346,8 @@ def _train_batch(run, seed: int):
                                       run.shape.global_batch, seed=seed)))
     if run.model.family == "encdec":
         batch["frames"] = train.stub_frames(run, seed, 0)
+    elif run.model.family == "vlm":
+        batch["vision_embeddings"] = train.stub_vision_embeddings(run, seed, 0)
     return {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
 
 
@@ -3778,6 +3812,10 @@ def phase_moe():
 SSM_ARCHS = ("xlstm-350m", "zamba2-1.2b")
 SSM_SLOTS, SSM_PROMPT, SSM_NEW, SSM_PARITY_NEW = 8, 512, 32, 8
 SSM_REMAT = {"xlstm-350m": "full", "zamba2-1.2b": "none"}
+# xLSTM trains at a quarter of its 24 layers (the whole script's time
+# limit: its mLSTM steps through the 256 positions one by one, host-bound,
+# ~21 s a step at full depth); Zamba2 at full depth
+SSM_TRAIN_LAYERS = {"xlstm-350m": 6, "zamba2-1.2b": None}
 # (C, r, S) of each factorised projection at Eq.-5 ranks -> its K1 launches
 # a forward: xLSTM wq, wk, wv, wo_gate and wo of 24 layers; Zamba2 in_proj
 # and out_proj of 38 Mamba2 layers, and the shared block's wq/wk/wv/wo, FFN
@@ -3810,14 +3848,34 @@ def _cli_run(argv):
     return train.build_run(train._parser().parse_args(argv))
 
 
-# K1-K4 at the first rank past the old ceiling of 512 and at the new
-# ceiling, checked and timed beside the kernels line (no main path runs
-# them): K1 in both designs, K2-K4 at the train M
+@contextlib.contextmanager
+def at_depth(layers=None):
+    """Inside, the serve and train CLIs build ``--arch``'s full-width
+    config with ``num_layers`` cut to ``layers`` (a depth cut; None keeps
+    the config as it is).  Every launch check reads the depth from the
+    run."""
+    import dataclasses
+
+    from repro_torch.launch import serve, train
+
+    full = serve.get_config
+    if layers is not None:
+        serve.get_config = train.get_config = (
+            lambda arch: dataclasses.replace(full(arch), num_layers=layers))
+    try:
+        yield
+    finally:
+        serve.get_config = train.get_config = full
+
+
+# K1-K4 at the first rank past 512, at the old ceiling of 2048 and at the
+# ceiling of 4096, checked and timed beside the kernels line (no main path
+# runs them): K1 in both designs, K2-K4 at the train M
+RANK_EDGES = ((960, 513, 960), (4096, 2048, 4096), (4096, 4096, 4096))
 RANK_EDGE_SHAPES = ([("lowrank_matmul", dict(M=m, C=c, r=r, S=s))
-                     for c, r, s in ((960, 513, 960), (4096, 2048, 4096))
-                     for m in (DECODE_M, TRAIN_M)]
+                     for c, r, s in RANK_EDGES for m in (DECODE_M, TRAIN_M)]
                     + [(name, dict(M=TRAIN_M, C=c, r=r, S=s)) for name in BWD
-                       for c, r, s in ((960, 513, 960), (4096, 2048, 4096))])
+                       for c, r, s in RANK_EDGES])
 
 
 def ssm_kernel_shapes(archs=SSM_ARCHS):
@@ -4043,12 +4101,19 @@ def phase_ssm_train(arch):
     steps of 8 x 256 tokens at phases 0,0,1,1,0,0: per step exactly one K1
     and one K2 a factorised projection's forward (two K1 under remat full:
     the recomputed forward), K3 at phase 1 only, K4 at phase 0 only, all at
-    M = 2048 and the projection's rank, no K5; finite losses."""
-    state, per_step, by_shape, dt = _counted_train(_ssm_train_argv(arch))
+    M = 2048 and the projection's rank, no K5; finite losses.  xLSTM at
+    SSM_TRAIN_LAYERS of its layers."""
+    with at_depth(SSM_TRAIN_LAYERS[arch]):
+        state, per_step, by_shape, dt = _counted_train(_ssm_train_argv(arch))
     phases = [r["phase"] for r in per_step]
     if phases != [0, 0, 1, 1, 0, 0]:
         raise AssertionError(f"{arch} train: phases {phases}, want [0, 0, 1, 1, 0, 0]")
     n = sum(SSM_GEOMS[arch].values())
+    layers = SSM_TRAIN_LAYERS[arch]
+    if layers is not None:  # xLSTM: every geometry is a layer's
+        from repro_torch.configs import get_config
+
+        n = n * layers // get_config(arch).num_layers
     keys = {(TRAIN_M, c, r, s) for (c, r, s) in SSM_GEOMS[arch]}
     for r in per_step:
         want = {"lowrank_matmul": n * (2 if SSM_REMAT[arch] == "full" else 1),
@@ -4066,7 +4131,8 @@ def phase_ssm_train(arch):
             f"{r['mem'] / 2 ** 30:.2f} GiB; launches "
             + ", ".join(f"{k.replace('lowrank_', '')} {v}" for k, v in r["launches"].items()
                         if v))
-    log(f"[{arch} train] 6 steps of {TRAIN_M} tokens (remat {SSM_REMAT[arch]}) on "
+    log(f"[{arch} train] 6 steps of {TRAIN_M} tokens (remat {SSM_REMAT[arch]}, "
+        f"{layers or 'all'} layers) on "
         f"{torch.cuda.get_device_name(0)}: loss {per_step[0]['loss']:.4f} -> "
         f"{per_step[-1]['loss']:.4f}; {dt:.1f}s incl. init")
     return state.params, by_shape, dict(steps=_without_shapes(per_step), wall_s=dt)
@@ -4085,9 +4151,11 @@ def phase_ssm(archs=SSM_ARCHS):
         gc.collect()
         params, paths[f"{arch} train"], out["train"] = phase_ssm_train(arch)
         # the training CLI's steps have warmed the kernels and the allocator
+        with at_depth(SSM_TRAIN_LAYERS[arch]):
+            run = _cli_run(_ssm_train_argv(arch))
         out["train_profile"] = phase_train_profile(
-            params, steps_n=1, run=_cli_run(_ssm_train_argv(arch)), phases=(0, 1),
-            label=f"{arch} train profile", warmup=False)
+            params, steps_n=1, run=run, phases=(0, 1), label=f"{arch} train profile",
+            warmup=False)
         del params
         gc.collect()
     return paths, result
@@ -4163,17 +4231,20 @@ def _ed_want(geoms, m_tok: int, m_mem: int = 0, n: int = 1, want=None):
 
 
 def _gated(params, seed: int):
-    """``params`` with every cross-attention gate a seeded draw of +-U(0.3,
-    1.2) in the param dtype: the init's zeros make tanh(gate) zero, so a
-    parity check there would not reach cross-attention (nor the encoder's
-    gradients)."""
+    """``params`` with every cross-attention gate (the enc-dec decoder's
+    ``dec_stack/cross_attn``, the VLM's ``cross_stack/attn``) a seeded draw
+    of +-U(0.3, 1.2) in the param dtype: the init's zeros make tanh(gate)
+    zero, so a parity check there would not reach cross-attention (nor the
+    encoder's gradients)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    cross = params["dec_stack"]["cross_attn"]
+    outer, inner = ("dec_stack", "cross_attn") if "dec_stack" in params else ("cross_stack",
+                                                                              "attn")
+    cross = params[outer][inner]
     gate = cross["gate"]
     mag = torch.rand(gate.shape, generator=gen, device="cuda") * 0.9 + 0.3
     sign = torch.randint(0, 2, gate.shape, generator=gen, device="cuda") * 2 - 1
-    return dict(params, dec_stack=dict(params["dec_stack"],
-                                       cross_attn=dict(cross, gate=(mag * sign).to(gate.dtype))))
+    return dict(params, **{outer: dict(params[outer],
+                                       **{inner: dict(cross, gate=(mag * sign).to(gate.dtype))})})
 
 
 def _ed_inputs(run, seed: int):
@@ -4386,6 +4457,363 @@ def phase_encdec():
     return paths, result, phase_flash_kernels(launched)
 
 
+# --------------------------------------------------------------------------
+# The VLM family: full-width llama-3.2-vision-90b (phases 50-56)
+# --------------------------------------------------------------------------
+
+# llama-3.2-vision-90b at full width: d 8192, 64 heads of 128 (8 KV heads),
+# SwiGLU FFN 28672, vocab 128256 (an untied dense unembedding), a cross
+# block (tanh-gated cross-attention over 4096 stub image tokens a row, then
+# a SwiGLU FFN) after every 4 self layers: 20 groups, 100 layers.  Depth
+# cut (the card's 80 GB and the script's time limit): the serve CLI at 2
+# groups (8 self + 2 cross layers), the train CLI at 1 group (4 + 1; phase
+# -1 of two groups would need ~77 GB before activations).  LRD at Eq.-5
+# ranks: wq / wo 2048, wk / wv 455, the FFN 3185, past K1's old ceiling of
+# 2048 and K5's of 512.  The serve CLI on its fixed-batch path: 8 rows of
+# 256-token prompts, 32 new tokens; the train CLI 4 steps of 8 x 256 tokens
+# (phases 0,0,1,1).  K1 and K5 run every factorised projection, the cross
+# k/v ones on the image tokens at M = 8 x 4096; K8 runs the prefill's
+# attention under attention_impl="flash", the cross blocks' not causal.
+VLM_ARCH = "llama-3.2-vision-90b"
+VLM_SLOTS, VLM_PROMPT, VLM_NEW, VLM_PARITY_NEW, VLM_IMG = 8, 256, 32, 8, 4096
+VLM_EVERY, VLM_SERVE_GROUPS, VLM_TRAIN_GROUPS = 4, 2, 1
+VLM_SERVE_ARGV = ["--arch", VLM_ARCH, "--lrd", "--slots", str(VLM_SLOTS), "--prompt-len",
+                  str(VLM_PROMPT), "--max-new", str(VLM_NEW)]
+VLM_TRAIN_ARGV = ["--arch", VLM_ARCH, "--lrd", "--no-rank-opt", "--use-pallas", "--freeze",
+                  "sequential", "--steps", "4", "--steps-per-epoch", "2", "--global-batch",
+                  str(VLM_SLOTS), "--seq-len", str(VLM_PROMPT), "--save-every", "1000",
+                  "--log-every", "1"]
+VLM_TOK_M, VLM_IMG_M = VLM_SLOTS * VLM_PROMPT, VLM_SLOTS * VLM_IMG
+# (C, r, S) of the factorised projections at Eq.-5 ranks; gate/up run as K5
+# forward and as K1 in the FFN backward's recompute
+VLM_GEOMS = {"wq/wo": (8192, 2048, 8192), "wk/wv": (8192, 455, 1024),
+             "gate/up": (8192, 3185, 28672), "down": (28672, 3185, 8192)}
+# K8 launches of one flash prefill at 2 groups: (B, Sq, Sk, H, KV, D,
+# causal) -> count
+VLM_FLASH = {(VLM_SLOTS, VLM_PROMPT, VLM_PROMPT, 64, 8, 128, True): VLM_EVERY * VLM_SERVE_GROUPS,
+             (VLM_SLOTS, VLM_PROMPT, VLM_IMG, 64, 8, 128, False): VLM_SERVE_GROUPS}
+# Item 13's gate, on no main path: the large dense configs' FFNs at their
+# Eq.-5 ranks (qwen3-32b, deepseek-coder-33b, qwen2-72b, DeepSeek-V3's dense
+# layers), K5 on gate/up and K1 on down, at decode and train M; in the
+# kernels line with 0 launches
+DENSE_FFN = {"qwen3-32b": (5120, 2133, 25600), "deepseek-coder-33b": (7168, 2609, 19200),
+             "qwen2-72b": (8192, 3207, 29568), "deepseek-v3 dense": (7168, 2580, 18432)}
+RANK_GATE_SHAPES = ([("lowrank_gated_ffn", dict(M=m, C=c, r=r, F=f))
+                     for c, r, f in DENSE_FFN.values() for m in (DECODE_M, TRAIN_M)]
+                    + [("lowrank_matmul", dict(M=m, C=f, r=r, S=c))
+                       for c, r, f in DENSE_FFN.values() for m in (DECODE_M, TRAIN_M)])
+
+
+def vlm_kernel_shapes():
+    """(name, dims) of every K1-K5 call on the VLM paths: K1 at the decode
+    and prefill M of wq/wo, wk/wv and down, at the image tokens' M of the
+    cross wk/wv and at the train M of gate/up (the FFN backward's
+    recompute); K5 at the decode and prefill M; K2 at the train M of every
+    geometry, K3/K4 also at the image tokens' M of wk/wv (the cross k/v
+    take no dx: the embeddings need no gradient)."""
+    out = []
+    for m in (VLM_SLOTS, VLM_TOK_M):
+        out += [("lowrank_matmul", dict(M=m, C=c, r=r, S=s))
+                for proj, (c, r, s) in VLM_GEOMS.items() if proj != "gate/up"]
+        c, r, f = VLM_GEOMS["gate/up"]
+        out.append(("lowrank_gated_ffn", dict(M=m, C=c, r=r, F=f)))
+    c, r, s = VLM_GEOMS["wk/wv"]
+    out.append(("lowrank_matmul", dict(M=VLM_IMG_M, C=c, r=r, S=s)))
+    c, r, s = VLM_GEOMS["gate/up"]
+    out.append(("lowrank_matmul", dict(M=TRAIN_M, C=c, r=r, S=s)))
+    for name in BWD:
+        out += [(name, dict(M=TRAIN_M, C=c, r=r, S=s)) for c, r, s in VLM_GEOMS.values()]
+    c, r, s = VLM_GEOMS["wk/wv"]
+    out += [(name, dict(M=VLM_IMG_M, C=c, r=r, S=s))
+            for name in ("lowrank_matmul_du", "lowrank_matmul_dv")]
+    return out
+
+
+def _vlm_fwd(groups: int, m_tok: int, m_img: int = 0, n: int = 1):
+    """(K1, K5) launches by shape key of ``n`` forwards of ``groups``
+    groups at ``m_tok`` rows: a self layer runs wq/wk/wv/wo and down
+    through K1 and gate/up through K5; a cross block the same, its wk/wv on
+    the image tokens' ``m_img`` rows (a prefill or train step; none in
+    decode, which reads the cross cache)."""
+    every = VLM_EVERY
+    k1 = {(m_tok,) + VLM_GEOMS["wq/wo"]: 2 * (every + 1), (m_tok,) + VLM_GEOMS["wk/wv"]: 2 * every,
+          (m_tok,) + VLM_GEOMS["down"]: every + 1}
+    if m_img:
+        k1[(m_img,) + VLM_GEOMS["wk/wv"]] = 2
+    c, r, f = VLM_GEOMS["gate/up"]
+    k5 = {(m_tok, c, r, r, f): every + 1}
+    scale = groups * n
+    return ({k: v * scale for k, v in k1.items()}, {k: v * scale for k, v in k5.items()})
+
+
+def _add(a, b):
+    out = dict(a)
+    for k, v in b.items():
+        out[k] = out.get(k, 0) + v
+    return out
+
+
+def _vlm_inputs(run, seed: int):
+    """Seeded 8 x 256 prompts (on the card) and the serve CLI's extras of 8 x
+    4096 stub image embeddings (``serve.vlm_extras``)."""
+    import numpy as np
+
+    from repro_torch.launch import serve
+
+    rng = np.random.default_rng(seed)
+    prompts = torch.as_tensor(rng.integers(0, run.model.vocab_size, (VLM_SLOTS, VLM_PROMPT),
+                                           dtype=np.int32), device="cuda")
+    return prompts, serve.vlm_extras(run, rng, VLM_SLOTS, torch.device("cuda"))
+
+
+def phase_vlm_serve(smi: str):
+    """Phase 50: the serve CLI on full-width llama-3.2-vision-90b at 2
+    groups, the fixed-batch path: K1 and K5 launches exact by shape (a
+    prefill with the cross k/v at M = 8 x 4096, then 31 decode steps at M =
+    8, whose cross blocks project q and wo alone), no other kernel, no
+    scheduler, finite tokens."""
+    from repro_torch.launch import serve
+
+    layers = VLM_SERVE_GROUPS * (VLM_EVERY + 1)
+    zero_counts()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with at_depth(layers):
+        engine, out = serve.main(VLM_SERVE_ARGV)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    by_shape = counts_by_shape()
+    k1, k5 = _vlm_fwd(VLM_SERVE_GROUPS, VLM_TOK_M, VLM_IMG_M)
+    d1, d5 = _vlm_fwd(VLM_SERVE_GROUPS, VLM_SLOTS, n=VLM_NEW - 1)
+    want = {"lowrank_matmul": _add(k1, d1), "lowrank_gated_ffn": _add(k5, d5)}
+    got = {k: by_shape[k] for k in want}
+    others = {k: v for k, v in by_shape.items() if v and k not in want}
+    cfg = engine.run.model
+    tokens_ok = bool(((out >= 0) & (out < cfg.vocab_size)).all())
+    if (got != want or others or out.shape != (VLM_SLOTS, VLM_NEW) or not tokens_ok
+            or engine._scheduler is not None or cfg.num_layers != layers
+            or cfg.d_model != 8192 or cfg.vocab_size != 128256):
+        raise AssertionError(f"vlm serve: launches {got}, want {want}; other kernels {others}; "
+                             f"tokens {out.shape}; scheduler {engine._scheduler}")
+    tok_s = out.size / dt
+    log(f"[vlm serve] {VLM_ARCH} (d 8192, {layers} of 100 layers: {VLM_SERVE_GROUPS} groups of "
+        f"{VLM_EVERY} self + 1 cross) fixed batch {VLM_SLOTS} x {VLM_PROMPT} prompts with "
+        f"{VLM_IMG} image tokens, {VLM_NEW} new tokens on {smi}: {dt:.2f}s incl. init "
+        f"({tok_s:.1f} tok/s); {sum(got['lowrank_matmul'].values())} K1 + "
+        f"{sum(got['lowrank_gated_ffn'].values())} K5 launches, exact by shape (ranks 2048 / "
+        f"455 / 3185); no other kernel; max_memory_allocated {peak / 2 ** 30:.2f} GiB")
+    return engine, by_shape, dict(wall_s=dt, tok_per_s=tok_s, max_memory_allocated=peak,
+                                  k1=sum(got["lowrank_matmul"].values()),
+                                  k5=sum(got["lowrank_gated_ffn"].values()),
+                                  sample=out[0].tolist())
+
+
+def phase_vlm_parity(engine):
+    """Phase 51: with every cross gate seeded non-zero in both runs, the
+    prefill's last-position logits through the kernels against the plain
+    versions on the card (PATH_RTOL of max |logit|), then 8 greedy tokens
+    each way, a parting held to a rounding tie."""
+    from repro_torch.launch import steps
+
+    run, params = engine.run, _gated(engine.params, seed=51)
+    vocab = run.model.vocab_size
+    prompts, extras = _vlm_inputs(run, seed=51)
+    batch = dict(extras, tokens=prompts)
+    got, _ = steps.build_prefill_step(run)(params, batch)
+    want, _ = steps.build_prefill_step(_plain(run))(params, batch)
+    diff, rel = rel_err(got[:, :vocab], want[:, :vocab])
+    if not torch.isfinite(got[:, :vocab]).all() or rel > PATH_RTOL:
+        raise AssertionError(f"vlm parity: prefill logits {diff:.3e} ({rel:.3e} of max "
+                             f"|logit|) from the plain versions'")
+    toks, logits = _generate_with_logits(run, params, prompts, VLM_PARITY_NEW, extras)
+    ptoks, plogits = _generate_with_logits(_plain(run), params, prompts, VLM_PARITY_NEW, extras)
+    logits = [[t[:vocab] for t in r] for r in logits]
+    plogits = [[t[:vocab] for t in r] for r in plogits]
+    cmp = _compare_greedy(ptoks, plogits, toks, logits, "vlm parity")
+    zero_counts()
+    log(f"[vlm parity] cross gates seeded non-zero in both runs; prefill last-position logits, "
+        f"kernels vs plain on the card: max_abs_diff {diff:.3e} ({rel:.3e} of max |logit|; "
+        f"bound {PATH_RTOL}); {VLM_PARITY_NEW} greedy tokens: {_parted_text(cmp)}")
+    return dict(max_abs_diff=diff, rel=rel, compare=cmp)
+
+
+def phase_vlm_flash(engine):
+    """Phase 52: the same prefill with ``attention_impl="flash"`` through
+    the engine (``generate`` of one token): K8 launches exact (8 self
+    causal 256 x 256, 2 cross non-causal 256 x 4096, D 128), K1 and K5 as
+    in a prefill; the last-position logits, gates seeded, held to the same
+    prefill through the plain versions on the card (K1's, K5's and K8's)."""
+    from repro_torch.kernels import ref
+    from repro_torch.launch import steps
+    from repro_torch.serving import ServeConfig, ServeEngine
+
+    run = _with_impl(engine.run, "flash")
+    params = _gated(engine.params, seed=52)
+    prompts, extras = _vlm_inputs(run, seed=52)
+    zero_counts()
+    eng = ServeEngine(run, params, device="cuda", config=ServeConfig(num_slots=0))
+    first = eng.generate(prompts.cpu().numpy(), max_new=1, extras=extras)
+    torch.cuda.synchronize()
+    by_shape = counts_by_shape()
+    k1, k5 = _vlm_fwd(VLM_SERVE_GROUPS, VLM_TOK_M, VLM_IMG_M)
+    got = {k: by_shape[k] for k in ("flash_attention", "lowrank_matmul", "lowrank_gated_ffn")}
+    want = {"flash_attention": VLM_FLASH, "lowrank_matmul": k1, "lowrank_gated_ffn": k5}
+    others = {k: v for k, v in by_shape.items() if v and k not in want}
+    if got != want or others or first.shape != (VLM_SLOTS, 1):
+        raise AssertionError(f"vlm flash: launches {got}, want {want}; others {others}")
+    batch = dict(extras, tokens=prompts)
+    out, _ = steps.build_prefill_step(run)(params, batch)
+    with plain_versions(flash_attention=ref.flash_attention_fwd_ref):
+        plain, _ = steps.build_prefill_step(_plain(run))(params, batch)
+    vocab = run.model.vocab_size
+    diff, rel = rel_err(out[:, :vocab], plain[:, :vocab])
+    zero_counts()
+    if not torch.isfinite(out[:, :vocab]).all() or rel > PATH_RTOL:
+        raise AssertionError(f"vlm flash: prefill logits {diff:.3e} ({rel:.3e} of max "
+                             f"|logit|) from the plain versions'")
+    log(f"[vlm flash] prefill through the engine: K8 launches exact "
+        + ", ".join(f"{k[1]}x{k[2]} {'causal' if k[6] else 'non-causal'} {n}"
+                    for k, n in got["flash_attention"].items())
+        + f", K1 {sum(k1.values())}, K5 {sum(k5.values())}; cross gates seeded non-zero; "
+        f"last-position logits vs K1, K5 and K8 plain on the card: max_abs_diff {diff:.3e} "
+        f"({rel:.3e} of max |logit|; bound {PATH_RTOL})")
+    return by_shape, dict(max_abs_diff=diff, rel=rel, k8=sum(VLM_FLASH.values()))
+
+
+def phase_vlm_profile(engine, smi: str, steps_n: int = 5):
+    """Phase 53: a fixed-batch decode step (8 rows at position 256, the
+    prefill's cache padded to the window, the cross k/v at 4096 image
+    tokens), the prefill (blockwise and flash): wall and device ms, idle
+    share, K1, K5 and K8 ms, and ``max_memory_allocated`` over the calls."""
+    from repro_torch.launch import steps
+    from repro_torch.serving.engine import pad_cache_preserving_cross
+
+    run, params = engine.run, engine.params
+    prompts, extras = _vlm_inputs(run, seed=53)
+    batch = dict(extras, tokens=prompts)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    last, cache = engine._prefill(params, batch)
+    cache = pad_cache_preserving_cross(cache, VLM_PROMPT + VLM_NEW)
+    token = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+    pos = torch.tensor(VLM_PROMPT, dtype=torch.int32, device="cuda")
+    flash = steps.build_prefill_step(_with_impl(run, "flash"))
+    calls = (("decode step", steps_n, lambda: engine._step(params, cache, token, pos)),
+             ("prefill", 1, lambda: engine._prefill(params, batch)),
+             ("flash prefill", 1, lambda: flash(params, batch)))
+    k5 = ("k5_ms", "K5", lambda by_name: lowrank_device_ms(by_name)[1])
+    k8 = ("k8_ms", "K8", lambda by_name: sum(ms for name, ms in by_name.items()
+                                             if "flash_wgmma_kernel" in name))
+    out = profile_calls("vlm profile", f"{VLM_SLOTS} rows, {run.model.num_layers} layers, {smi}",
+                        calls, extra=(k5, k8, ("gemm_ms", "cuBLAS GEMMs", _gemm_ms)))
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    log(f"[vlm profile] max_memory_allocated over the prefill and the calls "
+        f"{out['max_memory_allocated'] / 2 ** 30:.2f} GiB ({smi})")
+    return out
+
+
+def phase_vlm_train(smi: str):
+    """Phase 54: the training CLI on full-width llama-3.2-vision-90b at 1
+    group (4 self + 1 cross layer), Eq.-5 ranks, 4 steps of 8 x 256 tokens
+    with 8 x 4096 stub image embeddings at phases 0,0,1,1: per step exactly
+    the K1 and K5 of one forward by shape, K1 on gate/up again (the FFN
+    backward's recompute), K2 on every factor pair but the cross wk/wv
+    (their input, the embeddings, takes no gradient), K3 at phase 1 only
+    and K4 at phase 0 only, on every pair; no K6-K8; finite losses."""
+    layers = VLM_TRAIN_GROUPS * (VLM_EVERY + 1)
+    torch.cuda.reset_peak_memory_stats()
+    with at_depth(layers):
+        state, per_step, by_shape, dt = _counted_train(VLM_TRAIN_ARGV)
+    peak = torch.cuda.max_memory_allocated()
+    phases = [r["phase"] for r in per_step]
+    if phases != [0, 0, 1, 1]:
+        raise AssertionError(f"vlm train: phases {phases}, want [0, 0, 1, 1]")
+    k1, k5 = _vlm_fwd(VLM_TRAIN_GROUPS, TRAIN_M, VLM_IMG_M)
+    recompute = {(TRAIN_M,) + VLM_GEOMS["gate/up"]: 2 * (VLM_EVERY + 1) * VLM_TRAIN_GROUPS}
+    pairs = _add(k1, recompute)
+    dx = {k: v for k, v in pairs.items() if k[0] != VLM_IMG_M}
+    for r in per_step:
+        want = {"lowrank_matmul": pairs, "lowrank_gated_ffn": k5, "lowrank_matmul_dx": dx,
+                "lowrank_matmul_du": pairs if r["phase"] == 1 else {},
+                "lowrank_matmul_dv": pairs if r["phase"] == 0 else {}}
+        got = {k: r["shape_counts"].get(k, {}) for k in want}
+        others = {k: v for k, v in r["launches"].items() if v and k not in want}
+        if got != want or others:
+            raise AssertionError(f"vlm train: step {r['step']} (phase {r['phase']}) launched "
+                                 f"{got} and {others}, want {want}")
+        if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])):
+            raise AssertionError(f"vlm train: step {r['step']} loss {r['loss']}")
+        log(f"[vlm train] step {r['step']} phase {r['phase']}: loss {r['loss']:.4f}, grad norm "
+            f"{r['grad_norm']:.3f}, {r['step_time_s'] * 1e3:.1f} ms, memory_allocated "
+            f"{r['mem'] / 2 ** 30:.2f} GiB; launches "
+            + ", ".join(f"{k.replace('lowrank_', '')} {v}" for k, v in r["launches"].items()
+                        if v))
+    log(f"[vlm train] 4 steps of {TRAIN_M} tokens and {VLM_IMG_M} image tokens at Eq.-5 ranks, "
+        f"{layers} of 100 layers ({VLM_TRAIN_GROUPS} group), on {smi}: loss "
+        f"{per_step[0]['loss']:.4f} -> {per_step[-1]['loss']:.4f}; launches exact by shape each "
+        f"step; max_memory_allocated {peak / 2 ** 30:.2f} GiB; {dt:.1f}s incl. init")
+    return state.params, by_shape, dict(steps=_without_shapes(per_step), wall_s=dt,
+                                        max_memory_allocated=peak)
+
+
+@contextlib.contextmanager
+def expandable_segments():
+    """Inside, the caching allocator grows its segments in place (PyTorch's
+    ``expandable_segments``), so the VLM train step's multi-GiB blocks (the
+    float32 unembedding and its gradient, 3.9 GiB each) do not strand
+    reserved memory between them: without it phase 55's phase -1 step
+    failed with 13.5 GiB reserved but unallocated.  The phases before keep
+    the default allocator."""
+    # the setter's name moved between PyTorch releases
+    setter = (getattr(torch._C, "_accelerator_setAllocatorSettings", None)
+              or torch.cuda.memory._set_allocator_settings)
+    gc.collect()
+    torch.cuda.empty_cache()
+    setter("expandable_segments:True")
+    try:
+        yield
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        setter("expandable_segments:False")
+
+
+def phase_vlm(smi: str):
+    """Phases 50-56; returns (launches by kernel and shape per main path,
+    results, K8's rows at the flash path's shapes).  The train phases run
+    under :func:`expandable_segments`."""
+    paths, result = {}, {}
+    engine, paths["vlm serve"], result["serve"] = phase_vlm_serve(smi)
+    result["parity"] = phase_vlm_parity(engine)
+    paths["vlm flash prefill"], result["flash"] = phase_vlm_flash(engine)
+    result["profile"] = phase_vlm_profile(engine, smi)
+    del engine
+    with expandable_segments():
+        params, paths["vlm train"], result["train"] = phase_vlm_train(smi)
+        with at_depth(VLM_TRAIN_GROUPS * (VLM_EVERY + 1)):
+            run = _cli_run(VLM_TRAIN_ARGV)
+        # phase 55: a step profiled at phases -1, 0 and 1 (max_memory_allocated
+        # each); phase 56: the gradients, gates seeded, against the plain versions
+        result["train_profile"] = phase_train_profile(params, steps_n=1, run=run,
+                                                      label="vlm train profile")
+        result["grads"] = phase_grads(_gated(params, seed=56), run=run, label="vlm grads")
+        del params
+    launched = [dict(zip(("B", "Sq", "Sk", "H", "KV", "D", "causal"), key))
+                for key in sorted(paths["vlm flash prefill"]["flash_attention"])]
+    return paths, result, phase_flash_kernels(launched)
+
+
+def phase_rank_gate_kernels():
+    """K5 and K1 at the large dense configs' FFN geometries (item 13's
+    gate, on no main path), for the kernels line."""
+    rows = phase_kernels(RANK_GATE_SHAPES)
+    for row in rows:
+        row["on_main_path"] = False
+    return rows
+
+
 def check_launched_shapes(path: str, rows, by_shape) -> None:
     """Fail if ``path`` launched a kernel at a shape the kernel phase did
     not check."""
@@ -4406,9 +4834,10 @@ def count_launches(rows, paths) -> None:
         key = shape_key(row["name"], row["shape"])
         row["launches"] = sum(by.get(row["name"], {}).get(key, 0) for by in paths.values())
         # the int8-operand entries are the TPU kernels' contract, which
-        # no main path calls since the serving entries quantize x inside
+        # no main path calls since the serving entries quantize x inside;
+        # the rank-gate rows are on no main path by design
         if (not row["launches"] and row["name"] not in INT8_FUSED.values()
-                and row["name"] != "int8_linear"):
+                and row["name"] != "int8_linear" and row.get("on_main_path", True)):
             raise AssertionError(f"{row['name']} {row['shape']} never launched on "
                                  f"a main path")
 
@@ -4416,14 +4845,16 @@ def count_launches(rows, paths) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="", help="also write every result as JSON here")
-    ap.add_argument("--only", choices=("kernels", "conv", "serve", "moe", "ssm", "encdec"),
+    ap.add_argument("--only", choices=("kernels", "conv", "serve", "moe", "ssm", "encdec",
+                                       "vlm"),
                     default=None,
                     help="kernels: stop after the kernel phase (a first check of a build); "
                          "conv: run only the conv and ViT phases; serve: phases 1-3 at the "
                          "serving shapes and the serving features' phases 25-28; moe: "
                          "phases 1-3 at the MoE shapes and the MoE phases 29-35; ssm: "
                          "phases 1-3 at the SSM and hybrid shapes and phases 36-43; encdec: "
-                         "phases 1-3 at the enc-dec shapes and phases 44-49")
+                         "phases 1-3 at the enc-dec shapes and phases 44-49; vlm: phases 1-3 "
+                         "at the VLM shapes, phases 50-56 and the rank-gate rows")
     args = ap.parse_args(argv)
 
     t_start = time.perf_counter()
@@ -4449,9 +4880,11 @@ def main(argv=None) -> int:
         shapes = ssm_kernel_shapes()
     elif args.only == "encdec":
         shapes = encdec_kernel_shapes()
+    elif args.only == "vlm":
+        shapes = vlm_kernel_shapes()
     else:
         shapes = (kernel_shapes() + moe_kernel_shapes() + ssm_kernel_shapes()
-                  + encdec_kernel_shapes())
+                  + encdec_kernel_shapes() + vlm_kernel_shapes())
     # a shape two families share is checked once (xLSTM's attention and the
     # enc-dec serve path's are both (1024, 256, 1024))
     shapes = [sd for i, sd in enumerate(shapes) if sd not in shapes[:i]]
@@ -4474,6 +4907,11 @@ def main(argv=None) -> int:
         rows += flash_rows
         count_launches(rows, paths)
         result["encdec_extra"] = phase_kernels(ENCDEC_EXTRA_SHAPES)
+    elif args.only == "vlm":
+        paths, result["vlm"], flash_rows = phase_vlm(smi)
+        rows += flash_rows + phase_rank_gate_kernels()
+        mark("vlm")
+        count_launches(rows, paths)
     elif args.only is None:
         engine, paths["serve"], result["serve"] = phase_serve()
         result["parity"] = phase_parity(engine)
@@ -4550,6 +4988,12 @@ def main(argv=None) -> int:
         rows += flash_rows
         result["encdec_extra"] = phase_kernels(ENCDEC_EXTRA_SHAPES)
         mark("encdec")
+        # the VLM family: full-width llama-3.2-vision-90b, K1-K5 past the
+        # old rank ceilings on a main path; item 13's rows beside it
+        more, result["vlm"], flash_rows = phase_vlm(smi)
+        paths.update(more)
+        rows += flash_rows + phase_rank_gate_kernels()
+        mark("vlm")
         count_launches(rows, paths)
         if not any(r["launches"] for r in rows if r["name"] == "int8_linear"):
             log("[kernels] int8_linear (K6) was launched on no main path in this run: the "
@@ -4559,7 +5003,9 @@ def main(argv=None) -> int:
         rows += phase_flash_kernels([FLASH_SERVE_SHAPE] + FLASH_EXTRA
                                     + [dict(zip(("B", "Sq", "Sk", "H", "KV", "D", "causal"), k))
                                        for k in ED_FLASH])
-        rows += phase_kernels(RANK_EDGE_SHAPES)
+        rows += phase_kernels(RANK_EDGE_SHAPES) + phase_rank_gate_kernels()
+        rows += phase_flash_kernels([dict(zip(("B", "Sq", "Sk", "H", "KV", "D", "causal"), k))
+                                     for k in VLM_FLASH])
         result["designs"] = phase_designs()
         for row in rows:
             row["launches"] = 0

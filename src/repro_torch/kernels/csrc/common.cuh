@@ -36,13 +36,15 @@
 // it waits for phase 1, requests t and multiplies, each warp whole output
 // tiles (16 rows, 8 columns) over the whole rank.  Each output is rounded
 // once (K5: silu(g) * u in float32 from both branches' sums, then rounded).
-// Past kDKpMax = 512 rank rows (K1 only: Zamba2's ranks are 640-1365) the
-// V tile and t no longer fit shared memory whole, so the CTA walks the rank
-// in the fewest equal pieces of at most 512 rows (decode_kp, a function of
-// r alone): the first piece's V is requested before the wait and the later
-// pieces' asked into L2, each piece's float32 sums are added to the earlier
-// ones' in shared memory, and the output is still rounded once, after the
-// last piece.  Shared memory stays what r = 512 needed.
+// Past kDKpMax = 512 rank rows (Zamba2's 640-1365; K5 too from the VLM's
+// 3185) the V tile and t no longer fit shared memory whole, so the CTA
+// walks the rank in the fewest equal pieces of at most 512 rows (decode_kp,
+// a function of r alone): the first piece's V is requested before the wait
+// and the later pieces' asked into L2, each piece's float32 sums (each
+// branch's, for K5) are added to the earlier ones' in shared memory, and
+// the output is still rounded once, after the last piece (K5: silu(g) * u
+// on the whole float32 sums, then the rounding).  Shared memory stays what
+// r = 512 needed.
 //
 // Sums in a fixed order that M does not change: the split of C (cs, kc, per)
 // and of r (w1) come from the wrapper's plan (decode_plan in
@@ -76,8 +78,8 @@ using bf16 = __nv_bfloat16;
 namespace cg = cooperative_groups;
 
 constexpr int kBM = 16;          // rows of an MMA tile (m16n8k16)
-constexpr int kRMax = 2048;      // largest rank K1 and K2-K4 take
-constexpr int kRMaxFused = 512;  // largest rank K5 and K7 take (one rank tile in their designs)
+constexpr int kRMax = 4096;      // largest rank K1, K2-K4 and K5 take
+constexpr int kRMaxFused = 512;  // largest rank K7 takes (its requantization holds a row's ranks)
 constexpr int kSmemMax = 232448; // 227 KB, the most shared memory a block may use
 constexpr int kDThreads = 256;   // decode design: 8 warps a CTA, both phases
 constexpr int kDWarps = kDThreads / 32;
@@ -433,13 +435,16 @@ __device__ inline void prefetch_rows_l2(const bf16* g, int pitch, int nr, int r0
 // CTA (column tile, row block) = (blockIdx.x, blockIdx.y): output columns
 // [s0, s0 + w2) of rows [m0, m0 + rows).  Warp w takes the output tiles (16
 // rows, 8 columns) w, w + 8, ..., each over the whole rank: in one piece
-// (rank <= kDKpMax) or piece by piece, each piece's float32 sum added to
-// those before it in shared memory and the output rounded after the last.
-// The V of later pieces is asked into L2 before the wait for phase 1.
-template <int NB, bool kGated>
+// (rank <= kDKpMax) or piece by piece, each piece's float32 sum (of each
+// branch) added to those before it in shared memory and the output formed
+// and rounded after the last.  The V of later pieces is asked into L2
+// before the wait for phase 1.  kPieces false compiles the one-piece walk
+// alone (K5 up to 512 rank rows: a runtime piece count there cost it 3-8%
+// at M 24-128 on the H100), and launch_decode takes it where kp == kext.
+template <int NB, bool kGated, bool kPieces = true>
 __device__ inline void decode_out_body(const DecodeOut& a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int np = NB == 1 ? ceil_div(a.kext, a.kp) : 1;  // K5 keeps r <= 512: one piece
+  const int np = kPieces ? ceil_div(a.kext, a.kp) : 1;
   const OutSmem L = out_smem(a.rows, a.kp, a.w2, NB, np > 1);
   bf16* vs = reinterpret_cast<bf16*>(smem);
   bf16* ts = reinterpret_cast<bf16*>(smem + L.t);
@@ -479,7 +484,7 @@ __device__ inline void decode_out_body(const DecodeOut& a) {
       for (int b = 0; b < NB; ++b)
         tile_product(o[b], ts + (b * a.rows + mi * kBM) * ldt, ldt, vs + b * a.kp * ldv + ni * 8,
                      ldv, ks);
-      if (NB == 1 && np > 1) {  // this thread's elements: the same every piece
+      if (kPieces && np > 1) {  // this thread's elements: the same every piece
 #pragma unroll
         for (int b = 0; b < NB; ++b)
 #pragma unroll
@@ -545,17 +550,21 @@ inline cudaError_t launch_after(void (*kernel)(Params...), dim3 grid, dim3 block
 
 // Check the wrapper's plan and launch both phases of the decode design on
 // NB branches: x (M, C); u[b] (C, r[b]); v[b] (r[b], S); y (M, S); t the
-// scratch of nb x M x rt bf16, rt = max_b r[b] rounded up to 8.  The plan:
+// scratch of nb x M x rt bf16, rt = max_b r[b] rounded up to 8; phase 2
+// runs out_kernel in one piece of the rank, pieces_kernel past kDKpMax rank
+// rows (K1 passes the same kernel twice).  The plan:
 // clusters of cs CTAs, each `per` pieces of kc rows of C, tiles of w1
 // columns of r (phase 1) and of w2 columns of S (phase 2).  Where M takes
 // more than one row block the tiles widen with it; the widths only share
 // the columns out, and no sum changes order.
 template <int NB>
 inline cudaError_t launch_decode(void (*rank_kernel)(DecodeRank), void (*out_kernel)(DecodeOut),
-                                 const bf16* x, const bf16* const* u, const bf16* const* v,
-                                 bf16* y, bf16* t, int M, int C, const int* r, int S, int cs,
-                                 int kc, int per, int w1, int w2, cudaStream_t stream) {
-  static size_t reserved1 = 0, reserved2 = 0;  // one per instantiation: K1's or K5's kernels
+                                 void (*pieces_kernel)(DecodeOut), const bf16* x,
+                                 const bf16* const* u, const bf16* const* v, bf16* y, bf16* t,
+                                 int M, int C, const int* r, int S, int cs, int kc, int per,
+                                 int w1, int w2, cudaStream_t stream) {
+  // one per instantiation: K1's or K5's kernels
+  static size_t reserved1 = 0, reserved2 = 0, reserved3 = 0;
   if (cs < 1 || cs > kDClusterMax || kc < kBM || kc > kDKcMax || kc % kBM || per < 1 ||
       ceil_div(C, kc * per) != cs || w1 < 8 || w1 > kDW1Max || w1 % 8 || w2 < 8 ||
       w2 > kDW2Max || w2 % 8)
@@ -578,6 +587,7 @@ inline cudaError_t launch_decode(void (*rank_kernel)(DecodeRank), void (*out_ker
   a2.kext = round_up(rmax, kBM);
   a2.kp = decode_kp(a2.kext);
   const bool pieces = a2.kp < a2.kext;
+  void (*out)(DecodeOut) = pieces ? pieces_kernel : out_kernel;
   const auto smem1 = [&](int rows) { return rank_smem(rows, kc, a1.w1, cs).total; };
   const auto smem2 = [&](int rows) { return out_smem(rows, a2.kp, a2.w2, NB, pieces).total; };
   // M in B row blocks: each CTA takes B times the plan's columns (to
@@ -596,7 +606,9 @@ inline cudaError_t launch_decode(void (*rank_kernel)(DecodeRank), void (*out_ker
     return cudaErrorInvalidValue;
   cudaError_t e;
   if ((e = reserve_smem(rank_kernel, smem1(a1.rows), &reserved1)) != cudaSuccess) return e;
-  if ((e = reserve_smem(out_kernel, smem2(a2.rows), &reserved2)) != cudaSuccess) return e;
+  // K1's two are one kernel: one record, so its attribute only ever grows
+  size_t* reserved_out = pieces && pieces_kernel != out_kernel ? &reserved3 : &reserved2;
+  if ((e = reserve_smem(out, smem2(a2.rows), reserved_out)) != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cs, tiles, blocks1);
   cfg.blockDim = dim3(kDThreads);
@@ -611,7 +623,7 @@ inline cudaError_t launch_decode(void (*rank_kernel)(DecodeRank), void (*out_ker
   cfg.numAttrs = 1;
   if ((e = cudaLaunchKernelEx(&cfg, rank_kernel, a1)) != cudaSuccess) return e;
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  return launch_after(out_kernel, dim3(ceil_div(S, a2.w2), blocks2), dim3(kDThreads),
+  return launch_after(out, dim3(ceil_div(S, a2.w2), blocks2), dim3(kDThreads),
                       smem2(a2.rows), true, stream, a2);
 }
 
@@ -659,7 +671,8 @@ inline cudaError_t launch_decode(void (*rank_kernel)(DecodeRank), void (*out_ker
 // distributed shared memory was slower than the store to L2 and TMA load
 // back; groups of a cooperative launch need no GPC of their own.
 //
-// Ranks past 512 (K1 only; Zamba2's 640-1408 padded): a CTA's N = rp / 4
+// Ranks past 512 (Zamba2's 640-1408 padded; K5's two branches from the
+// VLM's 3185, KC2 64 ranks a stage and branch): a CTA's N = rp / 4
 // columns of t are computed in passes of kLNPass = 128 (each pass walks C
 // again, x re-read from L2), so the U chunk of a stage keeps its size; and
 // the row block's t, 128 bytes a rank, no longer fits beside the ring, so
@@ -979,8 +992,8 @@ __host__ __device__ inline int large_rp(const int* r, int nb) {
 
 // Shared memory: [t of each branch][output tile of each consumer
 // warpgroup][ring slots][full | empty][t full, t free], behind up to 1 KB of
-// alignment slack.  Past kLTRes padded ranks (K1 at Zamba2's 640-1408) the
-// row block's t (128 bytes a rank) no longer fits beside the ring, and
+// alignment slack.  Past kLTRes padded ranks (Zamba2's 640-1408, the VLM's
+// 3200) the row block's t (128 bytes a rank) no longer fits beside the ring, and
 // streams through it instead: each phase-2 slot carries the stage's KC2
 // ranks of t beside its V tile (stream_t; no t region).
 constexpr int kLOutBytes = kLBM * 64 * 2;  // a warpgroup's 64 x 64 bf16 output tile

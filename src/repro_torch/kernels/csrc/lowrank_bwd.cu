@@ -44,7 +44,7 @@
 // tile and each consumer's B tile) full by TMA, with full/empty mbarriers.
 // Every box is 64 bf16 wide (128 bytes, the 128-byte swizzle): MN-major
 // tiles are one 64 x 128 box, K-major ones two 64 x 64 boxes.  TMA fills
-// zeros past every edge, so any M, C, r <= 2048 and S is taken.  An operand
+// zeros past every edge, so any M, C, r <= 4096 and S is taken.  An operand
 // TMA cannot read (base not 16-byte aligned, or rows not a multiple of 8
 // elements: U at ranks 349 and 239, whose rows are 698 and 478 bytes) is
 // first copied by a pad launch into the scratch, rows padded to 8 elements.

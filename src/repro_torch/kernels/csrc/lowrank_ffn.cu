@@ -17,7 +17,10 @@
 // launch forms both t (bf16, into the scratch); the out kernel requests
 // both V tiles of its columns before it waits for them, runs the two second
 // products into two float32 accumulators and applies silu(g) * u in float32
-// before the one rounding, so neither (M, F) branch reaches HBM.
+// before the one rounding, so neither (M, F) branch reaches HBM.  Past 512
+// rank rows (the VLM's 3185) it walks both branches' ranks in K1's pieces,
+// adding each piece's float32 sums, and applies silu(g) * u to the whole
+// sums after the last piece, as the TPU kernel does after its last C step.
 //
 // The large-M design (M >= LARGE_M), bound by operations (2 x K1's):
 // K1's large design with both branches (second half of common.cuh).
@@ -29,19 +32,23 @@
 namespace repro {
 
 // The decode design's two phases (common.cuh): both branches' t into the
-// scratch, then silu(t_g V_g) * (t_u V_u)
+// scratch, then silu(t_g V_g) * (t_u V_u), in one piece of the rank
+// (kPieces false) or, past 512 rank rows, in pieces
 __global__ void __launch_bounds__(kDThreads) lowrank_ffn_rank_kernel(const DecodeRank a) {
   decode_rank_body(a);
 }
+template <bool kPieces>
 __global__ void __launch_bounds__(kDThreads) lowrank_ffn_out_kernel(const DecodeOut a) {
-  decode_out_body<2, true>(a);
+  decode_out_body<2, true, kPieces>(a);
 }
 
 // The large-M design (common.cuh, second half), K1's with both branches:
-// groups of 4 CTAs own 64 rows, so both t (2 x 64 x 512 bf16 at most) fit
-// beside the ring; CTA q computes columns [q N, (q+1) N) of the gate's t,
-// then of the up branch's, then 128-column output tiles q, q + 4, ... with
-// a float32 accumulator per branch and silu(g) * u in the epilogue.
+// groups of 4 CTAs own 64 rows; both t stay in shared memory up to a padded
+// rank of 512 (2 x 64 x 512 bf16) and past it stream through the ring, 64
+// ranks of each branch a stage beside its V tiles; CTA q computes columns
+// [q N, (q+1) N) of the gate's t, then of the up branch's, in passes of 128,
+// then 128-column output tiles q, q + 4, ... with a float32 accumulator per
+// branch over the whole rank and silu(g) * u in the epilogue.
 __global__ void __launch_bounds__(kLThreads, 1)
 lowrank_ffn_large_kernel(const LargeArgs a, const __grid_constant__ CUtensorMap xmap,
                          const __grid_constant__ CUtensorMap vmap0,
@@ -70,14 +77,15 @@ int repro_lowrank_ffn(const void* x, const void* gu, const void* gv,
                       int w2, void* stream) {
   using namespace repro;
   if (M <= 0 || F <= 0) return 0;
-  if (C <= 0 || rg <= 0 || ru <= 0 || rg > kRMaxFused || ru > kRMaxFused)
+  if (C <= 0 || rg <= 0 || ru <= 0 || rg > kRMax || ru > kRMax)
     return (int)cudaErrorInvalidValue;
   const bf16* us[2] = {(const bf16*)gu, (const bf16*)uu};
   const bf16* vs[2] = {(const bf16*)gv, (const bf16*)uv};
   const int rs[2] = {rg, ru};
-  cudaError_t e = launch_decode<2>(lowrank_ffn_rank_kernel, lowrank_ffn_out_kernel,
-                                   (const bf16*)x, us, vs, (bf16*)y, (bf16*)t, M, C, rs, F, cs,
-                                   kc, per, w1, w2, (cudaStream_t)stream);
+  cudaError_t e = launch_decode<2>(lowrank_ffn_rank_kernel, lowrank_ffn_out_kernel<false>,
+                                   lowrank_ffn_out_kernel<true>, (const bf16*)x, us, vs,
+                                   (bf16*)y, (bf16*)t, M, C, rs, F, cs, kc, per, w1, w2,
+                                   (cudaStream_t)stream);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
@@ -94,7 +102,7 @@ int repro_lowrank_ffn_large(const void* x, const void* gu, const void* gv,
                             int M, int C, int rg, int ru, int F, void* stream) {
   using namespace repro;
   if (M <= 0 || F <= 0) return 0;
-  if (C <= 0 || rg <= 0 || ru <= 0 || rg > kRMaxFused || ru > kRMaxFused)
+  if (C <= 0 || rg <= 0 || ru <= 0 || rg > kRMax || ru > kRMax)
     return (int)cudaErrorInvalidValue;
   LargeArgs a{};
   a.x = (const bf16*)x;

@@ -8,9 +8,11 @@
 //
 // The decode design (M < LARGE_M: decode slots, speculative verify chunks,
 // short prefills), first half of common.cuh.  What bounds it on the H100:
-// at M = 8-40, C and S <= 8384 and r <= 2048 the work is far below the
+// at M = 8-40, C and S <= 28672 and r <= 4096 the work is far below the
 // card's ~295 FLOP/byte ridge, so the floor is the bytes of U and V read
-// from HBM (0.05-1.3 us); what a call costs is latency.  Two launches, each
+// from HBM (0.05-1.3 us up to the 2048-wide factors, about 80 us for the
+// VLM's 28672 x 3185 down projection); below a few MB what a call costs is
+// latency.  Two launches, each
 // one trip to memory over about a wave of CTAs: the rank kernel forms t = x
 // U once for all rows, clusters of CTAs splitting C and reducing through
 // distributed shared memory in rank order into an L2 scratch; the out
@@ -71,8 +73,9 @@ int repro_lowrank_matmul(const void* x, const void* u, const void* v, void* y, v
   const bf16* vs[1] = {(const bf16*)v};
   const int rs[1] = {r};
   cudaError_t e = launch_decode<1>(lowrank_matmul_rank_kernel, lowrank_matmul_out_kernel,
-                                   (const bf16*)x, us, vs, (bf16*)y, (bf16*)t, M, C, rs, S, cs,
-                                   kc, per, w1, w2, (cudaStream_t)stream);
+                                   lowrank_matmul_out_kernel, (const bf16*)x, us, vs, (bf16*)y,
+                                   (bf16*)t, M, C, rs, S, cs, kc, per, w1, w2,
+                                   (cudaStream_t)stream);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 

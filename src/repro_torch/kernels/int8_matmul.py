@@ -139,7 +139,9 @@ def _shapes_k7(op: str, x, u_q, u_scale, v_q, v_scale) -> tuple:
         raise ValueError(f"{op}: want u_scale (1, {r}) and v_scale (1, {s}); "
                          f"got {tuple(u_scale.shape)}, {tuple(v_scale.shape)}")
     if not 1 <= r <= FUSED_RANK_MAX:
-        raise ValueError(f"{op}: rank {r} outside [1, {FUSED_RANK_MAX}]")
+        raise ValueError(f"{op}: rank {r} outside [1, {FUSED_RANK_MAX}] (ROADMAP queue 1 "
+                         f"item 13, the kernels' rank ranges: K7 past 512 comes with the "
+                         f"int8 export of the families whose ranks pass it)")
     return m, c, r, s
 
 

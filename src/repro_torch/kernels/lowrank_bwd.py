@@ -33,8 +33,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.lowrank_matmul import (RANK_MAX, SMEM_MAX, check_cuda_operands,
-                                                raise_on_error, sm_count)
+from repro_torch.kernels.lowrank_matmul import (RANK_CEILING, RANK_MAX, SMEM_MAX,
+                                                check_cuda_operands, raise_on_error, sm_count)
 
 __all__ = ["lowrank_matmul_dx", "lowrank_matmul_du", "lowrank_matmul_dv", "dx_smem"]
 
@@ -96,7 +96,7 @@ def split_rows(m: int, splits: int) -> list:
 
 def _check(op: str, m: int, c: int, r: int, s: int, tensors) -> None:
     if not 1 <= r <= RANK_MAX:
-        raise ValueError(f"{op}: rank {r} outside [1, {RANK_MAX}]")
+        raise ValueError(f"{op}: rank {r} outside [1, {RANK_MAX}] ({RANK_CEILING})")
     check_cuda_operands(op, tensors)
     if max(m * c, m * s, m * (r + 8), c * r, r * s) > 2 ** 31 - 1:
         raise ValueError(f"{op}: shape (M {m}, C {c}, r {r}, S {s}) exceeds int32 indexing")

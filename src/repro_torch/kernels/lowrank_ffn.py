@@ -19,11 +19,16 @@ from collections import Counter
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.lowrank_matmul import (FUSED_RANK_MAX, check_cuda_operands, decode_plan,
-                                                decode_rt, large_scratch, raise_on_error,
-                                                sm_count)
+from repro_torch.kernels.lowrank_matmul import (RANK_CEILING, RANK_MAX, check_cuda_operands,
+                                                decode_plan, decode_rt, large_scratch,
+                                                raise_on_error, sm_count)
 
-__all__ = ["lowrank_gated_ffn", "LARGE_M"]
+__all__ = ["lowrank_gated_ffn", "LARGE_M", "FFN_RANK_MAX"]
+
+# The largest rank of either branch (kRMax in csrc/common.cuh, K1's): past
+# 512 both designs walk both branches' ranks in pieces and apply silu(g) * u
+# to the whole float32 sums.  K7 keeps its own ceiling (FUSED_RANK_MAX).
+FFN_RANK_MAX = RANK_MAX
 
 # M from which K5 takes the large-M design, from the H100's timings of both
 # designs (chip_smoke.py's designs phase, PERF.md section 6): at Eq.-5 and
@@ -47,8 +52,9 @@ def lowrank_gated_ffn(x: torch.Tensor, gu: torch.Tensor, gv: torch.Tensor,
             f"lowrank_gated_ffn: shapes x {tuple(x.shape)}, gu {tuple(gu.shape)}, "
             f"gv {tuple(gv.shape)}, uu {tuple(uu.shape)}, uv {tuple(uv.shape)} "
             f"do not chain")
-    if not (1 <= rg <= FUSED_RANK_MAX and 1 <= ru <= FUSED_RANK_MAX):
-        raise ValueError(f"lowrank_gated_ffn: ranks ({rg}, {ru}) outside [1, {FUSED_RANK_MAX}]")
+    if not (1 <= rg <= FFN_RANK_MAX and 1 <= ru <= FFN_RANK_MAX):
+        raise ValueError(f"lowrank_gated_ffn: ranks ({rg}, {ru}) outside [1, {FFN_RANK_MAX}] "
+                         f"({RANK_CEILING})")
     check_cuda_operands("lowrank_gated_ffn", (x, gu, gv, uu, uv))
     return _launch(x, gu, gv, uu, uv, large=m >= LARGE_M)
 

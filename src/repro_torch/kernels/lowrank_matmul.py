@@ -29,15 +29,18 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-__all__ = ["lowrank_matmul", "RANK_MAX", "FUSED_RANK_MAX", "LARGE_M", "large_m",
-           "check_cuda_operands", "decode_plan", "decode_rt", "decode_kp", "decode_out_smem",
-           "large_smem", "sm_count"]
+__all__ = ["lowrank_matmul", "RANK_MAX", "FUSED_RANK_MAX", "RANK_CEILING", "LARGE_M",
+           "large_m", "check_cuda_operands", "decode_plan", "decode_rt", "decode_kp",
+           "decode_out_smem", "large_smem", "sm_count"]
 
-# The largest rank K1 and K2-K4 take (kRMax in csrc/common.cuh), and K5 and
-# K7's (kRMaxFused): K1 walks a rank past 512 in pieces (decode design) or
-# passes with t streamed through its ring (large-M design), K2 streams dt.
-RANK_MAX = 2048
+# The largest rank K1, K2-K4 and K5 take (kRMax in csrc/common.cuh), and
+# K7's (kRMaxFused): K1 and K5 walk a rank past 512 in pieces (decode
+# design) or passes with t streamed through the ring (large-M design), K2
+# streams dt.  4096 covers every shipped config's Eq.-5 rank (qwen2-72b's
+# FFN, 3207, the largest).  RANK_CEILING is what a refusal names.
+RANK_MAX = 4096
 FUSED_RANK_MAX = 512
+RANK_CEILING = "ROADMAP queue 1 item 13, the kernels' rank ranges"
 # The M from which K1 takes the large-M design, from the H100's timings of
 # both designs (chip_smoke.py's designs phase, PERF.md section 6).  The
 # decode design's time grows with each 128-row block and the large-M
@@ -200,7 +203,7 @@ def lowrank_matmul(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.T
         raise ValueError(f"lowrank_matmul: u {tuple(u.shape)} does not match "
                          f"x {tuple(x.shape)} and v {tuple(v.shape)}")
     if not 1 <= r <= RANK_MAX:
-        raise ValueError(f"lowrank_matmul: rank {r} outside [1, {RANK_MAX}]")
+        raise ValueError(f"lowrank_matmul: rank {r} outside [1, {RANK_MAX}] ({RANK_CEILING})")
     check_cuda_operands("lowrank_matmul", (x, u, v))
     return _launch(x, u, v, large=m >= large_m(c, r))
 

@@ -11,10 +11,13 @@ factorised projection runs through the hand-written kernels (K1/K5, or K7
 and K6 for the int8 artifact).  ``--arch`` takes the dense and MoE
 families (``olmoe-1b-7b``, whose experts run ``torch.bmm`` as in the
 reference; an int8 export of its expert groups is refused), and the SSM
-(``xlstm-350m``) and hybrid (``zamba2-1.2b``) families, which serve on the
-fixed-batch path as the JAX CLI serves them: ``--slots`` rows of random
-``--prompt-len`` prompts from ``--seed``, ``--max-new`` tokens each.  Flags
-of features this port does not have yet are rejected, not ignored.
+(``xlstm-350m``), hybrid (``zamba2-1.2b``), enc-dec
+(``seamless-m4t-medium``) and VLM (``llama-3.2-vision-90b``) families,
+which serve on the fixed-batch path as the JAX CLI serves them: ``--slots``
+rows of random ``--prompt-len`` prompts from ``--seed``, ``--max-new``
+tokens each, a VLM's vision embeddings drawn after the prompts
+(:func:`vlm_extras`).  Flags of features this port does not have yet are
+rejected, not ignored.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m --lrd \\
       --slots 8 --requests 16 --rate 1000 --prompt-len 128 --max-new 32 \\
@@ -25,6 +28,8 @@ of features this port does not have yet are rejected, not ignored.
       --slots 8 --prompt-len 512 --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless-m4t-medium --lrd \\
       --slots 8 --prompt-len 256 --max-new 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-3.2-vision-90b --smoke \\
+      --device cpu --lrd --slots 2 --prompt-len 8 --max-new 4
 """
 
 from __future__ import annotations
@@ -41,7 +46,10 @@ from repro_torch.launch import steps as steps_mod
 from repro_torch.serving import ServeConfig, ServeEngine
 
 __all__ = ["poisson_trace", "shared_prefix_trace", "serve_run", "encdec_extras",
-           "fixed_batch_serve", "main"]
+           "vlm_extras", "fixed_batch_serve", "main"]
+
+# the families that serve on the fixed-batch path only, as in the reference
+FIXED_BATCH = ("ssm", "hybrid", "encdec", "vlm")
 
 
 def poisson_trace(n: int, rate: float, prompt_len: int, vocab: int, seed: int = 0):
@@ -143,19 +151,31 @@ def encdec_extras(run: RunConfig, rng: np.random.Generator, rows: int,
     return {"frames": frames.to(device=device, dtype=cfg.cdtype)}
 
 
+def vlm_extras(run: RunConfig, rng: np.random.Generator, rows: int, device: torch.device):
+    """A VLM's ``generate`` extras: stub vision embeddings
+    ``rng.normal(0, 0.1, (rows, num_image_tokens, d_model))`` in the compute
+    dtype, drawn as the JAX CLI draws them."""
+    cfg = run.model
+    emb = torch.from_numpy(rng.normal(0, 0.1, (rows, cfg.num_image_tokens, cfg.d_model)))
+    return {"vision_embeddings": emb.to(device=device, dtype=cfg.cdtype)}
+
+
+_EXTRAS = {"encdec": encdec_extras, "vlm": vlm_extras}
+
+
 def fixed_batch_serve(args, run: RunConfig, params, config: ServeConfig,
                       device: torch.device):
-    """The SSM, hybrid and enc-dec families' serve (the JAX CLI's
+    """The SSM, hybrid, enc-dec and VLM families' serve (the JAX CLI's
     fixed-batch fallback): ``--slots`` random prompts of ``--prompt-len``
-    tokens from ``--seed`` (an enc-dec model's frames drawn after them,
-    :func:`encdec_extras`) through ``ServeEngine.generate``
-    (``config.num_slots`` 0); returns ``(engine, tokens (slots,
-    max_new))``."""
+    tokens from ``--seed`` (an enc-dec model's frames or a VLM's vision
+    embeddings drawn after them, :func:`encdec_extras`, :func:`vlm_extras`)
+    through ``ServeEngine.generate`` (``config.num_slots`` 0); returns
+    ``(engine, tokens (slots, max_new))``."""
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, run.model.vocab_size, size=(args.slots, args.prompt_len),
                            dtype=np.int32)
-    extras = (encdec_extras(run, rng, args.slots, device)
-              if run.model.family == "encdec" else None)
+    draw = _EXTRAS.get(run.model.family)
+    extras = draw(run, rng, args.slots, device) if draw else None
     engine = ServeEngine(run, params, config=config, device=device)
     t0 = time.perf_counter()
     out = engine.generate(prompts, max_new=args.max_new, extras=extras,
@@ -172,8 +192,8 @@ def fixed_batch_serve(args, run: RunConfig, params, config: ServeConfig,
 
 def main(argv=None):
     """Run the CLI; returns ``(engine, results)``: request results from the
-    scheduler, or the token matrix of the fixed-batch path (SSM, hybrid and
-    enc-dec families)."""
+    scheduler, or the token matrix of the fixed-batch path (SSM, hybrid,
+    enc-dec and VLM families)."""
     ap = _parser()
     args = ap.parse_args(argv)
     for flag, (off, item) in _UNPORTED_FLAGS.items():
@@ -181,21 +201,20 @@ def main(argv=None):
             ap.error(f"--{flag.replace('_', '-')} is not ported to the PyTorch "
                      f"package yet ({item})")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    if (cfg.family not in ("dense", "moe", "ssm", "hybrid", "encdec") or cfg.use_mla
-            or cfg.use_mtp):
+    if (cfg.family not in ("dense", "moe") + FIXED_BATCH or cfg.use_mla or cfg.use_mtp):
         ap.error(f"--arch {args.arch} ({cfg.family}"
                  f"{', MLA/MTP' if cfg.use_mla or cfg.use_mtp else ''}) is not ported yet: "
-                 f"the port serves the dense, MoE, SSM, hybrid and enc-dec families (ROADMAP "
-                 f"queue 1 item 7, other model families)")
-    stateful = cfg.family in ("ssm", "hybrid", "encdec")  # the fixed-batch families
+                 f"the port serves the dense, MoE, SSM, hybrid, enc-dec and VLM families "
+                 f"(ROADMAP queue 1 item 7, other model families)")
+    stateful = cfg.family in FIXED_BATCH
     if stateful and (args.spec_k or args.prefix_cache):
         ap.error(f"--arch {args.arch} ({cfg.family}) serves on the fixed-batch path, which "
                  f"has no speculative decoding or prefix cache (as in the reference; ROADMAP "
                  f"queue 1 item 7, other model families)")
-    if cfg.family == "encdec" and args.export_int8:
-        ap.error(f"--arch {args.arch} (encdec): the int8 export of the enc-dec family is not "
-                 f"ported (ROADMAP queue 1 item 7, int8 export of the SSM, hybrid and enc-dec "
-                 f"families)")
+    if cfg.family in ("encdec", "vlm") and args.export_int8:
+        ap.error(f"--arch {args.arch} ({cfg.family}): the int8 export of the {cfg.family} "
+                 f"family is not ported (ROADMAP queue 1 item 7, int8 export of the SSM, "
+                 f"hybrid, enc-dec and VLM families)")
     device = steps_mod.resolve_device(args.device)
     max_len = args.max_len or (args.prompt_len + args.max_new)
     try:

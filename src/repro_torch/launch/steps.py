@@ -171,11 +171,13 @@ def _forward(params, batch, run: RunConfig, *, mode: str, policy, remat: str = "
     ``_forward_full``).  An encoder-decoder model first encodes
     ``batch["frames"]`` with the kernels off, as the reference's
     ``encode`` runs (it is given no kernel policy), then decodes
-    ``batch["tokens"]`` against that memory; its aux is zero."""
+    ``batch["tokens"]`` against that memory; its aux is zero.  A VLM reads
+    ``batch["vision_embeddings"]``, as the reference's does."""
     cfg = run.model
     if cfg.family != "encdec":
+        vision = batch["vision_embeddings"] if cfg.family == "vlm" else None
         return lm.lm_apply(params, batch["tokens"], cfg, mode=mode, policy=policy,
-                           remat=remat)
+                           remat=remat, vision_embeddings=vision)
     # remat keeps activations for a backward: train mode only, as lm_apply
     remat = remat if mode == "train" else "none"
     memory = encdec.encode(params, batch["frames"], cfg, remat=remat)
@@ -215,8 +217,9 @@ def build_train_step(run: RunConfig, device="cuda"):
     """Returns ``train_step(state, batch, *, phase) -> (state, metrics)``.
 
     ``batch`` holds ``tokens`` and ``labels`` (B, S) as numpy arrays or
-    tensors (and ``frames`` (B, T, d) for an encoder-decoder model); they
-    are moved to ``device``.  ``run.dist.microbatches`` > 1
+    tensors (and ``frames`` (B, T, d) for an encoder-decoder model,
+    ``vision_embeddings`` (B, image tokens, d) for a VLM); they are moved
+    to ``device``.  ``run.dist.microbatches`` > 1
     splits the batch and accumulates the grads in ``run.dist.accum_dtype``.
     ``metrics`` holds the float32 ``loss`` and ``grad_norm`` tensors."""
     dev = resolve_device(device)
@@ -259,7 +262,9 @@ def build_prefill_step(run: RunConfig):
     hd) k/v of each stack; for the SSM and hybrid families their recurrent
     states, with the hybrid's shared-block k/v a group; for an
     encoder-decoder model, whose batch also holds ``frames``, the
-    decoder's self k/v and the cross k/v of the memory)."""
+    decoder's self k/v and the cross k/v of the memory; for a VLM, whose
+    batch also holds ``vision_embeddings``, the self k/v and the cross k/v
+    of the image tokens)."""
     policy = kernel_policy(run)
 
     @torch.inference_mode()
@@ -294,9 +299,10 @@ def build_serve_step(run: RunConfig):
     """One decode step at per-slot positions ``pos`` (B,) against a paged
     cache, or at one position for every row against a contiguous cache
     (the fixed-batch path); the cache is updated in place and returned.
-    An encoder-decoder model's step reads its cross k/v from the cache, so
-    it takes no memory (the reference's step is handed ``extras`` whose
-    memory only marks its cross blocks)."""
+    An encoder-decoder model's or a VLM's step reads its cross k/v from the
+    cache, telling a cross block by its ``gate``, so it takes no memory or
+    vision embeddings (the reference's step is handed ``extras`` that only
+    mark its cross blocks)."""
     cfg, policy = run.model, kernel_policy(run)
 
     @torch.inference_mode()

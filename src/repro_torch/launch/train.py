@@ -22,11 +22,13 @@ groups, ``old->new``); the checkpoint keeps the rank map, and a resume
 continues at the saved ranks.  ``--remat full|dots|sqrt`` checkpoints the
 layer stacks' activations (``models.lm``, ``models.encdec``).  ``--arch``
 takes the dense and MoE families (``olmoe-1b-7b``), the SSM family
-(``xlstm-350m``), the hybrid family (``zamba2-1.2b``) and the enc-dec
-family (``seamless-m4t-medium``), whose batches also carry stub frontend
-frames (:func:`stub_frames`; the JAX CLI's carry none, so its enc-dec step
-fails); flags of features this port does not have yet are rejected, not
-ignored.
+(``xlstm-350m``), the hybrid family (``zamba2-1.2b``), the enc-dec family
+(``seamless-m4t-medium``), whose batches also carry stub frontend frames
+(:func:`stub_frames`; the JAX CLI's carry none, so its enc-dec step
+fails), and the VLM family (``llama-3.2-vision-90b``), whose batches carry
+stub vision embeddings (:func:`stub_vision_embeddings`; the JAX CLI's carry
+none, so its cross layers train as causal self-attention over the text);
+flags of features this port does not have yet are rejected, not ignored.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       --lrd --no-rank-opt --use-pallas --freeze sequential --steps 6 \\
@@ -38,6 +40,9 @@ ignored.
   PYTHONPATH=src python -m repro_torch.launch.train --arch seamless-m4t-medium --lrd \\
       --use-pallas --freeze sequential --steps 6 --steps-per-epoch 2 \\
       --global-batch 8 --seq-len 256
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama-3.2-vision-90b --smoke \\
+      --device cpu --lrd --lrd-min-dim 16 --no-rank-opt --use-pallas --freeze sequential \\
+      --steps 3 --steps-per-epoch 1 --global-batch 2 --seq-len 16
 """
 
 from __future__ import annotations
@@ -58,7 +63,7 @@ from repro_torch.data import LMBatchIterator
 from repro_torch.launch import steps as steps_mod
 from repro_torch.optim.optimizers import OptState
 
-__all__ = ["StragglerMonitor", "stub_frames", "build_run", "main"]
+__all__ = ["StragglerMonitor", "stub_frames", "stub_vision_embeddings", "build_run", "main"]
 
 # flag -> (its value when off, the ROADMAP item that brings it)
 _UNPORTED_FLAGS = {
@@ -161,6 +166,22 @@ def stub_frames(run: RunConfig, seed: int, step: int) -> np.ndarray:
                                cfg.d_model)).astype(np.float32)
 
 
+def stub_vision_embeddings(run: RunConfig, seed: int, step: int) -> np.ndarray:
+    """The stub vision encoder's output for one step of a VLM run:
+    (global_batch, num_image_tokens, d_model) float32 draws of ``0.1 *
+    standard_normal`` from a generator seeded with ``(seed, step)``, so a
+    resumed run sees the same embeddings.  A departure by design: the JAX
+    CLI's batches carry no vision embeddings, so its ``lm_apply`` gets None
+    and every cross layer trains as causal self-attention over the text
+    with its gate unused; the port's cross blocks attend to these, as the
+    reference's serve path and its ``build_train_step`` do when a batch
+    carries them."""
+    cfg = run.model
+    rng = np.random.default_rng((seed, step))
+    shape = (run.shape.global_batch, cfg.num_image_tokens, cfg.d_model)
+    return rng.standard_normal(shape, dtype=np.float32) * np.float32(0.1)
+
+
 def build_run(args) -> RunConfig:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     return RunConfig(
@@ -196,11 +217,11 @@ def main(argv=None, *, on_step=None):
         ap.error("--mesh-data/--mesh-model > 1: the PyTorch package trains on one "
                  "device (ROADMAP queue 1 item 8, distributed)")
     run = build_run(args)
-    if (run.model.family not in ("dense", "moe", "ssm", "hybrid", "encdec")
+    if (run.model.family not in ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
             or run.model.use_mla or run.model.use_mtp):
         ap.error(f"--arch {args.arch} ({run.model.family}"
                  f"{', MLA/MTP' if run.model.use_mla or run.model.use_mtp else ''}) is not "
-                 f"ported yet: the port trains the dense, MoE, SSM, hybrid and enc-dec "
+                 f"ported yet: the port trains the dense, MoE, SSM, hybrid, enc-dec and VLM "
                  f"families (ROADMAP queue 1 item 7, other model families)")
     device = steps_mod.resolve_device(args.device)
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
@@ -273,6 +294,8 @@ def main(argv=None, *, on_step=None):
         batch = next(it)
         if run.model.family == "encdec":
             batch["frames"] = stub_frames(run, args.seed, step)
+        elif run.model.family == "vlm":
+            batch["vision_embeddings"] = stub_vision_embeddings(run, args.seed, step)
         t0 = time.perf_counter()
         state, metrics = train_step(state, batch, phase=phase)
         loss = float(metrics["loss"])  # synchronises with the device

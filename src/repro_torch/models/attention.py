@@ -12,10 +12,11 @@ path's), either bf16 or int8 with per-position scales
 (``models/kvcache.py``): int8 is consumed by :func:`int8_dense_attention`
 under ``int8_decode="native"`` and dequantized first under ``"bf16"``.
 Decode caches are updated in place, where the JAX steps donate them.
-Cross-attention (``gqa_apply(..., kv_src=memory)``, the enc-dec decoder's)
-takes k/v from the memory, is never causal and scales its output by
-``tanh(gate)``; in decode it projects q alone against the cross cache, so
-a decode step needs no memory.
+Cross-attention (``gqa_apply(..., kv_src=memory)``: the enc-dec decoder's
+over the encoder memory, the VLM's over the vision embeddings) takes k/v
+from ``kv_src``, is never causal and scales its output by ``tanh(gate)``;
+in decode it projects q alone against the cross cache, so a decode step
+needs no ``kv_src``.
 """
 
 from __future__ import annotations
@@ -305,7 +306,8 @@ def gqa_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, rope=None,
     cross = kv_src is not None or "gate" in p
     if mode == "full":
         if cross and kv_src is None:
-            raise ValueError("cross-attention needs kv_src (the encoder memory)")
+            raise ValueError("cross-attention needs kv_src (the encoder memory or the "
+                             "vision embeddings)")
         q, k, v = _project_qkv(p, x, kv_src, cfg, rope, policy=policy)
         out = attention_core(q, k, v, cfg, causal=causal and not cross)
         new_cache = {"k": k, "v": v}

@@ -1,5 +1,5 @@
-"""Decoder-LM assembly for the dense, MoE, SSM (xLSTM) and hybrid (Zamba2)
-families — the counterpart of ``repro/models/lm.py``.
+"""Decoder-LM assembly for the dense, MoE, SSM (xLSTM), hybrid (Zamba2) and
+VLM (llama-3.2-vision) families — the counterpart of ``repro/models/lm.py``.
 
 Layers are stacked (every leaf carries a leading ``L`` dim, built directly
 by ``Decomposer(..., stack=(L,))``) and applied by a Python loop over that
@@ -14,7 +14,12 @@ stacked on ``(groups, per group)``, each group followed by the one shared
 attention + GELU-FFN block (``shared_attn``, run at width 2d on ``concat(h,
 x0)``, x0 the embedding), then a ``mamba_tail``.  Their caches hold state
 leaves with no sequence axis (``ssm``, ``conv``; ``c``, ``n``, ``m``) beside
-the shared block's k/v of each group.
+the shared block's k/v of each group.  A VLM is ``self_stack``, decoder
+layers stacked on ``(groups, cross_attn_every)``, and ``cross_stack``, one
+block a group (tanh-gated cross-attention over the vision embeddings, then
+a SwiGLU FFN) after the group's self layers; its cache is ``self`` k/v at
+the window and ``cross`` k/v at the image tokens, which a decode step reads
+(it takes no vision embeddings).
 
 ``mode``: ``"full"`` (prefill: returns the per-layer k/v stacked on ``L``),
 ``"train"`` (``"full"`` with no cache kept, run with grad enabled) or
@@ -26,9 +31,11 @@ each layer, ``"sqrt"`` groups of layers with each layer checkpointed
 again inside its group, ``"dots"`` saves only the outputs of matmuls
 without batch dims (:func:`_run_stack`); a hybrid model checkpoints each
 group whole under ``"full"`` and ``"sqrt"`` and its tail as asked
-(:func:`_hybrid_forward`).  MLA, MTP and the VLM family raise; the
-enc-dec family has its own assembly (``models/encdec.py``), which reuses
-:func:`_run_stack`.
+(:func:`_hybrid_forward`), and a VLM each group whole with each self
+layer checkpointed again inside it, as the reference's ``_vlm_forward``
+(:func:`_vlm_forward`; ``"dots"`` checkpoints nothing there, as in the
+reference).  MLA and MTP raise; the enc-dec family has its own assembly
+(``models/encdec.py``), which reuses :func:`_run_stack`.
 """
 
 from __future__ import annotations
@@ -51,10 +58,10 @@ from repro_torch.models.common import (Params, dot32, embed, embedding_init,
                                        ffn, ffn_init, linear, mask_vocab, rmsnorm,
                                        rmsnorm_init, rope_table)
 
-_FAMILIES_TODO = ("other model families (MLA, MTP, VLM) are not ported yet "
+_FAMILIES_TODO = ("other model families (MLA, MTP) are not ported yet "
                   "(ROADMAP queue 1 item 7, other model families)")
 REMAT_POLICIES = ("none", "full", "dots", "sqrt")
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -195,6 +202,11 @@ def lm_init(cfg: ModelConfig, dec: Decomposer) -> Params:
         p["shared_attn"] = _zamba_shared_init(dec, cfg)
     elif cfg.family == "ssm":
         p["stack"] = ssm.mlstm_init(dec, "layers/mlstm", cfg, stack=(cfg.num_layers,))
+    elif cfg.family == "vlm":
+        n_groups, every = _vlm_split(cfg)
+        p["self_stack"] = decoder_layer_init(dec, "layers/self", cfg, moe_layer=False,
+                                             stack=(n_groups, every))
+        p["cross_stack"] = _vlm_cross_init(dec, cfg, stack=(n_groups,))
     else:
         for name, n in stack_layers(cfg).items():
             path, moe_layer = _STACKS[name]
@@ -203,6 +215,92 @@ def lm_init(cfg: ModelConfig, dec: Decomposer) -> Params:
     if not cfg.tie_embeddings:
         p["unembed"] = dec.linear("unembed", cfg.d_model, cfg.vocab_padded)
     return p
+
+
+def _vlm_split(cfg: ModelConfig):
+    """(groups, self layers a group) of a VLM: each group is
+    ``cross_attn_every`` self layers and one cross block."""
+    every = cfg.cross_attn_every
+    return cfg.num_layers // (every + 1), every
+
+
+def _vlm_cross_init(dec: Decomposer, cfg: ModelConfig, stack) -> Params:
+    """A VLM's cross block: norm, tanh-gated cross-attention (gate zeros at
+    the init), norm, SwiGLU FFN."""
+    return {
+        "norm1": rmsnorm_init(cfg.d_model, cfg.pdtype, dec.device, stack),
+        "attn": gqa_init(dec, "layers/cross/attn", cfg, cross=True, stack=stack),
+        "norm2": rmsnorm_init(cfg.d_model, cfg.pdtype, dec.device, stack),
+        "ffn": ffn_init(dec, "layers/cross/ffn", cfg.d_model, cfg.d_ff, cfg.ffn_activation,
+                        cfg.pdtype, stack=stack),
+    }
+
+
+def _vlm_cross_apply(lp: Params, h, cfg: ModelConfig, *, mode: str, cache, vision, policy):
+    """One cross block: in full mode k/v from ``vision`` (never causal),
+    returned as the cross cache; in decode mode q alone against ``cache``,
+    returned unchanged."""
+    a_in = rmsnorm(lp["norm1"], h, cfg.norm_eps)
+    if mode == "full":
+        a_out, nc = gqa_apply(lp["attn"], a_in, cfg, mode="full", kv_src=vision,
+                              policy=policy)
+    else:
+        a_out, nc = gqa_apply(lp["attn"], a_in, cfg, mode="decode", cache=cache, policy=policy)
+    h = h + a_out
+    return h + ffn(lp["ffn"], rmsnorm(lp["norm2"], h, cfg.norm_eps), policy=policy), nc
+
+
+def _vlm_forward(p: Params, h, cfg: ModelConfig, rope, *, mode: str, train: bool, cache, pos,
+                 vision, policy, remat: str):
+    """Groups of ``cross_attn_every`` self layers, each followed by its
+    cross block over ``vision`` (in the compute dtype; unread in decode
+    mode).  Returns (h, new cache or None).  In train mode ``"full"`` and
+    ``"sqrt"`` checkpoint each group whole and each self layer again inside
+    it, ``"dots"`` and ``"none"`` nothing (the reference's
+    ``_vlm_forward``)."""
+    n_groups, every = _vlm_split(cfg)
+    self_stack, cross_stack = p["self_stack"], p["cross_stack"]
+    if vision is not None:
+        vision = vision.to(cfg.cdtype)
+    if train:
+        inner = "full" if remat in ("full", "sqrt") else "none"
+
+        def self_body(lp, hh):
+            hh, _, a = decoder_layer_apply(lp, hh, cfg, rope=rope, mode="full", cache=None,
+                                           pos=None, moe_layer=False, policy=policy)
+            return hh, a
+
+        def group(g, hh):
+            hh, _ = _run_stack(_layer(self_stack, g), hh, self_body, every, inner)
+            hh, _ = _vlm_cross_apply(_layer(cross_stack, g), hh, cfg, mode="full", cache=None,
+                                     vision=vision, policy=policy)
+            return hh
+
+        for g in range(n_groups):
+            if remat in ("full", "sqrt"):
+                h = ckpt.checkpoint(functools.partial(group, g), h, use_reentrant=False)
+            else:
+                h = group(g, h)
+        return h, None
+    self_kv, cross_kv = [], []
+    for g in range(n_groups):
+        sc = _layer(cache["self"], g) if cache is not None else None
+        for l in range(every):
+            lc = _layer(sc, l) if sc is not None else None
+            h, nc, _ = decoder_layer_apply(_layer(_layer(self_stack, g), l), h, cfg, rope=rope,
+                                           mode=mode, cache=lc, pos=pos, moe_layer=False,
+                                           policy=policy)
+            self_kv.append(nc)
+        h, nc = _vlm_cross_apply(_layer(cross_stack, g), h, cfg, mode=mode,
+                                 cache=_layer(cache["cross"], g) if cache is not None else None,
+                                 vision=vision, policy=policy)
+        cross_kv.append(nc)
+    if mode == "decode":
+        return h, cache  # the self k/v written in place, the cross k/v only read
+    kv = ("k", "v")
+    return h, {"self": {k: torch.stack([c[k] for c in self_kv]).unflatten(0, (n_groups, every))
+                        for k in kv},
+               "cross": {k: torch.stack([c[k] for c in cross_kv]) for k in kv}}
 
 
 def _hybrid_split(cfg: ModelConfig):
@@ -359,12 +457,15 @@ def _ssm_forward(p: Params, h, cfg: ModelConfig, *, mode: str, train: bool, cach
 
 def lm_apply(p: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
              mode: str = "full", cache: Optional[Params] = None, pos=None,
+             vision_embeddings: Optional[torch.Tensor] = None,
              policy: "bool | KernelPolicy" = False, remat: str = "none"):
     """Returns (logits float32 (B, S, V), new_cache, aux); ``new_cache`` is
     None in ``mode="train"``, and ``aux`` sums the MoE layers' load-balance
     terms (float32; zero for every other model).  ``remat`` applies in
     ``mode="train"`` only, the one mode that keeps activations for a
-    backward."""
+    backward.  A VLM takes ``vision_embeddings`` (B, image tokens, d) in
+    full and train mode (its cross blocks raise without them); a decode
+    step reads the cross k/v from the cache and needs none."""
     _check_family(cfg)
     if mode not in ("full", "train", "decode"):
         raise ValueError(f"mode must be 'full', 'train' or 'decode', got {mode!r}")
@@ -375,9 +476,10 @@ def lm_apply(p: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     h = embed(p["embed"], tokens).to(cfg.cdtype)
     rope = _make_rope(cfg, s, mode, pos, h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    if cfg.family in ("hybrid", "ssm"):
-        fwd = _hybrid_forward if cfg.family == "hybrid" else _ssm_forward
-        kw = dict(rope=rope) if cfg.family == "hybrid" else {}
+    if cfg.family in ("hybrid", "ssm", "vlm"):
+        fwd = {"hybrid": _hybrid_forward, "ssm": _ssm_forward, "vlm": _vlm_forward}[cfg.family]
+        kw = {"hybrid": dict(rope=rope), "ssm": {},
+              "vlm": dict(rope=rope, vision=vision_embeddings)}[cfg.family]
         h, new_cache = fwd(p, h, cfg, mode=mode, train=train, cache=cache, pos=pos,
                            policy=policy, remat=remat, **kw)
         return _head(p, h, cfg, policy), new_cache, aux
@@ -449,12 +551,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device, dtype=None) -
     per-position scales when ``cfg.kv_cache_dtype == "int8"``; for a hybrid
     model the Mamba2 states of each group and of the tail and the shared
     block's k/v a group (head dim 2d / heads); for an SSM model the mLSTM
-    states (``m`` in float32)."""
+    states (``m`` in float32); for a VLM the self layers' k/v stacked on
+    (groups, layers a group) and the cross blocks' on (groups,) over
+    ``num_image_tokens`` positions."""
     _check_family(cfg)
     dtype = dtype or cfg.cdtype
 
-    def kv_cache(stack, heads, hd):
-        shape = stack + (batch, max_len, heads, hd)
+    def kv_cache(stack, heads, hd, length=max_len):
+        shape = stack + (batch, length, heads, hd)
         if cfg.kv_cache_dtype == "int8":
             return init_quantized_kv(stack, *shape[len(stack):], device=device)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -475,5 +579,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device, dtype=None) -
     if cfg.family == "ssm":
         return {"stack": stacked(ssm.mlstm_init_state(cfg, batch, dtype, device),
                                  (cfg.num_layers,))}
+    if cfg.family == "vlm":
+        n_groups, every = _vlm_split(cfg)
+        kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+        return {"self": kv_cache((n_groups, every), kv, hd),
+                "cross": kv_cache((n_groups,), kv, hd, cfg.num_image_tokens)}
     return {name: kv_cache((n,), cfg.num_kv_heads, cfg.resolved_head_dim)
             for name, n in stack_layers(cfg).items()}

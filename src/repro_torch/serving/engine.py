@@ -32,11 +32,13 @@ reference cannot serve int8 expert groups.  The SSM (xLSTM) and hybrid
 as in the reference (its scheduler serves dense and MoE only): their
 prefill cache carries recurrent state leaves, which :func:`pad_cache`
 leaves as they are, beside the hybrid's shared-block k/v; their int8
-export raises (ROADMAP queue 1 item 7).  So does the encoder-decoder
-family's, which also takes the fixed-batch path: ``generate(...,
-extras={"frames": f})`` puts the frames in the prefill batch (the prefill
-encodes them); the decode steps read the cross k/v from the cache, which
-:func:`pad_cache_preserving_cross` keeps at the memory's length.  The mesh
+export raises (ROADMAP queue 1 item 7).  So do the encoder-decoder
+family's and the VLM family's, which also take the fixed-batch path:
+``generate(..., extras={"frames": f})`` or ``extras={"vision_embeddings":
+e}`` puts the frames (which the prefill encodes) or the image tokens'
+embeddings in the prefill batch; the decode steps read the cross k/v from
+the cache, which :func:`pad_cache_preserving_cross` keeps at the memory's
+or the image tokens' length.  The mesh
 and telemetry raise a ``ValueError`` naming the ROADMAP item that brings
 them.
 """
@@ -123,12 +125,13 @@ class ServeEngine:
                 "served: the reference's _expert_ffn reads only 'kernel' or 'u'/'v' "
                 "(ROADMAP queue 3, departures by design)")
         if self.config.export_int8 and run.model.family not in _SCHEDULED:
-            why = ("Zamba2's ranks pass K7's ceiling of 512; " if run.model.family == "hybrid"
-                   else "")
+            why = {"hybrid": "Zamba2's ranks pass K7's ceiling of 512; ",
+                   "vlm": "llama-3.2-vision's ranks pass K7's ceiling of 512; "}.get(
+                       run.model.family, "")
             raise ValueError(
                 f"ServeEngine: the int8 export of the {run.model.family} family is not "
-                f"ported ({why}ROADMAP queue 1 item 7, int8 export of the SSM, hybrid and "
-                f"enc-dec families)")
+                f"ported ({why}ROADMAP queue 1 item 7, int8 export of the SSM, hybrid, "
+                f"enc-dec and VLM families)")
         self.device = steps_mod.resolve_device(device)
         self.run = run
         self.params = params
@@ -178,8 +181,8 @@ class ServeEngine:
     def _scheduler_usable(self, extras, prompt_len: int, max_new: int) -> bool:
         """Prompts must fit the scheduler's fixed prefill and window shapes;
         other batches, batches with extras (an encoder-decoder model's
-        frames and memory) and the families it does not serve take the
-        fixed-batch path."""
+        frames, a VLM's vision embeddings) and the families it does not
+        serve take the fixed-batch path."""
         c = self.config
         eff_prefill = min(c.prefill_len or c.max_len, c.max_len)
         return (c.num_slots > 0 and extras is None
@@ -210,8 +213,9 @@ class ServeEngine:
                  extras: Optional[Dict[str, Any]] = None,
                  eos_id: Optional[int] = None) -> np.ndarray:
         """Greedy batched generation. tokens: (B, prompt_len) int32;
-        ``extras`` (an encoder-decoder model's ``frames`` (B, T, d)) join
-        the prefill batch.
+        ``extras`` (an encoder-decoder model's ``frames`` (B, T, d), a
+        VLM's ``vision_embeddings`` (B, image tokens, d)) join the prefill
+        batch.
 
         Returns (B, n) generated tokens, n <= max_new; rows that finished
         early are padded with ``eos_id`` (or 0).

@@ -125,9 +125,10 @@ class Scheduler:
         if not pc.supports_paged(cfg):
             raise ValueError(
                 f"the port's scheduler serves the dense and MoE GQA decoder families, "
-                f"not {cfg.family!r}{' with MLA' if cfg.use_mla else ''}; the ssm and "
-                f"hybrid families serve through ServeEngine.generate's fixed-batch path, "
-                f"as in the reference (ROADMAP queue 1 item 7, other model families)")
+                f"not {cfg.family!r}{' with MLA' if cfg.use_mla else ''}; the ssm, "
+                f"hybrid, encdec and vlm families serve through ServeEngine.generate's "
+                f"fixed-batch path, as in the reference (ROADMAP queue 1 item 7, other "
+                f"model families)")
         self.run_config = run
         self.params = params
         self.device = torch.device(device)

@@ -125,7 +125,8 @@ def test_dx_plan_at_the_train_shapes():
     assert sorted({len(t) for t in dx_tiles(M_TRAIN, 2560, 8, 16)}) == [2, 3]
 
 
-@pytest.mark.parametrize("r", [1, 120, 349, 512, 513, 640, 682, 822, 1024, 1365, 2048])
+@pytest.mark.parametrize("r", [1, 120, 349, 512, 513, 640, 682, 822, 1024, 1365, 2048, 2049,
+                               2133, 2580, 2609, 3185, 3207, 4095, 4096])
 def test_dx_phase_two_fits_past_rank_512(r):
     """K2's phase 2 keeps a 128-row block of dt in shared memory up to r =
     512 (as before the ceiling rose), and streams it through the ring with
@@ -152,3 +153,28 @@ def test_zamba_outputs_fill_a_wave_without_splits(rows, cols):
     so the sum over M is not split and nothing is reduced."""
     assert _tiles(rows, cols) > H100_SMS
     assert split_plan(M_TRAIN, rows, cols, H100_SMS) == 1
+
+
+# (rows, cols) of dU and dV at rank 2048 and past it: the VLM's
+# (llama-3.2-vision-90b, d 8192, SwiGLU 28672) FFN at its Eq.-5 rank 3185
+# and its attention's wq/wo (2048), and the large dense configs' FFNs
+# (qwen3-32b 5120 x 25600 r 2133, deepseek-coder-33b 7168 x 19200 r 2609,
+# qwen2-72b 8192 x 29568 r 3207, DeepSeek-V3's dense 7168 x 18432 r 2580)
+WIDE_OUT = sorted({out for c, r, s in [(8192, 3185, 28672), (28672, 3185, 8192),
+                                       (8192, 2048, 8192),
+                                       (5120, 2133, 25600), (25600, 2133, 5120),
+                                       (7168, 2609, 19200), (19200, 2609, 7168),
+                                       (8192, 3207, 29568), (29568, 3207, 8192),
+                                       (7168, 2580, 18432), (18432, 2580, 7168)]
+                   for out in ((c, r), (r, s))})
+
+
+@pytest.mark.parametrize("rows,cols", WIDE_OUT)
+def test_wide_rank_outputs_fill_a_wave_without_splits(rows, cols):
+    """Every dU and dV of those geometries has more 64 x 128 tiles than an
+    H100 has SMs, so at the train M the sum over M is not split; K2's
+    plan keeps one wave over the dx of the same geometry."""
+    assert _tiles(rows, cols) > H100_SMS
+    assert split_plan(M_TRAIN, rows, cols, H100_SMS) == 1
+    g, groups = dx_plan(M_TRAIN, rows, H100_SMS)
+    assert 1 <= g * groups <= H100_SMS

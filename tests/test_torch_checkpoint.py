@@ -106,7 +106,7 @@ def test_port_run_resumes_across_a_phase_swap(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--mesh", "production"], ["--mesh-data", "2"], ["--mesh-model", "2"], ["--fsdp"],
-    ["--grad-compression", "int8"], ["--arch", "llama-3.2-vision-90b"], ["--obs"],
+    ["--grad-compression", "int8"], ["--obs-dir", "runs/obs"], ["--obs"],
     ["--profile-steps", "1:2"], ["--log-format", "jsonl"], ["--pallas-interpret"],
     ["--arch", "deepseek-v3-671b"]])
 def test_train_cli_rejects_unported_flags(flags, capsys):

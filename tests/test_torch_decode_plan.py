@@ -46,6 +46,18 @@ DECODE_MS = [8, 16, 24, 40]
 WIDE_K1 = [(2048, 822, 8384), (4096, 682, 2048), (4096, 1024, 4096), (4096, 1365, 8192),
            (8192, 1365, 4096), (2048, 640, 8384), (4096, 640, 2048), (4096, 896, 4096),
            (4096, 1280, 8192), (8192, 1280, 4096), (960, 513, 960), (4096, 2048, 4096)]
+# past rank 2048 (K1) and 512 (K5): the VLM's (llama-3.2-vision-90b, d 8192,
+# SwiGLU 28672, Eq.-5 ranks 2048 / 455 / 3185) and the large dense configs'
+# FFNs at their Eq.-5 ranks (qwen3-32b 2133, deepseek-coder-33b 2609,
+# qwen2-72b 3207, DeepSeek-V3's dense layers 2580): K1 on the gate/up branch
+# (the backward's recompute) and down, K5 on both branches; the first rank
+# past each old ceiling, the new ceiling, and K5 with unequal branch ranks
+FFN_WIDE = [(8192, 3185, 28672), (5120, 2133, 25600), (7168, 2609, 19200), (8192, 3207, 29568),
+            (7168, 2580, 18432)]
+HUGE_K1 = ([(8192, 2048, 8192), (8192, 455, 1024)] + FFN_WIDE + [(f, r, c) for c, r, f in FFN_WIDE]
+           + [(960, 2049, 960), (4096, 4096, 4096)])
+HUGE_K5 = ([(c, (r, r), f) for c, r, f in FFN_WIDE]
+           + [(960, (513, 513), 960), (960, (513, 700), 2560), (4096, (4096, 4096), 4096)])
 
 
 def _cdiv(a, b):
@@ -69,6 +81,7 @@ def _random_shapes(n, seed):
 RANDOM = _random_shapes(24, 0)
 ALL = [(c, (r,), s) for c, r, s in K1_SHAPES] + K5_SHAPES + RANDOM
 WIDE = [(c, (r,), s) for c, r, s in WIDE_K1]
+HUGE = [(c, (r,), s) for c, r, s in HUGE_K1] + HUGE_K5
 
 
 def _large_m(c, ranks):
@@ -138,7 +151,8 @@ def _check_plan_limits(p, c):
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("m", [1, 8, 40, 127, 300])
-@pytest.mark.parametrize("c,ranks,s", ALL + [(64, (600,), 64), (100, (2048,), 90)])
+@pytest.mark.parametrize("c,ranks,s", ALL + [(64, (600,), 64), (100, (2048,), 90),
+                                             (100, (4096,), 90), (96, (1500, 3000), 70)])
 def test_decode_plan_covers_u_and_v_once_per_row_block(m, c, ranks, s):
     """Mirror of the CTA -> work maps (decode_rank_body: CTA (q, tile,
     block) sums rows [(q per + pc) kc, +kc) of C for pc < per, columns
@@ -177,7 +191,7 @@ def test_decode_plan_takes_no_m():
     assert list(inspect.signature(k1.decode_plan).parameters) == ["c", "r", "s", "sms", "nb"]
 
 
-@pytest.mark.parametrize("c,ranks,s", ALL + WIDE)
+@pytest.mark.parametrize("c,ranks,s", ALL + WIDE + HUGE)
 def test_decode_sum_order_is_the_same_at_every_m(c, ranks, s):
     """The split of C (cs, kc, per), the padded rank of phase 2 (kext) and
     its pieces (kp) fix the order of a row's sums; widths and row blocks
@@ -188,14 +202,15 @@ def test_decode_sum_order_is_the_same_at_every_m(c, ranks, s):
     assert len(orders) == 1
 
 
-@pytest.mark.parametrize("c,ranks,s", ALL + WIDE)
+@pytest.mark.parametrize("c,ranks,s", ALL + WIDE + HUGE)
 def test_decode_fits_shared_memory_below_large_m(c, ranks, s):
     for m in sorted({1, 8, 16, 40, 64, 127, 128, 129, _large_m(c, ranks) - 1}):
         p = launch(m, c, ranks, s)
         assert p["smem1"] <= SMEM_MAX and p["smem2"] <= SMEM_MAX, (m, p)
 
 
-@pytest.mark.parametrize("r", [1, 16, 240, 512, 513, 528, 640, 682, 822, 1024, 1365, 2048])
+@pytest.mark.parametrize("r", [1, 16, 240, 512, 513, 528, 640, 682, 822, 1024, 1365, 2048,
+                               2049, 2133, 2580, 2609, 3185, 3207, 4095, 4096])
 def test_decode_rank_pieces(r):
     """Phase 2 holds the whole padded rank up to 512 rows (one piece, as
     before the ceiling rose), else the fewest equal pieces of at most 512
@@ -219,6 +234,19 @@ def test_decode_is_at_most_two_waves_past_rank_512(m, c, ranks, s):
     assert p["grid1"][2] == p["grid2"][1] == 1
     assert np.prod(p["grid1"]) <= 2 * SMS
     assert np.prod(p["grid2"]) <= 2 * SMS
+
+
+@pytest.mark.parametrize("m", [8, 16, 24, 32])
+@pytest.mark.parametrize("c,ranks,s", HUGE)
+def test_decode_keeps_one_row_block_past_rank_2048(m, c, ranks, s):
+    """Past K1's old ceiling and K5's, up to 32 rows (the VLM serves 8),
+    both phases hold every row in one block, so V is read once a call (K5's
+    phase 2, two branches of 464-row pieces at r 3185, holds 32 rows), and
+    phase 2 walks at most 8 pieces of at most 512 rank rows (8 at 4096)."""
+    p = launch(m, c, ranks, s)
+    assert p["grid1"][2] == p["grid2"][1] == 1
+    assert p["kp"] <= k1.KP_MAX
+    assert _cdiv(p["kext"], p["kp"]) == _cdiv(p["kext"], k1.KP_MAX) <= 8
 
 
 @pytest.mark.parametrize("m", DECODE_MS)
@@ -291,9 +319,22 @@ def emulate_k1(x, u, v, plan):
     return out
 
 
+def _pieces(t, v, kp):
+    """Phase 2 of one branch over its rank in pieces of ``kp`` rows, each
+    piece's chains added to the sum of those before it."""
+    out = None
+    for k0 in range(0, t.shape[1], kp):
+        d = _chains(t[:, k0:k0 + kp], v[k0:k0 + kp])
+        out = d if out is None else out + d
+    return out
+
+
 def emulate_k5(x, gu, gv, uu, uv, plan):
-    g = _chains(_rank_product(x, gu, plan), gv)
-    up = _chains(_rank_product(x, uu, plan), uv)
+    """Both branches piece by piece (the larger rank's decode_kp), then
+    silu(g) * u on the whole float32 sums."""
+    kp = k1.decode_kp(max(gu.shape[1], uu.shape[1]))
+    g = _pieces(_rank_product(x, gu, plan), gv, kp)
+    up = _pieces(_rank_product(x, uu, plan), uv, kp)
     return (g / (1.0 + np.exp(-g)) * up).astype(np.float32)
 
 
@@ -331,7 +372,9 @@ def test_decode_order_matches_pallas_lowrank_matmul(m, c, r, s, bm, bk, bn):
 
 
 @pytest.mark.parametrize("m,c,r,f,bm,bk,bn", [(32, 128, 16, 64, 32, 64, 32),
-                                              (64, 64, 24, 128, 32, 64, 64)])
+                                              (64, 64, 24, 128, 32, 64, 64),
+                                              (16, 64, 520, 64, 16, 64, 32),
+                                              (8, 128, 1100, 32, 8, 64, 32)])
 def test_decode_order_matches_pallas_lowrank_gated_ffn(m, c, r, f, bm, bk, bn):
     x, gu, gv, uu, uv = _mats(m + c + r + f, (m, c), (c, r), (r, f), (c, r), (r, f))
     want = pallas_gated_ffn(*(jnp.asarray(a) for a in (x, gu, gv, uu, uv)), block_m=bm,
@@ -344,17 +387,19 @@ def test_decode_order_matches_pallas_lowrank_gated_ffn(m, c, r, f, bm, bk, bn):
 # The large-M design and the rank ceilings, nothing launched
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("r", [1, 120, 256, 349, 512, 513, 640, 682, 822, 1024, 1365, 2048])
+@pytest.mark.parametrize("r", [1, 120, 256, 349, 512, 513, 640, 682, 822, 1024, 1365, 2048,
+                               2049, 2133, 2580, 2609, 3185, 3207, 4096])
 def test_large_m_layout_fits_past_rank_512(r):
-    """K1's large-M layout keeps the row block's t in shared memory up to a
-    padded rank of 512 and streams it with V past that; either way it fits
-    227 KB with at least two ring slots (K5, two branches, keeps 512)."""
+    """The large-M layout keeps the row block's t in shared memory up to a
+    padded rank of 512 and streams it with V past that, for K1 (stages of
+    128 ranks) and K5 (two branches, 64 ranks each a stage); either way it
+    fits 227 KB with at least two ring slots."""
     total, slots, stream = k1.large_smem(r)
     assert total <= SMEM_MAX and slots >= 2
     assert stream == (_round_up(r, 128) > 512)
-    if r <= k1.FUSED_RANK_MAX:
-        total, slots, stream = k1.large_smem(r, nb=2)
-        assert total <= SMEM_MAX and slots >= 2 and not stream
+    total, slots, stream = k1.large_smem(r, nb=2)
+    assert total <= SMEM_MAX and slots >= 2
+    assert stream == (_round_up(r, 64) > 512)
 
 
 def _meta(*shapes):
@@ -362,25 +407,25 @@ def _meta(*shapes):
 
 
 def test_wrappers_refuse_ranks_past_their_ceilings():
-    """K1-K4 take r up to RANK_MAX (2048), K5 and K7 up to FUSED_RANK_MAX
-    (512): the wrappers refuse a larger rank before touching a device."""
+    """K1-K5 take r up to RANK_MAX (4096), K7 up to FUSED_RANK_MAX (512):
+    the wrappers refuse a larger rank before touching a device, naming the
+    ROADMAP item that would raise it."""
     from repro_torch.kernels import int8_matmul as k7
     from repro_torch.kernels import lowrank_bwd as kb
 
-    assert (k1.RANK_MAX, k1.FUSED_RANK_MAX) == (2048, 512)
+    assert (k1.RANK_MAX, k5.FFN_RANK_MAX, k1.FUSED_RANK_MAX) == (4096, 4096, 512)
     r = k1.RANK_MAX + 1
     x, u, v, dy = _meta((8, 64), (64, r), (r, 32), (8, 32))
-    with pytest.raises(ValueError, match=f"rank {r}"):
+    with pytest.raises(ValueError, match=f"rank {r} .*item 13"):
         k1.lowrank_matmul(x, u, v)
     for fn, args in ((kb.lowrank_matmul_dx, (dy, u, v)), (kb.lowrank_matmul_du, (x, dy, v)),
                      (kb.lowrank_matmul_dv, (x, u, dy))):
-        with pytest.raises(ValueError, match=f"rank {r}"):
+        with pytest.raises(ValueError, match=f"rank {r} .*item 13"):
             fn(*args)
-    g, gv = _meta((64, 513), (513, 32))
-    with pytest.raises(ValueError, match="513"):
-        k5.lowrank_gated_ffn(x, g, gv, g, gv)
+    with pytest.raises(ValueError, match=f"{r}.*item 13"):
+        k5.lowrank_gated_ffn(x, u, v, u, v)
     uq = torch.empty((64, 513), dtype=torch.int8, device="meta")
     vq = torch.empty((513, 32), dtype=torch.int8, device="meta")
     scales = [torch.empty(s, dtype=torch.float32, device="meta") for s in ((1, 513), (1, 32))]
-    with pytest.raises(ValueError, match="rank 513"):
+    with pytest.raises(ValueError, match="rank 513 .*item 13"):
         k7.int8_lowrank_linear(x, uq, scales[0], vq, scales[1])

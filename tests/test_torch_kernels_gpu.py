@@ -897,18 +897,158 @@ def test_gpu_lowrank_bwd_past_rank_512(name, c, r, s):
 
 @pytest.mark.gpu
 def test_gpu_rank_ceilings():
-    """K1-K4 take r up to 2048 and refuse 2049; K5 keeps 512."""
+    """K1-K5 take r up to 4096 and refuse 4097, naming ROADMAP item 13;
+    K7 keeps 512."""
     _need_gpu()
+    from repro_torch.kernels import int8_matmul as k7
     from repro_torch.kernels import lowrank_bwd as kb
 
-    x, u, v = _mats(1, (8, 64), (64, 2049), (2049, 32))
-    with pytest.raises(ValueError, match="rank 2049"):
+    x, u, v = _mats(1, (8, 64), (64, 4097), (4097, 32))
+    with pytest.raises(ValueError, match="rank 4097 .*item 13"):
         lowrank_matmul(x, u, v)
-    with pytest.raises(ValueError, match="rank 2049"):
+    with pytest.raises(ValueError, match="rank 4097 .*item 13"):
         kb.lowrank_matmul_dx(torch.zeros_like(x[:, :32]), u, v)
-    g = _mats(2, (8, 64), (64, 513), (513, 32))
-    with pytest.raises(ValueError, match="513"):
-        lowrank_gated_ffn(g[0], g[1], g[2], g[1], g[2])
+    with pytest.raises(ValueError, match="4097.*item 13"):
+        lowrank_gated_ffn(x, u, v, u, v)
+    x, u, v = _mats(2, (8, 64), (64, 4096), (4096, 32))
+    with torch.inference_mode():
+        got, want = lowrank_gated_ffn(x, u, v, u, v), ref.lowrank_gated_ffn_ref(x, u, v, u, v)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max() <= K5_RTOL * want.float().abs().max()
+    uq = torch.zeros((64, 513), dtype=torch.int8, device="cuda")
+    vq = torch.zeros((513, 32), dtype=torch.int8, device="cuda")
+    ones = [torch.ones(s, dtype=torch.float32, device="cuda") for s in ((1, 513), (1, 32))]
+    with pytest.raises(ValueError, match="rank 513 .*item 13"):
+        k7.int8_lowrank_linear(x, uq, ones[0], vq, ones[1])
+
+
+# --------------------------------------------------------------------------
+# K1-K4 past rank 2048 and K5 past 512: the VLM's geometries
+# (llama-3.2-vision-90b, d 8192, 64 heads of 128, 8 KV heads, SwiGLU 28672;
+# Eq.-5 ranks 2048 wq/wo, 455 wk/wv, 3185 FFN), the large dense configs'
+# FFNs at their Eq.-5 ranks (qwen3-32b, deepseek-coder-33b, qwen2-72b,
+# DeepSeek-V3's dense layers), the first rank past each old ceiling and the
+# new one.  M = 8 (8-slot decode), 128 (decode design), LARGE_M - 1, 2048
+# (8 x 256 train tokens, the large-M design) and 32768 (the cross k/v of 8
+# x 4096 image tokens).
+# --------------------------------------------------------------------------
+
+VLM_ATTN = [(8192, 2048, 8192), (8192, 455, 1024)]
+VLM_FFN = (8192, 3185, 28672)
+DENSE_FFN = [(5120, 2133, 25600), (7168, 2609, 19200), (8192, 3207, 29568), (7168, 2580, 18432)]
+WIDE_K1 = (VLM_ATTN + [VLM_FFN, (28672, 3185, 8192)] + [(f, r, c) for c, r, f in DENSE_FFN]
+           + [(960, 2049, 960), (4096, 4096, 4096)])
+WIDE_K5 = [VLM_FFN] + DENSE_FFN + [(960, 513, 960), (4096, 4096, 4096)]
+
+
+def _close_rel(got, want, rtol):
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= rtol * want.float().abs().max().item(), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [8, 128, 2048])
+@pytest.mark.parametrize("c,r,s", WIDE_K1)
+def test_gpu_lowrank_matmul_past_rank_2048(m, c, r, s):
+    """Both designs at the VLM's and the large dense configs' geometries:
+    one float32 sum and one rounding an output; the same bits on a second
+    call."""
+    _need_gpu()
+    x, u, v = _mats(m + r, (m, c), (c, r), (r, s))
+    with torch.inference_mode():
+        got, want = lowrank_matmul(x, u, v), ref.lowrank_matmul_ref(x, u, v)
+        again = lowrank_matmul(x, u, v)
+    torch.cuda.synchronize()
+    _close_rel(got, want, K1_RTOL)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_gpu_lowrank_matmul_at_vlm_cross_kv():
+    """The cross blocks' wk/wv on 8 x 4096 image tokens (M 32768, the
+    large-M design) against plain."""
+    _need_gpu()
+    c, r, s = VLM_ATTN[1]
+    x, u, v = _mats(7, (32768, c), (c, r), (r, s))
+    with torch.inference_mode():
+        got, want = lowrank_matmul(x, u, v), ref.lowrank_matmul_ref(x, u, v)
+    torch.cuda.synchronize()
+    _close_rel(got, want, K1_RTOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", sorted({8, 128, K5_LARGE_M - 1, K5_LARGE_M, 2048}))
+@pytest.mark.parametrize("c,r,f", WIDE_K5)
+def test_gpu_lowrank_gated_ffn_past_rank_512(m, c, r, f):
+    """K5 walks both branches' ranks in pieces (decode design) or passes
+    with t streamed through the ring (large-M design), silu(g) * u on the
+    whole float32 sums; the same bits on a second call."""
+    _need_gpu()
+    args = _mats(m + c + r, (m, c), (c, r), (r, f), (c, r), (r, f))
+    with torch.inference_mode():
+        got, want = lowrank_gated_ffn(*args), ref.lowrank_gated_ffn_ref(*args)
+        again = lowrank_gated_ffn(*args)
+    torch.cuda.synchronize()
+    _close_rel(got, want, K5_RTOL)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [8, 2048])
+@pytest.mark.parametrize("rg,ru", [(513, 700), (3185, 2048), (1000, 4096)])
+def test_gpu_lowrank_gated_ffn_unequal_branch_ranks(m, rg, ru):
+    """Branches of different ranks past 512: the smaller one reads zeros
+    past its own rank in every piece and pass."""
+    _need_gpu()
+    c, f = 1024, 2048
+    args = _mats(m + rg + ru, (m, c), (c, rg), (rg, f), (c, ru), (ru, f))
+    with torch.inference_mode():
+        got, want = lowrank_gated_ffn(*args), ref.lowrank_gated_ffn_ref(*args)
+    torch.cuda.synchronize()
+    _close_rel(got, want, K5_RTOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,dims", [("k1", VLM_FFN), ("k1", (28672, 3185, 8192)),
+                                       ("k1", VLM_ATTN[0]), ("k5", VLM_FFN),
+                                       ("k5", (4096, 4096, 4096))])
+def test_gpu_decode_rows_do_not_depend_on_m_past_rank_2048(name, dims):
+    """A row has the same bits at M = 8 as inside M = 16, 40 and the
+    design's threshold - 1, first or last, past the old ceilings too: the
+    split of C and the rank's pieces are set by the shape, never by M."""
+    _need_gpu()
+    x8, w, fn, _, _ = _decode_case(name, 8, dims, 13)
+    lm = large_m(dims[0], dims[1]) if name == "k1" else K5_LARGE_M
+    with torch.inference_mode():
+        want = fn(x8, *w)
+        for m in (16, 40, lm - 1):
+            other = _mats(m, (m - 8, dims[0]))[0]
+            assert torch.equal(fn(torch.cat([x8, other]), *w)[:8], want), m
+            assert torch.equal(fn(torch.cat([other, x8]), *w)[-8:], want), m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["dx", "du", "dv"])
+@pytest.mark.parametrize("c,r,s", WIDE_K1)
+def test_gpu_lowrank_bwd_past_rank_2048(name, c, r, s):
+    """K2-K4 at M = 2048 (8 x 256 train tokens) at the same geometries;
+    bitwise repeatable."""
+    _need_gpu()
+    got, want = _bwd_case(name, 2048, c, r, s)
+    again, _ = _bwd_case(name, 2048, c, r, s)
+    torch.cuda.synchronize()
+    _close_rel(got, want, BWD_RTOL)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["dx", "du", "dv"])
+def test_gpu_lowrank_bwd_at_vlm_cross_kv(name):
+    """K2-K4 on the cross blocks' wk/wv over 8 x 4096 image tokens."""
+    _need_gpu()
+    got, want = _bwd_case(name, 32768, *VLM_ATTN[1])
+    torch.cuda.synchronize()
+    _close_rel(got, want, BWD_RTOL)
 
 
 # --------------------------------------------------------------------------
