@@ -1,6 +1,7 @@
 """Drive the PyTorch port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py [--out results.json] [--only kernels|conv|serve|moe|ssm|encdec|vlm]
+    python3 chip_smoke.py [--out results.json]
+                          [--only kernels|conv|serve|moe|ssm|encdec|vlm|mla]
 
 Phases, in order; any failure exits nonzero:
 
@@ -134,7 +135,7 @@ Phases, in order; any failure exits nonzero:
 24. table4 — ViT-B/16 (224 x 224, batch 64, 10 classes, float32) with the
               ViT policy over the same ladder.
 
-25. spec serve — (phases 25-28 at 16 of smollm-360m's 32 layers, full
+25. spec serve — (phases 25-28 at 8 of smollm-360m's 32 layers, full
               width) phase 4's 16-request trace with 47 new tokens (prime:
               every k retires mid-chunk), plain and self-speculative at k =
               1, 2, 4 with the draft = the params (acceptance 1.0) and at
@@ -204,7 +205,7 @@ Phases, in order; any failure exits nonzero:
               profile — a fixed-batch decode step and the 8 x 512 prefill
               (wall, device, idle, K1 ms); train — the training CLI, 6 steps
               of 8 x 256 at phases 0,0,1,1,0,0 (xLSTM under ``--remat
-              full`` at 6 of its 24 layers, a depth cut for the script's
+              full`` at 3 of its 24 layers, a depth cut for the script's
               time limit), K1-K4 launches exact per step, then a step profiled
               at phases 0 and 1 with K1-K4 ms and ``max_memory_allocated``;
               then K1-K4 at r = 513, 2048 and 4096 (the first rank past 512,
@@ -268,6 +269,35 @@ Phases, in order; any failure exits nonzero:
               Eq.-5 ranks 2133-3207; on no main path, 0 launches) in the
               kernels line.
 
+57-63. deepseek-v3-671b (MLA and MTP: d 7168, 128 heads, q / kv latents
+              1536 / 512, nope / rope / v head dims 128 / 64 / 128, 256
+              experts of 2048 top-8 with a shared expert, vocab 129280) at
+              full width, depth cut from 61 layers to the 3 dense and 2 MoE
+              layers to serve and to the 1 dense layer with the MTP layer to
+              train; LRD at Eq.-5 ranks (q_up 722, kv_up 252, wo 2493, FFN
+              2580, experts 796, mtp/proj 2389).  57 serve — ``ServeEngine``
+              through the scheduler's slot layout, 8 x 256-token prompts, 32
+              new tokens: 8 prefills at M = 256, 31 decode steps at M = 8
+              (the absorbed decode: no kv_up launch), K1 and K5 exact by
+              shape; 58 parity — routing pinned: prefill and decode logits
+              through the kernels against the plain versions, the absorbed
+              decode against a full forward (moe dense), 8 greedy tokens; 59
+              flash — the batched prefill with attention_impl="flash": K8 at
+              q/k head dim 192 and v head dim 128, 5 causal 256 x 256
+              launches over 128 heads, logits held to the blockwise
+              prefill's; 60 speculative — k = 2 and 4, draft = the params,
+              moe dense, tokens held to plain decoding's; 61 profile — a
+              decode step, the scheduler's and the batched prefill: wall,
+              device, idle, K1, K5, K8, cuBLAS and the experts' bmm;
+              62 train — the training CLI, 4 steps of 8 x 256 tokens at
+              phases 0,0,1,1 with the MTP loss, launches exact by shape (the
+              MTP layer's pairs: no K3 at phase 0, no K4 at phase 1); 63 — a
+              step profiled at phases -1, 0 and 1 with
+              ``max_memory_allocated``, the gradients against the plain
+              versions with routing pinned; then K8 at (192, 128) at the
+              prefill's shape and five more (2048 x 2048 causal, 256 x 2048
+              not, B 2, ragged) beside SDPA in the kernels line.
+
 Phases 20-24 run with TF32 off and the port's seeded init, through plain
 PyTorch (cuDNN convs, ``torch.matmul``): the JAX package computes them
 outside any Pallas kernel, so no hand-written kernel is on their path.
@@ -281,7 +311,8 @@ phases 1-3 (at the serve and serving-feature shapes) and 25-28; ``--only
 moe`` runs phases 1-3 at the MoE shapes and 29-35; ``--only ssm`` phases
 1-3 at the SSM and hybrid shapes and 36-43; ``--only encdec`` phases 1-3 at
 the enc-dec shapes and 44-49; ``--only vlm`` phases 1-3 at the VLM shapes,
-50-56 and the large dense configs' rows.  The last
+50-56 and the large dense configs' rows; ``--only mla`` phases 1-3 at
+DeepSeek-V3's shapes and 57-63.  The last
 line of
 standard output is ``{"ok": true, "device": {...}}``; the
 line before it is ``nvidia-smi``'s name and power limit, and the
@@ -410,10 +441,12 @@ FLASH_SERVE_SHAPE = dict(B=1, Sq=FLASH_PROMPT, Sk=FLASH_PROMPT, H=15, KV=5, D=64
 # teacher-forced decode steps, logits within 5% of max |logit| of the bf16
 # cache's (the reference's bound, tests/test_kvcache.py).
 SPEC_NEW, SPEC_KS, SPEC_DRAFT_KS, SPEC_FRACTION = 47, (1, 2, 4), (2, 4), 0.5
-# phases 25-28 run smollm-360m at full width and half its depth, so the
-# whole script, with the SSM and hybrid phases (36-43), stays well inside
-# its time limit (each phase's launch checks read the depth from the run)
-SERVING_LAYERS = 16
+# phases 25-28 run smollm-360m at full width and a quarter of its depth
+# (half until DeepSeek-V3's phases 57-63 joined), so the whole script
+# stays inside its time limit: their host-bound steps cost time in
+# proportion to the layers (each phase's launch checks read the depth from
+# the run)
+SERVING_LAYERS = 8
 PREFIX_LEN, PREFIX_SUFFIX, PREFIX_PREFILL, PREFIX_NEW = 1024, 64, 1088, 32
 FIXED_B, FIXED_T, FIXED_NEW = 8, 128, 32
 KV_STEPS, KV_RTOL = 8, 0.05
@@ -1021,6 +1054,15 @@ def counts_by_shape():
     return {name: dict(fn.launches_by_shape) for name, fn in wrappers().items()}
 
 
+# K8's ``launches_by_shape`` key; a shape dict without "Dv" has Dv = D
+FLASH_KEYS = ("B", "Sq", "Sk", "H", "KV", "D", "Dv", "causal")
+
+
+def flash_dims(key):
+    """A K8 row's shape dict from its launch key."""
+    return dict(zip(FLASH_KEYS, key))
+
+
 def shape_key(name, d):
     """The wrapper's ``launches_by_shape`` key of a kernel row's shape."""
     if name == "lowrank_gated_ffn":
@@ -1028,7 +1070,7 @@ def shape_key(name, d):
     if name in ("int8_matmul", "int8_linear"):
         return d["M"], d["C"], d["S"]
     if name == "flash_attention":
-        return d["B"], d["Sq"], d["Sk"], d["H"], d["KV"], d["D"], d["causal"]
+        return tuple(d.get(k, d["D"]) if k == "Dv" else d[k] for k in FLASH_KEYS)
     return d["M"], d["C"], d["r"], d["S"]
 
 
@@ -1413,12 +1455,15 @@ def phase_grads(params, run=None, label: str = "grads"):
 
 
 def phase_train_profile(params, steps_n: int = 2, run=None, phases=(-1, 0, 1),
-                        label: str = "train profile", moe: bool = False, warmup: bool = True):
+                        label: str = "train profile", moe: bool = False, warmup: bool = True,
+                        donate: bool = False):
     """Wall time (host clock around synchronised steps), device time
     (``torch.profiler``, device-side events only) and idle share of a
     full-width train step at each freezing phase, with tokens/s and
     ``torch.cuda.max_memory_allocated`` over the phase's steps; for a MoE
-    model also the experts' ``bmm`` ms."""
+    model also the experts' ``bmm`` ms.  With ``donate`` the steps update
+    the state in place, as the train CLI's do (``params`` then take the
+    steps' updates)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import steps
@@ -1430,7 +1475,7 @@ def phase_train_profile(params, steps_n: int = 2, run=None, phases=(-1, 0, 1),
         gc.collect()
         torch.cuda.reset_peak_memory_stats()
         state, _ = steps.make_train_state(run.optim, params, phase)
-        step = steps.build_train_step(run, "cuda")
+        step = steps.build_train_step(run, "cuda", donate=donate)
         if warmup:
             state, _ = step(state, batch, phase=phase)
         torch.cuda.synchronize()
@@ -1457,7 +1502,7 @@ def phase_train_profile(params, steps_n: int = 2, run=None, phases=(-1, 0, 1),
                           max_memory_allocated=peak,
                           top=[dict(name=k[:80], ms=v) for k, v in top])
         if moe:
-            out[phase]["expert_bmm_ms"] = expert_bmm_ms(prof, steps_n)
+            out[phase]["expert_bmm_ms"] = expert_bmm_ms(prof, steps_n, run.model.num_experts)
         shown = ", ".join(f"{k[:40]} {v:.2f}ms" for k, v in top[:6])
         log(f"[{label}] phase {phase} step ({TRAIN_M} tokens, {run.model.num_layers} layers): "
             f"max_memory_allocated {peak / 2 ** 30:.2f} GiB"
@@ -1856,12 +1901,12 @@ def flash_kernel_case(d, gen):
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
 
-    b, sq, sk, h, kv, dh, causal = (d[k] for k in ("B", "Sq", "Sk", "H", "KV", "D", "causal"))
+    b, sq, sk, h, kv, dh, dv, causal = shape_key("flash_attention", d)
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
 
-    q, k, v = rnd(b, sq, h, dh, scale=dh ** -0.5), rnd(b, sk, kv, dh), rnd(b, sk, kv, dh)
+    q, k, v = rnd(b, sq, h, dh, scale=dh ** -0.5), rnd(b, sk, kv, dh), rnd(b, sk, kv, dv)
     q_scale = dh ** 0.5
     # the library call takes (B, heads, S, D); the same function with K8's
     # q multiplier folded into its scale
@@ -1873,8 +1918,8 @@ def flash_kernel_case(d, gen):
                                                           q_scale=q_scale),
                 library=lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=causal, scale=lib_scale, enable_gqa=True),
-                bytes=2 * (2 * b * sq * h * dh + 2 * b * sk * kv * dh),
-                ops=4 * b * h * dh * visible, err=row_rel_err)
+                bytes=2 * (b * sq * h * (dh + dv) + b * sk * kv * (dh + dv)),
+                ops=2 * b * h * (dh + dv) * visible, err=row_rel_err)
 
 
 def phase_flash_kernels(shapes, iters: int = 50):
@@ -3509,13 +3554,13 @@ def phase_moe_parity(engine):
     return out
 
 
-def expert_bmm_ms(prof, steps_n: int):
+def expert_bmm_ms(prof, steps_n: int, experts: int = MOE_EXPERTS):
     """Device ms a step of the experts' products: the ``aten::bmm`` ops whose
     batch dim is the expert count (attention's batch dims are B x heads)."""
     total = 0.0
     for ev in prof.key_averages(group_by_input_shape=True):
         shapes = ev.input_shapes or []
-        if ev.key == "aten::bmm" and shapes and shapes[0] and shapes[0][0] == MOE_EXPERTS:
+        if ev.key == "aten::bmm" and shapes and shapes[0] and shapes[0][0] == experts:
             total += getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
     return total / steps_n / 1e3
 
@@ -3562,8 +3607,9 @@ def _moe_run(remat: str = "none"):
 
 
 def _split_grads(trainable, frozen, batch, run, phase: int, calls):
-    """path -> (gradient of the cross entropy, max |gradient of 0.01 * aux|)
-    for every trainable leaf, routing replayed from ``calls``."""
+    """path -> (gradient of the cross entropy (plus an MTP model's weighted
+    MTP cross entropy), max |gradient of 0.01 * aux|) for every trainable
+    leaf, routing replayed from ``calls``."""
     from repro_torch.core import freezing
     from repro_torch.core.freezing import tree_leaves, tree_map
     from repro_torch.launch import steps
@@ -3573,12 +3619,21 @@ def _split_grads(trainable, frozen, batch, run, phase: int, calls):
     live = [t.detach().requires_grad_(True) for t in tree_leaves(trainable)]
     it = iter(live)
     params = freezing.merge(tree_map(lambda _: next(it), trainable), frozen)
+    cfg, policy = run.model, steps.kernel_policy(run, phase)
     with torch.enable_grad(), routing(replay=calls):
-        logits, _, aux = lm.lm_apply(params, batch["tokens"], run.model, mode="train",
-                                     policy=steps.kernel_policy(run, phase))
-        g_ce = torch.autograd.grad(cross_entropy(logits, batch["labels"]), live,
-                                   retain_graph=True, allow_unused=True)
-        g_aux = torch.autograd.grad(0.01 * aux, live, allow_unused=True)
+        logits, _, aux, hidden = lm.lm_apply(params, batch["tokens"], cfg, mode="train",
+                                             policy=policy, return_hidden=True)
+        loss = cross_entropy(logits, batch["labels"])
+        if cfg.use_mtp:
+            mtp = lm.mtp_logits(params, hidden, batch["tokens"], cfg, policy=policy)
+            loss = loss + cfg.mtp_loss_weight * cross_entropy(
+                mtp, torch.roll(batch["labels"], -1, dims=1),
+                mask=lm.mtp_loss_mask(batch["tokens"]))
+        g_ce = torch.autograd.grad(loss, live, retain_graph=True, allow_unused=True)
+        # with no MoE layer in the stacks (DeepSeek-V3 cut to its dense
+        # layer) aux is a constant zero: the MTP layer's is dropped
+        g_aux = (torch.autograd.grad(0.01 * aux, live, allow_unused=True) if aux.requires_grad
+                 else [None] * len(live))
     out = {}
     for (path, t), ce, ax in zip(_grad_paths(trainable), g_ce, g_aux):
         out[path] = (torch.zeros_like(t) if ce is None else ce,
@@ -3586,10 +3641,11 @@ def _split_grads(trainable, frozen, batch, run, phase: int, calls):
     return out
 
 
-def phase_moe_grads(params):
+def phase_moe_grads(params, run=None, label: str = "moe grads"):
     """Phase 33: one full-width train step's loss and gradients through the
-    kernels against the plain path at phases -1, 0 and 1, routing pinned;
-    the unpinned plain run's routing flips reported.
+    kernels against the plain path at phases -1, 0 and 1 (of ``run``, by
+    default OLMoE's), routing pinned; the unpinned plain run's routing
+    flips reported.
 
     A leaf's gradient is the sum of a cross-entropy part and an aux part.
     The aux part is the gradient of a constant (the reference's ``aux`` is
@@ -3607,7 +3663,7 @@ def phase_moe_grads(params):
     from repro_torch.core import freezing
     from repro_torch.launch import steps
 
-    run = _moe_run()
+    run = run or _moe_run()
     plain = dataclasses.replace(run, lrd=dataclasses.replace(run.lrd, use_pallas_kernel=False))
     batch = _train_batch(run, seed=99)
     out = {}
@@ -3618,10 +3674,12 @@ def phase_moe_grads(params):
             lk, gk = steps._value_and_grad(trainable, frozen, batch, run, phase)
         with routing(replay=kcalls):
             lp, gp = steps._value_and_grad(trainable, frozen, batch, plain, phase)
-        full = {}  # path -> (max |dgrad|, max |grad|)
+        full = {}  # path -> (max |dgrad|, max |grad|); an empty stack's leaves hold nothing
         for (path, a), (_, b) in zip(_grad_paths(gk), _grad_paths(gp)):
+            if not a.numel():
+                continue
             if not torch.isfinite(a).all():
-                raise AssertionError(f"moe grads: phase {phase} {path} not finite")
+                raise AssertionError(f"{label}: phase {phase} {path} not finite")
             full[path] = ((a.float() - b.float()).abs().max().item(),
                           b.float().abs().max().item())
         del gk, gp
@@ -3642,7 +3700,7 @@ def phase_moe_grads(params):
         loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
         rows.sort(reverse=True)
         by_ce = sorted(rows, key=lambda r: -r[2])
-        log(f"[moe grads] phase {phase}, routing pinned: loss kernels {lk.item():.5f} vs plain "
+        log(f"[{label}] phase {phase}, routing pinned: loss kernels {lk.item():.5f} vs plain "
             f"{lp.item():.5f} (rel {loss_rel:.2e}, bound {LOSS_RTOL}); {len(rows)} trainable "
             f"leaves; worst max |dgrad| / max |grad|: "
             + ", ".join(f"{r[0]:.2e} at {r[1]} (aux parts {r[3]:.2e}, max |grad| "
@@ -3653,7 +3711,7 @@ def phase_moe_grads(params):
             f"unpinned plain loss {lu.item():.5f}, {_flip_summary(flips)}")
         bad = [r[1] for r in rows if not r[4]]
         if loss_rel > LOSS_RTOL or bad:
-            raise AssertionError(f"moe grads: phase {phase} loss rel {loss_rel:.3e}, leaves "
+            raise AssertionError(f"{label}: phase {phase} loss rel {loss_rel:.3e}, leaves "
                                  f"over the bound {bad}")
         out[phase] = dict(loss_kernels=lk.item(), loss_plain=lp.item(), loss_rel=loss_rel,
                           leaves=len(rows), worst_rel=rows[0][0], worst_leaf=rows[0][1],
@@ -3812,10 +3870,11 @@ def phase_moe():
 SSM_ARCHS = ("xlstm-350m", "zamba2-1.2b")
 SSM_SLOTS, SSM_PROMPT, SSM_NEW, SSM_PARITY_NEW = 8, 512, 32, 8
 SSM_REMAT = {"xlstm-350m": "full", "zamba2-1.2b": "none"}
-# xLSTM trains at a quarter of its 24 layers (the whole script's time
+# xLSTM trains at an eighth of its 24 layers (the whole script's time
 # limit: its mLSTM steps through the 256 positions one by one, host-bound,
-# ~21 s a step at full depth); Zamba2 at full depth
-SSM_TRAIN_LAYERS = {"xlstm-350m": 6, "zamba2-1.2b": None}
+# ~21 s a step at full depth; 6 layers until DeepSeek-V3's phases joined);
+# Zamba2 at full depth
+SSM_TRAIN_LAYERS = {"xlstm-350m": 3, "zamba2-1.2b": None}
 # (C, r, S) of each factorised projection at Eq.-5 ranks -> its K1 launches
 # a forward: xLSTM wq, wk, wv, wo_gate and wo of 24 layers; Zamba2 in_proj
 # and out_proj of 38 Mamba2 layers, and the shared block's wq/wk/wv/wo, FFN
@@ -3849,10 +3908,11 @@ def _cli_run(argv):
 
 
 @contextlib.contextmanager
-def at_depth(layers=None):
+def at_depth(layers=None, **cut):
     """Inside, the serve and train CLIs build ``--arch``'s full-width
     config with ``num_layers`` cut to ``layers`` (a depth cut; None keeps
-    the config as it is).  Every launch check reads the depth from the
+    the config as it is), and any other depth field in ``cut`` (DeepSeek-V3's
+    ``first_k_dense``).  Every launch check reads the depth from the
     run."""
     import dataclasses
 
@@ -3861,7 +3921,7 @@ def at_depth(layers=None):
     full = serve.get_config
     if layers is not None:
         serve.get_config = train.get_config = (
-            lambda arch: dataclasses.replace(full(arch), num_layers=layers))
+            lambda arch: dataclasses.replace(full(arch), num_layers=layers, **cut))
     try:
         yield
     finally:
@@ -4191,10 +4251,10 @@ ED_TOK_M, ED_MEM_M = ED_SLOTS * ED_PROMPT, ED_SLOTS * ED_FRAMES
 # Algorithm-1 ranks
 ED_SERVE_GEOMS = {"attn": (1024, 256, 1024), "wi": (1024, 409, 4096), "down": (4096, 409, 1024)}
 ED_TRAIN_GEOMS = {"attn": (1024, 255, 1024), "wi": (1024, 384, 4096), "down": (4096, 384, 1024)}
-# K8 launches of one flash prefill: (B, Sq, Sk, H, KV, D, causal) -> count
-ED_FLASH = {(ED_SLOTS, ED_FRAMES, ED_FRAMES, 16, 16, 64, False): ED_LAYERS,
-            (ED_SLOTS, ED_PROMPT, ED_FRAMES, 16, 16, 64, False): ED_LAYERS,
-            (ED_SLOTS, ED_PROMPT, ED_PROMPT, 16, 16, 64, True): ED_LAYERS}
+# K8 launches of one flash prefill: (B, Sq, Sk, H, KV, D, Dv, causal) -> count
+ED_FLASH = {(ED_SLOTS, ED_FRAMES, ED_FRAMES, 16, 16, 64, 64, False): ED_LAYERS,
+            (ED_SLOTS, ED_PROMPT, ED_FRAMES, 16, 16, 64, 64, False): ED_LAYERS,
+            (ED_SLOTS, ED_PROMPT, ED_PROMPT, 16, 16, 64, 64, True): ED_LAYERS}
 # checked and timed beside the kernels line, on no main path: K1 in its
 # decode design at the train path's Algorithm-1 ranks
 ENCDEC_EXTRA_SHAPES = [("lowrank_matmul", dict(M=ED_SLOTS, C=c, r=r, S=s))
@@ -4358,7 +4418,7 @@ def phase_encdec_flash(engine):
         raise AssertionError(f"encdec flash: prefill logits {diff:.3e} ({rel:.3e} of max "
                              f"|logit|) from the plain versions'")
     log(f"[encdec flash] prefill through the engine: K8 launches exact "
-        + ", ".join(f"{k[1]}x{k[2]} {'causal' if k[6] else 'non-causal'} {n}"
+        + ", ".join(f"{k[1]}x{k[2]} {'causal' if k[7] else 'non-causal'} {n}"
                     for k, n in got_k8.items())
         + f", K1 {sum(got_k1.values())}; cross gates seeded non-zero; last-position logits "
         f"vs K1 and K8 plain on the card: max_abs_diff {diff:.3e} ({rel:.3e} of max |logit|;"
@@ -4452,7 +4512,7 @@ def phase_encdec():
     result["grads"] = phase_grads(_gated(params, seed=48), run=run, label="encdec grads")
     del params
     gc.collect()
-    launched = [dict(zip(("B", "Sq", "Sk", "H", "KV", "D", "causal"), key))
+    launched = [flash_dims(key)
                 for key in sorted(paths["encdec flash prefill"]["flash_attention"])]
     return paths, result, phase_flash_kernels(launched)
 
@@ -4488,10 +4548,11 @@ VLM_TOK_M, VLM_IMG_M = VLM_SLOTS * VLM_PROMPT, VLM_SLOTS * VLM_IMG
 # forward and as K1 in the FFN backward's recompute
 VLM_GEOMS = {"wq/wo": (8192, 2048, 8192), "wk/wv": (8192, 455, 1024),
              "gate/up": (8192, 3185, 28672), "down": (28672, 3185, 8192)}
-# K8 launches of one flash prefill at 2 groups: (B, Sq, Sk, H, KV, D,
+# K8 launches of one flash prefill at 2 groups: (B, Sq, Sk, H, KV, D, Dv,
 # causal) -> count
-VLM_FLASH = {(VLM_SLOTS, VLM_PROMPT, VLM_PROMPT, 64, 8, 128, True): VLM_EVERY * VLM_SERVE_GROUPS,
-             (VLM_SLOTS, VLM_PROMPT, VLM_IMG, 64, 8, 128, False): VLM_SERVE_GROUPS}
+VLM_FLASH = {(VLM_SLOTS, VLM_PROMPT, VLM_PROMPT, 64, 8, 128, 128, True):
+             VLM_EVERY * VLM_SERVE_GROUPS,
+             (VLM_SLOTS, VLM_PROMPT, VLM_IMG, 64, 8, 128, 128, False): VLM_SERVE_GROUPS}
 # Item 13's gate, on no main path: the large dense configs' FFNs at their
 # Eq.-5 ranks (qwen3-32b, deepseek-coder-33b, qwen2-72b, DeepSeek-V3's dense
 # layers), K5 on gate/up and K1 on down, at decode and train M; in the
@@ -4674,7 +4735,7 @@ def phase_vlm_flash(engine):
         raise AssertionError(f"vlm flash: prefill logits {diff:.3e} ({rel:.3e} of max "
                              f"|logit|) from the plain versions'")
     log(f"[vlm flash] prefill through the engine: K8 launches exact "
-        + ", ".join(f"{k[1]}x{k[2]} {'causal' if k[6] else 'non-causal'} {n}"
+        + ", ".join(f"{k[1]}x{k[2]} {'causal' if k[7] else 'non-causal'} {n}"
                     for k, n in got["flash_attention"].items())
         + f", K1 {sum(k1.values())}, K5 {sum(k5.values())}; cross gates seeded non-zero; "
         f"last-position logits vs K1, K5 and K8 plain on the card: max_abs_diff {diff:.3e} "
@@ -4800,15 +4861,493 @@ def phase_vlm(smi: str):
                                                       label="vlm train profile")
         result["grads"] = phase_grads(_gated(params, seed=56), run=run, label="vlm grads")
         del params
-    launched = [dict(zip(("B", "Sq", "Sk", "H", "KV", "D", "causal"), key))
+    launched = [flash_dims(key)
                 for key in sorted(paths["vlm flash prefill"]["flash_attention"])]
     return paths, result, phase_flash_kernels(launched)
 
 
-def phase_rank_gate_kernels():
+# --------------------------------------------------------------------------
+# MLA and MTP: full-width DeepSeek-V3 (phases 57-63)
+# --------------------------------------------------------------------------
+
+# deepseek-v3-671b at full width: d 7168, 128 heads, MLA (q latent 1536, kv
+# latent 512, nope / rope / v head dims 128 / 64 / 128), 3 dense layers
+# (SwiGLU 18432) then 58 MoE layers (256 experts of 2048, top-8, a shared
+# expert, moe_impl "ep"), an untied vocab of 129280, an MTP layer (itself a
+# MoE layer).  LRD at Eq.-5 ranks: q_up 722, kv_up 252, wo 2493, the dense
+# FFN 2580, experts and shared expert 796, mtp/proj 2389 (q_down / kv_down
+# stay dense: the policy keeps MLA's latent projections).  Depth cut (the
+# card's 80 GB): serve at the 3 dense and 2 of the 58 MoE layers (about 28
+# GB of bf16 parameters), train at 1 dense layer with the MTP layer as the
+# one MoE layer (about 15 GB, 60 GB at phase -1 before activations).
+# Serving: 8 slots, 8 prompts of 256 tokens, 32 new tokens, the scheduler's
+# slot layout; the prefill's attention through K8 at q/k head dim 192 and v
+# head dim 128 under attention_impl="flash".
+DS_ARCH = "deepseek-v3-671b"
+DS_SLOTS, DS_PROMPT, DS_NEW, DS_PARITY_NEW = 8, 256, 32, 8
+DS_DENSE, DS_SERVE_LAYERS, DS_TRAIN_LAYERS = 3, 5, 1
+DS_SPEC_KS = (2, 4)
+DS_TOK_M = DS_SLOTS * DS_PROMPT
+DS_TRAIN_ARGV = ["--arch", DS_ARCH, "--lrd", "--no-rank-opt", "--use-pallas", "--freeze",
+                 "sequential", "--steps", "4", "--steps-per-epoch", "2", "--global-batch",
+                 str(DS_SLOTS), "--seq-len", str(DS_PROMPT), "--save-every", "1000",
+                 "--log-every", "1"]
+# (C, r, S) of each factorised projection at Eq.-5 ranks; "ffn" and "shared"
+# are the dense FFN's and the shared expert's gate/up (K5 forward, K1 in the
+# FFN backward's recompute)
+DS_GEOMS = {"q_up": (1536, 722, 24576), "kv_up": (512, 252, 32768),
+            "wo": (16384, 2493, 7168), "ffn": (7168, 2580, 18432),
+            "ffn down": (18432, 2580, 7168), "shared": (7168, 796, 2048),
+            "shared down": (2048, 796, 7168), "mtp proj": (14336, 2389, 7168)}
+DS_K8 = dict(H=128, KV=128, D=192, Dv=128)
+# K8 launches of one flash prefill: (B, Sq, Sk, H, KV, D, Dv, causal) -> count
+DS_FLASH = {(DS_SLOTS, DS_PROMPT, DS_PROMPT, 128, 128, 192, 128, True): DS_SERVE_LAYERS}
+# K8 at (192, 128) beyond the prefill's shape, in the kernels line with 0
+# launches: a 2048-token causal prefill, 256 queries over 2048 keys without
+# the mask, two batch rows, ragged lengths
+DS_FLASH_EXTRA = [dict(B=1, Sq=2048, Sk=2048, causal=True, **DS_K8),
+                  dict(B=1, Sq=256, Sk=2048, causal=False, **DS_K8),
+                  dict(B=2, Sq=256, Sk=256, causal=True, **DS_K8),
+                  dict(B=1, Sq=333, Sk=333, causal=True, **DS_K8),
+                  dict(B=1, Sq=200, Sk=333, causal=False, **DS_K8)]
+
+
+def _ds_fwd(m: int, layers: int, *, decode: bool = False, mtp: bool = False, n: int = 1):
+    """(K1, K5) launches by shape key of ``n`` forwards at ``m`` rows of a
+    cut of ``layers`` layers (the first DS_DENSE dense), with the MTP layer
+    (a MoE layer) and mtp/proj under ``mtp``: each layer's q_up, kv_up and wo
+    (no kv_up in decode: the absorbed decode reads kv_up's factors through
+    one library product), the dense FFN's down and the shared expert's down
+    through K1, their gate/up through K5."""
+    g = DS_GEOMS
+    dense = min(layers, DS_DENSE)
+    moe = layers - dense + int(mtp)
+    attn = layers + int(mtp)
+    k1 = {g["q_up"]: attn, g["kv_up"]: 0 if decode else attn, g["wo"]: attn,
+          g["ffn down"]: dense, g["shared down"]: moe, g["mtp proj"]: int(mtp)}
+    k5 = {g["ffn"]: dense, g["shared"]: moe}
+    return ({(m,) + geom: c * n for geom, c in k1.items() if c},
+            {(m, c, r, r, f): k * n for (c, r, f), k in k5.items() if k})
+
+
+def mla_kernel_shapes():
+    """(name, dims) of every K1-K5 call on the DeepSeek-V3 paths: K1 and K5
+    at a scheduler prefill's M (one 256-token prompt), the 8-slot decode and
+    draft M, the speculative verify's M at k = 2 and 4 (no kv_up in
+    decode), and the batched prefill's and train step's M (with mtp/proj
+    and the FFN backward's recompute of gate/up); K2-K4 at the train M on
+    every factor pair."""
+    g, out = DS_GEOMS, []
+    serve = ("q_up", "kv_up", "wo", "ffn down", "shared down")
+    for m in (DS_SLOTS, *(DS_SLOTS * (k + 1) for k in DS_SPEC_KS), DS_PROMPT, DS_TOK_M):
+        decode = m < DS_PROMPT
+        out += [("lowrank_matmul", dict(M=m, C=c, r=r, S=s)) for name, (c, r, s) in g.items()
+                if name in serve and not (decode and name == "kv_up")]
+        out += [("lowrank_gated_ffn", dict(M=m, C=c, r=r, F=f))
+                for c, r, f in (g["ffn"], g["shared"])]
+    out += [("lowrank_matmul", dict(M=TRAIN_M, C=c, r=r, S=s))
+            for c, r, s in (g["mtp proj"], g["ffn"], g["shared"])]
+    for name in BWD:
+        out += [(name, dict(M=TRAIN_M, C=c, r=r, S=s)) for c, r, s in g.values()]
+    return out
+
+
+def _ds_run(moe_impl: str = "ep"):
+    """The serve run: full-width DeepSeek-V3 at DS_SERVE_LAYERS layers, LRD
+    at Eq.-5 ranks on the card (``serve.serve_run``, the serve CLI's)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    cfg = dataclasses.replace(get_config(DS_ARCH), num_layers=DS_SERVE_LAYERS, moe_impl=moe_impl)
+    return serve.serve_run(cfg, max_len=DS_PROMPT + DS_NEW, slots=DS_SLOTS, lrd=True,
+                           device=torch.device("cuda"), seed=0)
+
+
+def _ds_prompts(seed: int):
+    """8 seeded prompts of 256 tokens, on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, 129280, (DS_SLOTS, DS_PROMPT), generator=gen, device="cuda",
+                         dtype=torch.int32)
+
+
+def _ds_engine(run, params, **kw):
+    from repro_torch.serving import ServeConfig, ServeEngine
+
+    return ServeEngine(run, params, device="cuda",
+                       config=ServeConfig(num_slots=DS_SLOTS, max_len=DS_PROMPT + DS_NEW,
+                                          prefill_len=DS_PROMPT, **kw),
+                       draft_params=params if kw.get("speculative_k") else None)
+
+
+def _ds_trace(prompts):
+    return [{"prompt": p, "max_new": DS_NEW} for p in prompts.cpu().numpy()]
+
+
+def phase_mla_serve(smi: str):
+    """Phase 57: ``ServeEngine.serve`` of 8 prompts of 256 tokens, 32 new
+    tokens each, through the scheduler on full-width DeepSeek-V3 at 5
+    layers: the slot layout (no page table), 8 prefill forwards at M = 256
+    and 31 decode forwards at M = 8, K1 and K5 launches exact by shape, no
+    other kernel, tokens in the vocabulary; the Eq.-5 ranks of the plan."""
+    from repro_torch.launch import steps
+
+    run = _ds_run()
+    zero_counts()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, plan = steps.init_params(run, "cuda")
+    init_s = time.perf_counter() - t0
+    engine = _ds_engine(run, params)
+    trace = _ds_trace(_ds_prompts(57))
+    toks, logits, by_shape, stats, fwd, dt, _ = _serve_trace(engine, trace)
+    peak = torch.cuda.max_memory_allocated()
+    sched, cfg = engine.scheduler, run.model
+    ranks = {path.split("/", 2)[-1]: lp.rank for path, lp in plan.layers.items()}
+    want_ranks = {"attn/q_up": 722, "attn/kv_up": 252, "attn/wo": 2493}
+    k1, k5 = _ds_fwd(DS_PROMPT, DS_SERVE_LAYERS, n=fwd["prefill"])
+    d1, d5 = _ds_fwd(DS_SLOTS, DS_SERVE_LAYERS, decode=True, n=fwd["decode"])
+    want = {"lowrank_matmul": _add(k1, d1), "lowrank_gated_ffn": _add(k5, d5)}
+    got = {k: by_shape[k] for k in want}
+    others = {k: v for k, v in by_shape.items() if v and k not in want}
+    vocab_ok = all(0 <= t < cfg.vocab_size for row in toks for t in row)
+    if (sched.layout != "slots" or sched.pages is not None or got != want or others
+            or (fwd["prefill"], fwd["decode"]) != (DS_SLOTS, DS_NEW - 1) or not vocab_ok
+            or (cfg.d_model, cfg.num_heads, cfg.vocab_size, cfg.num_experts) !=
+            (7168, 128, 129280, 256) or any(ranks.get(k) != v for k, v in want_ranks.items())):
+        raise AssertionError(f"mla serve: layout {sched.layout}, forwards {fwd}, launches "
+                             f"{got}, want {want}; others {others}; ranks {ranks}")
+    log(f"[mla serve] {DS_ARCH} (d 7168, 128 heads, MLA, {DS_SERVE_LAYERS} of 61 layers: "
+        f"{DS_DENSE} dense + {DS_SERVE_LAYERS - DS_DENSE} MoE of 256 experts top-8, ep) on "
+        f"{smi}: {DS_SLOTS} requests x {DS_PROMPT}-token prompts, {DS_NEW} new tokens, layout "
+        f"{sched.layout} (cache {sched.cache_bytes() / 2 ** 20:.1f} MiB); "
+        f"{stats['tok_per_s']:.1f} tok/s, {dt:.2f}s serve + {init_s:.1f}s init; "
+        f"{fwd['prefill']} prefill + {fwd['decode']} decode forwards, "
+        f"{sum(got['lowrank_matmul'].values())} K1 + {sum(got['lowrank_gated_ffn'].values())} "
+        f"K5 launches exact by shape (ranks q_up 722, kv_up 252, wo 2493, FFN 2580, shared "
+        f"796); no other kernel; max_memory_allocated {peak / 2 ** 30:.2f} GiB")
+    return engine, by_shape, dict(wall_s=dt, init_s=init_s, tok_per_s=stats["tok_per_s"],
+                                  fwd=dict(fwd), max_memory_allocated=peak,
+                                  k1=sum(got["lowrank_matmul"].values()),
+                                  k5=sum(got["lowrank_gated_ffn"].values()),
+                                  tokens=toks, logits=logits, stats=stats)
+
+
+def _ds_pinned(fn_k, fn_p):
+    """``fn_k()`` with the router recorded, then ``fn_p()`` replaying its
+    expert ids (MoE capacity drops follow the ids, so both runs route and
+    drop alike); returns both results and the recorded calls."""
+    calls = []
+    with routing(record=calls):
+        a = fn_k()
+    with routing(replay=calls):
+        b = fn_p()
+    return a, b, calls
+
+
+def phase_mla_parity(engine):
+    """Phase 58, routing pinned in every comparison: the batched prefill's
+    last-position logits (8 x 256, M = 2048) and one absorbed decode step's
+    (8 rows at position 256) through the kernels against the plain versions
+    on the card (PATH_RTOL of max |logit|); the absorbed decode of token 16
+    after a 16-token prefill against the full-mode forward over the 17
+    tokens, with moe_impl "dense" (ep's capacity depends on the token count,
+    so the two would drop different pairs); 8 greedy tokens of the
+    fixed-batch path both ways, a parting held to a rounding tie."""
+    import dataclasses
+
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import pad_cache
+
+    run, params = engine.run, engine.params
+    plain = _plain(run)
+    vocab = run.model.vocab_size
+    prompts = _ds_prompts(58)
+    batch = {"tokens": prompts}
+    pos = torch.full((DS_SLOTS,), DS_PROMPT, dtype=torch.int32, device="cuda")
+
+    def prefill_decode(r):
+        last, cache = steps.build_prefill_step(r)(params, batch)
+        cache = pad_cache(cache, DS_PROMPT + DS_NEW)
+        token = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+        logits, _, _ = steps.build_serve_step(r)(params, cache, token, pos)
+        return last[:, :vocab], logits[:, -1, :vocab]
+
+    (kpre, kdec), (ppre, pdec), _ = _ds_pinned(lambda: prefill_decode(run),
+                                               lambda: prefill_decode(plain))
+    out = {}
+    for what, got, want in (("prefill", kpre, ppre), ("decode", kdec, pdec)):
+        diff, rel = rel_err(got, want)
+        if not torch.isfinite(got).all() or rel > PATH_RTOL:
+            raise AssertionError(f"mla parity ({what}): logits {diff:.3e} ({rel:.3e} of max "
+                                 f"|logit|) from the plain versions'")
+        out[what] = dict(max_abs_diff=diff, rel=rel)
+    del kpre, kdec, ppre, pdec
+    # absorbed decode against the full forward, routing of the full run
+    # replayed (the prefill's rows, then the decoded position's)
+    dense = dataclasses.replace(run.model, moe_impl="dense")
+    toks = prompts[:, :17]
+    with torch.inference_mode():
+        calls = []
+        with routing(record=calls):
+            full, _, _ = lm.lm_apply(params, toks, dense, mode="full", policy=True)
+        k = run.model.num_experts_per_tok
+        ids = [c[0].reshape(DS_SLOTS, 17, k) for c in calls]
+        replay = ([(i[:, :16].reshape(-1, k), None) for i in ids]
+                  + [(i[:, 16].reshape(-1, k), None) for i in ids])
+        with routing(replay=replay):
+            _, cache, _ = lm.lm_apply(params, toks[:, :16], dense, mode="full", policy=True)
+            cache = pad_cache(cache, 17)
+            dec, _, _ = lm.lm_apply(params, toks[:, 16:], dense, mode="decode", cache=cache,
+                                    pos=torch.full((DS_SLOTS,), 16, device="cuda"),
+                                    policy=True)
+    diff, rel = rel_err(dec[:, 0, :vocab], full[:, 16, :vocab])
+    if not torch.isfinite(dec).all() or rel > PATH_RTOL:
+        raise AssertionError(f"mla parity: absorbed decode {diff:.3e} ({rel:.3e} of max "
+                             f"|logit|) from the full forward")
+    out["decode_vs_full"] = dict(max_abs_diff=diff, rel=rel)
+    del full, dec, cache
+    (toks_k, logits_k), (toks_p, logits_p), _ = _ds_pinned(
+        lambda: _generate_with_logits(run, params, prompts, DS_PARITY_NEW),
+        lambda: _generate_with_logits(plain, params, prompts, DS_PARITY_NEW))
+    logits_k = [[t[:vocab] for t in r] for r in logits_k]
+    logits_p = [[t[:vocab] for t in r] for r in logits_p]
+    cmp = _compare_greedy(toks_p, logits_p, toks_k, logits_k, "mla parity")
+    out["greedy"] = cmp
+    zero_counts()
+    log(f"[mla parity] routing pinned; kernels vs plain on the card: batched prefill "
+        f"last-position logits {out['prefill']['rel']:.3e} and absorbed-decode logits "
+        f"{out['decode']['rel']:.3e} of max |logit| (bound {PATH_RTOL}); absorbed decode of "
+        f"token 16 vs the full forward over 17 tokens (moe dense): {rel:.3e}; "
+        f"{DS_PARITY_NEW} greedy tokens: {_parted_text(cmp)}")
+    return out
+
+
+def phase_mla_flash(engine):
+    """Phase 59: the batched prefill with ``attention_impl="flash"`` through
+    the engine (``generate`` of one token, the fixed-batch path): K8 at
+    (192, 128) exact (5 causal 256 x 256 launches over 128 heads), K1 and
+    K5 as in a prefill at M = 2048; its last-position logits against the
+    blockwise prefill's (the same kernels otherwise), routing pinned."""
+    from repro_torch.launch import steps
+    from repro_torch.serving import ServeConfig, ServeEngine
+
+    run = _with_impl(engine.run, "flash")
+    params = engine.params
+    prompts = _ds_prompts(59)
+    zero_counts()
+    eng = ServeEngine(run, params, device="cuda", config=ServeConfig(num_slots=0))
+    first = eng.generate(prompts.cpu().numpy(), max_new=1)
+    torch.cuda.synchronize()
+    by_shape = counts_by_shape()
+    k1, k5 = _ds_fwd(DS_TOK_M, DS_SERVE_LAYERS)
+    got = {k: by_shape[k] for k in ("flash_attention", "lowrank_matmul", "lowrank_gated_ffn")}
+    want = {"flash_attention": DS_FLASH, "lowrank_matmul": k1, "lowrank_gated_ffn": k5}
+    others = {k: v for k, v in by_shape.items() if v and k not in want}
+    if got != want or others or first.shape != (DS_SLOTS, 1):
+        raise AssertionError(f"mla flash: launches {got}, want {want}; others {others}")
+    batch = {"tokens": prompts}
+    (out, _), (block, _), _ = _ds_pinned(
+        lambda: steps.build_prefill_step(run)(params, batch),
+        lambda: steps.build_prefill_step(engine.run)(params, batch))
+    vocab = run.model.vocab_size
+    diff, rel = rel_err(out[:, :vocab], block[:, :vocab])
+    zero_counts()
+    if not torch.isfinite(out[:, :vocab]).all() or rel > PATH_RTOL:
+        raise AssertionError(f"mla flash: prefill logits {diff:.3e} ({rel:.3e} of max "
+                             f"|logit|) from the blockwise prefill's")
+    log(f"[mla flash] prefill through the engine: K8 at (192, 128) "
+        + ", ".join(f"{k[1]}x{k[2]} x {k[3]} heads {'causal' if k[7] else 'non-causal'} {n}"
+                    for k, n in got["flash_attention"].items())
+        + f", K1 {sum(k1.values())}, K5 {sum(k5.values())}; last-position logits vs the "
+        f"blockwise prefill (routing pinned): max_abs_diff {diff:.3e} ({rel:.3e} of max "
+        f"|logit|; bound {PATH_RTOL})")
+    return by_shape, dict(max_abs_diff=diff, rel=rel, k8=sum(DS_FLASH.values()))
+
+
+def phase_mla_spec(params):
+    """Phase 60: the same 8 requests plain and self-speculative at k = 2 and
+    4 with the draft = the params (no second tree), all three with moe_impl
+    "dense": under "ep" a step's capacity depends on its token count, so a
+    (B, k + 1) verify chunk would drop other pairs than a plain decode step
+    and part from it for that reason alone.  Tokens held to the plain
+    run's (a parting must be a rounding tie), a rejected draft to the
+    verify's margin; forwards and K1 / K5 launches exact by shape;
+    acceptance and a speculative step's wall and device ms."""
+    run = _ds_run(moe_impl="dense")
+    trace = _ds_trace(_ds_prompts(60))
+    engine = _ds_engine(run, params)
+    ref_toks, ref_logits, by_shape, stats, fwd, dt, _ = _serve_trace(engine, trace)
+    del engine
+    paths, out = {"mla spec plain": by_shape}, dict(plain=dict(tok_per_s=stats["tok_per_s"],
+                                                                 fwd=fwd, wall_s=dt))
+    for k in DS_SPEC_KS:
+        engine = _ds_engine(run, params, speculative_k=k)
+        sched = engine.scheduler
+        toks, logits, by_shape, stats, fwd, dt, margins = _serve_trace(engine, trace)
+        p1, p5 = _ds_fwd(DS_PROMPT, DS_SERVE_LAYERS, n=fwd["prefill"])
+        d1, d5 = _ds_fwd(DS_SLOTS, DS_SERVE_LAYERS, decode=True, n=fwd["draft"])
+        v1, v5 = _ds_fwd(DS_SLOTS * (k + 1), DS_SERVE_LAYERS, decode=True, n=fwd["verify"])
+        want = {"lowrank_matmul": _add(_add(p1, d1), v1),
+                "lowrank_gated_ffn": _add(_add(p5, d5), v5)}
+        got = {name: by_shape[name] for name in want}
+        others = {name: v for name, v in by_shape.items() if v and name not in want}
+        if (fwd["decode"] or fwd["draft"] != k * fwd["verify"] or got != want or others
+                or sched.layout != "slots"):
+            raise AssertionError(f"mla spec k={k}: forwards {fwd}, launches {got}, want "
+                                 f"{want}; others {others}")
+        cmp = _compare_greedy(ref_toks, ref_logits, toks, logits, f"mla spec k={k}")
+        acc = sched.acceptance_rate()
+        if any(not m < cmp["worst_logit_abs"] for m in margins):
+            raise AssertionError(f"mla spec k={k}: rejected drafts with verify margins "
+                                 f"{sorted(margins)[-3:]} >= {cmp['worst_logit_abs']:.3e}")
+        st = dict(sched.spec_stats)
+        out[f"k={k}"] = dict(tok_per_s=stats["tok_per_s"], wall_s=dt, fwd=fwd, acceptance=acc,
+                             spec_stats=st, compare=cmp, reject_margins=margins)
+        paths[f"mla spec k={k}"] = by_shape
+        log(f"[mla spec] k={k}, draft = the params (moe dense): acceptance {acc:.4f} "
+            f"({len(margins)} slot-steps rejected a draft), {st['spec_steps']} steps, "
+            f"{fwd['draft']} draft + {fwd['verify']} verify forwards (K1 by M "
+            f"{_by_m(by_shape, 'lowrank_matmul')}); {stats['tok_per_s']:.1f} tok/s (plain "
+            f"{out['plain']['tok_per_s']:.1f}); {_parted_text(cmp)}; {dt:.1f}s")
+        del engine, sched
+    return paths, out
+
+
+def phase_mla_profile(engine, smi: str, steps_n: int = 5):
+    """Phase 61: a decode step of the scheduler's step function on its slot
+    cache (8 rows at position 256), the scheduler's one-prompt prefill (M =
+    256) and the batched prefill (8 x 256, blockwise and flash): wall and
+    device ms, idle share, K1, K5 and K8 ms, cuBLAS GEMMs and the experts'
+    bmm; ``max_memory_allocated`` over the calls."""
+    from repro_torch.launch import steps
+
+    run, params, sched = engine.run, engine.params, engine.scheduler
+    prompts = _ds_prompts(61)
+    token = torch.zeros((DS_SLOTS, 1), dtype=torch.int32, device="cuda")
+    pos = torch.full((DS_SLOTS,), DS_PROMPT, dtype=torch.int32, device="cuda")
+    one = {"tokens": prompts[:1]}
+    last = torch.tensor([DS_PROMPT - 1], device="cuda")
+    batch = {"tokens": prompts}
+    flash = steps.build_prefill_step(_with_impl(run, "flash"))
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    calls = (("decode step", steps_n, lambda: sched._decode(params, sched.cache, token, pos)),
+             ("scheduler prefill", 3, lambda: sched._prefill(params, one, last)),
+             ("batched prefill", 1, lambda: engine._prefill(params, batch)),
+             ("flash prefill", 1, lambda: flash(params, batch)))
+    k5 = ("k5_ms", "K5", lambda by_name: lowrank_device_ms(by_name)[1])
+    k8 = ("k8_ms", "K8", lambda by_name: sum(ms for name, ms in by_name.items()
+                                             if "flash_wgmma_kernel" in name))
+    out = profile_calls("mla profile", f"{DS_SLOTS} slots, {run.model.num_layers} layers, {smi}",
+                        calls, extra=(k5, k8, ("gemm_ms", "cuBLAS GEMMs", _gemm_ms)))
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    log(f"[mla profile] max_memory_allocated over the calls "
+        f"{out['max_memory_allocated'] / 2 ** 30:.2f} GiB ({smi})")
+    return out
+
+
+def phase_mla_train(smi: str):
+    """Phase 62: the training CLI on full-width DeepSeek-V3 at 1 dense layer
+    with its MTP layer (the one MoE layer; the main MoE stack empty), Eq.-5
+    ranks, 4 steps of 8 x 256 tokens at phases 0,0,1,1: per step exactly the
+    K1 and K5 of one forward by shape with mtp/proj, K1 on gate/up again (the
+    FFN backward's recompute), K2 on every factor pair, K3 at phase 1 only
+    and K4 at phase 0 only, the MTP layer's pairs included; no K6-K8;
+    finite losses."""
+    torch.cuda.reset_peak_memory_stats()
+    with at_depth(DS_TRAIN_LAYERS, first_k_dense=DS_TRAIN_LAYERS):
+        state, per_step, by_shape, dt = _counted_train(DS_TRAIN_ARGV)
+    peak = torch.cuda.max_memory_allocated()
+    phases = [r["phase"] for r in per_step]
+    if phases != [0, 0, 1, 1]:
+        raise AssertionError(f"mla train: phases {phases}, want [0, 0, 1, 1]")
+    if tuple(state.params["moe_stack"]["norm1"]["scale"].shape) != (0, 7168):
+        raise AssertionError("mla train: the MoE stack is not empty")
+    k1, k5 = _ds_fwd(TRAIN_M, DS_TRAIN_LAYERS, mtp=True)
+    recompute = {(m, c, r, f): 2 * n for (m, c, r, _, f), n in k5.items()}
+    pairs = _add(k1, recompute)
+    for r in per_step:
+        want = {"lowrank_matmul": pairs, "lowrank_gated_ffn": k5, "lowrank_matmul_dx": pairs,
+                "lowrank_matmul_du": pairs if r["phase"] == 1 else {},
+                "lowrank_matmul_dv": pairs if r["phase"] == 0 else {}}
+        got = {k: r["shape_counts"].get(k, {}) for k in want}
+        others = {k: v for k, v in r["launches"].items() if v and k not in want}
+        if got != want or others:
+            raise AssertionError(f"mla train: step {r['step']} (phase {r['phase']}) launched "
+                                 f"{got} and {others}, want {want}")
+        if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])):
+            raise AssertionError(f"mla train: step {r['step']} loss {r['loss']}")
+        log(f"[mla train] step {r['step']} phase {r['phase']}: loss {r['loss']:.4f}, grad norm "
+            f"{r['grad_norm']:.3f}, {r['step_time_s'] * 1e3:.1f} ms, memory_allocated "
+            f"{r['mem'] / 2 ** 30:.2f} GiB; launches "
+            + ", ".join(f"{k.replace('lowrank_', '')} {v}" for k, v in r["launches"].items()
+                        if v))
+    log(f"[mla train] 4 steps of {TRAIN_M} tokens at Eq.-5 ranks (loss + 0.3 MTP + 0.01 aux), "
+        f"1 dense layer + the MTP layer (256 experts), on {smi}: loss "
+        f"{per_step[0]['loss']:.4f} -> {per_step[-1]['loss']:.4f}; launches exact by shape each "
+        f"step, K3 absent at phase 0 and K4 at phase 1 on the MTP pairs too; "
+        f"max_memory_allocated {peak / 2 ** 30:.2f} GiB; {dt:.1f}s incl. init")
+    return state.params, by_shape, dict(steps=_without_shapes(per_step), wall_s=dt,
+                                        max_memory_allocated=peak)
+
+
+def phase_mla(smi: str):
+    """Phases 57-63; returns (launches by kernel and shape per main path,
+    results, K8's rows at (192, 128)).  The train phases run under
+    :func:`expandable_segments`."""
+    paths, result, secs = {}, {}, {}
+    t = [time.perf_counter()]
+
+    def lap(what):
+        secs[what] = time.perf_counter() - t[0]
+        t[0] = time.perf_counter()
+
+    engine, paths["mla serve"], result["serve"] = phase_mla_serve(smi)
+    lap("serve")
+    result["parity"] = phase_mla_parity(engine)
+    lap("parity")
+    paths["mla flash prefill"], result["flash"] = phase_mla_flash(engine)
+    result["profile"] = phase_mla_profile(engine, smi)
+    lap("flash and profile")
+    params = engine.params
+    del engine
+    more, result["spec"] = phase_mla_spec(params)
+    paths.update(more)
+    lap("speculative")
+    del params
+    gc.collect()
+    with expandable_segments():
+        params, paths["mla train"], result["train"] = phase_mla_train(smi)
+        with at_depth(DS_TRAIN_LAYERS, first_k_dense=DS_TRAIN_LAYERS):
+            run = _cli_run(DS_TRAIN_ARGV)
+        lap("train")
+        # phase 63: a step profiled at phases -1, 0 and 1 (max_memory_allocated
+        # each), then the gradients against the plain versions, routing pinned
+        result["train_profile"] = phase_train_profile(params, steps_n=1, run=run, moe=True,
+                                                      label="mla train profile", donate=True)
+        result["grads"] = phase_moe_grads(params, run=run, label="mla grads")
+        lap("train profile and grads")
+        del params
+    launched = [flash_dims(key) for key in sorted(paths["mla flash prefill"]["flash_attention"])]
+    extra = phase_flash_kernels(DS_FLASH_EXTRA)
+    for row in extra:
+        row["on_main_path"] = False
+    rows = phase_flash_kernels(launched) + extra
+    lap("K8 rows")
+    result["seconds"] = secs
+    log("[mla] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    return paths, result, rows
+
+
+def phase_rank_gate_kernels(skip=()):
     """K5 and K1 at the large dense configs' FFN geometries (item 13's
-    gate, on no main path), for the kernels line."""
-    rows = phase_kernels(RANK_GATE_SHAPES)
+    gate, on no main path), for the kernels line; shapes in ``skip`` have
+    rows of their own already (DeepSeek-V3's dense FFN is on its path)."""
+    rows = phase_kernels([sd for sd in RANK_GATE_SHAPES if sd not in skip])
     for row in rows:
         row["on_main_path"] = False
     return rows
@@ -4846,7 +5385,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="", help="also write every result as JSON here")
     ap.add_argument("--only", choices=("kernels", "conv", "serve", "moe", "ssm", "encdec",
-                                       "vlm"),
+                                       "vlm", "mla"),
                     default=None,
                     help="kernels: stop after the kernel phase (a first check of a build); "
                          "conv: run only the conv and ViT phases; serve: phases 1-3 at the "
@@ -4854,7 +5393,8 @@ def main(argv=None) -> int:
                          "phases 1-3 at the MoE shapes and the MoE phases 29-35; ssm: "
                          "phases 1-3 at the SSM and hybrid shapes and phases 36-43; encdec: "
                          "phases 1-3 at the enc-dec shapes and phases 44-49; vlm: phases 1-3 "
-                         "at the VLM shapes, phases 50-56 and the rank-gate rows")
+                         "at the VLM shapes, phases 50-56 and the rank-gate rows; mla: "
+                         "phases 1-3 at DeepSeek-V3's shapes and phases 57-63")
     args = ap.parse_args(argv)
 
     t_start = time.perf_counter()
@@ -4882,9 +5422,11 @@ def main(argv=None) -> int:
         shapes = encdec_kernel_shapes()
     elif args.only == "vlm":
         shapes = vlm_kernel_shapes()
+    elif args.only == "mla":
+        shapes = mla_kernel_shapes()
     else:
         shapes = (kernel_shapes() + moe_kernel_shapes() + ssm_kernel_shapes()
-                  + encdec_kernel_shapes() + vlm_kernel_shapes())
+                  + encdec_kernel_shapes() + vlm_kernel_shapes() + mla_kernel_shapes())
     # a shape two families share is checked once (xLSTM's attention and the
     # enc-dec serve path's are both (1024, 256, 1024))
     shapes = [sd for i, sd in enumerate(shapes) if sd not in shapes[:i]]
@@ -4911,6 +5453,11 @@ def main(argv=None) -> int:
         paths, result["vlm"], flash_rows = phase_vlm(smi)
         rows += flash_rows + phase_rank_gate_kernels()
         mark("vlm")
+        count_launches(rows, paths)
+    elif args.only == "mla":
+        paths, result["mla"], flash_rows = phase_mla(smi)
+        rows += flash_rows
+        mark("mla")
         count_launches(rows, paths)
     elif args.only is None:
         engine, paths["serve"], result["serve"] = phase_serve()
@@ -4955,7 +5502,7 @@ def main(argv=None) -> int:
         result["flash_parity"] = phase_flash_parity(engine)
         result["prefill_profile"] = phase_prefill_profile(engine)
         del engine
-        launched = [dict(zip(("B", "Sq", "Sk", "H", "KV", "D", "causal"), key))
+        launched = [flash_dims(key)
                     for key in sorted(paths["flash serve"]["flash_attention"])]
         rows += phase_flash_kernels(launched)
         # checked, not in the kernels line: no main path launches them
@@ -4992,8 +5539,14 @@ def main(argv=None) -> int:
         # old rank ceilings on a main path; item 13's rows beside it
         more, result["vlm"], flash_rows = phase_vlm(smi)
         paths.update(more)
-        rows += flash_rows + phase_rank_gate_kernels()
+        rows += flash_rows + phase_rank_gate_kernels(skip=mla_kernel_shapes())
         mark("vlm")
+        # MLA and MTP: full-width DeepSeek-V3, K8 at q/k head dim 192 and v
+        # head dim 128 on a main path
+        more, result["mla"], flash_rows = phase_mla(smi)
+        paths.update(more)
+        rows += flash_rows
+        mark("mla")
         count_launches(rows, paths)
         if not any(r["launches"] for r in rows if r["name"] == "int8_linear"):
             log("[kernels] int8_linear (K6) was launched on no main path in this run: the "
@@ -5001,11 +5554,11 @@ def main(argv=None) -> int:
     else:
         rows += phase_int8_kernels(INT8_DEFAULT_SHAPES)
         rows += phase_flash_kernels([FLASH_SERVE_SHAPE] + FLASH_EXTRA
-                                    + [dict(zip(("B", "Sq", "Sk", "H", "KV", "D", "causal"), k))
+                                    + [flash_dims(k)
                                        for k in ED_FLASH])
         rows += phase_kernels(RANK_EDGE_SHAPES) + phase_rank_gate_kernels()
-        rows += phase_flash_kernels([dict(zip(("B", "Sq", "Sk", "H", "KV", "D", "causal"), k))
-                                     for k in VLM_FLASH])
+        rows += phase_flash_kernels([flash_dims(k) for k in VLM_FLASH]
+                                    + [flash_dims(k) for k in DS_FLASH] + DS_FLASH_EXTRA)
         result["designs"] = phase_designs()
         for row in rows:
             row["launches"] = 0

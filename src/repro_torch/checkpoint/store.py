@@ -114,9 +114,11 @@ def _unflatten(flat: Dict[str, Any]) -> Any:
 
 
 def _to_host(leaf: Any) -> Any:
-    """A tensor -> a CPU tensor (bf16 kept); numpy and scalars pass."""
+    """A tensor -> a CPU copy of it (bf16 kept; a CPU tensor is copied too,
+    since a donated train step updates the state in place); numpy and
+    scalars pass."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu()
+        return leaf.detach().to("cpu", copy=True)
     return leaf
 
 

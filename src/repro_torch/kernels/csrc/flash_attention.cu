@@ -1,6 +1,8 @@
 // K8: flash-attention forward (causal or not) with grouped kv heads
 //   o[b, i, h] = sum_j softmax_j(s[i, j]) v[b, j, h / g],
 //   s[i, j] = (q'[b, i, h] . k[b, j, h / g]) * D**-0.5,  q' = bf16(q * q_mul),
+// q and k of head dim D, v and o of head dim Dv (D = Dv, or MLA's D 192 =
+// nope 128 + rope 64 with Dv 128),
 // in the TPU kernel's arithmetic: logits in float32 times D**-0.5, -1e30
 // where key j > query i under `causal`, running max m, denominator l and
 // output accumulator in float32, p cast to bf16 before the p.v product,
@@ -53,12 +55,19 @@
 //   (kernels/flash_attention.py's flash_units); CTA c of a persistent grid
 //   of G <= one wave (flash_grid) takes positions c, 2G - 1 - c, 2G + c,
 //   ... of that order (a snake, so the rounds even out: flash_plan).
-// Layout: q (B, Sq, H, D), k/v (B, Sk, KV, D) and o (B, Sq, H, D),
-// contiguous as the model's projections leave them, read through 3-D
-// tensor maps over (heads x D, S, B) that fill zeros past S in each batch
-// row; no transposed or repeated copy.  Any Sq and Sk; bf16 and D in
-// {64, 128}; q, k and v 16-byte aligned.  No flag, atomic or counter
-// crosses CTAs.
+//   Head dims (D, Dv): the kernel is a template on both.  q and k tiles
+//   are D / 64 boxes (three at MLA's 192), v tiles and o Dv / 64; S runs
+//   over D / 16 k-steps of m64n64k16, P V and the o accumulator over Dv,
+//   so registers depend on Dv alone (MLA's (192, 128) holds what
+//   (128, 128) does).  Shared memory takes two q buffers of D and a ring
+//   stage of D + Dv (at (192, 128): 2 x 48 KB of q, 40 KB a stage, three
+//   stages).
+// Layout: q (B, Sq, H, D), k (B, Sk, KV, D), v (B, Sk, KV, Dv) and o (B,
+// Sq, H, Dv), contiguous as the model's projections leave them, read
+// through 3-D tensor maps over (heads x D, S, B) that fill zeros past S in
+// each batch row; no transposed or repeated copy.  Any Sq and Sk; bf16 and
+// (D, Dv) in {(64, 64), (128, 128), (192, 128)}; q, k and v 16-byte
+// aligned.  No flag, atomic or counter crosses CTAs.
 
 #include "common.cuh"
 
@@ -75,10 +84,10 @@ constexpr float kNegInf = -1e30f;
 // Shared memory: [two q buffers (every warpgroup's tile)][ring of k | v
 // tiles][full | empty | q full | q free], behind up to 1 KB of alignment
 // slack
-template <int D>
+template <int D, int DV>
 struct Layout {
   static constexpr int kQ = kNW * (D / 64) * kBox;
-  static constexpr int kStage = 2 * (D / 64) * kBox;
+  static constexpr int kStage = (D / 64 + DV / 64) * kBox;
   static constexpr int kBars = (2 * kSlotsMax + 4) * 8;
   static constexpr int kRoom = (kSmemMax - 1024 - 2 * kQ - kBars) / kStage;
   static constexpr int kSlots = kRoom < kSlotsMax ? kRoom : kSlotsMax;
@@ -105,9 +114,10 @@ __device__ inline unsigned pack_f2(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&v);
 }
 
-// o (64 x D) += P (64 x 64 keys, bf16 A fragments in registers) V, V's tile
-// at `st` after the k tile: keys x D, D contiguous (B MN-major)
-template <int kC>
+// o (64 x Dv) += P (64 x 64 keys, bf16 A fragments in registers) V, V's
+// tile at `st` after the kK boxes of the k tile: keys x Dv, Dv contiguous
+// (B MN-major)
+template <int kK, int kC>
 __device__ inline void pv_product(float (&o)[kC][32], const unsigned (&pa)[4][4],
                                   const unsigned char* st) {
 #pragma unroll
@@ -117,7 +127,7 @@ __device__ inline void pv_product(float (&o)[kC][32], const unsigned (&pa)[4][4]
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
     for (int c = 0; c < kC; ++c)
-      wgmma_rs_n64<1>(o[c], pa[kk], sw128_desc(st + (kC + c) * kBox + kk * 2048, kBox, 1024));
+      wgmma_rs_n64<1>(o[c], pa[kk], sw128_desc(st + (kK + c) * kBox + kk * 2048, kBox, 1024));
   wgmma_commit();
 }
 
@@ -230,13 +240,14 @@ __device__ inline int unit_pos(int k) {
   return k * G + (k & 1 ? G - 1 - c : c);
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(128 * (kNW + 1), 1)
 flash_wgmma_kernel(const Args a, const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap) {
-  using L = Layout<D>;
-  constexpr int kC = D / 64;  // 64-wide boxes across D
+  using L = Layout<D, DV>;
+  constexpr int kK = D / 64;   // 64-wide boxes across D (q and k)
+  constexpr int kC = DV / 64;  // and across Dv (v and o)
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* ring = base + 2 * L::kQ;
@@ -273,18 +284,19 @@ flash_wgmma_kernel(const Args a, const __grid_constant__ CUtensorMap qmap,
       if (k >= 2) mbar_wait(q_free + qb, ((k >> 1) - 1) & 1);
       mbar_arrive_tx(q_full + qb, L::kQ);
       for (int w = 0; w < kNW; ++w)
-        for (int c = 0; c < kC; ++c)
-          tma_load_3d(base + qb * L::kQ + (w * kC + c) * kBox, &qmap, u.head * D + 64 * c,
+        for (int c = 0; c < kK; ++c)
+          tma_load_3d(base + qb * L::kQ + (w * kK + c) * kBox, &qmap, u.head * D + 64 * c,
                       u.q0(w), u.b, q_full + qb);
       for (int j = 0; j < u.nk; ++j, ++s) {
         const int slot = s % ns;
         mbar_wait(empty + slot, ((s / ns) & 1) ^ 1);
         unsigned char* st = ring + slot * L::kStage;
         mbar_arrive_tx(full + slot, L::kStage);
-        for (int c = 0; c < kC; ++c) {
+        for (int c = 0; c < kK; ++c)
           tma_load_3d(st + c * kBox, &kmap, u.hk * D + 64 * c, j * kBK, u.b, full + slot);
-          tma_load_3d(st + (kC + c) * kBox, &vmap, u.hk * D + 64 * c, j * kBK, u.b, full + slot);
-        }
+        for (int c = 0; c < kC; ++c)
+          tma_load_3d(st + (kK + c) * kBox, &vmap, u.hk * DV + 64 * c, j * kBK, u.b,
+                      full + slot);
       }
     }
     return;
@@ -297,10 +309,10 @@ flash_wgmma_kernel(const Args a, const __grid_constant__ CUtensorMap qmap,
   for (int k = 0, p = unit_pos(0); p < nunits; p = unit_pos(++k)) {
     const Unit u = unit_at(a, p);
     const int head = u.head, q0 = u.q0(wg), qb = k & 1;
-    unsigned char* qs = base + qb * L::kQ + wg * kC * kBox;
+    unsigned char* qs = base + qb * L::kQ + wg * kK * kBox;
     mbar_wait(q_full + qb, (k >> 1) & 1);
     if (a.q_mul != 1.0f) {  // q' = bf16(q * q_mul), in place, before wgmma reads it
-      for (int i = threadIdx.x % 128; i < kC * kBox / 16; i += 128) {
+      for (int i = threadIdx.x % 128; i < kK * kBox / 16; i += 128) {
         uint4* qv = reinterpret_cast<uint4*>(qs) + i;
         uint4 v = *qv;
         unsigned* w = reinterpret_cast<unsigned*>(&v);
@@ -342,7 +354,7 @@ flash_wgmma_kernel(const Args a, const __grid_constant__ CUtensorMap qmap,
       for (int j = 1; j < nk_w; ++j) {
         const unsigned char* st = rd.wait(ring, s + j);
         s_product<D>(sc, qs, st);
-        pv_product<kC>(o, pa, pv);
+        pv_product<kK, kC>(o, pa, pv);
         wgmma_wait<1>();  // S is done, P V may still run
         fence_regs(sc);
         softmax_tile(sc, m, alpha, sum, a, j * kBK, q0, w4, lane);
@@ -360,7 +372,7 @@ flash_wgmma_kernel(const Args a, const __grid_constant__ CUtensorMap qmap,
         pack_p(pa, sc);
         pv = st;
       }
-      pv_product<kC>(o, pa, pv);
+      pv_product<kK, kC>(o, pa, pv);
       wgmma_wait<0>();
       fence_pv<kC>(o, pa);
       if (threadIdx.x % 128 == 0) mbar_arrive(empty + (s + nk_w - 1) % ns);
@@ -382,7 +394,7 @@ flash_wgmma_kernel(const Args a, const __grid_constant__ CUtensorMap qmap,
     for (int hh = 0; hh < 2; ++hh) {
       const int row = q0 + 16 * w4 + lane / 4 + 8 * hh;
       if (row >= a.Sq) continue;
-      bf16* dst = a.o + (((size_t)u.b * a.Sq + row) * a.H + head) * D + 2 * t;
+      bf16* dst = a.o + (((size_t)u.b * a.Sq + row) * a.H + head) * DV + 2 * t;
 #pragma unroll
       for (int c = 0; c < kC; ++c)
 #pragma unroll
@@ -414,7 +426,7 @@ inline cudaError_t make_map_bshd(CUtensorMap* map, const void* p, int B, int S, 
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch(const Args& a, const void* q, const void* k, const void* v, int grid,
                    cudaStream_t stream) {
   int dev = 0;
@@ -423,12 +435,13 @@ cudaError_t launch(const Args& a, const void* q, const void* k, const void* v, i
   CUtensorMap qmap, kmap, vmap;
   if ((e = make_map_bshd(&qmap, q, a.B, a.Sq, a.H, D)) != cudaSuccess ||
       (e = make_map_bshd(&kmap, k, a.B, a.Sk, a.KV, D)) != cudaSuccess ||
-      (e = make_map_bshd(&vmap, v, a.B, a.Sk, a.KV, D)) != cudaSuccess)
+      (e = make_map_bshd(&vmap, v, a.B, a.Sk, a.KV, DV)) != cudaSuccess)
     return e;
   static size_t reserved = 0;
-  using L = Layout<D>;
-  if ((e = reserve_smem(flash_wgmma_kernel<D>, L::kSmem, &reserved)) != cudaSuccess) return e;
-  flash_wgmma_kernel<D><<<grid, 128 * (kNW + 1), L::kSmem, stream>>>(a, qmap, kmap, vmap);
+  using L = Layout<D, DV>;
+  if ((e = reserve_smem(flash_wgmma_kernel<D, DV>, L::kSmem, &reserved)) != cudaSuccess)
+    return e;
+  flash_wgmma_kernel<D, DV><<<grid, 128 * (kNW + 1), L::kSmem, stream>>>(a, qmap, kmap, vmap);
   return cudaGetLastError();
 }
 
@@ -437,12 +450,13 @@ cudaError_t launch(const Args& a, const void* q, const void* k, const void* v, i
 
 extern "C" {
 
-// o (B, Sq, H, D) = flash attention of q (B, Sq, H, D) against k, v (B, Sk,
-// KV, D), all bf16, contiguous and 16-byte aligned.  `grid` CTAs walk the
+// o (B, Sq, H, Dv) = flash attention of q (B, Sq, H, D) against k (B, Sk,
+// KV, D) and v (B, Sk, KV, Dv), all bf16, contiguous and 16-byte aligned.  `grid` CTAs walk the
 // units (kernels/flash_attention.py's flash_grid and flash_plan).  Launches
 // on `stream` and returns the cudaError_t of the launch.
 int repro_flash_attention(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                          int Sk, int H, int KV, int D, int causal, int grid, float q_mul,
+                          int Sk, int H, int KV, int D, int Dv, int causal, int grid,
+                          float q_mul,
                           float scale, void* stream) {
   using namespace repro::fa;
   if (B <= 0 || Sq <= 0 || H <= 0) return 0;
@@ -453,10 +467,12 @@ int repro_flash_attention(const void* q, const void* k, const void* v, void* o, 
                scale * 1.4426950408889634f};
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t e;
-  if (D == 64)
-    e = launch<64>(a, q, k, v, grid, st);
-  else if (D == 128)
-    e = launch<128>(a, q, k, v, grid, st);
+  if (D == 64 && Dv == 64)
+    e = launch<64, 64>(a, q, k, v, grid, st);
+  else if (D == 128 && Dv == 128)
+    e = launch<128, 128>(a, q, k, v, grid, st);
+  else if (D == 192 && Dv == 128)
+    e = launch<192, 128>(a, q, k, v, grid, st);
   else
     e = cudaErrorInvalidValue;
   return (int)e;

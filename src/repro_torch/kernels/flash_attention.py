@@ -4,11 +4,11 @@ The CUDA C++ kernel is ``csrc/flash_attention.cu`` (its source note says
 which TPU kernel it replaces, what bounds it and how the design answers
 that).  :func:`flash_attention` takes CPU tensors through the plain version
 (``ref.flash_attention_fwd_ref``) and CUDA tensors through the kernel, and
-raises on anything the kernel does not take (float32, a head dim other than
-64 or 128, mixed devices, an operand that requires grad); it never falls
-back.  ``flash_attention.launches`` counts kernel launches, and
-``flash_attention.launches_by_shape`` counts them by ``(B, Sq, Sk, H, KV, D,
-causal)``.
+raises on anything the kernel does not take (float32, a (q/k head dim, v
+head dim) pair outside :data:`HEAD_DIMS`, mixed devices, an operand that
+requires grad); it never falls back.  ``flash_attention.launches`` counts
+kernel launches, and ``flash_attention.launches_by_shape`` counts them by
+``(B, Sq, Sk, H, KV, D, Dv, causal)``.
 
 Its work order is plain Python here, mirrored by the kernel: a unit is
 ``UNIT_ROWS`` q rows of one head (each of the kernel's two consumer
@@ -33,7 +33,9 @@ from repro_torch.kernels.lowrank_matmul import check_cuda_operands, raise_on_err
 __all__ = ["flash_attention", "HEAD_DIMS", "flash_unit_count", "flash_units", "flash_grid",
            "flash_plan"]
 
-HEAD_DIMS = (64, 128)  # the D the kernel is built for (every dense arch's head dim)
+# the (q/k head dim D, v head dim Dv) pairs the kernel is built for: every
+# GQA arch's head dim, and MLA's nope + rope 192 with v 128 (DeepSeek-V3)
+HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
 # csrc/flash_attention.cu: q rows of a consumer warpgroup (kRows), keys of
 # a kv tile (kBK), and q rows of a unit (kNW warpgroups of kRows)
 ROWS, KV_TILE = 64, 64
@@ -89,7 +91,8 @@ def flash_plan(units: int, sms: int) -> list:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_scale: float = 1.0) -> torch.Tensor:
-    """q (B, Sq, H, D), k/v (B, Sk, KV, D) -> (B, Sq, H, D) in q's dtype.
+    """q (B, Sq, H, D), k (B, Sk, KV, D), v (B, Sk, KV, Dv) -> (B, Sq, H, Dv)
+    in q's dtype.
 
     q head h attends with kv head h // (H / KV).  q is first multiplied by
     ``q_scale`` in its own dtype, then the logits by D**-0.5 in float32
@@ -103,16 +106,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "'blockwise' or 'dense'")
     if q.device.type == "cpu":
         return ref.flash_attention_fwd_ref(q, k, v, causal=causal, q_scale=q_scale)
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"flash_attention: want q (B,Sq,H,D), k and v (B,Sk,KV,D); got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"flash_attention: want q (B,Sq,H,D), k (B,Sk,KV,D) and v "
+                         f"(B,Sk,KV,Dv); got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     b, sq, h, d = q.shape
-    sk, kvh = k.shape[1], k.shape[2]
+    sk, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
     if k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"flash_attention: k {tuple(k.shape)} does not match q "
                          f"{tuple(q.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    if (d, dv) not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {d} with v head dim {dv} not in "
+                         f"{HEAD_DIMS}")
     if kvh == 0 or h % kvh:
         raise ValueError(f"flash_attention: {h} q heads are not a multiple of {kvh} "
                          f"kv heads")
@@ -122,7 +127,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: q, k and v must start on a 16-byte boundary "
                          "(the kernel reads them by TMA)")
-    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    o = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
     if o.numel() == 0:
         return o
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
@@ -131,15 +136,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q_mul = float(torch.tensor(q_scale, dtype=q.dtype))
     lib = build.load("flash_attention")
     fn = lib.repro_flash_attention
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, sq, sk, h, kvh, d,
-              int(causal), grid, q_mul, d ** -0.5,
+              dv, int(causal), grid, q_mul, d ** -0.5,
               torch.cuda.current_stream(q.device).cuda_stream)
     raise_on_error("flash_attention", lib, code)
     flash_attention.launches += 1
-    flash_attention.launches_by_shape[(b, sq, sk, h, kvh, d, bool(causal))] += 1
+    flash_attention.launches_by_shape[(b, sq, sk, h, kvh, d, dv, bool(causal))] += 1
     return o
 
 

@@ -306,9 +306,10 @@ def int8_lowrank_apply(x: torch.Tensor, u_q: torch.Tensor, u_scale: torch.Tensor
 
 def flash_attention_apply(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool, q_scale: float = 1.0) -> torch.Tensor:
-    """Flash attention of q (B, Sq, H, D) against k/v (B, Sk, KV, D): K8 for
-    CUDA tensors (or an error), its plain version for CPU tensors.  Forward
-    only: raises under grad mode if an input requires grad."""
+    """Flash attention of q (B, Sq, H, D) against k (B, Sk, KV, D) and v (B,
+    Sk, KV, Dv): K8 for CUDA tensors (or an error), its plain version for CPU
+    tensors.  Forward only: raises under grad mode if an input requires
+    grad."""
     out = flash_attention(q, k, v, causal=causal, q_scale=q_scale)
     if q.device.type == "cpu":
         _note_fallback("flash_attention", "platform", (q.shape[0], q.shape[1], k.shape[1],

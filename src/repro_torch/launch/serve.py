@@ -10,7 +10,9 @@ the rank-quantized Algorithm-1 artifact (``serving/export.py``) and
 factorised projection runs through the hand-written kernels (K1/K5, or K7
 and K6 for the int8 artifact).  ``--arch`` takes the dense and MoE
 families (``olmoe-1b-7b``, whose experts run ``torch.bmm`` as in the
-reference; an int8 export of its expert groups is refused), and the SSM
+reference; an int8 export of its expert groups is refused;
+``deepseek-v3-671b``, MLA and MTP, served by the scheduler on its slot
+layout, where the prefix cache is off as in the reference), and the SSM
 (``xlstm-350m``), hybrid (``zamba2-1.2b``), enc-dec
 (``seamless-m4t-medium``) and VLM (``llama-3.2-vision-90b``) families,
 which serve on the fixed-batch path as the JAX CLI serves them: ``--slots``
@@ -30,6 +32,8 @@ rejected, not ignored.
       --slots 8 --prompt-len 256 --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-3.2-vision-90b --smoke \\
       --device cpu --lrd --slots 2 --prompt-len 8 --max-new 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b --smoke \\
+      --device cpu --lrd --slots 4 --requests 8 --prompt-len 12 --max-new 6 [--spec-k 2]
 """
 
 from __future__ import annotations
@@ -201,11 +205,9 @@ def main(argv=None):
             ap.error(f"--{flag.replace('_', '-')} is not ported to the PyTorch "
                      f"package yet ({item})")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    if (cfg.family not in ("dense", "moe") + FIXED_BATCH or cfg.use_mla or cfg.use_mtp):
-        ap.error(f"--arch {args.arch} ({cfg.family}"
-                 f"{', MLA/MTP' if cfg.use_mla or cfg.use_mtp else ''}) is not ported yet: "
-                 f"the port serves the dense, MoE, SSM, hybrid, enc-dec and VLM families "
-                 f"(ROADMAP queue 1 item 7, other model families)")
+    if cfg.family not in ("dense", "moe") + FIXED_BATCH:
+        ap.error(f"--arch {args.arch} ({cfg.family}) is not served: the port serves the "
+                 f"dense, MoE, SSM, hybrid, enc-dec and VLM families")
     stateful = cfg.family in FIXED_BATCH
     if stateful and (args.spec_k or args.prefix_cache):
         ap.error(f"--arch {args.arch} ({cfg.family}) serves on the fixed-batch path, which "

@@ -166,10 +166,13 @@ def repartition_state(optim_cfg, state: TrainState, parked, new_phase: int, *,
             tuple(tree_map(lambda t: t.cpu(), p) for p in new_parked))
 
 
-def _forward(params, batch, run: RunConfig, *, mode: str, policy, remat: str = "none"):
+def _forward(params, batch, run: RunConfig, *, mode: str, policy, remat: str = "none",
+             return_hidden: bool = False):
     """(logits, cache, aux) of one forward over a batch (the reference's
-    ``_forward_full``).  An encoder-decoder model first encodes
-    ``batch["frames"]`` with the kernels off, as the reference's
+    ``_forward_full``), and with ``return_hidden`` a decoder LM's
+    final-normed hidden state after them (the MTP head's input).  An
+    encoder-decoder model first encodes ``batch["frames"]`` with the
+    kernels off, as the reference's
     ``encode`` runs (it is given no kernel policy), then decodes
     ``batch["tokens"]`` against that memory; its aux is zero.  A VLM reads
     ``batch["vision_embeddings"]``, as the reference's does."""
@@ -177,7 +180,8 @@ def _forward(params, batch, run: RunConfig, *, mode: str, policy, remat: str = "
     if cfg.family != "encdec":
         vision = batch["vision_embeddings"] if cfg.family == "vlm" else None
         return lm.lm_apply(params, batch["tokens"], cfg, mode=mode, policy=policy,
-                           remat=remat, vision_embeddings=vision)
+                           remat=remat, vision_embeddings=vision,
+                           return_hidden=return_hidden)
     # remat keeps activations for a backward: train mode only, as lm_apply
     remat = remat if mode == "train" else "none"
     memory = encdec.encode(params, batch["frames"], cfg, remat=remat)
@@ -187,14 +191,25 @@ def _forward(params, batch, run: RunConfig, *, mode: str, policy, remat: str = "
 
 
 def _loss_fn(trainable, frozen, batch, run: RunConfig, phase: int) -> torch.Tensor:
-    """Mean token NLL of the merged params, plus ``0.01 * aux`` for a MoE
-    model (the reference's load-balance weight); ``frozen`` leaves carry
-    no grad, so no gradient of a frozen leaf is ever built."""
+    """Mean token NLL of the merged params; for an MTP model plus
+    ``mtp_loss_weight`` times the masked NLL of the MTP head's logits
+    against the labels shifted left by one (the last two positions
+    masked); then ``0.01 * aux`` for a MoE model (the reference's
+    load-balance weight).  ``frozen`` leaves carry no grad, so no gradient
+    of a frozen leaf is ever built."""
+    cfg = run.model
     params = freezing.merge(trainable, frozen)
-    logits, _, aux = _forward(params, batch, run, mode="train",
-                              policy=kernel_policy(run, phase), remat=run.dist.remat)
+    policy = kernel_policy(run, phase)
+    out = _forward(params, batch, run, mode="train", policy=policy, remat=run.dist.remat,
+                   return_hidden=cfg.use_mtp)
+    logits, aux = out[0], out[2]
     loss = cross_entropy(logits, batch["labels"])
-    if run.model.num_experts:
+    if cfg.use_mtp:
+        tokens = batch["tokens"]
+        mtp = lm.mtp_logits(params, out[3], tokens, cfg, policy=policy)
+        loss = loss + cfg.mtp_loss_weight * cross_entropy(
+            mtp, torch.roll(batch["labels"], -1, dims=1), mask=lm.mtp_loss_mask(tokens))
+    if cfg.num_experts:
         loss = loss + 0.01 * aux
     return loss
 
@@ -213,7 +228,7 @@ def _value_and_grad(trainable, frozen, batch, run: RunConfig, phase: int):
     return loss.detach(), tree_map(lambda _: next(it), trainable)
 
 
-def build_train_step(run: RunConfig, device="cuda"):
+def build_train_step(run: RunConfig, device="cuda", *, donate: bool = False):
     """Returns ``train_step(state, batch, *, phase) -> (state, metrics)``.
 
     ``batch`` holds ``tokens`` and ``labels`` (B, S) as numpy arrays or
@@ -221,7 +236,11 @@ def build_train_step(run: RunConfig, device="cuda"):
     ``vision_embeddings`` (B, image tokens, d) for a VLM); they are moved
     to ``device``.  ``run.dist.microbatches`` > 1
     splits the batch and accumulates the grads in ``run.dist.accum_dtype``.
-    ``metrics`` holds the float32 ``loss`` and ``grad_norm`` tensors."""
+    ``metrics`` holds the float32 ``loss`` and ``grad_norm`` tensors.  With
+    ``donate`` the update is written into the state's own params and
+    moments (the reference's train CLI donates its state): the returned
+    state shares their tensors, and the one passed in is not to be used
+    again."""
     dev = resolve_device(device)
     m = run.dist.microbatches
     adt = getattr(torch, run.dist.accum_dtype)
@@ -246,7 +265,8 @@ def build_train_step(run: RunConfig, device="cuda"):
             grads = tree_map(lambda g: g / m, gsum)
         else:
             loss, grads = _value_and_grad(state.trainable, state.frozen, b, run, phase)
-        new_trainable, new_opt = apply_updates(run.optim, state.trainable, grads, state.opt)
+        new_trainable, new_opt = apply_updates(run.optim, state.trainable, grads, state.opt,
+                                               donate=donate)
         # square in the grad dtype, accumulate in float32
         gnorm = torch.sqrt(sum(torch.sum(torch.square(g), dtype=torch.float32)
                                for g in tree_leaves(grads)))

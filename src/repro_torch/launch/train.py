@@ -21,7 +21,9 @@ every phase swap (``core.rank_adapt``; a ``[rank-adapt]`` line names the
 groups, ``old->new``); the checkpoint keeps the rank map, and a resume
 continues at the saved ranks.  ``--remat full|dots|sqrt`` checkpoints the
 layer stacks' activations (``models.lm``, ``models.encdec``).  ``--arch``
-takes the dense and MoE families (``olmoe-1b-7b``), the SSM family
+takes the dense and MoE families (``olmoe-1b-7b``; ``deepseek-v3-671b``,
+MLA with its MTP loss, the MTP layer's factors frozen and trained with the
+rest), the SSM family
 (``xlstm-350m``), the hybrid family (``zamba2-1.2b``), the enc-dec family
 (``seamless-m4t-medium``), whose batches also carry stub frontend frames
 (:func:`stub_frames`; the JAX CLI's carry none, so its enc-dec step
@@ -217,12 +219,9 @@ def main(argv=None, *, on_step=None):
         ap.error("--mesh-data/--mesh-model > 1: the PyTorch package trains on one "
                  "device (ROADMAP queue 1 item 8, distributed)")
     run = build_run(args)
-    if (run.model.family not in ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
-            or run.model.use_mla or run.model.use_mtp):
-        ap.error(f"--arch {args.arch} ({run.model.family}"
-                 f"{', MLA/MTP' if run.model.use_mla or run.model.use_mtp else ''}) is not "
-                 f"ported yet: the port trains the dense, MoE, SSM, hybrid, enc-dec and VLM "
-                 f"families (ROADMAP queue 1 item 7, other model families)")
+    if run.model.family not in ("dense", "moe", "ssm", "hybrid", "encdec", "vlm"):
+        ap.error(f"--arch {args.arch} ({run.model.family}) is not trained: the port trains "
+                 f"the dense, MoE, SSM, hybrid, enc-dec and VLM families")
     device = steps_mod.resolve_device(args.device)
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"[device] {where}")
@@ -264,7 +263,9 @@ def main(argv=None, *, on_step=None):
         print(f"[resume] from step {start_step} (phase {cur_phase}, saved on mesh "
               f"{extra.get('mesh', {}).get('shape', '?')} -> restored onto {where})")
 
-    train_step = steps_mod.build_train_step(run, device)
+    # the state is donated, as the reference's CLI donates it: the update is
+    # written into its tensors, so no second copy of params and moments
+    train_step = steps_mod.build_train_step(run, device, donate=True)
     monitor = StragglerMonitor()
     it = iter(data)
     losses = []

@@ -1,5 +1,6 @@
-"""GQA attention with paged decode, and tanh-gated cross-attention — the
-counterpart of ``repro/models/attention.py``.
+"""GQA attention with paged decode, tanh-gated cross-attention, and MLA
+(DeepSeek-V3) with its absorbed decode — the counterpart of
+``repro/models/attention.py``.
 
 All projections route through ``common.linear`` and are therefore
 LRD-aware.  q is pre-scaled by ``hd**-0.5`` in the projection, masks use
@@ -16,7 +17,10 @@ Cross-attention (``gqa_apply(..., kv_src=memory)``: the enc-dec decoder's
 over the encoder memory, the VLM's over the vision embeddings) takes k/v
 from ``kv_src``, is never causal and scales its output by ``tanh(gate)``;
 in decode it projects q alone against the cross cache, so a decode step
-needs no ``kv_src``.
+needs no ``kv_src``.  MLA (:func:`mla_apply`) caches the normalised kv
+latent and the rotated rope key (``{"ckv", "kr"}``) in a contiguous
+(B, Smax, ...) cache, one row a slot (the scheduler's slot layout), and
+decodes in latent space without building per-head k or v.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import kvcache as kvq
-from repro_torch.models.common import Params, apply_rope, linear, rmsnorm, rmsnorm_init
+from repro_torch.models.common import (Params, apply_rope, dot32, linear, rmsnorm,
+                                       rmsnorm_init, wide)
 
 # --------------------------------------------------------------------------
 # Softmax attention cores
@@ -337,3 +342,106 @@ def gqa_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, rope=None,
     if cross and "gate" in p:
         y = y * torch.tanh(p["gate"].float()).to(y.dtype)
     return y, new_cache
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek-V3)
+# --------------------------------------------------------------------------
+
+
+def mla_init(dec, path: str, cfg: ModelConfig, stack: Tuple[int, ...] = ()) -> Params:
+    """MLA params: the q and kv down-projections (the policy keeps them
+    dense), their norms, the up-projections to per-head q (nope + rope) and
+    k-nope / v, and ``wo``."""
+    d, h = cfg.d_model, cfg.num_heads
+    nd, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {
+        "q_down": dec.linear(f"{path}/q_down", d, cfg.q_lora_rank, stack=stack),
+        "q_norm": rmsnorm_init(cfg.q_lora_rank, cfg.pdtype, dec.device, stack),
+        "q_up": dec.linear(f"{path}/q_up", cfg.q_lora_rank, h * (nd + rd), stack=stack),
+        "kv_down": dec.linear(f"{path}/kv_down", d, cfg.kv_lora_rank + rd, stack=stack),
+        "kv_norm": rmsnorm_init(cfg.kv_lora_rank, cfg.pdtype, dec.device, stack),
+        "kv_up": dec.linear(f"{path}/kv_up", cfg.kv_lora_rank, h * (nd + vd), stack=stack),
+        "wo": dec.linear(f"{path}/wo", h * vd, d, stack=stack),
+    }
+
+
+def _mla_q(p, x, cfg, rope, policy):
+    """(q_nope, q_rope) (B, S, H, nd / rd), q_rope rotated."""
+    b, s = x.shape[0], x.shape[1]
+    nd, rd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    cq = rmsnorm(p["q_norm"], linear(p["q_down"], x, policy=policy), cfg.norm_eps)
+    q = linear(p["q_up"], cq, policy=policy).reshape(b, s, cfg.num_heads, nd + rd)
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    if rope is not None:
+        q_rope = apply_rope(q_rope, *rope)
+    return q_nope, q_rope
+
+
+def _slot_starts(pos, b: int, s: int, max_len: int, device):
+    """(write starts, mask bases), each (B,), of a decode chunk of ``s``
+    positions per row.  ``pos`` holding one position a row (B > 1) writes
+    row b at pos[b]; otherwise its first entry is every row's start (a
+    batch of 1 takes this path, as the reference's ``_row_positions``).  A
+    write that would run past ``max_len`` starts at ``max_len - s``, as
+    ``lax.dynamic_update_slice`` clamps it; the mask keeps the unclamped
+    start."""
+    flat = torch.as_tensor(pos, device=device).reshape(-1).long()
+    base = flat if flat.numel() == b and b > 1 else flat[:1].expand(b)
+    return base.clamp(0, max_len - s), base
+
+
+def mla_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, rope=None, mode: str = "full",
+              cache: Optional[Params] = None, pos=None,
+              policy=False) -> Tuple[torch.Tensor, Optional[Params]]:
+    """``mode="full"``: causal attention over per-head k = [k_nope, k_rope
+    broadcast to every head] and v from ``kv_up`` (head dims nope + rope and
+    v: under ``attention_impl="flash"`` K8 at (192, 128) for DeepSeek-V3),
+    returning ``{"ckv", "kr"}`` as the cache.  ``mode="decode"``: the
+    absorbed decode against a contiguous cache written in place: q-nope
+    taken into the latent space through ``kv_up``'s k part, scores against
+    the latent cache plus the rope scores, the context taken back out
+    through its v part.  Every product accumulates in float32 and is
+    rounded to x's dtype where the reference rounds it; query j of row b
+    sees positions < start[b] + j + 1 (in-chunk causality for a
+    speculative verify chunk)."""
+    b, s = x.shape[0], x.shape[1]
+    h, lat = cfg.num_heads, cfg.kv_lora_rank
+    nd, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    scale = (nd + rd) ** -0.5
+    ckv_full = linear(p["kv_down"], x, policy=policy)  # (B, S, lat + rd)
+    ckv = rmsnorm(p["kv_norm"], ckv_full[..., :lat], cfg.norm_eps)
+    k_rope = ckv_full[..., lat:].reshape(b, s, 1, rd)
+    if rope is not None:
+        k_rope = apply_rope(k_rope, *rope)
+    q_nope, q_rope = _mla_q(p, x, cfg, rope, policy)
+    if mode == "full":
+        kv = linear(p["kv_up"], ckv, policy=policy).reshape(b, s, h, nd + vd)
+        k = torch.cat([kv[..., :nd], k_rope.expand(b, s, h, rd)], dim=-1)
+        # the scale as x's dtype holds it (the reference's weakly typed scalar)
+        q = torch.cat([q_nope, q_rope], dim=-1) * torch.tensor(scale, dtype=x.dtype,
+                                                                 device=x.device)
+        # v as a tensor of its own (K8 reads contiguous operands by TMA)
+        out = attention_core(q, k, kv[..., nd:].contiguous(), cfg, causal=True)
+        new_cache = {"ckv": ckv, "kr": k_rope[..., 0, :]}
+    else:
+        if cache is None or pos is None:
+            raise ValueError("MLA decode needs a cache and positions")
+        starts, base = _slot_starts(pos, b, s, cache["ckv"].shape[1], x.device)
+        kvq.write_rows(cache["ckv"], ckv, starts)
+        kvq.write_rows(cache["kr"], k_rope[:, :, 0, :], starts)
+        ckv_c, kr_c = cache["ckv"], cache["kr"]
+        up = p["kv_up"]
+        w_kv = up["kernel"] if "kernel" in up else dot32(up["u"], up["v"]).to(up["u"].dtype)
+        w_kv = w_kv.reshape(lat, h, nd + vd)
+        w_uk, w_uv = w_kv[..., :nd], w_kv[..., nd:]
+        q_lat = torch.einsum("bshn,lhn->bshl", wide(q_nope), wide(w_uk)).to(x.dtype)
+        logits = (torch.einsum("bshl,btl->bhst", wide(q_lat), wide(ckv_c))
+                  + torch.einsum("bshr,btr->bhst", wide(q_rope), wide(kr_c))) * scale
+        length = base[:, None] + 1 + torch.arange(s, device=x.device)[None, :]  # (B, S)
+        valid = torch.arange(logits.shape[-1], device=x.device)[None, None, :] < length[..., None]
+        probs = torch.softmax(logits.masked_fill(~valid[:, None], -1e30), dim=-1)
+        ctx = torch.einsum("bhst,btl->bshl", wide(probs.to(x.dtype)), wide(ckv_c)).to(x.dtype)
+        out = torch.einsum("bshl,lhv->bshv", wide(ctx), wide(w_uv)).to(x.dtype)
+        new_cache = cache
+    return linear(p["wo"], out.reshape(b, s, h * vd), policy=policy), new_cache

@@ -1,5 +1,6 @@
-"""Decoder-LM assembly for the dense, MoE, SSM (xLSTM), hybrid (Zamba2) and
-VLM (llama-3.2-vision) families — the counterpart of ``repro/models/lm.py``.
+"""Decoder-LM assembly for the dense, MoE (MLA and MTP included: DeepSeek-V3),
+SSM (xLSTM), hybrid (Zamba2) and VLM (llama-3.2-vision) families — the
+counterpart of ``repro/models/lm.py``.
 
 Layers are stacked (every leaf carries a leading ``L`` dim, built directly
 by ``Decomposer(..., stack=(L,))``) and applied by a Python loop over that
@@ -34,7 +35,13 @@ group whole under ``"full"`` and ``"sqrt"`` and its tail as asked
 (:func:`_hybrid_forward`), and a VLM each group whole with each self
 layer checkpointed again inside it, as the reference's ``_vlm_forward``
 (:func:`_vlm_forward`; ``"dots"`` checkpoints nothing there, as in the
-reference).  MLA and MTP raise; the enc-dec family has its own assembly
+reference).  An MLA model's layers run ``attention.mla_apply`` (its cache
+holds the ``ckv`` latent and the ``kr`` rope key of each stack), and an
+MTP model carries ``p["mtp"]``, whose depth-1 head :func:`mtp_logits`
+predicts token t + 2 from the final hidden state (``lm_apply(...,
+return_hidden=True)``) and the embedding of token t + 1.  A stack may hold
+no layer (DeepSeek-V3 cut to ``num_layers = first_k_dense``: an empty
+``moe_stack``).  The enc-dec family has its own assembly
 (``models/encdec.py``), which reuses :func:`_run_stack`.
 """
 
@@ -51,15 +58,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.decompose import Decomposer
 from repro_torch.kernels.ops import KernelPolicy
 from repro_torch.models import ssm
-from repro_torch.models.attention import gqa_apply, gqa_init
+from repro_torch.models.attention import gqa_apply, gqa_init, mla_apply, mla_init
 from repro_torch.models.kvcache import init_quantized_kv
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.common import (Params, dot32, embed, embedding_init,
                                        ffn, ffn_init, linear, mask_vocab, rmsnorm,
                                        rmsnorm_init, rope_table)
 
-_FAMILIES_TODO = ("other model families (MLA, MTP) are not ported yet "
-                  "(ROADMAP queue 1 item 7, other model families)")
 REMAT_POLICIES = ("none", "full", "dots", "sqrt")
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
@@ -68,8 +73,9 @@ def _check_family(cfg: ModelConfig) -> None:
     if cfg.family == "encdec":
         raise NotImplementedError(f"{cfg.name} (encdec): an encoder-decoder model runs "
                                   f"through models.encdec, not the decoder-LM assembly")
-    if cfg.family not in FAMILIES or cfg.use_mla or cfg.use_mtp:
-        raise NotImplementedError(f"{cfg.name} ({cfg.family}): {_FAMILIES_TODO}")
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"{cfg.name} ({cfg.family}): not a decoder-LM family "
+                                  f"{FAMILIES}")
 
 
 def stack_layers(cfg: ModelConfig) -> Dict[str, int]:
@@ -102,9 +108,10 @@ def _layer(tree: Any, l: int) -> Any:
 def decoder_layer_init(dec: Decomposer, path: str, cfg: ModelConfig, *,
                        moe_layer: bool, stack=()) -> Params:
     _check_family(cfg)
+    attn = (mla_init if cfg.use_mla else gqa_init)(dec, f"{path}/attn", cfg, stack=stack)
     p: Params = {
         "norm1": rmsnorm_init(cfg.d_model, cfg.pdtype, dec.device, stack),
-        "attn": gqa_init(dec, f"{path}/attn", cfg, stack=stack),
+        "attn": attn,
         "norm2": rmsnorm_init(cfg.d_model, cfg.pdtype, dec.device, stack),
     }
     if moe_layer:
@@ -121,8 +128,9 @@ def decoder_layer_apply(lp: Params, h: torch.Tensor, cfg: ModelConfig, *, rope,
     """Returns (h, new_cache, aux): aux is the MoE layer's load-balance
     term, a float32 zero for a dense layer."""
     a_in = rmsnorm(lp["norm1"], h, cfg.norm_eps)
-    a_out, new_cache = gqa_apply(lp["attn"], a_in, cfg, rope=rope, mode=mode,
-                                 cache=cache, pos=pos, policy=policy)
+    attn = mla_apply if cfg.use_mla else gqa_apply
+    a_out, new_cache = attn(lp["attn"], a_in, cfg, rope=rope, mode=mode, cache=cache, pos=pos,
+                            policy=policy)
     h = h + a_out
     f_in = rmsnorm(lp["norm2"], h, cfg.norm_eps)
     if moe_layer:
@@ -211,6 +219,13 @@ def lm_init(cfg: ModelConfig, dec: Decomposer) -> Params:
         for name, n in stack_layers(cfg).items():
             path, moe_layer = _STACKS[name]
             p[name] = decoder_layer_init(dec, path, cfg, moe_layer=moe_layer, stack=(n,))
+    if cfg.use_mtp:
+        p["mtp"] = {
+            "proj": dec.linear("mtp/proj", 2 * cfg.d_model, cfg.d_model),
+            "layer": decoder_layer_init(dec, "mtp/layer", cfg, moe_layer=bool(cfg.num_experts)),
+            "norm_h": rmsnorm_init(cfg.d_model, cfg.pdtype, dec.device),
+            "norm_e": rmsnorm_init(cfg.d_model, cfg.pdtype, dec.device),
+        }
     p["final_norm"] = rmsnorm_init(cfg.d_model, cfg.pdtype, dec.device)
     if not cfg.tie_embeddings:
         p["unembed"] = dec.linear("unembed", cfg.d_model, cfg.vocab_padded)
@@ -458,8 +473,11 @@ def _ssm_forward(p: Params, h, cfg: ModelConfig, *, mode: str, train: bool, cach
 def lm_apply(p: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
              mode: str = "full", cache: Optional[Params] = None, pos=None,
              vision_embeddings: Optional[torch.Tensor] = None,
-             policy: "bool | KernelPolicy" = False, remat: str = "none"):
-    """Returns (logits float32 (B, S, V), new_cache, aux); ``new_cache`` is
+             policy: "bool | KernelPolicy" = False, remat: str = "none",
+             return_hidden: bool = False):
+    """Returns (logits float32 (B, S, V), new_cache, aux), and with
+    ``return_hidden`` the final-normed hidden state (B, S, d) after them
+    (what :func:`mtp_logits` reads); ``new_cache`` is
     None in ``mode="train"``, and ``aux`` sums the MoE layers' load-balance
     terms (float32; zero for every other model).  ``remat`` applies in
     ``mode="train"`` only, the one mode that keeps activations for a
@@ -482,7 +500,7 @@ def lm_apply(p: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
               "vlm": dict(rope=rope, vision=vision_embeddings)}[cfg.family]
         h, new_cache = fwd(p, h, cfg, mode=mode, train=train, cache=cache, pos=pos,
                            policy=policy, remat=remat, **kw)
-        return _head(p, h, cfg, policy), new_cache, aux
+        return _head(p, h, cfg, policy, new_cache, aux, return_hidden)
     new_cache: Optional[Dict[str, Any]] = None if train else {}
     for name in ("stack", "dense_stack", "moe_stack"):
         if name not in p:
@@ -499,39 +517,94 @@ def lm_apply(p: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             aux = aux + a
             continue
         layer_cache = cache[name] if cache is not None else None
-        ks, vs = [], []
+        kvs = []
         for l in range(n_layers):
             lc = _layer(layer_cache, l) if layer_cache is not None else None
             h, nc, a = decoder_layer_apply(_layer(stacked, l), h, cfg, rope=rope, mode=mode,
                                            cache=lc, pos=pos, moe_layer=moe_layer,
                                            policy=policy)
             aux = aux + a
-            if mode == "full":
-                ks.append(nc["k"])
-                vs.append(nc["v"])
-        if mode == "full":
-            new_cache[name] = {"k": torch.stack(ks), "v": torch.stack(vs)}
+            kvs.append(nc)
+        if mode == "full":  # k / v, or MLA's ckv / kr
+            new_cache[name] = (_stack_states(kvs) if kvs
+                               else _no_layer_cache(cfg, tokens.shape[0], s, h))
     if mode == "decode":
         new_cache = cache  # updated in place
-    return _head(p, h, cfg, policy), new_cache, aux
+    return _head(p, h, cfg, policy, new_cache, aux, return_hidden)
 
 
-def _head(p: Params, h: torch.Tensor, cfg: ModelConfig, policy) -> torch.Tensor:
-    """Final norm and the float32 logits, padded vocab masked."""
-    h = rmsnorm(p["final_norm"], h, cfg.norm_eps)
-    if cfg.tie_embeddings:
-        logits = dot32(h, p["embed"]["embedding"].T)
+def _no_layer_cache(cfg: ModelConfig, b: int, s: int, h: torch.Tensor) -> Params:
+    """The prefill cache of a stack with no layer: its leaves with a
+    leading 0, as the reference's scan over no layer returns them."""
+    if cfg.use_mla:
+        shapes = {"ckv": (0, b, s, cfg.kv_lora_rank), "kr": (0, b, s, cfg.qk_rope_head_dim)}
     else:
-        logits = linear(p["unembed"], h, policy=policy).float()
+        shapes = dict.fromkeys(("k", "v"), (0, b, s, cfg.num_kv_heads, cfg.resolved_head_dim))
+    return {k: torch.empty(v, dtype=h.dtype, device=h.device) for k, v in shapes.items()}
+
+
+def _logits(p: Params, hn: torch.Tensor, cfg: ModelConfig, policy) -> torch.Tensor:
+    """The float32 logits of a final-normed hidden state, padded vocab
+    masked."""
+    if cfg.tie_embeddings:
+        logits = dot32(hn, p["embed"]["embedding"].T)
+    else:
+        logits = linear(p["unembed"], hn, policy=policy).float()
     return mask_vocab(logits, cfg.vocab_size)
+
+
+def _head(p: Params, h: torch.Tensor, cfg: ModelConfig, policy, new_cache, aux,
+          return_hidden: bool):
+    """Final norm and logits: ``lm_apply``'s return tuple."""
+    hn = rmsnorm(p["final_norm"], h, cfg.norm_eps)
+    out = (_logits(p, hn, cfg, policy), new_cache, aux)
+    return out + (hn,) if return_hidden else out
+
+
+# --------------------------------------------------------------------------
+# MTP head (DeepSeek-V3)
+# --------------------------------------------------------------------------
+
+def mtp_logits(p: Params, h: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig, *,
+               policy: "bool | KernelPolicy" = False) -> torch.Tensor:
+    """Depth-1 multi-token prediction: the logits of token t + 2 from the
+    final-normed hidden state ``h`` at t and the embedding of token t + 1.
+    The shift is a roll padded back to S (the last two positions are
+    masked out of the loss, :func:`mtp_loss_mask`); the MTP layer runs as a
+    decoder layer in full mode with no remat, its MoE aux dropped, and the
+    head shares the model's final norm and unembedding, as the
+    reference's."""
+    mtp = p["mtp"]
+    emb_next = embed(p["embed"], torch.roll(tokens, -1, dims=1)).to(h.dtype)
+    h_in = torch.cat([rmsnorm(mtp["norm_h"], h, cfg.norm_eps),
+                      rmsnorm(mtp["norm_e"], emb_next, cfg.norm_eps)], dim=-1)
+    hm = linear(mtp["proj"], h_in, policy=policy)
+    hd = cfg.qk_rope_head_dim if cfg.use_mla else cfg.resolved_head_dim
+    rope = rope_table(hm.shape[1], hd, cfg.rope_theta, device=hm.device)
+    hm, _, _ = decoder_layer_apply(mtp["layer"], hm, cfg, rope=rope, mode="full", cache=None,
+                                   pos=None, moe_layer=bool(cfg.num_experts), policy=policy)
+    return _logits(p, rmsnorm(p["final_norm"], hm, cfg.norm_eps), cfg, policy)
+
+
+def mtp_loss_mask(tokens: torch.Tensor) -> torch.Tensor:
+    """(B, S) float32 weights of the padded depth-1 MTP loss: the last two
+    positions are invalid."""
+    b, s = tokens.shape
+    valid = (torch.arange(s, device=tokens.device) < s - 2).float()
+    return valid.expand(b, s)
 
 
 def _make_rope(cfg: ModelConfig, s: int, mode: str, pos, device):
     """RoPE tables for this call: none for an SSM model; head dim 2d / heads
-    for the hybrid's shared block (it runs at 2d)."""
+    for the hybrid's shared block (it runs at 2d); MLA's rope head dim."""
     if cfg.family == "ssm":
         return None
-    hd = 2 * cfg.d_model // cfg.num_heads if cfg.family == "hybrid" else cfg.resolved_head_dim
+    if cfg.use_mla:
+        hd = cfg.qk_rope_head_dim
+    elif cfg.family == "hybrid":
+        hd = 2 * cfg.d_model // cfg.num_heads
+    else:
+        hd = cfg.resolved_head_dim
     if mode == "full":
         return rope_table(s, hd, cfg.rope_theta, device=device)
     pos_arr = torch.as_tensor(pos, device=device).reshape(-1)
@@ -553,7 +626,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device, dtype=None) -
     block's k/v a group (head dim 2d / heads); for an SSM model the mLSTM
     states (``m`` in float32); for a VLM the self layers' k/v stacked on
     (groups, layers a group) and the cross blocks' on (groups,) over
-    ``num_image_tokens`` positions."""
+    ``num_image_tokens`` positions; for an MLA model each stack's ``ckv``
+    (L, batch, max_len, kv_lora_rank) and ``kr`` (L, batch, max_len,
+    qk_rope_head_dim) in ``dtype``, whatever ``kv_cache_dtype`` says, as in
+    the reference."""
     _check_family(cfg)
     dtype = dtype or cfg.cdtype
 
@@ -584,5 +660,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device, dtype=None) -
         kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
         return {"self": kv_cache((n_groups, every), kv, hd),
                 "cross": kv_cache((n_groups,), kv, hd, cfg.num_image_tokens)}
+    if cfg.use_mla:
+        return {name: {"ckv": torch.zeros((n, batch, max_len, cfg.kv_lora_rank), dtype=dtype,
+                                          device=device),
+                       "kr": torch.zeros((n, batch, max_len, cfg.qk_rope_head_dim),
+                                         dtype=dtype, device=device)}
+                for name, n in stack_layers(cfg).items()}
     return {name: kv_cache((n,), cfg.num_kv_heads, cfg.resolved_head_dim)
             for name, n in stack_layers(cfg).items()}

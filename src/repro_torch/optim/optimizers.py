@@ -8,7 +8,11 @@ the host and rotated back at the Algorithm-2 phase swap
 (``launch.steps.repartition_state``), which needs the moments as a tree
 that can be split per factor group.  The arithmetic is JAX's: float32 for
 every update, moments stored in ``state_dtype``, params cast back to their
-own dtype.  Updates return new tensors; nothing is changed in place.
+own dtype.  Updates return new tensors, unless ``apply_updates(...,
+donate=True)`` writes them into the params and moments it is given (the
+reference's train CLI donates its state, ``donate_argnums=(0,)``): the
+same arithmetic, element by element, a slice of a leaf at a time, so no
+second copy of the params or moments is ever held.
 """
 
 from __future__ import annotations
@@ -93,21 +97,40 @@ def init_moments(cfg: OptimConfig, params, on_host: bool = False) -> Tuple[Any, 
     return _zeros_like(params, dt, dev), nu
 
 
+# elements of a slice of a donated update: float32 temporaries of 256 MB
+_SLICE = 1 << 26
+
+
+def _donated(fn: Callable, out: torch.Tensor, *ins: torch.Tensor) -> torch.Tensor:
+    """``out.copy_(fn(*ins))`` a slice of at most ``_SLICE`` elements at a
+    time (elementwise, so the same bits as one call); returns ``out``."""
+    if not all(t.is_contiguous() for t in (out,) + ins):
+        return out.copy_(fn(*ins))
+    flat = [t.view(-1) for t in (out,) + ins]
+    for i in range(0, out.numel(), _SLICE):
+        flat[0][i:i + _SLICE].copy_(fn(*(t[i:i + _SLICE] for t in flat[1:])))
+    return out
+
+
 @torch.no_grad()
-def apply_updates(cfg: OptimConfig, params, grads, state: OptState):
+def apply_updates(cfg: OptimConfig, params, grads, state: OptState, *, donate: bool = False):
     """One optimizer step over the trainable partition; all trees share one
-    hole structure.  Returns ``(new_params, new_state)``."""
+    hole structure.  Returns ``(new_params, new_state)``; with ``donate``
+    their leaves are those of ``params`` and ``state``, updated in place."""
     lr = make_schedule(cfg)(state.step)
     step = state.step + 1
     sdt = _dtype(cfg.state_dtype)
     f32 = torch.float32
 
+    def put(fn):
+        return (lambda out, *ins: _donated(fn, out, out, *ins)) if donate else fn
+
     if cfg.name == "sgdm":
-        new_mu = tree_map(lambda mu, g: (cfg.momentum * mu.to(f32) + g.to(f32)).to(sdt),
+        new_mu = tree_map(put(lambda mu, g: (cfg.momentum * mu.to(f32) + g.to(f32)).to(sdt)),
                           state.mu, grads)
         new_params = tree_map(
-            lambda p, mu: (p.to(f32) - lr * (mu.to(f32) + cfg.weight_decay * p.to(f32))
-                           ).to(p.dtype),
+            put(lambda p, mu: (p.to(f32) - lr * (mu.to(f32) + cfg.weight_decay * p.to(f32))
+                               ).to(p.dtype)),
             params, new_mu)
         return new_params, OptState(step, new_mu, ())
 
@@ -115,10 +138,10 @@ def apply_updates(cfg: OptimConfig, params, grads, state: OptState):
     t = step.to(f32)
     c1 = 1.0 - b1 ** t
     c2 = 1.0 - b2 ** t
-    new_mu = tree_map(lambda mu, g: (b1 * mu.to(f32) + (1 - b1) * g.to(f32)).to(sdt),
+    new_mu = tree_map(put(lambda mu, g: (b1 * mu.to(f32) + (1 - b1) * g.to(f32)).to(sdt)),
                       state.mu, grads)
-    new_nu = tree_map(lambda nu, g: (b2 * nu.to(f32) + (1 - b2) * torch.square(g.to(f32))
-                                     ).to(sdt),
+    new_nu = tree_map(put(lambda nu, g: (b2 * nu.to(f32) + (1 - b2) * torch.square(g.to(f32))
+                                         ).to(sdt)),
                       state.nu, grads)
 
     def upd(p, mu, nu):
@@ -127,4 +150,4 @@ def apply_updates(cfg: OptimConfig, params, grads, state: OptState):
         return (p.to(f32) - lr * (mhat / (torch.sqrt(vhat) + eps)
                                   + cfg.weight_decay * p.to(f32))).to(p.dtype)
 
-    return tree_map(upd, params, new_mu, new_nu), OptState(step, new_mu, new_nu)
+    return tree_map(put(upd), params, new_mu, new_nu), OptState(step, new_mu, new_nu)

@@ -27,7 +27,9 @@ measured backend's probes timed on the engine's device (``params`` must
 already lie there); ``engine.export_report`` holds its report.  A MoE model
 serves through the same scheduler and fixed-batch path (every layer stack
 gets its pool or padded cache); its int8 export raises, since the
-reference cannot serve int8 expert groups.  The SSM (xLSTM) and hybrid
+reference cannot serve int8 expert groups.  An MLA model (DeepSeek-V3)
+takes the scheduler's slot layout (its latent cache, one contiguous row a
+slot), and its fixed-batch cache pads the ``ckv`` / ``kr`` leaves.  The SSM (xLSTM) and hybrid
 (Zamba2) families take the fixed-batch path whatever ``num_slots`` says,
 as in the reference (its scheduler serves dense and MoE only): their
 prefill cache carries recurrent state leaves, which :func:`pad_cache`
@@ -57,9 +59,10 @@ from repro_torch.serving.config import RequestResult, ServeConfig
 
 __all__ = ["ServeEngine", "pad_cache", "pad_cache_preserving_cross"]
 
-# leaf name -> axis that indexes kv positions (k_scale/v_scale share k/v's);
-# every other leaf (the recurrent states ssm, conv, c, n, m) has none
-_SEQ_AXIS = {"k": -3, "v": -3, "k_scale": -3, "v_scale": -3}
+# leaf name -> axis that indexes kv positions (k_scale/v_scale share k/v's;
+# MLA's latent ckv and rope key kr have no head axis); every other leaf (the
+# recurrent states ssm, conv, c, n, m) has none
+_SEQ_AXIS = {"k": -3, "v": -3, "k_scale": -3, "v_scale": -3, "ckv": -2, "kr": -2}
 # families the scheduler serves; the rest take the fixed-batch path
 _SCHEDULED = ("dense", "moe")
 

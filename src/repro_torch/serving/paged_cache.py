@@ -27,6 +27,12 @@ step keeps writing for inactive rows without corrupting live blocks.
 The host-side bookkeeping (:class:`BlockAllocator`,
 :class:`PageTableManager`) is plain numpy, copied from the JAX package.
 The device pools are updated in place (the JAX steps donate them).
+
+An MLA model (DeepSeek-V3) keeps its latent cache contiguous instead, the
+scheduler's slot layout: slot ``s`` owns row ``s`` of an (L, num_slots,
+max_len, ...) cache (:func:`init_slot_cache`), a prefill is written into
+its row (:func:`insert_prefill_rows`), and each row decodes at its own
+position.  The row is the allocation, so no allocator is involved.
 """
 
 from __future__ import annotations
@@ -39,11 +45,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import kvcache as kvq
+from repro_torch.models import lm
 from repro_torch.models.lm import stack_layers
 
 __all__ = ["BlockAllocator", "PageTableManager", "blocks_for", "supports_paged",
            "init_paged_cache", "with_page_table", "insert_prefill_paged",
-           "paged_pool_bytes"]
+           "paged_pool_bytes", "init_slot_cache", "insert_prefill_rows"]
 
 
 def blocks_for(length: int, block_size: int) -> int:
@@ -231,9 +238,9 @@ def init_paged_cache(cfg: ModelConfig, num_slots: int, num_blocks: int,
     pool per layer stack under the stack's name."""
     if not supports_paged(cfg):
         raise ValueError(
-            f"the port's paged KV cache supports the dense and MoE GQA families, not "
-            f"{cfg.family}{'/mla' if cfg.use_mla else ''} (ROADMAP queue 1 item 7, "
-            f"other model families)")
+            f"the paged KV cache holds the dense and MoE GQA families' k/v, not "
+            f"{cfg.family}{'/mla' if cfg.use_mla else ''}: an MLA model's latent cache "
+            f"takes the slot layout (init_slot_cache), as in the reference")
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     quant = cfg.kv_cache_dtype == "int8"
     dtype = torch.int8 if quant else cfg.cdtype
@@ -293,4 +300,41 @@ def insert_prefill_paged(cache: Dict[str, Any], prefill_cache: Dict[str, Any],
             pool = stack[leaf]
             flat = pool.view((n_layers, nb * bs) + tuple(pool.shape[3:]))
             flat[:, phys] = vals.to(pool.dtype)
+    return cache
+
+
+# --------------------------------------------------------------------------
+# Contiguous slot cache (MLA's latent cache)
+# --------------------------------------------------------------------------
+
+def init_slot_cache(cfg: ModelConfig, num_slots: int, max_len: int, device) -> Dict[str, Any]:
+    """The contiguous per-slot cache: ``models.lm.init_cache`` sized to the
+    slots, on ``device``."""
+    return lm.init_cache(cfg, num_slots, max_len, device)
+
+
+def insert_prefill_rows(cache: Any, prefill_cache: Any, slot: int) -> Any:
+    """Write a batch-1 prefill cache into slot row ``slot``, in place.
+
+    Generic over cache trees, as the reference's: a leaf (L, num_slots,
+    ...) takes its prefill leaf (L, 1, P, ...) at row ``slot`` and
+    positions [0, P) (a state leaf with no sequence axis, wholesale); an
+    int8 cache quantizes bf16 k / v on the way in and takes the scales from
+    that; leaves the prefill does not hold are left alone."""
+
+    def walk(c, p):
+        if isinstance(c, dict):
+            for k in c:
+                if k in ("k_scale", "v_scale") and isinstance(p, dict) and k not in p:
+                    walk(c[k], kvq.quantize_kv(p[k[0]])[1])
+                elif isinstance(p, dict) and k in p:
+                    src = p[k]
+                    if k in ("k", "v") and c[k].dtype == torch.int8 and src.dtype != torch.int8:
+                        src = kvq.quantize_kv(src)[0]
+                    walk(c[k], src)
+            return
+        c[(slice(None), slice(slot, slot + 1)) + tuple(slice(0, n) for n in p.shape[2:])] = \
+            p.to(c.dtype)
+
+    walk(cache, prefill_cache)
     return cache

@@ -1,19 +1,27 @@
 """Continuous-batching scheduler: admission queue, slots, fixed-shape steps.
 
-The counterpart of ``repro/serving/scheduler.py`` for the paged layout.
-Requests enter a FIFO admission queue; ``num_slots`` decode slots run as
-one fixed-shape batch.  A free slot triggers prefill-on-free-slot: the
-head-of-queue request is prefilled (batch 1, padded to ``prefill_len``),
-its KV is written into the slot's pages, and from the next step on it
+The counterpart of ``repro/serving/scheduler.py``.  Requests enter a FIFO
+admission queue; ``num_slots`` decode slots run as one fixed-shape batch.
+A free slot triggers prefill-on-free-slot: the head-of-queue request is
+prefilled (batch 1, padded to ``prefill_len``), its KV is written into the
+slot's pages (or its row), and from the next step on it
 decodes beside the other slots.  A request retires the moment it emits
 ``eos_id`` or reaches ``max_new``; its slot and blocks free at once.
 
-When a growth allocation fails, the youngest slot is preempted: its
-request goes back to the queue front with its generated tokens and resumes
-later by re-prefilling prompt + generated (exact under greedy decode).
+Cache layouts (``serving/paged_cache.py``): ``paged`` for the dense and
+MoE GQA families (block pools and page tables; when a growth allocation
+fails, the youngest slot is preempted: its request goes back to the queue
+front with its generated tokens and resumes later by re-prefilling prompt
++ generated, exact under greedy decode), and ``slots`` for an MLA model
+(DeepSeek-V3), whose latent cache is already rank-compressed: each slot
+owns one row of a contiguous cache and decodes at its own position, so
+admission needs no allocator and nothing is preempted.  The radix prefix
+cache needs the paged layout: on the slot layout it is off, even when
+asked for, as in the reference.
 
 Decode always runs over all ``num_slots`` rows, inactive ones included
-(their writes land in the sink block), so the step's shapes never change —
+(their writes land in the sink block, or in their own free row), so the
+step's shapes never change —
 which a CUDA graph of the step will need.  The block pools are updated in
 place, where the JAX steps donate them.  Host bookkeeping (queue, slots,
 allocator) is plain Python/numpy.
@@ -111,7 +119,8 @@ class Scheduler:
     provisioned; lower it to oversubscribe); ``on_token(request, token)``
     fires per generated token; ``speculative_k`` draft tokens a step (0 =
     plain decode) with ``draft_params`` (default ``params``: acceptance 1.0);
-    ``prefix_cache`` turns the radix prefix cache on.
+    ``prefix_cache`` turns the radix prefix cache on (the paged layout only;
+    ``block_size`` and ``num_blocks`` apply to it alone).
     """
 
     def __init__(self, run: RunConfig, params: Any, *, device,
@@ -122,13 +131,12 @@ class Scheduler:
                  speculative_k: int = 0, draft_params: Any = None,
                  prefix_cache: bool = False):
         cfg = run.model
-        if not pc.supports_paged(cfg):
+        if cfg.family not in ("dense", "moe"):
             raise ValueError(
-                f"the port's scheduler serves the dense and MoE GQA decoder families, "
-                f"not {cfg.family!r}{' with MLA' if cfg.use_mla else ''}; the ssm, "
-                f"hybrid, encdec and vlm families serve through ServeEngine.generate's "
-                f"fixed-batch path, as in the reference (ROADMAP queue 1 item 7, other "
-                f"model families)")
+                f"the port's scheduler serves the dense and MoE decoder families, not "
+                f"{cfg.family!r}; the ssm, hybrid, encdec and vlm families serve through "
+                f"ServeEngine.generate's fixed-batch path, as in the reference (ROADMAP "
+                f"queue 1 item 7, other model families)")
         self.run_config = run
         self.params = params
         self.device = torch.device(device)
@@ -139,19 +147,26 @@ class Scheduler:
         self.spec_k = max(int(speculative_k), 0)
         self.draft_params = ((draft_params if draft_params is not None else params)
                              if self.spec_k else None)
-        self.layout = "paged"
+        self.layout = "paged" if pc.supports_paged(cfg) else "slots"
         self.block_size = block_size
-        # the draft lookahead writes up to pos + spec_k: the pages cover it
-        max_blocks = pc.blocks_for(max_len + self.spec_k, block_size)
-        if num_blocks is None:
-            num_blocks = 1 + num_slots * max_blocks
-        self.pages = pc.PageTableManager(num_slots, max_blocks, num_blocks, block_size)
-        self.cache = pc.init_paged_cache(cfg, num_slots, num_blocks, block_size,
-                                         max_blocks, self.device)
-        self.prefix = RadixCache(self.pages.allocator, block_size) if prefix_cache else None
+        # the draft lookahead writes up to pos + spec_k: the window covers it
+        window = max_len + self.spec_k
+        if self.layout == "paged":
+            max_blocks = pc.blocks_for(window, block_size)
+            if num_blocks is None:
+                num_blocks = 1 + num_slots * max_blocks
+            self.pages = pc.PageTableManager(num_slots, max_blocks, num_blocks, block_size)
+            self.cache = pc.init_paged_cache(cfg, num_slots, num_blocks, block_size,
+                                             max_blocks, self.device)
+            self.prefix = (RadixCache(self.pages.allocator, block_size) if prefix_cache
+                           else None)
+        else:
+            self.pages = None
+            self.cache = pc.init_slot_cache(cfg, num_slots, window, self.device)
+            self.prefix = None  # contiguous rows: nothing to share
         self._prefill = steps_mod.build_slot_prefill_step(run)
         self._decode = steps_mod.build_serve_step(run)
-        self._extend = steps_mod.build_extend_step(run) if prefix_cache else None
+        self._extend = steps_mod.build_extend_step(run) if self.prefix is not None else None
         self._draft = steps_mod.build_draft_chain(run, self.spec_k) if self.spec_k else None
         self._verify = steps_mod.build_verify_step(run) if self.spec_k else None
 
@@ -186,7 +201,9 @@ class Scheduler:
         return st["accepted"] / st["drafted"] if st["drafted"] else 0.0
 
     def cache_bytes(self) -> int:
-        return pc.paged_pool_bytes(self.cache)
+        return pc.paged_pool_bytes(self.cache) if self.pages is not None else sum(
+            t.numel() * t.element_size() for stack in self.cache.values()
+            for t in stack.values())
 
     # -- submission --------------------------------------------------------
 
@@ -249,7 +266,8 @@ class Scheduler:
 
     def _release(self, slot: _Slot) -> None:
         idx = next(i for i, s in enumerate(self.slots) if s is slot)
-        self.pages.release(idx)
+        if self.pages is not None:
+            self.pages.release(idx)
         slot.req = None
         slot.pos = 0
         self._positions[idx] = 0
@@ -295,6 +313,10 @@ class Scheduler:
             if req.arrival > now:
                 break  # FIFO: later arrivals wait behind the head
             fed = req.fed_tokens()
+            if self.pages is None:  # the slot's row is its allocation
+                self.queue.popleft()
+                self._start(idx, slot, req, fed, [])
+                continue
             # +1 covers the first decode write, so a fresh admission always
             # makes one token of progress before it can be preempted again;
             # +spec_k covers that step's draft lookahead
@@ -335,7 +357,8 @@ class Scheduler:
         if not req.tokens:
             req.prefix_hit_len = hit
         self.prefix_stats["prefill_tokens"] += int(fed.size) - hit
-        page_row = torch.from_numpy(self.pages.table[idx]).to(self.device)
+        page_row = (torch.from_numpy(self.pages.table[idx]).to(self.device)
+                    if self.pages is not None else None)
         padded = np.zeros((1, self.prefill_len), np.int32)
         if hit:
             # the shared blocks hold fed[:hit]'s KV: run only the suffix
@@ -351,7 +374,10 @@ class Scheduler:
             last, pcache = self._prefill(self.params,
                                          {"tokens": torch.from_numpy(padded).to(self.device)},
                                          torch.tensor([fed.size - 1], device=self.device))
-            pc.insert_prefill_paged(self.cache, pcache, page_row)
+            if self.pages is not None:
+                pc.insert_prefill_paged(self.cache, pcache, page_row)
+            else:
+                pc.insert_prefill_rows(self.cache, pcache, idx)
             first_tok = int(self._sample(last, "prefill")[0])
         if self.prefix is not None:
             # index the slot's full prompt blocks; insert() adopts only the
@@ -372,7 +398,9 @@ class Scheduler:
         """Grow page tables so every active slot can write at its position
         (and its draft lookahead); evict cached-only blocks, then preempt
         youngest-first (possibly the growing slot itself) when the pool
-        runs dry."""
+        runs dry.  Nothing to do on the slot layout."""
+        if self.pages is None:
+            return
         for idx, slot in enumerate(self.slots):
             while slot.active and not self.pages.ensure(idx, slot.pos + self.spec_k):
                 if self.prefix is not None and self._evict(
@@ -431,7 +459,8 @@ class Scheduler:
         st["emitted"] += emitted
         # a dry pool with someone waiting: the lookahead blocks past each
         # slot's committed length are idle, so trim them back
-        if self.queue and self.pages.allocator.free_blocks == 0:
+        if (self.pages is not None and self.queue
+                and self.pages.allocator.free_blocks == 0):
             for i, s in enumerate(self.slots):
                 if s.active:
                     self.pages.trim(i, s.pos + 1)
@@ -449,7 +478,7 @@ class Scheduler:
         for i, s in active:
             self._positions[i] = s.pos
             self._tokens[i, 0] = s.token
-        if self._pt_version != self.pages.version:
+        if self.pages is not None and self._pt_version != self.pages.version:
             pc.with_page_table(self.cache, self.pages.table)
             self._pt_version = self.pages.version
         if self.spec_k:

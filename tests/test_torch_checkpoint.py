@@ -108,7 +108,7 @@ def test_port_run_resumes_across_a_phase_swap(tmp_path):
     ["--mesh", "production"], ["--mesh-data", "2"], ["--mesh-model", "2"], ["--fsdp"],
     ["--grad-compression", "int8"], ["--obs-dir", "runs/obs"], ["--obs"],
     ["--profile-steps", "1:2"], ["--log-format", "jsonl"], ["--pallas-interpret"],
-    ["--arch", "deepseek-v3-671b"]])
+    ["--obs-step-every", "2"]])
 def test_train_cli_rejects_unported_flags(flags, capsys):
     with pytest.raises(SystemExit) as exc:
         train.main(["--device", "cpu", *SMOKE, "--steps", "1", *flags])

@@ -27,13 +27,13 @@ def _need_gpu():
         pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
 
 
-def _qkv(seed, b, sq, sk, h, kv, d, q_scale=1.0):
+def _qkv(seed, b, sq, sk, h, kv, d, q_scale=1.0, dv=None):
     """q, k, v with N(0, 1) entries (q times ``q_scale``): logits of unit
-    variance after K8's D**-0.5."""
+    variance after K8's D**-0.5.  v's head dim is ``dv`` (default D)."""
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((b, sq, h, d)) * q_scale
     k = rng.standard_normal((b, sk, kv, d))
-    v = rng.standard_normal((b, sk, kv, d))
+    v = rng.standard_normal((b, sk, kv, dv or d))
     return [torch.from_numpy(a.astype(np.float32)).cuda().bfloat16() for a in (q, k, v)]
 
 
@@ -120,6 +120,50 @@ def test_gpu_flash_attention_undoes_the_prescale_as_the_plain_version(d):
     _close(got, want)
 
 
+# DeepSeek-V3's MLA prefill: q/k head dim 192 (nope 128 + rope 64), v head
+# dim 128, every q head its own kv head (KV = H = 128): (B, Sq, Sk, H, KV),
+# causal or not.  Causal 256 x 256 and 2048 x 2048, non-causal 256 x 2048,
+# two batch rows, ragged Sq and Sk, Sq < Sk, few heads
+MLA_SHAPES = [((8, 256, 256, 128, 128), True), ((1, 2048, 2048, 128, 128), True),
+              ((1, 256, 2048, 128, 128), False), ((2, 100, 100, 6, 6), True),
+              ((2, 77, 200, 4, 4), False), ((1, 1, 1, 2, 2), True), ((3, 130, 131, 3, 3), True),
+              ((1, 17, 300, 4, 2), False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,causal", MLA_SHAPES)
+def test_gpu_flash_attention_mla_head_dims_match_plain(shape, causal):
+    """K8 at (D, Dv) = (192, 128), q pre-scaled by 192**-0.5 and multiplied
+    back as the model calls it; (B, Sq, H, 128) out; the same bits on a
+    second call."""
+    _need_gpu()
+    b, sq, sk, h, kv = shape
+    q, k, v = _qkv(sq + sk + b + h, b, sq, sk, h, kv, 192, q_scale=192 ** -0.5, dv=128)
+    with torch.inference_mode():
+        got = flash_attention(q, k, v, causal=causal, q_scale=192 ** 0.5)
+        want = ref.flash_attention_fwd_ref(q, k, v, causal=causal, q_scale=192 ** 0.5)
+        again = flash_attention(q, k, v, causal=causal, q_scale=192 ** 0.5)
+    assert got.shape == (b, sq, h, 128)
+    _close(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_gpu_flash_attention_mla_counts_dv_and_refuses_other_pairs():
+    """The launch key carries Dv; (192, 192), (128, 64) and (64, 128) are
+    refused, not run."""
+    _need_gpu()
+    q, k, v = _qkv(5, 1, 40, 40, 4, 4, 192, dv=128)
+    flash_attention.launches_by_shape.clear()
+    with torch.inference_mode():
+        flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert dict(flash_attention.launches_by_shape) == {(1, 40, 40, 4, 4, 192, 128, True): 1}
+    for d, dv in ((192, 192), (128, 64), (64, 128)):
+        with pytest.raises(ValueError, match=f"head dim {d} with v head dim {dv}"):
+            flash_attention(*_qkv(6, 1, 16, 16, 2, 2, d, dv=dv))
+
+
 @pytest.mark.gpu
 def test_gpu_flash_attention_ignores_future_kv_exactly():
     _need_gpu()
@@ -145,8 +189,8 @@ def test_gpu_flash_attention_counts_launches_and_dispatches_to_the_kernel():
     torch.cuda.synchronize()
     assert fbs == []
     assert flash_attention.launches == 2
-    assert dict(flash_attention.launches_by_shape) == {(1, 40, 40, 6, 2, 64, True): 1,
-                                                      (1, 40, 40, 6, 2, 64, False): 1}
+    assert dict(flash_attention.launches_by_shape) == {(1, 40, 40, 6, 2, 64, 64, True): 1,
+                                                      (1, 40, 40, 6, 2, 64, 64, False): 1}
 
 
 @pytest.mark.gpu

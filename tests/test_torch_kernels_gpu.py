@@ -1096,3 +1096,67 @@ def test_gpu_lowrank_bwd_at_encdec_geometry(name, m, c, r, s):
     err = (got.float() - want.float()).abs().max().item()
     assert err <= BWD_RTOL * want.float().abs().max().item()
     assert torch.equal(got, again)
+
+
+# --------------------------------------------------------------------------
+# DeepSeek-V3's geometries at Eq.-5 ranks (d 7168, 128 heads; MLA q_up
+# 1536 -> 128 x 192 at rank 722, kv_up 512 -> 128 x 256 at 252, wo 16384 ->
+# 7168 at 2493; the dense FFN 7168 <-> 18432 at 2580; the shared expert
+# 7168 <-> 2048 at 796; mtp/proj 14336 -> 7168 at 2389).  K1 on every
+# factorised projection (gate/up too: the FFN backward's recompute), K5 on
+# the dense FFN's and the shared expert's gate/up.  M = 8 (8-slot decode),
+# 24 and 40 (the speculative verify chunks of k = 2 and 4), 256 (a
+# scheduler prefill of one 256-token prompt) and 2048 (8 x 256 train or
+# batched prefill tokens).
+# --------------------------------------------------------------------------
+
+MLA_K1 = [(1536, 722, 24576), (512, 252, 32768), (16384, 2493, 7168), (18432, 2580, 7168),
+          (2048, 796, 7168), (14336, 2389, 7168), (7168, 2580, 18432), (7168, 796, 2048)]
+MLA_K5 = [(7168, 2580, 18432), (7168, 796, 2048)]
+MLA_M = (8, 24, 40, 256, 2048)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", MLA_M)
+@pytest.mark.parametrize("c,r,s", MLA_K1)
+def test_gpu_lowrank_matmul_at_mla_geometry(m, c, r, s):
+    """K1 at DeepSeek-V3's geometries against plain; the same bits on a
+    second call."""
+    _need_gpu()
+    x, u, v = _mats(m + r + s, (m, c), (c, r), (r, s))
+    with torch.inference_mode():
+        got, want = lowrank_matmul(x, u, v), ref.lowrank_matmul_ref(x, u, v)
+        again = lowrank_matmul(x, u, v)
+    torch.cuda.synchronize()
+    _close_rel(got, want, K1_RTOL)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", MLA_M)
+@pytest.mark.parametrize("c,r,f", MLA_K5)
+def test_gpu_lowrank_gated_ffn_at_mla_geometry(m, c, r, f):
+    """K5 at the dense FFN's and the shared expert's gate/up against plain;
+    the same bits on a second call."""
+    _need_gpu()
+    args = _mats(m + c + r, (m, c), (c, r), (r, f), (c, r), (r, f))
+    with torch.inference_mode():
+        got, want = lowrank_gated_ffn(*args), ref.lowrank_gated_ffn_ref(*args)
+        again = lowrank_gated_ffn(*args)
+    torch.cuda.synchronize()
+    _close_rel(got, want, K5_RTOL)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["dx", "du", "dv"])
+@pytest.mark.parametrize("c,r,s", MLA_K1)
+def test_gpu_lowrank_bwd_at_mla_geometry(name, c, r, s):
+    """K2-K4 at the train step's M = 2048 on every factor pair of the
+    one-dense-layer cut with its MTP layer; bitwise repeatable."""
+    _need_gpu()
+    got, want = _bwd_case(name, 2048, c, r, s)
+    again, _ = _bwd_case(name, 2048, c, r, s)
+    torch.cuda.synchronize()
+    _close_rel(got, want, BWD_RTOL)
+    assert torch.equal(got, again)

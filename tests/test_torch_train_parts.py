@@ -113,6 +113,36 @@ def test_one_update_matches_jax(name, state_dtype):
     assert (parked[1] == ()) == (name == "sgdm")
 
 
+@pytest.mark.parametrize("name,state_dtype", [("sgdm", "float32"), ("adamw", "float32"),
+                                              ("adamw", "bfloat16"), ("sgdm", "bfloat16")])
+def test_donated_update_writes_the_same_bits_in_place(name, state_dtype, monkeypatch):
+    """``apply_updates(..., donate=True)`` (the train CLI's donated state)
+    gives the bits of the out-of-place update, written into the params and
+    moments it was handed, a slice of a leaf at a time; bf16 and float32
+    params, a momentum carried from an earlier step."""
+    kw = dict(name=name, lr=1e-2, warmup_steps=2, total_steps=8, state_dtype=state_dtype,
+              weight_decay=0.1)
+    cfg = TOptimConfig(**kw)
+    rng = np.random.default_rng(2)
+
+    def tree(dtype):
+        return {"a": torch.from_numpy(rng.standard_normal((37, 29)).astype(np.float32)).to(dtype),
+                "b": None, "c": torch.from_numpy(rng.standard_normal((5,)).astype(np.float32))}
+
+    params, grads = tree(torch.bfloat16), tree(torch.bfloat16)
+    state = topt.init_optimizer(cfg, params)
+    state, params = state._replace(step=torch.tensor(3, dtype=torch.int32)), params
+    state = state._replace(mu=freezing.tree_map(lambda m: m + 0.25, state.mu))
+    want_p, want_s = topt.apply_updates(cfg, params, grads, state)
+    monkeypatch.setattr(topt, "_SLICE", 100)  # several slices a leaf
+    leaves = freezing.tree_leaves((params, state.mu, state.nu))
+    got_p, got_s = topt.apply_updates(cfg, params, grads, state, donate=True)
+    for got, want, own in zip(freezing.tree_leaves((got_p, got_s.mu, got_s.nu)),
+                              freezing.tree_leaves((want_p, want_s.mu, want_s.nu)), leaves):
+        assert got is own and torch.equal(got, want)
+    assert int(got_s.step) == 4
+
+
 def test_synthetic_batches_match_jax():
     mine, ref = LMBatchIterator(300, 12, 4, seed=5), JLMBatchIterator(300, 12, 4, seed=5)
     for a, b in zip((next(iter(mine)) for _ in range(3)), (next(iter(ref)) for _ in range(3))):

@@ -441,19 +441,6 @@ def test_cli_serve_refuses_what_the_fixed_batch_path_lacks(bad, capsys):
     assert "item 7" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("cli", ["serve", "train"])
-def test_clis_still_refuse_mla_and_mtp(cli, capsys, tmp_path):
-    argv = ["--arch", "deepseek-v3-671b", "--smoke", "--device", "cpu"]
-    with pytest.raises(SystemExit) as exc:
-        if cli == "serve":
-            tserve.main(argv)
-        else:
-            ttrain.main(argv + ["--steps", "1", "--ckpt-dir", str(tmp_path)])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "MLA/MTP" in err and "item 7" in err
-
-
 def test_cli_stub_vision_embeddings_are_seeded_by_step():
     run = ttrain.build_run(ttrain._parser().parse_args(
         ["--arch", ARCH, "--smoke", "--global-batch", "2"]))
