@@ -298,6 +298,26 @@ Phases, in order; any failure exits nonzero:
               prefill's shape and five more (2048 x 2048 causal, 256 x 2048
               not, B 2, ragged) beside SDPA in the kernels line.
 
+64-67. The int8 export of xLSTM-350M and Zamba2-1.2B (in the ``ssm``
+              group), seamless-m4t-medium (``encdec``) and
+              llama-3.2-vision-90b (``vlm``, at its 2 served groups), each
+              run on the params its group built (cross gates seeded): the
+              analytic int8 export, timed, its serve ranks held to the
+              reference's (Zamba2 640-1280, the VLM 384-3072: K7 past its
+              old ceiling of 512; every group factorised at full width, so
+              K6 is not reached); the fixed-batch serve of 8 x 256 prompts
+              (1024 frames / 4096 image tokens a row), 32 new tokens, K7
+              launches exact by shape (a decode step's: every factorised
+              projection of every layer) and no other kernel; the prefill's
+              logits and 8 greedy tokens through K7 against its plain
+              version on the card (INT8_PATH_RTOL, identical tokens); the
+              gaps to the bf16 round trip of the tree and to the family's
+              bf16 serve, reported; a prefill and 5 decode steps profiled
+              with K7 ms.  Then K7, both entries, at every shape these
+              paths launched (M 8, 24, 2048, 8192, 32768) and at its
+              ceiling (4096, 4096, 4096; on no main path) in the kernels
+              line.
+
 Phases 20-24 run with TF32 off and the port's seeded init, through plain
 PyTorch (cuDNN convs, ``torch.matmul``): the JAX package computes them
 outside any Pallas kernel, so no hand-written kernel is on their path.
@@ -309,14 +329,13 @@ and timed after it.  ``--only kernels`` runs phases 1-3, the K6-K8 checks
 and phase 19; ``--only conv`` runs phases 1 and 20-24; ``--only serve`` runs
 phases 1-3 (at the serve and serving-feature shapes) and 25-28; ``--only
 moe`` runs phases 1-3 at the MoE shapes and 29-35; ``--only ssm`` phases
-1-3 at the SSM and hybrid shapes and 36-43; ``--only encdec`` phases 1-3 at
-the enc-dec shapes and 44-49; ``--only vlm`` phases 1-3 at the VLM shapes,
-50-56 and the large dense configs' rows; ``--only mla`` phases 1-3 at
-DeepSeek-V3's shapes and 57-63.  The last
-line of
-standard output is ``{"ok": true, "device": {...}}``; the
-line before it is ``nvidia-smi``'s name and power limit, and the
-``{"kernels": [...]}`` line comes before that.
+1-3 at the SSM and hybrid shapes, 36-43 and 64-65; ``--only encdec`` phases
+1-3 at the enc-dec shapes, 44-49 and 66; ``--only vlm`` phases 1-3 at the
+VLM shapes, 50-56, 67 and the large dense configs' rows; ``--only mla``
+phases 1-3 at DeepSeek-V3's shapes and 57-63.  The last line of standard
+output is ``{"ok": true, "device": {...}}``; the line before it is
+``nvidia-smi``'s name and power limit, and the ``{"kernels": [...]}`` line
+comes before that.
 """
 
 from __future__ import annotations
@@ -988,9 +1007,6 @@ def phase_int8_launches():
     leaves of the wq / wo geometry (C 960, S 960, r 128): the distinct
     device operations (kernels, memsets, copies) the profiler sees over 20
     calls, at most 3 each."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.kernels import ops
 
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -1003,17 +1019,19 @@ def phase_int8_launches():
              "int8_lowrank_apply": lambda: ops.int8_lowrank_apply(x, u_q, us, v_q, vs,
                                                                   use_kernel=True)}
     out, reps = {}, 20
+    def run(fn):
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+
     for name, fn in calls.items():
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
+        prof = profiled(lambda: run(fn))
         # the distinct device operations a call runs (the profiler can drop
         # some of a run's events, so they are not counted one by one); any
         # other kernel, memset or copy would show here
-        names = sorted({ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA})
+        names = sorted({ev.name() for ev in device_events(prof)})
         out[name] = dict(launches=len(names), kernels=names)
         if not names or len(names) > 3:
             raise AssertionError(f"int8 launches: ops.{name} runs {len(names)} distinct device "
@@ -1108,6 +1126,36 @@ def phase_serve():
                                   n_layers=n_layers)
 
 
+def device_events(prof):
+    """The profile's raw device-side events (kernels, memcpy, memset):
+    building its Python event tree takes minutes for a step of ~10^5
+    launches (an xLSTM train step)."""
+    from torch.autograd import DeviceType
+
+    return [ev for ev in prof.profiler.kineto_results.events()
+            if ev.device_type() == DeviceType.CUDA]
+
+
+PROFILE_TRIES = 3
+
+
+def profiled(run, record_shapes: bool = False):
+    """``torch.profiler`` (host and device activity) over ``run()``, which
+    synchronises the device before it returns.  CUPTI can hand back a
+    session with none of its device records; such a session says nothing
+    of what ran, so it is taken again, up to PROFILE_TRIES times, and the
+    last one is returned whatever it holds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=record_shapes) as prof:
+            run()
+        if device_events(prof):
+            break
+    return prof
+
+
 def device_ms_by_kernel(prof, steps: int):
     """Device time per call by kernel name, from the profiler's device-side
     events only (kernels, memcpy, memset; the CPU ops that launched them
@@ -1116,13 +1164,7 @@ def device_ms_by_kernel(prof, steps: int):
     programmatic dependent (K3/K4's later launches) starts while the one
     before it runs and waits, and that overlap is counted once, so the sum
     is the time the device was busy."""
-    from torch.autograd import DeviceType
-
-    # the profiler's raw events: building its Python event tree takes
-    # minutes for a step of ~10^5 launches (an xLSTM train step)
-    evs = sorted((ev.start_ns(), ev.end_ns(), ev.name())
-                 for ev in prof.profiler.kineto_results.events()
-                 if ev.device_type() == DeviceType.CUDA)
+    evs = sorted((ev.start_ns(), ev.end_ns(), ev.name()) for ev in device_events(prof))
     by_name, busy_until = {}, float("-inf")
     for start, end, name in evs:
         ms = max(0.0, end - max(start, busy_until)) / steps / 1e6
@@ -1139,8 +1181,6 @@ def phase_profile(engine, steps: int = 5, label: str = "decode step", int8: bool
     design), and the device's idle share of the step; for an int8 tree also
     its device launches, K6 / K7 ms and torch quantizer ops a step (none may
     run); for a MoE model the experts' ``bmm`` ms."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.launch import steps as steps_mod
 
     sched = engine.scheduler
@@ -1155,11 +1195,13 @@ def phase_profile(engine, steps: int = 5, label: str = "decode step", int8: bool
         step(engine.params, sched.cache, tokens, pos)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=moe) as prof:
+
+    def run():
         for _ in range(steps):
             step(engine.params, sched.cache, tokens, pos)
         torch.cuda.synchronize()
+
+    prof = profiled(run, record_shapes=moe)
     by_name = device_ms_by_kernel(prof, steps)
     device_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
@@ -2489,7 +2531,6 @@ def _measure(fn):
     (``torch.profiler``, device-side events) over PROFILE_STEPS, its part in
     convs and GEMMs (``LIBRARY_KERNELS``), and the device's idle share of
     the median step."""
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(LADDER_WARM):
         fn()
@@ -2501,10 +2542,13 @@ def _measure(fn):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     wall_ms = sorted(times)[len(times) // 2] * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(PROFILE_STEPS):
             fn()
         torch.cuda.synchronize()
+
+    prof = profiled(run)
     by_name = device_ms_by_kernel(prof, PROFILE_STEPS)
     device_ms = sum(by_name.values())
     if not device_ms:
@@ -4103,7 +4147,6 @@ def profile_calls(tag: str, where: str, calls, extra=()):
     n, fn)`` of ``calls``, a call's idle share and K1 ms, and each ``(key,
     name, fn)`` of ``extra`` as ``key: fn(device ms by kernel)``; logged as
     ``[tag] label (where)``."""
-    from torch.profiler import ProfilerActivity, profile
 
     out = {}
     for label, n, fn in calls:
@@ -4115,10 +4158,13 @@ def profile_calls(tag: str, where: str, calls, extra=()):
                 fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) / n * 1e3
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+            def run():
                 for _ in range(n):
                     fn()
                 torch.cuda.synchronize()
+
+            prof = profiled(run)
         by_name = device_ms_by_kernel(prof, n)
         device_ms = sum(by_name.values())
         k1_ms, _ = lowrank_device_ms(by_name)
@@ -4207,6 +4253,8 @@ def phase_ssm(archs=SSM_ARCHS):
         engine, paths[f"{arch} serve"], out["serve"] = phase_ssm_serve(arch)
         out["parity"] = phase_ssm_parity(engine, arch)
         out["profile"] = phase_fixed_profile(engine, arch)
+        paths[f"{arch} int8 serve"], out["int8"] = phase_family_int8(
+            arch, engine, seed=64 + SSM_ARCHS.index(arch))
         del engine
         gc.collect()
         params, paths[f"{arch} train"], out["train"] = phase_ssm_train(arch)
@@ -4502,6 +4550,7 @@ def phase_encdec():
     result["parity"] = phase_encdec_parity(engine)
     paths["encdec flash prefill"], result["flash"] = phase_encdec_flash(engine)
     result["profile"] = phase_encdec_profile(engine)
+    paths["encdec int8 serve"], result["int8"] = phase_family_int8(ED_ARCH, engine, seed=66)
     del engine
     gc.collect()
     params, paths["encdec train"], result["train"] = phase_encdec_train()
@@ -4850,6 +4899,8 @@ def phase_vlm(smi: str):
     result["parity"] = phase_vlm_parity(engine)
     paths["vlm flash prefill"], result["flash"] = phase_vlm_flash(engine)
     result["profile"] = phase_vlm_profile(engine, smi)
+    paths["vlm int8 serve"], result["int8"] = phase_family_int8(VLM_ARCH, engine, seed=67,
+                                                                smi=smi)
     del engine
     with expandable_segments():
         params, paths["vlm train"], result["train"] = phase_vlm_train(smi)
@@ -4864,6 +4915,225 @@ def phase_vlm(smi: str):
     launched = [flash_dims(key)
                 for key in sorted(paths["vlm flash prefill"]["flash_attention"])]
     return paths, result, phase_flash_kernels(launched)
+
+
+# --------------------------------------------------------------------------
+# The int8 export of the SSM, hybrid, enc-dec and VLM families (phases
+# 64-67, each inside its family's group)
+# --------------------------------------------------------------------------
+
+# Each family's fixed-batch serve from its analytic int8 export, built on
+# the params its group already made (the same widths and depth cuts; the
+# enc-dec and VLM cross gates seeded non-zero): 8 x 256 prompts (with 1024
+# stub frames, or 4096 stub image tokens, a row), 32 new tokens.  At full
+# width the analytic export keeps every group factorised, truncated to the
+# serve ranks below, so every projection of the decoder runs K7, Zamba2's
+# and the VLM's past rank 512; no group merges, so K6 is not reached.  The
+# enc-dec encoder runs with the kernels off, as the reference's encode: its
+# int8 groups take the weight-only formula and launch nothing.
+INT8_FAM_SLOTS, INT8_FAM_PROMPT, INT8_FAM_NEW, INT8_FAM_PARITY_NEW = 8, 256, 32, 8
+INT8_FAM_TOK_M = INT8_FAM_SLOTS * INT8_FAM_PROMPT
+INT8_FAM_ITERS = 20  # timing iterations of the family rows (their plain versions are slow)
+# family -> (C, S) -> the analytic export's serve rank at full width (the
+# JAX export's, at probe_tokens 1: the fixed-batch engine's)
+INT8_FAM_RANKS = {
+    "xlstm-350m": {(1024, 1024): 128},
+    "zamba2-1.2b": {(2048, 8384): 768, (4096, 2048): 640, (4096, 4096): 896,
+                    (4096, 8192): 1280, (8192, 4096): 1280},
+    ED_ARCH: {(1024, 1024): 128, (1024, 4096): 384, (4096, 1024): 384},
+    VLM_ARCH: {(8192, 8192): 1920, (8192, 1024): 384, (8192, 28672): 3072,
+               (28672, 8192): 3072}}
+# family -> (applications of each (C, S) a forward runs on its token rows,
+# (M, C, S) -> applications a prefill also runs on other rows): as the K1
+# tables above, with a SwiGLU's gate and up two applications (int8 groups
+# skip K5) and (VLM) at its serve depth of VLM_SERVE_GROUPS groups
+_VLM_G = VLM_SERVE_GROUPS
+INT8_FAM_APPS = {
+    "xlstm-350m": ({(c, s): n for (c, _, s), n in SSM_GEOMS["xlstm-350m"].items()}, {}),
+    "zamba2-1.2b": ({(c, s): n for (c, _, s), n in SSM_GEOMS["zamba2-1.2b"].items()},
+                    {(SSM_TAIL_M, c, s): n for (c, _, s), n in SSM_TAIL["zamba2-1.2b"].items()}),
+    ED_ARCH: ({(1024, 1024): 6 * ED_LAYERS, (1024, 4096): ED_LAYERS, (4096, 1024): ED_LAYERS},
+              {(ED_MEM_M, 1024, 1024): 2 * ED_LAYERS}),
+    VLM_ARCH: ({(8192, 8192): 2 * (VLM_EVERY + 1) * _VLM_G, (8192, 1024): 2 * VLM_EVERY * _VLM_G,
+                (8192, 28672): 2 * (VLM_EVERY + 1) * _VLM_G,
+                (28672, 8192): (VLM_EVERY + 1) * _VLM_G},
+               {(VLM_IMG_M, 8192, 1024): 2 * _VLM_G})}
+# K7 at its ceiling, checked and timed beside the family rows (no main path
+# runs it)
+INT8_CEILING_SHAPES = [("int8_lowrank_linear", (m, 4096, 4096, 4096))
+                       for m in (INT8_FAM_SLOTS, INT8_FAM_TOK_M)]
+# K7 past rank 512 checked by ``--only kernels``: every Zamba2 and VLM serve
+# geometry at M 8 and 2048, and the ceiling
+INT8_WIDE_SHAPES = ([("int8_lowrank_linear", (m, c, r, s_))
+                     for arch in ("zamba2-1.2b", VLM_ARCH)
+                     for (c, s_), r in INT8_FAM_RANKS[arch].items()
+                     for m in (INT8_FAM_SLOTS, INT8_FAM_TOK_M)] + INT8_CEILING_SHAPES)
+
+
+def _int8_fam_want(arch):
+    """K7 launches by (M, C, r, S) of one fixed-batch generate: a prefill
+    at M = 8 x 256 (and its other rows), then INT8_FAM_NEW - 1 decode
+    steps at M = 8."""
+    tok, extra = INT8_FAM_APPS[arch]
+    ranks = INT8_FAM_RANKS[arch]
+    want = {}
+    for m, n in ((INT8_FAM_TOK_M, 1), (INT8_FAM_SLOTS, INT8_FAM_NEW - 1)):
+        for (c, s_), k in tok.items():
+            want[(m, c, ranks[(c, s_)], s_)] = k * n
+    for (m, c, s_), k in extra.items():
+        key = (m, c, ranks[(c, s_)], s_)
+        want[key] = want.get(key, 0) + k
+    return want
+
+
+def _int8_fam_inputs(run, seed: int):
+    """The family's 8 x 256 prompts (on the card) and its ``generate``
+    extras: the enc-dec frames or the VLM's image embeddings as the serve
+    CLI draws them, else None."""
+    import numpy as np
+
+    if run.model.family == "encdec":
+        return _ed_inputs(run, seed)
+    if run.model.family == "vlm":
+        return _vlm_inputs(run, seed)
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.integers(0, run.model.vocab_size,
+                                        (INT8_FAM_SLOTS, INT8_FAM_PROMPT), dtype=np.int32),
+                           device="cuda"), None
+
+
+def phase_family_int8(arch, engine, seed: int, smi: str = ""):
+    """Phases 64-67: the family's analytic int8 export of ``engine``'s
+    params (cross gates seeded), timed, its ranks held to INT8_FAM_RANKS;
+    a fixed-batch generate of 8 x 256 prompts and 32 new tokens with K7's
+    launches exact by shape (every factorised projection of every layer, a
+    decode step's at M = 8) and no other kernel; the prefill's last-position
+    logits through K7 against its plain version on the card (INT8_PATH_RTOL)
+    and 8 greedy tokens each way, identical; the gap to the bf16 round trip
+    of the same tree and to the family's bf16 serve of the same params
+    (reported, not bounded: xLSTM-350M's random weights are chaotic); one
+    prefill and 5 decode steps profiled with K7 ms."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.launch import steps
+    from repro_torch.serving import ServeConfig, ServeEngine
+    from repro_torch.serving.engine import pad_cache_preserving_cross
+
+    run = engine.run
+    cfg, tag = run.model, f"{arch} int8"
+    params = _gated(engine.params, seed) if cfg.family in ("encdec", "vlm") else engine.params
+    prompts, extras = _int8_fam_inputs(run, seed)
+    batch = dict(extras or {}, tokens=prompts)
+    vocab = cfg.vocab_size
+    gc.collect()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ieng = ServeEngine(run, params, device="cuda",
+                       config=ServeConfig(export="analytic", export_int8=True))
+    torch.cuda.synchronize()
+    export_s = time.perf_counter() - t0
+    report, ranks = ieng.export_report, INT8_FAM_RANKS[arch]
+    bad = {p: (tuple(l.shape), l.rank_serve, l.merged) for p, l in report.layers.items()
+           if l.merged or not l.quantized or l.rank_serve != ranks.get(tuple(l.shape))}
+    if bad:
+        raise AssertionError(f"{tag}: export groups off the expected serve ranks {ranks}: {bad}")
+    log(f"[{tag}] analytic int8 export of {cfg.num_layers} layers in {export_s:.1f} s on "
+        f"{smi or torch.cuda.get_device_name(0)}: {report.summary()}")
+    for (c, s_), groups in _geometries(report).items():
+        lay = groups[0][1]
+        log(f"[{tag}]   (C {c}, S {s_}): {len(groups)} groups "
+            f"({', '.join(p for p, _ in groups)}), r_train {lay.rank_train} -> r_serve "
+            f"{lay.rank_serve}, int8 factors (K7)")
+    zero_counts()
+    t0 = time.perf_counter()
+    out = ieng.generate(prompts.cpu().numpy(), max_new=INT8_FAM_NEW, extras=extras)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    by_shape = counts_by_shape()
+    want = _int8_fam_want(arch)
+    got = by_shape["int8_lowrank_linear"]
+    others = {k: v for k, v in by_shape.items() if v and k != "int8_lowrank_linear"}
+    tokens_ok = bool(((out >= 0) & (out < vocab)).all())
+    if (got != want or others or out.shape != (INT8_FAM_SLOTS, INT8_FAM_NEW) or not tokens_ok
+            or ieng._scheduler is not None):
+        raise AssertionError(f"{tag} serve: K7 launches {got}, want {want}; other kernels "
+                             f"{others}; tokens {out.shape} (in range: {tokens_ok})")
+    per_step = sum(INT8_FAM_APPS[arch][0].values())
+    past = sorted({k[2] for k in got if k[2] > 512})
+    log(f"[{tag} serve] fixed batch {INT8_FAM_SLOTS} x {INT8_FAM_PROMPT} prompts"
+        + (f" with {', '.join(f'{v.shape[1]} {k}' for k, v in extras.items())} a row"
+           if extras else "")
+        + f", {INT8_FAM_NEW} new tokens from the int8 export: {dt:.2f}s "
+        f"({out.size / dt:.1f} tok/s); {sum(got.values())} K7 launches, exact by shape, "
+        f"{per_step} a decode step (every factorised projection of {cfg.num_layers} layers)"
+        + (f", ranks past 512: {past}" if past else "") + "; no other kernel")
+    # parity: the same tree through K7's plain version on the card
+    got_l, _ = ieng._prefill(ieng.params, batch)
+    with plain_int8():
+        want_l, _ = ieng._prefill(ieng.params, batch)
+        ptoks = ieng.generate(prompts.cpu().numpy(), max_new=INT8_FAM_PARITY_NEW, extras=extras)
+    zero_counts()
+    err, rel = rel_err(got_l[:, :vocab], want_l[:, :vocab])
+    if not torch.isfinite(got_l[:, :vocab]).all() or rel > INT8_PATH_RTOL:
+        raise AssertionError(f"{tag} parity: last-position logits differ by {err:.3e} "
+                             f"({rel:.3e} of max |logit|) > {INT8_PATH_RTOL}")
+    if not np.array_equal(ptoks, out[:, :INT8_FAM_PARITY_NEW]):
+        raise AssertionError(f"{tag} parity: greedy tokens differ: kernels "
+                             f"{out[:, :INT8_FAM_PARITY_NEW].tolist()} vs plain {ptoks.tolist()}")
+    # reported, not bounded: the bf16 round trip of the same tree, and the
+    # family's bf16 serve of the same params
+    rt_run = dataclasses.replace(run, lrd=dataclasses.replace(run.lrd, int8_decode="bf16"))
+    rt_l, _ = steps.build_prefill_step(rt_run)(ieng.params, batch)
+    bf_l, _ = engine._prefill(params, batch)
+    bf_toks = ServeEngine(run, params, device="cuda").generate(
+        prompts.cpu().numpy(), max_new=INT8_FAM_PARITY_NEW, extras=extras)
+    zero_counts()
+    rt_gap, rt_rel = rel_err(got_l[:, :vocab], rt_l[:, :vocab])
+    bf_gap, bf_rel = rel_err(got_l[:, :vocab], bf_l[:, :vocab])
+    same = out[:, :INT8_FAM_PARITY_NEW] == bf_toks
+    agree = [int(row.argmin()) if not row.all() else INT8_FAM_PARITY_NEW for row in same]
+    log(f"[{tag} parity] prefill last-position logits, K7 vs its plain version on the card: "
+        f"max_abs_diff {err:.3e} ({rel:.3e} of max |logit| {want_l[:, :vocab].abs().max().item():.3f};"
+        f" bound {INT8_PATH_RTOL}); greedy {INT8_FAM_PARITY_NEW}/{INT8_FAM_PARITY_NEW} identical "
+        f"in all {INT8_FAM_SLOTS} rows; reported, not bounded: vs the bf16 round trip of the "
+        f"same tree {rt_gap:.3e} ({rt_rel:.3e}), vs the bf16 serve of the same params at their "
+        f"Eq.-5 ranks {bf_gap:.3e} ({bf_rel:.3e}), greedy tokens agreeing with the bf16 "
+        f"serve's for the first {agree} of {INT8_FAM_PARITY_NEW} (by row)")
+    # profile: one prefill and 5 decode steps at position 256
+    last, cache = ieng._prefill(ieng.params, batch)
+    cache = pad_cache_preserving_cross(cache, INT8_FAM_PROMPT + INT8_FAM_NEW)
+    token = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+    pos = torch.tensor(INT8_FAM_PROMPT, dtype=torch.int32, device="cuda")
+    calls = (("decode step", 5, lambda: ieng._step(ieng.params, cache, token, pos)),
+             ("prefill", 1, lambda: ieng._prefill(ieng.params, batch)))
+    k7 = ("k7_ms", "K7", lambda by_name: int8_device_ms(by_name)[1])
+    prof = profile_calls(f"{tag} profile", f"{INT8_FAM_SLOTS} rows, {cfg.num_layers} layers"
+                         + (f", {smi}" if smi else ""), calls, extra=(k7,))
+    del ieng, cache
+    gc.collect()
+    return by_shape, dict(
+        export_s=export_s, summary=report.summary(),
+        ranks={f"{c}x{s_}": r for (c, s_), r in ranks.items()}, wall_s=dt,
+        tok_per_s=out.size / dt, k7=sum(got.values()), k7_per_decode_step=per_step,
+        max_abs_diff=err, rel=rel, bf16_round_trip_gap=rt_gap, bf16_round_trip_rel=rt_rel,
+        bf16_serve_gap=bf_gap, bf16_serve_rel=bf_rel, bf16_agree=agree, profile=prof)
+
+
+def phase_family_int8_kernels(rows, paths, extra=()):
+    """K7 rows, both entries, at every int8 shape ``paths`` launched that
+    ``rows`` does not hold yet (the serving entry, then its int8-operand
+    twin), and at ``extra`` (on no main path), timed with INT8_FAM_ITERS
+    iterations."""
+    held = {(r["name"], shape_key(r["name"], r["shape"])) for r in rows}
+    shapes = sorted({(name, key) for by in paths.values() for name in INT8_FUSED
+                     for key in by.get(name, {}) if (name, key) not in held})
+    out = phase_int8_kernels(shapes, iters=INT8_FAM_ITERS)
+    more = phase_int8_kernels([sk for sk in extra if sk not in held], iters=INT8_FAM_ITERS)
+    for row in more:
+        row["on_main_path"] = False
+    return out + more
 
 
 # --------------------------------------------------------------------------
@@ -5391,9 +5661,10 @@ def main(argv=None) -> int:
                          "conv: run only the conv and ViT phases; serve: phases 1-3 at the "
                          "serving shapes and the serving features' phases 25-28; moe: "
                          "phases 1-3 at the MoE shapes and the MoE phases 29-35; ssm: "
-                         "phases 1-3 at the SSM and hybrid shapes and phases 36-43; encdec: "
-                         "phases 1-3 at the enc-dec shapes and phases 44-49; vlm: phases 1-3 "
-                         "at the VLM shapes, phases 50-56 and the rank-gate rows; mla: "
+                         "phases 1-3 at the SSM and hybrid shapes, phases 36-43 and their "
+                         "int8 export's 64-65; encdec: phases 1-3 at the enc-dec shapes, "
+                         "phases 44-49 and 66; vlm: phases 1-3 at the VLM shapes, phases "
+                         "50-56, 67 and the rank-gate and K7-ceiling rows; mla: "
                          "phases 1-3 at DeepSeek-V3's shapes and phases 57-63")
     args = ap.parse_args(argv)
 
@@ -5442,16 +5713,18 @@ def main(argv=None) -> int:
         count_launches(rows, paths)
     elif args.only == "ssm":
         paths, result["ssm"] = phase_ssm()
+        rows += phase_family_int8_kernels(rows, paths)
         count_launches(rows, paths)
         result["rank_edges"] = phase_kernels(RANK_EDGE_SHAPES)
     elif args.only == "encdec":
         paths, result["encdec"], flash_rows = phase_encdec()
-        rows += flash_rows
+        rows += flash_rows + phase_family_int8_kernels(rows, paths)
         count_launches(rows, paths)
         result["encdec_extra"] = phase_kernels(ENCDEC_EXTRA_SHAPES)
     elif args.only == "vlm":
         paths, result["vlm"], flash_rows = phase_vlm(smi)
-        rows += flash_rows + phase_rank_gate_kernels()
+        rows += (flash_rows + phase_rank_gate_kernels()
+                 + phase_family_int8_kernels(rows, paths, INT8_CEILING_SHAPES))
         mark("vlm")
         count_launches(rows, paths)
     elif args.only == "mla":
@@ -5525,6 +5798,7 @@ def main(argv=None) -> int:
         # the SSM and hybrid families: full-width xLSTM-350M and Zamba2-1.2B
         more, result["ssm"] = phase_ssm()
         paths.update(more)
+        rows += phase_family_int8_kernels(rows, more)
         # checked, not in the kernels line: no main path launches them
         result["rank_edges"] = phase_kernels(RANK_EDGE_SHAPES)
         mark("ssm")
@@ -5533,6 +5807,7 @@ def main(argv=None) -> int:
         more, result["encdec"], flash_rows = phase_encdec()
         paths.update(more)
         rows += flash_rows
+        rows += phase_family_int8_kernels(rows, more)
         result["encdec_extra"] = phase_kernels(ENCDEC_EXTRA_SHAPES)
         mark("encdec")
         # the VLM family: full-width llama-3.2-vision-90b, K1-K5 past the
@@ -5540,6 +5815,7 @@ def main(argv=None) -> int:
         more, result["vlm"], flash_rows = phase_vlm(smi)
         paths.update(more)
         rows += flash_rows + phase_rank_gate_kernels(skip=mla_kernel_shapes())
+        rows += phase_family_int8_kernels(rows, more, INT8_CEILING_SHAPES)
         mark("vlm")
         # MLA and MTP: full-width DeepSeek-V3, K8 at q/k head dim 192 and v
         # head dim 128 on a main path
@@ -5553,6 +5829,7 @@ def main(argv=None) -> int:
                 "measured export merged no group on this card")
     else:
         rows += phase_int8_kernels(INT8_DEFAULT_SHAPES)
+        rows += phase_int8_kernels(INT8_WIDE_SHAPES, iters=INT8_FAM_ITERS)
         rows += phase_flash_kernels([FLASH_SERVE_SHAPE] + FLASH_EXTRA
                                     + [flash_dims(k)
                                        for k in ED_FLASH])

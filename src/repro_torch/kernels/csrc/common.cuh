@@ -78,8 +78,7 @@ using bf16 = __nv_bfloat16;
 namespace cg = cooperative_groups;
 
 constexpr int kBM = 16;          // rows of an MMA tile (m16n8k16)
-constexpr int kRMax = 4096;      // largest rank K1, K2-K4 and K5 take
-constexpr int kRMaxFused = 512;  // largest rank K7 takes (its requantization holds a row's ranks)
+constexpr int kRMax = 4096;      // largest rank K1, K2-K4, K5 and K7 take
 constexpr int kSmemMax = 232448; // 227 KB, the most shared memory a block may use
 constexpr int kDThreads = 256;   // decode design: 8 warps a CTA, both phases
 constexpr int kDWarps = kDThreads / 32;

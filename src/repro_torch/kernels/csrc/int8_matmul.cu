@@ -1,6 +1,9 @@
 // K6 and K7: int8 x int8 -> int32 serving matmuls on int8 tensor cores
 // (mma.sync m16n8k32 .s32.s8.s8.s32, exact int32 accumulation, no
-// .satfinite: |sum| <= 2560 * 127^2 < 2^31 at the shapes served).
+// .satfinite: |sum| <= C * 127^2, which is below 2^31 for every depth the
+// wrappers take, C * 127^2 < 2^31, i.e. C <= 133,144; the widest served,
+// llama-3.2-vision's FFN down at C = 28672, sums to at most 4.6e8.  K7's
+// second product has depth r <= 4096).
 //
 //   K6  y_i32 = x_q @ w_q                         x_q (M,C), w_q (C,S) -> int32 (M,S)
 //   K7  t     = float(x_q @ u_q) * u_scale        x_q (M,C), u_q (C,r), u_scale (1,r)
@@ -28,13 +31,16 @@
 // one launch (K6) or two (K7), where a torch quantizer and the scaling
 // cost about a dozen more.
 //
-// What bounds them on the H100: at the serving shapes (M = 8 decode slots
-// or a 128-token prefill, C and S <= 2560, r <= 256) they do far fewer
-// operations than the card's int8 ridge (~590 operations a byte), so the
-// floor is the bytes of the int8 weights read from HBM (0.05-0.8 us).  At
-// those sizes a call is latency: the launch, one or two dependent trips to
-// memory, and whatever runs one after the other inside a CTA.  The design
-// spreads each call over the whole card and keeps every trip in flight.
+// What bounds them on the H100: at the decode shapes (M = 8 slots, C and
+// S up to 28672, r up to 3072) they do far fewer operations than the
+// card's int8 ridge (~590 operations a byte), so the floor is the bytes of
+// the int8 weights read from HBM (0.05 us at smollm's 128-rank groups, 34
+// us at llama-3.2-vision's FFN).  At the small ones a call is latency: the
+// launch, one or two dependent trips to memory, and whatever runs one after
+// the other inside a CTA.  The design spreads each call over the whole card
+// and keeps every trip in flight.  It was designed for M = 8 and 128; a
+// prefill of thousands of rows runs on the same grid, one CTA a 16-row
+// block, each reading its own tile of the factors.
 //
 // The product (gemm_body, both K6 and K7's phase 1): a CTA owns 16 rows of
 // x and a tile of at most 32 columns of the int8 operand B (w or u), and
@@ -68,7 +74,13 @@
 // wave at M = 8) before it waits on phase 1, then reads its rows of t,
 // takes each row's max over the whole rank (requantization needs all of
 // it), requantizes into shared memory and multiplies.  So u crosses the
-// card once a call, and no CTA waits on another's rank product.
+// card once a call, and no CTA waits on another's rank product.  Up to
+// r = 512 a row's ranks sit in its 8 threads' registers; past that the
+// rank is walked in pieces of 512, one pass for the max and a second,
+// which reads t again from L2, for the requantization (the same integers
+// in any order, so both entries keep their bits).  At r = 4096 the v tile
+// (4096 x 32 bytes) and the tq slab (16 x 4112) take 201 KB of the 227 KB
+// a CTA may hold.
 //
 // Fragments: the MMA wants B k-contiguous in each register; w, u and v lie
 // with their rows along S or r (and the export keeps that layout), so each
@@ -101,8 +113,9 @@ constexpr int kStage = kKC * kW;       // bytes of a stage
 constexpr int kClusterMax = 8;
 constexpr int kPerMax = 80;            // chunks a CTA (its x slab must fit in shared memory)
 constexpr int kHold = 4;               // x items a thread keeps in registers (16 values each)
+constexpr int kPiece = kHold * 8 * 16;  // ranks of a piece of K7's requantization (8 threads a row)
 static_assert(kBM == 16, "a CTA owns one m16 row tile");
-static_assert(kHold * 8 * 16 >= kRMaxFused, "K7's requantization holds a row's ranks in kHold items");
+static_assert(kPiece == 512, "K7's requantization walks the rank in pieces of 512");
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
@@ -565,6 +578,7 @@ struct OutArgs {
   const float* xscale;   // (M), or null: the TPU contract's output in x_q's units
   void* y;               // (M, S) in T
   int M, r, S, w, tma;
+  int tvec;              // t's rows and u_scale 16-byte aligned (r % 4 == 0)
 };
 
 __host__ __device__ inline int out_rows(int r) { return cdiv(round_up(r, 32), kKC) * kKC; }
@@ -613,39 +627,69 @@ k7_out_kernel(const OutArgs a, const __grid_constant__ CUtensorMap vmap) {
 
   // t * u_scale, each row's max over the whole rank, requantization: as
   // gemm_body's slab of x, 8 threads a row, a thread's item i the 16 ranks
-  // from 16 (cg + 8 i), every load issued first
+  // from p kPiece + 16 (cg + 8 i) of piece p (kPiece = 512 ranks: what the
+  // kHold items hold), every load of a piece issued first, 16 bytes a load
+  // where t's rows are aligned (a row's 8 threads then read 512 contiguous
+  // bytes an item).  One pass over the pieces takes the row's max (exact in
+  // any order); a second quantizes them, last piece first, from the
+  // registers the first pass left for it and reading t again (L2) for the
+  // others.  Up to 512 ranks: one piece, one read.
   {
     const int row = threadIdx.x >> 3, cg = threadIdx.x & 7, m = m0 + row;
+    const int pieces = cdiv(rk, kPiece);
     float tv[kHold][16];
+    auto load = [&](int p) {
 #pragma unroll
-    for (int j = 0; j < kHold; ++j) {
-      const int c0 = (cg + 8 * j) * 16;
+      for (int j = 0; j < kHold; ++j) {
+        const int c0 = p * kPiece + (cg + 8 * j) * 16;
+        if (a.tvec && m < a.M && c0 + 16 <= a.r) {
+          const int4* tp = reinterpret_cast<const int4*>(a.t + (size_t)m * a.r + c0);
+          const float4* up = reinterpret_cast<const float4*>(a.uscale + c0);
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const int col = c0 + i;
-        tv[j][i] = m < a.M && col < a.r ? (float)a.t[(size_t)m * a.r + col] * a.uscale[col] : 0.0f;
+          for (int q = 0; q < 4; ++q) {
+            const int4 ti = tp[q];  // written by phase 1: a coherent load, not __ldg
+            const float4 us = __ldg(up + q);
+            tv[j][4 * q] = (float)ti.x * us.x;
+            tv[j][4 * q + 1] = (float)ti.y * us.y;
+            tv[j][4 * q + 2] = (float)ti.z * us.z;
+            tv[j][4 * q + 3] = (float)ti.w * us.w;
+          }
+          continue;
+        }
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int col = c0 + i;
+          tv[j][i] =
+              m < a.M && col < a.r ? (float)a.t[(size_t)m * a.r + col] * a.uscale[col] : 0.0f;
+        }
       }
-    }
+    };
     float mx = 0.0f;
+    for (int p = 0; p < pieces; ++p) {
+      load(p);
 #pragma unroll
-    for (int j = 0; j < kHold; ++j)
+      for (int j = 0; j < kHold; ++j)
 #pragma unroll
-      for (int i = 0; i < 16; ++i) mx = fmaxf(mx, fabsf(tv[j][i]));
+        for (int i = 0; i < 16; ++i) mx = fmaxf(mx, fabsf(tv[j][i]));
+    }
 #pragma unroll
     for (int o = 1; o < 8; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
     const float ts = fmaxf(mx, 1e-8f) / 127.0f, rts = rcp_approx(ts);
     if (cg == 0) tsm[row] = ts;
+    for (int p = pieces - 1; p >= 0; --p) {
+      if (p != pieces - 1) load(p);
 #pragma unroll
-    for (int j = 0; j < kHold; ++j) {
-      const int c0 = (cg + 8 * j) * 16;
-      if (c0 >= rk) continue;
-      int qv[16];
-      quant(tv[j], ts, rts, qv);
-      unsigned w[4] = {0, 0, 0, 0};
+      for (int j = 0; j < kHold; ++j) {
+        const int c0 = p * kPiece + (cg + 8 * j) * 16;
+        if (c0 >= rk) continue;
+        int qv[16];
+        quant(tv[j], ts, rts, qv);
+        unsigned w[4] = {0, 0, 0, 0};
 #pragma unroll
-      for (int i = 0; i < 16; ++i)  // MMA order, as gemm_body's x
-        w[i % 4] |= (unsigned)(uint8_t)(int8_t)qv[i] << (8 * (i / 4));
-      *reinterpret_cast<uint4*>(tq + row * ldq + c0) = make_uint4(w[0], w[1], w[2], w[3]);
+        for (int i = 0; i < 16; ++i)  // MMA order, as gemm_body's x
+          w[i % 4] |= (unsigned)(uint8_t)(int8_t)qv[i] << (8 * (i / 4));
+        *reinterpret_cast<uint4*>(tq + row * ldq + c0) = make_uint4(w[0], w[1], w[2], w[3]);
+      }
     }
   }
   if (a.tma) mbar_wait(bar, 0);
@@ -771,7 +815,8 @@ inline cudaError_t launch_k7(int xtype, const void* x, const int8_t* u, const fl
   if (!plan_ok(C, w1, cs1, per1) || w2 < 1 || w2 > kW) return cudaErrorInvalidValue;
   GemmArgs a1 = {x, u, nullptr, t, xscale, M, C, r, w1, per1, tma_ok(u, r, w1),
                  x_vec(x, C, xtype)};
-  OutArgs a2 = {t, us, v, vs, xtype ? xscale : nullptr, y, M, r, S, w2, tma_ok(v, S, w2)};
+  OutArgs a2 = {t, us, v, vs, xtype ? xscale : nullptr, y, M, r, S, w2, tma_ok(v, S, w2),
+                (reinterpret_cast<size_t>(us) & 15) == 0 && r % 4 == 0};
   cudaError_t e;
   if (xtype == 0) e = launch_gemm<k7_rank_kernel<int8_t>>(a1, cs1, stream);
   else if (xtype == 1) e = launch_gemm<k7_rank_kernel<float>>(a1, cs1, stream);
@@ -811,7 +856,7 @@ int repro_int8_lowrank_matmul(int xtype, const void* x, const void* u, const voi
                               void* x_scale, int M, int C, int r, int S, int w1, int cs1,
                               int per1, int w2, void* stream) {
   if (M <= 0 || S <= 0) return 0;
-  if (C <= 0 || r <= 0 || r > repro::kRMaxFused || xtype < 0 || xtype > 2)
+  if (C <= 0 || r <= 0 || r > repro::kRMax || xtype < 0 || xtype > 2)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = repro::i8::launch_k7(
       xtype, x, (const int8_t*)u, (const float*)u_scale, (const int8_t*)v,

@@ -37,7 +37,7 @@ from collections import Counter
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.lowrank_matmul import FUSED_RANK_MAX, raise_on_error, sm_count
+from repro_torch.kernels.lowrank_matmul import RANK_CEILING, RANK_MAX, raise_on_error, sm_count
 from repro_torch.kernels.ref import quantize_colwise, quantize_rowwise
 
 __all__ = ["int8_matmul", "int8_lowrank_matmul", "int8_linear", "int8_lowrank_linear",
@@ -45,9 +45,12 @@ __all__ = ["int8_matmul", "int8_lowrank_matmul", "int8_linear", "int8_lowrank_li
 
 _INT32_MAX = 2 ** 31 - 1
 # csrc/int8_matmul.cu: rows of x a CTA (kBM), rows of B a chunk (kKC),
-# columns of a B tile (kW), the largest cluster (kClusterMax) and the most
-# chunks a CTA's slab of x may hold (kPerMax)
-ROWS, CHUNK, TILE, CLUSTER_MAX, PER_MAX = 16, 128, 32, 8, 80
+# columns of a B tile (kW), the largest cluster (kClusterMax), the most
+# chunks a CTA's slab of x may hold (kPerMax), and the ranks of a piece of
+# K7's requantization (kPiece)
+ROWS, CHUNK, TILE, CLUSTER_MAX, PER_MAX, PIECE = 16, 128, 32, 8, 80, 512
+# the deepest product whose int32 sum cannot wrap: C * 127**2 < 2**31
+DEPTH_MAX = _INT32_MAX // 127 ** 2
 PER_SOFT = 4  # chunks a K6 CTA takes where the cluster split allows
 _XTYPE = {torch.float32: 1, torch.bfloat16: 2}
 
@@ -117,11 +120,19 @@ def _check(op: str, named) -> None:
                          f"cuda:{torch.cuda.current_device()}")
 
 
+def _check_depth(op: str, c: int) -> None:
+    """Refuse a depth whose exact int32 sum could wrap (|sum| <= C * 127**2)."""
+    if c > DEPTH_MAX:
+        raise ValueError(f"{op}: depth {c} exceeds {DEPTH_MAX}, past which C * 127**2 "
+                         f"reaches 2**31 and the int32 sum could wrap")
+
+
 def _shapes_k6(op: str, x, w_q, w_scale=None) -> tuple:
     if x.dim() != 2 or w_q.dim() != 2 or w_q.shape[0] != x.shape[1]:
         raise ValueError(f"{op}: want x (M,C), w_q (C,S); got {tuple(x.shape)}, "
                          f"{tuple(w_q.shape)}")
     m, c = x.shape
+    _check_depth(op, c)
     s = w_q.shape[1]
     if w_scale is not None and tuple(w_scale.shape) != (1, s):
         raise ValueError(f"{op}: want w_scale (1, {s}); got {tuple(w_scale.shape)}")
@@ -138,10 +149,9 @@ def _shapes_k7(op: str, x, u_q, u_scale, v_q, v_scale) -> tuple:
     if tuple(u_scale.shape) != (1, r) or tuple(v_scale.shape) != (1, s):
         raise ValueError(f"{op}: want u_scale (1, {r}) and v_scale (1, {s}); "
                          f"got {tuple(u_scale.shape)}, {tuple(v_scale.shape)}")
-    if not 1 <= r <= FUSED_RANK_MAX:
-        raise ValueError(f"{op}: rank {r} outside [1, {FUSED_RANK_MAX}] (ROADMAP queue 1 "
-                         f"item 13, the kernels' rank ranges: K7 past 512 comes with the "
-                         f"int8 export of the families whose ranks pass it)")
+    if not 1 <= r <= RANK_MAX:
+        raise ValueError(f"{op}: rank {r} outside [1, {RANK_MAX}] ({RANK_CEILING})")
+    _check_depth(op, c)
     return m, c, r, s
 
 

@@ -27,7 +27,7 @@ __all__ = ["lowrank_gated_ffn", "LARGE_M", "FFN_RANK_MAX"]
 
 # The largest rank of either branch (kRMax in csrc/common.cuh, K1's): past
 # 512 both designs walk both branches' ranks in pieces and apply silu(g) * u
-# to the whole float32 sums.  K7 keeps its own ceiling (FUSED_RANK_MAX).
+# to the whole float32 sums.
 FFN_RANK_MAX = RANK_MAX
 
 # M from which K5 takes the large-M design, from the H100's timings of both

@@ -29,17 +29,17 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-__all__ = ["lowrank_matmul", "RANK_MAX", "FUSED_RANK_MAX", "RANK_CEILING", "LARGE_M",
+__all__ = ["lowrank_matmul", "RANK_MAX", "RANK_CEILING", "LARGE_M",
            "large_m", "check_cuda_operands", "decode_plan", "decode_rt", "decode_kp",
            "decode_out_smem", "large_smem", "sm_count"]
 
-# The largest rank K1, K2-K4 and K5 take (kRMax in csrc/common.cuh), and
-# K7's (kRMaxFused): K1 and K5 walk a rank past 512 in pieces (decode
-# design) or passes with t streamed through the ring (large-M design), K2
-# streams dt.  4096 covers every shipped config's Eq.-5 rank (qwen2-72b's
-# FFN, 3207, the largest).  RANK_CEILING is what a refusal names.
+# The largest rank K1, K2-K4, K5 and K7 take (kRMax in csrc/common.cuh):
+# K1 and K5 walk a rank past 512 in pieces (decode design) or passes with t
+# streamed through the ring (large-M design), K2 streams dt, K7 requantizes
+# in pieces of 512.  4096 covers every shipped config's Eq.-5 rank
+# (qwen2-72b's FFN, 3207, the largest).  RANK_CEILING is what a refusal
+# names.
 RANK_MAX = 4096
-FUSED_RANK_MAX = 512
 RANK_CEILING = "ROADMAP queue 1 item 13, the kernels' rank ranges"
 # The M from which K1 takes the large-M design, from the H100's timings of
 # both designs (chip_smoke.py's designs phase, PERF.md section 6).  The

@@ -14,7 +14,8 @@ signature and arithmetic (``repro/kernels/flash_attention.py``).
 
 The int8 versions (K6, K7) compute their int8 x int8 products exactly:
 the operands go through float64, where every product and every partial sum
-of up to 2**53 is exact (|sum| <= 2560 * 127**2 < 2**31 here), because
+of up to 2**53 is exact (|sum| <= C * 127**2 < 2**31 at every depth the
+wrappers take, ``int8_matmul.DEPTH_MAX``), because
 ``torch.matmul`` has no int32 product on CUDA.  Their serving entries'
 versions (:func:`int8_linear_ref`, :func:`int8_lowrank_linear_ref`) are
 the JAX dispatchers' algebra: :func:`quantize_rowwise` on x, the int8

@@ -18,8 +18,9 @@ layout, where the prefix cache is off as in the reference), and the SSM
 which serve on the fixed-batch path as the JAX CLI serves them: ``--slots``
 rows of random ``--prompt-len`` prompts from ``--seed``, ``--max-new``
 tokens each, a VLM's vision embeddings drawn after the prompts
-(:func:`vlm_extras`).  Flags of features this port does not have yet are
-rejected, not ignored.
+(:func:`vlm_extras`), from the int8 export too (K7 at every rank up to
+4096, K6 for a merged group).  Flags of features this port does not have
+yet are rejected, not ignored.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m --lrd \\
       --slots 8 --requests 16 --rate 1000 --prompt-len 128 --max-new 32 \\
@@ -27,7 +28,7 @@ rejected, not ignored.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b --lrd \\
       --slots 8 --requests 16 --rate 1000 --prompt-len 128 --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --lrd \\
-      --slots 8 --prompt-len 512 --max-new 32
+      --slots 8 --prompt-len 512 --max-new 32 [--export analytic --export-int8]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless-m4t-medium --lrd \\
       --slots 8 --prompt-len 256 --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-3.2-vision-90b --smoke \\
@@ -181,6 +182,8 @@ def fixed_batch_serve(args, run: RunConfig, params, config: ServeConfig,
     draw = _EXTRAS.get(run.model.family)
     extras = draw(run, rng, args.slots, device) if draw else None
     engine = ServeEngine(run, params, config=config, device=device)
+    if engine.export_report is not None:
+        print(engine.export_report.summary())
     t0 = time.perf_counter()
     out = engine.generate(prompts, max_new=args.max_new, extras=extras,
                           eos_id=args.eos_id if args.eos_id >= 0 else None)
@@ -213,10 +216,6 @@ def main(argv=None):
         ap.error(f"--arch {args.arch} ({cfg.family}) serves on the fixed-batch path, which "
                  f"has no speculative decoding or prefix cache (as in the reference; ROADMAP "
                  f"queue 1 item 7, other model families)")
-    if cfg.family in ("encdec", "vlm") and args.export_int8:
-        ap.error(f"--arch {args.arch} ({cfg.family}): the int8 export of the {cfg.family} "
-                 f"family is not ported (ROADMAP queue 1 item 7, int8 export of the SSM, "
-                 f"hybrid, enc-dec and VLM families)")
     device = steps_mod.resolve_device(args.device)
     max_len = args.max_len or (args.prompt_len + args.max_new)
     try:

@@ -24,25 +24,29 @@ The engine runs on CUDA unless ``device="cpu"`` is passed, and raises
 without a GPU.  ``config.export != "none"`` runs the Algorithm-1 serving
 export (``serving/export.py``) on ``params`` at construction, with the
 measured backend's probes timed on the engine's device (``params`` must
-already lie there); ``engine.export_report`` holds its report.  A MoE model
-serves through the same scheduler and fixed-batch path (every layer stack
-gets its pool or padded cache); its int8 export raises, since the
-reference cannot serve int8 expert groups.  An MLA model (DeepSeek-V3)
-takes the scheduler's slot layout (its latent cache, one contiguous row a
-slot), and its fixed-batch cache pads the ``ckv`` / ``kr`` leaves.  The SSM (xLSTM) and hybrid
-(Zamba2) families take the fixed-batch path whatever ``num_slots`` says,
-as in the reference (its scheduler serves dense and MoE only): their
-prefill cache carries recurrent state leaves, which :func:`pad_cache`
-leaves as they are, beside the hybrid's shared-block k/v; their int8
-export raises (ROADMAP queue 1 item 7).  So do the encoder-decoder
-family's and the VLM family's, which also take the fixed-batch path:
-``generate(..., extras={"frames": f})`` or ``extras={"vision_embeddings":
-e}`` puts the frames (which the prefill encodes) or the image tokens'
-embeddings in the prefill batch; the decode steps read the cross k/v from
-the cache, which :func:`pad_cache_preserving_cross` keeps at the memory's
-or the image tokens' length.  The mesh
-and telemetry raise a ``ValueError`` naming the ROADMAP item that brings
-them.
+already lie there); ``engine.export_report`` holds its report.  With
+``export_int8`` every exported group is stored as int8 and served through
+K7 (factor pairs, any rank up to 4096) or K6 (merged groups), on the
+scheduler and on the fixed-batch path alike, in every family but MoE: a
+MoE model serves through the same scheduler and fixed-batch path (every
+layer stack gets its pool or padded cache), but its int8 export raises,
+since the reference cannot serve int8 expert groups.  An MLA model
+(DeepSeek-V3) takes the scheduler's slot layout (its latent cache, one
+contiguous row a slot), and its fixed-batch cache pads the ``ckv`` /
+``kr`` leaves.  The SSM (xLSTM) and hybrid (Zamba2) families take the
+fixed-batch path whatever ``num_slots`` says, as in the reference (its
+scheduler serves dense and MoE only): their prefill cache carries
+recurrent state leaves, which :func:`pad_cache` leaves as they are, beside
+the hybrid's shared-block k/v.  So do the encoder-decoder family and the
+VLM family: ``generate(..., extras={"frames": f})`` or
+``extras={"vision_embeddings": e}`` puts the frames (which the prefill
+encodes) or the image tokens' embeddings in the prefill batch; the decode
+steps read the cross k/v from the cache, which
+:func:`pad_cache_preserving_cross` keeps at the memory's or the image
+tokens' length.  The encoder runs with the kernel policy off, as the
+reference's ``encode`` does, so its int8 groups take the weight-only
+formula (``ops.int8_apply``'s ``disabled`` branch).  The mesh and
+telemetry raise a ``ValueError`` naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -127,14 +131,6 @@ class ServeEngine:
                 "ServeEngine: an int8 export of a MoE model's expert groups cannot be "
                 "served: the reference's _expert_ffn reads only 'kernel' or 'u'/'v' "
                 "(ROADMAP queue 3, departures by design)")
-        if self.config.export_int8 and run.model.family not in _SCHEDULED:
-            why = {"hybrid": "Zamba2's ranks pass K7's ceiling of 512; ",
-                   "vlm": "llama-3.2-vision's ranks pass K7's ceiling of 512; "}.get(
-                       run.model.family, "")
-            raise ValueError(
-                f"ServeEngine: the int8 export of the {run.model.family} family is not "
-                f"ported ({why}ROADMAP queue 1 item 7, int8 export of the SSM, hybrid, "
-                f"enc-dec and VLM families)")
         self.device = steps_mod.resolve_device(device)
         self.run = run
         self.params = params

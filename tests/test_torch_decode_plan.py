@@ -407,13 +407,13 @@ def _meta(*shapes):
 
 
 def test_wrappers_refuse_ranks_past_their_ceilings():
-    """K1-K5 take r up to RANK_MAX (4096), K7 up to FUSED_RANK_MAX (512):
-    the wrappers refuse a larger rank before touching a device, naming the
-    ROADMAP item that would raise it."""
+    """K1-K5 and K7 take r up to RANK_MAX (4096): the wrappers refuse a
+    larger rank before touching a device, naming the ROADMAP item that
+    would raise it."""
     from repro_torch.kernels import int8_matmul as k7
     from repro_torch.kernels import lowrank_bwd as kb
 
-    assert (k1.RANK_MAX, k5.FFN_RANK_MAX, k1.FUSED_RANK_MAX) == (4096, 4096, 512)
+    assert (k1.RANK_MAX, k5.FFN_RANK_MAX) == (4096, 4096)
     r = k1.RANK_MAX + 1
     x, u, v, dy = _meta((8, 64), (64, r), (r, 32), (8, 32))
     with pytest.raises(ValueError, match=f"rank {r} .*item 13"):
@@ -424,8 +424,11 @@ def test_wrappers_refuse_ranks_past_their_ceilings():
             fn(*args)
     with pytest.raises(ValueError, match=f"{r}.*item 13"):
         k5.lowrank_gated_ffn(x, u, v, u, v)
-    uq = torch.empty((64, 513), dtype=torch.int8, device="meta")
-    vq = torch.empty((513, 32), dtype=torch.int8, device="meta")
-    scales = [torch.empty(s, dtype=torch.float32, device="meta") for s in ((1, 513), (1, 32))]
-    with pytest.raises(ValueError, match="rank 513 .*item 13"):
+    uq = torch.empty((64, r), dtype=torch.int8, device="meta")
+    vq = torch.empty((r, 32), dtype=torch.int8, device="meta")
+    scales = [torch.empty(s, dtype=torch.float32, device="meta") for s in ((1, r), (1, 32))]
+    with pytest.raises(ValueError, match=f"rank {r} .*item 13"):
         k7.int8_lowrank_linear(x, uq, scales[0], vq, scales[1])
+    with pytest.raises(ValueError, match=f"rank {r} .*item 13"):
+        k7.int8_lowrank_matmul(torch.empty((8, 64), dtype=torch.int8, device="meta"), uq,
+                               scales[0], vq, scales[1])

@@ -189,9 +189,12 @@ def test_fixed_batch_tokens_match_jax_engine(num_slots):
         engine.generate(prompts, max_new=8, extras=textras, eos_id=eos),
         np.asarray(JServeEngine(jrun, jparams).generate(prompts, max_new=8, extras=jextras,
                                                         eos_id=eos)))
-    with pytest.raises(ValueError, match="int8 export of the encdec family"):
-        ServeEngine(trun, tparams, device="cpu",
-                    config=ServeConfig(export="analytic", export_int8=True))
+    # the int8 export serves on the same path (tests/test_torch_int8_families.py
+    # holds its tokens to the JAX engine's)
+    int8 = ServeEngine(trun, tparams, device="cpu",
+                       config=ServeConfig(export="analytic", export_int8=True))
+    assert int8.generate(prompts, max_new=8, extras=textras).shape == (3, 8)
+    assert all(l.quantized for l in int8.export_report.layers.values())
 
 
 # --------------------------------------------------------------------------
@@ -382,11 +385,14 @@ def test_cli_serve_and_train_on_cpu(tmp_path):
     # the checkpoint at step 2 resumes: one more step, at phase 0 again
     state2, losses2 = ttrain.main(train + ["--steps", "3"])
     assert len(losses2) == 1 and np.isfinite(losses2[0])
-    for bad in (["--spec-k", "2"], ["--prefix-cache"], ["--export", "analytic",
-                                                        "--export-int8"]):
+    for bad in (["--spec-k", "2"], ["--prefix-cache"]):
         with pytest.raises(SystemExit) as exc:
             tserve.main(common + bad)
         assert exc.value.code == 2
+    # the int8 export serves
+    engine, out = tserve.main(common + ["--slots", "2", "--prompt-len", "8", "--max-new", "4",
+                                        "--export", "analytic", "--export-int8"])
+    assert out.shape == (2, 4) and engine.export_report is not None
 
 
 def test_cli_stub_frames_are_seeded_by_step():

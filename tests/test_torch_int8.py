@@ -117,6 +117,25 @@ def test_int8_lowrank_plain_matches_jax_and_emulation(m, c, r, s, blocks):
     assert t_k7.launches == n
 
 
+@pytest.mark.parametrize("r", [513, 1024, 3072])
+def test_int8_lowrank_plain_past_rank_512_matches_jax(r):
+    """K7 past its old ceiling of 512 (the CUDA kernel requantizes there in
+    pieces of 512; the plain version and the TPU kernel take the rank
+    whole): the plain version against ``int8_lowrank_matmul(...,
+    interpret=True)`` within K7_TOL, at small M and C."""
+    m, c, s = 8, 64, 32
+    x = _normal(r, (m, c))
+    u = _normal(r + 1, (c, r), c ** -0.5)
+    v = _normal(r + 2, (r, s), r ** -0.5)
+    x_q, _ = j_qrow(jnp.asarray(x))
+    u_q, u_s = j_qcol(jnp.asarray(u))
+    v_q, v_s = j_qcol(jnp.asarray(v))
+    want = np.asarray(j_k7(x_q, u_q, u_s, v_q, v_s, block_m=m, block_k=c, block_n=s,
+                           interpret=True))
+    got = t_k7(*[_t(a) for a in (x_q, u_q, u_s, v_q, v_s)]).numpy()
+    np.testing.assert_allclose(got, want, atol=K7_TOL * np.abs(want).max(), rtol=K7_TOL)
+
+
 # the int8 export's (C, S) at full width (wq/wo, wk/wv, gate/up, down) and
 # the analytic export's ranks
 FULL_CS = [(960, 960), (960, 320), (960, 2560), (2560, 960)]

@@ -4,7 +4,9 @@ against a mirror of the CUDA kernels' grids and index math (``csrc/int8_matmul.c
 ``gemm_body`` and ``k7_out_kernel``): every output element and every
 128-row chunk of C is covered exactly once, every CTA of a cluster has a
 chunk, a CTA's slab of x fits in shared memory, and K7 at M = 8 fills the
-card in both phases.  Also the kernels' fragment layout, emulated in numpy:
+card in both phases; K7 past rank 512 (to 4096, at M up to 32768), its
+requantization's walk over pieces of 512 ranks and its phase-2 shared
+memory; the depth past which an int32 sum could wrap.  Also the kernels' fragment layout, emulated in numpy:
 x stored in the MMA's permuted k order and B's registers built by a 4 x 4
 byte transpose give the plain product."""
 
@@ -130,6 +132,139 @@ def test_k7_fills_the_card_at_decode(c, r, s):
     g1, g2 = k7_grids(8, c, r, s)
     assert np.prod(g1) >= SMS and np.prod(g2) >= SMS
     assert np.prod(g1) <= 2 * SMS and np.prod(g2) <= 2 * SMS  # about one wave
+
+
+# K7 past rank 512, (C, r, S): the analytic int8 export's serve ranks at
+# full width (Zamba2-1.2B: Mamba2 in_proj and out_proj, the shared block's
+# attention, down and FFN; llama-3.2-vision-90b: q/o, k/v, gate/up, down;
+# seamless-m4t-medium's FFN), the first rank past 512 and the ceiling
+WIDE_K7 = [(2048, 768, 8384), (4096, 640, 2048), (4096, 896, 4096), (4096, 1280, 8192),
+           (8192, 1280, 4096), (8192, 1920, 8192), (8192, 384, 1024), (8192, 3072, 28672),
+           (28672, 3072, 8192), (1024, 384, 4096), (1000, 513, 1000), (4096, 4096, 4096)]
+# decode slots, an 8 x 256 prefill, enc-dec's cross k/v over 8 x 1024
+# frames, the VLM's over 8 x 4096 image tokens
+WIDE_MS = [8, 2048, 8192, 32768]
+GRID_MAX = 65535  # the y and z dimensions of a grid
+
+
+def out_smem(r):
+    """Dynamic shared memory of k7_out_kernel (csrc out_smem): v's tile of
+    out_rows(r) x 32 bytes, the tq slab of 16 rows of r_pad + 16 (128-byte
+    aligned), the four warps' partial sums, the row scales, x scales and
+    v_scale, the mbarrier."""
+    rk = _cdiv(r, 32) * 32
+    rows = _cdiv(rk, k.CHUNK) * k.CHUNK
+    return (rows * k.TILE + _cdiv(k.ROWS * (rk + 16), 128) * 128
+            + 4 * 4 * k.ROWS * k.TILE + 4 * (2 * k.ROWS + k.TILE) + 16)
+
+
+def piece_walk(r):
+    """Mirror of k7_out_kernel's requantization walk for one row: its 8
+    threads (cg), kHold = 4 items of 16 ranks each, pieces of PIECE ranks.
+    Returns how often the max pass reads each rank of [0, r) and how often
+    the quantize pass writes each column of the padded slab [0, r_pad)."""
+    rk = _cdiv(r, 32) * 32
+    pieces = _cdiv(rk, k.PIECE)
+    read = np.zeros(r, dtype=np.int64)
+    written = np.zeros(rk, dtype=np.int64)
+    for p in range(pieces):
+        for cg in range(8):
+            for j in range(4):
+                c0 = p * k.PIECE + (cg + 8 * j) * 16
+                for i in range(16):
+                    if c0 + i < r:
+                        read[c0 + i] += 1
+                if c0 < rk:
+                    written[c0:c0 + 16] += 1
+    return read, written, pieces
+
+
+def _check_split(m, c, n, w, cs, per):
+    """gemm_body's cover, one axis at a time (the full (M, N, chunks)
+    count does not fit in memory at these sizes; the map is a product of
+    its three axes): row blocks, tiles of w columns and the cluster's
+    chunks each cover their axis once."""
+    _check_width(w)
+    assert 1 <= cs <= k.CLUSTER_MAX and 1 <= per <= k.PER_MAX
+    chunks = _cdiv(c, k.CHUNK)
+    for size, step, count in ((m, k.ROWS, _cdiv(m, k.ROWS)), (n, w, _cdiv(n, w)),
+                              (chunks, per, cs)):
+        hits = np.zeros(size, dtype=np.int64)
+        for i in range(count):
+            hits[i * step:min(i * step + step, size)] += 1
+        assert (hits == 1).all()
+    assert (cs - 1) * per < chunks  # every CTA of a cluster has a chunk
+    assert gemm_smem(per) <= SMEM_MAX
+
+
+@pytest.mark.parametrize("m", WIDE_MS)
+@pytest.mark.parametrize("c,r,s", WIDE_K7)
+def test_k7_plan_past_rank_512(m, c, r, s):
+    """Both phases at every r up to 4096 and M up to 32768: every output,
+    column tile and chunk covered once, both grids within CUDA's limits,
+    both phases' shared memory under 227 KB, the t scratch within int32
+    indexing."""
+    (w1, cs, per), w2 = k.k7_plan(m, c, r, s, SMS)
+    _check_split(m, c, r, w1, cs, per)
+    g1, g2 = k7_grids(m, c, r, s)
+    assert max(g1[1:]) <= GRID_MAX and max(g2[1:]) <= GRID_MAX
+    _check_width(w2)
+    cols = np.zeros(s, dtype=np.int64)
+    for tile in range(g2[0]):
+        cols[tile * w2:min(tile * w2 + w2, s)] += 1
+    assert (cols == 1).all()
+    assert out_smem(r) <= SMEM_MAX
+    assert m * r + m <= 2 ** 31 - 1  # k7_scratch
+
+
+@pytest.mark.parametrize("r", [1, 119, 512, 513, 640, 1000, 1280, 1920, 3072, 4095, 4096])
+def test_k7_piece_walk_covers_the_rank_once(r):
+    """The max pass reads every rank once, the quantize pass writes every
+    column of the slab the MMA reads (r padded to 32; zeros past r) once,
+    in pieces of 512; one piece up to r = 512, so those ranks stay in
+    registers between the passes."""
+    read, written, pieces = piece_walk(r)
+    assert (read == 1).all() and (written == 1).all()
+    assert pieces == _cdiv(_cdiv(r, 32) * 32, 512)
+    assert (pieces == 1) == (r <= 512)
+    assert out_smem(r) <= SMEM_MAX
+    assert out_smem(4096) > 200 * 1024  # the ceiling's v tile and slab: 201 KB
+
+
+@pytest.mark.parametrize("c,r,s", WIDE_K7[:9])
+def test_k7_fills_the_card_at_decode_past_rank_512(c, r, s):
+    """At M = 8 the rank product's tiles of r and the cluster split give at
+    least one CTA an SM, and so do phase 2's tiles of S."""
+    g1, g2 = k7_grids(8, c, r, s)
+    assert np.prod(g1) >= SMS and np.prod(g2) >= SMS
+
+
+def test_wrappers_refuse_a_depth_whose_sum_could_wrap():
+    """|sum| <= C * 127**2 must stay below 2**31: both wrappers (both
+    entries each) take C = 133144 and refuse C = 133145 before touching a
+    device (meta tensors), rather than return a wrapped sum."""
+    assert k.DEPTH_MAX == 133144
+    assert k.DEPTH_MAX * 127 ** 2 < 2 ** 31 <= (k.DEPTH_MAX + 1) * 127 ** 2
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    for c in (k.DEPTH_MAX, k.DEPTH_MAX + 1):
+        xq, x = meta((8, c), torch.int8), meta((8, c), torch.bfloat16)
+        w, ws = meta((c, 64), torch.int8), meta((1, 64), torch.float32)
+        u, us = meta((c, 16), torch.int8), meta((1, 16), torch.float32)
+        v = meta((16, 64), torch.int8)
+        calls = ((k.int8_matmul, (xq, w)), (k.int8_linear, (x, w, ws)),
+                 (k.int8_lowrank_matmul, (xq, u, us, v, ws)),
+                 (k.int8_lowrank_linear, (x, u, us, v, ws)))
+        for fn, args in calls:
+            if c > k.DEPTH_MAX:
+                with pytest.raises(ValueError, match=f"depth {c} .*wrap"):
+                    fn(*args)
+            else:  # past the depth check: refused later, for the meta device
+                with pytest.raises(Exception) as exc:
+                    fn(*args)
+                assert "wrap" not in str(exc.value)
 
 
 def test_plans_raise_past_what_a_cluster_holds():

@@ -84,7 +84,6 @@ def test_serve_cli_rejects_unported_flags():
 
     for argv in (["--mesh-data", "2"], ["--log-format", "jsonl"], ["--export-int8"],
                  ["--mesh-model", "2"], ["--obs"],
-                 ["--arch", "llama-3.2-vision-90b", "--export", "analytic", "--export-int8"],
                  ["--arch", "seamless-m4t-medium", "--spec-k", "2"]):
         with pytest.raises(SystemExit) as exc:
             serve.main(["--smoke", "--device", "cpu", *argv])

@@ -508,6 +508,36 @@ def test_gpu_int8_lowrank_linear_matches_plain(m, r, c, s, dtype):
     assert err <= K7_RTOL * want.float().abs().max().item()
 
 
+# K7 past its old ceiling of 512: the first rank past it, Zamba2's serve
+# ranks 640 and 1280, the VLM's 1920 and 3072, and the ceiling
+GPU_K7_WIDE_R = [513, 640, 1280, 1920, 3072, 4096]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [8, 2048])
+@pytest.mark.parametrize("r", GPU_K7_WIDE_R)
+@pytest.mark.parametrize("entry", ["int8", "linear"])
+def test_gpu_int8_lowrank_past_rank_512_bitwise(entry, r, m):
+    """Both entries of K7 past r = 512, where the out kernel requantizes in
+    pieces of 512 ranks: bit for bit against the plain version at decode
+    (M = 8) and at an 8 x 256 prefill (M = 2048)."""
+    _need_gpu()
+    from repro_torch.kernels.int8_matmul import int8_lowrank_linear, int8_lowrank_matmul
+
+    c, s = 1024, 1000
+    x_q, u_q, us, v_q, vs = _k7_args(m, c, r, s)
+    if entry == "int8":
+        got = int8_lowrank_matmul(x_q, u_q, us, v_q, vs)
+        want = ref.int8_lowrank_matmul_ref(x_q, u_q, us, v_q, vs)
+    else:
+        x = _x(m, c, torch.bfloat16, seed=r)
+        got = int8_lowrank_linear(x, u_q, us, v_q, vs)
+        want = ref.int8_lowrank_linear_ref(x, u_q, us, v_q, vs)
+    torch.cuda.synchronize()
+    assert got.shape == (m, s) and got.dtype == want.dtype
+    assert torch.equal(got, want)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("fused", [False, True])
 def test_gpu_int8_lowrank_same_scratch_twice_matches_plain(fused):
@@ -622,8 +652,8 @@ def test_gpu_int8_wrappers_count_launches_and_raise_instead_of_falling_back():
         int8_matmul(x_q, u_q.t().contiguous().t())
     with pytest.raises(ValueError, match="want"):
         int8_matmul(x_q, v_q)
-    big = _k7_args(8, 64, 513, 40)
-    with pytest.raises(ValueError, match="rank 513"):
+    big = _k7_args(8, 64, 4097, 40)
+    with pytest.raises(ValueError, match="rank 4097 .*item 13"):
         int8_lowrank_matmul(*big)
     # the serving entries: x float32 or bf16, counted by shape
     from repro_torch.kernels.int8_matmul import int8_linear, int8_lowrank_linear
@@ -642,7 +672,7 @@ def test_gpu_int8_wrappers_count_launches_and_raise_instead_of_falling_back():
         int8_lowrank_linear(x, u_q.float(), us, v_q, vs)
     with pytest.raises(ValueError, match="w_scale"):
         int8_linear(x, u_q, vs)
-    with pytest.raises(ValueError, match="rank 513"):
+    with pytest.raises(ValueError, match="rank 4097 .*item 13"):
         int8_lowrank_linear(x, *big[1:])
 
 
@@ -897,8 +927,8 @@ def test_gpu_lowrank_bwd_past_rank_512(name, c, r, s):
 
 @pytest.mark.gpu
 def test_gpu_rank_ceilings():
-    """K1-K5 take r up to 4096 and refuse 4097, naming ROADMAP item 13;
-    K7 keeps 512."""
+    """K1-K5 and K7 take r up to 4096 and refuse 4097, naming ROADMAP item
+    13."""
     _need_gpu()
     from repro_torch.kernels import int8_matmul as k7
     from repro_torch.kernels import lowrank_bwd as kb
@@ -915,11 +945,17 @@ def test_gpu_rank_ceilings():
         got, want = lowrank_gated_ffn(x, u, v, u, v), ref.lowrank_gated_ffn_ref(x, u, v, u, v)
     torch.cuda.synchronize()
     assert (got.float() - want.float()).abs().max() <= K5_RTOL * want.float().abs().max()
-    uq = torch.zeros((64, 513), dtype=torch.int8, device="cuda")
-    vq = torch.zeros((513, 32), dtype=torch.int8, device="cuda")
-    ones = [torch.ones(s, dtype=torch.float32, device="cuda") for s in ((1, 513), (1, 32))]
-    with pytest.raises(ValueError, match="rank 513 .*item 13"):
-        k7.int8_lowrank_linear(x, uq, ones[0], vq, ones[1])
+    for r in (4096, 4097):
+        uq = torch.ones((64, r), dtype=torch.int8, device="cuda")
+        vq = torch.ones((r, 32), dtype=torch.int8, device="cuda")
+        ones = [torch.ones(s, dtype=torch.float32, device="cuda") for s in ((1, r), (1, 32))]
+        if r == 4097:
+            with pytest.raises(ValueError, match="rank 4097 .*item 13"):
+                k7.int8_lowrank_linear(x, uq, ones[0], vq, ones[1])
+            continue
+        got = k7.int8_lowrank_linear(x, uq, ones[0], vq, ones[1])
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.int8_lowrank_linear_ref(x, uq, ones[0], vq, ones[1]))
 
 
 # --------------------------------------------------------------------------

@@ -322,9 +322,12 @@ def test_fixed_batch_tokens_match_jax_engine(arch):
     assert engine._scheduler is None
     with pytest.raises(ValueError, match="fixed-batch path"):
         _ = engine.scheduler
-    with pytest.raises(ValueError, match="int8 export"):
-        ServeEngine(trun, tparams, device="cpu",
-                    config=ServeConfig(export="analytic", export_int8=True))
+    # the int8 export serves on the same path (tests/test_torch_int8_families.py
+    # holds its tokens to the JAX engine's)
+    int8 = ServeEngine(trun, tparams, device="cpu",
+                       config=ServeConfig(export="analytic", export_int8=True))
+    assert int8.generate(prompts, max_new=8).shape == (3, 8) and int8._scheduler is None
+    assert all(l.quantized for l in int8.export_report.layers.values())
 
 
 @pytest.mark.parametrize("arch", ARCHS)

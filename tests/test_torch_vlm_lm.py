@@ -193,11 +193,17 @@ def test_fixed_batch_tokens_match_jax_engine(num_slots):
 
 
 def test_engine_refuses_the_int8_export_and_the_scheduler():
+    """The scheduler still refuses the family; the int8 export, refused
+    until K7 took ranks past 512, now serves on the fixed-batch path
+    (tests/test_torch_int8_families.py holds its tokens to JAX's)."""
     _, tparams = _params()
     _, trun = _serve_runs()
-    with pytest.raises(ValueError, match="int8 export of the vlm family.*item 7"):
-        ServeEngine(trun, tparams, device="cpu",
-                    config=ServeConfig(export="analytic", export_int8=True))
+    int8 = ServeEngine(trun, tparams, device="cpu",
+                       config=ServeConfig(export="analytic", export_int8=True))
+    prompts = np.random.default_rng(14).integers(0, 256, (3, 10), dtype=np.int32)
+    out = int8.generate(prompts, max_new=4, extras={"vision_embeddings": _vision(15, 3)})
+    assert out.shape == (3, 4) and int8._scheduler is None
+    assert all(l.quantized for l in int8.export_report.layers.values())
     from repro_torch.serving.scheduler import Scheduler
     with pytest.raises(ValueError, match="ssm, hybrid, encdec and vlm families.*item 7"):
         Scheduler(trun, tparams, device="cpu")
@@ -432,13 +438,24 @@ def test_cli_serve_and_train_on_cpu(tmp_path):
     assert len(losses2) == 1 and np.isfinite(losses2[0])
 
 
-@pytest.mark.parametrize("bad", [["--spec-k", "2"], ["--prefix-cache"],
-                                 ["--export", "analytic", "--export-int8"]])
+@pytest.mark.parametrize("bad", [["--spec-k", "2"], ["--prefix-cache"]])
 def test_cli_serve_refuses_what_the_fixed_batch_path_lacks(bad, capsys):
     with pytest.raises(SystemExit) as exc:
         tserve.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--lrd", *bad])
     assert exc.value.code == 2
     assert "item 7" in capsys.readouterr().err
+
+
+def test_cli_serves_the_int8_export(capsys):
+    """``--export analytic --export-int8`` serves on the fixed-batch path
+    (tests/test_torch_int8_families.py holds its tokens to the JAX
+    engine's)."""
+    engine, out = tserve.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--lrd",
+                               "--slots", "2", "--prompt-len", "8", "--max-new", "4",
+                               "--export", "analytic", "--export-int8"])
+    assert out.shape == (2, 4) and engine._scheduler is None
+    assert engine.export_report.summary() in capsys.readouterr().out
+    assert all(l.quantized for l in engine.export_report.layers.values())
 
 
 def test_cli_stub_vision_embeddings_are_seeded_by_step():
