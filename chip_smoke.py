@@ -1,7 +1,7 @@
 """Drive the PyTorch port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py [--out results.json]
-                          [--only kernels|conv|serve|moe|ssm|encdec|vlm|mla]
+                          [--only kernels|conv|serve|obs|moe|ssm|encdec|vlm|mla]
 
 Phases, in order; any failure exits nonzero:
 
@@ -23,7 +23,8 @@ Phases, in order; any failure exits nonzero:
               design's cluster partials are added in a fixed order);
 4. serve    — ``repro_torch.launch.serve.main`` on full-width smollm-360m
               with LRD (16 requests through 8 slots), with the kernels'
-              launch counters zeroed before and read after;
+              launch counters zeroed before and read after, and its
+              telemetry on (``--obs``: phase 68 reads the trace);
 5. parity   — one full-width prefill through the kernels against the same
               prefill through the plain versions; 8 greedy tokens each way,
               a parting held to a rounding tie (the plain run's top-2 gap
@@ -44,7 +45,23 @@ Phases, in order; any failure exits nonzero:
               (phases 0,0,1,1,0,0), with the launch counters zeroed before
               and read after every step: exactly 224 K1, 32 K5 and 224 K2 a
               step, 224 K3 at phase 1 and none at phase 0, 224 K4 at phase 0
-              and none at phase 1;
+              and none at phase 1; its telemetry on (``--obs``) and step 2
+              (the first at phase 1) profiled (``--profile-steps 2:3``);
+68. telemetry — (run right after phase 7) both traces validated with the
+              port's validator and read with ``obs_report``: serve — one
+              ``request_queued`` / ``request_prefill`` /
+              ``request_first_token`` / ``request_retired`` a request, a
+              ``serve_step`` a decode forward, ``run_end`` equal to
+              ``latency_stats()``, the report's token count the stats'; the
+              tok/s, TTFT and latency p50 / p95, and an emit's host µs
+              beside a forward's wall; train — 6 ``train_step`` records
+              whose losses are the ``on_step`` losses bit for bit, phases
+              0,0,1,1,0,0, phase swaps at epochs 1 and 2, partition bytes
+              and rank maps ``steps.partition_bytes``'s; the profile
+              window's Chrome trace holds K1, K2, K3 and K5 kernels and no
+              ``k4_`` kernel (the frozen factor's gradient, read from the
+              device side); ``kernel_fallbacks`` empty in both runs (no
+              plain path on the card);
 8. grads    — one full-width train step's loss and gradients at phases -1,
               0 and 1 through the kernels against the same step through the
               plain versions;
@@ -135,7 +152,7 @@ Phases, in order; any failure exits nonzero:
 24. table4 — ViT-B/16 (224 x 224, batch 64, 10 classes, float32) with the
               ViT policy over the same ladder.
 
-25. spec serve — (phases 25-28 at 8 of smollm-360m's 32 layers, full
+25. spec serve — (phases 25-28 at 4 of smollm-360m's 32 layers, full
               width) phase 4's 16-request trace with 47 new tokens (prime:
               every k retires mid-chunk), plain and self-speculative at k =
               1, 2, 4 with the draft = the params (acceptance 1.0) and at
@@ -205,7 +222,7 @@ Phases, in order; any failure exits nonzero:
               profile — a fixed-batch decode step and the 8 x 512 prefill
               (wall, device, idle, K1 ms); train — the training CLI, 6 steps
               of 8 x 256 at phases 0,0,1,1,0,0 (xLSTM under ``--remat
-              full`` at 3 of its 24 layers, a depth cut for the script's
+              full`` at 2 of its 24 layers, a depth cut for the script's
               time limit), K1-K4 launches exact per step, then a step profiled
               at phases 0 and 1 with K1-K4 ms and ``max_memory_allocated``;
               then K1-K4 at r = 513, 2048 and 4096 (the first rank past 512,
@@ -332,7 +349,8 @@ moe`` runs phases 1-3 at the MoE shapes and 29-35; ``--only ssm`` phases
 1-3 at the SSM and hybrid shapes, 36-43 and 64-65; ``--only encdec`` phases
 1-3 at the enc-dec shapes, 44-49 and 66; ``--only vlm`` phases 1-3 at the
 VLM shapes, 50-56, 67 and the large dense configs' rows; ``--only mla``
-phases 1-3 at DeepSeek-V3's shapes and 57-63.  The last line of standard
+phases 1-3 at DeepSeek-V3's shapes and 57-63; ``--only obs`` phases 1, 2,
+4, 7 and 68 (its kernels line is empty).  The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s name and power limit, and the ``{"kernels": [...]}`` line
 comes before that.
@@ -345,8 +363,10 @@ import contextlib
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -460,12 +480,12 @@ FLASH_SERVE_SHAPE = dict(B=1, Sq=FLASH_PROMPT, Sk=FLASH_PROMPT, H=15, KV=5, D=64
 # teacher-forced decode steps, logits within 5% of max |logit| of the bf16
 # cache's (the reference's bound, tests/test_kvcache.py).
 SPEC_NEW, SPEC_KS, SPEC_DRAFT_KS, SPEC_FRACTION = 47, (1, 2, 4), (2, 4), 0.5
-# phases 25-28 run smollm-360m at full width and a quarter of its depth
-# (half until DeepSeek-V3's phases 57-63 joined), so the whole script
-# stays inside its time limit: their host-bound steps cost time in
-# proportion to the layers (each phase's launch checks read the depth from
-# the run)
-SERVING_LAYERS = 8
+# phases 25-28 run smollm-360m at full width and an eighth of its depth
+# (half until DeepSeek-V3's phases 57-63 joined, a quarter until a whole
+# run took 1100 s of its 1200 on a slow host), so the whole script stays
+# inside its time limit: their host-bound steps cost time in proportion to
+# the layers (each phase's launch checks read the depth from the run)
+SERVING_LAYERS = 4
 PREFIX_LEN, PREFIX_SUFFIX, PREFIX_PREFILL, PREFIX_NEW = 1024, 64, 1088, 32
 FIXED_B, FIXED_T, FIXED_NEW = 8, 128, 32
 KV_STEPS, KV_RTOL = 8, 0.05
@@ -1092,16 +1112,35 @@ def shape_key(name, d):
     return d["M"], d["C"], d["r"], d["S"]
 
 
-def phase_serve():
+@contextlib.contextmanager
+def telemetry_capture():
+    """A fresh default metrics registry and a fallback capture for one run:
+    yields ``(registry, fallbacks)``."""
+    from repro_torch.kernels import ops
+    from repro_torch.obs import MetricsRegistry, set_default_registry
+
+    reg = MetricsRegistry()
+    prev = set_default_registry(reg)
+    try:
+        with ops.capture_fallbacks() as sink:
+            yield reg, sink
+    finally:
+        set_default_registry(prev)
+
+
+def phase_serve(obs_dir: Path):
+    """Phase 4, with the serve CLI's telemetry on (``--obs``, events in
+    ``obs_dir``); phase 68 reads the trace."""
     from repro_torch.kernels.lowrank_ffn import lowrank_gated_ffn
     from repro_torch.kernels.lowrank_matmul import lowrank_matmul
     from repro_torch.launch import serve
 
     zero_counts()
-    t0 = time.perf_counter()
-    engine, outs = serve.main(SERVE_ARGV)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    with telemetry_capture() as (reg, fallbacks):
+        t0 = time.perf_counter()
+        engine, outs = serve.main(SERVE_ARGV + ["--obs", "--obs-dir", str(obs_dir)])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
     k1, k5 = lowrank_matmul.launches, lowrank_gated_ffn.launches
     by_shape = counts_by_shape()
     sched = engine.scheduler
@@ -1123,7 +1162,8 @@ def phase_serve():
         f"{k1} K1 + {k5} K5 launches = {k1 // n_fwd} + {k5 // n_fwd} per forward; "
         f"{dt:.1f}s incl. init")
     return engine, by_shape, dict(fwd=dict(fwd), k1=k1, k5=k5, stats=stats, wall_s=dt,
-                                  n_layers=n_layers)
+                                  n_layers=n_layers, events=str(obs_dir / "events.jsonl"),
+                                  registry=reg.snapshot(), fallbacks=list(fallbacks))
 
 
 def device_events(prof):
@@ -1435,9 +1475,12 @@ def _train_batch(run, seed: int):
     return {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
 
 
-def phase_train():
-    """The training CLI at full width, launches counted per step."""
-    state, per_step, by_shape, dt = _counted_train(TRAIN_ARGV)
+def phase_train(obs_dir: Path):
+    """The training CLI at full width, launches counted per step, with its
+    telemetry on (``--obs``, events in ``obs_dir``) and step 2 (phase 1)
+    profiled (``--profile-steps``); phase 68 reads both."""
+    with telemetry_capture() as (reg, fallbacks):
+        state, per_step, by_shape, dt = _counted_train(TRAIN_ARGV + train_obs_argv(obs_dir))
     phases = [r["phase"] for r in per_step]
     if phases != [0, 0, 1, 1, 0, 0]:
         raise AssertionError(f"train: phases {phases}, want [0, 0, 1, 1, 0, 0]")
@@ -1449,7 +1492,197 @@ def phase_train():
                         if n))
     log(f"[train] 6 steps of {TRAIN_M} tokens on {torch.cuda.get_device_name(0)}: loss "
         f"{per_step[0]['loss']:.4f} -> {per_step[-1]['loss']:.4f}; {dt:.1f}s incl. init")
-    return state.params, by_shape, dict(steps=_without_shapes(per_step), wall_s=dt)
+    return state.params, by_shape, dict(steps=_without_shapes(per_step), wall_s=dt,
+                                        events=str(obs_dir / "events.jsonl"),
+                                        registry=reg.snapshot(), fallbacks=list(fallbacks))
+
+
+# phase 68: the train run profiles step 2, the first step of phase 1
+TRAIN_PROFILE_STEPS = (2, 3)
+# kernel-name pieces of K1-K5's launches (both K1/K5 designs; K2-K4's
+# ``bwd::k*_`` kernels), as ``lowrank_device_ms`` / ``bwd_device_ms`` read them
+TRACE_KERNELS = {"K1": ("lowrank_matmul_rank_kernel", "lowrank_matmul_out_kernel",
+                        "lowrank_matmul_large_kernel"),
+                 "K5": ("lowrank_ffn_rank_kernel", "lowrank_ffn_out_kernel",
+                        "lowrank_ffn_large_kernel"),
+                 "K2": ("bwd::k2_",), "K3": ("bwd::k3_",), "K4": ("bwd::k4_",)}
+
+
+def train_obs_argv(obs_dir: Path):
+    """The train CLI's telemetry flags of phase 7."""
+    return ["--obs", "--obs-dir", str(obs_dir),
+            "--profile-steps", "%d:%d" % TRAIN_PROFILE_STEPS]
+
+
+def _trace_kernels(trace_dir):
+    """The device kernels of a train CLI's profile window: (name, µs) from
+    its Chrome trace."""
+    trace = json.loads((Path(trace_dir) / "trace.json").read_text())
+    return [(e["name"], float(e.get("dur", 0.0))) for e in trace["traceEvents"]
+            if e.get("cat") == "kernel"]
+
+
+def _profile_window_kernels(events, obs_dir: Path):
+    """The kernels of the train run's ``profile_window``.  CUPTI can hand
+    back a session with no device record (``profiled``); such a window
+    says nothing of what ran, so it is taken again by a 3-step run of the
+    same CLI (steps 0-1 at phase 0, step 2 profiled at phase 1), up to
+    PROFILE_TRIES windows in all; the last is used whatever it holds."""
+    from repro_torch.launch import train
+
+    windows = [e for e in events if e["type"] == "profile_window"]
+    want = dict(start_step=TRAIN_PROFILE_STEPS[0], stop_step=TRAIN_PROFILE_STEPS[1],
+                trace_dir=str(obs_dir / "profile"))
+    if len(windows) != 1 or {k: windows[0][k] for k in want} != want:
+        raise AssertionError(f"telemetry: profile_window events {windows}, want one with {want}")
+    kernels = _trace_kernels(windows[0]["trace_dir"])
+    for i in range(1, PROFILE_TRIES):
+        if kernels:
+            break
+        log(f"[telemetry] the profile window held no device kernel: taking it again ({i})")
+        again = obs_dir / f"again{i}"
+        with tempfile.TemporaryDirectory() as ckpt_dir:
+            train.main(TRAIN_ARGV + ["--steps", "3", "--ckpt-dir", ckpt_dir]
+                       + train_obs_argv(again))
+        kernels = _trace_kernels(again / "profile")
+    return kernels
+
+
+def _check_fallbacks(what: str, out) -> dict:
+    """No plain-path decision with a ``platform`` reason on the card (a
+    CUDA tensor never takes the plain path), none ``disabled`` either (the
+    path runs every factorised projection with the kernels on); the
+    counter's series are returned."""
+    series = out["registry"].get("kernel_fallbacks", {}).get("series", {})
+    taken = sorted({(f.op, f.reason, f.shape) for f in out["fallbacks"]})
+    for op, reason, shape in taken:
+        log(f"[telemetry] {what}: plain path op={op} reason={reason} shape={shape}")
+    if series or taken:
+        raise AssertionError(f"telemetry: {what} took the plain path: kernel_fallbacks "
+                             f"{series}, {taken}")
+    return series
+
+
+def _emit_us(events, n: int = 3) -> float:
+    """Host µs an ``EventLog.emit`` takes, replaying ``events`` into a new
+    log file (the serialisation, the write and the flush), best of ``n``."""
+    from repro_torch.obs import EventLog
+
+    best = float("inf")
+    with tempfile.TemporaryDirectory() as d:
+        for _ in range(n):
+            with EventLog(Path(d) / "events.jsonl") as obs:
+                t0 = time.perf_counter()
+                for e in events:
+                    obs.emit(e["type"], **{k: v for k, v in e.items()
+                                           if k not in ("schema", "ts", "type")})
+                best = min(best, time.perf_counter() - t0)
+    return best / len(events) * 1e6
+
+
+def phase_telemetry(serve_out, train_out, smi: str):
+    """Phase 68: the traces phases 4 and 7 wrote with their CLIs'
+    ``--obs``, validated with the port's validator and read with
+    ``obs_report``, held to the runs' own stats, losses and partition
+    bytes; the train run's profile window (step 2, phase 1) read from the
+    device side: K1, K2, K3 and K5 kernels, no ``k4_`` kernel (the frozen
+    factor's gradient is never launched); no plain-path decision in either
+    run (``kernel_fallbacks``)."""
+    import numpy as np
+
+    from repro_torch.analysis import obs_report
+    from repro_torch.obs import validate_file
+
+    out = {}
+    # serve: one lifecycle of each kind a request, a serve_step a decode forward
+    n_ev = validate_file(serve_out["events"])
+    events = obs_report.load_events(serve_out["events"])
+    stats, fwd = serve_out["stats"], serve_out["fwd"]
+    kinds = [e["type"] for e in events]
+    if (kinds[0], kinds[-1]) != ("run_start", "run_end"):
+        raise AssertionError(f"telemetry: serve trace runs {kinds[0]} .. {kinds[-1]}")
+    rids = list(range(int(stats["requests"])))
+    for t in ("request_queued", "request_prefill", "request_first_token", "request_retired"):
+        got = sorted(e["rid"] for e in events if e["type"] == t)
+        if got != rids:
+            raise AssertionError(f"telemetry: serve {t} for requests {got}, want {rids}")
+    if kinds.count("serve_step") != fwd["decode"]:
+        raise AssertionError(f"telemetry: {kinds.count('serve_step')} serve_step events, "
+                             f"{fwd['decode']} decode forwards")
+    run_end = {k: events[-1].get(k) for k in stats}
+    if run_end != stats:
+        raise AssertionError(f"telemetry: run_end {run_end} != latency_stats() {stats}")
+    summary = obs_report.serve_summary(events)
+    if summary["generated_tokens"] != stats["generated_tokens"] or summary["compiles"]:
+        raise AssertionError(f"telemetry: serve_summary {summary} against {stats}")
+    ttft = [e["ttft_s"] for e in events if e["type"] == "request_first_token"]
+    lat = [e["latency_s"] for e in events if e["type"] == "request_retired"]
+    emit_us = _emit_us(events)
+    step_ms = serve_out["wall_s"] * 1e3 / max(fwd["prefill"] + fwd["decode"], 1)
+    per_step = n_ev / max(fwd["decode"], 1)
+    serve = dict(events=n_ev, tok_per_s=stats["tok_per_s"],
+                 p50_ttft_ms=summary["p50_ttft_s"] * 1e3,
+                 p95_ttft_ms=float(np.percentile(ttft, 95)) * 1e3,
+                 p50_latency_ms=summary["p50_latency_s"] * 1e3,
+                 p95_latency_ms=float(np.percentile(lat, 95)) * 1e3,
+                 max_active_slots=summary["max_active_slots"],
+                 pool_high_water_blocks=summary["pool_high_water_blocks"],
+                 emit_us=emit_us, events_per_decode_step=per_step,
+                 emit_share_of_forward=per_step * emit_us / 1e3 / step_ms,
+                 fallbacks=_check_fallbacks("serve", serve_out))
+    log(f"[telemetry] serve trace: {n_ev} events valid; one queued / prefill / first token / "
+        f"retired a request for {len(rids)}; {fwd['decode']} serve_step = decode forwards; "
+        f"run_end = latency_stats(); {summary['generated_tokens']} tokens, "
+        f"{serve['tok_per_s']:.1f} tok/s, TTFT p50 / p95 {serve['p50_ttft_ms']:.1f} / "
+        f"{serve['p95_ttft_ms']:.1f} ms, latency p50 / p95 {serve['p50_latency_ms']:.1f} / "
+        f"{serve['p95_latency_ms']:.1f} ms (obs_report); an emit {emit_us:.1f} us on the host, "
+        f"{per_step:.1f} a decode step: {100 * serve['emit_share_of_forward']:.3f}% of a "
+        f"forward's {step_ms:.1f} ms wall; on {smi}")
+    out["serve"] = serve
+
+    # train: the on_step losses bit for bit, phases, swaps, partition bytes
+    n_ev = validate_file(train_out["events"])
+    events = obs_report.load_events(train_out["events"])
+    steps = [e for e in events if e["type"] == "train_step"]
+    want = train_out["steps"]
+    parts = ("trainable_bytes", "frozen_bytes", "opt_bytes")
+    if ([e["loss"] for e in steps] != [r["loss"] for r in want]
+            or [e["phase"] for e in steps] != [0, 0, 1, 1, 0, 0]
+            or [{k: e[k] for k in parts} for e in steps] != [{k: r[k] for k in parts}
+                                                            for r in want]
+            or [e["rank_map"] for e in steps] != [r["rank_map"] for r in want]):
+        raise AssertionError(f"telemetry: train_step records {steps} against the run's {want}")
+    swaps = [e["epoch"] for e in events if e["type"] == "phase_swap"]
+    if swaps != [1, 2] or any(e["sync_bytes_per_step"] for e in steps):
+        raise AssertionError(f"telemetry: phase swaps at epochs {swaps}, want [1, 2]")
+    rows = obs_report.train_attribution(events)
+    if [r["phase"] for r in rows] != [0, 1, 0]:
+        raise AssertionError(f"telemetry: attribution rows {rows}")
+    kernels = _profile_window_kernels(events, Path(train_out["events"]).parent)
+    by = {k: sum(dur for name, dur in kernels if any(p in name for p in pieces))
+          for k, pieces in TRACE_KERNELS.items()}
+    k4 = sorted({name for name, _ in kernels if re.search(r"(?<![A-Za-z0-9_])k4_", name)})
+    missing = [k for k in ("K1", "K2", "K3", "K5") if not by[k]]
+    if missing or k4 or by["K4"]:
+        raise AssertionError(f"telemetry: the phase-1 window launched {missing} none, k4_ "
+                             f"kernels {k4}")
+    times = [e["step_time_s"] * 1e3 for e in steps]
+    prof = TRAIN_PROFILE_STEPS[0]
+    train = dict(events=n_ev, step_ms=times, profiled_step=prof,
+                 profiled_over_next=times[prof] / times[prof + 1],
+                 window_kernels=len(kernels), window_kernel_ms=sum(d for _, d in kernels) / 1e3,
+                 window_ms_by_kernel={k: v / 1e3 for k, v in by.items()},
+                 fallbacks=_check_fallbacks("train", train_out))
+    log(obs_report.render_train(rows))
+    log(f"[telemetry] train trace: {n_ev} events valid; 6 train_step losses = on_step's bit "
+        f"for bit, phases 0,0,1,1,0,0, swaps at epochs 1 and 2, partition bytes = "
+        f"steps.partition_bytes; step ms " + ", ".join(f"{t:.1f}" for t in times)
+        + f"; profiled step {prof} (phase 1) {train['profiled_over_next']:.2f}x step "
+        f"{prof + 1}; its window {len(kernels)} kernels, {train['window_kernel_ms']:.2f} ms: "
+        + ", ".join(f"{k} {v / 1e3:.2f}" for k, v in by.items())
+        + " ms, no k4_ kernel; kernel_fallbacks empty in both runs; on " + smi)
+    out["train"] = train
+    return out
 
 
 def _grad_paths(tree, path=""):
@@ -3914,11 +4147,12 @@ def phase_moe():
 SSM_ARCHS = ("xlstm-350m", "zamba2-1.2b")
 SSM_SLOTS, SSM_PROMPT, SSM_NEW, SSM_PARITY_NEW = 8, 512, 32, 8
 SSM_REMAT = {"xlstm-350m": "full", "zamba2-1.2b": "none"}
-# xLSTM trains at an eighth of its 24 layers (the whole script's time
+# xLSTM trains at a twelfth of its 24 layers (the whole script's time
 # limit: its mLSTM steps through the 256 positions one by one, host-bound,
-# ~21 s a step at full depth; 6 layers until DeepSeek-V3's phases joined);
-# Zamba2 at full depth
-SSM_TRAIN_LAYERS = {"xlstm-350m": 3, "zamba2-1.2b": None}
+# ~21 s a step at full depth; 6 layers until DeepSeek-V3's phases joined,
+# 3 until a whole run took 1100 s of its 1200 on a slow host); Zamba2 at
+# full depth
+SSM_TRAIN_LAYERS = {"xlstm-350m": 2, "zamba2-1.2b": None}
 # (C, r, S) of each factorised projection at Eq.-5 ranks -> its K1 launches
 # a forward: xLSTM wq, wk, wv, wo_gate and wo of 24 layers; Zamba2 in_proj
 # and out_proj of 38 Mamba2 layers, and the shared block's wq/wk/wv/wo, FFN
@@ -5654,12 +5888,15 @@ def count_launches(rows, paths) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="", help="also write every result as JSON here")
-    ap.add_argument("--only", choices=("kernels", "conv", "serve", "moe", "ssm", "encdec",
-                                       "vlm", "mla"),
+    ap.add_argument("--only", choices=("kernels", "conv", "serve", "obs", "moe", "ssm",
+                                       "encdec", "vlm", "mla"),
                     default=None,
                     help="kernels: stop after the kernel phase (a first check of a build); "
                          "conv: run only the conv and ViT phases; serve: phases 1-3 at the "
-                         "serving shapes and the serving features' phases 25-28; moe: "
+                         "serving shapes and the serving features' phases 25-28 (phase 4's "
+                         "serve with telemetry and its phase-68 checks run in the full run "
+                         "and under obs); obs: phases 1, 2, 4 and 7 with their CLIs' "
+                         "telemetry on and phase 68, which reads their traces; moe: "
                          "phases 1-3 at the MoE shapes and the MoE phases 29-35; ssm: "
                          "phases 1-3 at the SSM and hybrid shapes, phases 36-43 and their "
                          "int8 export's 64-65; encdec: phases 1-3 at the enc-dec shapes, "
@@ -5674,6 +5911,9 @@ def main(argv=None) -> int:
         log(f"[run] {time.perf_counter() - t_start:.1f} s after {what}")
 
     smi = phase_device()
+    # phases 4 and 7 write their telemetry here, phase 68 reads it
+    obs_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_obs_")
+    obs_root = Path(obs_tmp.name)
     if args.only == "conv":
         result = dict(smi=smi, **phase_conv())
         if args.out:
@@ -5683,6 +5923,20 @@ def main(argv=None) -> int:
         print(smi, flush=True)
         return 0
     build_s = phase_build()
+    if args.only == "obs":
+        result = dict(smi=smi, build_s=build_s)
+        engine, _, result["serve"] = phase_serve(obs_root / "serve")
+        del engine
+        _, _, result["train"] = phase_train(obs_root / "train")
+        result["telemetry"] = phase_telemetry(result["serve"], result["train"], smi)
+        mark("telemetry")
+        obs_tmp.cleanup()
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(result, indent=1, default=str))
+        print(json.dumps({"kernels": []}), flush=True)
+        print(smi, flush=True)
+        return 0
     if args.only == "moe":
         shapes = moe_kernel_shapes()
     elif args.only == "serve":
@@ -5733,7 +5987,7 @@ def main(argv=None) -> int:
         mark("mla")
         count_launches(rows, paths)
     elif args.only is None:
-        engine, paths["serve"], result["serve"] = phase_serve()
+        engine, paths["serve"], result["serve"] = phase_serve(obs_root / "serve")
         result["parity"] = phase_parity(engine)
         result["profile"] = phase_profile(engine)
         del engine
@@ -5749,7 +6003,9 @@ def main(argv=None) -> int:
             del engine
         result["int8_launches"] = phase_int8_launches()
         mark("decompose and export")
-        params, paths["train"], result["train"] = phase_train()
+        params, paths["train"], result["train"] = phase_train(obs_root / "train")
+        result["telemetry"] = phase_telemetry(result["serve"], result["train"], smi)
+        obs_tmp.cleanup()
         result["grads"] = phase_grads(params)
         result["train_profile"] = phase_train_profile(params)
         final, paths["rank decay"], paths["rank energy"], result["rank_adapt"] = \

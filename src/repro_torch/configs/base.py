@@ -252,19 +252,19 @@ class OptimConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ObsConfig:
-    """Telemetry knobs (repro.obs, DESIGN.md §12).
+    """Telemetry knobs (``repro_torch.obs``).
 
-    ``enabled=False`` (default) writes no JSONL file and adds nothing to
-    the compiled step — the train/serve CLIs still mirror their
-    legacy console lines.  ``run_dir`` is where ``events.jsonl`` lands
-    (the CLI picks its checkpoint/run directory when empty).
-    ``profile_start/stop`` bracket an optional ``jax.profiler`` trace
-    window by step index (both -1 = no trace)."""
+    ``enabled=False`` (default) writes no JSONL file and changes nothing
+    in the step — the train/serve CLIs still mirror their legacy console
+    lines.  ``run_dir`` is where ``events.jsonl`` lands (the CLI picks its
+    checkpoint/run directory when empty).  ``profile_start/stop`` bracket
+    an optional ``torch.profiler`` trace window by step index (both -1 =
+    no trace)."""
     enabled: bool = False
     run_dir: str = ""
     log_format: str = "text"  # console mirror: text (legacy lines) | jsonl
     step_every: int = 1  # emit a train_step record every N steps
-    profile_start: int = -1  # first step inside the jax.profiler trace
+    profile_start: int = -1  # first step inside the torch.profiler trace
     profile_stop: int = -1  # first step after the trace window
 
 

@@ -46,7 +46,11 @@ Every plain-version decision is recorded as a :class:`Fallback` (``op``
 ``lowrank_fwd``, ``lowrank_ffn``, ``lowrank_dx``, ``lowrank_du``,
 ``lowrank_dv``, ``int8_dense``, ``int8_lowrank`` or ``flash_attention``);
 :func:`capture_fallbacks` collects them while open, so a caller can show
-which path a run took.
+which path a run took, and each also increments the
+``kernel_fallbacks{op, reason}`` counter of the default metrics registry
+(``repro_torch.obs``), as the reference's dispatchers do.  A CUDA tensor
+never takes the plain path, so on the card that counter holds no
+``platform`` count.
 """
 
 from __future__ import annotations
@@ -66,6 +70,7 @@ from repro_torch.kernels.lowrank_bwd import (lowrank_matmul_du, lowrank_matmul_d
                                              lowrank_matmul_dx)
 from repro_torch.kernels.lowrank_ffn import lowrank_gated_ffn
 from repro_torch.kernels.lowrank_matmul import lowrank_matmul
+from repro_torch.obs import registry as obs_registry
 
 __all__ = ["KernelPolicy", "as_policy", "lowrank_apply", "lowrank_ffn_apply",
            "int8_apply", "int8_lowrank_apply", "flash_attention_apply", "Fallback",
@@ -101,6 +106,8 @@ def _note_fallback(op: str, reason: str, shape: Tuple[int, ...]) -> None:
     fb = Fallback(op, reason, tuple(int(d) for d in shape))
     for sink in _FALLBACK_SINKS:
         sink.append(fb)
+    obs_registry.default_registry().counter(
+        "kernel_fallbacks", "dispatcher took the plain version").inc(op=op, reason=reason)
     _log.debug("plain path: op=%s reason=%s shape=%s", op, reason, fb.shape)
 
 

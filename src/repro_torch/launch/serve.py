@@ -19,8 +19,14 @@ which serve on the fixed-batch path as the JAX CLI serves them: ``--slots``
 rows of random ``--prompt-len`` prompts from ``--seed``, ``--max-new``
 tokens each, a VLM's vision embeddings drawn after the prompts
 (:func:`vlm_extras`), from the int8 export too (K7 at every rank up to
-4096, K6 for a merged group).  Flags of features this port does not have
-yet are rejected, not ignored.
+4096, K6 for a merged group).  ``--obs`` writes the reference's telemetry
+(``events.jsonl`` in ``--obs-dir``: ``run_start``, the scheduler's
+per-request and per-step events, ``run_end`` with ``latency_stats()``;
+the fixed-batch families open the log and emit nothing, as in the
+reference), and ``--log-format jsonl`` mirrors every event to the console
+(``python -m repro_torch.obs`` validates a trace,
+``python -m repro_torch.analysis.obs_report`` reads it).  Flags of
+features this port does not have yet are rejected, not ignored.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m --lrd \\
       --slots 8 --requests 16 --rate 1000 --prompt-len 128 --max-new 32 \\
@@ -35,12 +41,15 @@ yet are rejected, not ignored.
       --device cpu --lrd --slots 2 --prompt-len 8 --max-new 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b --smoke \\
       --device cpu --lrd --slots 4 --requests 8 --prompt-len 12 --max-new 6 [--spec-k 2]
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --lrd \\
+      --obs --obs-dir runs/serve_obs [--log-format jsonl]
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -48,6 +57,7 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import DistConfig, LRDConfig, RunConfig, ShapeConfig
 from repro_torch.launch import steps as steps_mod
+from repro_torch.obs import EventLog
 from repro_torch.serving import ServeConfig, ServeEngine
 
 __all__ = ["poisson_trace", "shared_prefix_trace", "serve_run", "encdec_extras",
@@ -85,8 +95,6 @@ def shared_prefix_trace(n: int, rate: float, prefix_len: int, suffix_len: int,
 _UNPORTED_FLAGS = {
     "mesh_data": (1, "ROADMAP queue 1 item 8, distributed"),
     "mesh_model": (1, "ROADMAP queue 1 item 8, distributed"),
-    "obs": (False, "ROADMAP queue 1 item 9, telemetry"),
-    "log_format": ("text", "ROADMAP queue 1 item 9, telemetry"),
 }
 
 
@@ -123,12 +131,16 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--spec-fraction", type=float, default=0.5,
                     help="draft rank as a fraction of the sweep's rank (with "
                          "--spec-rank 0)")
+    ap.add_argument("--obs", action="store_true",
+                    help="write per-request/per-step telemetry JSONL (events.jsonl in "
+                         "--obs-dir)")
+    ap.add_argument("--obs-dir", default="runs/serve_obs",
+                    help="telemetry directory for --obs")
+    ap.add_argument("--log-format", default="text", choices=["text", "jsonl"],
+                    help="with jsonl, mirror every event to the console")
     # the JAX CLI's flags for features not ported yet: rejected when set
     ap.add_argument("--mesh-data", type=int, default=1)
     ap.add_argument("--mesh-model", type=int, default=1)
-    ap.add_argument("--obs", action="store_true")
-    ap.add_argument("--obs-dir", default="runs/serve_obs")
-    ap.add_argument("--log-format", default="text", choices=["text", "jsonl"])
     return ap
 
 
@@ -223,15 +235,30 @@ def main(argv=None):
             dict(num_slots=0, speculative_k=0, prefix_cache=False) if stateful else {}))
     except ValueError as e:
         ap.error(str(e))
+    # the JAX CLI's log: events.jsonl with --obs, a console mirror of every
+    # event with --log-format jsonl (serving events have no text lines)
+    obs = None
+    if args.obs or args.log_format == "jsonl":
+        path = None
+        if args.obs:
+            Path(args.obs_dir).mkdir(parents=True, exist_ok=True)
+            path = Path(args.obs_dir) / "events.jsonl"
+        obs = EventLog(path, mirror=print if args.log_format == "jsonl" else None,
+                       fmt=args.log_format)
     run = serve_run(cfg, max_len=max_len, slots=args.slots, lrd=args.lrd, device=device,
                     seed=args.seed)
     params, plan = steps_mod.init_params(run, device)
     if plan.layers:
         print(plan.summary())
     if stateful:
-        return fixed_batch_serve(args, run, params, config, device)
+        # the reference's fixed-batch path emits no event into its log
+        try:
+            return fixed_batch_serve(args, run, params, config, device)
+        finally:
+            if obs is not None:
+                obs.close()
 
-    engine = ServeEngine(run, params, config=config, device=device)
+    engine = ServeEngine(run, params, config=config, device=device, obs=obs)
     if engine.export_report is not None:
         print(engine.export_report.summary())
     if args.spec_k and engine.scheduler and engine.draft_report:
@@ -242,10 +269,16 @@ def main(argv=None):
         r["max_new"] = args.max_new
         if args.eos_id >= 0:
             r["eos_id"] = args.eos_id
+    if obs is not None:
+        obs.emit("run_start", _mirror=False, kind="serve", arch=cfg.name, slots=args.slots,
+                 requests=args.requests, rate=args.rate)
     t0 = time.perf_counter()
     outs = engine.serve(trace)
     dt = time.perf_counter() - t0
     stats = engine.scheduler.latency_stats()
+    if obs is not None:
+        obs.emit("run_end", _mirror=False, kind="serve", **stats)
+        obs.close()
     fwd = engine.scheduler.forward_stats
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"{len(outs)} requests, {int(stats['generated_tokens'])} tokens in "

@@ -32,6 +32,19 @@ stub vision embeddings (:func:`stub_vision_embeddings`; the JAX CLI's carry
 none, so its cross layers train as causal self-attention over the text);
 flags of features this port does not have yet are rejected, not ignored.
 
+Telemetry, as in the JAX CLI: every console line but the device, plan and
+``done`` lines goes through an ``obs.EventLog`` mirror (``[resume]``,
+``[phase]``, ``[rank-adapt]``, ``[straggler]``, the step line every
+``--log-every`` steps, ``[profile]``).  ``--obs`` also writes those events
+and ``run_start`` / ``run_end`` to ``events.jsonl`` in ``--obs-dir`` (the
+checkpoint directory by default), a ``train_step`` record every
+``--obs-step-every`` steps with the partition bytes, the rank map and
+``sync_bytes_per_step`` 0 (one device); ``--log-format jsonl`` mirrors the
+events themselves.  ``--profile-steps START:STOP`` runs a
+``torch.profiler`` window (CUDA activity on the card) over those steps and
+exports its Chrome trace to ``<obs dir>/profile/trace.json``.  The port
+compiles no executable, so it emits no ``phase_compile``.
+
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       --lrd --no-rank-opt --use-pallas --freeze sequential --steps 6 \\
       --steps-per-epoch 2 --global-batch 8 --seq-len 256 [--rank-schedule decay]
@@ -45,6 +58,9 @@ flags of features this port does not have yet are rejected, not ignored.
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama-3.2-vision-90b --smoke \\
       --device cpu --lrd --lrd-min-dim 16 --no-rank-opt --use-pallas --freeze sequential \\
       --steps 3 --steps-per-epoch 1 --global-batch 2 --seq-len 16
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu --lrd \\
+      --lrd-min-dim 16 --no-rank-opt --freeze sequential --steps 6 --steps-per-epoch 2 \\
+      --global-batch 2 --seq-len 16 --obs --obs-dir runs/obs --profile-steps 2:3
 """
 
 from __future__ import annotations
@@ -58,11 +74,13 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager, pack_phased_state, unpack_phased_state
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.configs.base import DistConfig, LRDConfig, OptimConfig, RunConfig, ShapeConfig
+from repro_torch.configs.base import (DistConfig, LRDConfig, ObsConfig, OptimConfig, RunConfig,
+                                      ShapeConfig)
 from repro_torch.core import rank_adapt
 from repro_torch.core.freezing import tree_map
 from repro_torch.data import LMBatchIterator
 from repro_torch.launch import steps as steps_mod
+from repro_torch.obs import EventLog
 from repro_torch.optim.optimizers import OptState
 
 __all__ = ["StragglerMonitor", "stub_frames", "stub_vision_embeddings", "build_run", "main"]
@@ -72,11 +90,6 @@ _UNPORTED_FLAGS = {
     "mesh": ("host", "ROADMAP queue 1 item 8, distributed"),
     "fsdp": (False, "ROADMAP queue 1 item 8, distributed"),
     "grad_compression": ("none", "ROADMAP queue 1 item 8, distributed"),
-    "obs": (False, "ROADMAP queue 1 item 9, telemetry"),
-    "obs_dir": ("", "ROADMAP queue 1 item 9, telemetry"),
-    "log_format": ("text", "ROADMAP queue 1 item 9, telemetry"),
-    "obs_step_every": (1, "ROADMAP queue 1 item 9, telemetry"),
-    "profile_steps": ("", "ROADMAP queue 1 item 9, telemetry"),
     "pallas_interpret": (False, "the CUDA kernels have no interpret mode; "
                                 "--device cpu runs their plain versions (ROADMAP, "
                                 "port conventions)"),
@@ -141,6 +154,17 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--save-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--obs", action="store_true",
+                    help="write schema-versioned telemetry JSONL (events.jsonl in --obs-dir)")
+    ap.add_argument("--obs-dir", default="",
+                    help="telemetry directory (default: the run's checkpoint directory)")
+    ap.add_argument("--log-format", default="text", choices=["text", "jsonl"],
+                    help="console mirror: legacy text lines (default) or the raw JSONL events")
+    ap.add_argument("--obs-step-every", type=int, default=1,
+                    help="emit a train_step record every N steps")
+    ap.add_argument("--profile-steps", default="",
+                    help="START:STOP — torch.profiler trace window over these steps (saved "
+                         "under the obs dir)")
     # the JAX CLI's flags for features not ported yet: rejected when set
     ap.add_argument("--pallas-interpret", action="store_true")
     ap.add_argument("--fsdp", action="store_true")
@@ -148,12 +172,21 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh", default="host", choices=["host", "production"])
     ap.add_argument("--mesh-data", type=int, default=0)
     ap.add_argument("--mesh-model", type=int, default=1)
-    ap.add_argument("--obs", action="store_true")
-    ap.add_argument("--obs-dir", default="")
-    ap.add_argument("--log-format", default="text", choices=["text", "jsonl"])
-    ap.add_argument("--obs-step-every", type=int, default=1)
-    ap.add_argument("--profile-steps", default="")
     return ap
+
+
+def _parse_profile_steps(spec: str):
+    """``"START:STOP"`` -> (start, stop) step indices, or (-1, -1)."""
+    if not spec:
+        return -1, -1
+    try:
+        a, b = spec.split(":")
+        start, stop = int(a), int(b)
+    except ValueError:
+        raise SystemExit(f"--profile-steps expects START:STOP, got {spec!r}")
+    if start < 0 or stop <= start:
+        raise SystemExit(f"--profile-steps needs 0 <= START < STOP, got {spec!r}")
+    return start, stop
 
 
 def stub_frames(run: RunConfig, seed: int, step: int) -> np.ndarray:
@@ -186,6 +219,7 @@ def stub_vision_embeddings(run: RunConfig, seed: int, step: int) -> np.ndarray:
 
 def build_run(args) -> RunConfig:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    prof_start, prof_stop = _parse_profile_steps(args.profile_steps)
     return RunConfig(
         model=cfg,
         shape=ShapeConfig("custom", args.seq_len, args.global_batch, "train"),
@@ -198,8 +232,49 @@ def build_run(args) -> RunConfig:
         dist=DistConfig(fsdp=False, remat=args.remat, microbatches=args.microbatches),
         optim=OptimConfig(name=args.optimizer, lr=args.lr, warmup_steps=args.warmup,
                           total_steps=args.steps),
+        obs=ObsConfig(enabled=args.obs, run_dir=args.obs_dir, log_format=args.log_format,
+                      step_every=args.obs_step_every, profile_start=prof_start,
+                      profile_stop=prof_stop),
         seed=args.seed,
     )
+
+
+class _ProfileWindow:
+    """``--profile-steps``: a ``torch.profiler`` session over steps
+    ``[start, stop)``, CUDA activity included on the card, whose Chrome
+    trace is exported to ``<trace_dir>/trace.json`` when it ends.  A
+    profiler that fails to start raises (the reference prints and trains
+    on untraced)."""
+
+    def __init__(self, start: int, stop: int, trace_dir: Path, device: torch.device):
+        self.start, self.stop, self.trace_dir = start, stop, trace_dir
+        self.device = device
+        self._prof = None
+
+    def before(self, step: int) -> None:
+        if step == self.start and self._prof is None:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(activities=acts)
+            self._prof.start()
+
+    def end(self, obs: EventLog, stop_step: int) -> None:
+        """Stop an open window and emit its ``profile_window``."""
+        if self._prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._prof.stop()
+        self.trace_dir.mkdir(parents=True, exist_ok=True)
+        self._prof.export_chrome_trace(str(self.trace_dir / "trace.json"))
+        self._prof = None
+        obs.emit("profile_window", start_step=self.start, stop_step=stop_step,
+                 trace_dir=str(self.trace_dir))
+
+    def after(self, obs: EventLog, step: int) -> None:
+        if step + 1 >= self.stop:
+            self.end(obs, step + 1)
 
 
 def main(argv=None, *, on_step=None):
@@ -225,6 +300,14 @@ def main(argv=None, *, on_step=None):
     device = steps_mod.resolve_device(args.device)
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"[device] {where}")
+
+    # telemetry: one events.jsonl a run with --obs; the console mirror
+    # prints the legacy lines either way, so --obs changes no console line
+    obs_dir = Path(run.obs.run_dir) if run.obs.run_dir else Path(args.ckpt_dir) / run.model.name
+    if run.obs.enabled:
+        obs_dir.mkdir(parents=True, exist_ok=True)
+    obs = EventLog(obs_dir / "events.jsonl" if run.obs.enabled else None, mirror=print,
+                   fmt=run.obs.log_format)
 
     params, plan = steps_mod.init_params(run, device)
     if run.lrd.enabled:
@@ -260,9 +343,14 @@ def main(argv=None, *, on_step=None):
                                      OptState(step_t.to(device), to_dev(mu), to_dev(nu)))
         parked = parked_h
         data.load_state_dict(extra["data"])
-        print(f"[resume] from step {start_step} (phase {cur_phase}, saved on mesh "
-              f"{extra.get('mesh', {}).get('shape', '?')} -> restored onto {where})")
+        obs.emit("resume", step=start_step, phase=cur_phase,
+                 src_mesh=extra.get("mesh", {}).get("shape", "?"), mesh=mesh_info["shape"],
+                 device=where)
 
+    obs.emit("run_start", _mirror=False, kind="train", arch=run.model.name, steps=args.steps,
+             steps_per_epoch=args.steps_per_epoch, start_step=start_step, mesh=mesh_info,
+             freeze_mode=run.lrd.freeze_mode, rank_schedule=run.lrd.rank_schedule,
+             device=where)
     # the state is donated, as the reference's CLI donates it: the update is
     # written into its tensors, so no second copy of params and moments
     train_step = steps_mod.build_train_step(run, device, donate=True)
@@ -273,6 +361,8 @@ def main(argv=None, *, on_step=None):
     # both change only at a phase swap
     cur_ranks = rank_adapt.live_rank_map(state.params)
     part_bytes = steps_mod.partition_bytes(state)
+    window = _ProfileWindow(run.obs.profile_start, run.obs.profile_stop, obs_dir / "profile",
+                            device)
     for step in range(start_step, args.steps):
         epoch = step // args.steps_per_epoch
         phase = phase_at(step)
@@ -280,18 +370,19 @@ def main(argv=None, *, on_step=None):
             # Algorithm-2 phase swap: repartition and rotate the moments; an
             # active rank schedule truncates the groups it plans at this swap
             boundary = epoch // max(args.epochs_per_phase, 1)
-            state, parked = steps_mod.repartition_state(
-                run.optim, state, parked, phase,
-                schedule=schedule if schedule.active else None, boundary=boundary)
+            with obs.span("phase_swap", epoch=epoch, phase=phase, boundary=boundary):
+                state, parked = steps_mod.repartition_state(
+                    run.optim, state, parked, phase,
+                    schedule=schedule if schedule.active else None, boundary=boundary)
             cur_phase = phase
-            print(f"[phase] epoch {epoch}: now training group {1 - phase}, group "
-                  f"{phase} frozen out of the step")
             ranks_before, cur_ranks = cur_ranks, rank_adapt.live_rank_map(state.params)
             part_bytes = steps_mod.partition_bytes(state)
-            shrunk = {p: f"{ranks_before[p]}->{r}" for p, r in cur_ranks.items()
-                      if r != ranks_before[p]}
-            if shrunk:
-                print(f"[rank-adapt] boundary truncated {len(shrunk)} group(s): {shrunk}")
+            if cur_ranks != ranks_before:
+                shrunk = {p: f"{ranks_before[p]}->{r}" for p, r in cur_ranks.items()
+                          if r != ranks_before[p]}
+                obs.emit("rank_adapt", epoch=epoch, boundary=boundary, shrunk=shrunk,
+                         rank_map=cur_ranks)
+        window.before(step)
         batch = next(it)
         if run.model.family == "encdec":
             batch["frames"] = stub_frames(run, args.seed, step)
@@ -303,26 +394,39 @@ def main(argv=None, *, on_step=None):
         dt = time.perf_counter() - t0
         gnorm = float(metrics["grad_norm"])
         losses.append(loss)
+        window.after(obs, step)
         if on_step is not None:
             on_step(step, phase, {"loss": loss, "grad_norm": gnorm, "step_time_s": dt,
                                   **part_bytes, "rank_map": dict(cur_ranks)})
         if monitor.observe(dt):
-            print(f"[straggler] step {step}: {dt * 1e3:.0f}ms "
-                  f"(median {float(np.median(monitor.times)) * 1e3:.0f}ms)")
-        if step % args.log_every == 0 or step == args.steps - 1:
-            print(f"step {step:5d} epoch {epoch:3d} phase {phase:2d} loss {loss:.4f} "
-                  f"gnorm {gnorm:.3f} {dt * 1e3:.0f}ms ({tokens_per_step / dt:.0f} tok/s)")
+            obs.emit("straggler", step=step, step_time_s=dt,
+                     median_s=float(np.median(monitor.times)))
+        record = run.obs.enabled and step % max(run.obs.step_every, 1) == 0
+        mirror = step % args.log_every == 0 or step == args.steps - 1
+        if record or mirror:
+            obs.emit("train_step", _mirror=mirror, step=step, epoch=epoch, phase=phase,
+                     loss=loss, grad_norm=gnorm, step_time_s=dt,
+                     tokens_per_s=tokens_per_step / dt, total_rank=sum(cur_ranks.values()),
+                     rank_map=cur_ranks, sync_bytes_per_step=0, **part_bytes)
         if ckpt.due(step + 1) and ckpt.maybe_save(
                 step + 1, pack_phased_state(state, parked),
                 extra={"data": data.state_dict(), "phase": phase, "mesh": mesh_info,
                        "rank_map": rank_adapt.live_rank_map(state.params)}):
             if ckpt.preempted:
                 print(f"[preempt] checkpointed at step {step + 1}, exiting")
+                window.end(obs, step + 1)
+                obs.emit("run_end", _mirror=False, kind="train", reason="preempt",
+                         final_step=step + 1)
+                obs.close()
                 ckpt.close()
                 return state, losses
+    window.end(obs, args.steps)
     ckpt.close()
     if losses:
         print(f"done: loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    obs.emit("run_end", _mirror=False, kind="train", reason="complete", final_step=args.steps,
+             final_loss=losses[-1] if losses else 0.0)
+    obs.close()
     return state, losses
 
 

@@ -24,6 +24,8 @@ from typing import Any, Optional
 
 import numpy as np
 
+from repro_torch.obs.schema import REQUEST_FIELD_EVENTS
+
 __all__ = ["ServeConfig", "RequestResult"]
 
 _EXPORT_CHOICES = ("none", "analytic", "measured")
@@ -164,7 +166,10 @@ class RequestResult:
     """One request's tokens + lifecycle record, returned by ``serve()``.
 
     Every latency field is measured from the request's ORIGINAL arrival on
-    the trace clock (unchanged by preemption).
+    the trace clock (unchanged by preemption).  Each field's event source
+    is named by :data:`repro_torch.obs.schema.REQUEST_FIELD_EVENTS`, the
+    shared vocabulary between this dataclass, ``Scheduler.latency_stats``
+    and ``analysis/obs_report.py``.
     """
 
     rid: int
@@ -221,3 +226,12 @@ class RequestResult:
 
     def tolist(self):
         return self.tokens.tolist()
+
+
+# consistency guard: every event-sourced field the schema names must exist
+# on the dataclass (token_count is a property over ``tokens``)
+_FIELDS = {f.name for f in dataclasses.fields(RequestResult)}
+for _name in REQUEST_FIELD_EVENTS:
+    assert _name in _FIELDS or _name == "token_count", (
+        f"REQUEST_FIELD_EVENTS names unknown RequestResult field {_name!r}")
+del _FIELDS, _name

@@ -45,8 +45,11 @@ steps read the cross k/v from the cache, which
 :func:`pad_cache_preserving_cross` keeps at the memory's or the image
 tokens' length.  The encoder runs with the kernel policy off, as the
 reference's ``encode`` does, so its int8 groups take the weight-only
-formula (``ops.int8_apply``'s ``disabled`` branch).  The mesh and
-telemetry raise a ``ValueError`` naming the ROADMAP item that brings them.
+formula (``ops.int8_apply``'s ``disabled`` branch).  ``obs`` (a
+``repro_torch.obs.EventLog``) goes to the scheduler, which emits the
+request lifecycle and step events into it; the fixed-batch path emits
+none, as in the reference.  The mesh raises a ``ValueError`` naming the
+ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -103,7 +106,7 @@ def pad_cache_preserving_cross(cache: Any, target_len: int) -> Any:
     return walk(cache, "")
 
 
-def _unported(config: ServeConfig, obs: Any, mesh: Any) -> Optional[str]:
+def _unported(config: ServeConfig, mesh: Any) -> Optional[str]:
     """The first requested feature this port does not have, or None."""
     if config.kv_int8:
         return ("kv_int8=True: the engine takes int8 KV pools from "
@@ -111,8 +114,6 @@ def _unported(config: ServeConfig, obs: Any, mesh: Any) -> Optional[str]:
                 "engine never reads kv_int8 (ROADMAP queue 1 item 5, serving features)")
     if config.mesh_data != 1 or config.mesh_model != 1 or mesh is not None:
         return "the serving mesh is not ported (ROADMAP queue 1 item 8, distributed)"
-    if obs is not None:
-        return "serving telemetry (obs) is not ported (ROADMAP queue 1 item 9, telemetry)"
     return None
 
 
@@ -123,7 +124,7 @@ class ServeEngine:
     def __init__(self, run: RunConfig, params: Any, *, config: Optional[ServeConfig] = None,
                  device="cuda", obs: Any = None, draft_params: Any = None, mesh: Any = None):
         self.config = config or ServeConfig()
-        why = _unported(self.config, obs, mesh)
+        why = _unported(self.config, mesh)
         if why:
             raise ValueError(f"ServeEngine: {why}")
         if self.config.export_int8 and run.model.num_experts:
@@ -134,6 +135,7 @@ class ServeEngine:
         self.device = steps_mod.resolve_device(device)
         self.run = run
         self.params = params
+        self.obs = obs
         self.draft_params = draft_params
         self.draft_report = None  # set when a draft is derived lazily
         self.export_report = None
@@ -174,7 +176,7 @@ class ServeEngine:
                 max_len=c.max_len, prefill_len=c.prefill_len,
                 block_size=c.block_size, num_blocks=c.num_blocks,
                 speculative_k=c.speculative_k, draft_params=draft,
-                prefix_cache=c.prefix_cache)
+                prefix_cache=c.prefix_cache, obs=self.obs)
         return self._scheduler
 
     def _scheduler_usable(self, extras, prompt_len: int, max_new: int) -> bool:

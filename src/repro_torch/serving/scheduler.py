@@ -44,6 +44,17 @@ shared blocks.
 extend, decode, draft, verify): the JAX scheduler's compile-once contract
 (one program per step kind, and no plain decode program while speculating)
 becomes "which forwards ran, and how often".
+
+Telemetry (``obs``, a ``repro_torch.obs.EventLog``): the reference's
+per-request lifecycle events (``request_queued``, ``request_prefill``,
+``request_first_token``, ``request_retired``, ``request_preempted``), one
+``spec_step`` a speculative step and one ``serve_step`` a step that ran a
+forward, with the ``serve_*`` and ``spec_*`` series of the default
+metrics registry, at the reference's points and with its fields, all from
+host state the scheduler holds already (no device read).  Every emit is
+guarded by ``obs.active``.  The reference's ``compile_cache`` events are
+not emitted: the port compiles nothing, and ``forward_stats`` counts what
+ran.
 """
 
 from __future__ import annotations
@@ -58,6 +69,7 @@ import torch
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.launch import steps as steps_mod
+from repro_torch.obs import NULL_LOG, EventLog, default_registry
 from repro_torch.serving import paged_cache as pc
 from repro_torch.serving import speculative
 from repro_torch.serving.radix_cache import RadixCache
@@ -120,7 +132,8 @@ class Scheduler:
     fires per generated token; ``speculative_k`` draft tokens a step (0 =
     plain decode) with ``draft_params`` (default ``params``: acceptance 1.0);
     ``prefix_cache`` turns the radix prefix cache on (the paged layout only;
-    ``block_size`` and ``num_blocks`` apply to it alone).
+    ``block_size`` and ``num_blocks`` apply to it alone); ``obs`` receives
+    the telemetry events (default ``NULL_LOG``: none).
     """
 
     def __init__(self, run: RunConfig, params: Any, *, device,
@@ -129,7 +142,7 @@ class Scheduler:
                  num_blocks: Optional[int] = None,
                  on_token: Optional[Callable[[Request, int], None]] = None,
                  speculative_k: int = 0, draft_params: Any = None,
-                 prefix_cache: bool = False):
+                 prefix_cache: bool = False, obs: Optional[EventLog] = None):
         cfg = run.model
         if cfg.family not in ("dense", "moe"):
             raise ValueError(
@@ -144,6 +157,7 @@ class Scheduler:
         self.max_len = max_len
         self.prefill_len = min(prefill_len or max_len, max_len)
         self.on_token = on_token
+        self.obs = obs if obs is not None else NULL_LOG
         self.spec_k = max(int(speculative_k), 0)
         self.draft_params = ((draft_params if draft_params is not None else params)
                              if self.spec_k else None)
@@ -219,6 +233,9 @@ class Scheduler:
         req = Request(self._rid, prompt, max_new, eos_id, arrival=arrival)
         self._rid += 1
         self.queue.append(req)
+        if self.obs.active:
+            self.obs.emit("request_queued", rid=req.rid, prompt_len=int(prompt.size),
+                          max_new=max_new, arrival=arrival)
         return req.rid
 
     def has_work(self) -> bool:
@@ -250,6 +267,9 @@ class Scheduler:
         req.tokens.append(tok)
         if req.t_first is None:
             req.t_first = self._now()
+            if self.obs.active:
+                self.obs.emit("request_first_token", rid=req.rid,
+                              ttft_s=req.t_first - req.arrival)
         if self.on_token is not None:
             self.on_token(req, tok)
         if (req.eos_id is not None and tok == req.eos_id) \
@@ -262,6 +282,11 @@ class Scheduler:
         req = slot.req
         req.t_done = self._now()
         self.finished[req.rid] = req
+        if self.obs.active:
+            self.obs.emit("request_retired", rid=req.rid, latency_s=req.t_done - req.arrival,
+                          tokens=len(req.tokens), preemptions=req.preemptions,
+                          drafted_tokens=req.drafted, accepted_tokens=req.accepted,
+                          prefix_hit_len=req.prefix_hit_len)
         self._release(slot)
 
     def _release(self, slot: _Slot) -> None:
@@ -281,6 +306,9 @@ class Scheduler:
 
     def _preempt(self, slot: _Slot) -> None:
         slot.req.preemptions += 1
+        if self.obs.active:
+            self.obs.emit("request_preempted", rid=slot.req.rid,
+                          generated=len(slot.req.tokens))
         self.queue.appendleft(slot.req)
         self._release(slot)
 
@@ -356,6 +384,11 @@ class Scheduler:
         hit = len(shared) * self.block_size
         if not req.tokens:
             req.prefix_hit_len = hit
+        if self.obs.active:
+            self.obs.emit("request_prefill", rid=req.rid, slot=idx, fed_len=int(fed.size),
+                          resume=bool(req.tokens),
+                          queue_wait_s=max(req.t_started - req.arrival, 0.0),
+                          prefix_hit_len=hit)
         self.prefix_stats["prefill_tokens"] += int(fed.size) - hit
         page_row = (torch.from_numpy(self.pages.table[idx]).to(self.device)
                     if self.pages is not None else None)
@@ -464,6 +497,14 @@ class Scheduler:
             for i, s in enumerate(self.slots):
                 if s.active:
                     self.pages.trim(i, s.pos + 1)
+        if self.obs.active:
+            self.obs.emit("spec_step", drafted=drafted, accepted=accepted, emitted=emitted,
+                          acceptance_rate=accepted / drafted if drafted else 0.0)
+            reg = default_registry()
+            reg.counter("spec_drafted_tokens").inc(drafted)
+            reg.counter("spec_accepted_tokens").inc(accepted)
+            reg.counter("spec_rejected_tokens").inc(drafted - accepted)
+            reg.gauge("spec_acceptance_rate").set(self.acceptance_rate())
 
     # -- the step ----------------------------------------------------------
 
@@ -483,16 +524,34 @@ class Scheduler:
             self._pt_version = self.pages.version
         if self.spec_k:
             self._spec_decode(active)
-            return
-        logits, self.cache, _ = self._decode(
-            self.params, self.cache, torch.from_numpy(self._tokens).to(self.device),
-            torch.from_numpy(self._positions).to(self.device))
-        nxt = self._sample(logits[:, -1], "decode")
-        for i, s in active:
-            if not s.active:  # preempted between bookkeeping passes
-                continue
-            s.pos += 1
-            self._emit(s, int(nxt[i]))
+        else:
+            logits, self.cache, _ = self._decode(
+                self.params, self.cache, torch.from_numpy(self._tokens).to(self.device),
+                torch.from_numpy(self._positions).to(self.device))
+            nxt = self._sample(logits[:, -1], "decode")
+            for i, s in active:
+                if not s.active:  # preempted between bookkeeping passes
+                    continue
+                s.pos += 1
+                self._emit(s, int(nxt[i]))
+        if self.obs.active:
+            self._note_step()
+
+    def _note_step(self) -> None:
+        """The ``serve_step`` event of a step that ran, with the pool fields
+        on the paged layout, and the registry's occupancy gauges."""
+        ev = {"active_slots": sum(1 for s in self.slots if s.active),
+              "queued": len(self.queue)}
+        if self.pages is not None:
+            ev.update(pool_used=self.pages.used_blocks,
+                      pool_free=self.pages.allocator.free_blocks,
+                      pool_high_water=self.pages.high_water)
+        self.obs.emit("serve_step", **ev)
+        reg = default_registry()
+        reg.gauge("serve_active_slots").set(ev["active_slots"])
+        if self.pages is not None:
+            reg.gauge("serve_pool_used_blocks").set(ev["pool_used"])
+            reg.gauge("serve_pool_high_water").set(ev["pool_high_water"])
 
     def run(self, poll: float = 0.0005) -> Dict[int, np.ndarray]:
         """Drive until queue and slots drain; returns rid -> tokens."""

@@ -3,8 +3,10 @@ the CPU: the on-disk format is shared (a bf16 leaf's ``.npy`` bytes are
 identical, and each package loads the other's checkpoints), a JAX run
 resumes in the port's ``train.main`` with the losses JAX itself goes on
 to, the port resumes its own runs, flags of unported features are
-rejected, and ``bridge`` carries NamedTuple states."""
+rejected while the telemetry flags run, and ``bridge`` carries NamedTuple
+states."""
 
+import json
 import shutil
 import signal
 
@@ -106,14 +108,67 @@ def test_port_run_resumes_across_a_phase_swap(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--mesh", "production"], ["--mesh-data", "2"], ["--mesh-model", "2"], ["--fsdp"],
-    ["--grad-compression", "int8"], ["--obs-dir", "runs/obs"], ["--obs"],
-    ["--profile-steps", "1:2"], ["--log-format", "jsonl"], ["--pallas-interpret"],
-    ["--obs-step-every", "2"]])
+    ["--grad-compression", "int8"], ["--pallas-interpret"]])
 def test_train_cli_rejects_unported_flags(flags, capsys):
     with pytest.raises(SystemExit) as exc:
         train.main(["--device", "cpu", *SMOKE, "--steps", "1", *flags])
     assert exc.value.code == 2
     assert "ROADMAP" in capsys.readouterr().err
+
+
+def _events(path):
+    from repro_torch.obs import validate_file
+
+    assert validate_file(path) > 0
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--obs-dir", "runs/obs"], ["--obs"], ["--profile-steps", "1:2"],
+    ["--log-format", "jsonl"], ["--obs-step-every", "2"]])
+def test_train_cli_takes_telemetry_flags(flags, capsys, monkeypatch, tmp_path):
+    """The five telemetry flags the port once refused: each runs and does
+    what the JAX CLI's does (the trace itself: tests/test_torch_obs_train.py)."""
+    monkeypatch.chdir(tmp_path)  # --obs-dir runs/obs is relative
+    run_dir = tmp_path / "ck" / "smollm-360m-smoke"
+    argv = ["--device", "cpu", *SMOKE, "--steps", "3", "--ckpt-dir", str(tmp_path / "ck")]
+    _, losses = train.main([*argv, *flags])
+    assert len(losses) == 3
+    out = capsys.readouterr().out
+    flag = flags[0]
+    if flag == "--obs-dir":  # names where --obs writes; alone it writes nothing
+        assert not (tmp_path / "runs").exists() and not list(tmp_path.rglob("*.jsonl"))
+        train.main([*argv, "--steps", "1", *flags, "--obs", "--ckpt-dir", str(tmp_path / "ck2")])
+        assert [e["type"] for e in _events(tmp_path / "runs/obs/events.jsonl")] == [
+            "run_start", "train_step", "run_end"]
+        assert not list((tmp_path / "ck2").rglob("*.jsonl"))
+    elif flag == "--obs":  # events.jsonl in the checkpoint directory
+        events = _events(run_dir / "events.jsonl")
+        assert [e["type"] for e in events] == [
+            "run_start", "train_step", "train_step", "phase_swap", "train_step", "run_end"]
+        assert [e["loss"] for e in events if e["type"] == "train_step"] == losses
+    elif flag == "--profile-steps":  # a Chrome trace of step 1 and its event
+        assert "[profile] traced steps 1...2 -> " in out
+        trace = json.loads((run_dir / "profile" / "trace.json").read_text())
+        assert trace["traceEvents"]
+        assert not list(tmp_path.rglob("*.jsonl"))  # no --obs: no event file
+    elif flag == "--log-format":  # the console mirrors the events themselves
+        shown = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+        assert [e["type"] for e in shown] == ["train_step", "phase_swap", "train_step"]
+        assert [e["step"] for e in shown if e["type"] == "train_step"] == [0, 2]
+        assert not any(line.startswith("step ") for line in out.splitlines())
+    else:  # a train_step record every second step
+        train.main([*argv, "--steps", "3", *flags, "--obs", "--ckpt-dir",
+                    str(tmp_path / "ck2")])
+        events = _events(tmp_path / "ck2" / "smollm-360m-smoke" / "events.jsonl")
+        assert [e["step"] for e in events if e["type"] == "train_step"] == [0, 2]
+        assert not list(run_dir.glob("*.jsonl"))  # the first run had no --obs
+
+
+def test_train_cli_rejects_a_bad_profile_window():
+    for spec in ("2:1", "3:3", "-1:2", "7", "a:b"):
+        with pytest.raises(SystemExit, match="--profile-steps"):
+            train.main(["--device", "cpu", *SMOKE, "--steps", "1", f"--profile-steps={spec}"])
 
 
 def test_train_cli_trains_at_algorithm_1_ranks(capsys, tmp_path):

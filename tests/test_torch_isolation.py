@@ -1,6 +1,8 @@
 """The port stands alone: importing every module of ``repro_torch`` and
-``chip_smoke`` pulls in neither JAX nor the JAX package, and the entry
-points refuse to run without CUDA unless the CPU is asked for."""
+``chip_smoke`` (the telemetry layer, ``repro_torch.obs`` and
+``repro_torch.analysis``, among them) pulls in neither JAX nor the JAX
+package, and the entry points refuse to run without CUDA unless the CPU is
+asked for."""
 
 import subprocess
 import sys
@@ -25,8 +27,13 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro"
              or m.startswith("repro."))
-print(len(names), bad)
+print(len(names), bad, sorted(n for n in names if n.startswith(("repro_torch.obs",
+                                                                "repro_torch.analysis"))))
 """
+# the telemetry layer's modules: each imported by the probe above
+TELEMETRY = ["repro_torch.analysis", "repro_torch.analysis.obs_report", "repro_torch.obs",
+             "repro_torch.obs.__main__", "repro_torch.obs.events", "repro_torch.obs.registry",
+             "repro_torch.obs.schema"]
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
@@ -34,8 +41,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 20 and bad == "[]", out.stdout
+    n, rest = out.stdout.strip().split(" ", 1)
+    bad, telemetry = rest.split("] ", 1)
+    assert int(n) >= 20 and bad == "[", out.stdout
+    assert telemetry == repr(TELEMETRY), out.stdout
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked_for():
@@ -82,8 +91,7 @@ def test_training_entry_points_need_cuda_unless_cpu_is_asked_for(tmp_path):
 def test_serve_cli_rejects_unported_flags():
     from repro_torch.launch import serve
 
-    for argv in (["--mesh-data", "2"], ["--log-format", "jsonl"], ["--export-int8"],
-                 ["--mesh-model", "2"], ["--obs"],
+    for argv in (["--mesh-data", "2"], ["--export-int8"], ["--mesh-model", "2"],
                  ["--arch", "seamless-m4t-medium", "--spec-k", "2"]):
         with pytest.raises(SystemExit) as exc:
             serve.main(["--smoke", "--device", "cpu", *argv])

@@ -73,8 +73,7 @@ def test_engine_rejects_unported_features():
             (ServeConfig(num_slots=2, kv_int8=True), {}, "kv_cache_dtype.*item 5"),
             (ServeConfig(num_slots=2, mesh_model=2), {}, "mesh.*item 8"),
             (ServeConfig(num_slots=2, mesh_data=2), {}, "mesh.*item 8"),
-            (ServeConfig(num_slots=2), dict(mesh=object()), "mesh.*item 8"),
-            (ServeConfig(num_slots=2), dict(obs=object()), "telemetry.*item 9")]:
+            (ServeConfig(num_slots=2), dict(mesh=object()), "mesh.*item 8")]:
         with pytest.raises(ValueError, match=match):
             ServeEngine(run, {}, config=cfg, device="cpu", **kw)
 
