@@ -1,7 +1,7 @@
 """Drive the PyTorch port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py [--out results.json]
-                          [--only kernels|conv|serve|obs|moe|ssm|encdec|vlm|mla]
+                          [--only kernels|conv|serve|obs|moe|ssm|encdec|vlm|mla|tune]
 
 Phases, in order; any failure exits nonzero:
 
@@ -68,6 +68,23 @@ Phases, in order; any failure exits nonzero:
 9. train profile — wall time, device time and idle share of one train
               step per phase, with tokens/s and K1, K5, K2, K3 and K4
               device ms apart;
+69. autotune — (run right after phase 9) ``python -m
+              repro_torch.kernels.autotune`` twice on a fresh table over
+              smollm-360m's serve and train geometries (K1/K5 at M 8, 128,
+              256, 320, 2048; K2-K4 at 2048; K8 at the 2016-token prefill):
+              run 1 measures every entry on this card, run 2 is all cache
+              hits; each tuned choice beside the hand-set one, both timed,
+              and the predicted time; phase 7's train CLI with
+              ``pallas_autotune`` and the table (launches exactly phase 7's,
+              losses within LOSS_RTOL of phase 7's, bit for bit where every
+              choice is the hand-set one, no fallback); a 2016-token flash
+              prefill under the table against the plain path;
+70. dry-run — phase 7's step as a meta cell (``launch/dryrun.py``) at
+              phases -1 / 0 / 1 against the same step counted on the card:
+              argument bytes, FLOPs and bytes equal exactly; the H100
+              roofline's step bound beside phase 9's device ms, the meta peak
+              beside ``max_memory_allocated``; the dry-run CLI at train_4k
+              and decode_32k and ``analysis.report`` over both cells;
 9b. rank-adapt train — phase 7 with ``--rank-schedule decay``: the ranks
               shrink at each phase swap (240/120/349 -> 128/90/256 ->
               96/67/128), launches counted per step by name and by shape,
@@ -350,7 +367,8 @@ moe`` runs phases 1-3 at the MoE shapes and 29-35; ``--only ssm`` phases
 1-3 at the enc-dec shapes, 44-49 and 66; ``--only vlm`` phases 1-3 at the
 VLM shapes, 50-56, 67 and the large dense configs' rows; ``--only mla``
 phases 1-3 at DeepSeek-V3's shapes and 57-63; ``--only obs`` phases 1, 2,
-4, 7 and 68 (its kernels line is empty).  The last line of standard
+4, 7 and 68 (its kernels line is empty); ``--only tune`` phases 1, 2, 69
+and 70 (its kernels line is empty).  The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s name and power limit, and the ``{"kernels": [...]}`` line
 comes before that.
@@ -375,9 +393,13 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
-BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
-INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
+# the card's peaks (roofline.H100_SPECS: the data sheet's), each kernel's
+# work (roofline.kernel_cost) and the timer (autotune.time_fn: L2 flush,
+# sleep kernel, CUDA events, median), shared with the autotuner so a tuned
+# µs and a kernel row's µs are one measurement
+from repro_torch.analysis.roofline import H100_SPECS, kernel_cost  # noqa: E402
+from repro_torch.kernels.autotune import time_fn as cuda_time_ms  # noqa: E402
+
 # Relative tolerances (max |kernel - plain| / max |plain|) of the bf16
 # kernels.  K1 rounds t and y at the same points as its plain version, so
 # they differ only where float32 sums taken in another order flip a bf16
@@ -496,34 +518,6 @@ FLASH_EXTRA = [dict(FLASH_SERVE_SHAPE, Sq=1, Sk=1), dict(FLASH_SERVE_SHAPE, Sq=1
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-# device clock cycles the timing loop holds the card after each flush
-# (about 0.5 ms at the H100's 1.98 GHz boost clock)
-HOLD_CYCLES = 1_000_000
-
-
-def cuda_time_ms(fn, iters: int, flush: torch.Tensor) -> float:
-    """Median device time of ``fn()`` over ``iters`` launches, each after
-    an L2 flush (the serving path reads every layer's factors cold).  A
-    sleep kernel after the flush gives the host time to enqueue all of
-    ``fn`` before the start event is reached, however slow the host, so
-    host overhead stays out of the reading."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        flush.zero_()
-        torch.cuda._sleep(HOLD_CYCLES)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
-    return times[len(times) // 2]
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor):
@@ -695,14 +689,10 @@ def kernel_case(name, d, gen):
                     plain=lambda: ref.lowrank_gated_ffn_ref(*args),
                     library=lambda: F.silu(torch.matmul(torch.matmul(x, gu), gv))
                     * torch.matmul(torch.matmul(x, uu), uv),
-                    bytes=2 * (m * c + 2 * c * r + 2 * r * f + m * f),
-                    flops=2 * 2 * (m * c * r + m * r * f))
+                    flops=kernel_cost(name, d)[0], bytes=kernel_cost(name, d)[1])
     s = d["S"]
     u, v = rnd(c, r, scale=c ** -0.5), rnd(r, s, scale=r ** -0.5)
-    # every kernel here reads (or writes) x-, U-, V- and y-sized operands
-    # once, and does two rank-r products
-    bytes_ = 2 * (m * c + c * r + r * s + m * s)
-    flops = 2 * m * c * r + 2 * m * r * s
+    flops, bytes_ = kernel_cost(name, d)
     if name == "lowrank_matmul":
         return dict(args=(x, u, v), kernel=lambda: lowrank_matmul(x, u, v),
                     plain=lambda: ref.lowrank_matmul_ref(x, u, v),
@@ -767,13 +757,13 @@ def int8_kernel_case(name, d, gen):
     else:
         x = i8(m, c)
         xp = _pad(x, 32, up8(c))
-    xbytes, ybytes = (2 * m * c, 2 * m * s) if fused else (m * c, 4 * m * s)
 
     def x_q():  # the yardstick's quantizer: torch ops into the padded buffer
         q, xs = ref.quantize_rowwise(x)
         xp[:m, :c].copy_(q)
         return xs
 
+    ops, bytes_ = kernel_cost(name, d)
     if name in ("int8_matmul", "int8_linear"):
         w = i8(c, s)
         wp = _pad(w, up8(c), up8(s))
@@ -781,7 +771,7 @@ def int8_kernel_case(name, d, gen):
             return dict(kernel=lambda: k8.int8_matmul(x, w),
                         plain=lambda: ref.int8_matmul_ref(x, w),
                         library=lambda: torch._int_mm(xp, wp)[:m, :s],
-                        bytes=xbytes + c * s + ybytes, ops=2 * m * c * s)
+                        bytes=bytes_, ops=ops)
         ws = scales(s)
 
         def library():
@@ -790,7 +780,7 @@ def int8_kernel_case(name, d, gen):
 
         return dict(kernel=lambda: k8.int8_linear(x, w, ws),
                     plain=lambda: ref.int8_linear_ref(x, w, ws), library=library,
-                    bytes=xbytes + c * s + 4 * s + ybytes, ops=2 * m * c * s)
+                    bytes=bytes_, ops=ops)
     r = d["r"]
     u, us, v, vs = i8(c, r), scales(r), i8(r, s), scales(s)
     up_, usp, vp = _pad(u, up8(c), up8(r)), _pad(us, 1, up8(r)), _pad(v, up8(r), up8(s))
@@ -810,9 +800,7 @@ def int8_kernel_case(name, d, gen):
     kernel = k8.int8_lowrank_linear if fused else k8.int8_lowrank_matmul
     plain = ref.int8_lowrank_linear_ref if fused else ref.int8_lowrank_matmul_ref
     return dict(kernel=lambda: kernel(*args), plain=lambda: plain(*args),
-                library=library if fused else lowrank,
-                bytes=xbytes + c * r + 4 * r + r * s + 4 * s + ybytes,
-                ops=2 * m * c * r + 2 * m * r * s)
+                library=library if fused else lowrank, bytes=bytes_, ops=ops)
 
 
 def check_and_time(name, d, case, iters, flush, peak):
@@ -836,7 +824,7 @@ def check_and_time(name, d, case, iters, flush, peak):
     except RuntimeError as e:  # a shape the library call does not take
         log(f"[kernels] {name} {d}: library call not timed ({str(e).splitlines()[0]})")
         lib_ms = None
-    t_bytes = case["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_bytes = case["bytes"] / H100_SPECS.hbm_bw * 1e3
     t_ops = case["ops"] / peak * 1e3
     row = dict(name=name, shape=d, max_abs_err=err, rel_err=rel, rel_err_of_max=rel_all,
                rtol=rtol, ms=ms,
@@ -879,7 +867,7 @@ def phase_kernels(shapes=None, iters: int = 50):
     for name, d in kernel_shapes() if shapes is None else shapes:
         case = kernel_case(name, d, gen)
         case["ops"] = case.pop("flops")
-        rows.append(check_and_time(name, d, case, iters, flush, BF16_FLOPS_PER_S))
+        rows.append(check_and_time(name, d, case, iters, flush, H100_SPECS.peak_flops))
     zero_counts()  # launches made to compare and time are not the main path's
     return rows
 
@@ -1008,7 +996,7 @@ def phase_int8_kernels(shapes, iters: int = 50):
             d = (dict(M=key[0], C=key[1], S=key[2]) if name in ("int8_matmul", "int8_linear")
                  else dict(M=key[0], C=key[1], r=key[2], S=key[3]))
             rows.append(check_and_time(name, d, int8_kernel_case(name, d, gen), iters, flush,
-                                       INT8_OPS_PER_S))
+                                       H100_SPECS.int8_flops))
     zero_counts()
     return rows
 
@@ -1067,19 +1055,9 @@ def phase_int8_launches():
 def wrappers():
     """name -> kernel wrapper (each carries ``launches`` and
     ``launches_by_shape``)."""
-    from repro_torch.kernels import lowrank_bwd as kb
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels import int8_matmul as k8
-    from repro_torch.kernels.lowrank_ffn import lowrank_gated_ffn
-    from repro_torch.kernels.lowrank_matmul import lowrank_matmul
+    from repro_torch.analysis.cost import kernel_wrappers
 
-    return {"lowrank_matmul": lowrank_matmul, "lowrank_gated_ffn": lowrank_gated_ffn,
-            "lowrank_matmul_dx": kb.lowrank_matmul_dx,
-            "lowrank_matmul_du": kb.lowrank_matmul_du,
-            "lowrank_matmul_dv": kb.lowrank_matmul_dv,
-            "int8_matmul": k8.int8_matmul, "int8_lowrank_matmul": k8.int8_lowrank_matmul,
-            "int8_linear": k8.int8_linear, "int8_lowrank_linear": k8.int8_lowrank_linear,
-            "flash_attention": flash_attention}
+    return kernel_wrappers()
 
 
 def zero_counts():
@@ -2187,14 +2165,13 @@ def flash_kernel_case(d, gen):
     # q multiplier folded into its scale
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     lib_scale = float(torch.tensor(q_scale, dtype=torch.bfloat16)) * dh ** -0.5
-    visible = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+    ops, bytes_ = kernel_cost("flash_attention", flash_dims(shape_key("flash_attention", d)))
     return dict(kernel=lambda: flash_attention(q, k, v, causal=causal, q_scale=q_scale),
                 plain=lambda: ref.flash_attention_fwd_ref(q, k, v, causal=causal,
                                                           q_scale=q_scale),
                 library=lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=causal, scale=lib_scale, enable_gqa=True),
-                bytes=2 * (b * sq * h * (dh + dv) + b * sk * kv * (dh + dv)),
-                ops=2 * b * h * (dh + dv) * visible, err=row_rel_err)
+                bytes=bytes_, ops=ops, err=row_rel_err)
 
 
 def phase_flash_kernels(shapes, iters: int = 50):
@@ -2203,7 +2180,7 @@ def phase_flash_kernels(shapes, iters: int = 50):
     gen = torch.Generator(device="cuda").manual_seed(3)
     flush = _flush_buffer()
     rows = [check_and_time("flash_attention", d, flash_kernel_case(d, gen), iters, flush,
-                           BF16_FLOPS_PER_S) for d in shapes]
+                           H100_SPECS.peak_flops) for d in shapes]
     zero_counts()
     return rows
 
@@ -5847,6 +5824,274 @@ def phase_mla(smi: str):
     return paths, result, rows
 
 
+# --------------------------------------------------------------------------
+# Phases 69-70: the autotuner, the meta dry-run and the roofline
+# --------------------------------------------------------------------------
+
+# phase 69's tuning keys, smollm-360m's serve and train geometries: K1 at the
+# decode step (8), the prefill (128), either side of its large_m thresholds
+# (256, 320) and the train step / flash prefill (2048 bucket); K5 at the
+# same M; K2-K4 at the train step; K8 at the 2016-token flash prefill (M
+# Sq, C the heads of a batch row, r the head dim, S Sk).  Each entry goes
+# under freeze phases -1, 0 and 1 (the serve path and both train phases).
+TUNE_M = (DECODE_M, PREFILL_M, 256, 320, TRAIN_M)
+TUNE_CALLS = (
+    (("lowrank_fwd",), [(m, *g) for m in TUNE_M for g in sorted(set(PROJ.values()))]),
+    (("lowrank_ffn",), [(m, *PROJ["gate/up"]) for m in TUNE_M]),
+    (("lowrank_dx", "lowrank_du", "lowrank_dv"),
+     [(TRAIN_M, *g) for g in sorted(set(PROJ.values()))]),
+    (("flash",), [(FLASH_PROMPT, FLASH_SERVE_SHAPE["H"], FLASH_SERVE_SHAPE["D"],
+                   FLASH_PROMPT)]),
+)
+# the keys a phase-7 train step looks up (M TRAIN_M): K1 on every
+# geometry (gate/up in the FFN backward's recompute), K5, K2-K4
+TUNE_TRAIN_KEYS = ([("lowrank_fwd", (TRAIN_M, *g)) for g in set(PROJ.values())]
+                   + [("lowrank_ffn", (TRAIN_M, *PROJ["gate/up"]))]
+                   + [(op, (TRAIN_M, *g)) for op in ("lowrank_dx", "lowrank_du", "lowrank_dv")
+                      for g in set(PROJ.values())])
+
+
+def _tune_argv(table: Path, ops, shapes):
+    return (["--table", str(table), "--ops", *ops, "--shapes"]
+            + ["x".join(map(str, s)) for s in shapes] + ["--freeze-phase", "-1", "0", "1"])
+
+
+@contextlib.contextmanager
+def autotuned_train_cli(table: Path):
+    """The train CLI's runs with ``lrd.pallas_autotune`` on and ``table``
+    as ``lrd.pallas_autotune_table`` (the CLI has no flag for them, as the
+    reference's has none): its ``build_run`` wrapped while open."""
+    import dataclasses
+
+    from repro_torch.launch import train
+
+    build = train.build_run
+
+    def tuned(args):
+        run = build(args)
+        return dataclasses.replace(run, lrd=dataclasses.replace(
+            run.lrd, pallas_autotune=True, pallas_autotune_table=str(table)))
+
+    train.build_run = tuned
+    try:
+        yield
+    finally:
+        train.build_run = build
+
+
+def phase_autotune(train_off=None):
+    """Phase 69: the autotune CLI twice on a fresh table over TUNE_CALLS
+    (run 1: every entry measured on this card, no fallback reason; run 2:
+    every key a cache hit, nothing measured), each tuned choice printed
+    beside the hand-set one; then phase 7's train CLI with the table
+    (launches exactly phase 7's, losses within LOSS_RTOL of ``train_off``,
+    phase 7's per-step records (a run of its own when None), bit for bit
+    where every choice it looks up is the hand-set one; no fallback), and
+    one full-width 2016-token flash prefill under the table against the
+    plain path (kernels off, blockwise attention) at phase 5's bound."""
+    import dataclasses
+
+    from repro_torch.kernels import autotune
+    from repro_torch.launch import steps
+
+    t0 = time.perf_counter()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    kind = torch.cuda.get_device_name(0)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as tmp:
+        table_path = Path(tmp) / "tune.json"
+        autotune.set_table(None)
+        for call, (ops, shapes) in enumerate(TUNE_CALLS):
+            autotune.main(_tune_argv(table_path, ops, shapes))
+        run1 = autotune.TuningTable.load(str(table_path))
+        bad = {k: e for k, e in run1.entries.items()
+               if e.source != "measured" or e.device_kind != kind or e.fallback_reason}
+        if bad or not run1.entries:
+            raise AssertionError(f"autotune run 1: {len(bad)} of {len(run1)} entries not "
+                                 f"measured on {kind}: {list(bad.items())[:3]}")
+        t_run1 = time.perf_counter() - t0
+        hits = 0
+        for ops, shapes in TUNE_CALLS:
+            autotune.set_table(None)
+            run2 = autotune.main(_tune_argv(table_path, ops, shapes))
+            hits += run2.stats["hit"]
+            if run2.stats["miss"] or run2.stats["stale"] or run2.entries != run1.entries:
+                raise AssertionError(f"autotune run 2 ({ops}): lookups {run2.stats}, "
+                                     f"{len(run2)} entries against run 1's {len(run1)}")
+        log(f"[autotune] run 1: {len(run1)} entries, all measured on {kind}, in "
+            f"{t_run1:.1f}s; run 2: {hits} cache hits, nothing measured")
+        rows, same = [], {}
+        for ops, shapes in TUNE_CALLS:
+            for op in ops:
+                for m, c, r, s in shapes:
+                    e = run1.lookup(op, m, c, r, s, torch.bfloat16, kind=kind)
+                    hand = autotune.hand_choice(op, m, c, r, s, sms)
+                    same[(op, (m, c, r, s))] = e.choice == hand
+                    rows.append(dict(op=op, M=m, C=c, r=r, S=s, tuned=e.choice.text(),
+                                     tuned_us=e.us, hand=hand.text(), hand_us=e.hand_us,
+                                     predicted_us=e.predicted_us))
+                    log(f"[autotune] {op} {m}x{c}x{r}x{s}: tuned {e.choice.text()} "
+                        f"{e.us:.1f}us (predicted {e.predicted_us:.1f}us); hand-set "
+                        f"{hand.text()} {e.hand_us:.1f}us; tuned/hand "
+                        f"{e.us / e.hand_us:.3f}")
+        out["entries"] = rows
+        zero_counts()  # the tuner's timing launches are not the main path's
+        if train_off is None:
+            _, train_off, _, _ = _counted_train(TRAIN_ARGV)
+        autotune.set_table(None)  # kernel_policy loads it from lrd.pallas_autotune_table
+        with telemetry_capture() as (reg, fallbacks), autotuned_train_cli(table_path):
+            _, per_step, by_shape, dt = _counted_train(TRAIN_ARGV)
+        lookups = reg.snapshot().get("autotune_lookups", {}).get("series", {})
+        if not lookups or any(not k.endswith("result=hit") for k in lookups):
+            raise AssertionError(f"autotune train: lookups {lookups}, want hits only")
+        all_hand = all(same[k] for k in TUNE_TRAIN_KEYS)
+        for r, off in zip(per_step, train_off):
+            _check_step("autotune train", r, _leaf_ranks(PROJ))
+            rel = abs(r["loss"] - off["loss"]) / abs(off["loss"])
+            if rel > LOSS_RTOL or (all_hand and r["loss"] != off["loss"]):
+                raise AssertionError(f"autotune train: step {r['step']} loss {r['loss']!r} "
+                                     f"against {off['loss']!r} untuned (every choice "
+                                     f"hand-set: {all_hand})")
+        if fallbacks:
+            raise AssertionError(f"autotune train: kernel_fallbacks {list(fallbacks)[:3]}")
+        log(f"[autotune] train (phase 7's CLI, pallas_autotune on): launches exactly phase "
+            f"7's; losses {[round(r['loss'], 5) for r in per_step]} against "
+            f"{[round(r['loss'], 5) for r in train_off]} untuned ("
+            + ("bit for bit: every choice looked up is the hand-set one" if all_hand else
+               f"within {LOSS_RTOL}") + f"); no fallback; lookups {lookups}; {dt:.1f}s")
+        out["train"] = dict(steps=_without_shapes(per_step), all_hand=all_hand,
+                            lookups=lookups, wall_s=dt)
+        # one 2016-token flash prefill under the table against the plain path,
+        # at full width and depth (the serve CLI's run)
+        from repro_torch.configs import get_config
+        from repro_torch.launch import serve
+
+        run = serve.serve_run(get_config("smollm-360m"), max_len=FLASH_MAX_LEN, slots=DECODE_M,
+                              lrd=True, device=torch.device("cuda"), seed=0)
+        tuned = dataclasses.replace(run, model=dataclasses.replace(
+            run.model, attention_impl="flash"), lrd=dataclasses.replace(
+                run.lrd, pallas_autotune=True, pallas_autotune_table=str(table_path)))
+        plain = _plain(run)
+        params, _ = steps.init_params(run, "cuda")
+        tokens = _long_prompt(run, 1)
+        zero_counts()
+        got = steps.build_prefill_step(tuned)(params, {"tokens": tokens})[0]
+        launched = counts_by_shape()
+        want = steps.build_prefill_step(plain)(params, {"tokens": tokens})[0]
+        err, rel = rel_err(got, want)
+        n_layers = run.model.num_layers
+        counts = {k: sum(v.values()) for k, v in launched.items() if v}
+        if (not torch.isfinite(got).all() or rel > PATH_RTOL
+                or counts != {"lowrank_matmul": 5 * n_layers, "lowrank_gated_ffn": n_layers,
+                              "flash_attention": n_layers}):
+            raise AssertionError(f"autotune prefill: {rel:.3e} of max |logit| (bound "
+                                 f"{PATH_RTOL}), launches {counts}")
+        log(f"[autotune] flash prefill 1 x {tokens.shape[1]} under the table: last-position "
+            f"logits {err:.3e} ({rel:.3e} of max |logit|; bound {PATH_RTOL}) from the plain "
+            f"path; launches {counts}")
+        out["prefill"] = dict(max_abs_diff=err, rel=rel, launches=counts)
+        del params
+    autotune.set_table(None)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[run] phase 69 (autotune) {out['seconds']:.1f} s")
+    return {"tuned train": by_shape, "tuned prefill": launched}, out
+
+
+def _train_batch_cuda(run):
+    """The phase-7 shape's int32 tokens and labels, on the card."""
+    b, s = run.shape.global_batch, run.shape.seq_len
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    return {k: torch.randint(0, run.model.vocab_size, (b, s), generator=gen, device="cuda",
+                             dtype=torch.int32) for k in ("tokens", "labels")}
+
+
+def phase_dryrun(train_profile=None):
+    """Phase 70: phase 7's train step as a meta dry-run cell at phases -1 /
+    0 / 1 against the same step counted on the card: argument bytes (the
+    live TrainState plus the batch), FLOPs (by dtype), bytes and kernel
+    launches equal exactly; the roofline's step bound beside phase 9's
+    device ms (``train_profile``), the meta peak beside
+    ``max_memory_allocated``.  Then the dry-run CLI for smollm-360m at
+    train_4k and decode_32k, and ``analysis.report`` over both cells."""
+    from repro_torch.analysis import report
+    from repro_torch.analysis.cost import counting
+    from repro_torch.analysis.roofline import model_flops_per_device, roofline_terms
+    from repro_torch.launch import dryrun, steps
+
+    t0 = time.perf_counter()
+    run = _train_run()
+    params, _ = steps.init_params(run, "cuda")
+    mf = model_flops_per_device(run.model.active_params(), TRAIN_M, 1)
+    out, paths = {}, {}
+    for phase in (-1, 0, 1):
+        fn, args, donate = dryrun.cell(run, phase)
+        meta = dryrun.measure_cell(fn, args, donate)
+        state = steps.make_train_state(run.optim, params, phase)[0]
+        batch = _train_batch_cuda(run)
+        arg_bytes = dryrun._tree_bytes((state, batch))
+        zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with counting() as card:
+            dryrun.train_fn(run, phase, "cuda")(state, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        paths[f"dry-run card step {phase}"] = counts_by_shape()
+        mc = meta["step_cost"]
+        got = dict(argument_bytes=arg_bytes, flops=card.flops, bytes=card.bytes,
+                   flops_by_dtype=card.flops_by_dtype, kernel_launches=card.kernel_launches)
+        want = dict(argument_bytes=meta["memory_per_device"]["argument_bytes"],
+                    flops=mc["flops"], bytes=mc["bytes"], flops_by_dtype=mc["flops_by_dtype"],
+                    kernel_launches=mc["kernel_launches"])
+        if got != want:
+            diff = {k: (got[k], want[k]) for k in got if got[k] != want[k]}
+            byop = {k: (card.bytes_by_op.get(k), mc["bytes_by_op"].get(k))
+                    for k in set(card.bytes_by_op) | set(mc["bytes_by_op"])
+                    if card.bytes_by_op.get(k) != mc["bytes_by_op"].get(k)}
+            raise AssertionError(f"dry-run phase {phase}: card {diff} (card, meta); bytes by "
+                                 f"op {byop}")
+        rl = roofline_terms(card, model_flops=mf, specs=H100_SPECS)
+        measured = (train_profile or {}).get(phase, {}).get("device_ms")
+        share = (f"{rl.step_s * 1e3 / measured:.1%} of phase 9's {measured:.2f} ms of device "
+                 f"time" if measured else "phase 9 not run")
+        row = dict(argument_bytes=arg_bytes, flops=card.flops, bytes=card.bytes,
+                   flops_by_dtype=card.flops_by_dtype, kernel_launches=card.kernel_launches,
+                   meta_peak_bytes=meta["memory_per_device"]["temp_bytes"],
+                   max_memory_allocated=peak, compute_ms=rl.compute_s * 1e3,
+                   memory_ms=rl.memory_s * 1e3, bound_ms=rl.step_s * 1e3,
+                   device_ms=measured, model_flops=mf)
+        out[phase] = row
+        log(f"[dryrun] phase {phase}: meta = card exactly: argument bytes {arg_bytes}, "
+            f"FLOPs {card.flops:.6e} ({', '.join(f'{k} {v:.4e}' for k, v in sorted(card.flops_by_dtype.items()))}), "
+            f"bytes {card.bytes:.6e}, launches {card.kernel_launches}; roofline "
+            f"({H100_SPECS.name}) compute {rl.compute_s * 1e3:.2f} ms, memory "
+            f"{rl.memory_s * 1e3:.2f} ms, bound {rl.step_s * 1e3:.2f} ms ({rl.dominant}): "
+            f"{share}; meta peak {row['meta_peak_bytes'] / 2 ** 30:.2f} GiB, card "
+            f"max_memory_allocated {peak / 2 ** 30:.2f} GiB above the state")
+        del state, batch
+    del params
+    zero_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
+        cells = {}
+        for argv in (["--shape", "train_4k", "--microbatches", "2", "--attn-blocks",
+                      "4096,4096"], ["--shape", "decode_32k"]):
+            t1 = time.perf_counter()
+            res = dryrun.main(["--arch", "smollm-360m", "--out", tmp] + argv)
+            cells[argv[1]] = dict(seconds=time.perf_counter() - t1,
+                                  memory=res["memory_per_device"],
+                                  cost=res["cost_analysis_per_device"])
+        rows = report.main(["--dir", tmp, "--json", str(Path(tmp) / "roofline.json")])
+        if len(rows) != 2 or not all(math.isfinite(r["step_lower_bound_s"]) for r in rows):
+            raise AssertionError(f"report: {rows}")
+        out["cells"], out["report"] = cells, rows
+        log("[dryrun] CLI cells " + "; ".join(
+            f"{k} {v['seconds']:.1f}s, {v['cost']['flops']:.3e} FLOPs" for k, v in cells.items()))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[run] phase 70 (dry-run and roofline) {out['seconds']:.1f} s")
+    return paths, out
+
+
 def phase_rank_gate_kernels(skip=()):
     """K5 and K1 at the large dense configs' FFN geometries (item 13's
     gate, on no main path), for the kernels line; shapes in ``skip`` have
@@ -5889,7 +6134,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="", help="also write every result as JSON here")
     ap.add_argument("--only", choices=("kernels", "conv", "serve", "obs", "moe", "ssm",
-                                       "encdec", "vlm", "mla"),
+                                       "encdec", "vlm", "mla", "tune"),
                     default=None,
                     help="kernels: stop after the kernel phase (a first check of a build); "
                          "conv: run only the conv and ViT phases; serve: phases 1-3 at the "
@@ -5902,7 +6147,8 @@ def main(argv=None) -> int:
                          "int8 export's 64-65; encdec: phases 1-3 at the enc-dec shapes, "
                          "phases 44-49 and 66; vlm: phases 1-3 at the VLM shapes, phases "
                          "50-56, 67 and the rank-gate and K7-ceiling rows; mla: "
-                         "phases 1-3 at DeepSeek-V3's shapes and phases 57-63")
+                         "phases 1-3 at DeepSeek-V3's shapes and phases 57-63; tune: "
+                         "phases 1, 2, 69 (autotune) and 70 (dry-run and roofline)")
     args = ap.parse_args(argv)
 
     t_start = time.perf_counter()
@@ -5931,6 +6177,17 @@ def main(argv=None) -> int:
         result["telemetry"] = phase_telemetry(result["serve"], result["train"], smi)
         mark("telemetry")
         obs_tmp.cleanup()
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(result, indent=1, default=str))
+        print(json.dumps({"kernels": []}), flush=True)
+        print(smi, flush=True)
+        return 0
+    if args.only == "tune":
+        result = dict(smi=smi, build_s=build_s)
+        _, result["autotune"] = phase_autotune()
+        _, result["dryrun"] = phase_dryrun()
+        mark("autotune and dry-run")
         if args.out:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps(result, indent=1, default=str))
@@ -6008,6 +6265,12 @@ def main(argv=None) -> int:
         obs_tmp.cleanup()
         result["grads"] = phase_grads(params)
         result["train_profile"] = phase_train_profile(params)
+        # the autotuner, and phase 7's step as a meta dry-run cell against the card
+        more, result["autotune"] = phase_autotune(result["train"]["steps"])
+        paths.update(more)
+        more, result["dryrun"] = phase_dryrun(result["train_profile"])
+        paths.update(more)
+        mark("autotune and dry-run")
         final, paths["rank decay"], paths["rank energy"], result["rank_adapt"] = \
             phase_rank_adapt_train()
         result["rank_adapt_profile"] = phase_rank_map_profiles(params, final)

@@ -1,6 +1,6 @@
-"""Analysis of the port's runs: ``obs_report`` reads a telemetry trace.
-
-The JAX package's HLO cost model, roofline and report (``analysis/hlo.py``,
-``roofline.py``, ``report.py``) read its compiled HLO and a TPU model and
-have no counterpart here yet.
+"""Analysis of the port's runs: ``obs_report`` reads a telemetry trace;
+``roofline`` (an H100 model beside the reference's v5e one, and the
+hand-written kernels' costs), ``cost`` (a step's FLOPs and bytes counted
+as it runs, the counterpart of the reference's HLO parser) and ``report``
+(the roofline table over ``launch/dryrun.py``'s cells).
 """

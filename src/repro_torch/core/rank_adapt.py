@@ -36,7 +36,8 @@ from repro_torch.core import freezing, rank_opt, svd
 from repro_torch.core.decompose import iter_factor_groups, map_factor_groups
 
 __all__ = ["RankSchedule", "schedule_from_config", "live_rank_map", "plan_rank_map",
-           "truncate_params", "slice_tree", "slice_moments", "decay_rank_maps"]
+           "truncate_params", "slice_tree", "slice_moments", "apply_rank_map_to_shapes",
+           "decay_rank_maps"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,6 +186,29 @@ def slice_moments(moments: Tuple[Any, Any],
     for SGD and passes through)."""
     mu, nu = moments
     return slice_tree(mu, rank_map), (nu if nu == () else slice_tree(nu, rank_map))
+
+
+def apply_rank_map_to_shapes(shapes: Any, rank_map: Dict[str, int]) -> Any:
+    """Rewrite a tree of meta tensors to the map's ranks (no data): the
+    dry-run's ``steps.abstract_state(rank_map=...)`` prices each
+    rank-adaptation boundary this way.  A group at or under its mapped rank
+    is left as it is."""
+    if not rank_map:
+        return shapes
+
+    def rewrite(path, group):
+        rank = rank_map.get(path)
+        if rank is None or int(rank) >= group["u"].shape[-1]:
+            return group
+        rank = int(rank)
+        u, v = group["u"], group["v"]
+        out = dict(group)
+        out["u"] = torch.empty(u.shape[:-1] + (rank,), dtype=u.dtype, device=u.device)
+        out["v"] = torch.empty(v.shape[:-2] + (rank,) + v.shape[-1:], dtype=v.dtype,
+                               device=v.device)
+        return out
+
+    return map_factor_groups(shapes, rewrite)
 
 
 def decay_rank_maps(params: Any, schedule: RankSchedule,

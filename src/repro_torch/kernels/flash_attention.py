@@ -24,11 +24,12 @@ from __future__ import annotations
 
 import ctypes
 from collections import Counter
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.lowrank_matmul import check_cuda_operands, raise_on_error
+from repro_torch.kernels.lowrank_matmul import check_cuda_operands, priced, raise_on_error
 
 __all__ = ["flash_attention", "HEAD_DIMS", "flash_unit_count", "flash_units", "flash_grid",
            "flash_plan"]
@@ -90,14 +91,16 @@ def flash_plan(units: int, sms: int) -> list:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, q_scale: float = 1.0) -> torch.Tensor:
+                    causal: bool = True, q_scale: float = 1.0,
+                    grid: Optional[int] = None) -> torch.Tensor:
     """q (B, Sq, H, D), k (B, Sk, KV, D), v (B, Sk, KV, Dv) -> (B, Sq, H, Dv)
     in q's dtype.
 
     q head h attends with kv head h // (H / KV).  q is first multiplied by
     ``q_scale`` in its own dtype, then the logits by D**-0.5 in float32
     (``ref.flash_attention_fwd_ref`` spells the arithmetic out).  Under
-    ``causal`` query i sees keys 0..i."""
+    ``causal`` query i sees keys 0..i.  ``grid`` is the CTAs of the
+    persistent grid (default :func:`flash_grid`'s one wave)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
             "flash attention is forward only: the reference's flash kernel "
@@ -124,14 +127,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if sk == 0:
         raise ValueError("flash_attention: no keys (Sk = 0)")
     check_cuda_operands("flash_attention", (q, k, v))
+    if q.device.type == "meta":
+        return priced(flash_attention, (b, sq, sk, h, kvh, d, dv, bool(causal)), (b, sq, h, dv), q)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: q, k and v must start on a 16-byte boundary "
                          "(the kernel reads them by TMA)")
     o = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
     if o.numel() == 0:
         return o
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    grid = flash_grid(flash_unit_count(b, sq, h), sms)
+    if grid is None:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        grid = flash_grid(flash_unit_count(b, sq, h), sms)
     # the multiplier as q's dtype holds it, as JAX's weakly typed q * sqrt(D)
     q_mul = float(torch.tensor(q_scale, dtype=q.dtype))
     lib = build.load("flash_attention")
@@ -150,3 +156,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.launches_by_shape = Counter()
+flash_attention.priced_by_shape = Counter()

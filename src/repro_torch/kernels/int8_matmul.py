@@ -115,7 +115,7 @@ def _check(op: str, named) -> None:
             raise ValueError(f"{op}: operand of shape {tuple(t.shape)} is not contiguous")
         if t.numel() > _INT32_MAX:
             raise ValueError(f"{op}: operand with {t.numel()} elements exceeds int32 indexing")
-    if dev.index != torch.cuda.current_device():
+    if dev.type != "meta" and dev.index != torch.cuda.current_device():
         raise ValueError(f"{op}: operands on {dev}, current device is "
                          f"cuda:{torch.cuda.current_device()}")
 
@@ -210,6 +210,9 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     y = _output("int8_matmul", m, s, torch.int32, x_q.device)
     if m == 0 or s == 0:
         return y
+    if y.device.type == "meta":  # priced, not launched (lowrank_matmul.priced)
+        int8_matmul.priced_by_shape[(m, c, s)] += 1
+        return y
     _k6("int8_matmul", 0, x_q, w_q, None, y)
     int8_matmul.launches += 1
     int8_matmul.launches_by_shape[(m, c, s)] += 1
@@ -227,6 +230,9 @@ def int8_linear(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor) -> to
                            (w_scale, (torch.float32,))])
     y = _output("int8_linear", m, s, x.dtype, x.device)
     if m == 0 or s == 0:
+        return y
+    if y.device.type == "meta":  # priced, not launched (lowrank_matmul.priced)
+        int8_linear.priced_by_shape[(m, c, s)] += 1
         return y
     _k6("int8_linear", _XTYPE[x.dtype], x, w_q, w_scale, y)
     int8_linear.launches += 1
@@ -249,6 +255,9 @@ def int8_lowrank_matmul(x_q: torch.Tensor, u_q: torch.Tensor, u_scale: torch.Ten
     y = _output("int8_lowrank_matmul", m, s, torch.float32, x_q.device)
     if m == 0 or s == 0:
         return y
+    if y.device.type == "meta":  # priced, not launched (lowrank_matmul.priced)
+        int8_lowrank_matmul.priced_by_shape[(m, c, r, s)] += 1
+        return y
     _k7("int8_lowrank_matmul", 0, x_q, u_q, u_scale, v_q, v_scale, y,
         k7_scratch(m, r, x_q.device))
     int8_lowrank_matmul.launches += 1
@@ -270,6 +279,9 @@ def int8_lowrank_linear(x: torch.Tensor, u_q: torch.Tensor, u_scale: torch.Tenso
     y = _output("int8_lowrank_linear", m, s, x.dtype, x.device)
     if m == 0 or s == 0:
         return y
+    if y.device.type == "meta":  # priced, not launched (lowrank_matmul.priced)
+        int8_lowrank_linear.priced_by_shape[(m, c, r, s)] += 1
+        return y
     _k7("int8_lowrank_linear", _XTYPE[x.dtype], x, u_q, u_scale, v_q, v_scale, y,
         k7_scratch(m, r, x.device))
     int8_lowrank_linear.launches += 1
@@ -280,3 +292,4 @@ def int8_lowrank_linear(x: torch.Tensor, u_q: torch.Tensor, u_scale: torch.Tenso
 for _fn in (int8_matmul, int8_linear, int8_lowrank_matmul, int8_lowrank_linear):
     _fn.launches = 0
     _fn.launches_by_shape = Counter()
+    _fn.priced_by_shape = Counter()

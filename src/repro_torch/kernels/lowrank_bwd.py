@@ -34,7 +34,8 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.lowrank_matmul import (RANK_CEILING, RANK_MAX, SMEM_MAX,
-                                                check_cuda_operands, raise_on_error, sm_count)
+                                                check_cuda_operands, priced, raise_on_error,
+                                                sm_count)
 
 __all__ = ["lowrank_matmul_dx", "lowrank_matmul_du", "lowrank_matmul_dv", "dx_smem"]
 
@@ -145,8 +146,10 @@ def _launch_bwd(op: str, operands, out: torch.Tensor, dims, plan,
     _launch(f"repro_lowrank_{op}", (*operands, scratch, out), (*dims, *extra), operands[0])
 
 
-def lowrank_matmul_dx(dy: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """dy (M, S), u (C, r), v (r, S) -> dx (M, C) in dy's dtype."""
+def lowrank_matmul_dx(dy: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
+                      plan: Optional[tuple] = None) -> torch.Tensor:
+    """dy (M, S), u (C, r), v (r, S) -> dx (M, C) in dy's dtype; ``plan``
+    is phase 2's (g, groups) (default :func:`dx_plan`)."""
     if dy.device.type == "cpu":
         return ref.lowrank_matmul_dx_ref(dy, u, v)
     _shapes("lowrank_matmul_dx", dy=dy, u=u, v=v)
@@ -156,19 +159,24 @@ def lowrank_matmul_dx(dy: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> tor
         raise ValueError(f"lowrank_matmul_dx: shapes dy {tuple(dy.shape)}, u "
                          f"{tuple(u.shape)}, v {tuple(v.shape)} do not chain")
     _check("lowrank_matmul_dx", m, c, r, s, (dy, u, v))
+    if dy.device.type == "meta":
+        return priced(lowrank_matmul_dx, (m, c, r, s), (m, c), dy)
     dx = torch.empty((m, c), dtype=dy.dtype, device=dy.device)
     if m == 0 or c == 0:
         return dx
-    _launch_bwd("dx", (dy, u, v), dx, (m, c, r, s), dx_plan(m, c, sm_count(dy.device.index)))
+    _launch_bwd("dx", (dy, u, v), dx, (m, c, r, s),
+                plan or dx_plan(m, c, sm_count(dy.device.index)))
     lowrank_matmul_dx.launches += 1
     lowrank_matmul_dx.launches_by_shape[(m, c, r, s)] += 1
     return dx
 
 
 def lowrank_matmul_du(x: torch.Tensor, dy: torch.Tensor, v: torch.Tensor, *,
-                      out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                      out_dtype: Optional[torch.dtype] = None,
+                      splits: Optional[int] = None) -> torch.Tensor:
     """x (M, C), dy (M, S), v (r, S) -> dU (C, r) in ``out_dtype`` (the
-    primal u's dtype; default v's)."""
+    primal u's dtype; default v's); the sum over M split ``splits`` ways
+    (default :func:`split_plan`)."""
     if x.device.type == "cpu":
         return ref.lowrank_matmul_du_ref(x, dy, v, out_dtype=out_dtype)
     _shapes("lowrank_matmul_du", x=x, dy=dy, v=v)
@@ -181,21 +189,26 @@ def lowrank_matmul_du(x: torch.Tensor, dy: torch.Tensor, v: torch.Tensor, *,
         raise TypeError(f"lowrank_matmul_du: the CUDA kernel writes bfloat16, asked "
                         f"for {out_dtype}")
     _check("lowrank_matmul_du", m, c, r, s, (x, dy, v))
+    if x.device.type == "meta" and m:
+        return priced(lowrank_matmul_du, (m, c, r, s), (c, r), x, torch.bfloat16)
     if m == 0:
         return torch.zeros((c, r), dtype=torch.bfloat16, device=x.device)
     du = torch.empty((c, r), dtype=torch.bfloat16, device=x.device)
     if c == 0:
         return du
-    _launch_bwd("du", (x, dy, v), du, (m, c, r, s), split_plan(m, c, r, sm_count(x.device.index)))
+    _launch_bwd("du", (x, dy, v), du, (m, c, r, s),
+                splits or split_plan(m, c, r, sm_count(x.device.index)))
     lowrank_matmul_du.launches += 1
     lowrank_matmul_du.launches_by_shape[(m, c, r, s)] += 1
     return du
 
 
 def lowrank_matmul_dv(x: torch.Tensor, u: torch.Tensor, dy: torch.Tensor, *,
-                      out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                      out_dtype: Optional[torch.dtype] = None,
+                      splits: Optional[int] = None) -> torch.Tensor:
     """x (M, C), u (C, r), dy (M, S) -> dV (r, S) in ``out_dtype`` (the
-    primal v's dtype; default u's)."""
+    primal v's dtype; default u's); the sum over M split ``splits`` ways
+    (default :func:`split_plan`)."""
     if x.device.type == "cpu":
         return ref.lowrank_matmul_dv_ref(x, u, dy, out_dtype=out_dtype)
     _shapes("lowrank_matmul_dv", x=x, u=u, dy=dy)
@@ -209,12 +222,15 @@ def lowrank_matmul_dv(x: torch.Tensor, u: torch.Tensor, dy: torch.Tensor, *,
         raise TypeError(f"lowrank_matmul_dv: the CUDA kernel writes bfloat16, asked "
                         f"for {out_dtype}")
     _check("lowrank_matmul_dv", m, c, r, s, (x, u, dy))
+    if x.device.type == "meta" and m:
+        return priced(lowrank_matmul_dv, (m, c, r, s), (r, s), x, torch.bfloat16)
     if m == 0:
         return torch.zeros((r, s), dtype=torch.bfloat16, device=x.device)
     dv = torch.empty((r, s), dtype=torch.bfloat16, device=x.device)
     if s == 0:
         return dv
-    _launch_bwd("dv", (x, u, dy), dv, (m, c, r, s), split_plan(m, r, s, sm_count(x.device.index)))
+    _launch_bwd("dv", (x, u, dy), dv, (m, c, r, s),
+                splits or split_plan(m, r, s, sm_count(x.device.index)))
     lowrank_matmul_dv.launches += 1
     lowrank_matmul_dv.launches_by_shape[(m, c, r, s)] += 1
     return dv
@@ -223,3 +239,4 @@ def lowrank_matmul_dv(x: torch.Tensor, u: torch.Tensor, dy: torch.Tensor, *,
 for _f in (lowrank_matmul_dx, lowrank_matmul_du, lowrank_matmul_dv):
     _f.launches = 0
     _f.launches_by_shape = Counter()
+    _f.priced_by_shape = Counter()

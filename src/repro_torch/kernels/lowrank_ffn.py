@@ -15,12 +15,13 @@ from __future__ import annotations
 
 import ctypes
 from collections import Counter
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.lowrank_matmul import (RANK_CEILING, RANK_MAX, check_cuda_operands,
-                                                decode_plan, decode_rt, large_scratch,
+                                                decode_plan, decode_rt, large_scratch, priced,
                                                 raise_on_error, sm_count)
 
 __all__ = ["lowrank_gated_ffn", "LARGE_M", "FFN_RANK_MAX"]
@@ -38,8 +39,10 @@ LARGE_M = 384
 
 
 def lowrank_gated_ffn(x: torch.Tensor, gu: torch.Tensor, gv: torch.Tensor,
-                      uu: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
-    """x (M, C); gate gu (C, rg), gv (rg, F); up uu (C, ru), uv (ru, F) -> (M, F)."""
+                      uu: torch.Tensor, uv: torch.Tensor, *, large: Optional[bool] = None,
+                      plan: Optional[tuple] = None) -> torch.Tensor:
+    """x (M, C); gate gu (C, rg), gv (rg, F); up uu (C, ru), uv (ru, F) -> (M, F).
+    ``large`` and ``plan`` as for K1 (defaults: ``LARGE_M``, ``decode_plan``)."""
     if x.device.type == "cpu":
         return ref.lowrank_gated_ffn_ref(x, gu, gv, uu, uv)
     if any(t.dim() != 2 for t in (x, gu, gv, uu, uv)):
@@ -56,7 +59,10 @@ def lowrank_gated_ffn(x: torch.Tensor, gu: torch.Tensor, gv: torch.Tensor,
         raise ValueError(f"lowrank_gated_ffn: ranks ({rg}, {ru}) outside [1, {FFN_RANK_MAX}] "
                          f"({RANK_CEILING})")
     check_cuda_operands("lowrank_gated_ffn", (x, gu, gv, uu, uv))
-    return _launch(x, gu, gv, uu, uv, large=m >= LARGE_M)
+    if x.device.type == "meta":
+        return priced(lowrank_gated_ffn, (m, c, rg, ru, f), (m, f), x)
+    return _launch(x, gu, gv, uu, uv, large=m >= LARGE_M if large is None else large,
+                   plan=plan)
 
 
 def _launch(x: torch.Tensor, gu: torch.Tensor, gv: torch.Tensor, uu: torch.Tensor,
@@ -96,3 +102,4 @@ def _launch(x: torch.Tensor, gu: torch.Tensor, gv: torch.Tensor, uu: torch.Tenso
 
 lowrank_gated_ffn.launches = 0
 lowrank_gated_ffn.launches_by_shape = Counter()
+lowrank_gated_ffn.priced_by_shape = Counter()

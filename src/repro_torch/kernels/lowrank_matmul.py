@@ -16,6 +16,13 @@ the decode design's launch plan, which the kernel checks.
 raises on anything the kernel does not take; it never falls back.
 ``lowrank_matmul.launches`` counts kernel launches, and
 ``lowrank_matmul.launches_by_shape`` counts them by ``(M, C, r, S)``.
+
+On the meta device (``launch/dryrun.py``) every wrapper of the port checks
+its operands as on CUDA and then prices the call instead of launching it:
+:func:`priced` counts it in ``<wrapper>.priced_by_shape`` (keyed as
+``launches_by_shape``) and returns an empty result of the right shape and
+dtype.  Nothing is computed, so this is not a fallback, and the launch
+counters are not touched.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from collections import Counter
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -31,7 +38,7 @@ from repro_torch.kernels import build, ref
 
 __all__ = ["lowrank_matmul", "RANK_MAX", "RANK_CEILING", "LARGE_M",
            "large_m", "check_cuda_operands", "decode_plan", "decode_rt", "decode_kp",
-           "decode_out_smem", "large_smem", "sm_count"]
+           "decode_out_smem", "large_smem", "sm_count", "priced"]
 
 # The largest rank K1, K2-K4, K5 and K7 take (kRMax in csrc/common.cuh):
 # K1 and K5 walk a rank past 512 in pieces (decode design) or passes with t
@@ -154,9 +161,10 @@ def sm_count(index: int) -> int:
 
 def check_cuda_operands(op: str, tensors: Sequence[torch.Tensor]) -> None:
     """Raise unless every operand is a contiguous bf16 tensor on the current
-    CUDA device.  An operand that requires grad is refused under grad mode:
-    the kernel's result would carry no gradient (the autograd Functions in
-    ``ops`` call the wrappers with grad mode off)."""
+    CUDA device (or all on the meta device).  An operand that requires grad
+    is refused under grad mode: the kernel's result would carry no gradient
+    (the autograd Functions in ``ops`` call the wrappers with grad mode
+    off)."""
     dev = tensors[0].device
     for t in tensors:
         if t.requires_grad and torch.is_grad_enabled():
@@ -171,9 +179,20 @@ def check_cuda_operands(op: str, tensors: Sequence[torch.Tensor]) -> None:
             raise ValueError(f"{op}: operand of shape {tuple(t.shape)} is not contiguous")
         if t.numel() > _INT32_MAX:
             raise ValueError(f"{op}: operand with {t.numel()} elements exceeds int32 indexing")
-    if dev.index != torch.cuda.current_device():
+    if dev.type != "meta" and dev.index != torch.cuda.current_device():
         raise ValueError(f"{op}: operands on {dev}, current device is "
                          f"cuda:{torch.cuda.current_device()}")
+
+
+def priced(wrapper, key: tuple, shape: tuple, like: torch.Tensor,
+           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The meta device's stand-in for one launch of ``wrapper`` at ``key``:
+    count it in ``wrapper.priced_by_shape`` and return an empty (meta)
+    result of ``shape`` in ``dtype`` (default ``like``'s).  An empty
+    result launches nothing on CUDA, so it is not priced either."""
+    if all(shape):
+        wrapper.priced_by_shape[key] += 1
+    return torch.empty(shape, dtype=dtype or like.dtype, device=like.device)
 
 
 def raise_on_error(op: str, lib: ctypes.CDLL, code: int) -> None:
@@ -190,8 +209,12 @@ def large_scratch(size_fn, device: torch.device, *dims: int) -> torch.Tensor:
     return torch.empty(size_fn(*dims), dtype=torch.uint8, device=device)
 
 
-def lowrank_matmul(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """x (M, C) @ u (C, r) @ v (r, S) -> (M, S) in x's dtype."""
+def lowrank_matmul(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
+                   large: Optional[bool] = None, plan: Optional[tuple] = None) -> torch.Tensor:
+    """x (M, C) @ u (C, r) @ v (r, S) -> (M, S) in x's dtype.  ``large``
+    picks the design (default: from ``large_m``) and ``plan`` the decode
+    design's plan (default: ``decode_plan``); the autotuner's choices come
+    in through them."""
     if x.device.type == "cpu":
         return ref.lowrank_matmul_ref(x, u, v)
     if x.dim() != 2 or u.dim() != 2 or v.dim() != 2:
@@ -205,7 +228,9 @@ def lowrank_matmul(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.T
     if not 1 <= r <= RANK_MAX:
         raise ValueError(f"lowrank_matmul: rank {r} outside [1, {RANK_MAX}] ({RANK_CEILING})")
     check_cuda_operands("lowrank_matmul", (x, u, v))
-    return _launch(x, u, v, large=m >= large_m(c, r))
+    if x.device.type == "meta":
+        return priced(lowrank_matmul, (m, c, r, s), (m, s), x)
+    return _launch(x, u, v, large=m >= large_m(c, r) if large is None else large, plan=plan)
 
 
 def _launch(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *, large: bool,
@@ -244,3 +269,4 @@ def _launch(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *, large: bool,
 
 lowrank_matmul.launches = 0
 lowrank_matmul.launches_by_shape = Counter()
+lowrank_matmul.priced_by_shape = Counter()

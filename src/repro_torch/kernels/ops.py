@@ -42,6 +42,18 @@ with jnp ops outside their kernels, to the same bits):
 * policy off (reason ``disabled``, any device): JAX's own policy-off
   formula, the weight-only ``x @ (w_q.float() * w_scale)``.
 
+With ``KernelPolicy.autotune`` (``lrd.pallas_autotune``) each kernel call
+on CUDA (or meta) tensors consults the active tuning table
+(``kernels/autotune.py``) for its design, plan, split or grid: each
+distinct call key is resolved once (one ``autotune_lookups{op, result}``
+count) and cached, so a lookup on the decode path is one dict hit.  A
+miss, or a bucketed hit the wrapper cannot take at the call's M, keeps the
+hand-set choice.  With it off, nothing is looked up.
+
+On meta tensors (``launch/dryrun.py``) the policy's kernel path reaches the
+wrappers, which check the operands and price the call
+(``lowrank_matmul.priced``) instead of launching it.
+
 Every plain-version decision is recorded as a :class:`Fallback` (``op``
 ``lowrank_fwd``, ``lowrank_ffn``, ``lowrank_dx``, ``lowrank_du``,
 ``lowrank_dv``, ``int8_dense``, ``int8_lowrank`` or ``flash_attention``);
@@ -59,7 +71,7 @@ import contextlib
 import dataclasses
 import logging
 import math
-from typing import List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -72,9 +84,9 @@ from repro_torch.kernels.lowrank_ffn import lowrank_gated_ffn
 from repro_torch.kernels.lowrank_matmul import lowrank_matmul
 from repro_torch.obs import registry as obs_registry
 
-__all__ = ["KernelPolicy", "as_policy", "lowrank_apply", "lowrank_ffn_apply",
-           "int8_apply", "int8_lowrank_apply", "flash_attention_apply", "Fallback",
-           "capture_fallbacks"]
+__all__ = ["KernelPolicy", "as_policy", "kernel_available", "lowrank_apply",
+           "lowrank_ffn_apply", "int8_apply", "int8_lowrank_apply", "flash_attention_apply",
+           "Fallback", "capture_fallbacks"]
 
 _log = logging.getLogger(__name__)
 
@@ -122,11 +134,14 @@ class KernelPolicy:
     are consumed: ``"native"`` (K6/K7 through :func:`int8_apply` /
     :func:`int8_lowrank_apply`) or ``"bf16"`` (dequantize every weight and
     run bf16 products, the serving baseline; ``models.common``).
+    ``autotune`` consults the active tuning table for each kernel call's
+    design, plan, split or grid.
     """
 
     use_kernel: bool = False
     freeze_group: Optional[int] = None
     int8_decode: str = "native"
+    autotune: bool = False
 
     def __bool__(self) -> bool:
         return self.use_kernel
@@ -139,6 +154,36 @@ def as_policy(policy: Union[bool, KernelPolicy, None]) -> KernelPolicy:
     return KernelPolicy(use_kernel=bool(policy))
 
 
+def kernel_available() -> bool:
+    """Whether the kernels can run here: a CUDA card of compute capability
+    (9, 0), the H100's (they are built for ``sm_90a``)."""
+    return torch.cuda.is_available() and torch.cuda.get_device_capability() == (9, 0)
+
+
+# resolved tuning-table choices by call key, for one table generation
+_RESOLVED: Dict[tuple, object] = {}
+_RESOLVED_FOR: list = [None, -1]
+
+
+def _tuned(op: str, m: int, c: int, r: int, s: int, dtype, freeze_group: Optional[int]):
+    """The active table's choice for a kernel call, or None (no table, a
+    miss, or a hit the wrapper cannot take at M): resolved once a key."""
+    from repro_torch.kernels import autotune  # deferred: autotune measures through ops
+
+    table = autotune.get_table()
+    if table is None:
+        return None
+    if _RESOLVED_FOR != [table, table.generation]:
+        _RESOLVED.clear()
+        _RESOLVED_FOR[:] = [table, table.generation]
+    key = (op, m, c, r, s, dtype, freeze_group)
+    if key not in _RESOLVED:
+        e = table.lookup(op, m, c, r, s, dtype, freeze_phase=freeze_group)
+        _RESOLVED[key] = (e.choice if e is not None and autotune.takes(m, c, e.choice)
+                          else None)
+    return _RESOLVED[key]
+
+
 def _plain_reason(x: torch.Tensor, use_kernel: bool):
     if not use_kernel:
         return "disabled"
@@ -147,56 +192,75 @@ def _plain_reason(x: torch.Tensor, use_kernel: bool):
     return None
 
 
-def _dispatch(op: str, kernel, plain, use_kernel: bool, shape, *args, **kw):
-    """``kernel(*args)`` for CUDA tensors with the policy on, else
-    ``plain(*args)``, recorded as a fallback of ``op`` at ``shape``."""
+def _dispatch(op: str, kernel, plain, use_kernel, shape, *args, choice=None, tune=None,
+              **kw):
+    """``kernel(*args)`` for CUDA (or meta) tensors with the policy on, else
+    ``plain(*args)``, recorded as a fallback of ``op`` at ``shape``.  The
+    kernel takes ``choice`` (an ``autotune.Choice``), else with ``tune`` =
+    (M, C, r, S, freeze_group) the active table's, else its hand-set one."""
     reason = _plain_reason(args[0], use_kernel)
     if reason is None:
-        return kernel(*args, **kw)
+        if choice is None and tune is not None:
+            choice = _tuned(op, *tune[:4], str(args[0].dtype).replace("torch.", ""), tune[4])
+        return kernel(*args, **kw, **(choice.kwargs() if choice is not None else {}))
     _note_fallback(op, reason, shape)
     return plain(*args, **kw)
 
 
-def _fwd(x, u, v, use_kernel: bool) -> torch.Tensor:
+def _fwd(x, u, v, use_kernel, choice=None, tune=False, fg=None) -> torch.Tensor:
+    m, c, r, s = x.shape[0], u.shape[0], u.shape[1], v.shape[1]
     return _dispatch("lowrank_fwd", lowrank_matmul, ref.lowrank_matmul_ref, use_kernel,
-                     (x.shape[0], u.shape[0], v.shape[1]), x, u, v)
+                     (m, c, s), x, u, v, choice=choice, tune=(m, c, r, s, fg) if tune else None)
 
 
-def _dx(dy, u, v, use_kernel: bool) -> torch.Tensor:
+def _ffn(x, gu, gv, uu, uv, use_kernel, choice=None, tune=False, fg=None) -> torch.Tensor:
+    m, c, r, f = x.shape[0], x.shape[1], gu.shape[1], gv.shape[1]
+    return _dispatch("lowrank_ffn", lowrank_gated_ffn, ref.lowrank_gated_ffn_ref, use_kernel,
+                     (m, c, f), x, gu, gv, uu, uv, choice=choice,
+                     tune=(m, c, r, f, fg) if tune else None)
+
+
+def _dx(dy, u, v, use_kernel, choice=None, tune=False, fg=None) -> torch.Tensor:
+    m, c, r, s = dy.shape[0], u.shape[0], u.shape[1], v.shape[1]
     return _dispatch("lowrank_dx", lowrank_matmul_dx, ref.lowrank_matmul_dx_ref, use_kernel,
-                     (dy.shape[0], u.shape[0], v.shape[1]), dy, u, v)
+                     (m, c, s), dy, u, v, choice=choice, tune=(m, c, r, s, fg) if tune else None)
 
 
-def _du(x, dy, v, out_dtype, use_kernel: bool) -> torch.Tensor:
+def _du(x, dy, v, out_dtype, use_kernel, choice=None, tune=False, fg=None) -> torch.Tensor:
+    m, c, r, s = x.shape[0], x.shape[1], v.shape[0], v.shape[1]
     return _dispatch("lowrank_du", lowrank_matmul_du, ref.lowrank_matmul_du_ref, use_kernel,
-                     (x.shape[0], x.shape[1], v.shape[1]), x, dy, v, out_dtype=out_dtype)
+                     (m, c, s), x, dy, v, out_dtype=out_dtype, choice=choice,
+                     tune=(m, c, r, s, fg) if tune else None)
 
 
-def _dv(x, u, dy, out_dtype, use_kernel: bool) -> torch.Tensor:
+def _dv(x, u, dy, out_dtype, use_kernel, choice=None, tune=False, fg=None) -> torch.Tensor:
+    m, c, r, s = x.shape[0], x.shape[1], u.shape[1], dy.shape[1]
     return _dispatch("lowrank_dv", lowrank_matmul_dv, ref.lowrank_matmul_dv_ref, use_kernel,
-                     (x.shape[0], x.shape[1], dy.shape[1]), x, u, dy, out_dtype=out_dtype)
+                     (m, c, s), x, u, dy, out_dtype=out_dtype, choice=choice,
+                     tune=(m, c, r, s, fg) if tune else None)
 
 
 class _LowrankMatmul(torch.autograd.Function):
     """y = (x u) v on (M, C) x; backward = ``_lr_bwd`` (K2, K3, K4)."""
 
     @staticmethod
-    def forward(ctx, x, u, v, use_kernel: bool, freeze_group: Optional[int]):
-        ctx.use_kernel, ctx.freeze_group = use_kernel, freeze_group
+    def forward(ctx, x, u, v, use_kernel: bool, freeze_group: Optional[int], tune: bool):
+        ctx.use_kernel, ctx.freeze_group, ctx.tune = use_kernel, freeze_group, tune
         ctx.save_for_backward(x, u, v)
-        return _fwd(x.contiguous(), u, v, use_kernel)
+        return _fwd(x.contiguous(), u, v, use_kernel, tune=tune, fg=freeze_group)
 
     @staticmethod
     def backward(ctx, dy):
         x, u, v = ctx.saved_tensors
-        use, fg = ctx.use_kernel, ctx.freeze_group
+        kw = dict(use_kernel=ctx.use_kernel, tune=ctx.tune, fg=ctx.freeze_group)
+        fg = ctx.freeze_group
         x, dy = x.contiguous(), dy.contiguous()
-        dx = _dx(dy, u, v, use) if ctx.needs_input_grad[0] else None
-        du = (_du(x, dy, v, u.dtype, use)
+        dx = _dx(dy, u, v, **kw) if ctx.needs_input_grad[0] else None
+        du = (_du(x, dy, v, u.dtype, **kw)
               if ctx.needs_input_grad[1] and fg != 0 else None)
-        dv = (_dv(x, u, dy, v.dtype, use)
+        dv = (_dv(x, u, dy, v.dtype, **kw)
               if ctx.needs_input_grad[2] and fg != 1 else None)
-        return dx, du, dv, None, None
+        return dx, du, dv, None, None, None
 
 
 class _LowrankGatedFFN(torch.autograd.Function):
@@ -205,56 +269,56 @@ class _LowrankGatedFFN(torch.autograd.Function):
     then K2 and K3/K4 per branch."""
 
     @staticmethod
-    def forward(ctx, x, gu, gv, uu, uv, use_kernel: bool, freeze_group: Optional[int]):
-        ctx.use_kernel, ctx.freeze_group = use_kernel, freeze_group
+    def forward(ctx, x, gu, gv, uu, uv, use_kernel: bool, freeze_group: Optional[int],
+                tune: bool):
+        ctx.use_kernel, ctx.freeze_group, ctx.tune = use_kernel, freeze_group, tune
         ctx.save_for_backward(x, gu, gv, uu, uv)
-        return _dispatch("lowrank_ffn", lowrank_gated_ffn, ref.lowrank_gated_ffn_ref,
-                         use_kernel, (x.shape[0], x.shape[1], gv.shape[1]),
-                         x.contiguous(), gu, gv, uu, uv)
+        return _ffn(x.contiguous(), gu, gv, uu, uv, use_kernel, tune=tune, fg=freeze_group)
 
     @staticmethod
     def backward(ctx, dy):
         x, gu, gv, uu, uv = ctx.saved_tensors
-        use, fg = ctx.use_kernel, ctx.freeze_group
+        kw = dict(use_kernel=ctx.use_kernel, tune=ctx.tune, fg=ctx.freeze_group)
+        fg = ctx.freeze_group
         need = ctx.needs_input_grad
         x, dy = x.contiguous(), dy.contiguous()
         # recompute the branch pre-activations: cheaper in HBM bytes than
         # keeping two (M, F) tensors from the forward
-        gf = _fwd(x, gu, gv, use).float()
-        upf = _fwd(x, uu, uv, use).float()
+        gf = _fwd(x, gu, gv, **kw).float()
+        upf = _fwd(x, uu, uv, **kw).float()
         dyf = dy.float()
         sg = torch.sigmoid(gf)
         # d silu(g)/dg = sigmoid(g) * (1 + g * (1 - sigmoid(g)))
         dg = (dyf * upf * (sg * (1.0 + gf * (1.0 - sg)))).to(x.dtype)
         dup = (dyf * (gf * sg)).to(x.dtype)
-        dx = _dx(dg, gu, gv, use) + _dx(dup, uu, uv, use) if need[0] else None
-        dgu = _du(x, dg, gv, gu.dtype, use) if need[1] and fg != 0 else None
-        dgv = _dv(x, gu, dg, gv.dtype, use) if need[2] and fg != 1 else None
-        duu = _du(x, dup, uv, uu.dtype, use) if need[3] and fg != 0 else None
-        duv = _dv(x, uu, dup, uv.dtype, use) if need[4] and fg != 1 else None
-        return dx, dgu, dgv, duu, duv, None, None
+        dx = _dx(dg, gu, gv, **kw) + _dx(dup, uu, uv, **kw) if need[0] else None
+        dgu = _du(x, dg, gv, gu.dtype, **kw) if need[1] and fg != 0 else None
+        dgv = _dv(x, gu, dg, gv.dtype, **kw) if need[2] and fg != 1 else None
+        duu = _du(x, dup, uv, uu.dtype, **kw) if need[3] and fg != 0 else None
+        duv = _dv(x, uu, dup, uv.dtype, **kw) if need[4] and fg != 1 else None
+        return dx, dgu, dgv, duu, duv, None, None, None
 
 
 def lowrank_apply(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
-                  use_kernel: bool = False,
-                  freeze_group: Optional[int] = None) -> torch.Tensor:
+                  use_kernel: bool = False, freeze_group: Optional[int] = None,
+                  autotune: bool = False) -> torch.Tensor:
     """y = (x @ u) @ v for x (..., C)."""
     c, s = u.shape[0], v.shape[1]
     lead = x.shape[:-1]
     y = _LowrankMatmul.apply(x.reshape(math.prod(lead), c), u, v, use_kernel,
-                             freeze_group)
+                             freeze_group, autotune)
     return y.reshape(*lead, s)
 
 
 def lowrank_ffn_apply(x: torch.Tensor, gu: torch.Tensor, gv: torch.Tensor,
                       uu: torch.Tensor, uv: torch.Tensor, *,
-                      use_kernel: bool = False,
-                      freeze_group: Optional[int] = None) -> torch.Tensor:
+                      use_kernel: bool = False, freeze_group: Optional[int] = None,
+                      autotune: bool = False) -> torch.Tensor:
     """silu((x gu) gv) * ((x uu) uv) for x (..., C)."""
     c, f = gu.shape[0], gv.shape[1]
     lead = x.shape[:-1]
     y = _LowrankGatedFFN.apply(x.reshape(math.prod(lead), c), gu, gv, uu, uv,
-                               use_kernel, freeze_group)
+                               use_kernel, freeze_group, autotune)
     return y.reshape(*lead, f)
 
 
@@ -312,12 +376,24 @@ def int8_lowrank_apply(x: torch.Tensor, u_q: torch.Tensor, u_scale: torch.Tensor
 # --------------------------------------------------------------------------
 
 def flash_attention_apply(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                          causal: bool, q_scale: float = 1.0) -> torch.Tensor:
+                          causal: bool, q_scale: float = 1.0,
+                          autotune: bool = False) -> torch.Tensor:
     """Flash attention of q (B, Sq, H, D) against k (B, Sk, KV, D) and v (B,
     Sk, KV, Dv): K8 for CUDA tensors (or an error), its plain version for CPU
     tensors.  Forward only: raises under grad mode if an input requires
-    grad."""
-    out = flash_attention(q, k, v, causal=causal, q_scale=q_scale)
+    grad.  With ``autotune`` the grid is the active table's (key: M = Sq, C
+    = B * H, r = D, S = Sk)."""
+    choice = None
+    if autotune and q.device.type != "cpu":
+        b, sq, h, d = q.shape
+        choice = _tuned("flash", sq, b * h, d, k.shape[1],
+                        str(q.dtype).replace("torch.", ""), None)
+    return _flash(q, k, v, causal=causal, q_scale=q_scale, choice=choice)
+
+
+def _flash(q, k, v, *, causal: bool, q_scale: float, choice=None) -> torch.Tensor:
+    out = flash_attention(q, k, v, causal=causal, q_scale=q_scale,
+                          **(choice.kwargs() if choice is not None else {}))
     if q.device.type == "cpu":
         _note_fallback("flash_attention", "platform", (q.shape[0], q.shape[1], k.shape[1],
                                                        q.shape[2], k.shape[2], q.shape[3]))

@@ -16,7 +16,10 @@ never resets them; with a rank schedule (``core.rank_adapt``) the same swap
 shrinks the ranks.
 
 Entry points run on CUDA unless the caller asks for the CPU:
-:func:`resolve_device` raises when CUDA is asked for and absent.
+:func:`resolve_device` raises when CUDA is asked for and absent.  The meta
+device builds every tree without drawing a value (:func:`init_params`
+with ``device="meta"``, and the ``abstract_*`` stand-ins of the dry-run,
+``launch/dryrun.py``), on one device: the sharded forms are queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -40,7 +43,8 @@ __all__ = ["resolve_device", "make_decomposer", "init_params", "kernel_policy",
            "run_phase", "TrainState", "make_train_state", "partition_bytes",
            "repartition_state", "build_train_step", "build_prefill_step",
            "build_slot_prefill_step", "build_serve_step", "build_draft_chain",
-           "build_verify_step", "build_extend_step"]
+           "build_verify_step", "build_extend_step", "batch_specs", "abstract_params",
+           "abstract_state", "abstract_cache", "decode_extras_specs"]
 
 def resolve_device(device="cuda") -> torch.device:
     """``torch.device(device)``, refusing CUDA when no GPU is present."""
@@ -68,9 +72,10 @@ def make_decomposer(run: RunConfig, device="cuda",
 def init_params(run: RunConfig, device="cuda",
                 generator: Optional[torch.Generator] = None):
     """(params, plan) drawn from ``generator`` (default: one on ``device``
-    seeded with ``run.seed``)."""
+    seeded with ``run.seed``).  On the meta device nothing is drawn (meta
+    has no generator): the same plan, leaf shapes and dtypes, no values."""
     dev = resolve_device(device)
-    if generator is None:
+    if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(run.seed)
     dec = make_decomposer(run, dev, generator)
     if run.model.family == "encdec":
@@ -82,10 +87,19 @@ def kernel_policy(run: RunConfig, phase: int = -1) -> KernelPolicy:
     """The kernel-dispatch policy of a run at freezing ``phase``:
     ``lrd.use_pallas_kernel`` turns the hand-written CUDA kernels on (the
     flag keeps the JAX name); group ``phase`` is frozen, so its gradient
-    kernel is not launched."""
+    kernel is not launched.
+
+    With ``lrd.pallas_autotune`` each kernel call consults the active
+    ``kernels.autotune.TuningTable``; ``lrd.pallas_autotune_table`` names
+    the JSON to activate, loaded once: an already active table is never
+    replaced, so a CLI or test that installed its own keeps it."""
+    if run.lrd.pallas_autotune and run.lrd.pallas_autotune_table:
+        from repro_torch.kernels import autotune
+        if autotune.get_table() is None:
+            autotune.load_table(run.lrd.pallas_autotune_table)
     return KernelPolicy(use_kernel=run.lrd.use_pallas_kernel,
                         freeze_group=freezing.frozen_group_for_phase(phase),
-                        int8_decode=run.lrd.int8_decode)
+                        int8_decode=run.lrd.int8_decode, autotune=run.lrd.pallas_autotune)
 
 
 def run_phase(run: RunConfig, epoch: int = 0) -> int:
@@ -399,3 +413,72 @@ def build_extend_step(run: RunConfig):
         return cache, torch.argmax(logits, dim=-1).to(tokens.dtype), logits
 
     return extend_step
+
+
+# --------------------------------------------------------------------------
+# abstract stand-ins (dry-run): meta tensors, one device
+# --------------------------------------------------------------------------
+
+META = torch.device("meta")
+
+
+def batch_specs(run: RunConfig) -> Dict[str, torch.Tensor]:
+    """A train or prefill batch of ``run.shape`` on the meta device: int32
+    ``tokens`` and ``labels`` (B, S), and an encoder-decoder model's
+    ``frames`` or a VLM's ``vision_embeddings`` in the compute dtype."""
+    cfg, shp = run.model, run.shape
+    b, s = shp.global_batch, shp.seq_len
+    out = {"tokens": torch.empty((b, s), dtype=torch.int32, device=META),
+           "labels": torch.empty((b, s), dtype=torch.int32, device=META)}
+    if cfg.family == "encdec":
+        out["frames"] = torch.empty((b, cfg.encoder_frames, cfg.d_model), dtype=cfg.cdtype,
+                                    device=META)
+    if cfg.family == "vlm":
+        out["vision_embeddings"] = torch.empty((b, cfg.num_image_tokens, cfg.d_model),
+                                               dtype=cfg.cdtype, device=META)
+    return out
+
+
+def abstract_params(run: RunConfig):
+    """The param tree of ``run`` on the meta device."""
+    return init_params(run, META)[0]
+
+
+def abstract_state(run: RunConfig, phase: Optional[int] = None,
+                   rank_map: Optional[Dict[str, int]] = None) -> TrainState:
+    """The partitioned :class:`TrainState` of ``run`` on the meta device:
+    the optimizer stand-ins cover the trainable partition only, so its bytes
+    show the structural freeze saving.  ``phase`` defaults to the run's
+    epoch-0 phase; ``rank_map`` rewrites factor groups to scheduled ranks
+    first (``rank_adapt.decay_rank_maps`` prices each boundary)."""
+    if phase is None:
+        phase = run_phase(run)
+    params = abstract_params(run)
+    if rank_map:
+        params = rank_adapt.apply_rank_map_to_shapes(params, rank_map)
+    return make_train_state(run.optim, params, phase)[0]
+
+
+def abstract_cache(run: RunConfig):
+    """The fixed-batch decode cache of ``run.shape`` (batch, seq_len) on the
+    meta device."""
+    cfg, shp = run.model, run.shape
+    if cfg.family == "encdec":
+        return encdec.encdec_init_cache(cfg, shp.global_batch, shp.seq_len, META)
+    return lm.init_cache(cfg, shp.global_batch, shp.seq_len, META)
+
+
+def decode_extras_specs(run: RunConfig):
+    """The reference's decode extras on the meta device: an encoder-decoder
+    model's ``memory`` or a VLM's ``vision_embeddings`` (B, frames or image
+    tokens, d), else None.  The port's decode step reads their k/v from the
+    cache and takes neither."""
+    cfg, shp = run.model, run.shape
+    if cfg.family == "encdec":
+        return {"memory": torch.empty((shp.global_batch, cfg.encoder_frames, cfg.d_model),
+                                      dtype=cfg.cdtype, device=META)}
+    if cfg.family == "vlm":
+        return {"vision_embeddings": torch.empty(
+            (shp.global_batch, cfg.num_image_tokens, cfg.d_model), dtype=cfg.cdtype,
+            device=META)}
+    return None

@@ -141,9 +141,9 @@ def blockwise_attention(q, k, v, *, causal: bool, block_q: int,
     return torch.cat(outs, dim=1).reshape(b, sq, h, dv)
 
 
-def attention_core(q, k, v, cfg: ModelConfig, *, causal: bool) -> torch.Tensor:
+def attention_core(q, k, v, cfg: ModelConfig, *, causal: bool, policy=False) -> torch.Tensor:
     if cfg.attention_impl == "flash":
-        return _flash_path(q, k, v, causal=causal)
+        return _flash_path(q, k, v, causal=causal, autotune=ops.as_policy(policy).autotune)
     if cfg.attention_impl == "dense" or q.shape[1] <= cfg.attention_block_q:
         return dense_attention(q, k, v, causal=causal)
     return blockwise_attention(q, k, v, causal=causal,
@@ -151,15 +151,17 @@ def attention_core(q, k, v, cfg: ModelConfig, *, causal: bool) -> torch.Tensor:
                                block_kv=cfg.attention_block_kv)
 
 
-def _flash_path(q, k, v, *, causal: bool) -> torch.Tensor:
+def _flash_path(q, k, v, *, causal: bool, autotune: bool = False) -> torch.Tensor:
     """Flash attention (opt-in, ``attention_impl="flash"``): K8 on CUDA
     tensors, its plain version on CPU ones.  GQA and the (B, S, H, D)
     layout are handled in the kernel.  q comes pre-scaled by D**-0.5 from
     the projection and the kernel applies its own scale, so q is first
     multiplied by sqrt(D) in its own dtype, where the JAX wrapper does
     (repro/models/attention.py:193).  No shape fallback: K8 takes every
-    length."""
-    return ops.flash_attention_apply(q, k, v, causal=causal, q_scale=q.shape[-1] ** 0.5)
+    length.  With ``autotune`` (the policy's) its grid is the tuning
+    table's."""
+    return ops.flash_attention_apply(q, k, v, causal=causal, q_scale=q.shape[-1] ** 0.5,
+                                     autotune=autotune)
 
 
 # --------------------------------------------------------------------------
@@ -314,7 +316,7 @@ def gqa_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, rope=None,
             raise ValueError("cross-attention needs kv_src (the encoder memory or the "
                              "vision embeddings)")
         q, k, v = _project_qkv(p, x, kv_src, cfg, rope, policy=policy)
-        out = attention_core(q, k, v, cfg, causal=causal and not cross)
+        out = attention_core(q, k, v, cfg, causal=causal and not cross, policy=policy)
         new_cache = {"k": k, "v": v}
     elif cross:
         if cache is None:
@@ -422,7 +424,7 @@ def mla_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, rope=None, mode: 
         q = torch.cat([q_nope, q_rope], dim=-1) * torch.tensor(scale, dtype=x.dtype,
                                                                  device=x.device)
         # v as a tensor of its own (K8 reads contiguous operands by TMA)
-        out = attention_core(q, k, kv[..., nd:].contiguous(), cfg, causal=True)
+        out = attention_core(q, k, kv[..., nd:].contiguous(), cfg, causal=True, policy=policy)
         new_cache = {"ckv": ckv, "kr": k_rope[..., 0, :]}
     else:
         if cache is None or pos is None:

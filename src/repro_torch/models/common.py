@@ -47,7 +47,7 @@ def linear(p: Params, x: torch.Tensor, *,
         y = _int8_lowrank(p, x, pol)
     else:
         y = kops.lowrank_apply(x, p["u"], p["v"], use_kernel=pol.use_kernel,
-                               freeze_group=pol.freeze_group)
+                               freeze_group=pol.freeze_group, autotune=pol.autotune)
     if "bias" in p:
         y = y + p["bias"].to(y.dtype)
     return y
@@ -185,7 +185,7 @@ def ffn(p: Params, x: torch.Tensor, *,
             # int8-exported branches (u_q) go through linear one by one.
             h = kops.lowrank_ffn_apply(x, gate["u"], gate["v"], up["u"], up["v"],
                                        use_kernel=pol.use_kernel,
-                                       freeze_group=pol.freeze_group)
+                                       freeze_group=pol.freeze_group, autotune=pol.autotune)
         else:
             g = linear(gate, x, policy=pol)
             u = linear(up, x, policy=pol)

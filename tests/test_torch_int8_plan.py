@@ -242,7 +242,8 @@ def test_k7_fills_the_card_at_decode_past_rank_512(c, r, s):
 def test_wrappers_refuse_a_depth_whose_sum_could_wrap():
     """|sum| <= C * 127**2 must stay below 2**31: both wrappers (both
     entries each) take C = 133144 and refuse C = 133145 before touching a
-    device (meta tensors), rather than return a wrapped sum."""
+    device (meta tensors), rather than return a wrapped sum.  A call they
+    take is priced on the meta device (``lowrank_matmul.priced``)."""
     assert k.DEPTH_MAX == 133144
     assert k.DEPTH_MAX * 127 ** 2 < 2 ** 31 <= (k.DEPTH_MAX + 1) * 127 ** 2
 
@@ -261,10 +262,11 @@ def test_wrappers_refuse_a_depth_whose_sum_could_wrap():
             if c > k.DEPTH_MAX:
                 with pytest.raises(ValueError, match=f"depth {c} .*wrap"):
                     fn(*args)
-            else:  # past the depth check: refused later, for the meta device
-                with pytest.raises(Exception) as exc:
-                    fn(*args)
-                assert "wrap" not in str(exc.value)
+            else:  # past the depth check: taken, and priced on the meta device
+                before = sum(fn.priced_by_shape.values())
+                y = fn(*args)
+                assert y.device.type == "meta" and tuple(y.shape) == (8, 64)
+                assert sum(fn.priced_by_shape.values()) == before + 1
 
 
 def test_plans_raise_past_what_a_cluster_holds():

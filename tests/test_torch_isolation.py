@@ -1,8 +1,9 @@
 """The port stands alone: importing every module of ``repro_torch`` and
-``chip_smoke`` (the telemetry layer, ``repro_torch.obs`` and
-``repro_torch.analysis``, among them) pulls in neither JAX nor the JAX
-package, and the entry points refuse to run without CUDA unless the CPU is
-asked for."""
+``chip_smoke`` (the telemetry layer, ``repro_torch.obs``, and the analysis
+slice, ``repro_torch.analysis``, ``kernels.autotune`` and
+``launch.dryrun``, among them) pulls in neither JAX nor the JAX package,
+and the entry points refuse to run without CUDA unless the CPU is asked
+for."""
 
 import subprocess
 import sys
@@ -27,13 +28,17 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro"
              or m.startswith("repro."))
-print(len(names), bad, sorted(n for n in names if n.startswith(("repro_torch.obs",
-                                                                "repro_torch.analysis"))))
+print(len(names), bad, sorted(n for n in names if n.startswith(
+    ("repro_torch.obs", "repro_torch.analysis", "repro_torch.kernels.autotune",
+     "repro_torch.launch.dryrun"))))
 """
-# the telemetry layer's modules: each imported by the probe above
-TELEMETRY = ["repro_torch.analysis", "repro_torch.analysis.obs_report", "repro_torch.obs",
-             "repro_torch.obs.__main__", "repro_torch.obs.events", "repro_torch.obs.registry",
-             "repro_torch.obs.schema"]
+# the telemetry layer's and the analysis slice's modules: each imported by
+# the probe above
+TELEMETRY = ["repro_torch.analysis", "repro_torch.analysis.cost",
+             "repro_torch.analysis.obs_report", "repro_torch.analysis.report",
+             "repro_torch.analysis.roofline", "repro_torch.kernels.autotune",
+             "repro_torch.launch.dryrun", "repro_torch.obs", "repro_torch.obs.__main__",
+             "repro_torch.obs.events", "repro_torch.obs.registry", "repro_torch.obs.schema"]
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():

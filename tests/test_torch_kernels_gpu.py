@@ -1196,3 +1196,124 @@ def test_gpu_lowrank_bwd_at_mla_geometry(name, c, r, s):
     torch.cuda.synchronize()
     _close_rel(got, want, BWD_RTOL)
     assert torch.equal(got, again)
+
+
+# --------------------------------------------------------------------------
+# The autotuner's candidates (kernels/autotune.py) at smollm-360m's
+# geometries: every design, plan, split and grid it may pick there, through
+# the wrappers' keywords, against the plain versions
+# --------------------------------------------------------------------------
+
+TUNE_GEOMS = [(960, 240, 960), (960, 120, 320), (2560, 349, 960), (960, 349, 2560)]
+TUNE_M = [8, 128, 256, 320, 2048]
+
+
+def _sms():
+    from repro_torch.kernels.lowrank_matmul import sm_count
+    return sm_count(torch.cuda.current_device())
+
+
+def _tune_candidates(op, m, c, r, s):
+    from repro_torch.analysis import roofline
+    from repro_torch.kernels import autotune
+
+    return roofline.prune_choices(op, m, c, r, s, autotune.candidates(op, m, c, r, s, _sms()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", TUNE_M)
+@pytest.mark.parametrize("c,r,s", TUNE_GEOMS)
+def test_gpu_tuned_lowrank_matmul_choices_match_plain(m, c, r, s):
+    """Every K1 candidate (the large design from 64 rows, the decode
+    design under decode_plan and its neighbours) at K1_RTOL."""
+    _need_gpu()
+    x, u, v = _mats(m + c + r, (m, c), (c, r), (r, s))
+    with torch.inference_mode():
+        want = ref.lowrank_matmul_ref(x, u, v)
+        for ch in _tune_candidates("lowrank_fwd", m, c, r, s):
+            got = lowrank_matmul(x, u, v, **ch.kwargs())
+            torch.cuda.synchronize()
+            _close_rel(got, want, K1_RTOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", TUNE_M)
+def test_gpu_tuned_lowrank_gated_ffn_choices_match_plain(m):
+    _need_gpu()
+    c, r, f = 960, 349, 2560
+    args = _mats(m + c + r, (m, c), (c, r), (r, f), (c, r), (r, f))
+    with torch.inference_mode():
+        want = ref.lowrank_gated_ffn_ref(*args)
+        for ch in _tune_candidates("lowrank_ffn", m, c, r, f):
+            got = lowrank_gated_ffn(*args, **ch.kwargs())
+            torch.cuda.synchronize()
+            _close_rel(got, want, K5_RTOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["dx", "du", "dv"])
+@pytest.mark.parametrize("c,r,s", TUNE_GEOMS)
+def test_gpu_tuned_bwd_choices_match_plain(name, c, r, s):
+    """Every K2 plan and K3/K4 split the tuner may pick at the train step's
+    M = 2048; a split sums in its own fixed order, so bitwise repeatable."""
+    from repro_torch.kernels import lowrank_bwd as kb
+
+    _need_gpu()
+    m = 2048
+    x, dy, u, v = _mats(m + c + r, (m, c), (m, s), (c, r), (r, s))
+    fn, plain, args = {"dx": (kb.lowrank_matmul_dx, ref.lowrank_matmul_dx_ref, (dy, u, v)),
+                       "du": (kb.lowrank_matmul_du, ref.lowrank_matmul_du_ref, (x, dy, v)),
+                       "dv": (kb.lowrank_matmul_dv, ref.lowrank_matmul_dv_ref, (x, u, dy))}[name]
+    want = plain(*args)
+    for ch in _tune_candidates("lowrank_" + name, m, c, r, s):
+        got = fn(*args, **ch.kwargs())
+        again = fn(*args, **ch.kwargs())
+        torch.cuda.synchronize()
+        _close_rel(got, want, BWD_RTOL)
+        assert torch.equal(got, again), ch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq", [17, 2016])
+def test_gpu_tuned_flash_grids_match_plain(sq):
+    """Every K8 grid the tuner may pick at the 2016-token prefill (15 heads
+    over 5 kv heads, D 64), row by row within 1e-2 of the row's max, as
+    chip_smoke.KERNEL_RTOL holds K8; the grid only deals units out, so
+    every grid gives the same bits."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    _need_gpu()
+    h, kvh, d = 15, 5, 64
+    q, k, v = _mats(sq, (1, sq, h, d), (1, sq, kvh, d), (1, sq, kvh, d))
+    with torch.inference_mode():
+        want = ref.flash_attention_fwd_ref(q, k, v, causal=True).float()
+        outs = []
+        for ch in _tune_candidates("flash", sq, h, d, sq):
+            got = flash_attention(q, k, v, causal=True, **ch.kwargs()).float()
+            torch.cuda.synchronize()
+            rows = (got - want).abs().amax(dim=-1) / want.abs().amax(dim=-1).clamp_min(1e-30)
+            assert rows.max().item() <= 1e-2, ch
+            outs.append(got)
+    assert all(torch.equal(o, outs[0]) for o in outs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op,c,r,s", [("lowrank_fwd", *g) for g in TUNE_GEOMS]
+                         + [("lowrank_ffn", 960, 349, 2560)])
+def test_gpu_tuned_decode_plan_keeps_a_rows_bits_across_m(op, c, r, s):
+    """A decode plan the tuner may share across buckets gives each row the
+    same bits at M 8 as inside M 128: the plan, not M, orders the sums."""
+    _need_gpu()
+    x = _mats(c + r, (128, c))[0]
+    mats = _mats(r + s, (c, r), (r, s), (c, r), (r, s))
+    fn = lowrank_matmul if op == "lowrank_fwd" else lowrank_gated_ffn
+    w = mats[:2] if op == "lowrank_fwd" else mats
+    plans = {ch for m in (8, 128) for ch in _tune_candidates(op, m, c, r, s)
+             if ch.design == "decode"}
+    assert plans
+    with torch.inference_mode():
+        for ch in sorted(plans, key=lambda ch: ch.plan):
+            y128 = fn(x, *w, **ch.kwargs())
+            y8 = fn(x[:8].contiguous(), *w, **ch.kwargs())
+            torch.cuda.synchronize()
+            assert torch.equal(y128[:8], y8), ch
