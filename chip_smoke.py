@@ -1,7 +1,7 @@
 """Drive the PyTorch port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py [--out results.json]
-                          [--only kernels|conv|serve|obs|moe|ssm|encdec|vlm|mla|tune]
+                          [--only kernels|conv|serve|obs|moe|ssm|encdec|vlm|mla|tune|shard]
 
 Phases, in order; any failure exits nonzero:
 
@@ -85,6 +85,30 @@ Phases, in order; any failure exits nonzero:
               roofline's step bound beside phase 9's device ms, the meta peak
               beside ``max_memory_allocated``; the dry-run CLI at train_4k
               and decode_32k and ``analysis.report`` over both cells;
+71-73. sharded — (run last) two ranks on the one card over gloo
+              (``chip_smoke.py --shard-worker``, started by ``python -m
+              torch.distributed.run --standalone``), full-width smollm-360m
+              at SHARD_LAYERS (16) of its 32 layers with LRD at Eq.-5 ranks
+              on phase 7's 8 x 256 batch, a step a cell at learning rate
+              SHARD_CHECK_LR: (a) pure data
+              parallelism on mesh (2, 1) at phase -1 / 0 / 1, K1-K5 launched
+              at M 1024 with K3 = 0 at phase 0 and K4 = 0 at phase 1 (exact
+              by shape, each rank), no collective at a frozen leaf's path,
+              the sync bytes of phases 0 and 1 below phase -1's and equal to
+              what the placements imply; the loss within SHARD_LOSS_RTOL, the
+              grad norm, the momentum (the synced gradient) and the update
+              of the trainable params (gathered) within SHARD_NORM_RTOL /
+              SHARD_MU_RTOL / SHARD_UPDATE_RTOL of one rank's step on the
+              same batch and params; (b) the int8 sync on (2, 1) at phases 0
+              and 1: K1-K5 at M 1024 exact by shape as in (a), int8 on the
+              wire at every trainable path and at no frozen one, the loss
+              within SHARD_LOSS_RTOL and the rest within the SHARD_INT8_*
+              limits of (a)'s; (c) TP on (1, 2): K1-K5 at v's local columns
+              (480 / 160 / 1280), held to one rank's as (a).  Each rank's
+              wall and CUDA-event ms and its sync bytes by op and dtype are
+              printed; a failed rank fails the phase.  Then a one-rank NCCL
+              group takes a control flag where
+              ``collectives.control_device`` puts it (and refuses a CPU one);
 9b. rank-adapt train — phase 7 with ``--rank-schedule decay``: the ranks
               shrink at each phase swap (240/120/349 -> 128/90/256 ->
               96/67/128), launches counted per step by name and by shape,
@@ -277,8 +301,8 @@ Phases, in order; any failure exits nonzero:
 50-56. llama-3.2-vision-90b (VLM: d 8192, 64 heads of 128, 8 KV heads,
               SwiGLU 28672, vocab 128256, a tanh-gated cross block over 4096
               stub image tokens after every 4 self layers) at full width,
-              depth cut from 100 layers to 2 groups (10) to serve and 1 group
-              (5) to train; LRD at Eq.-5 ranks 2048 / 455 / 3185, past K1's
+              depth cut from 100 layers to 1 group (5) to serve and to
+              train (the script's time limit); LRD at Eq.-5 ranks 2048 / 455 / 3185, past K1's
               old ceiling of 2048 and K5's of 512.  50 serve — the serve CLI
               on the fixed-batch path, 8 x 256 prompts with 8 x 4096 image
               tokens, 32 new tokens: K1 and K5 launches exact by shape (the
@@ -368,7 +392,8 @@ moe`` runs phases 1-3 at the MoE shapes and 29-35; ``--only ssm`` phases
 VLM shapes, 50-56, 67 and the large dense configs' rows; ``--only mla``
 phases 1-3 at DeepSeek-V3's shapes and 57-63; ``--only obs`` phases 1, 2,
 4, 7 and 68 (its kernels line is empty); ``--only tune`` phases 1, 2, 69
-and 70 (its kernels line is empty).  The last line of standard
+and 70 (its kernels line is empty); ``--only shard`` phases 1-3 at the
+sharded path's shapes and 71-73.  The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s name and power limit, and the ``{"kernels": [...]}`` line
 comes before that.
@@ -470,6 +495,9 @@ TRAIN_LAUNCHES = {"lowrank_matmul": 224, "lowrank_gated_ffn": 32, "lowrank_matmu
 # the per-token differences: LOSS_RTOL.
 GRAD_RTOL = 2 * PATH_RTOL
 LOSS_RTOL = 1e-2
+# CUDA-event timings a kernel row takes its median of (30, not 50, keep the
+# whole script inside its time limit)
+KERNEL_ITERS = 30
 # The int8 export: the serve CLI's flags, the int8 launches a forward and
 # layer (7 projections), and the bound on the int8 trees' prefill logits,
 # kernels vs plain versions, relative to max |logit| (K6 and K7 match their
@@ -534,16 +562,20 @@ def row_rel_err(got: torch.Tensor, want: torch.Tensor):
     return diff.max().item(), (diff.amax(dim=-1) / scale).max().item()
 
 
+def _precision_flags():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.set_float32_matmul_precision("highest")
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False — needs a GPU")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    torch.set_float32_matmul_precision("highest")
+    _precision_flags()
     log(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"nvidia-smi: {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
         f"tf32 off, bf16 reduced-precision reduction off, float32 matmul 'highest'")
@@ -661,6 +693,7 @@ def kernel_shapes(serve_only: bool = False):
         for name in bwd:
             for c, r, s in proj.values():
                 out.append((name, dict(M=TRAIN_M, C=c, r=r, S=s)))
+    out += shard_kernel_shapes()
     unique = []  # a shape two rank sets share is checked once
     for name, d in out:
         if (name, d) not in unique:
@@ -858,7 +891,7 @@ def _flush_buffer():
     return torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")  # 256 MB > L2
 
 
-def phase_kernels(shapes=None, iters: int = 50):
+def phase_kernels(shapes=None, iters: int = KERNEL_ITERS):
     """K1-K5 at ``shapes`` ((name, dims) pairs; every main-path shape known
     before the run by default)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -985,7 +1018,7 @@ def bwd_device_ms(by_name):
                  for key in ("bwd::k2_", "bwd::k3_", "bwd::k4_"))
 
 
-def phase_int8_kernels(shapes, iters: int = 50):
+def phase_int8_kernels(shapes, iters: int = KERNEL_ITERS):
     """K6 and K7 at every (M, C[, r], S) the export serve runs launched:
     the serving entry there, then its int8-operand twin at the same shape."""
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -2174,7 +2207,7 @@ def flash_kernel_case(d, gen):
                 bytes=bytes_, ops=ops, err=row_rel_err)
 
 
-def phase_flash_kernels(shapes, iters: int = 50):
+def phase_flash_kernels(shapes, iters: int = KERNEL_ITERS):
     """K8 at each shape against its plain version, timed beside it and
     ``F.scaled_dot_product_attention`` (a yardstick the port never calls)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -4796,7 +4829,7 @@ def phase_encdec():
 # attention under attention_impl="flash", the cross blocks' not causal.
 VLM_ARCH = "llama-3.2-vision-90b"
 VLM_SLOTS, VLM_PROMPT, VLM_NEW, VLM_PARITY_NEW, VLM_IMG = 8, 256, 32, 8, 4096
-VLM_EVERY, VLM_SERVE_GROUPS, VLM_TRAIN_GROUPS = 4, 2, 1
+VLM_EVERY, VLM_SERVE_GROUPS, VLM_TRAIN_GROUPS = 4, 1, 1
 VLM_SERVE_ARGV = ["--arch", VLM_ARCH, "--lrd", "--slots", str(VLM_SLOTS), "--prompt-len",
                   str(VLM_PROMPT), "--max-new", str(VLM_NEW)]
 VLM_TRAIN_ARGV = ["--arch", VLM_ARCH, "--lrd", "--no-rank-opt", "--use-pallas", "--freeze",
@@ -6102,6 +6135,371 @@ def phase_rank_gate_kernels(skip=()):
     return rows
 
 
+# --------------------------------------------------------------------------
+# Phases 71-73: sharded training on two gloo ranks of the one card
+# --------------------------------------------------------------------------
+#
+# Two processes share cuda:0 over gloo (NCCL refuses two ranks on one GPU):
+# (a) pure data parallelism on mesh (2, 1), two steps at phase -1 / 0 / 1;
+# (b) the int8 gradient sync on (2, 1) at phases 0 and 1; (c) TP on (1, 2)
+# at phase -1 / 0 / 1.  Full-width smollm-360m with LRD at Eq.-5 ranks, the
+# 8 x 256 batch of phase 7, at SHARD_LAYERS of its layers.  Times from two ranks on one card are no
+# data-parallel speed-up: the phases record bytes, launches and parity.
+
+SHARD_RANKS = 2
+# 16 of smollm-360m's 32 layers at full width (a depth cut, to keep the
+# script inside its time: gloo stages every collective through the host)
+SHARD_LAYERS = 16
+# each rank's rows on (2, 1); v's local columns on (1, 2)
+SHARD_DP_M = TRAIN_M // SHARD_RANKS
+PROJ_TP = {k: (c, r, s_ // SHARD_RANKS) for k, (c, r, s_) in PROJ.items()}
+# (a) and (c) against one rank's step on the same batch and params: the
+# same kernels on the same rows (DP) or columns (TP), the mean taken over
+# the ranks' halves.  The loss (computed before any sync) within
+# SHARD_LOSS_RTOL; what the sync and the update make of the step within
+# limits set from readings (PERF.md; 32 layers, NVIDIA H100 80GB
+# HBM3, 700 W): the grad norm (read 3.7e-5 to 2.1e-4), the momentum after
+# the step (sgdm from zero momentum: the synced gradient; read 1.9e-2 to
+# 2.1e-2) and the update of the trainable params (read 4.8e-2 to 5.3e-2),
+# each leaf's L2 error over its L2 norm, the worst leaf.  DP's and TP's
+# gradients are sums of two bf16-rounded halves where one rank rounds the
+# whole sum once; the update is then rounded to bf16 params.  The step's
+# learning rate is SHARD_CHECK_LR, a power of two large enough that bf16
+# params keep the update (the CLI's first warm-up step, 1e-3, moves almost
+# no param by a bf16 ulp)
+SHARD_CHECK_LR = 64.0
+SHARD_LOSS_RTOL = 1e-5
+SHARD_NORM_RTOL = 1e-3
+SHARD_MU_RTOL = 5e-2
+SHARD_UPDATE_RTOL = 1e-1
+# (b) against (a): the int8 sync quantizes each rank's gradient to 63 steps
+# of the leaf's max (127 // 2, one scale for a whole stacked leaf), which
+# loses a quarter of the L2 of the stacked FFN leaves (read: grad norm
+# 1.7e-2 to 1.8e-2, momentum and update 2.4e-1 to 3.0e-1); the loss
+# precedes the sync and is (a)'s
+SHARD_INT8_NORM_RTOL = 5e-2
+SHARD_INT8_MU_RTOL = 0.5
+SHARD_INT8_UPDATE_RTOL = 0.5
+SHARD_TIMEOUT = 600
+SHARD_CELLS = (("dp", (SHARD_RANKS, 1), (-1, 0, 1)), ("int8", (SHARD_RANKS, 1), (0, 1)),
+               ("tp", (1, SHARD_RANKS), (-1, 0, 1)))
+
+
+def shard_kernel_shapes():
+    """K1-K5 at the sharded path's local shapes: M 1024 (DP and the int8
+    sync) and v's local columns (TP)."""
+    out = []
+    for m, proj in ((SHARD_DP_M, PROJ), (TRAIN_M, PROJ_TP)):
+        for c, r, s_ in proj.values():
+            out.append(("lowrank_matmul", dict(M=m, C=c, r=r, S=s_)))
+        c, r, f = proj["gate/up"]
+        out.append(("lowrank_gated_ffn", dict(M=m, C=c, r=r, F=f)))
+        for name in BWD:
+            for c, r, s_ in proj.values():
+                out.append((name, dict(M=m, C=c, r=r, S=s_)))
+    return out
+
+
+def _shard_expected(m, proj, phase):
+    """{kernel: {launch key: count}} of one sharded train step on a rank."""
+    per = {}
+    for leaf, (c, s_) in GEOM.items():
+        key = next((m, cc, r, ss) for cc, r, ss in proj.values()
+                   if (cc, ss * (SHARD_RANKS if proj is PROJ_TP else 1)) == (c, s_))
+        per[key] = per.get(key, 0) + SHARD_LAYERS
+    out = {"lowrank_matmul": dict(per), "lowrank_matmul_dx": dict(per)}
+    if phase != 0:
+        out["lowrank_matmul_du"] = dict(per)
+    if phase != 1:
+        out["lowrank_matmul_dv"] = dict(per)
+    c, r, f = proj["gate/up"]
+    out["lowrank_gated_ffn"] = {(m, c, r, r, f): SHARD_LAYERS}
+    return out
+
+
+def _shard_run():
+    """Phase 7's run at SHARD_LAYERS layers and learning rate SHARD_CHECK_LR
+    from the first step."""
+    import dataclasses
+
+    run = _train_run()
+    return dataclasses.replace(
+        run, model=dataclasses.replace(run.model, num_layers=SHARD_LAYERS),
+        optim=dataclasses.replace(run.optim, lr=SHARD_CHECK_LR, warmup_steps=1))
+
+
+def _rel_l2(got, want, base=None):
+    """(worst leaf, its L2 error over its L2 norm) of two {path: tensor}
+    maps, each taken as its change from ``base`` where one is given."""
+    errs = {}
+    for p, w in want.items():
+        g, w = got[p].float(), w.float()
+        if base is not None:
+            g, w = g - base[p].float(), w - base[p].float()
+        errs[p] = float(torch.linalg.vector_norm(g - w)
+                        / torch.linalg.vector_norm(w).clamp_min(1e-30))
+    worst = max(errs, key=errs.get)
+    return worst, errs[worst]
+
+
+def shard_worker(out: Path) -> int:
+    """One rank of phases 71-73 (``chip_smoke.py --shard-worker DIR``, started
+    by ``torch.distributed.run`` from ``phase_sharded``): a step of each
+    cell, its loss, grad norm, launches by shape, collectives and times, to
+    ``DIR/rank<r>.json``.  Rank 0 also steps the whole batch on one rank and
+    holds each cell's momentum and updated params against that step's (the
+    int8 cell's against (a)'s).  Any failed check raises, which fails the
+    rank."""
+    import dataclasses
+    import os
+
+    from repro_torch.distributed import collectives
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    torch.cuda.set_device(0)
+    _precision_flags()
+    collectives.init_process_group("gloo", "env://", rank, world)
+    run = _shard_run()
+    params, _ = steps.init_params(run, "cuda")
+    batch = _train_batch(run, 0)
+    runs = {"dp": run, "tp": run, "int8": dataclasses.replace(
+        run, dist=dataclasses.replace(run.dist, grad_compression="int8"))}
+    res = {}
+    base = {}  # rank 0: (cell, phase) -> ({path: momentum}, {path: updated param})
+    if rank == 0:
+        # the same global batch and params on one rank
+        p0 = dict(_leaf_paths(params))
+        one = steps.build_train_step(run, "cuda")
+        res["one"] = {}
+        for phase in (-1, 0, 1):
+            st1, _ = steps.make_train_state(run.optim, params, phase)
+            st1, m1 = one(st1, batch, phase=phase)
+            res["one"][str(phase)] = dict(loss=float(m1["loss"]),
+                                          grad_norm=float(m1["grad_norm"]))
+            base["one", phase] = (dict(_leaf_paths(st1.opt.mu)),
+                                  dict(_leaf_paths(st1.trainable)))
+            del st1, m1
+    for label, shape, phases in SHARD_CELLS:
+        mesh = make_host_mesh(*shape)
+        train = steps.build_train_step(runs[label], "cuda", mesh=mesh)
+        res[label] = {}
+        for phase in phases:
+            st, parked = steps.make_sharded_train_state(runs[label], params, phase, mesh)
+            steps.check_state_placement(runs[label], mesh, st)
+            zero_counts()
+            torch.cuda.synchronize()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0 = time.perf_counter()
+            e0.record()
+            with collectives.recording() as rec:
+                st, m = train(st, batch, phase=phase)
+                loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            e1.record()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            counts = {name: [[list(k), n] for k, n in by.items()]
+                      for name, by in counts_by_shape().items() if by}
+            steps.check_state_placement(runs[label], mesh, st)
+            whole, _ = steps.gather_state(st, parked, runs[label], mesh)
+            cell = dict(loss=loss, grad_norm=gnorm, wall_ms=wall, event_ms=e0.elapsed_time(e1),
+                        log=[[c.op, c.dtype, c.bytes, c.path, list(c.axes)] for c in rec],
+                        counts=counts,
+                        frozen=sorted(p for p, _ in _leaf_paths(st.frozen)),
+                        trainable=sorted(p for p, _ in _leaf_paths(st.trainable)))
+            if rank == 0:
+                mu, upd = dict(_leaf_paths(whole.opt.mu)), dict(_leaf_paths(whole.trainable))
+                ref_mu, ref_upd = base["dp" if label == "int8" else "one", phase]
+                if set(mu) != set(ref_mu) or set(upd) != set(ref_upd):
+                    raise AssertionError(f"sharded {label} phase {phase}: trainable paths "
+                                         f"differ from the reference's")
+                cell["mu_worst"], cell["mu_err"] = _rel_l2(mu, ref_mu)
+                cell["update_worst"], cell["update_err"] = _rel_l2(upd, ref_upd, p0)
+                if label == "dp":
+                    base["dp", phase] = mu, upd
+            res[label][str(phase)] = cell
+            del st, m, whole
+            torch.cuda.empty_cache()
+    zero_counts()
+    (out / f"rank{rank}.json").write_text(json.dumps(res))
+    collectives.destroy_process_group()
+    return 0
+
+
+def _leaf_paths(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaf_paths(v, f"{path}/{k}" if path else k)
+    elif tree is not None:
+        yield path, tree
+
+
+def _implied_dp_bytes(run, phase):
+    """{trainable path: bytes} a (2, 1) step's placements imply: a leaf
+    storage-sharded over data is all-gathered once (its block's bytes),
+    and every trainable leaf's whole gradient, in its own dtype, is
+    all-reduced over data once (a factor's a layer at a time)."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from repro_torch.core import freezing
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import steps
+
+    mesh = SimpleNamespace(axis_names=("data", "model"),
+                           devices=np.empty((SHARD_RANKS, 1), object))
+    tr, _ = freezing.partition(steps.abstract_params(run), phase)
+    specs = dict(_leaf_paths(sharding.param_specs(tr, mesh, sharding.PARAM_RULES_NO_FSDP)))
+    out = {}
+    for path, t in _leaf_paths(tr):
+        whole = t.numel() * t.element_size()
+        sharded = "data" in specs[path]
+        out[path] = (whole // SHARD_RANKS if sharded else 0) + whole
+    return out
+
+
+def _nccl_control_flag():
+    """The sharded CLI's control flags (``collectives.any_rank``) under
+    NCCL, on a one-rank group (NCCL refuses two ranks on one card, so no
+    multi-rank NCCL run is made): a flag where ``control_device("nccl")``
+    puts it goes through, a CPU one is refused."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        collectives.init_process_group("nccl", f"file://{tmp}/store", 0, 1)
+        try:
+            flag = torch.tensor([1], dtype=torch.int32,
+                                device=collectives.control_device("nccl"))
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+            torch.cuda.synchronize()
+            try:
+                dist.all_reduce(torch.tensor([1], dtype=torch.int32), op=dist.ReduceOp.MAX)
+                cpu_refused = False
+            except RuntimeError:
+                cpu_refused = True
+        finally:
+            collectives.destroy_process_group()
+    if flag.device.type != "cuda" or int(flag.item()) != 1 or not cpu_refused:
+        raise AssertionError(f"nccl control flag on {flag.device}: {flag.tolist()}, "
+                             f"a CPU flag refused: {cpu_refused}")
+    log(f"[sharded] nccl (one rank): a control flag on {flag.device} all-reduced; a CPU "
+        f"flag refused")
+
+
+def phase_sharded():
+    """Phases 71-73: two gloo ranks on the one card (``shard_worker``),
+    started by ``torch.distributed.run``."""
+    import os
+
+    t0 = time.perf_counter()
+    here = Path(__file__).resolve()
+    # the host's cores shared between the ranks (the launcher's default is 1)
+    threads = str(max(1, (os.cpu_count() or 1) // SHARD_RANKS))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shard_") as tmp:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc-per-node={SHARD_RANKS}", "--tee=3", str(here), "--shard-worker", tmp],
+            cwd=str(here.parent), env=dict(os.environ, OMP_NUM_THREADS=threads),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            _, err = proc.communicate(timeout=SHARD_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.terminate()  # the launcher stops its ranks
+            _, err = proc.communicate()
+            raise AssertionError(f"sharded: ranks still running after {SHARD_TIMEOUT} s:\n"
+                                 f"{err[-4000:]}")
+        if proc.returncode != 0:
+            raise AssertionError(f"sharded: a rank failed (launcher exit {proc.returncode}):\n"
+                                 f"{err[-6000:]}")
+        outs = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                for r in range(SHARD_RANKS)]
+    run = _shard_run()
+    paths = {f"sharded {label}": {} for label, _, _ in SHARD_CELLS}
+    result = dict(wall_s=time.perf_counter() - t0, cells={})
+    for label, shape, phases in SHARD_CELLS:
+        for phase in phases:
+            cell = [o[label][str(phase)] for o in outs]
+            frozen, trainable = set(cell[0]["frozen"]), set(cell[0]["trainable"])
+            for r, c in enumerate(cell):
+                by_dtype = {}
+                for op, dt, nb, path, axes in c["log"]:
+                    by_dtype[f"{op} {dt}"] = by_dtype.get(f"{op} {dt}", 0) + nb
+                got = {name: {tuple(k): n for k, n in pairs} for name, pairs in c["counts"].items()}
+                log(f"[sharded] {label} mesh {shape} phase {phase} rank {r}: loss "
+                    f"{c['loss']:.5f}, grad norm {c['grad_norm']:.4f}, wall {c['wall_ms']:.1f} ms, "
+                    f"CUDA-event span {c['event_ms']:.1f} ms (both ranks share the card: no "
+                    f"speed-up measured); sync bytes {by_dtype}; launches "
+                    + ", ".join(f"{k.replace('lowrank_', '')} {sum(v.values())}"
+                                for k, v in got.items()))
+                if label == "int8":
+                    int8 = {p for op, dt, nb, p, axes in c["log"] if dt == "int8"}
+                    if int8 != trainable:
+                        raise AssertionError(f"sharded int8 phase {phase}: int8 at {int8 ^ trainable}")
+                want = _shard_expected(TRAIN_M if label == "tp" else SHARD_DP_M,
+                                       PROJ_TP if label == "tp" else PROJ, phase)
+                if got != want:
+                    raise AssertionError(f"sharded {label} phase {phase} rank {r}: "
+                                         f"launched {got}, want {want}")
+                by = paths[f"sharded {label}"]
+                for name, keys in got.items():
+                    for k, n in keys.items():
+                        by.setdefault(name, {})[k] = by.get(name, {}).get(k, 0) + n
+                for op, dt, nb, p, axes in c["log"]:
+                    if p in frozen and not (label == "tp" and op == "all-gather"
+                                            and axes == ["model"]
+                                            and p.endswith(("wo/u", "down/u"))):
+                        raise AssertionError(f"sharded {label} phase {phase}: {op} {axes} at the "
+                                             f"frozen leaf {p}")
+                for key in ("loss", "grad_norm"):
+                    if c[key] != cell[0][key]:
+                        raise AssertionError(f"sharded {label} phase {phase}: ranks' {key} "
+                                             f"differ {c[key]} {cell[0][key]}")
+            c = cell[0]
+            if label == "int8":
+                ref, against = outs[0]["dp"][str(phase)], "(a)"
+                rtols = dict(loss=SHARD_LOSS_RTOL, grad_norm=SHARD_INT8_NORM_RTOL,
+                             mu=SHARD_INT8_MU_RTOL, update=SHARD_INT8_UPDATE_RTOL)
+            else:
+                ref, against = outs[0]["one"][str(phase)], "one rank"
+                rtols = dict(loss=SHARD_LOSS_RTOL, grad_norm=SHARD_NORM_RTOL,
+                             mu=SHARD_MU_RTOL, update=SHARD_UPDATE_RTOL)
+            diffs = {key: abs(c[key] - ref[key]) / abs(ref[key]) for key in ("loss", "grad_norm")}
+            diffs.update(mu=c["mu_err"], update=c["update_err"])
+            param = {}
+            for op, dt, nb, p, axes in c["log"]:
+                if p not in ("activation", "loss", "grad_norm"):
+                    param[p] = param.get(p, 0) + nb
+            total = sum(e[2] for e in c["log"])
+            log(f"[sharded] {label} phase {phase} against {against}: loss {c['loss']:.6f} vs "
+                f"{ref['loss']:.6f}, grad norm {c['grad_norm']:.6f} vs {ref['grad_norm']:.6f}; "
+                f"relative differences loss {diffs['loss']:.2e}, grad norm "
+                f"{diffs['grad_norm']:.2e}, momentum {diffs['mu']:.2e} (worst leaf "
+                f"{c['mu_worst']}), update {diffs['update']:.2e} (worst leaf "
+                f"{c['update_worst']}); rtols {rtols}; {total} sync bytes a step, "
+                f"{sum(param.values())} at param paths")
+            for key, rtol in rtols.items():
+                if not (math.isfinite(diffs[key]) and diffs[key] <= rtol):
+                    raise AssertionError(f"sharded {label} phase {phase}: {key} {diffs[key]:.3e} "
+                                         f"from {against}'s, rtol {rtol}")
+            if label == "dp" and param != _implied_dp_bytes(run, phase):
+                raise AssertionError(f"sharded dp phase {phase}: sync bytes {param} != the "
+                                     f"placements' {_implied_dp_bytes(run, phase)}")
+            result["cells"][f"{label}/{phase}"] = dict(
+                ref=ref, rel_diff=diffs, sync_bytes=total, param_bytes=sum(param.values()),
+                ranks=cell)
+    dp = {p: result["cells"][f"dp/{p}"]["sync_bytes"] for p in (-1, 0, 1)}
+    if not (dp[0] < dp[-1] and dp[1] < dp[-1]):
+        raise AssertionError(f"sharded dp: sync bytes {dp}: a frozen phase not below -1")
+    log(f"[sharded] dp sync bytes a step by phase {dp}: frozen phases below phase -1")
+    _nccl_control_flag()
+    log(f"[sharded] {time.perf_counter() - t0:.1f} s with the ranks' start")
+    return paths, result
+
+
 def check_launched_shapes(path: str, rows, by_shape) -> None:
     """Fail if ``path`` launched a kernel at a shape the kernel phase did
     not check."""
@@ -6134,7 +6532,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="", help="also write every result as JSON here")
     ap.add_argument("--only", choices=("kernels", "conv", "serve", "obs", "moe", "ssm",
-                                       "encdec", "vlm", "mla", "tune"),
+                                       "encdec", "vlm", "mla", "tune", "shard"),
                     default=None,
                     help="kernels: stop after the kernel phase (a first check of a build); "
                          "conv: run only the conv and ViT phases; serve: phases 1-3 at the "
@@ -6148,8 +6546,12 @@ def main(argv=None) -> int:
                          "phases 44-49 and 66; vlm: phases 1-3 at the VLM shapes, phases "
                          "50-56, 67 and the rank-gate and K7-ceiling rows; mla: "
                          "phases 1-3 at DeepSeek-V3's shapes and phases 57-63; tune: "
-                         "phases 1, 2, 69 (autotune) and 70 (dry-run and roofline)")
+                         "phases 1, 2, 69 (autotune) and 70 (dry-run and roofline); shard: "
+                         "phases 1-3 at the sharded path's shapes and 71-73")
+    ap.add_argument("--shard-worker", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.shard_worker:
+        return shard_worker(Path(args.shard_worker))
 
     t_start = time.perf_counter()
 
@@ -6206,6 +6608,8 @@ def main(argv=None) -> int:
         shapes = vlm_kernel_shapes()
     elif args.only == "mla":
         shapes = mla_kernel_shapes()
+    elif args.only == "shard":
+        shapes = shard_kernel_shapes()
     else:
         shapes = (kernel_shapes() + moe_kernel_shapes() + ssm_kernel_shapes()
                   + encdec_kernel_shapes() + vlm_kernel_shapes() + mla_kernel_shapes())
@@ -6242,6 +6646,10 @@ def main(argv=None) -> int:
         paths, result["mla"], flash_rows = phase_mla(smi)
         rows += flash_rows
         mark("mla")
+        count_launches(rows, paths)
+    elif args.only == "shard":
+        paths, result["sharded"] = phase_sharded()
+        mark("sharded")
         count_launches(rows, paths)
     elif args.only is None:
         engine, paths["serve"], result["serve"] = phase_serve(obs_root / "serve")
@@ -6342,6 +6750,10 @@ def main(argv=None) -> int:
         paths.update(more)
         rows += flash_rows
         mark("mla")
+        # sharded training: two gloo ranks on the card, K1-K5 at local shapes
+        more, result["sharded"] = phase_sharded()
+        paths.update(more)
+        mark("sharded")
         count_launches(rows, paths)
         if not any(r["launches"] for r in rows if r["name"] == "int8_linear"):
             log("[kernels] int8_linear (K6) was launched on no main path in this run: the "

@@ -22,8 +22,12 @@ two sources while the step runs:
   the meta device (``launch/dryrun.py``) from their ``priced_by_shape``.
 
 Both sources see the same calls on the card and on meta, so a step counted
-on meta gives the card's numbers.  ``collective_bytes`` is ``{}``: the
-port runs on one device (collectives are queue 1 item 8).  The step also
+on meta gives the card's numbers.  ``collective_bytes`` holds the bytes of
+the step's collectives by class (``all-reduce``, ``all-gather``,
+``reduce-scatter``: the reference's ``hlo.sync_bytes`` terms, each
+operand's bytes on this rank), read from ``distributed.collectives``'
+records of a sharded step, and ``collective_bytes_by_dtype`` the same by
+``"<class> <dtype>"``; a step on one device has none.  The step also
 records the peak of the bytes it allocated and held at once
 (``peak_bytes``), tracked by storage with weakref finalizers: on meta that
 is the dry-run's temp bytes.
@@ -43,6 +47,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.analysis import roofline
+from repro_torch.distributed import collectives
 
 __all__ = ["StepCost", "counting", "count_step", "kernel_wrappers"]
 
@@ -67,6 +72,7 @@ class StepCost:
     bytes: float = 0.0
     transcendental_elems: float = 0.0
     collective_bytes: Dict[str, float] = dataclasses.field(default_factory=dict)
+    collective_bytes_by_dtype: Dict[str, float] = dataclasses.field(default_factory=dict)
     bytes_by_op: Dict[str, float] = dataclasses.field(default_factory=dict)
     flops_by_dtype: Dict[str, float] = dataclasses.field(default_factory=dict)
     kernel_launches: Dict[str, int] = dataclasses.field(default_factory=dict)
@@ -147,7 +153,9 @@ def _op_info(func):
     formula = flop_registry.get(func.overloadpacket)
     composite = formula is None and torch._C._dispatch_has_kernel_for_dispatch_key(
         func.name(), torch._C.DispatchKey.CompositeImplicitAutograd)
-    return name, not func.is_view and name not in _SKIP_BYTES, formula, fresh, composite
+    # a collective's bytes are the records' (collective_bytes), not HBM bytes
+    moves = not func.is_view and name not in _SKIP_BYTES and func.namespace != "c10d"
+    return name, moves, formula, fresh, composite
 
 
 class _Counting(TorchDispatchMode):
@@ -217,8 +225,12 @@ def counting():
     before = {n: (Counter(w.launches_by_shape), Counter(w.priced_by_shape))
               for n, w in wrappers.items()}
     cost = StepCost()
-    with _Counting(cost):
+    with collectives.recording() as log, _Counting(cost):
         yield cost
+    sync = [c for c in log if c.op in collectives.CLASSES]
+    cost.collective_bytes = {k: float(v) for k, v in collectives.by_op(sync).items()}
+    cost.collective_bytes_by_dtype = {k: float(v)
+                                      for k, v in collectives.by_op_dtype(sync).items()}
     for name, w in wrappers.items():
         launched, priced = before[name]
         calls = (Counter(w.launches_by_shape) - launched) + (Counter(w.priced_by_shape) - priced)

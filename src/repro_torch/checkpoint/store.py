@@ -41,7 +41,7 @@ __all__ = ["pack_phased_state", "unpack_phased_state", "live_rank_map", "save_ch
 def pack_phased_state(state, parked) -> Dict[str, Any]:
     """``(TrainState, parked (mu, nu))`` -> the merged plain dict
     ``{"params", "step", "mu", "nu"}`` with no ``None`` holes."""
-    trainable, frozen, opt = state
+    trainable, frozen, opt = state[:3]
     step, mu, nu = opt
     full_mu, full_nu = freezing.merge_moments((mu, nu), parked)
     return {"params": freezing.merge(trainable, frozen), "step": step,
@@ -236,8 +236,10 @@ class CheckpointManager:
     def due(self, step: int) -> bool:
         return self._preempted or (step > 0 and step % self.save_every == 0)
 
-    def maybe_save(self, step: int, state, extra=None) -> bool:
-        if not self.due(step):
+    def maybe_save(self, step: int, state, extra=None, *, force: bool = False) -> bool:
+        """Save ``state`` at ``step`` when due (or ``force``: a decision the
+        ranks of a sharded run took together); returns whether it saved."""
+        if not (force or self.due(step)):
             return False
         self.wait()  # one save in flight at a time
         host_state = freezing.tree_map(_to_host, state)

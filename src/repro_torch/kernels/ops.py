@@ -13,6 +13,33 @@ first).  Every call, forward or backward, dispatches on its own:
 * otherwise the CUDA kernel, which raises on anything it does not take.
   There is no shape-based fallback: the kernels take any M, C, r, S.
 
+Under an active multi-device mesh (``distributed.sharding.axis_rules``,
+the sharded train step) the two entry points run the counterpart of the
+reference's full-manual ``shard_map`` dispatch on this rank's LOCAL
+tensors: x holds this rank's rows (split over the context's ``rows``
+axes), u is whole, and v holds this rank's block of columns over
+``model`` when the step registered it so (``sharding.axis_rules(leaves=)``
+names each leaf's path and whether its columns are split).  K1 or K5 runs
+on the local block and the output columns are all-gathered over ``model``
+before they leave the dispatch (the rest of the model runs replicated over
+``model``).  The backward launches K2 on the local dy columns and
+all-reduces dx over ``model``; K3 (dU) only when ``freeze_group != 0``,
+then an all-reduce over the row axes and ``model``; K4 (dV) only when
+``freeze_group != 1``, then an all-reduce over the row axes.  A frozen
+factor gets no gradient: no kernel and no collective
+(``distributed.collectives`` records each collective with the path of the
+leaf it serves).  With neither rows to split nor columns (the rows are
+whole, or an enclosing int8 region owns their sync) there is nothing to
+map: the unsharded dispatch above runs on the local tensors, kernels
+included, and runs no collective.  The reference takes its jnp path there
+(reason ``mesh-no-mapping``) because XLA cannot partition a
+``pallas_call`` inside a manual ``shard_map``; here every tensor is
+already this rank's block, so that reason does not hold.  The kernels
+take any local shape, so the reference's ``mesh-indivisible-local``
+cannot arise either.  K6/K7
+under such a mesh note a ``mesh`` fallback and run their plain path, as
+the reference's do; K8 is not on the sharded path.
+
 Sequential freezing (Algorithm 2): ``freeze_group`` names the factor group
 frozen this phase (0 = u, 1 = v).  The frozen factor's gradient is never
 computed — its kernel is not launched and its plain version not run — and
@@ -31,8 +58,9 @@ kernels take x itself and quantize it per row inside (the serving entries
 with jnp ops outside their kernels, to the same bits):
 
 * kernel requested, CUDA tensors: the kernel, one launch for K6 and two
-  for K7, no torch op around them.  There is no shape fallback and no
-  mesh branch;
+  for K7, no torch op around them.  There is no shape fallback; under a
+  multi-device mesh they take the policy-off formula below (reason
+  ``mesh``), as the reference's dispatchers do;
 * kernel requested, CPU tensors (reason ``platform``): the kernel's plain
   version (``quantize_rowwise``, the exact int8 product and the scales),
   i.e. the activation-quantized algebra, which is what JAX computes in
@@ -75,6 +103,8 @@ from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding as _shmod
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.int8_matmul import int8_linear, int8_lowrank_linear
@@ -96,7 +126,7 @@ class Fallback:
     """One dispatcher decision to run the plain version instead of the kernel."""
 
     op: str
-    reason: str  # "platform" (CPU tensors) | "disabled" (policy off)
+    reason: str  # "platform" (CPU tensors) | "disabled" (policy off) | "mesh" (K6/K7 under a mesh)
     shape: Tuple[int, ...] = ()
 
 
@@ -299,15 +329,144 @@ class _LowrankGatedFFN(torch.autograd.Function):
         return dx, dgu, dgv, duu, duv, None, None, None
 
 
+# --------------------------------------------------------------------------
+# the sharded dispatch (a multi-device mesh; see the module notes)
+# --------------------------------------------------------------------------
+
+def _multi_device_mesh() -> bool:
+    mesh = _shmod.current_mesh()
+    return mesh is not None and _shmod.mesh_size(mesh) > 1
+
+
+def _sharded_ctx(*vs: torch.Tensor):
+    """(mesh, row axes, model axis or None) of a call whose second factors
+    are ``vs``, or None when there is nothing to map."""
+    mesh = _shmod.current_mesh()
+    sizes = _shmod.axis_sizes(mesh)
+    manual = _shmod.current_manual_axes()
+    rows = tuple(a for a in _shmod.current_row_axes() if a not in manual and sizes[a] > 1)
+    split = {_shmod.leaf_split(v) for v in vs}
+    if len(split) != 1:
+        raise ValueError("lowrank_ffn_apply: gate and up v split unlike over model")
+    model_axis = "model" if split.pop() else None
+    if not rows and model_axis is None:
+        return None
+    return mesh, rows, model_axis
+
+
+def _local_cols(dy: torch.Tensor, mesh, model_axis, s_local: int) -> torch.Tensor:
+    """This rank's block of ``dy``'s columns over ``model_axis``."""
+    if model_axis is None:
+        return dy.contiguous()
+    i = collectives.coordinate(mesh, (model_axis,))
+    return dy.narrow(1, i * s_local, s_local).contiguous()
+
+
+def _gather_cols(y: torch.Tensor, mesh, model_axis) -> torch.Tensor:
+    if model_axis is None:
+        return y
+    return collectives.all_gather(y, mesh, (model_axis,), 1, path="activation")
+
+
+class _ShardedLowrank(torch.autograd.Function):
+    """``_LowrankMatmul`` on this rank's block: x (M_local, C) rows, u (C, r)
+    whole, v (r, S_local) columns; out (M_local, S) after the gather."""
+
+    @staticmethod
+    def forward(ctx, x, u, v, use_kernel: bool, freeze_group: Optional[int], tune: bool,
+                mesh, rows, model_axis):
+        ctx.use_kernel, ctx.freeze_group, ctx.tune = use_kernel, freeze_group, tune
+        ctx.mesh, ctx.rows, ctx.model_axis = mesh, rows, model_axis
+        # read here: the backward may run on autograd's device thread, which
+        # does not see this thread's sharding context
+        ctx.paths = (_shmod.leaf_path(u), _shmod.leaf_path(v))
+        ctx.save_for_backward(x, u, v)
+        y = _fwd(x.contiguous(), u, v, use_kernel, tune=tune, fg=freeze_group)
+        return _gather_cols(y, mesh, model_axis)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, u, v = ctx.saved_tensors
+        kw = dict(use_kernel=ctx.use_kernel, tune=ctx.tune, fg=ctx.freeze_group)
+        fg, mesh, rows, model = ctx.freeze_group, ctx.mesh, ctx.rows, ctx.model_axis
+        models = (model,) if model else ()
+        x, dy = x.contiguous(), _local_cols(dy, mesh, model, v.shape[1])
+        dx = du = dv = None
+        if ctx.needs_input_grad[0]:
+            dx = collectives.all_reduce(_dx(dy, u, v, **kw), mesh, models, path="activation")
+        if ctx.needs_input_grad[1] and fg != 0:
+            du = collectives.all_reduce(_du(x, dy, v, u.dtype, **kw), mesh, rows + models,
+                                        path=ctx.paths[0])
+        if ctx.needs_input_grad[2] and fg != 1:
+            dv = collectives.all_reduce(_dv(x, u, dy, v.dtype, **kw), mesh, rows,
+                                        path=ctx.paths[1])
+        return dx, du, dv, None, None, None, None, None, None
+
+
+class _ShardedGatedFFN(torch.autograd.Function):
+    """``_LowrankGatedFFN`` on this rank's block: gv/uv hold the local
+    columns of F; out (M_local, F) after the gather."""
+
+    @staticmethod
+    def forward(ctx, x, gu, gv, uu, uv, use_kernel: bool, freeze_group: Optional[int],
+                tune: bool, mesh, rows, model_axis):
+        ctx.use_kernel, ctx.freeze_group, ctx.tune = use_kernel, freeze_group, tune
+        ctx.mesh, ctx.rows, ctx.model_axis = mesh, rows, model_axis
+        ctx.paths = tuple(_shmod.leaf_path(t) for t in (gu, gv, uu, uv))
+        ctx.save_for_backward(x, gu, gv, uu, uv)
+        y = _ffn(x.contiguous(), gu, gv, uu, uv, use_kernel, tune=tune, fg=freeze_group)
+        return _gather_cols(y, mesh, model_axis)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gu, gv, uu, uv = ctx.saved_tensors
+        kw = dict(use_kernel=ctx.use_kernel, tune=ctx.tune, fg=ctx.freeze_group)
+        fg, mesh, rows, model = ctx.freeze_group, ctx.mesh, ctx.rows, ctx.model_axis
+        models = (model,) if model else ()
+        need = ctx.needs_input_grad
+        x, dy = x.contiguous(), _local_cols(dy, mesh, model, gv.shape[1])
+        # the branch pre-activations recomputed on the local columns
+        gf = _fwd(x, gu, gv, **kw).float()
+        upf = _fwd(x, uu, uv, **kw).float()
+        dyf = dy.float()
+        sg = torch.sigmoid(gf)
+        dg = (dyf * upf * (sg * (1.0 + gf * (1.0 - sg)))).to(x.dtype)
+        dup = (dyf * (gf * sg)).to(x.dtype)
+        dx = dgu = dgv = duu = duv = None
+        if need[0]:
+            dx = collectives.all_reduce(_dx(dg, gu, gv, **kw) + _dx(dup, uu, uv, **kw), mesh,
+                                        models, path="activation")
+
+        def reduced(g, i, axes):
+            return collectives.all_reduce(g, mesh, axes, path=ctx.paths[i])
+
+        if fg != 0:
+            if need[1]:
+                dgu = reduced(_du(x, dg, gv, gu.dtype, **kw), 0, rows + models)
+            if need[3]:
+                duu = reduced(_du(x, dup, uv, uu.dtype, **kw), 2, rows + models)
+        if fg != 1:
+            if need[2]:
+                dgv = reduced(_dv(x, gu, dg, gv.dtype, **kw), 1, rows)
+            if need[4]:
+                duv = reduced(_dv(x, uu, dup, uv.dtype, **kw), 3, rows)
+        return dx, dgu, dgv, duu, duv, None, None, None, None, None, None
+
+
 def lowrank_apply(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
                   use_kernel: bool = False, freeze_group: Optional[int] = None,
                   autotune: bool = False) -> torch.Tensor:
     """y = (x @ u) @ v for x (..., C)."""
-    c, s = u.shape[0], v.shape[1]
+    c = u.shape[0]
     lead = x.shape[:-1]
-    y = _LowrankMatmul.apply(x.reshape(math.prod(lead), c), u, v, use_kernel,
-                             freeze_group, autotune)
-    return y.reshape(*lead, s)
+    x2 = x.reshape(math.prod(lead), c)
+    if _multi_device_mesh():
+        sctx = _sharded_ctx(v)
+        if sctx is not None:
+            y = _ShardedLowrank.apply(x2, u, v, use_kernel, freeze_group, autotune, *sctx)
+            return y.reshape(*lead, y.shape[1])
+    y = _LowrankMatmul.apply(x2, u, v, use_kernel, freeze_group, autotune)
+    return y.reshape(*lead, v.shape[1])
 
 
 def lowrank_ffn_apply(x: torch.Tensor, gu: torch.Tensor, gv: torch.Tensor,
@@ -317,8 +476,14 @@ def lowrank_ffn_apply(x: torch.Tensor, gu: torch.Tensor, gv: torch.Tensor,
     """silu((x gu) gv) * ((x uu) uv) for x (..., C)."""
     c, f = gu.shape[0], gv.shape[1]
     lead = x.shape[:-1]
-    y = _LowrankGatedFFN.apply(x.reshape(math.prod(lead), c), gu, gv, uu, uv,
-                               use_kernel, freeze_group, autotune)
+    x2 = x.reshape(math.prod(lead), c)
+    if _multi_device_mesh():
+        sctx = _sharded_ctx(gv, uv)
+        if sctx is not None:
+            y = _ShardedGatedFFN.apply(x2, gu, gv, uu, uv, use_kernel, freeze_group,
+                                       autotune, *sctx)
+            return y.reshape(*lead, y.shape[1])
+    y = _LowrankGatedFFN.apply(x2, gu, gv, uu, uv, use_kernel, freeze_group, autotune)
     return y.reshape(*lead, f)
 
 
@@ -335,7 +500,9 @@ def int8_apply(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, *,
     m = math.prod(lead)
     ws = w_scale.reshape(1, s).float()
     reason = _plain_reason(x, use_kernel)
-    if reason == "disabled":
+    if reason is None and _multi_device_mesh():
+        reason = "mesh"
+    if reason in ("disabled", "mesh"):
         _note_fallback("int8_dense", reason, (m, c, s))
         y = torch.matmul(x.reshape(m, c).float(), w_q.float() * ws)
         return y.to(x.dtype).reshape(*lead, s)
@@ -359,7 +526,9 @@ def int8_lowrank_apply(x: torch.Tensor, u_q: torch.Tensor, u_scale: torch.Tensor
     us = u_scale.reshape(1, r).float()
     vs = v_scale.reshape(1, s).float()
     reason = _plain_reason(x, use_kernel)
-    if reason == "disabled":
+    if reason is None and _multi_device_mesh():
+        reason = "mesh"
+    if reason in ("disabled", "mesh"):
         _note_fallback("int8_lowrank", reason, (m, c, s))
         t = torch.matmul(x.reshape(m, c).float(), u_q.float() * us)
         y = torch.matmul(t, v_q.float() * vs)

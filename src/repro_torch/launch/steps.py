@@ -15,16 +15,31 @@ optimizer moments, parking the frozen group's on the CPU, so unfreezing
 never resets them; with a rank schedule (``core.rank_adapt``) the same swap
 shrinks the ranks.
 
+Sharded training (one process a rank; ``launch.mesh``): with a mesh of
+more than one rank the state's leaves are each rank's LOCAL blocks under
+the placement contract of :func:`state_shardings` — trainable per the
+run's param rules (FSDP or TP; an LRD factor's rank dim storage-sharded
+over ``data``), frozen under ``FROZEN_PARAM_RULES`` (no data axis: a frozen
+factor enters no collective), optimizer moments over the trainable
+partition (data-sharded under ``zero1``) — and ``TrainState.shapes`` holds
+the merged params' global shapes on the meta device.
+:func:`make_sharded_train_state`, :func:`shard_batch`,
+:func:`packed_state_shardings` (the elastic restore's target, with
+:func:`place_packed`), :func:`check_state_placement` and
+``repartition_state(mesh=...)`` are the reference's; ``build_train_step(...,
+mesh=)`` gives the sharded step (:func:`_sharded_train_step`).
+
 Entry points run on CUDA unless the caller asks for the CPU:
 :func:`resolve_device` raises when CUDA is asked for and absent.  The meta
 device builds every tree without drawing a value (:func:`init_params`
 with ``device="meta"``, and the ``abstract_*`` stand-ins of the dry-run,
-``launch/dryrun.py``), on one device: the sharded forms are queue 1 item 8.
+``launch/dryrun.py``), on one device.  Sharded serving (``cache_specs``,
+``clamp_paged_cache``) is queue 1 item 8.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -33,6 +48,11 @@ from repro_torch.core import freezing, rank_adapt
 from repro_torch.core.decompose import Decomposer
 from repro_torch.core.freezing import tree_leaves, tree_map
 from repro_torch.core.policy import LM_DEFAULT, NO_LRD
+from repro_torch.distributed import collectives, compression
+from repro_torch.distributed.sharding import (ACT_RULES, ACT_RULES_SP, FROZEN_PARAM_RULES,
+                                              PARAM_RULES, PARAM_RULES_NO_FSDP, NamedSharding,
+                                              _resolve_spec, axis_rules, axis_sizes,
+                                              mesh_size, named_shardings, spec_axes)
 from repro_torch.kernels.ops import KernelPolicy
 from repro_torch.models import encdec, lm
 from repro_torch.models.common import cross_entropy
@@ -41,7 +61,10 @@ from repro_torch.optim.optimizers import OptState, apply_updates
 
 __all__ = ["resolve_device", "make_decomposer", "init_params", "kernel_policy",
            "run_phase", "TrainState", "make_train_state", "partition_bytes",
-           "repartition_state", "build_train_step", "build_prefill_step",
+           "repartition_state", "state_shardings", "batch_shardings", "shard_batch",
+           "make_sharded_train_state", "packed_state_shardings", "place_packed",
+           "check_state_placement", "gather_state", "meta_like", "check_sharded_family",
+           "build_train_step", "build_prefill_step",
            "build_slot_prefill_step", "build_serve_step", "build_draft_chain",
            "build_verify_step", "build_extend_step", "batch_specs", "abstract_params",
            "abstract_state", "abstract_cache", "decode_extras_specs"]
@@ -117,10 +140,14 @@ def run_phase(run: RunConfig, epoch: int = 0) -> int:
 class TrainState(NamedTuple):
     """Partitioned train state: ``trainable``/``frozen`` are complementary
     ``None``-holed views of one param tree; ``opt`` covers the trainable
-    partition only.  ``state.params`` merges the two (no copies)."""
+    partition only.  ``state.params`` merges the two (no copies).  On a
+    mesh of more than one rank the leaves are this rank's blocks and
+    ``shapes`` is the merged tree's global shapes on the meta device; else
+    ``shapes`` is None and the leaves are whole."""
     trainable: Any
     frozen: Any
     opt: Any
+    shapes: Any = None
 
     @property
     def params(self) -> Any:
@@ -149,6 +176,7 @@ def partition_bytes(state: TrainState) -> Dict[str, int]:
 
 
 def repartition_state(optim_cfg, state: TrainState, parked, new_phase: int, *,
+                      mesh=None, run: Optional[RunConfig] = None,
                       schedule: Optional[rank_adapt.RankSchedule] = None,
                       boundary: Optional[int] = None):
     """The Algorithm-2 phase swap, between steps: re-partition the merged
@@ -163,7 +191,18 @@ def repartition_state(optim_cfg, state: TrainState, parked, new_phase: int, *,
     merged params, both factors computed fresh on their device, and the
     live and parked moment slices are cut to the new rank (parked ones stay
     on the CPU) before the partition is rebuilt, so the step, its grads and
-    the optimizer state carry the new shapes only."""
+    the optimizer state carry the new shapes only.
+
+    With a ``mesh`` of more than one rank (and ``run`` for the rule
+    tables) the swap is shard-aware: only the leaves of the factor groups
+    ``freezing.groups_to_replace(old, new)`` names, and under a schedule
+    the truncated groups, are re-placed (gathered whole, then cut to this
+    rank's block under their new placement); every other leaf keeps its
+    tensor.  Parked moments are whole CPU tensors with no placement.  Under
+    a schedule every factor group is gathered whole to plan and truncate it
+    (Eckart–Young needs the whole factors)."""
+    if mesh is not None and mesh_size(mesh) > 1:
+        return _repartition_sharded(run, state, parked, new_phase, mesh, schedule, boundary)
     del optim_cfg  # the moments' dtype is already set
     params = freezing.merge(state.trainable, state.frozen)
     moments = freezing.merge_moments((state.opt.mu, state.opt.nu), parked)
@@ -178,6 +217,273 @@ def repartition_state(optim_cfg, state: TrainState, parked, new_phase: int, *,
     opt = OptState(state.opt.step, *(tree_map(lambda t: t.to(dev), a) for a in active))
     return (TrainState(trainable, frozen, opt),
             tuple(tree_map(lambda t: t.cpu(), p) for p in new_parked))
+
+
+# --------------------------------------------------------------------------
+# sharded placement (one process a rank; each leaf this rank's block)
+# --------------------------------------------------------------------------
+
+def _param_rules(run: RunConfig):
+    if run.dist.param_layout == "zero1":
+        return PARAM_RULES_NO_FSDP
+    return PARAM_RULES if run.dist.fsdp else PARAM_RULES_NO_FSDP
+
+
+def _opt_rules(run: RunConfig):
+    # ZeRO-1: optimizer state (and the grads it takes) sharded over data too
+    if run.dist.param_layout == "zero1":
+        return PARAM_RULES
+    return _param_rules(run)
+
+
+def meta_like(tree):
+    """``tree``'s shapes and dtypes as meta tensors (no data)."""
+    return tree_map(lambda t: torch.empty(tuple(t.shape), dtype=t.dtype, device=META), tree)
+
+
+def _global_shapes(state: TrainState):
+    """The merged params' global shapes (meta tensors)."""
+    return state.shapes if state.shapes is not None else meta_like(state.params)
+
+
+def _like(shapes, tree):
+    """The leaves of ``shapes`` where ``tree`` has a leaf (holes kept)."""
+    if isinstance(tree, dict):
+        return {k: _like(shapes[k], v) for k, v in tree.items()}
+    return None if tree is None else shapes
+
+
+def _paths(tree, path=""):
+    """The tree of each leaf's param path."""
+    if isinstance(tree, dict):
+        return {k: _paths(v, f"{path}/{k}" if path else k) for k, v in tree.items()}
+    return None if tree is None else path
+
+
+def state_shardings(run: RunConfig, mesh, state: TrainState) -> TrainState:
+    """:class:`~repro_torch.distributed.sharding.NamedSharding` tree
+    mirroring a partitioned state: trainable under the run's param rules,
+    frozen under ``FROZEN_PARAM_RULES``, moments under the optimizer rules,
+    the step replicated.  Resolved on the global shapes."""
+    shapes = _global_shapes(state)
+    tr = named_shardings(_like(shapes, state.trainable), mesh, _param_rules(run))
+    fr = named_shardings(_like(shapes, state.frozen), mesh, FROZEN_PARAM_RULES)
+    mu = named_shardings(_like(shapes, state.opt.mu), mesh, _opt_rules(run))
+    nu = (() if state.opt.nu == ()
+          else named_shardings(_like(shapes, state.opt.nu), mesh, _opt_rules(run)))
+    return TrainState(tr, fr, OptState(NamedSharding(mesh, ()), mu, nu))
+
+
+def batch_shardings(batch, mesh):
+    """Leading dim over (pod, data) for each leaf of a (global) batch."""
+    return {k: NamedSharding(mesh, _resolve_spec(tuple(v.shape),
+                                                 ("batch",) + (None,) * (len(v.shape) - 1),
+                                                 ACT_RULES, mesh))
+            for k, v in batch.items()}
+
+
+def shard_batch(batch, mesh, device=None):
+    """This rank's block of a global batch (numpy arrays or tensors), as
+    tensors on ``device``."""
+    shs = batch_shardings(batch, mesh)
+    return {k: shs[k].block(torch.as_tensor(v)).to(device).contiguous()
+            for k, v in batch.items()}
+
+
+def _block(t: torch.Tensor, sh: NamedSharding, device=None) -> torch.Tensor:
+    return sh.block(t).to(device or t.device).contiguous()
+
+
+def make_sharded_train_state(run: RunConfig, params, phase: int, mesh):
+    """:func:`make_train_state` of the whole ``params`` + placement: each
+    device leaf cut to this rank's block under :func:`state_shardings`,
+    ``parked`` whole on the CPU.  Returns ``(state, parked)``."""
+    state, parked = make_train_state(run.optim, params, phase)
+    shs = state_shardings(run, mesh, state)
+    cut = lambda t, sh: tree_map(_block, t, sh)  # noqa: E731
+    opt = OptState(state.opt.step, cut(state.opt.mu, shs.opt.mu),
+                   cut(state.opt.nu, shs.opt.nu) if state.opt.nu != () else ())
+    return (TrainState(cut(state.trainable, shs.trainable), cut(state.frozen, shs.frozen),
+                       opt, meta_like(state.params)), parked)
+
+
+def packed_state_shardings(run: RunConfig, mesh, phase: int,
+                           rank_map: Optional[Dict[str, int]] = None):
+    """Target placements of a ``pack_phased_state`` checkpoint tree at
+    ``phase`` (the elastic restore's map; :func:`place_packed`): params per
+    the phase's partition, active moments under the optimizer rules, and
+    ``None`` at the parked moment slices, which stay whole on the CPU.
+    ``rank_map`` (the manifest's) rewrites the shapes to the checkpoint's
+    ranks first."""
+    shapes = abstract_params(run)
+    if rank_map:
+        shapes = rank_adapt.apply_rank_map_to_shapes(shapes, rank_map)
+    trainable, frozen = freezing.partition(shapes, phase)
+    params_sh = freezing.merge(named_shardings(trainable, mesh, _param_rules(run)),
+                               named_shardings(frozen, mesh, FROZEN_PARAM_RULES))
+    mu_sh = named_shardings(trainable, mesh, _opt_rules(run))
+    nu_sh = mu_sh if run.optim.name == "adamw" else ()
+    return {"params": params_sh, "step": NamedSharding(mesh, ()), "mu": mu_sh, "nu": nu_sh}
+
+
+def place_packed(saved, shardings, device):
+    """A whole checkpoint tree (``load_checkpoint``'s, on the CPU) placed
+    under ``shardings``: this rank's block of each leaf with a placement,
+    on ``device``; leaves without one (parked moments) stay on the CPU."""
+
+    def walk(t, sh):
+        if isinstance(t, dict):
+            return {k: walk(v, sh.get(k) if isinstance(sh, dict) else None)
+                    for k, v in t.items()}
+        if isinstance(t, torch.Tensor) and isinstance(sh, NamedSharding):
+            return _block(t, sh, device)
+        return t
+
+    return walk(saved, shardings)
+
+
+def check_state_placement(run: RunConfig, mesh, state: TrainState) -> None:
+    """Raise if a leaf of ``state`` deviates from :func:`state_shardings`:
+    its shape must be the block its placement implies, and this rank's
+    mesh coordinates must be its place in the mesh (the coordinates every
+    block was cut at).  Touches no data."""
+    if hasattr(mesh, "mesh"):
+        where = (mesh.mesh == collectives.process_rank()).nonzero().reshape(-1).tolist()
+        if list(mesh.get_coordinate()) != where:
+            raise AssertionError(f"mesh coordinates {mesh.get_coordinate()} != {where}")
+    shs = state_shardings(run, mesh, state)
+    shapes = _global_shapes(state)
+
+    def walk(t, sh, g, path):
+        if isinstance(t, dict):
+            for k in t:
+                walk(t[k], sh[k], g[k], f"{path}/{k}")
+            return
+        if t is None:
+            return
+        want = sh.local_shape(tuple(g.shape))
+        if tuple(t.shape) != want:
+            raise AssertionError(f"placement drift at {path}: local {tuple(t.shape)} != "
+                                 f"{want}, the block of {tuple(g.shape)} under {sh.spec}")
+
+    walk(state.trainable, shs.trainable, _like(shapes, state.trainable), "trainable")
+    walk(state.frozen, shs.frozen, _like(shapes, state.frozen), "frozen")
+    walk(state.opt.mu, shs.opt.mu, _like(shapes, state.opt.mu), "opt.mu")
+    if state.opt.nu != ():
+        walk(state.opt.nu, shs.opt.nu, _like(shapes, state.opt.nu), "opt.nu")
+
+
+def _live_axes(mesh, entry) -> Tuple[str, ...]:
+    sizes = axis_sizes(mesh)
+    return tuple(a for a in spec_axes(entry) if sizes[a] > 1)
+
+
+def _reshard(t: torch.Tensor, src, dst, mesh, path: str, *, forbid=()):
+    """``t``, this rank's block under spec ``src``, as its block under
+    ``dst``: an all-gather along each dim whose axes differ, then a local
+    cut.  A gather over an axis in ``forbid`` raises (a frozen leaf: never
+    over ``data`` or ``pod``)."""
+    src = tuple(src) + (None,) * (t.ndim - len(src))
+    dst = tuple(dst) + (None,) * (t.ndim - len(dst))
+    cut = []
+    for d, (a, b) in enumerate(zip(src, dst)):
+        sa, sb = _live_axes(mesh, a), _live_axes(mesh, b)
+        if sa == sb:
+            continue
+        if sa:
+            if set(sa) & set(forbid):
+                raise AssertionError(f"{path}: placement {src} -> {dst} needs a collective "
+                                     f"over {sa}")
+            t = collectives.all_gather(t, mesh, sa, d, path=path)
+        if sb:
+            cut.append((d, sb))
+    for d, axes in cut:
+        n = collectives.axes_size(mesh, axes)
+        size = t.shape[d] // n
+        t = t.narrow(d, collectives.coordinate(mesh, axes) * size, size)
+    return t.contiguous() if cut else t
+
+
+def _is_factor(path: str) -> bool:
+    return freezing.factor_group(path.rsplit("/", 1)[-1]) is not None
+
+
+def _scatter_dim(opt_spec, compute_spec, rows, mesh) -> Optional[int]:
+    """The dim a gradient whole in ``compute_spec`` can be reduce-scattered
+    along into ``opt_spec``: the one dim ``opt_spec`` splits, over exactly
+    the live ``rows`` axes; None when there is none."""
+    live = [(d, _live_axes(mesh, e)) for d, e in enumerate(opt_spec)]
+    split = [(d, a) for d, a in live if a]
+    if (len(split) != 1 or split[0][1] != rows or not rows
+            or any(_live_axes(mesh, e) for e in compute_spec)):
+        return None
+    return split[0][0]
+
+
+def _whole(t: torch.Tensor, sh: NamedSharding, path: str):
+    return _reshard(t, sh.spec, (), sh.mesh, path)
+
+
+def gather_state(state: TrainState, parked, run: RunConfig, mesh):
+    """The whole state of a sharded one (every leaf gathered; a collective
+    every rank joins), as a one-device :class:`TrainState` with
+    ``shapes`` None, and ``parked`` as it is (whole already): what
+    ``pack_phased_state`` saves."""
+    if state.shapes is None:
+        return state, parked
+    shs = state_shardings(run, mesh, state)
+    whole = lambda t, sh, p: tree_map(_whole, t, sh, p)  # noqa: E731
+    paths = _paths(state.params)
+    opt = OptState(state.opt.step, whole(state.opt.mu, shs.opt.mu, _like(paths, state.opt.mu)),
+                   () if state.opt.nu == () else whole(state.opt.nu, shs.opt.nu,
+                                                       _like(paths, state.opt.nu)))
+    return TrainState(whole(state.trainable, shs.trainable, _like(paths, state.trainable)),
+                      whole(state.frozen, shs.frozen, _like(paths, state.frozen)), opt), parked
+
+
+def _repartition_sharded(run, state: TrainState, parked, new_phase: int, mesh, schedule,
+                         boundary):
+    old_phase = freezing.phase_of_partition(state.trainable, state.frozen)
+    moved = freezing.groups_to_replace(old_phase, new_phase)
+    adapt = schedule is not None and schedule.active
+    shs = state_shardings(run, mesh, state)
+    shapes = state.shapes
+    dev = state.opt.step.device
+
+    def needed(path: str) -> bool:
+        g = freezing.factor_group(path.rsplit("/", 1)[-1])
+        return _is_factor(path) and (g in moved or adapt)
+
+    def gather(tree, sh):
+        return tree_map(lambda t, s, p: _whole(t, s, p) if needed(p) else t, tree, sh,
+                        _like(_paths(shapes), tree))
+
+    params = freezing.merge(gather(state.trainable, shs.trainable),
+                            gather(state.frozen, shs.frozen))
+    live = (gather(state.opt.mu, shs.opt.mu),
+            () if state.opt.nu == () else gather(state.opt.nu, shs.opt.nu))
+    moments = freezing.merge_moments(live, parked)
+    if adapt:
+        trunc = rank_adapt.plan_rank_map(params, schedule, boundary)
+        if trunc:
+            params = rank_adapt.truncate_params(params, trunc)
+            moments = rank_adapt.slice_moments(moments, trunc)
+            shapes = rank_adapt.apply_rank_map_to_shapes(shapes, trunc)
+    trainable, frozen = freezing.partition(params, new_phase)
+    active, new_parked = freezing.partition_moments(moments, new_phase)
+    new = TrainState(trainable, frozen, OptState(state.opt.step, *active), shapes)
+    nshs = state_shardings(run, mesh, new)
+
+    def place(tree, sh):
+        # a whole leaf (gathered, truncated or parked) -> this rank's block;
+        # a block already placed keeps its tensor
+        return tree_map(lambda t, s, g: (_block(t, s, dev) if tuple(t.shape) == tuple(g.shape)
+                                         else t), tree, sh, _like(shapes, tree))
+
+    opt = OptState(state.opt.step, place(active[0], nshs.opt.mu),
+                   () if active[1] == () else place(active[1], nshs.opt.nu))
+    out = TrainState(place(trainable, nshs.trainable), place(frozen, nshs.frozen), opt, shapes)
+    return out, tuple(tree_map(lambda t: t.cpu(), p) for p in new_parked)
 
 
 def _forward(params, batch, run: RunConfig, *, mode: str, policy, remat: str = "none",
@@ -228,22 +534,31 @@ def _loss_fn(trainable, frozen, batch, run: RunConfig, phase: int) -> torch.Tens
     return loss
 
 
-def _value_and_grad(trainable, frozen, batch, run: RunConfig, phase: int):
+def _value_and_grad(trainable, frozen, batch, run: RunConfig, phase: int,
+                    scale: float = 1.0):
     """(loss, grads over the trainable partition): fresh leaves that require
     grad stand in for the trainable ones; a leaf the loss does not reach
-    gets a zero gradient, as under JAX's ``value_and_grad``."""
+    gets a zero gradient, as under JAX's ``value_and_grad``.  ``scale``
+    multiplies the loss first (the sharded step's 1 / batch ranks)."""
     leaves = tree_leaves(trainable)
     live = [t.detach().requires_grad_(True) for t in leaves]
     it = iter(live)
     with torch.enable_grad():
         loss = _loss_fn(tree_map(lambda _: next(it), trainable), frozen, batch, run, phase)
+        if scale != 1.0:
+            loss = loss * scale
         grads = torch.autograd.grad(loss, live, allow_unused=True)
     it = iter(g if g is not None else torch.zeros_like(t) for g, t in zip(grads, leaves))
     return loss.detach(), tree_map(lambda _: next(it), trainable)
 
 
-def build_train_step(run: RunConfig, device="cuda", *, donate: bool = False):
+def build_train_step(run: RunConfig, device="cuda", *, donate: bool = False, mesh=None):
     """Returns ``train_step(state, batch, *, phase) -> (state, metrics)``.
+
+    With a ``mesh`` of more than one rank the step is the sharded one
+    (:func:`_sharded_train_step`): ``state`` is placed
+    (:func:`make_sharded_train_state`) and ``batch`` is the GLOBAL batch,
+    of which each rank takes its block.
 
     ``batch`` holds ``tokens`` and ``labels`` (B, S) as numpy arrays or
     tensors (and ``frames`` (B, T, d) for an encoder-decoder model,
@@ -256,6 +571,8 @@ def build_train_step(run: RunConfig, device="cuda", *, donate: bool = False):
     state shares their tensors, and the one passed in is not to be used
     again."""
     dev = resolve_device(device)
+    if mesh is not None and mesh_size(mesh) > 1:
+        return _sharded_train_step(run, dev, donate, mesh)
     m = run.dist.microbatches
     adt = getattr(torch, run.dist.accum_dtype)
 
@@ -285,6 +602,147 @@ def build_train_step(run: RunConfig, device="cuda", *, donate: bool = False):
         gnorm = torch.sqrt(sum(torch.sum(torch.square(g), dtype=torch.float32)
                                for g in tree_leaves(grads)))
         return (TrainState(new_trainable, state.frozen, new_opt),
+                {"loss": loss, "grad_norm": gnorm})
+
+    return train_step
+
+
+ITEM_8 = "ROADMAP queue 1 item 8, distributed"
+
+
+def check_sharded_family(run: RunConfig) -> None:
+    """The sharded step trains the dense family (no MoE aux loss, no MTP)
+    on one microbatch: what a CPU test holds against the reference.  Raise
+    for the rest."""
+    cfg = run.model
+    if cfg.family != "dense" or cfg.num_experts or cfg.use_mtp:
+        raise ValueError(f"sharded training of the {cfg.family} family "
+                         f"({cfg.name}) is not ported ({ITEM_8})")
+    if run.dist.microbatches > 1:
+        raise ValueError(f"sharded training with --microbatches {run.dist.microbatches} "
+                         f"is not ported ({ITEM_8})")
+
+
+def _compute_spec(path: str, shape, mesh, manual) -> Tuple:
+    """The layout the forward consumes a leaf in: a factor's ``v`` split
+    over ``model`` by columns when they divide (the kernel dispatch's
+    block), everything else whole."""
+    sizes = axis_sizes(mesh)
+    msize = sizes.get("model", 1)
+    if (path.rsplit("/", 1)[-1] == "v" and msize > 1 and "model" not in manual
+            and shape[-1] % msize == 0):
+        return (None,) * (len(shape) - 1) + ("model",)
+    return ()
+
+
+def _sharded_train_step(run: RunConfig, dev: torch.device, donate: bool, mesh):
+    """The sharded train step on this rank's blocks.
+
+    1. Each trainable leaf is all-gathered from its storage placement to the
+       layout the forward consumes (whole, or a ``v``'s columns over
+       ``model``; FSDP granularity: the whole partition, once a step); a
+       frozen leaf is never gathered over ``data`` or ``pod`` (checked).
+       Under TP, ``FROZEN_PARAM_RULES`` splits ``wo/u`` and ``down/u``'s
+       input dim over ``model`` while the dispatch consumes u whole, so
+       those are gathered over ``model``, as the reference's ``shard_map``
+       (in_spec ``P()``) gathers them.
+    2. Forward and backward run on this rank's batch rows, the factorised
+       projections through the sharded kernel dispatch (``kernels.ops``),
+       which all-reduces each trainable factor's gradient; every other
+       trainable gradient is all-reduced over the batch axes here, the
+       loss scaled by 1 / (batch ranks) so the sums are the global mean's.
+       With ``grad_compression="int8"`` on a pure data-parallel mesh the
+       sync is ``compression.value_and_grad_compressed``'s instead.
+    3. Each synced gradient is brought to its optimizer placement (a
+       reduce-scatter for a non-factor gradient whose placement splits one
+       dim over the batch axes, as under FSDP and ``zero1``; else a local
+       cut, after an all-gather over ``model`` for a ``v`` whose placement
+       keeps its columns whole) and ``apply_updates`` runs on the blocks;
+       where the optimizer placement differs from the param placement
+       (``zero1``) the updated blocks are gathered back to it.
+    4. The loss is the batch mean over the data axes, the grad norm the
+       global one.  Every collective is recorded with its path
+       (``distributed.collectives``).
+    """
+    check_sharded_family(run)
+    act = ACT_RULES_SP if run.dist.sequence_parallel else ACT_RULES
+    prm = _param_rules(run)
+    axis = compression.manual_axis(mesh, run.dist.grad_compression)
+
+    def train_step(state: TrainState, batch, *, phase: int):
+        freezing.check_partition(state.trainable, state.frozen, phase)
+        shs = state_shardings(run, mesh, state)
+        shapes = state.shapes
+        paths = _paths(shapes)
+        bsh = batch_shardings(batch, mesh)
+        rows = _live_axes(mesh, next(iter(bsh.values())).spec[0])
+        local = shard_batch(batch, mesh, dev)
+        manual = frozenset({axis}) if axis else frozenset()
+        cspec = tree_map(lambda g, p: _compute_spec(p, tuple(g.shape), mesh, manual),
+                         shapes, paths)
+        tr_p, fr_p = _like(paths, state.trainable), _like(paths, state.frozen)
+        tr_c = tree_map(lambda t, sh, c, p: _reshard(t, sh.spec, c, mesh, p),
+                        state.trainable, shs.trainable, _like(cspec, state.trainable), tr_p)
+        fr_c = tree_map(lambda t, sh, c, p: _reshard(t, sh.spec, c, mesh, p,
+                                                     forbid=("data", "pod")),
+                        state.frozen, shs.frozen, _like(cspec, state.frozen), fr_p)
+        leaves = {}  # path -> (the tensor the forward consumes, columns split)
+        for part, ps in ((tr_c, tr_p), (fr_c, fr_p)):
+            tree_map(lambda t, p, c: leaves.__setitem__(p, (t, bool(c))), part, ps,
+                     _like(cspec, part))
+
+        osh = shs.opt.mu
+        # where the optimizer placement splits one dim over exactly the row
+        # axes (FSDP, zero1), a non-factor gradient is reduce-scattered into
+        # it; every other one is all-reduced and cut
+        scatter = tree_map(lambda o, c, p: (None if _is_factor(p) else
+                                            _scatter_dim(o.spec, c, rows, mesh)),
+                           osh, _like(cspec, state.trainable), tr_p)
+
+        def value_and_grad(trainable_c, b):
+            # the loss and grads of this rank's rows, synced over the row
+            # axes of the context (the int8 region leaves its axis out)
+            rows_now = tuple(a for a in rows if a not in manual)
+            loss, grads = _value_and_grad(trainable_c, fr_c, b, run, phase,
+                                          scale=1.0 / collectives.axes_size(mesh, rows_now))
+
+            def sync(g, p, d):
+                if _is_factor(p):
+                    return g  # the kernel dispatch reduced it
+                if d is not None and rows_now == rows:
+                    return collectives.reduce_scatter(g, mesh, rows_now, d, path=p)
+                return collectives.all_reduce(g, mesh, rows_now, path=p)
+
+            grads = tree_map(sync, grads, tr_p, scatter)
+            return collectives.all_reduce(loss.float(), mesh, rows_now, path="loss"), grads
+
+        with axis_rules(mesh, act=act, params=prm, rows=rows, leaves=leaves):
+            if axis:
+                loss, grads = compression.value_and_grad_compressed(
+                    value_and_grad, tr_c, local, mesh, axis, tr_p)
+            else:
+                loss, grads = value_and_grad(tr_c, local)
+        # the optimizer placement: a local cut of the synced grads (a
+        # scattered one is there already)
+        scattered = not axis
+        grads = tree_map(lambda g, c, sh, p, d: (g if scattered and d is not None else
+                                                 _reshard(g, c, sh.spec, mesh, p)),
+                         grads, _like(cspec, state.trainable), osh, tr_p, scatter)
+        params_o = tree_map(lambda t, sh, o, p: _reshard(t, sh.spec, o.spec, mesh, p),
+                            state.trainable, shs.trainable, osh, tr_p)
+        new_o, new_opt = apply_updates(run.optim, params_o, grads, state.opt, donate=donate)
+        new_trainable = tree_map(lambda t, o, sh, p: _reshard(t, o.spec, sh.spec, mesh, p),
+                                 new_o, osh, shs.trainable, tr_p)
+        # the global norm: each leaf's local sum of squares, summed over
+        # the axes its optimizer placement splits
+        by_axes: Dict[Tuple[str, ...], torch.Tensor] = {}
+        for g, sh in zip(tree_leaves(grads), tree_leaves(osh)):
+            key = tuple(a for e in sh.spec for a in _live_axes(mesh, e))
+            sq = torch.sum(torch.square(g), dtype=torch.float32)
+            by_axes[key] = by_axes[key] + sq if key in by_axes else sq
+        gnorm = torch.sqrt(sum(collectives.all_reduce(v, mesh, k, path="grad_norm")
+                               for k, v in by_axes.items()))
+        return (TrainState(new_trainable, state.frozen, new_opt, shapes),
                 {"loss": loss, "grad_norm": gnorm})
 
     return train_step

@@ -1,4 +1,5 @@
-"""Training CLI: sequential freezing (Algorithm 2) on one device.
+"""Training CLI: sequential freezing (Algorithm 2), on one device or
+sharded over the ranks of a process group.
 
 The PyTorch counterpart of ``repro.launch.train`` with the same flags plus
 ``--device {cuda,cpu}`` (default ``cuda``; raises without a GPU).
@@ -19,8 +20,28 @@ newest complete checkpoint in ``--ckpt-dir/<model name>``, whichever
 package wrote it.  ``--rank-schedule decay|energy`` shrinks the ranks at
 every phase swap (``core.rank_adapt``; a ``[rank-adapt]`` line names the
 groups, ``old->new``); the checkpoint keeps the rank map, and a resume
-continues at the saved ranks.  ``--remat full|dots|sqrt`` checkpoints the
-layer stacks' activations (``models.lm``, ``models.encdec``).  ``--arch``
+continues at the saved ranks.
+
+Sharded training, as the JAX CLI's flags ask: ``--mesh host`` (default)
+builds a ``(data, model)`` mesh of ``--mesh-data`` (0 = world size //
+``--mesh-model``) x ``--mesh-model`` ranks (``launch.mesh``), ``--mesh
+production`` the (16, 16) one; ``--fsdp`` takes the FSDP param rules and
+``--grad-compression int8`` the int8 data-parallel sync.  One process a
+rank: the process group comes from ``torch.distributed.run``'s environment
+(``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``; ``--dist-init`` is the
+rendezvous, ``env://`` by default), over ``--dist-backend`` (``nccl``;
+``gloo`` lets ranks share a GPU, as the one-card machine needs: no backend
+is ever switched on failure).  Rank r runs on ``cuda:(LOCAL_RANK % device
+count)``.  With no such environment the world is one rank, and a mesh
+larger than that fails with ``make_host_mesh``'s message.  Each rank draws
+the same global batch and trains on its block (``steps.build_train_step(...,
+mesh=)``); only rank 0 prints, writes telemetry and saves.  A checkpoint is
+whole (mesh-agnostic: each save gathers the state) and records its source
+mesh; a resume places it under the current mesh
+(``steps.packed_state_shardings``), whatever mesh wrote it.  The sharded
+path trains the dense family only, on one microbatch
+(``steps.check_sharded_family``).  ``--remat full|dots|sqrt`` checkpoints
+the layer stacks' activations (``models.lm``, ``models.encdec``).  ``--arch``
 takes the dense and MoE families (``olmoe-1b-7b``; ``deepseek-v3-671b``,
 MLA with its MTP loss, the MTP layer's factors frozen and trained with the
 rest), the SSM family
@@ -38,12 +59,20 @@ Telemetry, as in the JAX CLI: every console line but the device, plan and
 ``--log-every`` steps, ``[profile]``).  ``--obs`` also writes those events
 and ``run_start`` / ``run_end`` to ``events.jsonl`` in ``--obs-dir`` (the
 checkpoint directory by default), a ``train_step`` record every
-``--obs-step-every`` steps with the partition bytes, the rank map and
-``sync_bytes_per_step`` 0 (one device); ``--log-format jsonl`` mirrors the
-events themselves.  ``--profile-steps START:STOP`` runs a
+``--obs-step-every`` steps with the partition bytes (this rank's), the rank
+map and ``sync_bytes_per_step``, the bytes of the step's collectives
+(``distributed.collectives``; 0 on one device); ``--log-format jsonl``
+mirrors the events themselves.  ``--profile-steps START:STOP`` runs a
 ``torch.profiler`` window (CUDA activity on the card) over those steps and
 exports its Chrome trace to ``<obs dir>/profile/trace.json``.  The port
-compiles no executable, so it emits no ``phase_compile``.
+compiles no executable; on a mesh of more than one rank the first step of
+each phase emits ``phase_compile`` with that step's sync bytes and
+collectives by class, as the reference's compile does.
+
+  python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \\
+      --device cpu --dist-backend gloo --mesh-data 2 --mesh-model 2 --smoke --lrd \\
+      --lrd-min-dim 16 --no-rank-opt --freeze sequential --steps 4 --steps-per-epoch 2 \\
+      --global-batch 8 --seq-len 16
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       --lrd --no-rank-opt --use-pallas --freeze sequential --steps 6 \\
@@ -66,6 +95,7 @@ compiles no executable, so it emits no ``phase_compile``.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from pathlib import Path
 
@@ -79,17 +109,16 @@ from repro_torch.configs.base import (DistConfig, LRDConfig, ObsConfig, OptimCon
 from repro_torch.core import rank_adapt
 from repro_torch.core.freezing import tree_map
 from repro_torch.data import LMBatchIterator
+from repro_torch.distributed import collectives
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import steps as steps_mod
 from repro_torch.obs import EventLog
 from repro_torch.optim.optimizers import OptState
 
 __all__ = ["StragglerMonitor", "stub_frames", "stub_vision_embeddings", "build_run", "main"]
 
-# flag -> (its value when off, the ROADMAP item that brings it)
+# flag -> (its value when off, why it is refused)
 _UNPORTED_FLAGS = {
-    "mesh": ("host", "ROADMAP queue 1 item 8, distributed"),
-    "fsdp": (False, "ROADMAP queue 1 item 8, distributed"),
-    "grad_compression": ("none", "ROADMAP queue 1 item 8, distributed"),
     "pallas_interpret": (False, "the CUDA kernels have no interpret mode; "
                                 "--device cpu runs their plain versions (ROADMAP, "
                                 "port conventions)"),
@@ -165,13 +194,21 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--profile-steps", default="",
                     help="START:STOP — torch.profiler trace window over these steps (saved "
                          "under the obs dir)")
-    # the JAX CLI's flags for features not ported yet: rejected when set
-    ap.add_argument("--pallas-interpret", action="store_true")
     ap.add_argument("--fsdp", action="store_true")
     ap.add_argument("--grad-compression", default="none", choices=["none", "int8"])
     ap.add_argument("--mesh", default="host", choices=["host", "production"])
-    ap.add_argument("--mesh-data", type=int, default=0)
-    ap.add_argument("--mesh-model", type=int, default=1)
+    ap.add_argument("--mesh-data", type=int, default=0,
+                    help="host-mesh data-parallel ways (0 = world size // --mesh-model)")
+    ap.add_argument("--mesh-model", type=int, default=1,
+                    help="host-mesh model-parallel (TP) ways")
+    ap.add_argument("--dist-backend", default="nccl", choices=["nccl", "gloo"],
+                    help="process-group backend of a multi-rank run (gloo: ranks may "
+                         "share a GPU, and the CPU)")
+    ap.add_argument("--dist-init", default="env://",
+                    help="process-group rendezvous of a multi-rank run (RANK and "
+                         "WORLD_SIZE come from the environment)")
+    # the JAX CLI's flags for features not ported: rejected when set
+    ap.add_argument("--pallas-interpret", action="store_true")
     return ap
 
 
@@ -229,7 +266,8 @@ def build_run(args) -> RunConfig:
                       use_pallas_kernel=args.use_pallas, rank_schedule=args.rank_schedule,
                       rank_decay=args.rank_decay, rank_energy_threshold=args.rank_energy,
                       rank_min=args.rank_min),
-        dist=DistConfig(fsdp=False, remat=args.remat, microbatches=args.microbatches),
+        dist=DistConfig(fsdp=args.fsdp, remat=args.remat, microbatches=args.microbatches,
+                        grad_compression=args.grad_compression),
         optim=OptimConfig(name=args.optimizer, lr=args.lr, warmup_steps=args.warmup,
                           total_steps=args.steps),
         obs=ObsConfig(enabled=args.obs, run_dir=args.obs_dir, log_format=args.log_format,
@@ -277,57 +315,116 @@ class _ProfileWindow:
             self.end(obs, step + 1)
 
 
+def _start_group(args, ap):
+    """The process group of a multi-rank run (``torch.distributed.run``'s
+    environment), or None for one rank."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1:
+        return None
+    if args.dist_backend == "nccl" and args.device != "cuda":
+        ap.error("--dist-backend nccl needs --device cuda; use --dist-backend gloo on the CPU")
+    return collectives.init_process_group(args.dist_backend, args.dist_init,
+                                          int(os.environ["RANK"]), world)
+
+
+def _device(args):
+    """``cuda:(LOCAL_RANK % device count)``, set as the current device, or the CPU."""
+    device = steps_mod.resolve_device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0"))
+                              % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    return device
+
+
 def main(argv=None, *, on_step=None):
-    """Run the CLI; returns ``(state, losses)``.
+    """Run the CLI; returns ``(state, losses)`` (on a rank outside the mesh,
+    ``(None, [])``).
 
     ``on_step(step, phase, metrics)``, if given, is called after every step
     with the step's float ``loss``, ``grad_norm`` and ``step_time_s``, the
     state's ``trainable_bytes`` / ``frozen_bytes`` / ``opt_bytes``
-    (``steps.partition_bytes``) and its ``rank_map``."""
+    (``steps.partition_bytes``: this rank's), its ``rank_map`` and the
+    step's ``sync_bytes`` and ``collectives`` (``distributed.collectives``
+    records)."""
     ap = _parser()
     args = ap.parse_args(argv)
     for flag, (off, item) in _UNPORTED_FLAGS.items():
         if getattr(args, flag) != off:
             ap.error(f"--{flag.replace('_', '-')} is not ported to the PyTorch package "
                      f"yet ({item})")
-    if args.mesh_data > 1 or args.mesh_model > 1:
-        ap.error("--mesh-data/--mesh-model > 1: the PyTorch package trains on one "
-                 "device (ROADMAP queue 1 item 8, distributed)")
     run = build_run(args)
     if run.model.family not in ("dense", "moe", "ssm", "hybrid", "encdec", "vlm"):
         ap.error(f"--arch {args.arch} ({run.model.family}) is not trained: the port trains "
                  f"the dense, MoE, SSM, hybrid, enc-dec and VLM families")
-    device = steps_mod.resolve_device(args.device)
-    where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"[device] {where}")
+    group = _start_group(args, ap)
+    try:
+        return _train(args, ap, run, on_step)
+    finally:
+        if group is not None:
+            collectives.destroy_process_group()
 
-    # telemetry: one events.jsonl a run with --obs; the console mirror
-    # prints the legacy lines either way, so --obs changes no console line
+
+def _train(args, ap, run, on_step):
+    device = _device(args)
+    try:
+        if args.mesh == "production":
+            mesh = mesh_mod.make_production_mesh()
+        else:
+            world = mesh_mod.world_size()
+            mesh = mesh_mod.make_host_mesh(args.mesh_data or max(world // args.mesh_model, 1),
+                                           args.mesh_model)
+        sharded = collectives.mesh_size(mesh) > 1
+        if sharded:
+            steps_mod.check_sharded_family(run)
+    except ValueError as e:
+        ap.error(str(e))
+    lead = collectives.process_rank() == 0
+    if mesh.get_coordinate() is None or not (sharded or lead):
+        return None, []  # a rank past the mesh idles, as a leftover device does
+    say = print if lead else (lambda *a, **k: None)
+    mesh_info = {"axes": list(mesh.mesh_dim_names), "shape": [int(n) for n in mesh.shape]}
+    where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    say(f"[device] {where}")
+    if sharded:
+        say(f"[mesh] {dict(zip(mesh_info['axes'], mesh_info['shape']))} "
+            f"({collectives.mesh_size(mesh)} device(s)), {args.dist_backend}")
+
+    # telemetry: one events.jsonl a run with --obs, written by rank 0; the
+    # console mirror prints the legacy lines either way, so --obs changes no
+    # console line
     obs_dir = Path(run.obs.run_dir) if run.obs.run_dir else Path(args.ckpt_dir) / run.model.name
-    if run.obs.enabled:
+    if run.obs.enabled and lead:
         obs_dir.mkdir(parents=True, exist_ok=True)
-    obs = EventLog(obs_dir / "events.jsonl" if run.obs.enabled else None, mirror=print,
-                   fmt=run.obs.log_format)
+    obs = EventLog(obs_dir / "events.jsonl" if run.obs.enabled and lead else None,
+                   mirror=say, fmt=run.obs.log_format)
 
     params, plan = steps_mod.init_params(run, device)
     if run.lrd.enabled:
-        print(plan.summary())
+        say(plan.summary())
     schedule = rank_adapt.schedule_from_config(run.lrd)
     if schedule.active and run.lrd.freeze_mode != "sequential":
-        print("[rank-adapt] --rank-schedule set but freezing is not sequential: no phase "
-              "boundaries, schedule never fires")
+        say("[rank-adapt] --rank-schedule set but freezing is not sequential: no phase "
+            "boundaries, schedule never fires")
 
     def phase_at(step: int) -> int:
         return steps_mod.run_phase(run, step // args.steps_per_epoch)
 
+    def whole_params(state):
+        return state.shapes if state.shapes is not None else state.params
+
     cur_phase = phase_at(0)
-    state, parked = steps_mod.make_train_state(run.optim, params, cur_phase)
+    if sharded:
+        # each leaf this rank's block: trainable per the param rules, frozen
+        # replicated over the data axes, moments over the trainable partition
+        state, parked = steps_mod.make_sharded_train_state(run, params, cur_phase, mesh)
+    else:
+        state, parked = steps_mod.make_train_state(run.optim, params, cur_phase)
     # the state holds the leaves; keeping the init tree too would keep every
     # leaf an update or a rank truncation replaces in memory
     del params
     data = LMBatchIterator(run.model.vocab_size, run.shape.seq_len, run.shape.global_batch,
                            seed=args.seed + 17)
-    mesh_info = {"axes": ["data", "model"], "shape": [1, 1]}
     ckpt = CheckpointManager(Path(args.ckpt_dir) / run.model.name, keep=3,
                              save_every=args.save_every)
     ckpt.install_sigterm_handler()
@@ -336,11 +433,24 @@ def main(argv=None, *, on_step=None):
     if restored is not None:
         saved, start_step, extra = restored
         cur_phase = int(extra.get("phase", -1))
+        shapes = None
+        if sharded:
+            # elastic: the whole (mesh-agnostic) checkpoint placed under the
+            # current mesh; parked moments stay whole on the CPU
+            shapes = steps_mod.meta_like(saved["params"])
+            saved = steps_mod.place_packed(
+                saved, steps_mod.packed_state_shardings(run, mesh, cur_phase,
+                                                        extra.get("rank_map")), device)
         (tr, fr, (step_t, mu, nu)), parked_h = unpack_phased_state(
-            saved, cur_phase, expect_rank_map=extra.get("rank_map"))
+            saved, cur_phase, expect_rank_map=None if sharded else extra.get("rank_map"))
         to_dev = lambda t: tree_map(lambda x: x.to(device), t)  # noqa: E731
         state = steps_mod.TrainState(to_dev(tr), to_dev(fr),
-                                     OptState(step_t.to(device), to_dev(mu), to_dev(nu)))
+                                     OptState(step_t.to(device), to_dev(mu), to_dev(nu)), shapes)
+        if sharded and extra.get("rank_map"):
+            got = rank_adapt.live_rank_map(shapes)
+            if got != {k: int(r) for k, r in extra["rank_map"].items()}:
+                raise ValueError(f"restored factor ranks {got} disagree with the manifest's "
+                                 f"{extra['rank_map']}")
         parked = parked_h
         data.load_state_dict(extra["data"])
         obs.emit("resume", step=start_step, phase=cur_phase,
@@ -353,14 +463,18 @@ def main(argv=None, *, on_step=None):
              device=where)
     # the state is donated, as the reference's CLI donates it: the update is
     # written into its tensors, so no second copy of params and moments
-    train_step = steps_mod.build_train_step(run, device, donate=True)
+    train_step = steps_mod.build_train_step(run, device, donate=True,
+                                            mesh=mesh if sharded else None)
     monitor = StragglerMonitor()
     it = iter(data)
     losses = []
     tokens_per_step = run.shape.global_batch * run.shape.seq_len
     # both change only at a phase swap
-    cur_ranks = rank_adapt.live_rank_map(state.params)
+    cur_ranks = rank_adapt.live_rank_map(whole_params(state))
     part_bytes = steps_mod.partition_bytes(state)
+    # phases whose first step's collectives were reported (the port's
+    # counterpart of the reference's one compile a phase)
+    reported = set()
     window = _ProfileWindow(run.obs.profile_start, run.obs.profile_stop, obs_dir / "profile",
                             device)
     for step in range(start_step, args.steps):
@@ -372,12 +486,13 @@ def main(argv=None, *, on_step=None):
             boundary = epoch // max(args.epochs_per_phase, 1)
             with obs.span("phase_swap", epoch=epoch, phase=phase, boundary=boundary):
                 state, parked = steps_mod.repartition_state(
-                    run.optim, state, parked, phase,
+                    run.optim, state, parked, phase, mesh=mesh if sharded else None, run=run,
                     schedule=schedule if schedule.active else None, boundary=boundary)
             cur_phase = phase
-            ranks_before, cur_ranks = cur_ranks, rank_adapt.live_rank_map(state.params)
+            ranks_before, cur_ranks = cur_ranks, rank_adapt.live_rank_map(whole_params(state))
             part_bytes = steps_mod.partition_bytes(state)
             if cur_ranks != ranks_before:
+                reported.clear()
                 shrunk = {p: f"{ranks_before[p]}->{r}" for p, r in cur_ranks.items()
                           if r != ranks_before[p]}
                 obs.emit("rank_adapt", epoch=epoch, boundary=boundary, shrunk=shrunk,
@@ -389,15 +504,25 @@ def main(argv=None, *, on_step=None):
         elif run.model.family == "vlm":
             batch["vision_embeddings"] = stub_vision_embeddings(run, args.seed, step)
         t0 = time.perf_counter()
-        state, metrics = train_step(state, batch, phase=phase)
-        loss = float(metrics["loss"])  # synchronises with the device
+        with collectives.recording() as log:
+            state, metrics = train_step(state, batch, phase=phase)
+            loss = float(metrics["loss"])  # synchronises with the device
         dt = time.perf_counter() - t0
         gnorm = float(metrics["grad_norm"])
+        sync = sum(c.bytes for c in log if c.op in collectives.CLASSES)
+        per = collectives.by_op(log)
         losses.append(loss)
         window.after(obs, step)
+        if sharded and step == start_step:
+            steps_mod.check_state_placement(run, mesh, state)
+        if sharded and phase not in reported:
+            reported.add(phase)
+            obs.emit("phase_compile", _mirror=False, phase=phase, sync_bytes_per_step=sync,
+                     collectives=per)
         if on_step is not None:
             on_step(step, phase, {"loss": loss, "grad_norm": gnorm, "step_time_s": dt,
-                                  **part_bytes, "rank_map": dict(cur_ranks)})
+                                  **part_bytes, "rank_map": dict(cur_ranks),
+                                  "sync_bytes": sync, "collectives": list(log)})
         if monitor.observe(dt):
             obs.emit("straggler", step=step, step_time_s=dt,
                      median_s=float(np.median(monitor.times)))
@@ -407,13 +532,23 @@ def main(argv=None, *, on_step=None):
             obs.emit("train_step", _mirror=mirror, step=step, epoch=epoch, phase=phase,
                      loss=loss, grad_norm=gnorm, step_time_s=dt,
                      tokens_per_s=tokens_per_step / dt, total_rank=sum(cur_ranks.values()),
-                     rank_map=cur_ranks, sync_bytes_per_step=0, **part_bytes)
-        if ckpt.due(step + 1) and ckpt.maybe_save(
-                step + 1, pack_phased_state(state, parked),
-                extra={"data": data.state_dict(), "phase": phase, "mesh": mesh_info,
-                       "rank_map": rank_adapt.live_rank_map(state.params)}):
-            if ckpt.preempted:
-                print(f"[preempt] checkpointed at step {step + 1}, exiting")
+                     rank_map=cur_ranks, sync_bytes_per_step=sync, **part_bytes)
+        # every rank takes the save decision, since a sharded save gathers
+        due = ckpt.due(step + 1)
+        if sharded:
+            due = collectives.any_rank(due, mesh)
+        if due:
+            whole, parked_w = (steps_mod.gather_state(state, parked, run, mesh) if sharded
+                               else (state, parked))
+            if lead:
+                ckpt.maybe_save(step + 1, pack_phased_state(whole, parked_w),
+                                extra={"data": data.state_dict(), "phase": phase,
+                                       "mesh": mesh_info,
+                                       "rank_map": rank_adapt.live_rank_map(whole.params)},
+                                force=True)
+            del whole, parked_w
+            if collectives.any_rank(ckpt.preempted, mesh) if sharded else ckpt.preempted:
+                say(f"[preempt] checkpointed at step {step + 1}, exiting")
                 window.end(obs, step + 1)
                 obs.emit("run_end", _mirror=False, kind="train", reason="preempt",
                          final_step=step + 1)
@@ -423,7 +558,7 @@ def main(argv=None, *, on_step=None):
     window.end(obs, args.steps)
     ckpt.close()
     if losses:
-        print(f"done: loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+        say(f"done: loss {losses[0]:.4f} -> {losses[-1]:.4f}")
     obs.emit("run_end", _mirror=False, kind="train", reason="complete", final_step=args.steps,
              final_loss=losses[-1] if losses else 0.0)
     obs.close()

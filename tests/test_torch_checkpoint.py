@@ -3,12 +3,17 @@ the CPU: the on-disk format is shared (a bf16 leaf's ``.npy`` bytes are
 identical, and each package loads the other's checkpoints), a JAX run
 resumes in the port's ``train.main`` with the losses JAX itself goes on
 to, the port resumes its own runs, flags of unported features are
-rejected while the telemetry flags run, and ``bridge`` carries NamedTuple
-states."""
+rejected while the telemetry flags run, the sharded flags run on a 2-rank
+gloo group, and ``bridge`` carries NamedTuple states."""
 
+import functools
 import json
+import os
 import shutil
 import signal
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +32,8 @@ from repro_torch.launch import train
 torch.set_num_threads(1)
 
 TOL = 1e-5  # float32 losses: the same products summed in another order
+SRC = str(Path(__file__).resolve().parents[1] / "src")
+ENV = {"PYTHONPATH": os.pathsep.join(filter(None, [SRC, os.environ.get("PYTHONPATH")]))}
 SMOKE = ["--arch", "smollm-360m", "--smoke", "--lrd", "--lrd-min-dim", "16",
          "--no-rank-opt", "--freeze", "sequential", "--steps-per-epoch", "2",
          "--global-batch", "2", "--seq-len", "16", "--log-every", "100"]
@@ -106,14 +113,68 @@ def test_port_run_resumes_across_a_phase_swap(tmp_path):
     assert signal.getsignal(signal.SIGTERM) is sigterm  # the CLI put its handler back
 
 
-@pytest.mark.parametrize("flags", [
-    ["--mesh", "production"], ["--mesh-data", "2"], ["--mesh-model", "2"], ["--fsdp"],
-    ["--grad-compression", "int8"], ["--pallas-interpret"]])
-def test_train_cli_rejects_unported_flags(flags, capsys):
+@pytest.mark.parametrize("flags,says", [
+    (["--mesh", "production"], "(data=16) x (model=16) = 256 ranks, but only 1 rank"),
+    (["--mesh-data", "2"], "nproc-per-node 2"),
+    (["--pallas-interpret"], "ROADMAP")])
+def test_train_cli_rejects_unported_flags(flags, says, capsys):
+    """``--pallas-interpret`` names no port (the kernels have no interpret
+    mode); a mesh larger than the one-rank world fails with the mesh
+    constructor's counts."""
     with pytest.raises(SystemExit) as exc:
         train.main(["--device", "cpu", *SMOKE, "--steps", "1", *flags])
     assert exc.value.code == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    assert says in capsys.readouterr().err
+
+
+@functools.lru_cache(maxsize=None)
+def _one_rank_losses(tmp):
+    _, losses = train.main(["--device", "cpu", *SMOKE, "--steps", "3", "--save-every", "100",
+                            "--ckpt-dir", tmp])
+    return losses
+
+
+def _torchrun(args, n, *, timeout, env):
+    """``python -m torch.distributed.run --standalone`` with ``n`` ranks on
+    ``args``: (return code, stdout, stderr), each rank's lines prefixed
+    ``[default<rank>]:``.  A failed rank stops the others and fails the run;
+    past ``timeout`` the launcher is stopped, which stops its ranks."""
+    p = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                          f"--nproc-per-node={n}", "--tee=3", *args],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                         env=dict(os.environ, **env))
+    try:
+        out, err = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        p.terminate()
+        out, err = p.communicate()
+    return p.returncode, out, err
+
+
+@pytest.mark.parametrize("flags", [
+    ["--mesh-data", "2"], ["--mesh-model", "2"], ["--fsdp"], ["--grad-compression", "int8"]])
+def test_train_cli_runs_sharded_flags(flags, tmp_path):
+    """The four flags the port once refused, run on a 2-rank gloo group on
+    the CPU (the mesh (2, 1), (1, 2), (2, 1) under FSDP, (2, 1) with the
+    int8 sync): rank 0's losses are the one-rank run's (int8: the first
+    step's, then within the quantization's drift), and it alone writes."""
+    argv = ["-m", "repro_torch.launch.train", "--device", "cpu", "--dist-backend", "gloo",
+            *SMOKE, "--steps", "3", "--save-every", "2", "--ckpt-dir", str(tmp_path / "ck"),
+            "--obs", "--obs-dir", str(tmp_path / "obs"), *flags]
+    rc, out, err = _torchrun(argv, 2, timeout=240, env=ENV)
+    assert rc == 0, err[-3000:]
+    assert "[default0]:[mesh]" in out and "[default1]:" not in out
+    events = _events(tmp_path / "obs" / "events.jsonl")
+    losses = [e["loss"] for e in events if e["type"] == "train_step"]
+    want = _one_rank_losses(str(tmp_path.parent / "one_rank"))
+    if flags[0] == "--grad-compression":
+        np.testing.assert_allclose(losses[0], want[0], rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(losses, want, rtol=1e-2, atol=1e-2)
+    else:
+        np.testing.assert_allclose(losses, want, rtol=TOL, atol=TOL)
+    assert [e["sync_bytes_per_step"] > 0 for e in events if e["type"] == "train_step"] == \
+        [True] * 3
+    assert store.latest_checkpoint(tmp_path / "ck" / "smollm-360m-smoke").name == "step_00000002"
 
 
 def _events(path):

@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of ``repro_torch`` and
-``chip_smoke`` (the telemetry layer, ``repro_torch.obs``, and the analysis
+``chip_smoke`` (the telemetry layer, ``repro_torch.obs``, the analysis
 slice, ``repro_torch.analysis``, ``kernels.autotune`` and
-``launch.dryrun``, among them) pulls in neither JAX nor the JAX package,
+``launch.dryrun``, and the sharded path, ``repro_torch.distributed`` and
+``launch.mesh``, among them) pulls in neither JAX nor the JAX package,
 and the entry points refuse to run without CUDA unless the CPU is asked
 for."""
 
@@ -30,14 +31,17 @@ bad = sorted(m for m in sys.modules
              or m.startswith("repro."))
 print(len(names), bad, sorted(n for n in names if n.startswith(
     ("repro_torch.obs", "repro_torch.analysis", "repro_torch.kernels.autotune",
-     "repro_torch.launch.dryrun"))))
+     "repro_torch.launch.dryrun", "repro_torch.distributed", "repro_torch.launch.mesh"))))
 """
-# the telemetry layer's and the analysis slice's modules: each imported by
-# the probe above
+# the telemetry layer's, the analysis slice's and the sharded path's
+# modules: each imported by the probe above
 TELEMETRY = ["repro_torch.analysis", "repro_torch.analysis.cost",
              "repro_torch.analysis.obs_report", "repro_torch.analysis.report",
-             "repro_torch.analysis.roofline", "repro_torch.kernels.autotune",
-             "repro_torch.launch.dryrun", "repro_torch.obs", "repro_torch.obs.__main__",
+             "repro_torch.analysis.roofline", "repro_torch.distributed",
+             "repro_torch.distributed.collectives", "repro_torch.distributed.compression",
+             "repro_torch.distributed.sharding", "repro_torch.kernels.autotune",
+             "repro_torch.launch.dryrun",
+             "repro_torch.launch.mesh", "repro_torch.obs", "repro_torch.obs.__main__",
              "repro_torch.obs.events", "repro_torch.obs.registry", "repro_torch.obs.schema"]
 
 

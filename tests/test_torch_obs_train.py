@@ -16,8 +16,12 @@ truncated factors at each boundary: LAPACK under torch and under JAX flip
 some singular-vector signs on these inputs."""
 
 import json
+import os
 import re
 import shutil
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -172,3 +176,56 @@ def test_telemetry_off_changes_nothing_and_the_profile_window(tmp_path, capsys):
     trace = json.loads((trace_dir / "trace.json").read_text())
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert "aten::mm" in names or "aten::matmul" in names
+
+
+def _torchrun(args, n, *, timeout, env):
+    """``python -m torch.distributed.run --standalone`` with ``n`` ranks on
+    ``args``: (return code, stdout, stderr), each rank's lines prefixed
+    ``[default<rank>]:``.  A failed rank stops the others and fails the run;
+    past ``timeout`` the launcher is stopped, which stops its ranks."""
+    p = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                          f"--nproc-per-node={n}", "--tee=3", *args],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                         env=dict(os.environ, **env))
+    try:
+        out, err = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        p.terminate()
+        out, err = p.communicate()
+    return p.returncode, out, err
+
+
+def test_two_rank_run_records_its_collectives(tmp_path):
+    """The train CLI on a 2-rank gloo group (mesh (2, 1)): rank 0 alone
+    writes the trace; the first step of each phase segment emits
+    ``phase_compile`` with that step's sync bytes and collectives by class
+    (the reference's compile-time figures), every ``train_step`` carries
+    its step's real ``sync_bytes_per_step``, and under the decaying rank
+    schedule the bytes fall at each boundary, as the report's
+    ``d_sync_bytes`` shows."""
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = {"PYTHONPATH": os.pathsep.join(filter(None, [src, os.environ.get("PYTHONPATH")]))}
+    argv = ["-m", "repro_torch.launch.train", "--device", "cpu", "--dist-backend", "gloo",
+            *ARGV, "--mesh-data", "2", "--ckpt-dir", str(tmp_path / "ck"),
+            "--save-every", "100", "--obs", "--obs-dir", str(tmp_path / "obs")]
+    rc, _, err = _torchrun(argv, 2, timeout=240, env=env)
+    assert rc == 0, err[-3000:]
+    events = _load(tmp_path / "obs" / "events.jsonl")
+    assert len(list(tmp_path.rglob("events.jsonl"))) == 1
+    compiles = [e for e in events if e["type"] == "phase_compile"]
+    steps = [e for e in events if e["type"] == "train_step"]
+    assert [e["phase"] for e in compiles] == [0, 1, 0]
+    for e in compiles:
+        assert e["sync_bytes_per_step"] == sum(e["collectives"].values()) > 0
+        assert set(e["collectives"]) <= {"all-reduce", "all-gather", "reduce-scatter"}
+    # each step's bytes are its segment's phase_compile figure
+    seg = []
+    for e in events:
+        if e["type"] == "phase_compile":
+            seg.append(e["sync_bytes_per_step"])
+        elif e["type"] == "train_step":
+            assert e["sync_bytes_per_step"] == seg[-1], e["step"]
+    assert len(steps) == 8 and seg[0] > seg[1] > seg[2]
+    rows = obs_report.train_attribution(events)
+    assert [r["phase"] for r in rows] == [0, 1, 0]
+    assert all(r["d_sync_bytes"] < 0 for r in rows[1:])
