@@ -1,7 +1,7 @@
 """Drive the PyTorch port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py [--out results.json]
-                          [--only kernels|conv|serve|obs|moe|ssm|encdec|vlm|mla|tune|shard]
+                          [--only kernels|conv|serve|obs|moe|ssm|encdec|vlm|mla|tune|shard|sserve]
 
 Phases, in order; any failure exits nonzero:
 
@@ -109,6 +109,27 @@ Phases, in order; any failure exits nonzero:
               printed; a failed rank fails the phase.  Then a one-rank NCCL
               group takes a control flag where
               ``collectives.control_device`` puts it (and refuses a CPU one);
+74-76. sharded serving — (run last) TP-sharded serving on gloo ranks of
+              the one card (``chip_smoke.py --serve-worker``, started by
+              ``python -m torch.distributed.run --standalone``):
+              ``ServeEngine(mesh=(1, N))`` on full-width smollm-360m at
+              SSERVE_LAYERS of its layers, LRD at Eq.-5 ranks, params from
+              ``steps.init_params(run, "cuda")`` on every rank (the engine
+              checks them by digest), 8 requests sharing a 64-token prefix
+              through 8 slots, 12 new tokens.  74: (1, 2), bf16 factors,
+              the paged pool with the prefix cache (5 KV heads do not
+              divide 2: the pool is replicated), then the speculative draft
+              (k = 2) with a different rank in every factor group; 75: (1,
+              2), the int8 export, analytic then measured (decided on rank
+              0); 76: (1, 5), one KV head and three query heads a rank.
+              Each rank: K1 / K5 / K6 / K7 launches exact by shape at the
+              local columns (PERF.md's prediction), no ``kernel_fallbacks``
+              entry, no collective at a param path, its pool bytes (at (1,
+              5) a fifth of one rank's), its wall time; rank 0 serves every
+              trace on one rank with the same params: greedy tokens
+              identical or parting at rounding ties, the first decode step's
+              logits within SSERVE_LOGIT_RTOL.  Then K1/K5/K6/K7 rows at the
+              local shapes these phases launched, in the kernels line;
 9b. rank-adapt train — phase 7 with ``--rank-schedule decay``: the ranks
               shrink at each phase swap (240/120/349 -> 128/90/256 ->
               96/67/128), launches counted per step by name and by shape,
@@ -393,7 +414,8 @@ VLM shapes, 50-56, 67 and the large dense configs' rows; ``--only mla``
 phases 1-3 at DeepSeek-V3's shapes and 57-63; ``--only obs`` phases 1, 2,
 4, 7 and 68 (its kernels line is empty); ``--only tune`` phases 1, 2, 69
 and 70 (its kernels line is empty); ``--only shard`` phases 1-3 at the
-sharded path's shapes and 71-73.  The last line of standard
+sharded path's shapes and 71-73; ``--only sserve`` phases 1, 2, 74-76 and
+the kernel rows at their shapes.  The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s name and power limit, and the ``{"kernels": [...]}`` line
 comes before that.
@@ -6500,6 +6522,363 @@ def phase_sharded():
     return paths, result
 
 
+# --------------------------------------------------------------------------
+# Phases 74-76: TP-sharded serving on gloo ranks of the one card
+# --------------------------------------------------------------------------
+#
+# The serving path of ``python -m torch.distributed.run ... -m
+# repro_torch.launch.serve --mesh-model N``: ServeEngine(mesh=(1, N)), the
+# scheduler's pools of each rank's KV heads and K1/K5/K6/K7 on each rank's
+# column blocks, on gloo ranks sharing cuda:0 (NCCL refuses two ranks on one
+# card).  Two ranks share the card and the host: no speed-up is claimed;
+# the phases record launches, collectives, pool bytes, parity and wall time.
+
+# 16 of smollm-360m's 32 layers at full width, and 8 requests of 12 new
+# tokens (a cut, to keep the script inside its time: at 32 layers, 16
+# requests and 16 new tokens the phases took 335 s, PERF.md, since a gloo
+# gather between processes sharing the card costs ~4 ms and a forward
+# makes six or seven a layer)
+SSERVE_LAYERS = 16
+SSERVE_SLOTS, SSERVE_BLOCK, SSERVE_SPEC_K = 8, 16, 2
+# 8 requests sharing a 64-token prefix with 1-32-token suffixes, each padded
+# to 96, all arriving at once, so the sharded and the one-rank runs admit
+# alike, step for step
+SSERVE_PREFIX, SSERVE_SUFFIX, SSERVE_PREFILL, SSERVE_NEW = 64, 32, 96, 12
+SSERVE_REQUESTS = 8
+# the heterogeneous draft: a different rank in every factor group (gate and
+# up share one: K5 takes both branches at one shape here)
+SSERVE_DRAFT = {"wq": 120, "wk": 58, "wv": 56, "wo": 114, "gate": 166, "up": 166,
+                "down": 162}
+# (phase, cell, model axis)
+SSERVE_CELLS = ((74, "bf16", 2), (75, "int8", 2), (76, "heads", 5))
+# The sharded first decode step's logits against the one-rank step's on
+# the same params, relative to max |logit|: K6/K7 give each column the
+# unsharded kernel's bits, and at (1, 2) attention runs whole, so the int8
+# cell should agree bit for bit; K1/K5's decode plan depends on S, so a
+# column block can round t to bf16 otherwise than the whole call (one ulp,
+# 2**-8), carried through the layers as phase 5 carries the kernels'
+# differences: PATH_RTOL bounds that there
+SSERVE_LOGIT_RTOL = PATH_RTOL
+SSERVE_TIMEOUT = 600
+# paths a serving run's collectives carry besides "activation": the
+# scheduling clock, the end-of-serve token check, the engine's tree checks
+# and the measured export's decisions
+SSERVE_CONTROL = ("serve/clock", "serve/tokens", "serve/check", "serve/export")
+
+
+def _sserve_run():
+    import dataclasses
+
+    run = _full_run(SSERVE_PREFILL + SSERVE_NEW)
+    return dataclasses.replace(run, model=dataclasses.replace(run.model,
+                                                              num_layers=SSERVE_LAYERS))
+
+
+def _sserve_trace(vocab: int):
+    from repro_torch.launch import serve
+
+    trace = serve.shared_prefix_trace(SSERVE_REQUESTS, 1000.0, SSERVE_PREFIX, SSERVE_SUFFIX,
+                                      vocab, seed=0)
+    for r in trace:
+        r.update(max_new=SSERVE_NEW, arrival=0.0)
+    return trace
+
+
+def _sserve_config(model: int, **kw):
+    from repro_torch.serving import ServeConfig
+
+    return ServeConfig(num_slots=SSERVE_SLOTS, max_len=SSERVE_PREFILL + SSERVE_NEW,
+                       prefill_len=SSERVE_PREFILL, block_size=SSERVE_BLOCK, mesh_model=model,
+                       **kw)
+
+
+def _factor_shapes(tree):
+    """{projection: (kind, C, r, S)} of a served tree: kind ``lowrank``
+    (bf16 factors), ``int8_lowrank`` (an int8 pair) or ``int8_dense`` (a
+    merged int8 group, r None)."""
+    out = {}
+    for grp in ("attn", "ffn"):
+        for name, g in tree["stack"][grp].items():
+            if "u" in g:
+                out[name] = ("lowrank", g["u"].shape[-2], g["u"].shape[-1], g["v"].shape[-1])
+            elif "u_q" in g:
+                out[name] = ("int8_lowrank", g["u_q"].shape[-2], g["u_q"].shape[-1],
+                             g["v_q"].shape[-1])
+            elif "kernel_q" in g:
+                out[name] = ("int8_dense", g["kernel_q"].shape[-2], None,
+                             g["kernel_q"].shape[-1])
+    return out
+
+
+_KIND_KERNEL = {"lowrank": "lowrank_matmul", "int8_lowrank": "int8_lowrank_linear",
+                "int8_dense": "int8_linear"}
+
+
+def _sserve_want(shapes, model: int, layers: int, per_m, want=None):
+    """PERF.md's prediction of a sharded serve's launches on a rank,
+    {kernel: {launch key: count}}: each forward at M (``per_m``: M ->
+    forwards), a layer, launches K1 on wq, wk, wv, wo and down and K5 on
+    gate/up (bf16 factors), or one int8 launch a projection (K7 a pair, K6
+    a merged group), each at its columns / ``model``."""
+    want = {} if want is None else want
+
+    def add(name, key, n):
+        by = want.setdefault(name, {})
+        by[key] = by.get(key, 0) + n
+
+    fused = shapes["gate"][0] == shapes["up"][0] == "lowrank"
+    for m, n in per_m.items():
+        if not n:
+            continue
+        for name, (kind, c, r, s_) in shapes.items():
+            if fused and name in ("gate", "up"):
+                continue
+            key = (m, c, s_ // model) if r is None else (m, c, r, s_ // model)
+            add(_KIND_KERNEL[kind], key, layers * n)
+        if fused:
+            _, c, rg, f = shapes["gate"]
+            add("lowrank_gated_ffn", (m, c, rg, shapes["up"][2], f // model), layers * n)
+    return want
+
+
+def _sserve_serve(label, engine, trace):
+    """Serve ``trace`` on ``engine``, the launch counters zeroed before:
+    tokens, per-token logits, the first decode step's logits, launches by
+    shape, collectives by path, dispatcher fallbacks, forwards, stats and
+    seconds."""
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import ops
+
+    sched = engine.scheduler
+    rec = _record_logits(sched)
+    first = {}
+    decode = sched._decode
+
+    def keep_first(*a):
+        out = decode(*a)
+        first.setdefault("logits", out[0][:, -1].float().clone())
+        return out
+
+    sched._decode = keep_first
+    zero_counts()
+    torch.cuda.synchronize()
+    with ops.capture_fallbacks() as fb, collectives.recording() as coll:
+        t0 = time.perf_counter()
+        outs = engine.serve(trace)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    sched._decode = decode
+    fwd = dict(sched.forward_stats)
+    toks = [o.tokens.tolist() for o in outs]
+    if fwd["nonfinite"] or any(len(t) != r["max_new"] for t, r in zip(toks, trace)):
+        raise AssertionError(f"sharded serve {label}: {fwd['nonfinite']} non-finite forwards, "
+                             f"token counts {[len(t) for t in toks]}")
+    paths = {}
+    for c in coll:
+        n_b = paths.setdefault(c.path, [0, 0])
+        n_b[0] += 1
+        n_b[1] += c.bytes
+    return dict(toks=toks, logits=[rec[o.rid] for o in outs], first=first.get("logits"),
+                by_shape={n: dict(v) for n, v in counts_by_shape().items() if v},
+                paths=paths, fallbacks=[[f.op, f.reason, list(f.shape)] for f in fb], fwd=fwd,
+                stats=sched.latency_stats(), wall_s=dt)
+
+
+def _sserve_cell(label, model, mesh, params, run, trace, rank, draft=None, **cfg):
+    """One sharded serve of a cell on this rank, checked against the
+    prediction; on rank 0 also the same trace on one rank with the same
+    (exported) params and draft, and the comparison.  Returns the rank's
+    record."""
+    from repro_torch.serving import ServeEngine
+
+    t0 = time.perf_counter()
+    engine = ServeEngine(run, params, device="cuda", mesh=mesh, draft_params=draft,
+                         config=_sserve_config(model, **cfg))
+    sched = engine.scheduler
+    build_s = time.perf_counter() - t0
+    got = _sserve_serve(label, engine, trace)
+    fwd, k, layers = got["fwd"], SSERVE_SPEC_K, run.model.num_layers
+    want = _sserve_want(_factor_shapes(engine.params), model, layers,
+                        {SSERVE_PREFILL: fwd["prefill"] + fwd["extend"],
+                         SSERVE_SLOTS: fwd["decode"], SSERVE_SLOTS * (k + 1): fwd["verify"]})
+    if draft is not None:
+        _sserve_want(_factor_shapes(draft), model, layers, {SSERVE_SLOTS: fwd["draft"]}, want)
+    if got["by_shape"] != want:
+        raise AssertionError(f"sharded serve {label} rank {rank}: launched {got['by_shape']}, "
+                             f"want {want}")
+    if got["fallbacks"]:
+        raise AssertionError(f"sharded serve {label} rank {rank}: plain paths on the card "
+                             f"{got['fallbacks'][:4]}")
+    bad = set(got["paths"]) - {"activation", *SSERVE_CONTROL}
+    if bad:
+        raise AssertionError(f"sharded serve {label} rank {rank}: collectives at {sorted(bad)}")
+    rec = dict(label=label, model=model, fwd=fwd, wall_s=got["wall_s"], build_s=build_s,
+               launched={n: [[list(key), c] for key, c in v.items()]
+                         for n, v in got["by_shape"].items()},
+               paths=got["paths"], tok_per_s=got["stats"]["tok_per_s"],
+               prefix_hits=got["stats"]["prefix_hits"], pool_bytes=sched.cache_bytes(),
+               kv_pool_bytes=_pool_bytes(sched.cache), toks=got["toks"],
+               export=engine.export_report.summary() if engine.export_report else None)
+    if rank == 0:
+        t0 = time.perf_counter()
+        one = ServeEngine(run, engine.params, device="cuda", draft_params=draft,
+                          config=_sserve_config(1, **dict(cfg, export="none",
+                                                          export_int8=False)))
+        ref = _sserve_serve(f"{label} one rank", one, trace)
+        rec["one_wall_s"] = time.perf_counter() - t0
+        rec["one_kv_pool_bytes"] = _pool_bytes(one.scheduler.cache)
+        rec["compare"] = _compare_greedy(ref["toks"], ref["logits"], got["toks"],
+                                         got["logits"], f"sharded serve {label}", rtol=None)
+        if got["first"] is not None:
+            diff, rel = rel_err(got["first"], ref["first"])
+            rec["first_decode"] = dict(max_abs=diff, rel=rel,
+                                       bitwise=bool(torch.equal(got["first"], ref["first"])))
+            if not rel <= SSERVE_LOGIT_RTOL:
+                raise AssertionError(f"sharded serve {label}: the first decode step's logits "
+                                     f"lie {rel:.3e} of max |logit| from one rank's")
+        del one
+    del engine, sched
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sserve_worker(out: Path) -> int:
+    """One rank of phases 74-76 (``chip_smoke.py --serve-worker DIR``,
+    started by ``torch.distributed.run`` from ``phase_sharded_serving``):
+    two ranks serve cells 74 and 75, five cell 76; each cell's record to
+    ``DIR/rank<r>.json``.  Any failed check raises, which fails the rank
+    and, through the launcher, the others."""
+    import os
+
+    from repro_torch.distributed import collectives
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serving import speculative
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    torch.cuda.set_device(0)
+    _precision_flags()
+    collectives.init_process_group("gloo", "env://", rank, world)
+    mesh = make_host_mesh(1, world)
+    run = _sserve_run()
+    params, _ = steps.init_params(run, "cuda")
+    trace = _sserve_trace(run.model.vocab_size)
+    res = {}
+    if world == 2:
+        res["bf16"] = _sserve_cell("bf16", world, mesh, params, run, trace, rank,
+                                   prefix_cache=True)
+        draft, _ = speculative.make_draft_params(
+            params, {f"stack/{'attn' if p.startswith('w') else 'ffn'}/{p}": r
+                     for p, r in SSERVE_DRAFT.items()})
+        res["spec"] = _sserve_cell("spec", world, mesh, params, run, trace, rank, draft=draft,
+                                   speculative_k=SSERVE_SPEC_K)
+        del draft
+        for kind in EXPORTS:
+            res[f"int8 {kind}"] = _sserve_cell(f"int8 {kind}", world, mesh, params, run, trace,
+                                               rank, prefix_cache=True, export=kind,
+                                               export_int8=True)
+    else:
+        res["heads"] = _sserve_cell("heads", world, mesh, params, run, trace, rank,
+                                    prefix_cache=True)
+    zero_counts()
+    (out / f"rank{rank}.json").write_text(json.dumps(res))
+    collectives.destroy_process_group()
+    return 0
+
+
+def _sserve_launch(n: int):
+    """``n`` serve workers over gloo, started by ``torch.distributed.run``;
+    their records, rank by rank."""
+    import os
+
+    here = Path(__file__).resolve()
+    threads = str(max(1, (os.cpu_count() or 1) // n))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sserve_") as tmp:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc-per-node={n}", "--tee=3", str(here), "--serve-worker", tmp],
+            cwd=str(here.parent), env=dict(os.environ, OMP_NUM_THREADS=threads),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            _, err = proc.communicate(timeout=SSERVE_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.terminate()  # the launcher stops its ranks
+            _, err = proc.communicate()
+            raise AssertionError(f"sharded serving: ranks still running after "
+                                 f"{SSERVE_TIMEOUT} s:\n{err[-4000:]}")
+        if proc.returncode != 0:
+            raise AssertionError(f"sharded serving: a rank failed (launcher exit "
+                                 f"{proc.returncode}):\n{err[-6000:]}")
+        return [json.loads((Path(tmp) / f"rank{r}.json").read_text()) for r in range(n)]
+
+
+def phase_sharded_serving(smi: str):
+    """Phases 74-76: two gloo ranks serve cells 74 and 75, then five cell
+    76 (``sserve_worker``).  Returns (launches by path, results)."""
+    t0 = time.perf_counter()
+    outs = {2: _sserve_launch(2)}
+    t2 = time.perf_counter() - t0
+    outs[5] = _sserve_launch(5)
+    paths, result = {}, dict(wall_s=time.perf_counter() - t0, two_ranks_s=t2, smi=smi,
+                             layers=SSERVE_LAYERS, cells={})
+    for phase, cell, model in SSERVE_CELLS:
+        labels = ("bf16", "spec") if cell == "bf16" else (
+            tuple(f"int8 {k}" for k in EXPORTS) if cell == "int8" else ("heads",))
+        for label in labels:
+            recs = [o[label] for o in outs[model]]
+            for r, c in enumerate(recs):
+                if c["toks"] != recs[0]["toks"]:
+                    raise AssertionError(f"sharded serve {label}: rank {r}'s tokens differ")
+                paths.setdefault(f"sharded serve {label}", {})
+                for name, pairs in c["launched"].items():
+                    by = paths[f"sharded serve {label}"].setdefault(name, {})
+                    for key, n in pairs:
+                        by[tuple(key)] = by.get(tuple(key), 0) + n
+                act = c["paths"].get("activation", [0, 0])
+                log(f"[sharded serve] {phase} {label} mesh (1, {model}) rank {r}: "
+                    f"{c['fwd']['prefill']} prefill + {c['fwd']['extend']} extend + "
+                    f"{c['fwd']['decode']} decode + {c['fwd']['draft']} draft + "
+                    f"{c['fwd']['verify']} verify forwards; launches "
+                    + ", ".join(f"{n} {sum(v for _, v in p)}" for n, p in c["launched"].items())
+                    + f" (as predicted); {act[0]} activation gathers, {act[1]} bytes; "
+                    f"control {{{', '.join(f'{p}: {v[0]}' for p, v in c['paths'].items() if p != 'activation')}}}; "
+                    f"pool {c['kv_pool_bytes']} B k/v + page tables = {c['pool_bytes']} B; "
+                    f"wall {c['wall_s']:.2f} s ({c['tok_per_s']:.1f} tok/s; the ranks share "
+                    f"the card: no speed-up measured), engine built in {c['build_s']:.1f} s"
+                    + (f"; {c['export']}" if c["export"] else ""))
+            c0 = recs[0]
+            cmp = c0["compare"]
+            first = c0.get("first_decode")
+            log(f"[sharded serve] {phase} {label} against one rank ({c0['one_wall_s']:.2f} s): "
+                f"{_parted_text(cmp)}"
+                + (f"; first decode step's logits within {first['max_abs']:.3e} "
+                   f"({first['rel']:.2e} of max |logit|, bound {SSERVE_LOGIT_RTOL}"
+                   f"{', bit for bit' if first['bitwise'] else ''})" if first else ""))
+            if model == 5 and c0["kv_pool_bytes"] * model != c0["one_kv_pool_bytes"]:
+                raise AssertionError(f"sharded serve {label}: a rank's pool "
+                                     f"{c0['kv_pool_bytes']} B is not a fifth of one "
+                                     f"rank's {c0['one_kv_pool_bytes']} B")
+            if model == 2 and c0["kv_pool_bytes"] != c0["one_kv_pool_bytes"]:
+                raise AssertionError(f"sharded serve {label}: 5 KV heads on 2 ranks must "
+                                     f"replicate the pool")
+            result["cells"][label] = dict(phase=phase, ranks=recs)
+    log(f"[sharded serve] {time.perf_counter() - t0:.1f} s with the ranks' start "
+        f"({t2:.1f} s for the two-rank cells)")
+    return paths, result
+
+
+def sserve_kernel_rows(rows, paths):
+    """K1 / K5 rows, and K6 / K7 rows with their int8-operand twins, at every
+    shape the sharded serving paths launched that no row checked yet."""
+    checked = {(r["name"], shape_key(r["name"], r["shape"])) for r in rows}
+    new = {(name, key) for by in paths.values() for name, keys in by.items() for key in keys}
+    new -= checked
+    lowrank = sorted((n, k) for n, k in new if n in LOWRANK_FWD)
+    int8 = sorted((n, k) for n, k in new if n in INT8_FUSED)
+    return (phase_kernels([(n, shape_dims(n, k)) for n, k in lowrank])
+            + phase_int8_kernels(int8))
+
+
 def check_launched_shapes(path: str, rows, by_shape) -> None:
     """Fail if ``path`` launched a kernel at a shape the kernel phase did
     not check."""
@@ -6532,7 +6911,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="", help="also write every result as JSON here")
     ap.add_argument("--only", choices=("kernels", "conv", "serve", "obs", "moe", "ssm",
-                                       "encdec", "vlm", "mla", "tune", "shard"),
+                                       "encdec", "vlm", "mla", "tune", "shard", "sserve"),
                     default=None,
                     help="kernels: stop after the kernel phase (a first check of a build); "
                          "conv: run only the conv and ViT phases; serve: phases 1-3 at the "
@@ -6547,11 +6926,15 @@ def main(argv=None) -> int:
                          "50-56, 67 and the rank-gate and K7-ceiling rows; mla: "
                          "phases 1-3 at DeepSeek-V3's shapes and phases 57-63; tune: "
                          "phases 1, 2, 69 (autotune) and 70 (dry-run and roofline); shard: "
-                         "phases 1-3 at the sharded path's shapes and 71-73")
+                         "phases 1-3 at the sharded path's shapes and 71-73; sserve: phases "
+                         "1, 2, 74-76 and the kernel rows at their shapes")
     ap.add_argument("--shard-worker", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--serve-worker", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.shard_worker:
         return shard_worker(Path(args.shard_worker))
+    if args.serve_worker:
+        return sserve_worker(Path(args.serve_worker))
 
     t_start = time.perf_counter()
 
@@ -6610,6 +6993,8 @@ def main(argv=None) -> int:
         shapes = mla_kernel_shapes()
     elif args.only == "shard":
         shapes = shard_kernel_shapes()
+    elif args.only == "sserve":
+        shapes = []  # the rows follow the phases, at the shapes they launched
     else:
         shapes = (kernel_shapes() + moe_kernel_shapes() + ssm_kernel_shapes()
                   + encdec_kernel_shapes() + vlm_kernel_shapes() + mla_kernel_shapes())
@@ -6650,6 +7035,11 @@ def main(argv=None) -> int:
     elif args.only == "shard":
         paths, result["sharded"] = phase_sharded()
         mark("sharded")
+        count_launches(rows, paths)
+    elif args.only == "sserve":
+        paths, result["sharded_serving"] = phase_sharded_serving(smi)
+        rows += sserve_kernel_rows(rows, paths)
+        mark("sharded serving")
         count_launches(rows, paths)
     elif args.only is None:
         engine, paths["serve"], result["serve"] = phase_serve(obs_root / "serve")
@@ -6754,6 +7144,11 @@ def main(argv=None) -> int:
         more, result["sharded"] = phase_sharded()
         paths.update(more)
         mark("sharded")
+        # sharded serving: gloo ranks on the card, K1/K5/K6/K7 at local columns
+        more, result["sharded_serving"] = phase_sharded_serving(smi)
+        paths.update(more)
+        rows += sserve_kernel_rows(rows, more)
+        mark("sharded serving")
         count_launches(rows, paths)
         if not any(r["launches"] for r in rows if r["name"] == "int8_linear"):
             log("[kernels] int8_linear (K6) was launched on no main path in this run: the "

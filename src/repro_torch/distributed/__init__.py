@@ -1,5 +1,6 @@
 """Sharded placement, int8 gradient sync and the explicit collectives of
-the sharded train path (the counterpart of ``repro/distributed``)."""
+the sharded train and serving paths (the counterpart of
+``repro/distributed``)."""
 
 from repro_torch.distributed.sharding import (  # noqa: F401
     ACT_RULES,
@@ -11,6 +12,7 @@ from repro_torch.distributed.sharding import (  # noqa: F401
     current_manual_axes,
     current_mesh,
     named_shardings,
+    paged_pool_shardings,
     paged_pool_specs,
     param_specs,
     place_at_paths,

@@ -10,7 +10,11 @@ the HLO's class names (``all-reduce``, ``all-gather``, ``reduce-scatter``),
 the dtype on the wire, the bytes of the operand this rank sends in (the
 HLO's operand accounting) and the param path it serves (``activation`` for
 an activation, ``loss`` / ``grad_norm`` for a metric) — to every
-:func:`recording` open.  ``analysis/cost.py`` and the train CLI read
+:func:`recording` open.  :func:`broadcast_object` sends a host value
+(a scheduling clock, an export's decisions) from the mesh's first rank to
+the others on the control device, recorded as a ``broadcast`` of its
+pickled bytes under its own path; it is no sync class of the reference's,
+so the cost counts leave it out.  ``analysis/cost.py`` and the train CLI read
 those records; the tests check by path that no collective serves a frozen
 leaf.
 
@@ -34,14 +38,17 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import itertools
+import pickle
 import warnings
+from typing import Any
 from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 __all__ = ["Collective", "recording", "register_mesh", "all_reduce", "all_gather",
-           "reduce_scatter", "axes_size", "coordinate", "by_op", "by_op_dtype", "process_rank",
+           "reduce_scatter", "broadcast_object", "axes_size", "coordinate", "by_op",
+           "by_op_dtype", "process_rank",
            "any_rank", "control_device", "init_process_group", "destroy_process_group",
            "world_size", "backend", "mesh_size", "CLASSES"]
 
@@ -53,8 +60,8 @@ CLASSES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all")
 class Collective:
     """One collective this rank took part in."""
 
-    op: str  # "all-reduce" | "all-gather" | "reduce-scatter"
-    dtype: str  # the dtype on the wire, e.g. "bfloat16", "int8"
+    op: str  # "all-reduce" | "all-gather" | "reduce-scatter" | "broadcast"
+    dtype: str  # the dtype on the wire, e.g. "bfloat16", "int8" ("object": pickled)
     bytes: int  # bytes of the operand this rank sends in
     path: str  # the param path it serves, or "activation" / "loss" / "grad_norm"
     axes: Tuple[str, ...] = ()
@@ -92,8 +99,11 @@ def by_op_dtype(log: Sequence[Collective]) -> Dict[str, int]:
 
 
 def _note(op: str, t: torch.Tensor, path: str, axes) -> None:
-    rec = Collective(op, str(t.dtype).replace("torch.", ""), t.numel() * t.element_size(),
-                     path, tuple(axes))
+    _record(Collective(op, str(t.dtype).replace("torch.", ""), t.numel() * t.element_size(),
+                       path, tuple(axes)))
+
+
+def _record(rec: Collective) -> None:
     for sink in _SINKS:
         sink.append(rec)
 
@@ -249,3 +259,21 @@ def reduce_scatter(t: torch.Tensor, mesh, axes: Sequence[str], dim: int, *,
         warnings.simplefilter("ignore", FutureWarning)
         dist.reduce_scatter_tensor(out, moved, group=_group(mesh, live))
     return out.movedim(0, dim)
+
+
+def broadcast_object(obj: Any, mesh, *, path: str) -> Any:
+    """The value ``obj`` holds on the mesh's first rank (coordinate 0 on
+    every axis), on every rank of ``mesh``: a picklable host value sent on
+    the control device.  Every rank of the mesh calls it at the same point;
+    the others' ``obj`` is ignored.  Recorded as a ``broadcast`` of the
+    pickled bytes under ``path``.  On a one-rank mesh ``obj`` comes back."""
+    live = _live(mesh, _names(mesh))
+    if not live:
+        return obj
+    group = _group(mesh, live)
+    src = dist.get_global_rank(group, 0)
+    box = [obj if dist.get_rank() == src else None]
+    dist.broadcast_object_list(box, src=src, group=group,
+                               device=control_device(dist.get_backend(group)))
+    _record(Collective("broadcast", "object", len(pickle.dumps(box[0])), path, live))
+    return box[0]

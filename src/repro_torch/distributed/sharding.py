@@ -52,9 +52,8 @@ import torch
 __all__ = ["ACT_RULES", "ACT_RULES_SP", "FROZEN_PARAM_RULES", "PARAM_RULES",
            "PARAM_RULES_NO_FSDP", "NamedSharding", "axis_rules", "axis_sizes",
            "current_manual_axes", "current_mesh", "current_row_axes", "leaf_path", "leaf_split",
-           "mesh_size",
-           "named_shardings", "paged_pool_specs", "param_specs", "place_at_paths",
-           "shard", "spec_axes"]
+           "mesh_size", "named_shardings", "paged_pool_shardings", "paged_pool_specs",
+           "param_specs", "place_at_paths", "shard", "spec_axes"]
 
 AxisCandidate = Union[None, str, Tuple[str, ...]]
 RuleTable = Dict[str, Tuple[AxisCandidate, ...]]
@@ -431,10 +430,11 @@ def place_at_paths(tree: Any, mesh, rules: RuleTable, paths: Sequence[str]) -> A
 def paged_pool_specs(cache: Any, mesh) -> Any:
     """Spec tree for a paged serving cache: pool leaves (L, num_blocks,
     block_size, KV, hd) and their int8 scale siblings shard the KV-head dim
-    over ``model`` when it divides; everything else is replicated.  Axes of
-    size 1 are pruned and trailing ``None`` entries dropped, as the
-    reference's are.  (A spec function only: sharded serving is ROADMAP
-    queue 1 item 8.)"""
+    over ``model`` when it divides; everything else (the page tables) is
+    replicated.  Axes of size 1 are pruned and trailing ``None`` entries
+    dropped, as the reference's are.  Resolve it on the WHOLE cache's
+    shapes (a batch-1 prefill cache (L, 1, P, KV, hd) resolves the same
+    way): :func:`paged_pool_shardings` gives each rank's block."""
     sizes = axis_sizes(mesh)
 
     def prune(spec: Spec) -> Spec:
@@ -455,3 +455,19 @@ def paged_pool_specs(cache: Any, mesh) -> Any:
         return ()
 
     return walk(cache, "")
+
+
+def paged_pool_shardings(cache: Any, mesh) -> Any:
+    """:class:`NamedSharding` tree of a WHOLE paged cache (tensors or meta
+    tensors): where each rank's pool block lies.  A rank holds the KV heads
+    of its ``model`` coordinate when the head count divides, else all of
+    them (the reference's divisibility fallback), and the whole page
+    tables.  ``serving.paged_cache.init_paged_cache`` allocates the blocks
+    and ``insert_prefill_paged`` cuts a whole prefill's k/v to them."""
+
+    def walk(s):
+        if isinstance(s, dict):
+            return {k: walk(v) for k, v in s.items()}
+        return NamedSharding(mesh, s)
+
+    return walk(paged_pool_specs(cache, mesh))

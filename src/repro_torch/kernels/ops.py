@@ -36,9 +36,19 @@ included, and runs no collective.  The reference takes its jnp path there
 ``pallas_call`` inside a manual ``shard_map``; here every tensor is
 already this rank's block, so that reason does not hold.  The kernels
 take any local shape, so the reference's ``mesh-indivisible-local``
-cannot arise either.  K6/K7
-under such a mesh note a ``mesh`` fallback and run their plain path, as
-the reference's do; K8 is not on the sharded path.
+cannot arise either.  K8 is not on the sharded path.
+
+K6 and K7 under such a mesh (the sharded serving steps) take the same
+argument: where the step registered ``w_q`` or ``v_q`` as split, it and
+its scale hold this rank's columns over ``model`` while x, ``u_q`` and
+``u_scale`` are whole, so the kernel runs on the local block and its
+output columns are all-gathered over ``model`` (path ``activation``), as
+for K1.  x is quantized per row, and K7's rank-r intermediate requantized
+per row, before any column is split, and every sum is an exact int32 one:
+each column comes out bit for bit as the unsharded kernel's.  The
+reference's dispatchers take their jnp path under a mesh, since XLA
+cannot partition a ``pallas_call``; here every tensor is already this
+rank's block, so the kernel launches.
 
 Sequential freezing (Algorithm 2): ``freeze_group`` names the factor group
 frozen this phase (0 = u, 1 = v).  The frozen factor's gradient is never
@@ -58,9 +68,8 @@ kernels take x itself and quantize it per row inside (the serving entries
 with jnp ops outside their kernels, to the same bits):
 
 * kernel requested, CUDA tensors: the kernel, one launch for K6 and two
-  for K7, no torch op around them.  There is no shape fallback; under a
-  multi-device mesh they take the policy-off formula below (reason
-  ``mesh``), as the reference's dispatchers do;
+  for K7, no torch op around them (under a multi-device mesh, on the local
+  column block, then the gather above).  There is no shape fallback;
 * kernel requested, CPU tensors (reason ``platform``): the kernel's plain
   version (``quantize_rowwise``, the exact int8 product and the scales),
   i.e. the activation-quantized algebra, which is what JAX computes in
@@ -126,7 +135,7 @@ class Fallback:
     """One dispatcher decision to run the plain version instead of the kernel."""
 
     op: str
-    reason: str  # "platform" (CPU tensors) | "disabled" (policy off) | "mesh" (K6/K7 under a mesh)
+    reason: str  # "platform" (CPU tensors) | "disabled" (policy off)
     shape: Tuple[int, ...] = ()
 
 
@@ -491,25 +500,34 @@ def lowrank_ffn_apply(x: torch.Tensor, gu: torch.Tensor, gv: torch.Tensor,
 # int8 decode dispatchers (the serving export's int8 artifact)
 # --------------------------------------------------------------------------
 
+def _split_cols(w: torch.Tensor):
+    """(mesh, "model") when ``w`` holds this rank's columns over ``model``
+    under a multi-device mesh (the serving step registered it split), else
+    (None, None): the output columns to gather."""
+    if _multi_device_mesh() and _shmod.leaf_split(w):
+        return _shmod.current_mesh(), "model"
+    return None, None
+
+
 def int8_apply(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, *,
                use_kernel: bool = False) -> torch.Tensor:
     """y = x @ dequant(w_q) for per-output-column int8 dense weights, in
-    x's dtype: x (..., C), w_q (C, S) int8, w_scale (1, S) float32."""
+    x's dtype: x (..., C), w_q (C, S) int8, w_scale (1, S) float32 (under a
+    mesh, w_q and w_scale this rank's S columns when split)."""
     c, s = w_q.shape
     lead = x.shape[:-1]
     m = math.prod(lead)
     ws = w_scale.reshape(1, s).float()
+    mesh, model_axis = _split_cols(w_q)
     reason = _plain_reason(x, use_kernel)
-    if reason is None and _multi_device_mesh():
-        reason = "mesh"
-    if reason in ("disabled", "mesh"):
-        _note_fallback("int8_dense", reason, (m, c, s))
-        y = torch.matmul(x.reshape(m, c).float(), w_q.float() * ws)
-        return y.to(x.dtype).reshape(*lead, s)
     if reason is not None:
         _note_fallback("int8_dense", reason, (m, c, s))
-    y = int8_linear(x.reshape(m, c).contiguous(), w_q, ws)  # the plain version on the CPU
-    return y.reshape(*lead, s)
+    if reason == "disabled":
+        y = torch.matmul(x.reshape(m, c).float(), w_q.float() * ws).to(x.dtype)
+    else:  # the kernel, or its plain version on the CPU
+        y = int8_linear(x.reshape(m, c).contiguous(), w_q, ws)
+    y = _gather_cols(y, mesh, model_axis)
+    return y.reshape(*lead, y.shape[1])
 
 
 def int8_lowrank_apply(x: torch.Tensor, u_q: torch.Tensor, u_scale: torch.Tensor,
@@ -518,26 +536,26 @@ def int8_lowrank_apply(x: torch.Tensor, u_q: torch.Tensor, u_scale: torch.Tensor
     """y = (x @ dequant(u_q)) @ dequant(v_q) for int8 factor pairs, in x's
     dtype.  The kernel path quantizes x per row and requantizes the rank-r
     intermediate per row on chip; the per-row x scales factor out of that
-    requantization and are applied in the kernel's epilogue."""
+    requantization and are applied in the kernel's epilogue.  Under a mesh
+    v_q and v_scale hold this rank's S columns when split; u_q is whole."""
     c, r = u_q.shape
     s = v_q.shape[1]
     lead = x.shape[:-1]
     m = math.prod(lead)
     us = u_scale.reshape(1, r).float()
     vs = v_scale.reshape(1, s).float()
+    mesh, model_axis = _split_cols(v_q)
     reason = _plain_reason(x, use_kernel)
-    if reason is None and _multi_device_mesh():
-        reason = "mesh"
-    if reason in ("disabled", "mesh"):
-        _note_fallback("int8_lowrank", reason, (m, c, s))
-        t = torch.matmul(x.reshape(m, c).float(), u_q.float() * us)
-        y = torch.matmul(t, v_q.float() * vs)
-        return y.to(x.dtype).reshape(*lead, s)
     if reason is not None:
         _note_fallback("int8_lowrank", reason, (m, c, s))
-    y = int8_lowrank_linear(x.reshape(m, c).contiguous(), u_q, us.contiguous(), v_q,
-                            vs.contiguous())  # the plain version on the CPU
-    return y.reshape(*lead, s)
+    if reason == "disabled":
+        t = torch.matmul(x.reshape(m, c).float(), u_q.float() * us)
+        y = torch.matmul(t, v_q.float() * vs).to(x.dtype)
+    else:  # the kernel, or its plain version on the CPU
+        y = int8_lowrank_linear(x.reshape(m, c).contiguous(), u_q, us.contiguous(), v_q,
+                                vs.contiguous())
+    y = _gather_cols(y, mesh, model_axis)
+    return y.reshape(*lead, y.shape[1])
 
 
 # --------------------------------------------------------------------------

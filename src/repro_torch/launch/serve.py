@@ -28,6 +28,20 @@ reference), and ``--log-format jsonl`` mirrors every event to the console
 ``python -m repro_torch.analysis.obs_report`` reads it).  Flags of
 features this port does not have yet are rejected, not ignored.
 
+TP-sharded serving: ``--mesh-model N`` serves over a ``(1, N)`` mesh, one
+process a rank, started by ``torch.distributed.run`` (its environment's
+``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``; ``env://`` rendezvous) over
+``--dist-backend`` (``nccl``, or ``gloo``, which lets ranks share one GPU or
+run on the CPU; no backend is switched on failure).  Every rank makes the
+same params from ``--seed`` (the engine checks them by a digest) and
+serves the same trace; only rank 0 prints, and emits the ``obs`` events.
+The dense family only (MoE and MLA are refused under a mesh, as is
+``--mesh-data`` > 1: ROADMAP queue 1 item 8).
+
+  python -m torch.distributed.run --standalone --nproc-per-node 2 \\
+      -m repro_torch.launch.serve --smoke --device cpu --dist-backend gloo --lrd \\
+      --mesh-model 2 --slots 4 --requests 8 --prompt-len 16 --max-new 8
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m --lrd \\
       --slots 8 --requests 16 --rate 1000 --prompt-len 128 --max-new 32 \\
       [--export measured --export-int8]
@@ -48,6 +62,7 @@ features this port does not have yet are rejected, not ignored.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from pathlib import Path
 
@@ -56,6 +71,7 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import DistConfig, LRDConfig, RunConfig, ShapeConfig
+from repro_torch.distributed import collectives
 from repro_torch.launch import steps as steps_mod
 from repro_torch.obs import EventLog
 from repro_torch.serving import ServeConfig, ServeEngine
@@ -94,7 +110,6 @@ def shared_prefix_trace(n: int, rate: float, prefix_len: int, suffix_len: int,
 # flag -> (its value when off, what brings it)
 _UNPORTED_FLAGS = {
     "mesh_data": (1, "ROADMAP queue 1 item 8, distributed"),
-    "mesh_model": (1, "ROADMAP queue 1 item 8, distributed"),
 }
 
 
@@ -138,9 +153,14 @@ def _parser() -> argparse.ArgumentParser:
                     help="telemetry directory for --obs")
     ap.add_argument("--log-format", default="text", choices=["text", "jsonl"],
                     help="with jsonl, mirror every event to the console")
-    # the JAX CLI's flags for features not ported yet: rejected when set
-    ap.add_argument("--mesh-data", type=int, default=1)
-    ap.add_argument("--mesh-model", type=int, default=1)
+    ap.add_argument("--mesh-data", type=int, default=1,
+                    help="data axis of the serving mesh (only 1 is ported)")
+    ap.add_argument("--mesh-model", type=int, default=1,
+                    help="model (tensor-parallel) axis of the serving mesh: one process a "
+                         "rank under torch.distributed.run")
+    ap.add_argument("--dist-backend", default="nccl", choices=["nccl", "gloo"],
+                    help="process-group backend of a multi-rank run (gloo lets ranks share "
+                         "a GPU or run on the CPU)")
     return ap
 
 
@@ -228,7 +248,49 @@ def main(argv=None):
         ap.error(f"--arch {args.arch} ({cfg.family}) serves on the fixed-batch path, which "
                  f"has no speculative decoding or prefix cache (as in the reference; ROADMAP "
                  f"queue 1 item 7, other model families)")
+    if args.mesh_model > 1 and (stateful or cfg.num_experts or cfg.use_mla):
+        ap.error(f"--mesh-model {args.mesh_model}: --arch {args.arch} ({cfg.family}) is not "
+                 f"served sharded yet; the dense family is (ROADMAP queue 1 item 8, "
+                 f"distributed)")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 and args.dist_backend == "nccl" and args.device != "cuda":
+        ap.error("--dist-backend nccl needs --device cuda; use --dist-backend gloo on the CPU")
+    if args.mesh_model > world:
+        ap.error(f"--mesh-model {args.mesh_model} needs as many ranks, {world} started: run "
+                 f"under `python -m torch.distributed.run --nproc-per-node "
+                 f"{args.mesh_model} ...`")
+    group = (collectives.init_process_group(args.dist_backend, "env://",
+                                            int(os.environ["RANK"]), world)
+             if world > 1 else None)
+    try:
+        return _serve(args, ap, cfg, stateful)
+    finally:
+        if group is not None:
+            collectives.destroy_process_group()
+
+
+def _device(args) -> torch.device:
+    """``cuda:(LOCAL_RANK % device count)``, set as the current device, or the CPU."""
     device = steps_mod.resolve_device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0"))
+                              % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    return device
+
+
+def _serve(args, ap, cfg, stateful: bool):
+    from repro_torch.launch.mesh import make_host_mesh
+
+    device = _device(args)
+    try:
+        mesh = make_host_mesh(1, args.mesh_model)
+    except ValueError as e:
+        ap.error(str(e))
+    lead = collectives.process_rank() == 0
+    if mesh.get_coordinate() is None or not (args.mesh_model > 1 or lead):
+        return None, []  # a rank past the mesh idles, as a leftover device does
+    print_ = print if lead else (lambda *a, **k: None)
     max_len = args.max_len or (args.prompt_len + args.max_new)
     try:
         config = ServeConfig.from_args(args, max_len=max_len, **(
@@ -238,7 +300,7 @@ def main(argv=None):
     # the JAX CLI's log: events.jsonl with --obs, a console mirror of every
     # event with --log-format jsonl (serving events have no text lines)
     obs = None
-    if args.obs or args.log_format == "jsonl":
+    if lead and (args.obs or args.log_format == "jsonl"):
         path = None
         if args.obs:
             Path(args.obs_dir).mkdir(parents=True, exist_ok=True)
@@ -249,7 +311,7 @@ def main(argv=None):
                     seed=args.seed)
     params, plan = steps_mod.init_params(run, device)
     if plan.layers:
-        print(plan.summary())
+        print_(plan.summary())
     if stateful:
         # the reference's fixed-batch path emits no event into its log
         try:
@@ -258,11 +320,14 @@ def main(argv=None):
             if obs is not None:
                 obs.close()
 
-    engine = ServeEngine(run, params, config=config, device=device, obs=obs)
+    engine = ServeEngine(run, params, config=config, device=device, obs=obs, mesh=mesh)
     if engine.export_report is not None:
-        print(engine.export_report.summary())
+        print_(engine.export_report.summary())
+    if engine.sharded:
+        print_(f"mesh: data=1 model={args.mesh_model} ({collectives.mesh_size(mesh)} "
+               f"devices)")
     if args.spec_k and engine.scheduler and engine.draft_report:
-        print(engine.draft_report.summary())
+        print_(engine.draft_report.summary())
     trace = poisson_trace(args.requests, args.rate, args.prompt_len,
                           cfg.vocab_size, args.seed)
     for r in trace:
@@ -281,29 +346,29 @@ def main(argv=None):
         obs.close()
     fwd = engine.scheduler.forward_stats
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"{len(outs)} requests, {int(stats['generated_tokens'])} tokens in "
-          f"{dt:.2f}s ({stats['tok_per_s']:.1f} tok/s on {where}; layout "
-          f"{engine.scheduler.layout}, {fwd['prefill']} prefill + "
-          f"{fwd['decode']} decode forwards)")
-    print(f"latency p50 {stats['p50_latency_s'] * 1e3:.0f}ms  "
-          f"p95 {stats['p95_latency_s'] * 1e3:.0f}ms  "
-          f"p99 {stats['p99_latency_s'] * 1e3:.0f}ms  "
-          f"first-token p50 {stats['p50_first_token_s'] * 1e3:.0f}ms  "
-          f"queue-wait p50 {stats['p50_queue_wait_s'] * 1e3:.0f}ms  "
-          f"preemptions {int(stats['preemptions'])}")
+    print_(f"{len(outs)} requests, {int(stats['generated_tokens'])} tokens in "
+           f"{dt:.2f}s ({stats['tok_per_s']:.1f} tok/s on {where}; layout "
+           f"{engine.scheduler.layout}, {fwd['prefill']} prefill + "
+           f"{fwd['decode']} decode forwards)")
+    print_(f"latency p50 {stats['p50_latency_s'] * 1e3:.0f}ms  "
+           f"p95 {stats['p95_latency_s'] * 1e3:.0f}ms  "
+           f"p99 {stats['p99_latency_s'] * 1e3:.0f}ms  "
+           f"first-token p50 {stats['p50_first_token_s'] * 1e3:.0f}ms  "
+           f"queue-wait p50 {stats['p50_queue_wait_s'] * 1e3:.0f}ms  "
+           f"preemptions {int(stats['preemptions'])}")
     if args.spec_k:
-        print(f"speculative: k={args.spec_k}, {int(stats['spec_steps'])} steps, "
+        print_(f"speculative: k={args.spec_k}, {int(stats['spec_steps'])} steps, "
               f"{int(stats['drafted_tokens'])} drafted / "
               f"{int(stats['accepted_tokens'])} accepted "
               f"(acceptance {stats['acceptance_rate']:.2f}; {fwd['draft']} draft + "
               f"{fwd['verify']} verify forwards)")
     if config.prefix_cache:
-        print(f"prefix cache: {int(stats['prefix_hits'])}/"
+        print_(f"prefix cache: {int(stats['prefix_hits'])}/"
               f"{int(stats['prefix_lookups'])} hits, "
               f"{int(stats['prefix_hit_tokens'])} prompt tokens reused "
               f"({int(stats['prefill_tokens'])} prefilled; {fwd['extend']} extend + "
               f"{fwd['prefill']} prefill forwards)")
-    print("sample:", outs[0][:16].tolist())
+    print_("sample:", outs[0][:16].tolist())
     return engine, outs
 
 

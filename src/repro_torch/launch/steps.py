@@ -29,16 +29,30 @@ the merged params' global shapes on the meta device.
 ``repartition_state(mesh=...)`` are the reference's; ``build_train_step(...,
 mesh=)`` gives the sharded step (:func:`_sharded_train_step`).
 
+Sharded serving (TP over ``model``, one process a rank): the served tree
+is placed by :func:`place_served_params` under :func:`serve_shardings` (a
+factor's ``v``, and an int8 export's ``v_q`` / ``kernel_q`` with their
+column scales, split by columns over ``model``; every other leaf whole),
+the paged pools hold this rank's KV heads (``serving.paged_cache``,
+``sharding.paged_pool_shardings``), and the serving steps
+(``build_*_step(run, mesh=, leaves=)``) run under ``axis_rules(mesh, ...)``
+with each served leaf's path and split registered, as the train step
+registers them, so the kernel dispatch runs K1 / K5 / K6 / K7 on the
+rank's column blocks.  A serving step gathers activations only: no
+collective of a serving step carries a param path.
+:func:`clamp_paged_cache` checks each echoed pool against its placement;
+:func:`cache_specs` is the reference's placement of a fixed-batch cache.
+
 Entry points run on CUDA unless the caller asks for the CPU:
 :func:`resolve_device` raises when CUDA is asked for and absent.  The meta
 device builds every tree without drawing a value (:func:`init_params`
 with ``device="meta"``, and the ``abstract_*`` stand-ins of the dry-run,
-``launch/dryrun.py``), on one device.  Sharded serving (``cache_specs``,
-``clamp_paged_cache``) is queue 1 item 8.
+``launch/dryrun.py``), on one device.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -52,7 +66,8 @@ from repro_torch.distributed import collectives, compression
 from repro_torch.distributed.sharding import (ACT_RULES, ACT_RULES_SP, FROZEN_PARAM_RULES,
                                               PARAM_RULES, PARAM_RULES_NO_FSDP, NamedSharding,
                                               _resolve_spec, axis_rules, axis_sizes,
-                                              mesh_size, named_shardings, spec_axes)
+                                              mesh_size, named_shardings,
+                                              paged_pool_shardings, spec_axes)
 from repro_torch.kernels.ops import KernelPolicy
 from repro_torch.models import encdec, lm
 from repro_torch.models.common import cross_entropy
@@ -64,7 +79,8 @@ __all__ = ["resolve_device", "make_decomposer", "init_params", "kernel_policy",
            "repartition_state", "state_shardings", "batch_shardings", "shard_batch",
            "make_sharded_train_state", "packed_state_shardings", "place_packed",
            "check_state_placement", "gather_state", "meta_like", "check_sharded_family",
-           "build_train_step", "build_prefill_step",
+           "serve_shardings", "place_served_params", "tree_digest", "check_same_on_ranks",
+           "cache_specs", "clamp_paged_cache", "build_train_step", "build_prefill_step",
            "build_slot_prefill_step", "build_serve_step", "build_draft_chain",
            "build_verify_step", "build_extend_step", "batch_specs", "abstract_params",
            "abstract_state", "abstract_cache", "decode_extras_specs"]
@@ -623,13 +639,19 @@ def check_sharded_family(run: RunConfig) -> None:
                          f"is not ported ({ITEM_8})")
 
 
+# the leaves the kernel dispatch consumes by column blocks over ``model``: a
+# factor's v, and an int8 export's v and merged kernel with their column
+# scales (K7 / K6 on the local block)
+_COLUMN_LEAVES = ("v", "v_q", "v_scale", "kernel_q", "kernel_scale")
+
+
 def _compute_spec(path: str, shape, mesh, manual) -> Tuple:
-    """The layout the forward consumes a leaf in: a factor's ``v`` split
-    over ``model`` by columns when they divide (the kernel dispatch's
-    block), everything else whole."""
+    """The layout the forward consumes a leaf in: a factor's ``v`` (and an
+    int8 export's column leaves) split over ``model`` by columns when they
+    divide (the kernel dispatch's block), everything else whole."""
     sizes = axis_sizes(mesh)
     msize = sizes.get("model", 1)
-    if (path.rsplit("/", 1)[-1] == "v" and msize > 1 and "model" not in manual
+    if (path.rsplit("/", 1)[-1] in _COLUMN_LEAVES and msize > 1 and "model" not in manual
             and shape[-1] % msize == 0):
         return (None,) * (len(shape) - 1) + ("model",)
     return ()
@@ -748,6 +770,160 @@ def _sharded_train_step(run: RunConfig, dev: torch.device, donate: bool, mesh):
     return train_step
 
 
+# --------------------------------------------------------------------------
+# sharded serving (TP over ``model``; one process a rank)
+# --------------------------------------------------------------------------
+
+def serve_shardings(params, mesh):
+    """:class:`NamedSharding` tree of a whole served param tree on ``mesh``:
+    the layout a serving step consumes each leaf in (:func:`_compute_spec`).
+    A factor's ``v``, and an int8 export's ``v_q`` / ``kernel_q`` with their
+    ``*_scale`` siblings, hold this rank's block of columns over ``model``
+    where the columns divide; every other leaf is whole.  Heterogeneous
+    per-layer ranks (a draft's, an export's) resolve leaf by leaf.
+
+    Against the reference's placement, ``named_shardings(params, mesh,
+    FROZEN_PARAM_RULES)`` (the int8 leaves resolving through their float
+    leaf's pattern), it departs where the reference lets XLA gather or
+    partition: ``wo/u``, ``down/u`` (and their int8 ``u_q``) and the
+    embedding, which it splits over ``model`` (heads, mlp, vocab), are held
+    whole, as the dispatch consumes them, so no serving step gathers a
+    param (the sharded train step gathers wo/u and down/u every step);
+    ``wo/v``, ``down/v`` and their int8 leaves,
+    whose ``embed`` columns it keeps whole, are split by columns like every
+    other ``v``; a bf16 ``kernel`` (a merged group of an export without
+    int8) and a bias are whole, each rank running that library product in
+    full."""
+    return tree_map(lambda t, p: NamedSharding(mesh, _compute_spec(p, tuple(t.shape), mesh,
+                                                                   frozenset())),
+                    params, _paths(params))
+
+
+def place_served_params(params, mesh, prefix: str = ""):
+    """``(local, leaves)`` of a whole served tree, which every rank holds:
+    ``local`` is each leaf cut to this rank's block under
+    :func:`serve_shardings` (whole leaves kept as they are), ``leaves`` maps
+    ``prefix + path`` to ``(block, columns split)`` for ``axis_rules(...,
+    leaves=)``.  A local cut: no collective."""
+    shs = serve_shardings(params, mesh)
+    local = tree_map(lambda t, sh: sh.block(t).contiguous() if any(sh.spec) else t,
+                     params, shs)
+    leaves = {}
+    tree_map(lambda t, sh, p: leaves.__setitem__(prefix + p, (t, any(sh.spec))), local, shs,
+             _paths(params))
+    return local, leaves
+
+
+def tree_digest(tree, values: bool = True):
+    """A host digest of a tensor tree: each leaf's path, shape and dtype,
+    and with ``values`` a position-weighted checksum of its bits, summed on
+    its device (two trees with the same digest hold the same bits, short of
+    a checksum collision)."""
+    out = []
+
+    def leaf(t, p):
+        item = [p, list(t.shape), str(t.dtype)]
+        if values:
+            words = t.detach().contiguous().reshape(-1)
+            if words.is_floating_point():
+                words = words.view({8: torch.int64, 4: torch.int32, 2: torch.int16,
+                                    1: torch.int8}[words.element_size()])
+            w = torch.arange(words.numel(), device=words.device, dtype=torch.int64) % 65521 + 1
+            item.append(int(torch.sum(words.long() * w)))
+        out.append(item)
+
+    tree_map(leaf, tree, _paths(tree))
+    return out
+
+
+def check_same_on_ranks(tree, mesh, *, what: str, values: bool = True) -> None:
+    """Raise on every rank unless each rank of ``mesh`` holds the same
+    :func:`tree_digest` of ``tree`` as its first rank (one broadcast under
+    ``serve/check``, one ``any_rank`` flag).  Nothing on a one-rank mesh."""
+    if mesh is None or mesh_size(mesh) == 1:
+        return
+    mine = tree_digest(tree, values)
+    first = collectives.broadcast_object(mine, mesh, path="serve/check")
+    if collectives.any_rank(first != mine, mesh):
+        bad = [a[0] for a, b in zip(first, mine) if a != b] or ["(structure)"]
+        raise RuntimeError(f"{what} differ across the mesh's ranks (this rank: "
+                           f"{'same' if first == mine else 'at ' + ', '.join(bad[:4])})")
+
+
+# the reference's logical axes of a fixed-batch cache's leaves
+_CACHE_AXES = {
+    "k": (None, "batch", "kv_seq", "kv_heads", None),
+    "v": (None, "batch", "kv_seq", "kv_heads", None),
+    "k_scale": (None, "batch", "kv_seq", "kv_heads", None),
+    "v_scale": (None, "batch", "kv_seq", "kv_heads", None),
+    "ckv": (None, "batch", "kv_seq", None),
+    "kr": (None, "batch", "kv_seq", None),
+    "ssm": (None, "batch", "heads", None, None),
+    "conv": (None, "batch", None, "mlp"),
+    "c": (None, "batch", "heads", None, None),
+    "n": (None, "batch", "heads", None),
+    "m": (None, "batch", "heads"),
+}
+
+
+def cache_specs(cache_shapes, run: RunConfig, mesh):
+    """:class:`NamedSharding` tree of a fixed-batch decode cache (tensors
+    or meta tensors, e.g. :func:`abstract_cache`'s): each leaf's logical
+    axes resolved under the activation rules, as the reference's
+    ``cache_specs`` resolves them (batch over the data axes, KV heads over
+    ``model`` where they divide)."""
+    act = ACT_RULES_SP if run.dist.sequence_parallel else ACT_RULES
+
+    def walk(tree, name):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        nd = len(tree.shape)
+        axes = _CACHE_AXES.get(name, (None,) * nd)
+        axes = ((None,) * (nd - len(axes)) + axes[-nd:] if nd >= len(axes)
+                else axes[-nd:])
+        return NamedSharding(mesh, _resolve_spec(tuple(tree.shape), axes, act, mesh))
+
+    return walk(cache_shapes, "")
+
+
+def clamp_paged_cache(cache, mesh, num_kv_heads: int):
+    """Check that a paged cache a serving step hands back still holds this
+    rank's blocks: each pool leaf (L, num_blocks, block_size, KV, hd), and
+    its int8 scales, the KV heads ``sharding.paged_pool_shardings`` gives
+    this rank of ``num_kv_heads``, each page table whole, every leaf of a
+    stack on one device.  The reference pins its jit outputs' placement
+    here; the port writes the pools in place, so nothing can move and this
+    is a check (an ``AssertionError`` on drift).  No-op on a one-rank mesh
+    and on a slot (non-paged) cache.  Returns ``cache``."""
+    if mesh is None or mesh_size(mesh) == 1:
+        return cache
+    if not any(isinstance(st, dict) and "page_table" in st for st in cache.values()):
+        return cache
+    for name, stack in cache.items():
+        whole = {leaf: torch.empty(tuple(t.shape[:3]) + (num_kv_heads,) + tuple(t.shape[4:])
+                                   if leaf != "page_table" else tuple(t.shape), device=META)
+                 for leaf, t in stack.items()}
+        shs = paged_pool_shardings(whole, mesh)
+        devices = {t.device for t in stack.values()}
+        for leaf, t in stack.items():
+            want = shs[leaf].local_shape(tuple(whole[leaf].shape))
+            if tuple(t.shape) != want or len(devices) != 1:
+                raise AssertionError(f"paged cache drift at {name}/{leaf}: local "
+                                     f"{tuple(t.shape)} on {sorted(map(str, devices))}, want "
+                                     f"{want} under {shs[leaf].spec}")
+    return cache
+
+
+def _serve_rules(run: RunConfig, mesh, leaves):
+    """The context a serving step runs in: on a mesh of more than one rank
+    ``axis_rules`` with the frozen param rules, rows whole (TP only) and
+    the served leaves' registry (:func:`place_served_params`); else none."""
+    if mesh is None or mesh_size(mesh) == 1:
+        return contextlib.nullcontext()
+    act = ACT_RULES_SP if run.dist.sequence_parallel else ACT_RULES
+    return axis_rules(mesh, act=act, params=FROZEN_PARAM_RULES, rows=(), leaves=leaves or {})
+
+
 def build_prefill_step(run: RunConfig):
     """Prefill of the fixed-batch path: the whole (B, T) batch at once,
     returning the last position's logits and the cache (the (L, B, T, KV,
@@ -767,19 +943,23 @@ def build_prefill_step(run: RunConfig):
     return prefill_step
 
 
-def build_slot_prefill_step(run: RunConfig):
+def build_slot_prefill_step(run: RunConfig, mesh=None, leaves=None):
     """Prefill for the continuous-batching scheduler.
 
     ``last_pos`` is the index of each row's final real prompt token, so
     prompts padded to the engine's fixed prefill length still hand back the
-    logits the first generated token is sampled from.
+    logits the first generated token is sampled from.  On a multi-rank
+    ``mesh`` it runs under :func:`_serve_rules` and returns the WHOLE k/v
+    (its attention runs on every head); the scheduler writes this rank's
+    heads into its pool.
     """
     cfg, policy = run.model, kernel_policy(run)
 
     @torch.inference_mode()
     def slot_prefill_step(params, batch, last_pos):
-        logits, cache, _ = lm.lm_apply(params, batch["tokens"], cfg, mode="full",
-                                       policy=policy)
+        with _serve_rules(run, mesh, leaves):
+            logits, cache, _ = lm.lm_apply(params, batch["tokens"], cfg, mode="full",
+                                           policy=policy)
         idx = torch.as_tensor(last_pos, device=logits.device).reshape(-1).long()
         last = logits[torch.arange(logits.shape[0], device=logits.device), idx]
         return last, cache
@@ -787,66 +967,73 @@ def build_slot_prefill_step(run: RunConfig):
     return slot_prefill_step
 
 
-def build_serve_step(run: RunConfig):
+def build_serve_step(run: RunConfig, mesh=None, leaves=None):
     """One decode step at per-slot positions ``pos`` (B,) against a paged
     cache, or at one position for every row against a contiguous cache
     (the fixed-batch path); the cache is updated in place and returned.
     An encoder-decoder model's or a VLM's step reads its cross k/v from the
     cache, telling a cross block by its ``gate``, so it takes no memory or
     vision embeddings (the reference's step is handed ``extras`` that only
-    mark its cross blocks)."""
+    mark its cross blocks).  On a multi-rank ``mesh`` (the paged path) it
+    runs under :func:`_serve_rules` and checks the echoed pool
+    (:func:`clamp_paged_cache`); its logits are whole on every rank."""
     cfg, policy = run.model, kernel_policy(run)
 
     @torch.inference_mode()
     def serve_step(params, cache, token, pos):
-        if cfg.family == "encdec":
-            logits, new_cache = encdec.decode(params, token, None, cfg, mode="decode",
-                                              cache=cache, pos=pos, policy=policy)
-        else:
-            logits, new_cache, _ = lm.lm_apply(params, token, cfg, mode="decode",
-                                               cache=cache, pos=pos, policy=policy)
+        with _serve_rules(run, mesh, leaves):
+            if cfg.family == "encdec":
+                logits, new_cache = encdec.decode(params, token, None, cfg, mode="decode",
+                                                  cache=cache, pos=pos, policy=policy)
+            else:
+                logits, new_cache, _ = lm.lm_apply(params, token, cfg, mode="decode",
+                                                   cache=cache, pos=pos, policy=policy)
         next_token = torch.argmax(logits[:, -1:], dim=-1).to(token.dtype)
-        return logits, new_cache, next_token
+        return logits, clamp_paged_cache(new_cache, mesh, cfg.num_kv_heads), next_token
 
     return serve_step
 
 
-def build_draft_chain(run: RunConfig, k: int):
+def build_draft_chain(run: RunConfig, k: int, mesh=None, leaves=None):
     """k draft decode steps, each one's argmax fed to the next.  Returns
     ``(cache, chunk)``: chunk (B, k+1) is the pending token followed by the
     k draft tokens, the verify step's input as it stands.  Run it with the
-    draft params; the draft KV lands in the shared pool at pos..pos+k-1."""
+    draft params; the draft KV lands in the shared pool at pos..pos+k-1.
+    ``mesh`` / ``leaves`` as :func:`build_serve_step`'s."""
     cfg, policy = run.model, kernel_policy(run)
 
     @torch.inference_mode()
     def draft_chain(params, cache, token, pos):
         toks = [token]
-        for j in range(k):
-            logits, cache, _ = lm.lm_apply(params, toks[-1], cfg, mode="decode",
-                                           cache=cache, pos=pos + j, policy=policy)
-            toks.append(torch.argmax(logits[:, -1:], dim=-1).to(token.dtype))
-        return cache, torch.cat(toks, dim=1)
+        with _serve_rules(run, mesh, leaves):
+            for j in range(k):
+                logits, cache, _ = lm.lm_apply(params, toks[-1], cfg, mode="decode",
+                                               cache=cache, pos=pos + j, policy=policy)
+                toks.append(torch.argmax(logits[:, -1:], dim=-1).to(token.dtype))
+        return clamp_paged_cache(cache, mesh, cfg.num_kv_heads), torch.cat(toks, dim=1)
 
     return draft_chain
 
 
-def build_verify_step(run: RunConfig):
+def build_verify_step(run: RunConfig, mesh=None, leaves=None):
     """The speculative verify: a (B, k+1) chunk fed at per-row start
     positions ``pos`` in one full-model forward, writing all k+1 positions.
     Returns ``(cache, next_tokens)``, the greedy next token at every chunk
-    position."""
+    position.  ``mesh`` / ``leaves`` as :func:`build_serve_step`'s."""
     cfg, policy = run.model, kernel_policy(run)
 
     @torch.inference_mode()
     def verify_step(params, cache, tokens, pos):
-        logits, cache, _ = lm.lm_apply(params, tokens, cfg, mode="decode", cache=cache,
-                                       pos=pos, policy=policy)
-        return cache, torch.argmax(logits, dim=-1).to(tokens.dtype), logits
+        with _serve_rules(run, mesh, leaves):
+            logits, cache, _ = lm.lm_apply(params, tokens, cfg, mode="decode", cache=cache,
+                                           pos=pos, policy=policy)
+        return (clamp_paged_cache(cache, mesh, cfg.num_kv_heads),
+                torch.argmax(logits, dim=-1).to(tokens.dtype), logits)
 
     return verify_step
 
 
-def build_extend_step(run: RunConfig):
+def build_extend_step(run: RunConfig, mesh=None, leaves=None):
     """Suffix prefill onto a radix-cache prefix hit: the (1, P) padded
     suffix fed at ``start`` (the matched prefix length, block-aligned) as a
     chunked decode against a one-slot view of the pools, whose page table
@@ -855,7 +1042,8 @@ def build_extend_step(run: RunConfig):
     ``start``), and its reads see the shared prefix through the row.  The
     pools are written in place; the full page table is left as it was.
     Returns ``(cache, next_tokens, logits)`` as the verify step does, at
-    every suffix position."""
+    every suffix position.  ``mesh`` / ``leaves`` as
+    :func:`build_serve_step`'s."""
     cfg, policy = run.model, kernel_policy(run)
 
     @torch.inference_mode()
@@ -866,9 +1054,11 @@ def build_extend_step(run: RunConfig):
             view[name] = dict(stack, page_table=row.reshape(1, 1, -1).expand(
                 stack["page_table"].shape[0], 1, -1))
         pos = torch.as_tensor(start, device=tokens.device).reshape(1)
-        logits, _, _ = lm.lm_apply(params, tokens, cfg, mode="decode", cache=view,
-                                   pos=pos, policy=policy)
-        return cache, torch.argmax(logits, dim=-1).to(tokens.dtype), logits
+        with _serve_rules(run, mesh, leaves):
+            logits, _, _ = lm.lm_apply(params, tokens, cfg, mode="decode", cache=view,
+                                       pos=pos, policy=policy)
+        return (clamp_paged_cache(cache, mesh, cfg.num_kv_heads),
+                torch.argmax(logits, dim=-1).to(tokens.dtype), logits)
 
     return extend_step
 

@@ -21,6 +21,14 @@ needs no ``kv_src``.  MLA (:func:`mla_apply`) caches the normalised kv
 latent and the rotated rope key (``{"ckv", "kr"}``) in a contiguous
 (B, Smax, ...) cache, one row a slot (the scheduler's slot layout), and
 decodes in latent space without building per-head k or v.
+
+Under a TP serving mesh a paged pool holds this rank's KV heads
+(``sharding.paged_pool_shardings``): decode takes those heads and their
+query groups from the whole q/k/v the projections gathered, writes and
+reads only the local pool, runs attention on the local heads and
+all-gathers the head outputs over ``model`` before ``wo``.  A pool that
+holds every head (the head count does not divide the axis) runs attention
+whole on every rank.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives, sharding
 from repro_torch.kernels import ops
 from repro_torch.models import kvcache as kvq
 from repro_torch.models.common import (Params, apply_rope, dot32, linear, rmsnorm,
@@ -244,6 +253,20 @@ def _contiguous_update(cache: Params, k_new, v_new, rows, *, native_int8: bool =
     return cache["k"], cache["v"]
 
 
+def _local_kv_heads(pool: torch.Tensor, kvh: int):
+    """(mesh, first KV head, KV heads) of this rank's block when a decode
+    cache leaf (..., KV, hd) holds fewer than the model's ``kvh`` heads (a
+    TP-sharded pool), else None."""
+    local = pool.shape[-2]
+    if local == kvh:
+        return None
+    mesh = sharding.current_mesh()
+    if mesh is None or local * collectives.axes_size(mesh, ("model",)) != kvh:
+        raise ValueError(f"a decode cache of {local} of {kvh} KV heads outside a mesh "
+                         f"whose model axis splits them")
+    return mesh, collectives.coordinate(mesh, ("model",)) * local, local
+
+
 # --------------------------------------------------------------------------
 # GQA
 # --------------------------------------------------------------------------
@@ -328,6 +351,12 @@ def gqa_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, rope=None,
         if cache is None or pos is None:
             raise ValueError("decode needs a cache and positions")
         q, k_new, v_new = _project_qkv(p, x, None, cfg, rope, policy=policy)
+        heads = _local_kv_heads(cache["k"], cfg.num_kv_heads)
+        if heads is not None:  # this rank's KV heads and their query groups
+            _, k0, kl = heads
+            g = h // cfg.num_kv_heads
+            q = q[:, :, k0 * g:(k0 + kl) * g]
+            k_new, v_new = k_new[:, :, k0:k0 + kl], v_new[:, :, k0:k0 + kl]
         rows = pos.reshape(-1).long().to(x.device).expand(b)
         # query j of row b attends to positions < rows[b] + j + 1: the live
         # length and the in-chunk causal mask of a verify or extend chunk
@@ -339,6 +368,8 @@ def gqa_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, rope=None,
             out = int8_dense_attention(q, *k_cache, *v_cache, kv_len=length)
         else:
             out = dense_attention(q, k_cache, v_cache, causal=False, kv_len=length)
+        if heads is not None:
+            out = collectives.all_gather(out, heads[0], ("model",), 2, path="activation")
         new_cache = cache
     y = linear(p["wo"], out.reshape(b, s, h * hd), policy=policy)
     if cross and "gate" in p:

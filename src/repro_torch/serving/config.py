@@ -10,10 +10,12 @@ construction.
 quacks like a token array (``len`` / ``[...]`` / ``np.asarray``).
 
 This is a copy of ``repro/serving/config.py`` for the PyTorch port.  The
-port's engine rejects the mesh fields (ROADMAP queue 1 item 8) and
-``kv_int8=True``: the reference's engine never reads ``kv_int8`` and takes
-int8 KV pools from ``ModelConfig.kv_cache_dtype``, as the port does, so
-the field is refused rather than ignored.  ``int8_decode`` is not read
+port's engine serves TP-sharded over ``mesh_model`` ranks; it rejects
+``mesh_data > 1`` (ROADMAP queue 1 item 8: a pool replicated over data
+would miss the blocks the other ranks' slots write) and ``kv_int8=True``:
+the reference's engine never reads ``kv_int8`` and takes int8 KV pools
+from ``ModelConfig.kv_cache_dtype``, as the port does, so the field is
+refused rather than ignored.  ``int8_decode`` is not read
 either, in either package: the consumption mode is ``LRDConfig.int8_decode``.
 """
 

@@ -48,8 +48,21 @@ reference's ``encode`` does, so its int8 groups take the weight-only
 formula (``ops.int8_apply``'s ``disabled`` branch).  ``obs`` (a
 ``repro_torch.obs.EventLog``) goes to the scheduler, which emits the
 request lifecycle and step events into it; the fixed-batch path emits
-none, as in the reference.  The mesh raises a ``ValueError`` naming the
-ROADMAP item that brings it.
+none, as in the reference.
+
+TP-sharded serving (one process a rank, ``torch.distributed.run``):
+``ServeConfig(mesh_model=N)`` builds ``launch.mesh.make_host_mesh(1, N)``
+over the process group, or ``mesh=`` takes a ``(data, model)`` mesh.
+Every rank passes the same whole ``params`` (checked by a digest,
+``steps.check_same_on_ranks``); the export runs on each rank (the measured
+one decided on rank 0) and the draft is derived on each, each checked the
+same way; the scheduler places both (``steps.place_served_params``) and
+serves with pools of this rank's KV heads; ``serve`` raises unless every
+rank generated the same tokens.  Still refused, naming ROADMAP queue 1 item 8:
+``mesh_data > 1``, a mesh of other axes, the fixed-batch path (its
+families, ``num_slots == 0``, a batch outside the scheduler's shapes), the
+MoE and MLA families and ``LRDConfig.int8_decode="bf16"`` (its dequantized
+products see only a rank's columns).
 """
 
 from __future__ import annotations
@@ -61,6 +74,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import RunConfig
+from repro_torch.distributed.sharding import mesh_size
 from repro_torch.launch import steps as steps_mod
 from repro_torch.serving.config import RequestResult, ServeConfig
 
@@ -106,14 +120,38 @@ def pad_cache_preserving_cross(cache: Any, target_len: int) -> Any:
     return walk(cache, "")
 
 
+_ITEM_8 = "ROADMAP queue 1 item 8, distributed"
+
+
 def _unported(config: ServeConfig, mesh: Any) -> Optional[str]:
     """The first requested feature this port does not have, or None."""
     if config.kv_int8:
         return ("kv_int8=True: the engine takes int8 KV pools from "
                 "ModelConfig.kv_cache_dtype='int8', as the reference does, whose "
                 "engine never reads kv_int8 (ROADMAP queue 1 item 5, serving features)")
-    if config.mesh_data != 1 or config.mesh_model != 1 or mesh is not None:
-        return "the serving mesh is not ported (ROADMAP queue 1 item 8, distributed)"
+    if config.mesh_data != 1:
+        return (f"mesh_data={config.mesh_data}: data-parallel serving is not ported; a pool "
+                f"replicated over data would miss the blocks other ranks' slots write "
+                f"({_ITEM_8})")
+    if mesh is not None and (tuple(getattr(mesh, "mesh_dim_names", ())) != ("data", "model")
+                             or int(mesh.shape[0]) != 1):
+        return (f"a serving mesh other than a (data=1, model) host mesh is not ported, got "
+                f"{mesh!r} ({_ITEM_8})")
+    return None
+
+
+def _unported_sharded(run: RunConfig, config: ServeConfig) -> Optional[str]:
+    """What a multi-rank mesh cannot serve yet, or None."""
+    cfg = run.model
+    if cfg.family not in _SCHEDULED or config.num_slots == 0:
+        return (f"the fixed-batch path ({cfg.family} family, num_slots={config.num_slots}) "
+                f"is not served sharded yet ({_ITEM_8})")
+    if cfg.num_experts or cfg.use_mla:
+        return (f"the MoE and MLA families ({cfg.name}) are not served sharded yet: expert "
+                f"parallelism over model ({_ITEM_8})")
+    if run.lrd.int8_decode == "bf16":
+        return (f"int8_decode='bf16' dequantizes whole weights, which a rank holds only "
+                f"columns of ({_ITEM_8})")
     return None
 
 
@@ -127,6 +165,15 @@ class ServeEngine:
         why = _unported(self.config, mesh)
         if why:
             raise ValueError(f"ServeEngine: {why}")
+        model = self.config.mesh_model if mesh is None else int(mesh.shape[1])
+        why = _unported_sharded(run, self.config) if model > 1 else None
+        if why:
+            raise ValueError(f"ServeEngine: {why}")
+        if mesh is None:
+            from repro_torch.launch.mesh import make_host_mesh
+            mesh = make_host_mesh(1, model)
+        self.mesh = mesh
+        self.sharded = mesh_size(mesh) > 1
         if self.config.export_int8 and run.model.num_experts:
             raise ValueError(
                 "ServeEngine: an int8 export of a MoE model's expert groups cannot be "
@@ -148,11 +195,17 @@ class ServeEngine:
                 # the measured export times its probes where the params lie
                 raise ValueError(f"ServeEngine: params on {sorted(off)}, engine on "
                                  f"{self.device}; move them before the export")
+        if self.sharded:
+            steps_mod.check_same_on_ranks(params, mesh, what="the served params")
+        if self.config.export != "none":
             backend = "measured" if self.config.export == "measured" else "analytic-tpu"
             with torch.no_grad():
                 self.params, self.export_report = export_for_serving(
                     params, backend=backend, probe_tokens=max(self.config.num_slots, 1),
-                    quantize_factors="int8" if self.config.export_int8 else None)
+                    quantize_factors="int8" if self.config.export_int8 else None,
+                    mesh=mesh)
+            if self.sharded:
+                steps_mod.check_same_on_ranks(self.params, mesh, what="the exported trees")
         self._prefill = steps_mod.build_prefill_step(run)
         self._step = steps_mod.build_serve_step(run)
         self._scheduler = None
@@ -171,12 +224,14 @@ class ServeEngine:
                 with torch.no_grad():
                     draft, self.draft_report = speculative.make_draft_params(
                         self.params, rank_map)
+            if self.sharded and draft is not None:
+                steps_mod.check_same_on_ranks(draft, self.mesh, what="the draft params")
             self._scheduler = Scheduler(
                 self.run, self.params, device=self.device, num_slots=c.num_slots,
                 max_len=c.max_len, prefill_len=c.prefill_len,
                 block_size=c.block_size, num_blocks=c.num_blocks,
                 speculative_k=c.speculative_k, draft_params=draft,
-                prefix_cache=c.prefix_cache, obs=self.obs)
+                prefix_cache=c.prefix_cache, obs=self.obs, mesh=self.mesh)
         return self._scheduler
 
     def _scheduler_usable(self, extras, prompt_len: int, max_new: int) -> bool:
@@ -208,6 +263,7 @@ class ServeEngine:
                 for r in requests]
         with torch.inference_mode():
             sched.run()
+        sched.check_ranks_agree(rids)
         return [RequestResult.from_request(sched.finished[r]) for r in rids]
 
     def generate(self, tokens: np.ndarray, max_new: int = 32,
@@ -223,6 +279,9 @@ class ServeEngine:
         """
         tokens = np.asarray(tokens)
         if not self._scheduler_usable(extras, tokens.shape[1], max_new):
+            if self.sharded:
+                raise ValueError(f"ServeEngine.generate: this batch takes the fixed-batch "
+                                 f"path, which is not served sharded yet ({_ITEM_8})")
             return self._generate_fixed(tokens, max_new, extras, eos_id)
         outs = self.serve([{"prompt": row, "max_new": max_new, "eos_id": eos_id}
                            for row in tokens])

@@ -26,6 +26,13 @@ serves from).  Sweeps run at stride 1, ranks snap down to the v5e model's
 tile (``quantize_rank(mode="floor")``), as the JAX export's defaults do.
 The exported tree is a plain param tree: it round-trips through
 ``checkpoint/store.py`` and drops into ``ServeEngine`` like any other.
+
+Under a serving mesh of more than one rank (``mesh=``) every rank exports
+its whole tree, and the ``measured`` backend times its probes on the
+mesh's first rank alone and broadcasts each sweep's decision
+(``collectives.broadcast_object``, path ``serve/export``), so every rank
+builds the same tree; the ``analytic`` backend's decisions are the same
+everywhere already.
 """
 
 from __future__ import annotations
@@ -37,6 +44,8 @@ import torch
 
 from repro_torch.core import rank_opt, svd
 from repro_torch.core.decompose import map_factor_groups, merge_factor_group
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import mesh_size
 from repro_torch.kernels.int8_matmul import quantize_colwise
 
 __all__ = ["LayerExport", "ExportReport", "export_for_serving"]
@@ -85,8 +94,8 @@ def _quantize_group(group: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def export_for_serving(params: Any, *, backend: str = "analytic-tpu",
-                       probe_tokens: int = 256,
-                       quantize_factors: Optional[str] = None) -> Tuple[Any, ExportReport]:
+                       probe_tokens: int = 256, quantize_factors: Optional[str] = None,
+                       mesh: Any = None) -> Tuple[Any, ExportReport]:
     """Rank-quantize a trained param tree for serving; returns
     ``(new_params, report)``.
 
@@ -94,22 +103,29 @@ def export_for_serving(params: Any, *, backend: str = "analytic-tpu",
     (num_slots for decode); the measured backend times its probes on the
     device of each group's ``u`` leaf.  Only pure ``{u, v[, bias]}`` groups
     are rewritten, and groups stacked over more than one dim (expert
-    stacks) truncate but never merge.
+    stacks) truncate but never merge.  With a ``mesh`` of more than one
+    rank every rank calls it on the same whole tree, and the measured
+    sweeps run on the mesh's first rank only (see the module notes).
     """
     if quantize_factors not in (None, "int8"):
         raise ValueError(f"quantize_factors must be None or 'int8', got {quantize_factors!r}")
     report = ExportReport(backend=backend)
+    sharded = mesh if mesh is not None and mesh_size(mesh) > 1 else None
 
     def decide(c: int, s: int, r_train: int, device: torch.device) -> rank_opt.RankDecision:
         key = (c, s, r_train)  # one sweep per distinct geometry
         if key not in report.decisions:
-            time_fn = None
-            if backend == "measured":
-                time_fn = rank_opt.measured_linear_time_fn(c, s, m=probe_tokens,
-                                                           device=device)
-            report.decisions[key] = rank_opt.optimize_rank(
-                c, s, alpha=svd.svd_compression_ratio(c, s, r_train), m=probe_tokens,
-                backend=backend, time_fn=time_fn)
+            shared = backend == "measured" and sharded is not None
+            dec = None
+            if not shared or collectives.coordinate(sharded, sharded.mesh_dim_names) == 0:
+                time_fn = (rank_opt.measured_linear_time_fn(c, s, m=probe_tokens, device=device)
+                           if backend == "measured" else None)
+                dec = rank_opt.optimize_rank(
+                    c, s, alpha=svd.svd_compression_ratio(c, s, r_train), m=probe_tokens,
+                    backend=backend, time_fn=time_fn)
+            if shared:  # the first rank's sweep, on every rank
+                dec = collectives.broadcast_object(dec, sharded, path="serve/export")
+            report.decisions[key] = dec
         return report.decisions[key]
 
     def rewrite(path: str, group: Dict[str, Any]) -> Dict[str, Any]:

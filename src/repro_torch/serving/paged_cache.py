@@ -28,6 +28,15 @@ The host-side bookkeeping (:class:`BlockAllocator`,
 :class:`PageTableManager`) is plain numpy, copied from the JAX package.
 The device pools are updated in place (the JAX steps donate them).
 
+Under a TP serving mesh (``mesh`` of more than one rank) each rank's pool
+holds the KV heads ``distributed.sharding.paged_pool_shardings`` gives it
+(its ``model`` coordinate's heads when the head count divides the axis,
+else all of them), and the page tables are whole on every rank: the
+scheduler makes the same host decisions on every rank, so the tables
+agree.  :func:`init_paged_cache` allocates the local blocks,
+:func:`insert_prefill_paged` writes the local heads of a whole prefill, and
+:func:`paged_pool_bytes` counts this rank's bytes.
+
 An MLA model (DeepSeek-V3) keeps its latent cache contiguous instead, the
 scheduler's slot layout: slot ``s`` owns row ``s`` of an (L, num_slots,
 max_len, ...) cache (:func:`init_slot_cache`), a prefill is written into
@@ -44,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import mesh_size, paged_pool_shardings
 from repro_torch.models import kvcache as kvq
 from repro_torch.models import lm
 from repro_torch.models.lm import stack_layers
@@ -233,9 +243,10 @@ def supports_paged(cfg: ModelConfig) -> bool:
 
 
 def init_paged_cache(cfg: ModelConfig, num_slots: int, num_blocks: int,
-                     block_size: int, max_blocks: int, device) -> Dict[str, Any]:
+                     block_size: int, max_blocks: int, device, mesh=None) -> Dict[str, Any]:
     """Allocate the block pools (+ zeroed page tables) on ``device``, one
-    pool per layer stack under the stack's name."""
+    pool per layer stack under the stack's name; on a ``mesh`` of more than
+    one rank, this rank's blocks of them."""
     if not supports_paged(cfg):
         raise ValueError(
             f"the paged KV cache holds the dense and MoE GQA families' k/v, not "
@@ -244,19 +255,22 @@ def init_paged_cache(cfg: ModelConfig, num_slots: int, num_blocks: int,
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     quant = cfg.kv_cache_dtype == "int8"
     dtype = torch.int8 if quant else cfg.cdtype
-    out = {}
+    whole = {}
     for name, n in stack_layers(cfg).items():
         shape = (n, num_blocks, block_size, kv, hd)
-        stack = {"k": torch.zeros(shape, dtype=dtype, device=device),
-                 "v": torch.zeros(shape, dtype=dtype, device=device)}
+        stack = {"k": (shape, dtype), "v": (shape, dtype)}
         if quant:
             for leaf in ("k_scale", "v_scale"):
-                stack[leaf] = torch.zeros(shape[:-1] + (1,), dtype=torch.bfloat16,
-                                          device=device)
-        stack["page_table"] = torch.zeros((n, num_slots, max_blocks), dtype=torch.int32,
-                                          device=device)
-        out[name] = stack
-    return out
+                stack[leaf] = (shape[:-1] + (1,), torch.bfloat16)
+        stack["page_table"] = ((n, num_slots, max_blocks), torch.int32)
+        whole[name] = {k: torch.empty(sh, dtype=dt, device="meta")
+                       for k, (sh, dt) in stack.items()}
+    local = (paged_pool_shardings(whole, mesh) if mesh is not None and mesh_size(mesh) > 1
+             else None)
+    return {name: {k: torch.zeros(local[name][k].local_shape(tuple(t.shape)) if local
+                                  else t.shape, dtype=t.dtype, device=device)
+                   for k, t in stack.items()}
+            for name, stack in whole.items()}
 
 
 def with_page_table(cache: Dict[str, Any], table: np.ndarray) -> Dict[str, Any]:
@@ -270,13 +284,14 @@ def with_page_table(cache: Dict[str, Any], table: np.ndarray) -> Dict[str, Any]:
 
 
 def paged_pool_bytes(cache: Dict[str, Any]) -> int:
-    """Persistent device bytes of the block pools (page tables included)."""
+    """Persistent device bytes of the block pools (page tables included):
+    this rank's, under a mesh."""
     return sum(t.numel() * t.element_size()
                for stack in cache.values() for t in stack.values())
 
 
 def insert_prefill_paged(cache: Dict[str, Any], prefill_cache: Dict[str, Any],
-                         page_row: torch.Tensor) -> Dict[str, Any]:
+                         page_row: torch.Tensor, mesh=None) -> Dict[str, Any]:
     """Scatter a batch-1 prefill cache into one slot's pages, in place.
 
     ``prefill_cache`` leaves are (L, 1, P, KV, hd) from a ``mode="full"``
@@ -284,15 +299,20 @@ def insert_prefill_paged(cache: Dict[str, Any], prefill_cache: Dict[str, Any],
     padded positions are written: tail positions beyond the prompt map to
     the slot's own partially-filled last block or to the sink block, and are
     either overwritten by decode or masked by the live length.  Quantizes
-    on the way in when the pool is int8.
+    on the way in when the pool is int8.  On a ``mesh`` of more than one
+    rank the prefill's k/v hold every KV head and this rank's pool its
+    block of them: the block is what is written.
     """
+    heads = (paged_pool_shardings(prefill_cache, mesh)
+             if mesh is not None and mesh_size(mesh) > 1 else None)
     for name, stack in cache.items():
         pool_k = stack["k"]
         n_layers, nb, bs = pool_k.shape[:3]
         p_len = prefill_cache[name]["k"].shape[2]
         j = torch.arange(p_len, device=pool_k.device)
         phys = page_row.to(pool_k.device).long()[j // bs] * bs + j % bs  # (P,)
-        new = {leaf: prefill_cache[name][leaf][:, 0] for leaf in ("k", "v")}
+        new = {leaf: (heads[name][leaf].block(prefill_cache[name][leaf]) if heads
+                      else prefill_cache[name][leaf])[:, 0] for leaf in ("k", "v")}
         if "k_scale" in stack:
             new["k"], new["k_scale"] = kvq.quantize_kv(new["k"])
             new["v"], new["v_scale"] = kvq.quantize_kv(new["v"])

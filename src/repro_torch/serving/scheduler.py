@@ -45,6 +45,20 @@ extend, decode, draft, verify): the JAX scheduler's compile-once contract
 (one program per step kind, and no plain decode program while speculating)
 becomes "which forwards ran, and how often".
 
+TP-sharded serving (``mesh`` of more than one rank, one process a rank,
+``ServeEngine(mesh=...)``): the params and the draft are placed by
+``steps.place_served_params`` (factor columns over ``model``), the pools
+hold this rank's KV heads (``paged_cache``), and every step runs under the
+mesh's rules, so its kernels run on the rank's column blocks and it gathers
+activations only.  Every rank must make the same host decisions, or the
+ranks' collectives part: the only host input that differs across ranks is
+the clock, so rank 0's ``now`` is broadcast once per scheduling step
+(``collectives.broadcast_object``, path ``serve/clock``) and every rank
+admits, preempts and evicts from that value.  Greedy tokens come from
+logits that are whole on every rank; :meth:`check_ranks_agree` raises if
+the ranks' tokens differ.  The MoE and MLA families are refused under such
+a mesh (ROADMAP queue 1 item 8: expert parallelism over ``model``).
+
 Telemetry (``obs``, a ``repro_torch.obs.EventLog``): the reference's
 per-request lifecycle events (``request_queued``, ``request_prefill``,
 ``request_first_token``, ``request_retired``, ``request_preempted``), one
@@ -68,6 +82,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import RunConfig
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import mesh_size
 from repro_torch.launch import steps as steps_mod
 from repro_torch.obs import NULL_LOG, EventLog, default_registry
 from repro_torch.serving import paged_cache as pc
@@ -133,7 +149,9 @@ class Scheduler:
     plain decode) with ``draft_params`` (default ``params``: acceptance 1.0);
     ``prefix_cache`` turns the radix prefix cache on (the paged layout only;
     ``block_size`` and ``num_blocks`` apply to it alone); ``obs`` receives
-    the telemetry events (default ``NULL_LOG``: none).
+    the telemetry events (default ``NULL_LOG``: none); ``mesh`` (a
+    ``(data, model)`` mesh with data 1) serves TP-sharded, ``params`` and
+    ``draft_params`` then being the WHOLE trees on every rank.
     """
 
     def __init__(self, run: RunConfig, params: Any, *, device,
@@ -142,7 +160,7 @@ class Scheduler:
                  num_blocks: Optional[int] = None,
                  on_token: Optional[Callable[[Request, int], None]] = None,
                  speculative_k: int = 0, draft_params: Any = None,
-                 prefix_cache: bool = False, obs: Optional[EventLog] = None):
+                 prefix_cache: bool = False, obs: Optional[EventLog] = None, mesh: Any = None):
         cfg = run.model
         if cfg.family not in ("dense", "moe"):
             raise ValueError(
@@ -150,8 +168,13 @@ class Scheduler:
                 f"{cfg.family!r}; the ssm, hybrid, encdec and vlm families serve through "
                 f"ServeEngine.generate's fixed-batch path, as in the reference (ROADMAP "
                 f"queue 1 item 7, other model families)")
+        self.mesh = mesh if mesh is not None and mesh_size(mesh) > 1 else None
+        if self.mesh is not None and (cfg.num_experts or cfg.use_mla):
+            raise ValueError(
+                f"serving {cfg.name} over a mesh of {mesh_size(mesh)} ranks: the MoE and MLA "
+                f"families are not served sharded yet (ROADMAP queue 1 item 8, distributed: "
+                f"expert parallelism over model)")
         self.run_config = run
-        self.params = params
         self.device = torch.device(device)
         self.num_slots = num_slots
         self.max_len = max_len
@@ -159,8 +182,17 @@ class Scheduler:
         self.on_token = on_token
         self.obs = obs if obs is not None else NULL_LOG
         self.spec_k = max(int(speculative_k), 0)
-        self.draft_params = ((draft_params if draft_params is not None else params)
-                             if self.spec_k else None)
+        draft = (draft_params if draft_params is not None else params) if self.spec_k else None
+        leaves = None
+        if self.mesh is not None:
+            # each rank's blocks of the whole trees, and the registry the
+            # steps' kernel dispatch reads each leaf's split from
+            params, leaves = steps_mod.place_served_params(params, self.mesh)
+            if draft is not None:
+                draft, more = steps_mod.place_served_params(draft, self.mesh, "draft/")
+                leaves.update(more)
+        self.params = params
+        self.draft_params = draft
         self.layout = "paged" if pc.supports_paged(cfg) else "slots"
         self.block_size = block_size
         # the draft lookahead writes up to pos + spec_k: the window covers it
@@ -171,18 +203,21 @@ class Scheduler:
                 num_blocks = 1 + num_slots * max_blocks
             self.pages = pc.PageTableManager(num_slots, max_blocks, num_blocks, block_size)
             self.cache = pc.init_paged_cache(cfg, num_slots, num_blocks, block_size,
-                                             max_blocks, self.device)
+                                             max_blocks, self.device, self.mesh)
             self.prefix = (RadixCache(self.pages.allocator, block_size) if prefix_cache
                            else None)
         else:
             self.pages = None
             self.cache = pc.init_slot_cache(cfg, num_slots, window, self.device)
             self.prefix = None  # contiguous rows: nothing to share
-        self._prefill = steps_mod.build_slot_prefill_step(run)
-        self._decode = steps_mod.build_serve_step(run)
-        self._extend = steps_mod.build_extend_step(run) if self.prefix is not None else None
-        self._draft = steps_mod.build_draft_chain(run, self.spec_k) if self.spec_k else None
-        self._verify = steps_mod.build_verify_step(run) if self.spec_k else None
+        on = dict(mesh=self.mesh, leaves=leaves)
+        self._prefill = steps_mod.build_slot_prefill_step(run, **on)
+        self._decode = steps_mod.build_serve_step(run, **on)
+        self._extend = (steps_mod.build_extend_step(run, **on) if self.prefix is not None
+                        else None)
+        self._draft = (steps_mod.build_draft_chain(run, self.spec_k, **on) if self.spec_k
+                       else None)
+        self._verify = steps_mod.build_verify_step(run, **on) if self.spec_k else None
 
         self.queue: Deque[Request] = deque()
         self.slots = [_Slot() for _ in range(num_slots)]
@@ -247,6 +282,25 @@ class Scheduler:
         if self._t0 is None:
             self._t0 = time.monotonic()
         return time.monotonic() - self._t0
+
+    def _clock(self) -> float:
+        """The scheduling clock: this rank's ``_now``, or under a mesh rank
+        0's, broadcast to every rank (one ``serve/clock`` broadcast)."""
+        if self.mesh is None:
+            return self._now()
+        return collectives.broadcast_object(self._now(), self.mesh, path="serve/clock")
+
+    def check_ranks_agree(self, rids) -> None:
+        """Under a mesh, raise on every rank unless every rank generated the
+        same tokens for the requests ``rids`` (rank 0's broadcast, path
+        ``serve/tokens``, and one ``any_rank`` flag)."""
+        if self.mesh is None:
+            return
+        mine = [list(self.finished[r].tokens) for r in rids]
+        first = collectives.broadcast_object(mine, self.mesh, path="serve/tokens")
+        if collectives.any_rank(first != mine, self.mesh):
+            raise RuntimeError(f"the mesh's ranks generated different tokens (this rank "
+                               f"{'agrees with' if first == mine else 'differs from'} rank 0)")
 
     def _read(self, tokens: torch.Tensor, logits: torch.Tensor, kind: str) -> np.ndarray:
         """``tokens`` on the host, counting the forward of ``kind`` and
@@ -408,7 +462,9 @@ class Scheduler:
                                          {"tokens": torch.from_numpy(padded).to(self.device)},
                                          torch.tensor([fed.size - 1], device=self.device))
             if self.pages is not None:
-                pc.insert_prefill_paged(self.cache, pcache, page_row)
+                pc.insert_prefill_paged(self.cache, pcache, page_row, self.mesh)
+                steps_mod.clamp_paged_cache(self.cache, self.mesh, self.run_config.model
+                                            .num_kv_heads)
             else:
                 pc.insert_prefill_rows(self.cache, pcache, idx)
             first_tok = int(self._sample(last, "prefill")[0])
@@ -509,9 +565,10 @@ class Scheduler:
     # -- the step ----------------------------------------------------------
 
     @torch.inference_mode()
-    def step(self) -> None:
-        """Admit what fits, then run one fixed-shape decode step."""
-        self._admit(self._now())
+    def step(self, now: Optional[float] = None) -> None:
+        """Admit what fits at ``now`` (default: :meth:`_clock`), then run one
+        fixed-shape decode step."""
+        self._admit(self._clock() if now is None else now)
         self._ensure_pages()
         active = [(i, s) for i, s in enumerate(self.slots) if s.active]
         if not active:
@@ -556,12 +613,13 @@ class Scheduler:
     def run(self, poll: float = 0.0005) -> Dict[int, np.ndarray]:
         """Drive until queue and slots drain; returns rid -> tokens."""
         while self.has_work():
+            now = self._clock()
             if not any(s.active for s in self.slots) and self.queue:
-                wait = self.queue[0].arrival - self._now()
+                wait = self.queue[0].arrival - now
                 if wait > 0:
                     time.sleep(min(wait, poll * 100))
                     continue
-            self.step()
+            self.step(now)
         return {rid: np.asarray(r.tokens, np.int32) for rid, r in self.finished.items()}
 
     # -- trace stats -------------------------------------------------------

@@ -100,7 +100,8 @@ def test_training_entry_points_need_cuda_unless_cpu_is_asked_for(tmp_path):
 def test_serve_cli_rejects_unported_flags():
     from repro_torch.launch import serve
 
-    for argv in (["--mesh-data", "2"], ["--export-int8"], ["--mesh-model", "2"],
+    for argv in (["--mesh-data", "2"], ["--export-int8"],
+                 ["--arch", "olmoe-1b-7b", "--mesh-model", "2"],
                  ["--arch", "seamless-m4t-medium", "--spec-k", "2"]):
         with pytest.raises(SystemExit) as exc:
             serve.main(["--smoke", "--device", "cpu", *argv])

@@ -601,6 +601,72 @@ def test_gpu_int8_dispatch_runs_no_torch_quantizer(monkeypatch):
     assert err <= K7_RTOL * want_l.float().abs().max().item()
 
 
+class _StandInMesh:
+    """A (1, model) mesh at coordinate ``(0, i)``, read as the dispatch reads
+    a ``DeviceMesh`` (axis names, shape, coordinate): the sharded serving
+    step's context on one process."""
+
+    def __init__(self, model: int, i: int):
+        self.mesh_dim_names, self.shape, self._i = ("data", "model"), (1, model), i
+
+    def get_coordinate(self):
+        return [0, self._i]
+
+
+# the serving mesh's model axes: 5 KV heads on 2 ranks (pool replicated) and
+# on 5 (one head a rank); every int8 S of smollm-360m divides both
+GPU_INT8_MODEL = [2, 5]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", GPU_INT8_MODEL)
+@pytest.mark.parametrize("m", [8, 128])
+@pytest.mark.parametrize("c,s", GPU_INT8_CS[:4])
+def test_gpu_int8_dispatch_on_column_blocks_is_bitwise(c, s, m, model, monkeypatch):
+    """Under a serving mesh with w_q / v_q registered as this rank's columns,
+    ``ops.int8_apply`` launches K6 and ``ops.int8_lowrank_apply`` K7 on the
+    local block (never the plain path: no fallback is recorded) and hands
+    the block to the column gather, which here returns it as it is: each
+    rank's block is bit for bit the matching columns of the unsharded call,
+    since x is quantized per row, and K7's t requantized per row, before
+    any column is split."""
+    _need_gpu()
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import axis_rules
+    from repro_torch.kernels import int8_matmul as k
+    from repro_torch.kernels import ops
+
+    x = _x(m, c, torch.bfloat16)
+    (w_q,) = _int8_mats(c + s, (c, s))
+    ws = _scales(s, s)
+    _, u_q, us, v_q, vs = _k7_args(1, c, 128, s, seed=m)
+    whole_d = ops.int8_apply(x, w_q, ws, use_kernel=True)
+    whole_l = ops.int8_lowrank_apply(x, u_q, us, v_q, vs, use_kernel=True)
+    gathered = []
+
+    def gather(t, mesh, axes, dim, *, path):
+        gathered.append((tuple(axes), dim, path))
+        return t
+
+    monkeypatch.setattr(collectives, "all_gather", gather)
+    w = s // model
+    for i in range(model):
+        cols = slice(i * w, (i + 1) * w)
+        blocks = [t[:, cols].contiguous() for t in (w_q, ws, v_q, vs)]
+        leaves = {p: (t, True) for p, t in zip(("w_q", "w_scale", "v_q", "v_scale"), blocks)}
+        before = (k.int8_linear.launches, k.int8_lowrank_linear.launches)
+        with ops.capture_fallbacks() as fb, axis_rules(_StandInMesh(model, i), rows=(),
+                                                       leaves=leaves):
+            yd = ops.int8_apply(x, blocks[0], blocks[1], use_kernel=True)
+            yl = ops.int8_lowrank_apply(x, u_q, us, blocks[2], blocks[3], use_kernel=True)
+        torch.cuda.synchronize()
+        assert not fb
+        assert (k.int8_linear.launches, k.int8_lowrank_linear.launches) == (before[0] + 1,
+                                                                             before[1] + 1)
+        assert torch.equal(yd, whole_d[:, cols]) and torch.equal(yl, whole_l[:, cols])
+    assert gathered == [(("model",), 1, "activation")] * (2 * model)
+
+
 @pytest.mark.gpu
 def test_gpu_int8_kernels_take_unaligned_operands():
     """Operands off a 16-byte boundary take the element-load path and agree

@@ -69,13 +69,14 @@ def test_port_scheduler_tokens_match_jax_engine(case):
 
 def test_engine_rejects_unported_features():
     run = TRun(model=t_get_smoke_config(ARCH), shape=TShape("s", 40, 4, "decode"))
-    for cfg, kw, match in [
-            (ServeConfig(num_slots=2, kv_int8=True), {}, "kv_cache_dtype.*item 5"),
-            (ServeConfig(num_slots=2, mesh_model=2), {}, "mesh.*item 8"),
-            (ServeConfig(num_slots=2, mesh_data=2), {}, "mesh.*item 8"),
-            (ServeConfig(num_slots=2), dict(mesh=object()), "mesh.*item 8")]:
+    moe = TRun(model=t_get_smoke_config("olmoe-1b-7b"), shape=TShape("s", 40, 4, "decode"))
+    for r, cfg, kw, match in [
+            (run, ServeConfig(num_slots=2, kv_int8=True), {}, "kv_cache_dtype.*item 5"),
+            (moe, ServeConfig(num_slots=2, mesh_model=2), {}, "MoE.*item 8"),
+            (run, ServeConfig(num_slots=2, mesh_data=2), {}, "mesh.*item 8"),
+            (run, ServeConfig(num_slots=2), dict(mesh=object()), "mesh.*item 8")]:
         with pytest.raises(ValueError, match=match):
-            ServeEngine(run, {}, config=cfg, device="cpu", **kw)
+            ServeEngine(r, {}, config=cfg, device="cpu", **kw)
 
 
 def test_generate_pads_early_finishers_with_eos():
