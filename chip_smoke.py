@@ -1,7 +1,8 @@
 """Drive the PyTorch port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py [--out results.json]
-                          [--only kernels|conv|serve|obs|moe|ssm|encdec|vlm|mla|tune|shard|sserve]
+                          [--only kernels|conv|serve|obs|moe|ssm|encdec|vlm|mla|tune|shard|
+                                  sserve|ep]
 
 Phases, in order; any failure exits nonzero:
 
@@ -88,7 +89,7 @@ Phases, in order; any failure exits nonzero:
 71-73. sharded — (run last) two ranks on the one card over gloo
               (``chip_smoke.py --shard-worker``, started by ``python -m
               torch.distributed.run --standalone``), full-width smollm-360m
-              at SHARD_LAYERS (16) of its 32 layers with LRD at Eq.-5 ranks
+              at SHARD_LAYERS (8) of its 32 layers with LRD at Eq.-5 ranks
               on phase 7's 8 x 256 batch, a step a cell at learning rate
               SHARD_CHECK_LR: (a) pure data
               parallelism on mesh (2, 1) at phase -1 / 0 / 1, K1-K5 launched
@@ -130,6 +131,43 @@ Phases, in order; any failure exits nonzero:
               identical or parting at rounding ties, the first decode step's
               logits within SSERVE_LOGIT_RTOL.  Then K1/K5/K6/K7 rows at the
               local shapes these phases launched, in the kernels line;
+77-79. expert parallelism — (run last) four gloo ranks on the one card
+              (``chip_smoke.py --ep-worker``, started by ``python -m
+              torch.distributed.run --standalone``), full-width OLMoE-1B-7B
+              (d 2048, 64 experts of 1024, top-8; LRD at Eq.-5 ranks 512 /
+              341), its MoE layer over (1, model) meshes through
+              ``collectives.all_to_all``.  77 layer: one layer's MoE forward
+              and backward on 4 x 256 bf16 tokens at (1, 2) and (1, 4), at
+              the config's capacity 1.25 and at EP_NODROP_CF (no pair
+              dropped, checked on the routing): y, aux and the gradients of
+              x, the router and the rank's expert factors within
+              EP_PLAIN_RTOL of ``moe.moe_ep_plain`` (the one-process N-rank
+              version; bit for bit reported), at no drop within EP_ONE_RTOL
+              of one rank's ``ep``, and the all_to_all bytes equal to the
+              capacities' arithmetic (``moe.ep_exchange_bytes``); 78 train:
+              EP_TRAIN_LAYERS of 16 layers, sequential freezing at phases
+              -1 / 0 / 1 on (1, 2) and (2, 2), phase 0 on (2, 2) with 2
+              microbatches and phase 1 on (1, 2) under ``--remat full``:
+              K1-K4 exact by shape at the attention's column blocks (M,
+              2048, 512, 1024) each rank (no K3 at phase 0, no K4 at phase
+              1; K1 twice under remat), no ``kernel_fallbacks`` entry, no
+              collective over data at a frozen leaf, the expert gradients
+              synced over data only, the router's momentum the same on
+              every rank, the loss and grad norm within EP_LOSS_RTOL /
+              EP_NORM_RTOL and rank 0's momentum, leaf by leaf on its
+              blocks, within EP_MU_RTOL (router, expert factors, the rest;
+              EP_MU_MB_RTOL with 2 microbatches)
+              of the one-device step with every MoE layer run by
+              ``moe_ep_plain`` over the same mesh; 79 serve: EP_SERVE_LAYERS layers at
+              capacity EP_SERVE_CF over (1, 2) with the prefix cache (phase
+              74's trace): K1 exact by shape at (M, 2048, 512, 1024), 32
+              experts and 8 KV heads a rank (the pool half of one rank's),
+              a decode step's experts' outputs all-gathered (gshard), the
+              prefill's pairs exchanged; tokens, every agreeing step's and
+              the first decode step's logits (the padded vocab's -1e30 tail
+              left out) within EP_SERVE_LOGIT_RTOL of one rank's, partings
+              only at rounding ties.  Then K1-K4
+              rows at the shapes these phases launched, in the kernels line;
 9b. rank-adapt train — phase 7 with ``--rank-schedule decay``: the ranks
               shrink at each phase swap (240/120/349 -> 128/90/256 ->
               96/67/128), launches counted per step by name and by shape,
@@ -275,7 +313,8 @@ Phases, in order; any failure exits nonzero:
 40-43. Zamba2-1.2B (38 Mamba2 layers in 6 groups of 6 and a tail of 2,
               the shared attention + GELU-FFN block at 2d = 4096 after each
               group; Eq.-5 ranks 682-1365, past the old ceiling of 512), each
-              at full width and depth: serve — the serve CLI's fixed-batch
+              at full width, Zamba2 at full depth and xLSTM at
+              SSM_SERVE_LAYERS (6) of its 24 layers: serve — the serve CLI's fixed-batch
               path, 8 x 512-token prompts (two 256-token SSD chunks), 32 new
               tokens, K1 launches exact by shape (Zamba2's xbc_tail at M =
               24 too), no other kernel; parity — 8 greedy tokens and the
@@ -415,7 +454,8 @@ phases 1-3 at DeepSeek-V3's shapes and 57-63; ``--only obs`` phases 1, 2,
 4, 7 and 68 (its kernels line is empty); ``--only tune`` phases 1, 2, 69
 and 70 (its kernels line is empty); ``--only shard`` phases 1-3 at the
 sharded path's shapes and 71-73; ``--only sserve`` phases 1, 2, 74-76 and
-the kernel rows at their shapes.  The last line of standard
+the kernel rows at their shapes; ``--only ep`` phases 1, 2, 77-79 and the
+kernel rows at their shapes.  The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s name and power limit, and the ``{"kernels": [...]}`` line
 comes before that.
@@ -517,9 +557,10 @@ TRAIN_LAUNCHES = {"lowrank_matmul": 224, "lowrank_gated_ffn": 32, "lowrank_matmu
 # the per-token differences: LOSS_RTOL.
 GRAD_RTOL = 2 * PATH_RTOL
 LOSS_RTOL = 1e-2
-# CUDA-event timings a kernel row takes its median of (30, not 50, keep the
-# whole script inside its time limit)
-KERNEL_ITERS = 30
+# CUDA-event timings a kernel row takes its median of (15: first 50, then
+# 30 until a whole run took 1,198 s of its 1,200 on a slow host; the
+# timings are ~5% of the script)
+KERNEL_ITERS = 15
 # The int8 export: the serve CLI's flags, the int8 launches a forward and
 # layer (7 projections), and the bound on the int8 trees' prefill logits,
 # kernels vs plain versions, relative to max |logit| (K6 and K7 match their
@@ -927,7 +968,7 @@ def phase_kernels(shapes=None, iters: int = KERNEL_ITERS):
     return rows
 
 
-def phase_designs(iters: int = 30):
+def phase_designs(iters: int = KERNEL_ITERS):
     """Both K1/K5 designs (decode and large-M, through the wrappers'
     ``_launch``) against the plain version and timed, at DESIGN_SWEEP_M and
     on both sides of each wrapper's LARGE_M, for every K1 geometry of the
@@ -3447,8 +3488,9 @@ def phase_prefix_serve(params):
 
 
 def _pool_bytes(cache):
-    return sum(t.numel() * t.element_size() for n, t in cache["stack"].items()
-               if n != "page_table")
+    """Bytes of a paged cache's pools (every stack's), page tables left out."""
+    return sum(t.numel() * t.element_size() for stack in cache.values()
+               for n, t in stack.items() if n != "page_table")
 
 
 def _teacher_forced(run, params, prompts, teacher, contiguous: bool = False):
@@ -4155,8 +4197,10 @@ def phase_moe():
     gc.collect()
     params, paths["moe train"], result["moe_train"] = phase_moe_train()
     result["moe_grads"] = phase_moe_grads(params)
+    # one profiled step a phase (two until a whole run took 1,198 s of its
+    # 1,200 on a slow host: each step's trace with shapes is ~10 s of host)
     result["moe_train_profile"] = phase_train_profile(
-        params, run=_moe_run(), label="moe train profile", moe=True)
+        params, steps_n=1, run=_moe_run(), label="moe train profile", moe=True)
     paths["moe remat"], result["remat"] = phase_remat(params)
     del params
     gc.collect()
@@ -4170,8 +4214,9 @@ def phase_moe():
 
 # xLSTM-350M (24 mLSTM layers, d 1024, 4 heads) and Zamba2-1.2B (38 Mamba2
 # layers in 6 groups of 6 and a tail of 2, d 2048, the shared attention +
-# GELU-FFN block at 2d = 4096 after each group) at full width and depth, LRD
-# at Eq.-5 ranks.  Serve: the serve CLI's fixed-batch path, 8 rows of
+# GELU-FFN block at 2d = 4096 after each group) at full width, LRD at Eq.-5
+# ranks; Zamba2 at full depth, xLSTM at SSM_SERVE_LAYERS / SSM_TRAIN_LAYERS.
+# Serve: the serve CLI's fixed-batch path, 8 rows of
 # 512-token prompts and 32 new tokens (two 256-token SSD chunks a prompt).
 # Train: 6 steps of 8 x 256 tokens, phases 0,0,1,1,0,0; xLSTM under
 # --remat full (its step recurrence keeps an (8, 4, 256, 256) float32
@@ -4185,12 +4230,17 @@ SSM_REMAT = {"xlstm-350m": "full", "zamba2-1.2b": "none"}
 # 3 until a whole run took 1100 s of its 1200 on a slow host); Zamba2 at
 # full depth
 SSM_TRAIN_LAYERS = {"xlstm-350m": 2, "zamba2-1.2b": None}
+# xLSTM serves (and its int8 export serves) at a quarter of its 24 layers:
+# the same host-bound steps through the positions, ~117 s of the script at
+# full depth on a host where a whole run took 1,198 s of its 1,200 (PERF.md);
+# Zamba2 at full depth
+SSM_SERVE_LAYERS = {"xlstm-350m": 6, "zamba2-1.2b": None}
 # (C, r, S) of each factorised projection at Eq.-5 ranks -> its K1 launches
-# a forward: xLSTM wq, wk, wv, wo_gate and wo of 24 layers; Zamba2 in_proj
+# a forward: xLSTM wq, wk, wv, wo_gate and wo of its serve layers; Zamba2 in_proj
 # and out_proj of 38 Mamba2 layers, and the shared block's wq/wk/wv/wo, FFN
 # wi and down and down_proj after each of 6 groups (down_proj has
 # out_proj's geometry)
-SSM_GEOMS = {"xlstm-350m": {(1024, 256, 1024): 5 * 24},
+SSM_GEOMS = {"xlstm-350m": {(1024, 256, 1024): 5 * SSM_SERVE_LAYERS["xlstm-350m"]},
              "zamba2-1.2b": {(2048, 822, 8384): 38, (4096, 682, 2048): 38 + 6,
                              (4096, 1024, 4096): 4 * 6, (4096, 1365, 8192): 6,
                              (8192, 1365, 4096): 6}}
@@ -4280,7 +4330,8 @@ def phase_ssm_serve(arch):
 
     zero_counts()
     t0 = time.perf_counter()
-    engine, out = serve.main(_ssm_serve_argv(arch))
+    with at_depth(SSM_SERVE_LAYERS[arch]):
+        engine, out = serve.main(_ssm_serve_argv(arch))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     by_shape = counts_by_shape()
@@ -4483,9 +4534,7 @@ def phase_ssm_train(arch):
     n = sum(SSM_GEOMS[arch].values())
     layers = SSM_TRAIN_LAYERS[arch]
     if layers is not None:  # xLSTM: every geometry is a layer's
-        from repro_torch.configs import get_config
-
-        n = n * layers // get_config(arch).num_layers
+        n = n * layers // SSM_SERVE_LAYERS[arch]
     keys = {(TRAIN_M, c, r, s) for (c, r, s) in SSM_GEOMS[arch]}
     for r in per_step:
         want = {"lowrank_matmul": n * (2 if SSM_REMAT[arch] == "full" else 1),
@@ -6169,9 +6218,10 @@ def phase_rank_gate_kernels(skip=()):
 # data-parallel speed-up: the phases record bytes, launches and parity.
 
 SHARD_RANKS = 2
-# 16 of smollm-360m's 32 layers at full width (a depth cut, to keep the
-# script inside its time: gloo stages every collective through the host)
-SHARD_LAYERS = 16
+# 8 of smollm-360m's 32 layers at full width (a depth cut, to keep the
+# script inside its time: gloo stages every collective through the host;
+# 16 until the whole script took 1,101 s on a slower host, PERF.md)
+SHARD_LAYERS = 8
 # each rank's rows on (2, 1); v's local columns on (1, 2)
 SHARD_DP_M = TRAIN_M // SHARD_RANKS
 PROJ_TP = {k: (c, r, s_ // SHARD_RANKS) for k, (c, r, s_) in PROJ.items()}
@@ -6533,12 +6583,13 @@ def phase_sharded():
 # card).  Two ranks share the card and the host: no speed-up is claimed;
 # the phases record launches, collectives, pool bytes, parity and wall time.
 
-# 16 of smollm-360m's 32 layers at full width, and 8 requests of 12 new
+# 8 of smollm-360m's 32 layers at full width, and 8 requests of 12 new
 # tokens (a cut, to keep the script inside its time: at 32 layers, 16
 # requests and 16 new tokens the phases took 335 s, PERF.md, since a gloo
 # gather between processes sharing the card costs ~4 ms and a forward
-# makes six or seven a layer)
-SSERVE_LAYERS = 16
+# makes six or seven a layer; 16 layers until the whole script took 1,101 s
+# on a slower host)
+SSERVE_LAYERS = 8
 SSERVE_SLOTS, SSERVE_BLOCK, SSERVE_SPEC_K = 8, 16, 2
 # 8 requests sharing a 64-token prefix with 1-32-token suffixes, each padded
 # to 96, all arriving at once, so the sharded and the one-rank runs admit
@@ -6867,6 +6918,580 @@ def phase_sharded_serving(smi: str):
     return paths, result
 
 
+# --------------------------------------------------------------------------
+# Phases 77-79: expert parallelism on gloo ranks of the one card
+# --------------------------------------------------------------------------
+#
+# Full-width OLMoE-1B-7B (d 2048, 64 experts of 1024, top-8; LRD at Eq.-5
+# ranks 512 / 341) over (data, model) meshes, one process a rank, the ranks
+# sharing cuda:0 over gloo (NCCL refuses two ranks on one card): the MoE
+# layer's tokens split over model, each rank holding E / model experts,
+# pairs exchanged by ``collectives.all_to_all``.  No speed-up is claimed:
+# the phases record launches, exchanges, parity and wall time.
+
+EP_RANKS = 4
+# depth cuts (the width stays full): one layer for the layer phase, 2 of 16
+# layers to train, 4 to serve, to keep the script inside its time
+EP_TRAIN_LAYERS, EP_SERVE_LAYERS = 2, 4
+# the layer's and the train step's batch: 4 x 256 tokens
+EP_B, EP_S = 4, 256
+EP_LAYER_MESHES = ((1, 2), (1, 4))
+# (label, mesh, phases, microbatches, remat): remat recomputes each layer
+# in the backward, on autograd's device thread
+EP_TRAIN_CELLS = (("1x2", (1, 2), (-1, 0, 1), 1, "none"),
+                  ("2x2", (2, 2), (-1, 0, 1), 1, "none"),
+                  ("2x2 mb2", (2, 2), (0,), 2, "none"),
+                  ("1x2 remat", (1, 2), (1,), 1, "full"))
+# a capacity at which these shapes drop no pair (checked on the routing):
+# the layer's at cf 2 (an expert takes at most 2 x its mean load), the
+# serve's at cf 8 (a decode step's gshard capacity then holds all 8 slots)
+EP_NODROP_CF, EP_SERVE_CF = 2.0, 8.0
+# Limits set from readings (PERF.md; NVIDIA H100 80GB HBM3, 700 W), each
+# of max |reference|.  EP against the one-process N-rank version
+# (``moe.moe_ep_plain``): the same exchange done by indexing and the same
+# expert products at the same shapes, so bit for bit but for the router's
+# float32 gradient, summed over four ranks in another order at (1, 4)
+# (read 1.0e-7).  At the no-drop capacity against one rank's ``ep``: its
+# expert buffers have other shapes and its pairs another order within an
+# expert's rows, and x's gradient sums the ranks' halves (read 6.0e-7 for
+# the router, 8.2e-4 to 3.4e-3 for the rest)
+EP_PLAIN_RTOL = 3e-7
+EP_ONE_RTOL = 1e-2
+# the train step against the one-process version of the same mesh (the
+# one-device step with every MoE layer run by ``moe_ep_plain``): the loss
+# (read 0 to 5.0e-7), the grad norm (read 9.6e-6 to 1.7e-4, the most with
+# 2 microbatches) and rank 0's momentum after the step (sgdm from zero
+# momentum: the synced gradient), each leaf's L2 error over its L2 norm,
+# the worst leaf of the router, of the expert factors and of the rest
+# (K1-K4 on column blocks, the gradients summed over two halves in bf16;
+# read 6.1e-3 / 7.3e-3 / 9.2e-3 with one microbatch).  With 2 microbatches
+# a rank's K1-K4 run at M 256, in K1's decode design, while the
+# one-process version's run at M 512 in the large-M design: the bf16
+# activations part further and the momentum reads 7.6e-2 to 9.0e-2 (the
+# loss still 5.0e-7 off), so that cell takes EP_MU_MB_RTOL.  A router
+# gradient not summed over ``model``, or an expert's summed over it, is
+# off by 0.5 to 1 of its norm
+EP_LOSS_RTOL, EP_NORM_RTOL = 1.5e-6, 5e-4
+EP_MU_RTOL = {"router": 1.5e-2, "experts": 1.5e-2, "rest": 2e-2}
+EP_MU_MB_RTOL = 0.2
+# serving against one rank at the no-drop capacity, of max |real logit|
+# (read 4.7e-3 at the first decode step, 6.8e-3 over the trace)
+EP_SERVE_LOGIT_RTOL = 2e-2
+EP_TIMEOUT = 900
+EP_PATHS = ("moe/dispatch", "moe/dispatch_ids", "moe/combine")
+
+
+def _ep_run(layers: int, cf: float = None, serve: bool = False):
+    """Full-width OLMoE-1B-7B at ``layers`` layers (the train CLI's run:
+    LRD at Eq.-5 ranks, kernels on, sequential freezing, sgdm at a learning
+    rate that moves bf16 params), or the serve CLI's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    if serve:
+        run = serve.serve_run(get_config(MOE_ARCH), max_len=SSERVE_PREFILL + SSERVE_NEW,
+                              slots=SSERVE_SLOTS, lrd=True, device=torch.device("cuda"), seed=0)
+    else:
+        run = _moe_run()
+        run = dataclasses.replace(run, optim=dataclasses.replace(
+            run.optim, name="sgdm", lr=SHARD_CHECK_LR, warmup_steps=1))
+    model = dataclasses.replace(run.model, num_layers=layers)
+    if cf is not None:
+        model = dataclasses.replace(model, capacity_factor=cf)
+    return dataclasses.replace(run, model=model)
+
+
+def _ep_batch(run):
+    g = torch.Generator(device="cpu").manual_seed(5)
+    v = run.model.vocab_size
+    return {"tokens": torch.randint(0, v, (EP_B, EP_S), generator=g, dtype=torch.int32),
+            "labels": torch.randint(0, v, (EP_B, EP_S), generator=g, dtype=torch.int32)}
+
+
+def _ep_grads(lp, x):
+    out = {"x": x.grad, "router": lp["router"]["kernel"].grad}
+    for grp, leaves in lp["experts"].items():
+        for k, t in leaves.items():
+            out[f"{grp}/{k}"] = t.grad
+    return out
+
+
+def _ep_leaf(lp):
+    """A layer's params as fresh leaves that require grad."""
+    return {"router": {"kernel": lp["router"]["kernel"].detach().clone().requires_grad_(True)},
+            "experts": {g: {k: t.detach().clone().requires_grad_(True) for k, t in v.items()}
+                        for g, v in lp["experts"].items()}}
+
+
+def _ep_drops(lp, x, cfg, ep: int):
+    """(pairs dropped at stage 1, at stage 2) of the ``ep`` rule over ``ep``
+    ranks on x (B, S, d), counted from the routing."""
+    from repro_torch.models import moe
+
+    b, s, d = x.shape
+    k, e = cfg.num_experts_per_tok, cfg.num_experts
+    logits = (x.reshape(-1, d).float() @ lp["router"]["kernel"].float()).reshape(b, s, e)
+    ids = torch.topk(torch.softmax(logits, -1), k, dim=-1).indices
+    t = b * (s // ep)
+    cap1, cap2 = moe.ep_send_capacity(t, cfg, ep), moe.ep_capacity(t, cfg, ep)
+    d1 = d2 = 0
+    per_expert = torch.zeros(e, dtype=torch.long, device=x.device)
+    for m in range(ep):
+        mine = ids[:, m * (s // ep):(m + 1) * (s // ep)].reshape(-1)
+        d1 += int(torch.clamp(torch.bincount(mine // (e // ep), minlength=ep) - cap1,
+                              min=0).sum())
+        per_expert += torch.bincount(mine, minlength=e)
+    d2 = int(torch.clamp(per_expert - cap2, min=0).sum())
+    return d1, d2
+
+
+def _ep_layer(mesh, shape, lp0, x, ct, cfg, rank):
+    """Phase 77 on one mesh and capacity: the EP layer forward and backward
+    on this rank, against ``moe_ep_plain`` (every rank holds it whole) and,
+    at the no-drop capacity, one rank's ``ep``; the exchange bytes against
+    the capacities' arithmetic."""
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import axis_rules
+    from repro_torch.models import moe
+
+    ep, e = shape[1], cfg.num_experts
+    mi = collectives.coordinate(mesh, ("model",))
+    blk = slice(mi * (e // ep), (mi + 1) * (e // ep))
+    lp = _ep_leaf(lp0)
+    xl = x.detach().clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with axis_rules(mesh, rows=()), collectives.recording() as log:
+        y, aux = moe.moe_apply(lp, xl, cfg)
+        (torch.sum(y.float() * ct) + aux).backward()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _ep_grads(lp, xl)
+    lw = _ep_leaf(lp0)
+    xw = x.detach().clone().requires_grad_(True)
+    yw, auxw = moe.moe_ep_plain(lw, xw, cfg, 1, ep)
+    (torch.sum(yw.float() * ct) + auxw).backward()
+    want = _ep_grads(lw, xw)
+    errs = {"y": rel_err(y, yw)[1], "aux": abs(float(aux) - float(auxw))}
+    bitwise = {"y": bool(torch.equal(y, yw))}
+    for k, g in got.items():
+        w = want[k]
+        if k not in ("x", "router"):
+            g, w = g[blk], w[blk]
+        errs[k] = rel_err(g, w)[1]
+        bitwise[k] = bool(torch.equal(g, w))
+    t = x.shape[0] * (x.shape[1] // ep)
+    per = moe.ep_exchange_bytes(t, cfg.d_model, cfg, ep, x.element_size())
+    a2a = {k.split(" ", 1)[1]: nb for k, nb in collectives.by_op_path(log).items()
+           if k.startswith("all-to-all ")}
+    want_a2a = {p: nb * (1 if p.endswith("ids") else 2) for p, nb in per.items()}
+    if a2a != want_a2a:
+        raise AssertionError(f"ep layer {shape}: all_to_all bytes {a2a}, want {want_a2a}")
+    bad = {k: v for k, v in errs.items() if not v <= EP_PLAIN_RTOL}
+    if bad:
+        raise AssertionError(f"ep layer {shape} cf {cfg.capacity_factor}: against the "
+                             f"one-process version {bad} (bound {EP_PLAIN_RTOL})")
+    rec = dict(shape=list(shape), cf=cfg.capacity_factor, errs=errs, bitwise=bitwise,
+               a2a=a2a, wall_s=wall, drops=_ep_drops(lp0, x, cfg, ep),
+               caps=[moe.ep_send_capacity(t, cfg, ep), moe.ep_capacity(t, cfg, ep)],
+               collectives=sorted({(c.op, c.path) for c in log}))
+    if cfg.capacity_factor == EP_NODROP_CF:
+        if rec["drops"] != (0, 0) or _ep_drops(lp0, x, cfg, 1) != (0, 0):
+            raise AssertionError(f"ep layer {shape}: pairs dropped at cf {EP_NODROP_CF}: "
+                                 f"{rec['drops']}")
+        lo = _ep_leaf(lp0)
+        xo = x.detach().clone().requires_grad_(True)
+        yo, auxo = moe.moe_apply(lo, xo, cfg)  # no mesh: one rank's ep
+        (torch.sum(yo.float() * ct) + auxo).backward()
+        one = _ep_grads(lo, xo)
+        rec["one"] = {"y": rel_err(y, yo)[1]}
+        for k, g in got.items():
+            w = one[k]
+            if k not in ("x", "router"):
+                g, w = g[blk], w[blk]
+            rec["one"][k] = rel_err(g, w)[1]
+        bad = {k: v for k, v in rec["one"].items() if not v <= EP_ONE_RTOL}
+        if bad:
+            raise AssertionError(f"ep layer {shape}: against one rank's ep at no drop {bad} "
+                                 f"(bound {EP_ONE_RTOL})")
+    return rec
+
+
+@contextlib.contextmanager
+def _moe_plain_mesh(data: int, model: int):
+    """Run every MoE layer of a one-device step as ``moe_ep_plain`` over a
+    (data, model) mesh: the one-process version of the sharded step."""
+    from repro_torch.models import lm, moe
+
+    real = lm.moe_apply
+    lm.moe_apply = lambda p, x, cfg, policy=False: moe.moe_ep_plain(p, x, cfg, data, model)
+    try:
+        yield
+    finally:
+        lm.moe_apply = real
+
+
+def _ep_train_want(m: int, model: int, layers: int, phase: int, n: int = 1,
+                   remat: str = "none"):
+    """K1-K4 launches of a sharded OLMoE step on a rank: q, k, v and o of
+    each layer at (M, 2048, 512, 2048 / model), K3 unless u is frozen, K4
+    unless v is; ``n`` microbatches; K1 again in each layer's recompute
+    under remat."""
+    key = (m, MOE_ATTN["C"], MOE_ATTN["r"], MOE_ATTN["S"] // model)
+    fwd = 2 if remat != "none" else 1
+    want = {"lowrank_matmul": {key: 4 * layers * n * fwd},
+            "lowrank_matmul_dx": {key: 4 * layers * n}}
+    if phase != 0:
+        want["lowrank_matmul_du"] = {key: 4 * layers * n}
+    if phase != 1:
+        want["lowrank_matmul_dv"] = {key: 4 * layers * n}
+    return want
+
+
+def _ep_mu_errs(run, mesh, st, mu1):
+    """Rank 0's momentum after a sharded step against the one-process
+    version's, leaf by leaf on this rank's blocks (each leaf's L2 error over
+    its L2 norm): {group: [worst leaf, its error]} for the router, the
+    expert factors and the rest."""
+    from repro_torch.launch import steps
+
+    shs = dict(_leaf_paths(steps.state_shardings(run, mesh, st).opt.mu))
+    got, want = dict(_leaf_paths(st.opt.mu)), dict(_leaf_paths(mu1))
+    if set(got) != set(want):
+        raise AssertionError("ep train: the momentum's paths differ from the one-process "
+                             "version's")
+    out = {}
+    for path, w in want.items():
+        group = ("router" if "/router/" in path else
+                 "experts" if "/experts/" in path else "rest")
+        _, err = _rel_l2({path: got[path]}, {path: shs[path].block(w)})
+        if err >= out.get(group, ["", -1.0])[1]:
+            out[group] = [path, err]
+    return out
+
+
+def _ep_train(meshes, rank):
+    """Phase 78 on this rank: each cell's steps, launches, collectives and
+    times; rank 0 also the one-process version of each mesh, and its
+    momentum against it leaf by leaf."""
+    import dataclasses
+
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+
+    run = _ep_run(EP_TRAIN_LAYERS)
+    params, _ = steps.init_params(run, "cuda")
+    batch = _ep_batch(run)
+    out = {}
+    for label, shape, phases, mb, remat in EP_TRAIN_CELLS:
+        mesh = meshes[shape]
+        if mesh.get_coordinate() is None:
+            continue
+        run_c = dataclasses.replace(run, dist=dataclasses.replace(run.dist, microbatches=mb,
+                                                                  remat=remat))
+        train = steps.build_train_step(run_c, "cuda", mesh=mesh)
+        cell = {}
+        for phase in phases:
+            st, parked = steps.make_sharded_train_state(run_c, params, phase, mesh)
+            steps.check_state_placement(run_c, mesh, st)
+            zero_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with collectives.recording() as rec, ops.capture_fallbacks() as fb:
+                st, m = train(st, batch, phase=phase)
+                loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            counts = {name: {k: n for k, n in by.items()}
+                      for name, by in counts_by_shape().items() if by}
+            steps.check_state_placement(run_c, mesh, st)
+            m_tok = EP_B * EP_S // shape[0] // mb
+            want = _ep_train_want(m_tok, shape[1], EP_TRAIN_LAYERS, phase, mb, remat)
+            if counts != want:
+                raise AssertionError(f"ep train {label} phase {phase} rank {rank}: launched "
+                                     f"{counts}, want {want}")
+            if fb:
+                raise AssertionError(f"ep train {label}: kernel_fallbacks "
+                                     f"{[(f.op, f.reason) for f in fb][:4]}")
+            frozen = {p for p, _ in _leaf_paths(st.frozen)}
+            for c in rec:
+                if c.path in frozen and set(c.axes) & {"data", "pod"}:
+                    raise AssertionError(f"ep train {label} phase {phase}: {c.op} {c.axes} "
+                                         f"at the frozen leaf {c.path}")
+            experts = {}  # an expert leaf's gradient syncs (its storage gathers apart)
+            for c in rec:
+                if "/experts/" in c.path and c.op in ("all-reduce", "reduce-scatter"):
+                    experts.setdefault(c.path, set()).add(f"{c.op} {'/'.join(c.axes)}")
+            by_path = collectives.by_op_path(rec)
+            rmu = st.opt.mu["moe_stack"]["moe"]["router"]["kernel"]
+            cell[str(phase)] = dict(
+                loss=loss, grad_norm=gnorm, wall_s=wall,
+                launched={n: [[list(k), v] for k, v in by.items()] for n, by in counts.items()},
+                expert_sync={p: sorted(v) for p, v in experts.items()}, by_path=by_path,
+                router_digest=steps.tree_digest({"r": rmu}),
+                mem_gib=peak)
+            if rank == 0:
+                st1, _ = steps.make_train_state(run_c.optim, params, phase)
+                with _moe_plain_mesh(*shape):
+                    st1, m1 = steps.build_train_step(run_c, "cuda")(st1, batch, phase=phase)
+                cell[str(phase)]["one"] = dict(loss=float(m1["loss"]),
+                                               grad_norm=float(m1["grad_norm"]),
+                                               mu=_ep_mu_errs(run_c, mesh, st, st1.opt.mu))
+                del st1, m1
+            del st, m, parked
+            torch.cuda.empty_cache()
+        out[label] = cell
+    zero_counts()
+    return out
+
+
+def _ep_serve(mesh, rank):
+    """Phase 79 on this rank: OLMoE at EP_SERVE_LAYERS layers and the
+    no-drop capacity served over (1, 2) with the prefix cache; rank 0 also
+    on one rank with the same params."""
+    from repro_torch.launch import steps
+    from repro_torch.serving import ServeEngine
+
+    run = _ep_run(EP_SERVE_LAYERS, cf=EP_SERVE_CF, serve=True)
+    params, _ = steps.init_params(run, "cuda")
+    trace = _sserve_trace(run.model.vocab_size)
+    t0 = time.perf_counter()
+    engine = ServeEngine(run, params, device="cuda", mesh=mesh,
+                         config=_sserve_config(2, prefix_cache=True))
+    build_s = time.perf_counter() - t0
+    got = _sserve_serve("ep", engine, trace)
+    fwd = got["fwd"]
+    key = lambda m: (m, MOE_ATTN["C"], MOE_ATTN["r"], MOE_ATTN["S"] // 2)  # noqa: E731
+    n_pre = fwd["prefill"] + fwd["extend"]
+    want = {"lowrank_matmul": {key(SSERVE_PREFILL): 4 * EP_SERVE_LAYERS * n_pre,
+                               key(SSERVE_SLOTS): 4 * EP_SERVE_LAYERS * fwd["decode"]}}
+    want["lowrank_matmul"] = {k: v for k, v in want["lowrank_matmul"].items() if v}
+    if got["by_shape"] != want:
+        raise AssertionError(f"ep serve rank {rank}: launched {got['by_shape']}, want {want}")
+    if got["fallbacks"]:
+        raise AssertionError(f"ep serve rank {rank}: kernel_fallbacks {got['fallbacks'][:4]}")
+    allowed = {"activation", "moe/aux", "moe/expert_out", *EP_PATHS, *SSERVE_CONTROL}
+    if set(got["paths"]) - allowed:
+        raise AssertionError(f"ep serve rank {rank}: collectives at "
+                             f"{sorted(set(got['paths']) - allowed)}")
+    sched = engine.scheduler
+    local = sched.params["moe_stack"]["moe"]["experts"]["gate"]["u"].shape
+    rec = dict(fwd=fwd, wall_s=got["wall_s"], build_s=build_s, toks=got["toks"],
+               launched={n: [[list(k), c] for k, c in v.items()]
+                         for n, v in got["by_shape"].items()},
+               paths=got["paths"], kv_pool_bytes=_pool_bytes(sched.cache),
+               local_experts=list(local), tok_per_s=got["stats"]["tok_per_s"],
+               prefix_hits=got["stats"]["prefix_hits"])
+    if rank == 0:
+        t0 = time.perf_counter()
+        one = ServeEngine(run, params, device="cuda", config=_sserve_config(1, prefix_cache=True))
+        ref = _sserve_serve("ep one rank", one, trace)
+        rec["one_wall_s"] = time.perf_counter() - t0
+        rec["one_kv_pool_bytes"] = _pool_bytes(one.scheduler.cache)
+        # OLMoE's padded vocab tail holds -1e30: the bounds read the real
+        # logits
+        real = (ref["first"] > -1e29).all(0)
+        strip = lambda rows: [[t[real] for t in r] for r in rows]  # noqa: E731
+        rec["compare"] = _compare_greedy(ref["toks"], strip(ref["logits"]), got["toks"],
+                                         strip(got["logits"]), "ep serve",
+                                         rtol=EP_SERVE_LOGIT_RTOL)
+        diff, rel = rel_err(got["first"][:, real], ref["first"][:, real])
+        rec["first_decode"] = dict(max_abs=diff, rel=rel,
+                                   bitwise=bool(torch.equal(got["first"], ref["first"])))
+        if not rel <= EP_SERVE_LOGIT_RTOL:
+            raise AssertionError(f"ep serve: the first decode step's logits lie {rel:.3e} of "
+                                 f"max |logit| from one rank's")
+        del one
+    del engine, sched
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ep_worker(out: Path) -> int:
+    """One rank of phases 77-79 (``chip_smoke.py --ep-worker DIR``, started
+    by ``torch.distributed.run`` from ``phase_ep``): the EP layer, the
+    sharded train step and the serve, each record to ``DIR/rank<r>.json``.
+    Any failed check raises, which fails the rank and, through the
+    launcher, the others."""
+    import dataclasses
+    import os
+
+    from repro_torch.distributed import collectives
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    torch.cuda.set_device(0)
+    _precision_flags()
+    collectives.init_process_group("gloo", "env://", rank, world)
+    meshes = {s: make_host_mesh(*s) for s in ((1, 2), (2, 2), (1, 4))}
+    res = {"layer": [], "rank": rank}
+    t0 = time.perf_counter()
+    run = _ep_run(1)
+    params, _ = steps.init_params(run, "cuda")
+    lp0 = {k: {g: (v[0] if not isinstance(v, dict) else {kk: vv[0] for kk, vv in v.items()})
+               for g, v in grp.items()}
+           for k, grp in params["moe_stack"]["moe"].items()}
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(EP_B, EP_S, run.model.d_model, generator=g, device="cuda").to(torch.bfloat16)
+    ct = torch.randn(EP_B, EP_S, run.model.d_model, generator=g, device="cuda")
+    for shape in EP_LAYER_MESHES:
+        mesh = meshes[shape]
+        if mesh.get_coordinate() is None:
+            continue
+        for cf in (run.model.capacity_factor, EP_NODROP_CF):
+            cfg = dataclasses.replace(run.model, capacity_factor=cf)
+            res["layer"].append(_ep_layer(mesh, shape, lp0, x, ct, cfg, rank))
+    del params, lp0
+    torch.cuda.empty_cache()
+    res["layer_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["train"] = _ep_train(meshes, rank)
+    res["train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if meshes[(1, 2)].get_coordinate() is not None:
+        res["serve"] = _ep_serve(meshes[(1, 2)], rank)
+    res["serve_s"] = time.perf_counter() - t0
+    collectives.any_rank(False, meshes[(2, 2)])  # every rank past the serve
+    zero_counts()
+    (out / f"rank{rank}.json").write_text(json.dumps(res))
+    collectives.destroy_process_group()
+    return 0
+
+
+def phase_ep(smi: str):
+    """Phases 77-79: four gloo ranks on the card (``ep_worker``).  Returns
+    (launches by path, results)."""
+    import os
+
+    t0 = time.perf_counter()
+    here = Path(__file__).resolve()
+    threads = str(max(1, (os.cpu_count() or 1) // EP_RANKS))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ep_") as tmp:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc-per-node={EP_RANKS}", "--tee=3", str(here), "--ep-worker", tmp],
+            cwd=str(here.parent), env=dict(os.environ, OMP_NUM_THREADS=threads),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            _, err = proc.communicate(timeout=EP_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.terminate()  # the launcher stops its ranks
+            _, err = proc.communicate()
+            raise AssertionError(f"ep: ranks still running after {EP_TIMEOUT} s:\n{err[-4000:]}")
+        if proc.returncode != 0:
+            raise AssertionError(f"ep: a rank failed (launcher exit {proc.returncode}):\n"
+                                 f"{err[-6000:]}")
+        outs = [json.loads((Path(tmp) / f"rank{r}.json").read_text()) for r in range(EP_RANKS)]
+    paths = {}
+    result = dict(wall_s=time.perf_counter() - t0, smi=smi, ranks=outs,
+                  layers=dict(train=EP_TRAIN_LAYERS, serve=EP_SERVE_LAYERS))
+    # 77: the layer
+    for o in outs:
+        for r in o["layer"]:
+            log(f"[ep layer] mesh {tuple(r['shape'])} cf {r['cf']} rank {o['rank']}: caps "
+                f"{r['caps']}, drops (stage 1, 2) {tuple(r['drops'])}; against the "
+                f"one-process version: " + ", ".join(
+                    f"{k} {v:.2e}{' (bits)' if r['bitwise'].get(k) else ''}"
+                    for k, v in r["errs"].items())
+                + (f"; against one rank's ep at no drop: "
+                   + ", ".join(f"{k} {v:.2e}" for k, v in r["one"].items()) if "one" in r else "")
+                + f"; all_to_all bytes {r['a2a']} (the capacities' arithmetic); wall "
+                  f"{r['wall_s'] * 1e3:.1f} ms fwd+bwd (ranks share the card)")
+    # 78: the train step
+    for label, shape, phases, mb, remat in EP_TRAIN_CELLS:
+        ranks = [o for o in outs if label in o["train"]]
+        for phase in phases:
+            cells = [o["train"][label][str(phase)] for o in ranks]
+            for o, c in zip(ranks, cells):
+                for key in ("loss", "grad_norm", "router_digest"):
+                    if c[key] != cells[0][key]:
+                        raise AssertionError(f"ep train {label} phase {phase}: rank "
+                                             f"{o['rank']}'s {key} differs")
+                by = paths.setdefault(f"ep train {label}", {})
+                for name, pairs in c["launched"].items():
+                    for k, n in pairs:
+                        by.setdefault(name, {})[tuple(k)] = by.get(name, {}).get(tuple(k), 0) + n
+            c = cells[0]
+            one = c["one"]
+            d_loss = abs(c["loss"] - one["loss"]) / abs(one["loss"])
+            d_norm = abs(c["grad_norm"] - one["grad_norm"]) / abs(one["grad_norm"])
+            a2a = {k: v for k, v in c["by_path"].items() if k.startswith("all-to-all")}
+            sync = sorted({s for v in c["expert_sync"].values() for s in v})
+            mu = one["mu"]
+            lim = EP_MU_RTOL if mb == 1 else dict.fromkeys(EP_MU_RTOL, EP_MU_MB_RTOL)
+            log(f"[ep train] {label} mesh {shape} phase {phase} x{mb} microbatch(es), remat "
+                f"{remat}: loss "
+                f"{c['loss']:.6f} vs {one['loss']:.6f} one-process ({d_loss:.2e}, bound "
+                f"{EP_LOSS_RTOL}), grad norm {c['grad_norm']:.5f} vs {one['grad_norm']:.5f} "
+                f"({d_norm:.2e}, bound {EP_NORM_RTOL}); rank 0's momentum, worst leaf: "
+                + ", ".join(f"{g} {mu[g][1]:.2e} at {mu[g][0]} (bound {lim[g]})"
+                            for g in sorted(mu))
+                + "; launches "
+                + ", ".join(f"{k.replace('lowrank_', '')} {sum(n for _, n in v)}"
+                            for k, v in c["launched"].items())
+                + f" (as predicted, each rank); expert grads synced by {sync}; all_to_all "
+                  f"bytes {a2a}; {sum(c['by_path'].values())} collective bytes; wall "
+                  + ", ".join(f"{x['wall_s']:.2f}" for x in cells)
+                + f" s; peak {max(x['mem_gib'] for x in cells):.2f} GiB a rank")
+            bad_mu = {g: v for g, v in mu.items() if not v[1] <= lim[g]}
+            if not (d_loss <= EP_LOSS_RTOL and d_norm <= EP_NORM_RTOL) or bad_mu:
+                raise AssertionError(f"ep train {label} phase {phase}: loss {d_loss:.3e} / "
+                                     f"grad norm {d_norm:.3e} / momentum {bad_mu} from the "
+                                     f"one-process version")
+            if set(mu) != {"router", "experts", "rest"}:
+                raise AssertionError(f"ep train {label} phase {phase}: momentum of {sorted(mu)}")
+            if any(s.split(" ", 1)[1] not in ("data", "") for s in sync):
+                raise AssertionError(f"ep train {label}: expert grads synced by {sync}")
+    # 79: the serve
+    served = [o for o in outs if "serve" in o]
+    for o in served:
+        s = o["serve"]
+        if s["toks"] != served[0]["serve"]["toks"]:
+            raise AssertionError(f"ep serve: rank {o['rank']}'s tokens differ")
+        by = paths.setdefault("ep serve", {})
+        for name, pairs in s["launched"].items():
+            for k, n in pairs:
+                by.setdefault(name, {})[tuple(k)] = by.get(name, {}).get(tuple(k), 0) + n
+        log(f"[ep serve] mesh (1, 2) rank {o['rank']}: {s['fwd']['prefill']} prefill + "
+            f"{s['fwd']['extend']} extend + {s['fwd']['decode']} decode forwards; launches "
+            + ", ".join(f"{n} {sum(v for _, v in p)}" for n, p in s["launched"].items())
+            + f" (as predicted); experts a rank {s['local_experts']}; collectives "
+              f"{{{', '.join(f'{p}: {v[0]} / {v[1]} B' for p, v in s['paths'].items())}}}; "
+              f"pool {s['kv_pool_bytes']} B; wall {s['wall_s']:.2f} s, engine built in "
+              f"{s['build_s']:.1f} s")
+    s0 = served[0]["serve"]
+    if s0["kv_pool_bytes"] * 2 != s0["one_kv_pool_bytes"]:
+        raise AssertionError(f"ep serve: a rank's pool {s0['kv_pool_bytes']} B is not half of "
+                             f"one rank's {s0['one_kv_pool_bytes']} B")
+    if "moe/expert_out" not in s0["paths"] or "moe/dispatch" not in s0["paths"]:
+        raise AssertionError(f"ep serve: no expert-output gather or no exchange: "
+                             f"{sorted(s0['paths'])}")
+    first = s0["first_decode"]
+    log(f"[ep serve] against one rank ({s0['one_wall_s']:.2f} s) at cf {EP_SERVE_CF}: "
+        f"{_parted_text(s0['compare'])} (of max |real logit|, bound {EP_SERVE_LOGIT_RTOL}); "
+        f"first decode step's logits within "
+        f"{first['max_abs']:.3e} ({first['rel']:.2e} of max |real logit|, bound "
+        f"{EP_SERVE_LOGIT_RTOL}{', bit for bit' if first['bitwise'] else ''})")
+    log(f"[ep] {result['wall_s']:.1f} s with the ranks' start (rank 0: layer "
+        f"{outs[0]['layer_s']:.1f} s, train {outs[0]['train_s']:.1f} s, serve "
+        f"{outs[0]['serve_s']:.1f} s; {EP_TRAIN_LAYERS} / {EP_SERVE_LAYERS} of "
+        f"{MOE_LAYERS} layers)")
+    return paths, result
+
+
+def ep_kernel_rows(rows, paths):
+    """K1-K4 rows at every shape the EP phases launched that no row checked
+    yet."""
+    checked = {(r["name"], shape_key(r["name"], r["shape"])) for r in rows}
+    new = {(name, key) for by in paths.values() for name, keys in by.items() for key in keys}
+    return phase_kernels([(n, shape_dims(n, k)) for n, k in sorted(new - checked)])
+
+
 def sserve_kernel_rows(rows, paths):
     """K1 / K5 rows, and K6 / K7 rows with their int8-operand twins, at every
     shape the sharded serving paths launched that no row checked yet."""
@@ -6911,7 +7536,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="", help="also write every result as JSON here")
     ap.add_argument("--only", choices=("kernels", "conv", "serve", "obs", "moe", "ssm",
-                                       "encdec", "vlm", "mla", "tune", "shard", "sserve"),
+                                       "encdec", "vlm", "mla", "tune", "shard", "sserve", "ep"),
                     default=None,
                     help="kernels: stop after the kernel phase (a first check of a build); "
                          "conv: run only the conv and ViT phases; serve: phases 1-3 at the "
@@ -6927,14 +7552,18 @@ def main(argv=None) -> int:
                          "phases 1-3 at DeepSeek-V3's shapes and phases 57-63; tune: "
                          "phases 1, 2, 69 (autotune) and 70 (dry-run and roofline); shard: "
                          "phases 1-3 at the sharded path's shapes and 71-73; sserve: phases "
-                         "1, 2, 74-76 and the kernel rows at their shapes")
+                         "1, 2, 74-76 and the kernel rows at their shapes; ep: phases 1, 2, "
+                         "77-79 (expert parallelism) and the kernel rows at their shapes")
     ap.add_argument("--shard-worker", default="", help=argparse.SUPPRESS)
     ap.add_argument("--serve-worker", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--ep-worker", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.shard_worker:
         return shard_worker(Path(args.shard_worker))
     if args.serve_worker:
         return sserve_worker(Path(args.serve_worker))
+    if args.ep_worker:
+        return ep_worker(Path(args.ep_worker))
 
     t_start = time.perf_counter()
 
@@ -6993,7 +7622,7 @@ def main(argv=None) -> int:
         shapes = mla_kernel_shapes()
     elif args.only == "shard":
         shapes = shard_kernel_shapes()
-    elif args.only == "sserve":
+    elif args.only in ("sserve", "ep"):
         shapes = []  # the rows follow the phases, at the shapes they launched
     else:
         shapes = (kernel_shapes() + moe_kernel_shapes() + ssm_kernel_shapes()
@@ -7040,6 +7669,11 @@ def main(argv=None) -> int:
         paths, result["sharded_serving"] = phase_sharded_serving(smi)
         rows += sserve_kernel_rows(rows, paths)
         mark("sharded serving")
+        count_launches(rows, paths)
+    elif args.only == "ep":
+        paths, result["ep"] = phase_ep(smi)
+        rows += ep_kernel_rows(rows, paths)
+        mark("expert parallelism")
         count_launches(rows, paths)
     elif args.only is None:
         engine, paths["serve"], result["serve"] = phase_serve(obs_root / "serve")
@@ -7149,6 +7783,11 @@ def main(argv=None) -> int:
         paths.update(more)
         rows += sserve_kernel_rows(rows, more)
         mark("sharded serving")
+        # expert parallelism: four gloo ranks on the card, OLMoE over meshes
+        more, result["ep"] = phase_ep(smi)
+        paths.update(more)
+        rows += ep_kernel_rows(rows, more)
+        mark("expert parallelism")
         count_launches(rows, paths)
         if not any(r["launches"] for r in rows if r["name"] == "int8_linear"):
             log("[kernels] int8_linear (K6) was launched on no main path in this run: the "

@@ -24,10 +24,13 @@ two sources while the step runs:
 Both sources see the same calls on the card and on meta, so a step counted
 on meta gives the card's numbers.  ``collective_bytes`` holds the bytes of
 the step's collectives by class (``all-reduce``, ``all-gather``,
-``reduce-scatter``: the reference's ``hlo.sync_bytes`` terms, each
-operand's bytes on this rank), read from ``distributed.collectives``'
-records of a sharded step, and ``collective_bytes_by_dtype`` the same by
-``"<class> <dtype>"``; a step on one device has none.  The step also
+``reduce-scatter``, ``all-to-all``: the reference's ``hlo.sync_bytes``
+terms, each operand's bytes on this rank), read from
+``distributed.collectives``' records of a sharded step,
+``collective_bytes_by_dtype`` the same by ``"<class> <dtype>"``, and
+``collective_bytes_by_path`` by ``"<class> <path>"`` (a MoE layer's
+exchanges are ``all-to-all moe/dispatch``, ``moe/dispatch_ids`` and
+``moe/combine``); a step on one device has none.  The step also
 records the peak of the bytes it allocated and held at once
 (``peak_bytes``), tracked by storage with weakref finalizers: on meta that
 is the dry-run's temp bytes.
@@ -73,6 +76,7 @@ class StepCost:
     transcendental_elems: float = 0.0
     collective_bytes: Dict[str, float] = dataclasses.field(default_factory=dict)
     collective_bytes_by_dtype: Dict[str, float] = dataclasses.field(default_factory=dict)
+    collective_bytes_by_path: Dict[str, float] = dataclasses.field(default_factory=dict)
     bytes_by_op: Dict[str, float] = dataclasses.field(default_factory=dict)
     flops_by_dtype: Dict[str, float] = dataclasses.field(default_factory=dict)
     kernel_launches: Dict[str, int] = dataclasses.field(default_factory=dict)
@@ -231,6 +235,8 @@ def counting():
     cost.collective_bytes = {k: float(v) for k, v in collectives.by_op(sync).items()}
     cost.collective_bytes_by_dtype = {k: float(v)
                                       for k, v in collectives.by_op_dtype(sync).items()}
+    cost.collective_bytes_by_path = {k: float(v)
+                                     for k, v in collectives.by_op_path(sync).items()}
     for name, w in wrappers.items():
         launched, priced = before[name]
         calls = (Counter(w.launches_by_shape) - launched) + (Counter(w.priced_by_shape) - priced)

@@ -5,12 +5,13 @@ JAX's sharded step leaves its collectives to XLA, and the reference reads
 their bytes from the compiled HLO (``repro.analysis.hlo.sync_bytes``).  The
 port runs them explicitly, one process a rank, so it knows each one as it
 happens: :func:`all_reduce`, :func:`all_gather` and :func:`reduce_scatter`
-over a tuple of mesh axes each append a :class:`Collective` — the op in
-the HLO's class names (``all-reduce``, ``all-gather``, ``reduce-scatter``),
-the dtype on the wire, the bytes of the operand this rank sends in (the
-HLO's operand accounting) and the param path it serves (``activation`` for
-an activation, ``loss`` / ``grad_norm`` for a metric) — to every
-:func:`recording` open.  :func:`broadcast_object` sends a host value
+over a tuple of mesh axes, and :func:`all_to_all` over one, each append a
+:class:`Collective` — the op in the HLO's class names (``all-reduce``,
+``all-gather``, ``reduce-scatter``, ``all-to-all``), the dtype on the wire,
+the bytes of the operand this rank sends in (the HLO's operand accounting)
+and the param path it serves (``activation`` for an activation, ``loss`` /
+``grad_norm`` for a metric, ``moe/...`` for a MoE layer's exchanges) — to
+every :func:`recording` open.  :func:`broadcast_object` sends a host value
 (a scheduling clock, an export's decisions) from the mesh's first rank to
 the others on the control device, recorded as a ``broadcast`` of its
 pickled bytes under its own path; it is no sync class of the reference's,
@@ -28,9 +29,12 @@ the first axis major, so a gather over ``("pod", "data")`` puts its blocks
 in the order a ``PartitionSpec`` entry ``("pod", "data")`` splits a dim.
 
 Under gloo, CUDA tensors go to the collective as they are (gloo stages
-them through host memory itself); the bytes are counted the same.  Under
-NCCL every tensor must lie on the current CUDA device, the control flags of
-:func:`any_rank` too (:func:`control_device`).
+them through host memory itself; all_to_all's too, on the card's torch
+2.11); the bytes are counted the same.  :func:`all_to_all` is
+differentiable (its backward is the reverse exchange, recorded under the
+same path); a failed exchange raises, and no other backend or path is
+tried.  Under NCCL every tensor must lie on the current CUDA device, the
+control flags of :func:`any_rank` too (:func:`control_device`).
 """
 
 from __future__ import annotations
@@ -47,8 +51,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["Collective", "recording", "register_mesh", "all_reduce", "all_gather",
-           "reduce_scatter", "broadcast_object", "axes_size", "coordinate", "by_op",
-           "by_op_dtype", "process_rank",
+           "reduce_scatter", "all_to_all", "broadcast_object", "axes_size", "coordinate",
+           "by_op", "by_op_dtype", "by_op_path", "process_rank",
            "any_rank", "control_device", "init_process_group", "destroy_process_group",
            "world_size", "backend", "mesh_size", "CLASSES"]
 
@@ -60,7 +64,7 @@ CLASSES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all")
 class Collective:
     """One collective this rank took part in."""
 
-    op: str  # "all-reduce" | "all-gather" | "reduce-scatter" | "broadcast"
+    op: str  # "all-reduce" | "all-gather" | "reduce-scatter" | "all-to-all" | "broadcast"
     dtype: str  # the dtype on the wire, e.g. "bfloat16", "int8" ("object": pickled)
     bytes: int  # bytes of the operand this rank sends in
     path: str  # the param path it serves, or "activation" / "loss" / "grad_norm"
@@ -94,6 +98,15 @@ def by_op_dtype(log: Sequence[Collective]) -> Dict[str, int]:
     out: Dict[str, int] = {}
     for c in log:
         key = f"{c.op} {c.dtype}"
+        out[key] = out.get(key, 0) + c.bytes
+    return out
+
+
+def by_op_path(log: Sequence[Collective]) -> Dict[str, int]:
+    """Bytes by ``"<op> <path>"``."""
+    out: Dict[str, int] = {}
+    for c in log:
+        key = f"{c.op} {c.path}"
         out[key] = out.get(key, 0) + c.bytes
     return out
 
@@ -259,6 +272,45 @@ def reduce_scatter(t: torch.Tensor, mesh, axes: Sequence[str], dim: int, *,
         warnings.simplefilter("ignore", FutureWarning)
         dist.reduce_scatter_tensor(out, moved, group=_group(mesh, live))
     return out.movedim(0, dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    """The exchange of equal dim-0 chunks over one axis; its backward is
+    the same exchange of the gradient (chunk i went to rank i, so rank i's
+    gradient of it comes back from rank i)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis, path):
+        ctx.mesh, ctx.axis, ctx.path = mesh, axis, path
+        return _exchange(t, mesh, axis, path)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.mesh, ctx.axis, ctx.path), None, None, None
+
+
+def _exchange(t: torch.Tensor, mesh, axis: str, path: str) -> torch.Tensor:
+    n = axes_size(mesh, (axis,))
+    if t.shape[0] % n:
+        raise ValueError(f"all_to_all over {axis!r} ({n} ranks): dim 0 of {tuple(t.shape)} "
+                         f"does not split into {n} equal chunks")
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    _note("all-to-all", t, path, (axis,))
+    dist.all_to_all_single(out, t, group=_group(mesh, (axis,)))
+    return out
+
+
+def all_to_all(t: torch.Tensor, mesh, axis: str, *, path: str) -> torch.Tensor:
+    """Exchange equal chunks of ``t``'s dim 0 over mesh ``axis`` (the
+    reference's ``lax.all_to_all(split_axis=0, concat_axis=0)``): chunk i
+    goes to the rank at coordinate i on ``axis``, and chunk i of the result
+    came from it.  Differentiable: the backward runs the same exchange on
+    the gradient, recorded under the same ``path``.  On an axis of size 1
+    ``t`` comes back."""
+    if not _live(mesh, (axis,)):
+        return t
+    return _AllToAll.apply(t, mesh, axis, path)
 
 
 def broadcast_object(obj: Any, mesh, *, path: str) -> Any:

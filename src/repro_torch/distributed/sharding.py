@@ -151,19 +151,43 @@ def axis_rules(mesh, *, act: RuleTable = ACT_RULES, params: RuleTable = PARAM_RU
     path to the tensor the forward consumes and whether its columns are
     split over ``model`` (default: the enclosing context's), which the
     kernel dispatch reads through :func:`leaf_path` / :func:`leaf_split`."""
-    prev = (_CTX.mesh, _CTX.act_rules, _CTX.param_rules, _CTX.manual_axes, _CTX.rows,
-            _CTX.leaves)
-    _CTX.mesh, _CTX.act_rules, _CTX.param_rules = mesh, act, params
-    _CTX.manual_axes = frozenset(manual)
-    if rows is not None:
-        _CTX.rows = tuple(rows)
-    if leaves is not None:
-        _CTX.leaves = {_storage(t): (path, split) for path, (t, split) in leaves.items()}
+    prev = _state()
+    _set_state((mesh, act, params, frozenset(manual),
+                prev[4] if rows is None else tuple(rows),
+                prev[5] if leaves is None else
+                {_storage(t): (path, split) for path, (t, split) in leaves.items()}))
     try:
         yield
     finally:
-        (_CTX.mesh, _CTX.act_rules, _CTX.param_rules, _CTX.manual_axes, _CTX.rows,
-         _CTX.leaves) = prev
+        _set_state(prev)
+
+
+def _state():
+    return (_CTX.mesh, _CTX.act_rules, _CTX.param_rules, _CTX.manual_axes, _CTX.rows,
+            _CTX.leaves)
+
+
+def _set_state(state) -> None:
+    (_CTX.mesh, _CTX.act_rules, _CTX.param_rules, _CTX.manual_axes, _CTX.rows,
+     _CTX.leaves) = state
+
+
+def bind_context(fn):
+    """``fn`` run under the context active at this call, on whatever thread
+    calls it: an activation checkpoint's recompute runs on autograd's device
+    thread for a CUDA backward, where the forward's :func:`axis_rules` is
+    not active (the context is thread-local)."""
+    state = _state()
+
+    def bound(*args, **kwargs):
+        prev = _state()
+        _set_state(state)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _set_state(prev)
+
+    return bound
 
 
 def current_mesh():

@@ -35,8 +35,9 @@ process a rank, started by ``torch.distributed.run`` (its environment's
 run on the CPU; no backend is switched on failure).  Every rank makes the
 same params from ``--seed`` (the engine checks them by a digest) and
 serves the same trace; only rank 0 prints, and emits the ``obs`` events.
-The dense family only (MoE and MLA are refused under a mesh, as is
-``--mesh-data`` > 1: ROADMAP queue 1 item 8).
+The dense and MoE families (a MoE model's experts split over ``model``:
+expert parallelism); MLA is refused under a mesh, as is ``--mesh-data`` >
+1 (ROADMAP queue 1 item 8).
 
   python -m torch.distributed.run --standalone --nproc-per-node 2 \\
       -m repro_torch.launch.serve --smoke --device cpu --dist-backend gloo --lrd \\
@@ -248,10 +249,10 @@ def main(argv=None):
         ap.error(f"--arch {args.arch} ({cfg.family}) serves on the fixed-batch path, which "
                  f"has no speculative decoding or prefix cache (as in the reference; ROADMAP "
                  f"queue 1 item 7, other model families)")
-    if args.mesh_model > 1 and (stateful or cfg.num_experts or cfg.use_mla):
-        ap.error(f"--mesh-model {args.mesh_model}: --arch {args.arch} ({cfg.family}) is not "
-                 f"served sharded yet; the dense family is (ROADMAP queue 1 item 8, "
-                 f"distributed)")
+    if args.mesh_model > 1 and (stateful or cfg.use_mla):
+        ap.error(f"--mesh-model {args.mesh_model}: --arch {args.arch} ({cfg.family}"
+                 f"{', MLA' if cfg.use_mla else ''}) is not served sharded yet; the dense and "
+                 f"MoE families are (ROADMAP queue 1 item 8, distributed)")
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world > 1 and args.dist_backend == "nccl" and args.device != "cuda":
         ap.error("--dist-backend nccl needs --device cuda; use --dist-backend gloo on the CPU")

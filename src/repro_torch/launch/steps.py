@@ -27,7 +27,9 @@ the merged params' global shapes on the meta device.
 :func:`packed_state_shardings` (the elastic restore's target, with
 :func:`place_packed`), :func:`check_state_placement` and
 ``repartition_state(mesh=...)`` are the reference's; ``build_train_step(...,
-mesh=)`` gives the sharded step (:func:`_sharded_train_step`).
+mesh=)`` gives the sharded step (:func:`_sharded_train_step`), for the dense
+and MoE families (a MoE layer's experts over ``model``: ``models.moe``'s
+expert parallelism) on one or more microbatches.
 
 Sharded serving (TP over ``model``, one process a rank): the served tree
 is placed by :func:`place_served_params` under :func:`serve_shardings` (a
@@ -626,16 +628,32 @@ def build_train_step(run: RunConfig, device="cuda", *, donate: bool = False, mes
 ITEM_8 = "ROADMAP queue 1 item 8, distributed"
 
 
+def microbatch_rows(batch, m: int, dp: int):
+    """The GLOBAL batch regrouped as the reference regroups it under a mesh,
+    ``(m, B / m, ...)``: microbatch i holds rows i B/m + [0, B/m), which
+    the step then cuts over the ``dp`` batch ranks (rank r's rows of
+    microbatch i are i B/m + [r B/(m dp), (r+1) B/(m dp)); MoE drops depend
+    on which tokens share a microbatch).  Raises ValueError where B does
+    not divide into m microbatches of dp equal blocks, rather than dropping
+    the rest."""
+    n = next(iter(batch.values())).shape[0]
+    if n % (m * dp):
+        raise ValueError(f"a global batch of {n} rows does not divide into {m} microbatches "
+                         f"over {dp} batch rank(s)")
+    return [{k: v.reshape((m, n // m) + tuple(v.shape[1:]))[i] for k, v in batch.items()}
+            for i in range(m)]
+
+
 def check_sharded_family(run: RunConfig) -> None:
-    """The sharded step trains the dense family (no MoE aux loss, no MTP)
-    on one microbatch: what a CPU test holds against the reference.  Raise
-    for the rest."""
+    """The sharded step trains the dense and MoE families (the MoE layer's
+    experts over ``model``, :mod:`repro_torch.models.moe`), on any number
+    of microbatches.  Raise for the rest: MTP, MLA and the other families
+    (the int8 sync of a MoE model, which needs the mesh, is refused where
+    the step is built)."""
     cfg = run.model
-    if cfg.family != "dense" or cfg.num_experts or cfg.use_mtp:
-        raise ValueError(f"sharded training of the {cfg.family} family "
-                         f"({cfg.name}) is not ported ({ITEM_8})")
-    if run.dist.microbatches > 1:
-        raise ValueError(f"sharded training with --microbatches {run.dist.microbatches} "
+    if cfg.family not in ("dense", "moe") or cfg.use_mtp or cfg.use_mla:
+        what = ("MTP" if cfg.use_mtp else "MLA") if cfg.family in ("dense", "moe") else "it"
+        raise ValueError(f"sharded training of the {cfg.family} family ({cfg.name}; {what}) "
                          f"is not ported ({ITEM_8})")
 
 
@@ -645,25 +663,45 @@ def check_sharded_family(run: RunConfig) -> None:
 _COLUMN_LEAVES = ("v", "v_q", "v_scale", "kernel_q", "kernel_scale")
 
 
+def _is_expert(path: str) -> bool:
+    return "/experts/" in path
+
+
 def _compute_spec(path: str, shape, mesh, manual) -> Tuple:
-    """The layout the forward consumes a leaf in: a factor's ``v`` (and an
-    int8 export's column leaves) split over ``model`` by columns when they
-    divide (the kernel dispatch's block), everything else whole."""
+    """The layout the forward consumes a leaf in: an expert leaf (``kernel``,
+    ``u``, ``v`` of ``.../experts/...``, (..., E, a, b)) split over
+    ``model`` on its expert dim when E divides (the reference's
+    ``P("model", None, None)``: each rank runs its experts); a factor's
+    ``v`` (and an int8 export's column leaves) split over ``model`` by
+    columns when they divide (the kernel dispatch's block); everything else
+    whole."""
     sizes = axis_sizes(mesh)
     msize = sizes.get("model", 1)
-    if (path.rsplit("/", 1)[-1] in _COLUMN_LEAVES and msize > 1 and "model" not in manual
-            and shape[-1] % msize == 0):
+    if msize == 1 or "model" in manual:
+        return ()
+    if _is_expert(path):
+        if shape[-3] % msize == 0:
+            return (None,) * (len(shape) - 3) + ("model", None, None)
+        return ()
+    if path.rsplit("/", 1)[-1] in _COLUMN_LEAVES and shape[-1] % msize == 0:
         return (None,) * (len(shape) - 1) + ("model",)
     return ()
+
+
+def _cols(spec) -> bool:
+    """Whether a compute spec splits the columns (the kernel dispatch's
+    block), as :func:`sharding.axis_rules`' ``leaves`` registry records."""
+    return bool(spec) and spec[-1] == "model"
 
 
 def _sharded_train_step(run: RunConfig, dev: torch.device, donate: bool, mesh):
     """The sharded train step on this rank's blocks.
 
     1. Each trainable leaf is all-gathered from its storage placement to the
-       layout the forward consumes (whole, or a ``v``'s columns over
-       ``model``; FSDP granularity: the whole partition, once a step); a
-       frozen leaf is never gathered over ``data`` or ``pod`` (checked).
+       layout the forward consumes (whole, a ``v``'s columns over
+       ``model``, or an expert leaf's experts over ``model``; FSDP
+       granularity: the whole partition, once a step); a frozen leaf is
+       never gathered over ``data`` or ``pod`` (checked).
        Under TP, ``FROZEN_PARAM_RULES`` splits ``wo/u`` and ``down/u``'s
        input dim over ``model`` while the dispatch consumes u whole, so
        those are gathered over ``model``, as the reference's ``shard_map``
@@ -671,10 +709,18 @@ def _sharded_train_step(run: RunConfig, dev: torch.device, donate: bool, mesh):
     2. Forward and backward run on this rank's batch rows, the factorised
        projections through the sharded kernel dispatch (``kernels.ops``),
        which all-reduces each trainable factor's gradient; every other
-       trainable gradient is all-reduced over the batch axes here, the
-       loss scaled by 1 / (batch ranks) so the sums are the global mean's.
-       With ``grad_compression="int8"`` on a pure data-parallel mesh the
-       sync is ``compression.value_and_grad_compressed``'s instead.
+       trainable gradient, an expert's factors' too (they run ``bmm``, not
+       the dispatch), is all-reduced over the batch axes here and never
+       over ``model`` (the MoE layer sums its router's over ``model``
+       itself), the loss scaled by 1 / (batch ranks) so the sums are the
+       global mean's.  With ``grad_compression="int8"`` on a pure
+       data-parallel mesh the sync is
+       ``compression.value_and_grad_compressed``'s instead.  With
+       ``microbatches`` m > 1 the GLOBAL batch is regrouped as (m, B / m,
+       ...), each microbatch's rows cut over the batch axes, the gradients
+       accumulated in ``accum_dtype`` and synced once after the loop, as
+       the reference accumulates under a mesh (and, as there, without the
+       int8 sync).
     3. Each synced gradient is brought to its optimizer placement (a
        reduce-scatter for a non-factor gradient whose placement splits one
        dim over the batch axes, as under FSDP and ``zero1``; else a local
@@ -689,7 +735,15 @@ def _sharded_train_step(run: RunConfig, dev: torch.device, donate: bool, mesh):
     check_sharded_family(run)
     act = ACT_RULES_SP if run.dist.sequence_parallel else ACT_RULES
     prm = _param_rules(run)
-    axis = compression.manual_axis(mesh, run.dist.grad_compression)
+    m = run.dist.microbatches
+    # as in the reference, microbatches take the plain sync: the int8 one
+    # is only on the one-microbatch path
+    axis = None if m > 1 else compression.manual_axis(mesh, run.dist.grad_compression)
+    if axis and run.model.family == "moe":
+        raise ValueError(f"the int8 gradient sync of the moe family ({run.model.name}) is not "
+                         f"ported ({ITEM_8}): the reference's expert shard_map raises inside "
+                         f"the sync's manual {axis!r} region")
+    adt = getattr(torch, run.dist.accum_dtype)
 
     def train_step(state: TrainState, batch, *, phase: int):
         freezing.check_partition(state.trainable, state.frozen, phase)
@@ -698,7 +752,8 @@ def _sharded_train_step(run: RunConfig, dev: torch.device, donate: bool, mesh):
         paths = _paths(shapes)
         bsh = batch_shardings(batch, mesh)
         rows = _live_axes(mesh, next(iter(bsh.values())).spec[0])
-        local = shard_batch(batch, mesh, dev)
+        local = shard_batch(batch, mesh, dev) if m == 1 else None
+        mbs = microbatch_rows(batch, m, collectives.axes_size(mesh, rows)) if m > 1 else None
         manual = frozenset({axis}) if axis else frozenset()
         cspec = tree_map(lambda g, p: _compute_spec(p, tuple(g.shape), mesh, manual),
                          shapes, paths)
@@ -710,7 +765,7 @@ def _sharded_train_step(run: RunConfig, dev: torch.device, donate: bool, mesh):
                         state.frozen, shs.frozen, _like(cspec, state.frozen), fr_p)
         leaves = {}  # path -> (the tensor the forward consumes, columns split)
         for part, ps in ((tr_c, tr_p), (fr_c, fr_p)):
-            tree_map(lambda t, p, c: leaves.__setitem__(p, (t, bool(c))), part, ps,
+            tree_map(lambda t, p, c: leaves.__setitem__(p, (t, _cols(c))), part, ps,
                      _like(cspec, part))
 
         osh = shs.opt.mu
@@ -721,29 +776,53 @@ def _sharded_train_step(run: RunConfig, dev: torch.device, donate: bool, mesh):
                                             _scatter_dim(o.spec, c, rows, mesh)),
                            osh, _like(cspec, state.trainable), tr_p)
 
+        # the row axes of the context: the int8 region leaves its axis out
+        rows_now = tuple(a for a in rows if a not in manual)
+
         def value_and_grad(trainable_c, b):
-            # the loss and grads of this rank's rows, synced over the row
-            # axes of the context (the int8 region leaves its axis out)
-            rows_now = tuple(a for a in rows if a not in manual)
-            loss, grads = _value_and_grad(trainable_c, fr_c, b, run, phase,
-                                          scale=1.0 / collectives.axes_size(mesh, rows_now))
+            # the loss and grads of this rank's rows, the loss scaled by
+            # 1 / (row ranks) so the sums are the mean's
+            return _value_and_grad(trainable_c, fr_c, b, run, phase,
+                                   scale=1.0 / collectives.axes_size(mesh, rows_now))
 
-            def sync(g, p, d):
-                if _is_factor(p):
-                    return g  # the kernel dispatch reduced it
-                if d is not None and rows_now == rows:
-                    return collectives.reduce_scatter(g, mesh, rows_now, d, path=p)
-                return collectives.all_reduce(g, mesh, rows_now, path=p)
+        def sync(g, p, d):
+            # over the row axes, never over model, where an expert lives on
+            # one rank and every other gradient is whole (the MoE layer
+            # sums its router's over model itself)
+            if _is_factor(p) and not _is_expert(p):
+                return g  # the kernel dispatch reduced it
+            if d is not None and rows_now == rows:
+                return collectives.reduce_scatter(g, mesh, rows_now, d, path=p)
+            return collectives.all_reduce(g, mesh, rows_now, path=p)
 
-            grads = tree_map(sync, grads, tr_p, scatter)
-            return collectives.all_reduce(loss.float(), mesh, rows_now, path="loss"), grads
+        def synced(trainable_c, b):
+            loss, grads = value_and_grad(trainable_c, b)
+            return (collectives.all_reduce(loss.float(), mesh, rows_now, path="loss"),
+                    tree_map(sync, grads, tr_p, scatter))
+
+        def accumulated(trainable_c):
+            # the reference's microbatch loop under a mesh: each
+            # microbatch's rows cut over the batch axes; gradients
+            # accumulated in accum_dtype in the layout the forward consumes
+            # and synced once after the loop (a factor's by the kernel
+            # dispatch, each microbatch)
+            gsum = lsum = None
+            for mb in mbs:
+                loss_i, g = value_and_grad(trainable_c, shard_batch(mb, mesh, dev))
+                g = tree_map(lambda t: t.to(adt), g)
+                gsum = g if gsum is None else tree_map(torch.add, gsum, g)
+                lsum = loss_i.float() if lsum is None else lsum + loss_i.float()
+            grads = tree_map(lambda t: t / m, tree_map(sync, gsum, tr_p, scatter))
+            return collectives.all_reduce(lsum / m, mesh, rows_now, path="loss"), grads
 
         with axis_rules(mesh, act=act, params=prm, rows=rows, leaves=leaves):
-            if axis:
+            if m > 1:
+                loss, grads = accumulated(tr_c)
+            elif axis:
                 loss, grads = compression.value_and_grad_compressed(
-                    value_and_grad, tr_c, local, mesh, axis, tr_p)
+                    synced, tr_c, local, mesh, axis, tr_p)
             else:
-                loss, grads = value_and_grad(tr_c, local)
+                loss, grads = synced(tr_c, local)
         # the optimizer placement: a local cut of the synced grads (a
         # scattered one is there already)
         scattered = not axis
@@ -779,8 +858,10 @@ def serve_shardings(params, mesh):
     the layout a serving step consumes each leaf in (:func:`_compute_spec`).
     A factor's ``v``, and an int8 export's ``v_q`` / ``kernel_q`` with their
     ``*_scale`` siblings, hold this rank's block of columns over ``model``
-    where the columns divide; every other leaf is whole.  Heterogeneous
-    per-layer ranks (a draft's, an export's) resolve leaf by leaf.
+    where the columns divide; an expert leaf holds this rank's experts (the
+    reference's ``P("model", None, None)``); every other leaf is whole.
+    Heterogeneous per-layer ranks (a draft's, an export's) resolve leaf by
+    leaf.
 
     Against the reference's placement, ``named_shardings(params, mesh,
     FROZEN_PARAM_RULES)`` (the int8 leaves resolving through their float
@@ -809,7 +890,7 @@ def place_served_params(params, mesh, prefix: str = ""):
     local = tree_map(lambda t, sh: sh.block(t).contiguous() if any(sh.spec) else t,
                      params, shs)
     leaves = {}
-    tree_map(lambda t, sh, p: leaves.__setitem__(prefix + p, (t, any(sh.spec))), local, shs,
+    tree_map(lambda t, sh, p: leaves.__setitem__(prefix + p, (t, _cols(sh.spec))), local, shs,
              _paths(params))
     return local, leaves
 

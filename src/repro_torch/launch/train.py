@@ -39,8 +39,10 @@ mesh=)``); only rank 0 prints, writes telemetry and saves.  A checkpoint is
 whole (mesh-agnostic: each save gathers the state) and records its source
 mesh; a resume places it under the current mesh
 (``steps.packed_state_shardings``), whatever mesh wrote it.  The sharded
-path trains the dense family only, on one microbatch
-(``steps.check_sharded_family``).  ``--remat full|dots|sqrt`` checkpoints
+path trains the dense and MoE families (expert parallelism over
+``model``), on ``--microbatches`` of the global batch (a batch that does
+not divide into them is refused); MTP, MLA and the int8 sync of a MoE model
+are refused (``steps.check_sharded_family``, the step's builder).  ``--remat full|dots|sqrt`` checkpoints
 the layer stacks' activations (``models.lm``, ``models.encdec``).  ``--arch``
 takes the dense and MoE families (``olmoe-1b-7b``; ``deepseek-v3-671b``,
 MLA with its MTP loss, the MTP layer's factors frozen and trained with the

@@ -56,6 +56,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.decompose import Decomposer
+from repro_torch.distributed.sharding import bind_context
 from repro_torch.kernels.ops import KernelPolicy
 from repro_torch.models import ssm
 from repro_torch.models.attention import gqa_apply, gqa_init, mla_apply, mla_init
@@ -179,7 +180,7 @@ def _run_stack(stacked: Params, h: torch.Tensor, body, n_layers: int, remat: str
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for l in range(lo, hi):
             fn = functools.partial(body, _layer(stacked, l))
-            h, a = ckpt.checkpoint(fn, h, **kw) if wrap else fn(h)
+            h, a = ckpt.checkpoint(bind_context(fn), h, **kw) if wrap else fn(h)
             aux = aux + a
         return h, aux
 
@@ -188,7 +189,7 @@ def _run_stack(stacked: Params, h: torch.Tensor, body, n_layers: int, remat: str
         return layers(h, 0, n_layers, remat != "none")
     per, aux = n_layers // groups, torch.zeros((), dtype=torch.float32, device=h.device)
     for g in range(groups):
-        h, a = ckpt.checkpoint(layers, h, g * per, (g + 1) * per, True, **kw)
+        h, a = ckpt.checkpoint(bind_context(layers), h, g * per, (g + 1) * per, True, **kw)
         aux = aux + a
     return h, aux
 

@@ -60,9 +60,10 @@ same way; the scheduler places both (``steps.place_served_params``) and
 serves with pools of this rank's KV heads; ``serve`` raises unless every
 rank generated the same tokens.  Still refused, naming ROADMAP queue 1 item 8:
 ``mesh_data > 1``, a mesh of other axes, the fixed-batch path (its
-families, ``num_slots == 0``, a batch outside the scheduler's shapes), the
-MoE and MLA families and ``LRDConfig.int8_decode="bf16"`` (its dequantized
-products see only a rank's columns).
+families, ``num_slots == 0``, a batch outside the scheduler's shapes), MLA
+and ``LRDConfig.int8_decode="bf16"`` (its dequantized products see only a
+rank's columns).  A MoE model serves with its experts split over ``model``
+(expert parallelism, ``models.moe``).
 """
 
 from __future__ import annotations
@@ -146,9 +147,9 @@ def _unported_sharded(run: RunConfig, config: ServeConfig) -> Optional[str]:
     if cfg.family not in _SCHEDULED or config.num_slots == 0:
         return (f"the fixed-batch path ({cfg.family} family, num_slots={config.num_slots}) "
                 f"is not served sharded yet ({_ITEM_8})")
-    if cfg.num_experts or cfg.use_mla:
-        return (f"the MoE and MLA families ({cfg.name}) are not served sharded yet: expert "
-                f"parallelism over model ({_ITEM_8})")
+    if cfg.use_mla:
+        return (f"MLA ({cfg.name}) is not served sharded yet: its latent cache and absorbed "
+                f"decode over model ({_ITEM_8})")
     if run.lrd.int8_decode == "bf16":
         return (f"int8_decode='bf16' dequantizes whole weights, which a rank holds only "
                 f"columns of ({_ITEM_8})")

@@ -56,8 +56,11 @@ the clock, so rank 0's ``now`` is broadcast once per scheduling step
 (``collectives.broadcast_object``, path ``serve/clock``) and every rank
 admits, preempts and evicts from that value.  Greedy tokens come from
 logits that are whole on every rank; :meth:`check_ranks_agree` raises if
-the ranks' tokens differ.  The MoE and MLA families are refused under such
-a mesh (ROADMAP queue 1 item 8: expert parallelism over ``model``).
+the ranks' tokens differ.  A MoE model's experts are split over ``model``
+(``steps.serve_shardings``) and its layers run the reference's expert
+parallelism (``models.moe``: EP where the step's length divides the mesh,
+its gshard fallback, a decode step's, with the experts' outputs gathered).
+MLA is refused under such a mesh (ROADMAP queue 1 item 8).
 
 Telemetry (``obs``, a ``repro_torch.obs.EventLog``): the reference's
 per-request lifecycle events (``request_queued``, ``request_prefill``,
@@ -169,11 +172,10 @@ class Scheduler:
                 f"ServeEngine.generate's fixed-batch path, as in the reference (ROADMAP "
                 f"queue 1 item 7, other model families)")
         self.mesh = mesh if mesh is not None and mesh_size(mesh) > 1 else None
-        if self.mesh is not None and (cfg.num_experts or cfg.use_mla):
+        if self.mesh is not None and cfg.use_mla:
             raise ValueError(
-                f"serving {cfg.name} over a mesh of {mesh_size(mesh)} ranks: the MoE and MLA "
-                f"families are not served sharded yet (ROADMAP queue 1 item 8, distributed: "
-                f"expert parallelism over model)")
+                f"serving {cfg.name} over a mesh of {mesh_size(mesh)} ranks: MLA is not "
+                f"served sharded yet (ROADMAP queue 1 item 8, distributed)")
         self.run_config = run
         self.device = torch.device(device)
         self.num_slots = num_slots

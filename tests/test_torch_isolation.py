@@ -101,7 +101,7 @@ def test_serve_cli_rejects_unported_flags():
     from repro_torch.launch import serve
 
     for argv in (["--mesh-data", "2"], ["--export-int8"],
-                 ["--arch", "olmoe-1b-7b", "--mesh-model", "2"],
+                 ["--arch", "deepseek-v3-671b", "--mesh-model", "2"],
                  ["--arch", "seamless-m4t-medium", "--spec-k", "2"]):
         with pytest.raises(SystemExit) as exc:
             serve.main(["--smoke", "--device", "cpu", *argv])

@@ -69,10 +69,10 @@ def test_port_scheduler_tokens_match_jax_engine(case):
 
 def test_engine_rejects_unported_features():
     run = TRun(model=t_get_smoke_config(ARCH), shape=TShape("s", 40, 4, "decode"))
-    moe = TRun(model=t_get_smoke_config("olmoe-1b-7b"), shape=TShape("s", 40, 4, "decode"))
+    mla = TRun(model=t_get_smoke_config("deepseek-v3-671b"), shape=TShape("s", 40, 4, "decode"))
     for r, cfg, kw, match in [
             (run, ServeConfig(num_slots=2, kv_int8=True), {}, "kv_cache_dtype.*item 5"),
-            (moe, ServeConfig(num_slots=2, mesh_model=2), {}, "MoE.*item 8"),
+            (mla, ServeConfig(num_slots=2, mesh_model=2), {}, "MLA.*item 8"),
             (run, ServeConfig(num_slots=2, mesh_data=2), {}, "mesh.*item 8"),
             (run, ServeConfig(num_slots=2), dict(mesh=object()), "mesh.*item 8")]:
         with pytest.raises(ValueError, match=match):

@@ -530,18 +530,30 @@ def test_int8_region_runs_the_kernel_dispatch_on_local_rows(group, phase):
 
 
 def test_microbatches_under_a_mesh_are_refused():
-    """The sharded step takes one microbatch (ROADMAP item 8 keeps the
-    rest): a run asking for more is refused before it trains."""
+    """What the sharded step still refuses (ROADMAP item 8 keeps it): MTP
+    and MLA, and the families past dense and MoE.  Microbatches are taken
+    now, for the dense and MoE families alike (their parity with JAX's
+    sharded step is ``tests/test_torch_moe_ep.py``'s)."""
     from repro_torch.configs import get_smoke_config as t_smoke
     from repro_torch.configs.base import DistConfig as TDist, RunConfig as TRun
     from repro_torch.configs.base import ShapeConfig as TShape
     from repro_torch.launch import steps
 
-    run = TRun(model=t_smoke("smollm-360m"), shape=TShape("t", SEQ, BATCH, "train"),
-               dist=TDist(microbatches=2))
-    with pytest.raises(ValueError, match="microbatches 2 is not ported.*item 8"):
-        steps.check_sharded_family(run)
-    steps.check_sharded_family(dataclasses.replace(run, dist=TDist(microbatches=1)))
+    def run(arch, **dist):
+        return TRun(model=t_smoke(arch), shape=TShape("t", SEQ, BATCH, "train"),
+                    dist=TDist(**dist))
+
+    for arch in ("smollm-360m", "olmoe-1b-7b"):
+        steps.check_sharded_family(run(arch, microbatches=2))
+    with pytest.raises(ValueError, match="MTP.*not ported.*item 8"):
+        steps.check_sharded_family(run("deepseek-v3-671b", microbatches=2))
+    mla = run("deepseek-v3-671b")
+    mla = dataclasses.replace(mla, model=dataclasses.replace(mla.model, use_mtp=False))
+    with pytest.raises(ValueError, match="MLA.*not ported.*item 8"):
+        steps.check_sharded_family(mla)
+    for arch in ("xlstm-350m", "seamless-m4t-medium"):
+        with pytest.raises(ValueError, match="not ported.*item 8"):
+            steps.check_sharded_family(run(arch))
 
 
 def test_int8_on_a_tp_mesh_warns_once_and_syncs_uncompressed(group):
